@@ -11,13 +11,19 @@ Phases, each failing loudly:
 
 1. build the three CUDA kernels from ``src/repro_torch/kernels/*/csrc``
    (one ``nvcc`` each, all started together) into
-   ``build/repro_torch_kernels/``;
+   ``build/repro_torch_kernels/``, printing from ptxas the registers,
+   stack and spill bytes of each bf16 flash kernel and of every kernel
+   that spills;
 2. hold each kernel against its plain torch version on the card at
    granite-8b's serving shapes (H=32, KV=8, D=128, bs=64, B=4, extents
-   and prompts up to 1024) in float32 (1e-4) and bfloat16 (3e-2); the RSW
-   exactly, for all five hashes and tags >= 2^24; and time kernel, plain
-   version, and for flash attention ``scaled_dot_product_attention`` as a
-   yardstick the port never calls;
+   and prompts up to 1024) in float32 (1e-4) and bfloat16 (3e-2): the RSW
+   exactly, for all five hashes, tags >= 2^24 and vpns outside the flex
+   table; paged attention also with a zero-extent row, token-striped
+   shards, and bitwise batch and query-rank invariance, as one device
+   kernel per call; flash attention also at every prefill bucket length
+   (8 .. 1024); then time kernel, plain version, and for flash attention
+   ``scaled_dot_product_attention`` (CUDA events and profiler device
+   time) as a yardstick the port never calls;
 3. serve the same greedy requests with a 2-layer full-width granite-8b in
    float32 on the card and on the CPU, with the same weights: the token
    streams must agree (a divergence is tolerated only where the top-2
@@ -75,9 +81,15 @@ def profile_device(torch, fn, iters: int):
     the device-side events only (the CPU ops that launched them would
     count the same time twice).  An empty list means the profiler saw no
     device time on this machine."""
+    fn()
+    torch.cuda.synchronize()
+    return profile_cold(torch, fn, iters)
+
+
+def profile_cold(torch, fn, iters: int = 1):
+    """``profile_device`` without the warm-up call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -95,12 +107,54 @@ def profile_device(torch, fn, iters: int):
     return sorted(rows, key=lambda r: -r[1])
 
 
-def device_ms(torch, fn, iters, symbols):
+def device_ms(torch, fn, iters, symbols=None):
     """Summed device ms per call of the kernels whose names hold one of
-    ``symbols`` (None when the profiler saw none)."""
+    ``symbols``, or of every kernel when ``symbols`` is None (None when
+    the profiler saw none)."""
     rows = profile_device(torch, fn, iters)
-    hits = [ms for name, ms, _ in rows if any(x in name for x in symbols)]
+    hits = [ms for name, ms, _ in rows
+            if symbols is None or any(x in name for x in symbols)]
     return sum(hits) if hits else None
+
+
+def launches_per_call(torch, fn, iters=5):
+    """Device kernels per call of ``fn`` (profiler), for the one-launch
+    contract; fails when the profiler saw none, since then the contract
+    cannot be checked."""
+    rows = profile_device(torch, fn, iters)
+    if not rows:
+        raise AssertionError("the profiler saw no device kernel, so the "
+                             "kernels per call cannot be counted")
+    return sum(n for _, _, n in rows)
+
+
+def ptxas_entries(out: str):
+    """The kernels of an ``nvcc -Xptxas=-v`` log: [(demangled name,
+    registers, stack bytes, spill store bytes, spill load bytes)]."""
+    import re
+    import shutil
+    entries, name, props = [], None, (0, 0, 0)
+    for ln in out.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            name, props = m.group(1), (0, 0, 0)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
+        if m and name:
+            props = tuple(int(x) for x in m.groups())
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            entries.append([name, int(m.group(1)), *props])
+            name = None
+    if entries and shutil.which("c++filt"):
+        names = subprocess.run(["c++filt"], input="\n".join(
+            e[0] for e in entries), capture_output=True, text=True,
+            timeout=60).stdout.splitlines()
+        if len(names) == len(entries):
+            for e, n in zip(entries, names):
+                n = n.replace("(anonymous namespace)::", "")
+                e[0] = n.split("(")[0].removeprefix("void ")
+    return [tuple(e) for e in entries]
 
 
 def max_err(a, b) -> float:
@@ -119,6 +173,33 @@ def check_close(name, got, want, tol) -> float:
 
 # ------------------------------------------------------------- phase 2
 
+HASHES = ("modulo", "xor_fold", "prime_displacement", "mersenne",
+          "multiplicative")
+
+
+def _rsw_out_of_range(hash_name):
+    """TAR/SF of a populated manager, a flex table mapping about a third of
+    its entries (its first and last among them), and vpns past its end and
+    below zero."""
+    import numpy as np
+    from repro_torch.core import HybridConfig, HybridKVManager
+    m = HybridKVManager(HybridConfig(
+        total_slots=256, restseg_fraction=0.75, assoc=8, max_seqs=16,
+        max_blocks_per_seq=32, hash_name=hash_name))
+    for sid in range(6):
+        m.register_sequence(sid)
+        for b in range(20):
+            m.allocate_block(sid, b)
+    rng = np.random.RandomState(SEED)
+    V = m.flex_table.size
+    flex = np.where(rng.rand(V) < 0.35, rng.randint(0, 4096, V), -1)
+    flex[[0, V - 1, V - 2]] = [7, 4001, 4002]
+    q = np.asarray([V, V + 1, V + 77, 1 << 30, -1, -2, -V, -V - 1, -V - 100,
+                    -(1 << 31), 0, 5, V - 1], np.int32)
+    return (q, np.ascontiguousarray(m.tar), np.ascontiguousarray(m.sf),
+            flex.astype(np.int32))
+
+
 def check_rsw(torch, dev, results):
     from repro_torch.core import HybridConfig, HybridKVManager
     from repro_torch.kernels.utopia_rsw.ops import utopia_rsw
@@ -126,8 +207,7 @@ def check_rsw(torch, dev, results):
     import numpy as np
     B, nblk = 4, 16                  # the engine's granite-8b geometry
     timing = None
-    for h in ("modulo", "xor_fold", "prime_displacement", "mersenne",
-              "multiplicative"):
+    for h in HASHES:
         m = HybridKVManager(HybridConfig(
             block_size=64, total_slots=80, restseg_fraction=0.75, assoc=8,
             max_seqs=B, max_blocks_per_seq=nblk, hash_name=h))
@@ -165,6 +245,17 @@ def check_rsw(torch, dev, results):
             raise AssertionError("utopia_rsw != plain version on big tags")
     if not bool(got[1][:4].all()) or bool(got[1][4:].any()):
         raise AssertionError("utopia_rsw: big-tag hits wrong")
+    # vpns past the flat table's end and below zero read it as JAX does
+    # (-1 is the last entry, then clamp), on a table with mapped entries
+    for h in HASHES:
+        args = [torch.from_numpy(a).to(dev) for a in _rsw_out_of_range(h)]
+        got = utopia_rsw(*args, hash_name=h)
+        for g, w in zip(got, rsw_ref(*args, hash_name=h)):
+            if not torch.equal(g, w):
+                raise AssertionError(f"utopia_rsw[{h}] != plain version on "
+                                     "out-of-range vpns")
+        if not bool(got[2][:4].any()) or not bool(got[2][4:10].any()):
+            raise AssertionError("utopia_rsw: out-of-range vpns unmapped")
     n = timing[0].numel()
     nbytes = sum(t.numel() * 4 for t in timing) + 4 * n * 4
     results["utopia_rsw"] = dict(
@@ -174,9 +265,10 @@ def check_rsw(torch, dev, results):
                             ("rsw_kernel",)),
         plain_ms=time_ms(torch, [lambda: rsw_ref(*timing)], 50),
         bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
-        library_ms=None, shape=f"N={n} vpns, 5 hashes exact")
-    log(f"check utopia_rsw: exact on 5 hashes and tags >= 2^24 "
-        f"({n} vpns)")
+        library_ms=None, library_device_ms=None,
+        shape=f"N={n} vpns, 5 hashes exact")
+    log(f"check utopia_rsw: exact on 5 hashes, tags >= 2^24 and "
+        f"out-of-range vpns ({n} vpns)")
 
 
 def _paged_case(torch, dev, dtype, B=4, H=32, KV=8, D=128, bs=64, nblk=16,
@@ -207,44 +299,97 @@ def check_paged(torch, dev, results):
     from repro_torch.kernels.paged_attention.ops import paged_attention
     from repro_torch.kernels.paged_attention.ref import paged_attention_ref
     gen = torch.Generator().manual_seed(SEED)
+
+    def close(name, got, want, tol):
+        return max(check_close(name, g, w, tol) for g, w in zip(got, want))
+
     for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 3e-2)):
         for Q, per_query in ((None, False), (4, False), (4, True)):
             q, kp, vp, slots, ctx = _paged_case(torch, dev, dtype, Q=Q,
                                                 per_query=per_query, gen=gen)
-            got = paged_attention(q, kp[0], vp[0], slots, ctx)
-            want = paged_attention_ref(q, kp[0], vp[0], slots, ctx)
-            err = max(check_close(f"paged_attention[{dtype}, Q={Q}]", g, w,
-                                  tol) for g, w in zip(got, want))
+            err = close(f"paged_attention[{dtype}, Q={Q}]",
+                        paged_attention(q, kp[0], vp[0], slots, ctx),
+                        paged_attention_ref(q, kp[0], vp[0], slots, ctx), tol)
             log(f"check paged_attention {str(dtype)[6:]} Q={Q or 1} "
                 f"{'per-query ' if per_query else ''}ctx: max abs err "
                 f"{err:.3g} (tol {tol})")
-            if Q is None and dtype == torch.bfloat16:
-                main_err = err
-    # time the main-path read (bf16, Q=1) over 8 layers' pools
+    # the main path's call: bf16 q against a bf16 pool
+    q, kp, vp, slots, ctx = _paged_case(torch, dev, torch.bfloat16, gen=gen)
+    q = q.to(torch.bfloat16)
+    main_err = close("paged_attention[bf16 q]",
+                     paged_attention(q, kp[0], vp[0], slots, ctx),
+                     paged_attention_ref(q, kp[0], vp[0], slots, ctx), 3e-2)
+    log(f"check paged_attention bf16 q and pool (the decode path): max abs "
+        f"err {main_err:.3g} (tol 3e-2)")
+    # a zero-extent row: l == 0 and m == -1e30 exactly
+    ctx0 = ctx.clone()
+    ctx0[2] = 0
+    o, m, l = paged_attention(q, kp[0], vp[0], slots, ctx0)
+    close("paged_attention[zero extent]", (o, m, l),
+          paged_attention_ref(q, kp[0], vp[0], slots, ctx0), 3e-2)
+    if float(l[2].abs().max()) != 0.0 or bool((m[2] != -1e30).any()):
+        raise AssertionError("paged_attention: a zero-extent row must give "
+                             "l == 0 and m == -1e30")
+    # bitwise: a row alone equals the row in the batch, Q=1 equals column 0
+    # of Q=4 (the split follows nblk only)
+    full = paged_attention(q, kp[0], vp[0], slots, ctx)
+    for b in range(q.shape[0]):
+        alone = paged_attention(q[b:b + 1].contiguous(), kp[0], vp[0],
+                                slots[b:b + 1].contiguous(), ctx[b:b + 1])
+        if not all(torch.equal(x[0], y[b]) for x, y in zip(alone, full)):
+            raise AssertionError(f"paged_attention: row {b} alone differs "
+                                 "from the batch")
+    q4 = torch.randn((q.shape[0], 4) + q.shape[1:], generator=gen).to(
+        dev, torch.bfloat16)
+    q4[:, 0] = q
+    wide = paged_attention(q4, kp[0], vp[0], slots, ctx)
+    if not all(torch.equal(x, y[:, 0]) for x, y in zip(full, wide)):
+        raise AssertionError("paged_attention: Q=1 differs from column 0 "
+                             "of Q=4")
+    # token-striped shards (model-axis striping: 4 shards of bs/4 tokens)
+    bs = kp.shape[2]
+    for off in range(0, bs, bs // 4):
+        ks = kp[0][:, off:off + bs // 4].contiguous()
+        vs = vp[0][:, off:off + bs // 4].contiguous()
+        close(f"paged_attention[striped {off}]",
+              paged_attention(q, ks, vs, slots, ctx, tok_offset=off,
+                              block_tokens=bs),
+              paged_attention_ref(q, ks, vs, slots, ctx, tok_offset=off,
+                                  block_tokens=bs), 3e-2)
+    log("check paged_attention: zero-extent row exact, rows alone == rows "
+        "in the batch and Q=1 == column 0 of Q=4 bitwise, 4 token-striped "
+        "shards within 3e-2")
+
+    # time the main-path read (bf16 q and pool, Q=1) over 8 layers' pools
     L = 8
     q, kp, vp, slots, ctx = _paged_case(torch, dev, torch.bfloat16, L=L,
                                         gen=gen)
+    q = q.to(torch.bfloat16)
     B, H, D = q.shape
     bs, KV = kp.shape[2], kp.shape[3]
     kern = [lambda i=i: paged_attention(q, kp[i], vp[i], slots, ctx)
             for i in range(L)]
     plain = [lambda i=i: paged_attention_ref(q, kp[i], vp[i], slots, ctx)
              for i in range(L)]
+    per_call = launches_per_call(torch, kern[0])
+    if per_call != 1:
+        raise AssertionError(f"paged_attention: {per_call} device kernels "
+                             "per call, expected 1")
     n_tok = int(sum(-(-int(c) // bs) * bs for c in ctx.tolist()))
     n_tok -= bs                                    # the hole in row 0
-    nbytes = (q.numel() * 4 + 2 * n_tok * KV * D * 2 + slots.numel() * 4
+    nbytes = (q.numel() * 2 + 2 * n_tok * KV * D * 2 + slots.numel() * 4
               + ctx.numel() * 4 + B * H * D * 4 + 2 * B * H * 4)
     flops = 4 * D * H * int(ctx.sum())
     bound_bytes = nbytes / HBM_BYTES_PER_S
     bound_ops = flops / PEAK_FLOPS["bfloat16"]
     results["paged_attention"] = dict(
         max_abs_err=main_err, ms=time_ms(torch, kern, 80),
-        device_ms=device_ms(torch, kern[0], 20,
-                            ("paged_attn_kernel", "combine_kernel")),
+        device_ms=device_ms(torch, kern[0], 20, ("paged_attn_kernel",)),
         plain_ms=time_ms(torch, plain, 16),
         bound_ms=max(bound_bytes, bound_ops) * 1e3,
         bound_by="bytes" if bound_bytes >= bound_ops else "operations",
-        library_ms=None,
+        library_ms=None, library_device_ms=None,
+        device_kernels_per_call=per_call,
         shape=f"B={B} H={H} KV={KV} D={D} bs={bs} ctx={ctx.tolist()} bf16")
 
 
@@ -271,6 +416,17 @@ def check_flash(torch, dev, results):
                 f"(tol {tol})")
             if (B, S, dtype) == (2, 1024, torch.bfloat16):
                 main_err = err
+    # every prefill bucket length the engine makes, in the serving dtype
+    errs = []
+    for S in (8, 64, 128, 256, 512, 1024):
+        q, k, v = qkv(4 if S <= 256 else 2, S, torch.bfloat16)
+        errs.append(check_close(
+            f"flash_attention[bf16 bucket S={S}]",
+            flash_attention(q, k, v, causal=True),
+            dense_attention(q, k, v, causal=True), 3e-2))
+    log("check flash_attention bf16 causal at the engine's buckets "
+        "S = 8, 64, 128, 256, 512, 1024: max abs err "
+        + ", ".join(f"{e:.3g}" for e in errs) + " (tol 3e-2)")
     B, S = 2, 1024
     sets = [qkv(B, S, torch.bfloat16) for _ in range(4)]
     g = H // KV
@@ -290,11 +446,12 @@ def check_flash(torch, dev, results):
     results["flash_attention"] = dict(
         max_abs_err=main_err, ms=time_ms(torch, kern, 20),
         device_ms=device_ms(torch, kern[0], 5,
-                            ("flash_kernel", "flash_tc_kernel")),
+                            ("flash_wgmma_kernel", "flash_kernel")),
         plain_ms=time_ms(torch, plain, 8),
         bound_ms=max(bound_bytes, bound_ops) * 1e3,
         bound_by="bytes" if bound_bytes >= bound_ops else "operations",
         library_ms=time_ms(torch, lib, 20),
+        library_device_ms=device_ms(torch, lib[0], 5),
         shape=f"B={B} S={S} H={H} KV={KV} D={D} causal bf16")
 
 
@@ -502,15 +659,28 @@ def full_width(torch, dev):
 
 
 def profile_decode_step(torch, eng, rng, cfg):
-    """A steady decode step at B=4: its wall ms unprofiled, then the same
-    kind of step under the profiler for the device ms by kernel (kernels
-    run one at a time on one stream, so their sum is the busy time); the
-    idle share compares the two."""
+    """An admission step under the profiler (device ms by kernel), then a
+    steady decode step at B=4: its wall ms unprofiled, then the same kind
+    of step under the profiler for the device ms by kernel (kernels run
+    one at a time on one stream, so their sum is the busy time); the idle
+    share compares the two."""
     from repro_torch.serve import Request
     for i in range(4):
         eng.submit(Request(seq_id=100 + i,
                            prompt=rng.randint(0, cfg.vocab_size, 512),
                            max_new_tokens=8))
+    # the first admission step (prefill dispatch) under the profiler
+    rows = profile_cold(torch, eng.step)
+    busy = sum(ms for _, ms, _ in rows)
+    flash = sum(ms for name, ms, _ in rows if "flash_" in name)
+    top = [dict(kernel=name[:90], ms=round(ms, 4), launches=n)
+           for name, ms, n in rows[:6]]
+    log("admission step under the profiler (4 prompts of 512): "
+        + json.dumps({"profile": dict(
+            device_busy_ms=round(busy, 3),
+            flash_attention_ms=round(flash, 4),
+            flash_attention_share=round(flash / busy, 4) if busy else None,
+            kernels=len(rows), top=top)}))
     while eng._prefilling or eng.waiting:
         eng.step()
     walls = []
@@ -524,6 +694,7 @@ def profile_decode_step(torch, eng, rng, cfg):
     while eng.has_unfinished():
         eng.step()
     busy = sum(ms for _, ms, _ in rows)
+    paged = sum(ms for name, ms, _ in rows if "paged_attn_kernel" in name)
     top = [dict(kernel=name[:90], ms=round(ms, 4), launches=n)
            for name, ms, n in rows[:8]]
     log("decode step under the profiler (B=4, ctx ~512): " + json.dumps(
@@ -531,6 +702,9 @@ def profile_decode_step(torch, eng, rng, cfg):
                          device_busy_ms=round(busy, 3),
                          idle_share=round(1 - busy / wall, 4) if rows
                          else None,
+                         paged_attention_ms=round(paged, 4),
+                         paged_attention_share=round(paged / busy, 4)
+                         if busy else None,
                          kernels=len(rows), top=top)}))
 
 
@@ -570,8 +744,16 @@ def main() -> int:
     t0 = time.perf_counter()
     built = _build.build()
     for name, (secs, out) in sorted(built.items()):
-        regs = [ln.strip() for ln in out.splitlines() if "registers" in ln]
-        log(f"build {name}: {secs:.1f} s; " + " | ".join(regs))
+        ents = ptxas_entries(out)
+        spills = [e for e in ents if e[3] or e[4]]
+        log(f"build {name}: {secs:.1f} s; {len(ents)} kernels, "
+            f"{max((e[1] for e in ents), default=0)} registers at most, "
+            f"{len(spills)} spilling")
+        # the bf16 flash kernels and anything that spills, one line each
+        for k, regs, stack, st, ld in ents:
+            if "flash_wgmma_kernel" in k or st or ld:
+                log(f"  ptxas {k}: {regs} registers, {stack} bytes stack, "
+                    f"{st} bytes spill stores, {ld} bytes spill loads")
     log(f"build: {time.perf_counter() - t0:.1f} s for {len(built)} "
         f"kernel(s) into {_build.BUILD_DIR.relative_to(root)}")
 
@@ -594,7 +776,8 @@ def main() -> int:
             ms=r["ms"], kernel_ms=r["ms"], device_ms=r["device_ms"],
             plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-            library_ms=r["library_ms"], shape=r["shape"]))
+            library_ms=r["library_ms"],
+            library_device_ms=r["library_device_ms"], shape=r["shape"]))
     print(json.dumps({"kernels": kernels}), flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -97,9 +97,11 @@ def load(name: str) -> ctypes.CDLL:
 
 
 def stream_handle(t) -> int:
-    """The raw ``cudaStream_t`` of torch's current stream on ``t``'s card."""
+    """The raw ``cudaStream_t`` of torch's current stream on ``t``'s card
+    (torch's raw-stream query: the public ``current_stream`` builds a
+    Stream object on every call)."""
     import torch
-    return torch.cuda.current_stream(t.device).cuda_stream
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def check_launch(name: str, rc: int) -> None:

@@ -17,13 +17,17 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128, 256)
 
 
+_launch = []        # the bound C entry point, once loaded
+
+
 def _lib():
-    fn = _build.load("flash_attention").flash_attention_launch
-    if fn.argtypes is None:          # ctypes passes bare ints as 32-bit
-        p, i = ctypes.c_void_p, ctypes.c_int
+    if not _launch:
+        fn = _build.load("flash_attention").flash_attention_launch
+        p, i = ctypes.c_void_p, ctypes.c_int   # bare ints would be 32-bit
         fn.argtypes = [i, p, p, p, p, i, i, i, i, i, i, i, p]
         fn.restype = ctypes.c_int
-    return fn
+        _launch.append(fn)
+    return _launch[0]
 
 
 def flash_attention(q, k, v, *, causal: bool = True):

@@ -13,18 +13,32 @@ from .. import _build
 from .ref import paged_attention_ref
 
 _POOL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_SPLIT = 8       # CTAs that merge one (row, query, KV head): a cluster
+
+
+def split_plan(nblk: int):
+    """How the kernel cuts a row's ``nblk`` blocks over CTAs: ``(n_split,
+    per_split)``, chunk ``s`` taking blocks ``[s * per_split, min(nblk,
+    (s + 1) * per_split))``.  At most ``MAX_SPLIT`` chunks (one thread-block
+    cluster), none empty.  A function of ``nblk`` alone, so a row's result
+    never depends on its batch neighbours or on the number of queries."""
+    if nblk <= 0:
+        return 1, 1
+    per = -(-nblk // MAX_SPLIT)
+    return -(-nblk // per), per
+
+
+_launch = []        # the bound C entry point, once loaded
 
 
 def _lib():
-    lib = _build.load("paged_attention")
-    fn = lib.paged_attention_launch
-    if fn.argtypes is None:          # ctypes passes bare ints as 32-bit
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [i] + [p] * 11 + [i] * 11 + [p]
+    if not _launch:
+        fn = _build.load("paged_attention").paged_attention_launch
+        p, i = ctypes.c_void_p, ctypes.c_int   # bare ints would be 32-bit
+        fn.argtypes = [i, i] + [p] * 8 + [i] * 14 + [p]
         fn.restype = ctypes.c_int
-        lib.paged_attention_splits.argtypes = [i]
-        lib.paged_attention_splits.restype = i
-    return fn, lib.paged_attention_splits
+        _launch.append(fn)
+    return _launch[0]
 
 
 def paged_attention(q, k_pool, v_pool, slots, ctx_len, *,
@@ -35,23 +49,30 @@ def paged_attention(q, k_pool, v_pool, slots, ctx_len, *,
     ``q (B, H, D)`` or ``(B, Q, H, D)``; ``k_pool``/``v_pool (slots, bs,
     KV, D)`` float32 or bfloat16; ``slots (B, nblk)`` int32 (-1 = hole);
     ``ctx_len (B,)`` or ``(B, Q)`` int32.  Returns the unnormalized
-    ``(o (B[, Q], H, D), m (B[, Q], H), l (B[, Q], H))``, all float32."""
+    ``(o (B[, Q], H, D), m (B[, Q], H), l (B[, Q], H))``, all float32.
+    The kernel reads q in float32 or bfloat16 as it comes; one launch per
+    call, and no other device work."""
+    # (the checks below are written out: this runs 36 times a decode step)
     tensors = (q, k_pool, v_pool, slots, ctx_len)
-    if all(t.device.type == "cpu" for t in tensors):
+    dev = q.device
+    if dev.type == "cpu" and all(t.device.type == "cpu" for t in tensors):
         return paged_attention_ref(q, k_pool, v_pool, slots, ctx_len,
                                    tok_offset=tok_offset,
                                    tok_stride=tok_stride,
                                    block_tokens=block_tokens)
-    dev = q.device
-    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+    if (dev.type != "cuda" or k_pool.device != dev or v_pool.device != dev
+            or slots.device != dev or ctx_len.device != dev):
         raise ValueError("paged_attention: all inputs must be on one CUDA "
                          f"device (got {[str(t.device) for t in tensors]})")
-    squeeze = q.dim() == 3
-    qf = (q[:, None] if squeeze else q).float().contiguous()
-    if qf.dim() != 4:
+    if q.dim() not in (3, 4):
         raise ValueError(f"paged_attention: q must be (B,H,D) or (B,Q,H,D), "
                          f"got {tuple(q.shape)}")
-    B, Q, H, D = qf.shape
+    if q.dtype not in _POOL_DTYPES:
+        q = q.float()
+    if not q.is_contiguous():
+        q = q.contiguous()
+    B, H, D = q.shape[0], q.shape[-2], q.shape[-1]
+    Q = 1 if q.dim() == 3 else q.shape[1]
     if k_pool.dim() != 4 or k_pool.shape != v_pool.shape:
         raise ValueError("paged_attention: k_pool and v_pool must both be "
                          f"(slots, bs, KV, D), got {tuple(k_pool.shape)} and "
@@ -81,31 +102,24 @@ def paged_attention(q, k_pool, v_pool, slots, ctx_len, *,
         raise ValueError(f"paged_attention: at most 8 query heads per KV "
                          f"head, got {H // KV}")
     nblk = slots.shape[1]
-    f32 = dict(dtype=torch.float32, device=dev)
-    o = torch.empty((B, Q, H, D), **f32)
-    m = torch.empty((B, Q, H), **f32)
-    l = torch.empty((B, Q, H), **f32)
+    o = torch.empty(q.shape, dtype=torch.float32, device=dev)
+    m, l = torch.empty((2,) + q.shape[:-1], dtype=torch.float32,
+                       device=dev).unbind(0)
     if B and Q and nblk:
-        launch, splits = _lib()
-        n_split = splits(nblk)
-        # flash-decoding partials o (n_split, B, Q, H, D), then m and l
-        # (n_split, B, Q, H), in one scratch buffer; merged by the
-        # kernel's second pass (none when n_split == 1)
-        rows = n_split * B * Q * H if n_split > 1 else 0
-        part = torch.empty((rows * (D + 2),), **f32)
-        p_o = part.data_ptr()
-        p_m, p_l = p_o + 4 * rows * D, p_o + 4 * rows * (D + 1)
-        rc = launch(_POOL_DTYPES[k_pool.dtype], qf.data_ptr(),
-                    k_pool.data_ptr(), v_pool.data_ptr(), slots.data_ptr(),
-                    ctx_len.data_ptr(), o.data_ptr(), m.data_ptr(),
-                    l.data_ptr(), p_o, p_m, p_l, B, Q, H, KV, D,
-                    bs, nblk, bs if block_tokens is None else block_tokens,
+        n_split, per_split = split_plan(nblk)
+        kptr, vptr = k_pool.data_ptr(), v_pool.data_ptr()
+        vec16 = (D * k_pool.element_size()) % 16 == 0 and not (
+            kptr % 16 or vptr % 16)
+        rc = _lib()(_POOL_DTYPES[k_pool.dtype],
+                    int(q.dtype == torch.bfloat16), q.data_ptr(), kptr, vptr,
+                    slots.data_ptr(), ctx_len.data_ptr(), o.data_ptr(),
+                    m.data_ptr(), l.data_ptr(), B, Q, H, KV, D, bs, nblk,
+                    n_split, per_split,
+                    bs if block_tokens is None else block_tokens,
                     tok_offset, tok_stride, int(ctx_len.dim() == 2),
-                    _build.stream_handle(q))
+                    int(vec16), _build.stream_handle(q))
         _build.check_launch("paged_attention", rc)
         paged_attention.launches += 1
-    if squeeze:
-        return o[:, 0], m[:, 0], l[:, 0]
     return o, m, l
 
 

@@ -20,7 +20,7 @@
 // Hash arithmetic follows src/repro_torch/core/hashes.py on int32 with
 // wrap-around; the multiplies run in uint32 (signed overflow is undefined
 // in C++, and the low 31 bits agree).  `%` is floor-mod, as numpy's and
-// torch's are; queries are non-negative vpns.
+// torch's are.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -97,7 +97,11 @@ __global__ void rsw_kernel(const int* __restrict__ vpns,
       }
     }
   }
-  int flex_slot = (!hit && v >= 0 && v < flex_len) ? flex[v] : -1;
+  // on a miss, read the flat flex table as JAX indexes it: a negative
+  // vpn counts from the end once, then the index clamps into the table
+  int fi = v < 0 ? v + flex_len : v;
+  fi = min(max(fi, 0), flex_len - 1);
+  int flex_slot = (!hit && flex_len > 0) ? flex[fi] : -1;
   int out = hit ? s * assoc + way : flex_slot;
   int mp = hit || flex_slot >= 0;
   slot[i] = mp ? out : -1;

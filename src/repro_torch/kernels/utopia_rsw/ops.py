@@ -27,14 +27,17 @@ def _hash_param(hash_name: str, n_sets: int) -> int:
     return max(1, (n_sets - 1).bit_length())
 
 
+_launch = []        # the bound C entry point, once loaded
+
+
 def _lib():
-    lib = _build.load("utopia_rsw")
-    fn = lib.utopia_rsw_launch
-    if fn.argtypes is None:          # ctypes passes bare ints as 32-bit
-        p, i = ctypes.c_void_p, ctypes.c_int
+    if not _launch:
+        fn = _build.load("utopia_rsw").utopia_rsw_launch
+        p, i = ctypes.c_void_p, ctypes.c_int   # bare ints would be 32-bit
         fn.argtypes = [p, p, p, p, i, i, i, i, i, i, p, p, p, p, p]
         fn.restype = ctypes.c_int
-    return fn
+        _launch.append(fn)
+    return _launch[0]
 
 
 def utopia_rsw(vpns: torch.Tensor, tar: torch.Tensor, sf: torch.Tensor,
@@ -43,8 +46,9 @@ def utopia_rsw(vpns: torch.Tensor, tar: torch.Tensor, sf: torch.Tensor,
     SF (n_sets,) and flat flex table (V,), all int32.
 
     Returns ``(slot, in_rest, mapped, accesses)``, int32 (N,) each, with
-    ``slot == -1`` for an unmapped vpn; a vpn outside ``[0, V)`` has no
-    flex entry."""
+    ``slot == -1`` for an unmapped vpn.  A miss reads the flex table as
+    JAX indexes it: a negative vpn counts from the end once, then the index
+    clamps into ``[0, V)``."""
     tensors = (vpns, tar, sf, flex_flat)
     if all(t.device.type == "cpu" for t in tensors):
         return rsw_ref(vpns, tar, sf, flex_flat, hash_name=hash_name)

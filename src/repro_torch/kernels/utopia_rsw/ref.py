@@ -15,10 +15,11 @@ def rsw_ref(vpns: torch.Tensor, tar: torch.Tensor, sf: torch.Tensor,
     (the decode step's telemetry)."""
     r = rsw(RestSegState(tar=tar, sf=sf, meta=torch.zeros_like(tar)),
             vpns, hash_name)
-    # a vpn past the flat table is unmapped (the kernel's bound check)
-    inside = (vpns >= 0) & (vpns < flex_flat.numel())
-    flex_slot = torch.where(
-        inside, flex_flat[vpns.long().clamp(0, flex_flat.numel() - 1)], -1)
+    # JAX's gather: a negative vpn counts from the end once, then the
+    # index clamps into the table
+    n = flex_flat.numel()
+    v = vpns.long()
+    flex_slot = flex_flat[torch.where(v < 0, v + n, v).clamp(0, n - 1)]
     slot = torch.where(r.hit, r.slot, flex_slot)
     mapped = r.hit | (flex_slot >= 0)
     accesses = 1 + (~r.sf_skipped).to(torch.int32) + (~r.hit).to(torch.int32)

@@ -8,6 +8,8 @@ exactly, attention within 2e-5 (float32) or 3e-2 (bfloat16).  The
 ``gpu`` group runs only where ``torch.cuda.is_available()``, and needs no
 JAX: on a card machine without it, run ``pytest -m gpu`` on this file.
 """
+import inspect
+
 import numpy as np
 import numpy.testing as npt
 import pytest
@@ -29,7 +31,9 @@ except ImportError:         # a card machine without JAX: gpu tests only
     jnp = None
 from repro_torch.core import HybridConfig, HybridKVManager
 from repro_torch.kernels.flash_attention.ops import flash_attention
-from repro_torch.kernels.paged_attention.ops import paged_attention
+from repro_torch.kernels.paged_attention.ops import (MAX_SPLIT,
+                                                     paged_attention,
+                                                     split_plan)
 from repro_torch.kernels.paged_attention.ref import (normalize,
                                                      paged_attention_ref)
 from repro_torch.kernels.utopia_rsw.ops import utopia_rsw
@@ -116,6 +120,32 @@ def test_rsw_plain_large_tags_exact(jax_ref):
         npt.assert_array_equal(g.numpy(), np.asarray(w))
 
 
+def _out_of_range_case(hash_name):
+    """A populated manager's TAR/SF with a flex table that maps its first,
+    last and a third of its other entries, queried at vpns past its end
+    and below zero (JAX's gather: -1 is the last entry, then clamp)."""
+    tar, sf, flex = _tables(hash_name)
+    rng = np.random.RandomState(11)
+    V = flex.size
+    flex = np.where(rng.rand(V) < 0.35, rng.randint(0, 4096, V), -1)
+    flex[[0, V - 1, V - 2]] = [7, 4001, 4002]
+    q = np.asarray([V, V + 1, V + 77, 1 << 30, -1, -2, -V, -V - 1, -V - 100,
+                    -(1 << 31), 0, 5, V - 1], np.int32)
+    return q, tar, sf, flex.astype(np.int32)
+
+
+@pytest.mark.parametrize("hash_name", HASHES)
+def test_rsw_plain_out_of_range_flex_gather_matches_jax(hash_name, jax_ref):
+    q, tar, sf, flex = _out_of_range_case(hash_name)
+    got = rsw_ref(_t(q), _t(tar), _t(sf), _t(flex), hash_name=hash_name)
+    want = j_rsw_ref(jnp.asarray(q), jnp.asarray(tar), jnp.asarray(sf),
+                     jnp.asarray(flex), hash_name=hash_name)
+    for g, w in zip(got, want):
+        npt.assert_array_equal(g.numpy(), np.asarray(w))
+    mapped = got[2].numpy().astype(bool)
+    assert mapped[:4].any() and mapped[4:10].any()   # the clamps read maps
+
+
 # --------------------------------------------------------- paged attention
 
 def _paged_inputs(B, Q, H, KV, D, bs, nblk, nslots, seed, per_query=False):
@@ -145,6 +175,8 @@ PAGED_CASES = [
     (3, None, 8, 1, 64, 32, 8, 96, False),
     (3, 4, 8, 2, 32, 16, 6, 64, False),
     (2, 5, 4, 2, 16, 8, 6, 64, True),
+    (2, None, 8, 2, 80, 16, 5, 32, False),
+    (2, 3, 4, 1, 256, 16, 4, 32, True),
 ]
 
 
@@ -197,6 +229,24 @@ def test_paged_plain_token_striped_shards_match_oracle(jax_ref):
         for g, w in zip(got, want):
             npt.assert_allclose(g.numpy(), np.asarray(w), rtol=2e-5,
                                 atol=2e-5)
+
+
+@pytest.mark.parametrize("nblk", [1, 2, 5, 7, 8, 9, 16, 17, 31, 64, 1000])
+def test_paged_split_plan_covers_each_block_once(nblk):
+    n_split, per = split_plan(nblk)
+    assert 1 <= n_split <= MAX_SPLIT
+    chunks = [range(s * per, min(nblk, (s + 1) * per))
+              for s in range(n_split)]
+    assert all(len(c) > 0 for c in chunks)              # no idle chunk
+    assert sorted(j for c in chunks for j in c) == list(range(nblk))
+
+
+def test_paged_split_plan_depends_on_nblk_only():
+    """The plan takes nblk and nothing else, so it is the same whatever
+    the batch, the queries or the extents, call after call."""
+    assert list(inspect.signature(split_plan).parameters) == ["nblk"]
+    plans = [split_plan(n) for n in range(1, 200)]
+    assert plans == [split_plan(n) for n in range(1, 200)]
 
 
 def test_paged_q1_query_rank_round_trip():
@@ -271,25 +321,35 @@ def test_gpu_rsw_kernel_matches_plain(cuda, hash_name):
     got = utopia_rsw(*[a.to(cuda) for a in args])
     for g, w in zip(got, rsw_ref(*args)):
         assert torch.equal(g.cpu(), w)
+    args = [_t(a) for a in _out_of_range_case(hash_name)]
+    got = utopia_rsw(*[a.to(cuda) for a in args], hash_name=hash_name)
+    for g, w in zip(got, rsw_ref(*args, hash_name=hash_name)):
+        assert torch.equal(g.cpu(), w)
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", PAGED_CASES)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_gpu_paged_kernel_matches_plain(cuda, case, dtype):
+@pytest.mark.parametrize("q_dtype", ["float32", "bfloat16"])
+def test_gpu_paged_kernel_matches_plain(cuda, case, dtype, q_dtype):
+    """Every q/pool dtype pair; bf16 q with a bf16 pool is the decode
+    path's tensor-core arithmetic."""
     *shape, per_query = case
     q, kp, vp, slots, ctx = _paged_inputs(*shape, seed=3,
                                           per_query=per_query)
     tdt = getattr(torch, dtype)
-    args = (_t(q), _t(kp, tdt), _t(vp, tdt), _t(slots), _t(ctx))
+    args = (_t(q, getattr(torch, q_dtype)), _t(kp, tdt), _t(vp, tdt),
+            _t(slots), _t(ctx))
     want = paged_attention_ref(*[a.to(cuda) for a in args])
     n0 = paged_attention.launches
     got = paged_attention(*[a.to(cuda) for a in args])
     torch.cuda.synchronize()
     assert paged_attention.launches == n0 + 1
+    # float32 sums on the CUDA cores unless both are bf16 (tensor cores)
+    tol = 3e-2 if dtype == q_dtype == "bfloat16" else 1e-4
     for g, w in zip(got, want):
-        npt.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), rtol=1e-4,
-                            atol=1e-4)
+        npt.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), rtol=tol,
+                            atol=tol)
 
 
 @pytest.mark.gpu
@@ -319,6 +379,66 @@ def test_gpu_flash_kernel_matches_plain(cuda, shape, dtype, causal):
     got = flash_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
     assert flash_attention.launches == n0 + 1
+    tol = 1e-4 if dtype == "float32" else 3e-2
+    npt.assert_allclose(got.float().cpu().numpy(),
+                        want.float().cpu().numpy(), rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gpu_paged_kernel_batch_and_query_rank_invariant(cuda, dtype):
+    """Bitwise: each row alone equals the same row in the batch of 4, and
+    Q=1 equals column 0 of Q=4 (the split follows nblk only)."""
+    B, H, KV, D, bs, nblk = 4, 32, 8, 128, 64, 16
+    rng = np.random.RandomState(7)
+    tdt = getattr(torch, dtype)
+    q4 = _t(rng.randn(B, 4, H, D).astype(np.float32)).to(cuda, tdt)
+    kp = _t(rng.randn(81, bs, KV, D).astype(np.float32)).to(cuda, tdt)
+    vp = _t(rng.randn(81, bs, KV, D).astype(np.float32)).to(cuda, tdt)
+    slots = _t(rng.permutation(80)[:B * nblk].reshape(B, nblk)
+               .astype(np.int32)).to(cuda)
+    slots[0, 5] = -1
+    ctx = torch.tensor([1024, 700, 64, 301], dtype=torch.int32, device=cuda)
+    q1 = q4[:, 0].contiguous()
+    full = paged_attention(q1, kp, vp, slots, ctx)
+    for b in range(B):
+        alone = paged_attention(q1[b:b + 1].contiguous(), kp, vp,
+                                slots[b:b + 1].contiguous(), ctx[b:b + 1])
+        for x, y in zip(alone, full):
+            assert torch.equal(x[0], y[b])
+    wide = paged_attention(q4, kp, vp, slots, ctx)
+    for x, y in zip(full, wide):
+        assert torch.equal(x, y[:, 0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(1, 1000, 32, 8, 128), (3, 8, 32, 8, 128)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_gpu_flash_kernel_ragged_lengths(cuda, shape, causal):
+    B, S, H, KV, D = shape
+    g = torch.Generator(device=cuda).manual_seed(S + 1)
+    q, k, v = (torch.randn(B, S, n, D, generator=g, device=cuda)
+               .to(torch.bfloat16) for n in (H, KV, KV))
+    got = flash_attention(q, k, v, causal=causal)
+    want = dense_attention(q, k, v, causal=causal)
+    npt.assert_allclose(got.float().cpu().numpy(),
+                        want.float().cpu().numpy(), rtol=3e-2, atol=3e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("skv", [77, 333])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_gpu_flash_kernel_kv_longer_or_shorter(cuda, skv, dtype, causal):
+    """Skv != Sq: key j is visible to query i when j <= i (causal)."""
+    B, S, H, KV, D = 2, 200, 8, 2, 128
+    g = torch.Generator(device=cuda).manual_seed(skv)
+    tdt = getattr(torch, dtype)
+    q = torch.randn(B, S, H, D, generator=g, device=cuda).to(tdt)
+    k, v = (torch.randn(B, skv, KV, D, generator=g, device=cuda).to(tdt)
+            for _ in range(2))
+    got = flash_attention(q, k, v, causal=causal)
+    want = dense_attention(q, k, v, causal=causal)
     tol = 1e-4 if dtype == "float32" else 3e-2
     npt.assert_allclose(got.float().cpu().numpy(),
                         want.float().cpu().numpy(), rtol=tol, atol=tol)
