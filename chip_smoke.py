@@ -6,6 +6,11 @@ puts ``src`` on its own path, and ``src/sitecustomize.py`` would import
 JAX):
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --decode-profile [--src OTHER_CHECKOUT/src]
+
+The second form builds the kernels and runs only phase 4's decode-step
+profile, of this checkout's port or of another commit's (a parent
+unpacked with ``git archive``), so that two commits compare in one call.
 
 Phases, each failing loudly:
 
@@ -17,20 +22,32 @@ Phases, each failing loudly:
 2. hold each kernel against its plain torch version on the card at
    granite-8b's serving shapes (H=32, KV=8, D=128, bs=64, B=4, extents
    and prompts up to 1024) in float32 (1e-4) and bfloat16 (3e-2): the RSW
-   exactly, for all five hashes, tags >= 2^24 and vpns outside the flex
-   table; paged attention also with a zero-extent row, token-striped
-   shards, and bitwise batch and query-rank invariance, as one device
-   kernel per call; flash attention also at every prefill bucket length
-   (8 .. 1024); then time kernel, plain version, and for flash attention
-   ``scaled_dot_product_attention`` (CUDA events and profiler device
-   time) as a yardstick the port never calls;
+   exactly, its vpn-list entry for all five hashes, tags >= 2^24 and vpns
+   outside the flex table, and its decode-step entry (the whole step's
+   translation in one launch) for all five hashes at the smoke engine's
+   geometry and at a granite-8b deployment's (64 rows of 64 blocks, a
+   5120-slot pool at restseg fraction 0.25), with a row past its vpn
+   range, an unmapped write block and an inactive row; paged attention
+   also with a zero-extent row, token-striped shards, and bitwise batch
+   and query-rank invariance; flash attention also at every prefill
+   bucket length (8 .. 1024).  Then time kernel, plain version, and for
+   flash attention ``scaled_dot_product_attention`` (CUDA events and
+   profiler device time) as a yardstick the port never calls; the step
+   translation beside an empty kernel's device time and PR 12's eager
+   composition.  The step translation and paged attention must each be
+   one device kernel per call;
 3. serve the same greedy requests with a 2-layer full-width granite-8b in
-   float32 on the card and on the CPU, with the same weights: the token
-   streams must agree (a divergence is tolerated only where the top-2
+   float32 on the card and on the CPU, with the same weights, twice: as
+   in earlier slices, and under pool pressure (restseg fraction 0.25, a
+   40-slot pool), where the card must walk the flex table and promote
+   blocks.  Admission logs and manager stats must be identical and the
+   token streams agree (a divergence is tolerated only where the top-2
    logit margin is below 1e-3);
 4. serve granite-8b at its published width and depth (36 layers, random
    bfloat16 weights from a seeded generator) through the port's Engine:
    8 requests, 32 new tokens each; every kernel's launch count must grow.
+   Then profile one admission step and one steady decode step (device
+   time by kernel, device kernels per step, idle share).
 
 It prints the build times, the kernel checks, one JSON line of kernel
 measurements, the serving numbers, the card's name and power limit, and
@@ -86,24 +103,29 @@ def profile_device(torch, fn, iters: int):
     return profile_cold(torch, fn, iters)
 
 
-def profile_cold(torch, fn, iters: int = 1):
-    """``profile_device`` without the warm-up call."""
+def profile_cold(torch, fn, iters: int = 1, tries: int = 3):
+    """``profile_device`` without the warm-up call.  A session in which the
+    profiler saw no device event at all is run again, up to ``tries``
+    times (on the card's machine it now and then delivers none)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
+    for _ in range(tries):
         torch.cuda.synchronize()
-    rows = []
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        us = getattr(e, "self_device_time_total",
-                     getattr(e, "self_cuda_time_total", 0))
-        if us > 0:
-            rows.append((e.key, us / iters / 1e3, e.count / iters))
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        rows = []
+        for e in prof.key_averages():
+            if e.device_type != DeviceType.CUDA:
+                continue
+            us = getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0))
+            if us > 0:
+                rows.append((e.key, us / iters / 1e3, e.count / iters))
+        if rows:
+            break
     return sorted(rows, key=lambda r: -r[1])
 
 
@@ -157,6 +179,14 @@ def ptxas_entries(out: str):
     return [tuple(e) for e in entries]
 
 
+def _us(ms):
+    return None if ms is None else 1e3 * ms
+
+
+def _ms(us):
+    return None if us is None else us / 1e3
+
+
 def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
@@ -200,13 +230,15 @@ def _rsw_out_of_range(hash_name):
             flex.astype(np.int32))
 
 
-def check_rsw(torch, dev, results):
+def check_rsw(torch, dev):
+    """The vpn-list entry (``utopia_rsw``, the counterpart of rsw_pallas)
+    against its plain version: exact on all five hashes, tags >= 2^24 and
+    vpns outside the flex table."""
     from repro_torch.core import HybridConfig, HybridKVManager
     from repro_torch.kernels.utopia_rsw.ops import utopia_rsw
     from repro_torch.kernels.utopia_rsw.ref import rsw_ref
     import numpy as np
     B, nblk = 4, 16                  # the engine's granite-8b geometry
-    timing = None
     for h in HASHES:
         m = HybridKVManager(HybridConfig(
             block_size=64, total_slots=80, restseg_fraction=0.75, assoc=8,
@@ -227,8 +259,6 @@ def check_rsw(torch, dev, results):
         for g, w in zip(got, want):
             if not torch.equal(g, w):
                 raise AssertionError(f"utopia_rsw[{h}] != plain version")
-        if h == "modulo":
-            timing = args
     # tags (vpn + 1) at and above 2^24, and their near-miss neighbours
     tar = np.zeros((4, 4), np.int32)
     big = [1 << 24, (1 << 24) + 6, (1 << 25) + 3, (1 << 26) + 9]
@@ -256,19 +286,208 @@ def check_rsw(torch, dev, results):
                                      "out-of-range vpns")
         if not bool(got[2][:4].any()) or not bool(got[2][4:10].any()):
             raise AssertionError("utopia_rsw: out-of-range vpns unmapped")
-    n = timing[0].numel()
-    nbytes = sum(t.numel() * 4 for t in timing) + 4 * n * 4
-    results["utopia_rsw"] = dict(
-        max_abs_err=0.0,
-        ms=time_ms(torch, [lambda: utopia_rsw(*timing)], 200),
-        device_ms=device_ms(torch, lambda: utopia_rsw(*timing), 50,
-                            ("rsw_kernel",)),
-        plain_ms=time_ms(torch, [lambda: rsw_ref(*timing)], 50),
-        bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
-        library_ms=None, library_device_ms=None,
-        shape=f"N={n} vpns, 5 hashes exact")
-    log(f"check utopia_rsw: exact on 5 hashes, tags >= 2^24 and "
-        f"out-of-range vpns ({n} vpns)")
+    # the TAR row read at other associativities (the engine's is 8): a
+    # loop of 16-byte loads at multiples of 4, scalar loads otherwise
+    for assoc in (4, 6, 12, 16):
+        m = HybridKVManager(HybridConfig(
+            total_slots=256, restseg_fraction=0.75, assoc=assoc,
+            max_seqs=16, max_blocks_per_seq=32))
+        for sid in range(6):
+            m.register_sequence(sid)
+            for b in range(20):
+                m.allocate_block(sid, b)
+        args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (
+            np.arange(16 * 32, dtype=np.int32), m.tar, m.sf,
+            m.flex_table.reshape(-1))]
+        for g, w in zip(utopia_rsw(*args), rsw_ref(*args)):
+            if not torch.equal(g, w):
+                raise AssertionError(f"utopia_rsw[assoc {assoc}] != plain "
+                                     "version")
+    log("check utopia_rsw (vpn-list entry): exact on 5 hashes, tags >= 2^24, "
+        "out-of-range vpns and associativities 4, 6, 12, 16")
+
+
+# (B, nblk, bs, pool slots, restseg fraction): the smoke engine's decode
+# step (phase 4), and granite-8b deployed on one H100 at max_batch=64,
+# max_seq_len=4096: 5120 slots x 9.44 MB of bf16 K/V over 36 layers is
+# 48.3 GB beside 16.5 GB of weights (only the manager's tables are built)
+STEP_GEOMETRIES = {"engine": (4, 16, 64, 80, 0.75),
+                   "deployment": (64, 64, 64, 5120, 0.25)}
+
+
+def _step_case(torch, dev, hash_name, B, nblk, bs, slots, frac):
+    """A populated manager's device tables and a batch's context lengths
+    and active mask: row 0 is active but idle past its vpn range, row 1's
+    write block is unmapped, row 2 is inactive; the other rows are mapped
+    up to their write block, allocated block-major so that some blocks go
+    flexible."""
+    import numpy as np
+    from repro_torch.core import HybridConfig, HybridKVManager
+    m = HybridKVManager(HybridConfig(
+        block_size=bs, total_slots=slots, restseg_fraction=frac, assoc=8,
+        max_seqs=B, max_blocks_per_seq=nblk, hash_name=hash_name))
+    rng = np.random.RandomState(SEED)
+    ctx = rng.randint(0, nblk * bs, B).astype(np.int32)
+    ctx[0] = nblk * bs + 5
+    ctx[1] = max(ctx[1], bs)
+    last = np.minimum(ctx // bs, nblk - 1)
+    last[1] -= 1
+    for sid in range(B):
+        m.register_sequence(sid)
+    for b in range(nblk):
+        for sid in range(B):
+            if b <= last[sid]:
+                m.allocate_block(sid, b)
+    active = np.ones(B, bool)
+    active[2] = False
+    up = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (
+        m.tar[None], m.sf[None], m.flex_table.reshape(1, -1), ctx, active)]
+    return up, m.cfg.num_sets
+
+
+def pr12_translation(torch, tar, sf, flex, positions, act, nblk, bs, sink,
+                     hash_name):
+    """PR 12's translation as the decode step composed it around the
+    vpn-list kernel: the query grid in eager ops, the walk, the flag
+    conversions, the serve step's active mask, ONE layer's write-index
+    derivation (PR 12 ran it in each of the 36 layers) and the engine's
+    telemetry conversions.  The yardstick of the step entry; no serving
+    path calls it."""
+    from repro_torch.kernels.utopia_rsw.ops import utopia_rsw
+    B = positions.shape[0]
+    dev = positions.device
+    seq = torch.arange(B, dtype=torch.int32, device=dev)
+    grid = (seq[:, None] * nblk
+            + torch.arange(nblk, dtype=torch.int32, device=dev)[None, :])
+    cur_block = positions // bs
+    in_range = cur_block < nblk
+    cur_vpn = seq * nblk + cur_block.clamp(max=nblk - 1)
+    n_read = B * nblk
+    queries = torch.cat([grid.reshape(-1), cur_vpn.to(torch.int32)])
+    slot, hit, mapped, acc = utopia_rsw(queries, tar[0], sf[0], flex[0],
+                                        hash_name=hash_name)
+    hit, mapped = hit.bool(), mapped.bool()
+    w_valid = (mapped[n_read:] & in_range)[None] & act[None]
+    ws = torch.where(w_valid[0], slot[n_read:], sink).long()
+    t = (positions % bs).long()
+    extent = positions + 1
+    tele = [x[:n_read].reshape(-1).to(torch.int32) for x in (hit, acc,
+                                                              mapped)]
+    return slot, ws, t, extent, tele
+
+
+def _step_bytes(torch, tables, nblk, hash_name, n_sets, assoc):
+    """Bytes the step's translation must move for THIS data: the SF word
+    of every distinct set probed, the TAR row of every distinct probed set
+    whose SF is non-zero, the flex entry of every distinct vpn that
+    missed, ctx_len and the active mask, each once; the output once."""
+    from repro_torch.core.hashes import get_hash
+    from repro_torch.kernels.utopia_rsw.ref import rsw_ref, step_words
+    tar, sf, flex, ctx, _ = (t.cpu() for t in tables)
+    B = ctx.shape[0]
+    q = torch.arange(B * nblk, dtype=torch.int32)   # the write blocks too
+    _, hit, _, _ = rsw_ref(q, tar[0], sf[0], flex[0], hash_name=hash_name)
+    sets = torch.unique(get_hash(hash_name)(q, n_sets).long())
+    live = sets[sf[0][sets] > 0]
+    misses = torch.unique(q[hit == 0])
+    read = (4 * sets.numel() + 4 * assoc * live.numel()
+            + 4 * misses.numel() + 4 * B + B)
+    return read + 4 * step_words(B, nblk)
+
+
+def check_translate_step(torch, dev, results):
+    """The step entry (``utopia_translate_step``, the main path's RSW
+    launch) against ``translate_step_ref`` at both geometries, for all five
+    hashes, exact in every field, with and without the active mask; then,
+    with the engine's hash, its device time beside an empty kernel's, its
+    bytes bound, the wall time per call of ``translate_step`` beside PR
+    12's composition (in turns: new, old, old, new), and its device
+    kernels per call, which must be 1."""
+    from repro_torch.kernels.utopia_rsw.ops import (empty_launch,
+                                                    utopia_translate_step)
+    from repro_torch.kernels.utopia_rsw.ref import (StepTranslation,
+                                                    translate_step_ref)
+    from repro_torch.serve.decode import DecodeSpec, translate_step
+    geoms = {}
+    for gname, (B, nblk, bs, slots, frac) in STEP_GEOMETRIES.items():
+        for h in HASHES:
+            tables, n_sets = _step_case(torch, dev, h, B, nblk, bs, slots,
+                                        frac)
+            tar, sf, flex, ctx, active = tables
+            geom = dict(block_size=bs, nblk=nblk, hash_name=h, sink=slots)
+            for act in (None, active):
+                got = utopia_translate_step(tar, sf, flex, ctx, act, **geom)
+                want = translate_step_ref(tar, sf, flex, ctx, act, **geom)
+                for f in StepTranslation._fields:
+                    if not torch.equal(getattr(got, f), getattr(want, f)):
+                        raise AssertionError(
+                            f"translate_step[{gname}, {h}]: {f} differs "
+                            "from the plain version")
+        # timings with the engine's hash
+        tables, n_sets = _step_case(torch, dev, "modulo", B, nblk, bs,
+                                    slots, frac)
+        tar, sf, flex, ctx, active = tables
+        spec = DecodeSpec(block_size=bs, max_blocks_per_seq=nblk,
+                          slots_per_group=slots, n_sets=n_sets, assoc=8)
+        bound = {}                  # the bindings, kept as the step keeps them
+        new = [lambda: translate_step(tar, sf, flex, ctx, spec, active,
+                                      bound)]
+        old = [lambda: pr12_translation(torch, tar, sf, flex, ctx, active,
+                                        nblk, bs, slots, "modulo")]
+        per_call = launches_per_call(torch, new[0])
+        if per_call != 1:
+            raise AssertionError(f"translate_step[{gname}]: {per_call} "
+                                 "device kernels per call, expected 1")
+        trans = new[0]()
+        hits = int(trans.in_rest.sum())
+        walks = int(((trans.mapped == 1) & (trans.in_rest == 0)).sum())
+        nbytes = _step_bytes(torch, tables, nblk, "modulo", n_sets, 8)
+        wall = [time_ms(torch, new, 400)]
+        wall_old = [time_ms(torch, old, 400), time_ms(torch, old, 400)]
+        wall.append(time_ms(torch, new, 400))
+        # the step kernel and an empty kernel under one profiler session
+        dev_us = {}
+        for _ in range(3):            # the profiler can miss a tiny kernel
+            rows = profile_device(torch, lambda: (new[0](), empty_launch(ctx)),
+                                  100)
+            for key, sym in (("kernel", "translate_step_kernel"),
+                             ("empty", "empty_kernel")):
+                ms = [r[1] for r in rows if sym in r[0]]
+                if ms:
+                    dev_us.setdefault(key, 1e3 * ms[0])
+            if len(dev_us) == 2:
+                break
+        g = dict(
+            vpns=B * nblk, pool_slots=slots, restseg_fraction=frac,
+            hit_share=round(hits / max(hits + walks, 1), 4),
+            device_us=dev_us.get("kernel"),
+            empty_device_us=dev_us.get("empty"),
+            bound_us=nbytes / HBM_BYTES_PER_S * 1e6, bytes=nbytes,
+            wall_us=1e3 * statistics.mean(wall),
+            pr12_wall_us=1e3 * statistics.mean(wall_old),
+            pr12_list_kernel_device_us=_us(device_ms(
+                torch, old[0], 100, ("rsw_kernel",))),
+            pr12_kernels_per_call=launches_per_call(torch, old[0]),
+            kernels_per_call=per_call,
+            plain_us=1e3 * time_ms(torch, [lambda: translate_step_ref(
+                tar, sf, flex, ctx, active, block_size=bs, nblk=nblk,
+                hash_name="modulo", sink=slots)], 50))
+        geoms[gname] = g
+        log(f"check translate_step [{gname}: B={B}, nblk={nblk}, "
+            f"{slots} slots, restseg {frac}]: exact on 5 hashes (a row past "
+            f"its range, an unmapped write block, an inactive row); hit "
+            f"share {g['hit_share']}; " + json.dumps(
+                {k: (round(v, 4) if isinstance(v, float) else v)
+                 for k, v in g.items()}))
+    e = geoms["engine"]
+    results["utopia_translate_step"] = dict(
+        max_abs_err=0.0, ms=e["wall_us"] / 1e3,
+        device_ms=_ms(e["device_us"]), plain_ms=e["plain_us"] / 1e3,
+        bound_ms=e["bound_us"] / 1e3, bound_by="bytes", library_ms=None,
+        library_device_ms=None, empty_device_ms=_ms(e["empty_device_us"]),
+        pr12_ms=e["pr12_wall_us"] / 1e3, geometries=geoms,
+        shape="B=4 nblk=16 (64 vpns), 80 slots; geometries: "
+              + ", ".join(f"{k} {v}" for k, v in STEP_GEOMETRIES.items()))
 
 
 def _paged_case(torch, dev, dtype, B=4, H=32, KV=8, D=128, bs=64, nblk=16,
@@ -524,19 +743,19 @@ def margin_of(margins, steps, sid, i):
     return None
 
 
-def card_vs_cpu(torch, dev):
+def card_vs_cpu(torch, dev, params, prompt_lens, new_tokens, label,
+                **engine_kw):
+    """Serve the same greedy requests on the card and on the CPU with the
+    same weights (a 2-layer full-width granite-8b in float32).  Admission
+    log and manager stats must be identical, and a stream may differ only
+    from a near-tie (top-2 logit margin below 1e-3).  Returns the card's
+    manager stats."""
     import numpy as np
-    from repro_torch.configs import get_config
-    from repro_torch.models import model_dims
-    from repro_torch.params import init_params
     from repro_torch.serve import Engine, EngineConfig, Request
-    cfg = dataclasses.replace(get_config("granite-8b"), num_layers=2)
-    dims = model_dims(cfg)
-    params = init_params(torch.Generator().manual_seed(SEED), cfg, dims,
-                         torch.float32, "cpu")
+    cfg, params = params
     rng = np.random.RandomState(SEED)
-    prompts = [rng.randint(0, cfg.vocab_size, n) for n in (64, 128, 192)]
-    ecfg = EngineConfig(max_batch=4, max_seq_len=256, auto_release=True)
+    prompts = [rng.randint(0, cfg.vocab_size, n) for n in prompt_lens]
+    ecfg = EngineConfig(auto_release=True, **engine_kw)
     runs, margins = {}, {}
     for name, d, p in (("cuda", dev, to_device(params, dev)),
                        ("cpu", torch.device("cpu"), params)):
@@ -545,16 +764,18 @@ def card_vs_cpu(torch, dev):
             record_margins(eng, margins)
         t0 = time.perf_counter()
         streams, steps = serve(eng, [
-            Request(seq_id=i, prompt=pr, max_new_tokens=6)
+            Request(seq_id=i, prompt=pr, max_new_tokens=new_tokens)
             for i, pr in enumerate(prompts)])
         runs[name] = (streams, steps, eng, time.perf_counter() - t0)
     (cs, csteps, ceng, ct), (ps, _, peng, pt) = runs["cuda"], runs["cpu"]
     # no eos: the schedule, and so the translation, cannot depend on the
     # token values, only the streams can
     if ceng.admission_log != peng.admission_log:
-        raise AssertionError("card and CPU admitted differently")
+        raise AssertionError(f"{label}: card and CPU admitted differently")
     if dict(ceng.manager.stats) != dict(peng.manager.stats):
-        raise AssertionError("card and CPU translation stats differ")
+        raise AssertionError(f"{label}: card and CPU translation stats "
+                             "differ")
+    ceng.check_invariants()
     same = 0
     for sid in sorted(cs):
         if cs[sid] == ps[sid]:
@@ -563,15 +784,40 @@ def card_vs_cpu(torch, dev):
         i = next(k for k, (a, b) in enumerate(zip(cs[sid], ps[sid]))
                  if a != b)
         m = margin_of(margins, csteps, sid, i)
-        log(f"card vs CPU: request {sid} diverges at token {i}: card "
-            f"{cs[sid][i]} vs CPU {ps[sid][i]}, top-2 logit margin {m}")
+        log(f"card vs CPU ({label}): request {sid} diverges at token {i}: "
+            f"card {cs[sid][i]} vs CPU {ps[sid][i]}, top-2 logit margin {m}")
         if m is None or m >= 1e-3:
             raise AssertionError("card and CPU streams diverge where the "
                                  "top-2 margin is not a near-tie")
-    log(f"card vs CPU (granite-8b width, 2 layers, f32, {len(prompts)} "
-        f"requests): {same} of {len(cs)} token streams identical, the rest "
-        f"diverge only at near-ties; admission and translation stats "
-        f"identical ({ct:.1f} s on the card, {pt:.1f} s on the CPU)")
+    stats = dict(ceng.manager.stats)
+    log(f"card vs CPU ({label}; granite-8b width, 2 layers, f32, "
+        f"{len(prompts)} requests, {engine_kw}): {same} of {len(cs)} token "
+        f"streams identical, the rest diverge only at near-ties; admission "
+        f"log and manager stats identical: {json.dumps(stats)} "
+        f"({ct:.1f} s on the card, {pt:.1f} s on the CPU)")
+    return stats
+
+
+def card_vs_cpu_runs(torch, dev):
+    """Phase 3: the run of earlier slices, then a pressure run whose
+    RestSeg (one set of 8 ways in a 40-slot pool) overflows, so the card
+    walks the flex table, promotes hot flexible blocks and syncs the
+    TAR/SF/flex deltas inside a serving run."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model_dims
+    from repro_torch.params import init_params
+    cfg = dataclasses.replace(get_config("granite-8b"), num_layers=2)
+    params = (cfg, init_params(torch.Generator().manual_seed(SEED), cfg,
+                               model_dims(cfg), torch.float32, "cpu"))
+    card_vs_cpu(torch, dev, params, (64, 128, 192), 6, "default",
+                max_batch=4, max_seq_len=256)
+    stats = card_vs_cpu(torch, dev, params, (64, 128, 192, 320, 64, 256), 8,
+                        "pressure", max_batch=4, max_seq_len=512,
+                        restseg_fraction=0.25)
+    if stats.get("flex_walks", 0) <= 0 or stats.get(
+            "migrations_flex_to_rest", 0) <= 0:
+        raise AssertionError(f"pressure run: no flex walk or no promotion on "
+                             f"the card ({stats})")
 
 
 def full_width(torch, dev):
@@ -579,7 +825,7 @@ def full_width(torch, dev):
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.paged_attention.ops import paged_attention
-    from repro_torch.kernels.utopia_rsw.ops import utopia_rsw
+    from repro_torch.kernels.utopia_rsw.ops import utopia_translate_step
     from repro_torch.models import model_dims
     from repro_torch.params import init_params
     from repro_torch.serve import Engine, EngineConfig, Request
@@ -614,13 +860,13 @@ def full_width(torch, dev):
         return logits, dstate, stats
 
     eng._serve_step = checked
-    for fn in (utopia_rsw, paged_attention, flash_attention):
+    for fn in (utopia_translate_step, paged_attention, flash_attention):
         fn.launches = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     streams, steps = serve(eng, reqs)
     wall = time.perf_counter() - t0
-    launches = {"utopia_rsw": utopia_rsw.launches,
+    launches = {"utopia_translate_step": utopia_translate_step.launches,
                 "paged_attention": paged_attention.launches,
                 "flash_attention": flash_attention.launches}
     for name, n in launches.items():
@@ -670,7 +916,7 @@ def profile_decode_step(torch, eng, rng, cfg):
                            prompt=rng.randint(0, cfg.vocab_size, 512),
                            max_new_tokens=8))
     # the first admission step (prefill dispatch) under the profiler
-    rows = profile_cold(torch, eng.step)
+    rows = profile_cold(torch, eng.step, tries=1)  # an admission runs once
     busy = sum(ms for _, ms, _ in rows)
     flash = sum(ms for name, ms, _ in rows if "flash_" in name)
     top = [dict(kernel=name[:90], ms=round(ms, 4), launches=n)
@@ -694,6 +940,7 @@ def profile_decode_step(torch, eng, rng, cfg):
     while eng.has_unfinished():
         eng.step()
     busy = sum(ms for _, ms, _ in rows)
+    n_kernels = int(round(sum(n for _, _, n in rows)))
     paged = sum(ms for name, ms, _ in rows if "paged_attn_kernel" in name)
     top = [dict(kernel=name[:90], ms=round(ms, 4), launches=n)
            for name, ms, n in rows[:8]]
@@ -705,7 +952,26 @@ def profile_decode_step(torch, eng, rng, cfg):
                          paged_attention_ms=round(paged, 4),
                          paged_attention_share=round(paged / busy, 4)
                          if busy else None,
-                         kernels=len(rows), top=top)}))
+                         kernels=len(rows), device_kernels=n_kernels,
+                         top=top)}))
+
+
+def decode_profile(torch, dev):
+    """Phase 4's decode-step profile alone (``--decode-profile``): the same
+    engine and weights, so that another commit's port (``--src``) can be
+    profiled in the same call."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import model_dims
+    from repro_torch.params import init_params
+    from repro_torch.serve import Engine, EngineConfig
+    cfg = get_config("granite-8b")
+    params = init_params(torch.Generator(device=dev).manual_seed(SEED), cfg,
+                         model_dims(cfg), torch.bfloat16, dev)
+    eng = Engine(cfg, params, EngineConfig(
+        max_batch=4, max_seq_len=1024, auto_release=True,
+        dtype=torch.bfloat16), device=dev)
+    profile_decode_step(torch, eng, np.random.RandomState(SEED), cfg)
 
 
 def _leaves(tree):
@@ -717,8 +983,9 @@ def _leaves(tree):
 
 
 KERNEL_META = {
-    "utopia_rsw": ("src/repro_torch/kernels/utopia_rsw/csrc/utopia_rsw.cu",
-                   "src/repro/kernels/utopia_rsw/utopia_rsw.py:68"),
+    "utopia_translate_step": (
+        "src/repro_torch/kernels/utopia_rsw/csrc/utopia_rsw.cu",
+        "src/repro/kernels/utopia_rsw/utopia_rsw.py:68"),
     "paged_attention": (
         "src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu",
         "src/repro/kernels/paged_attention/paged_attention.py:98"),
@@ -728,14 +995,37 @@ KERNEL_META = {
 }
 
 
+def card_line(torch) -> None:
+    """The card's name and power limit, then the contract's last line."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
 def main() -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--decode-profile", action="store_true",
+                    help="build the kernels and run only phase 4's "
+                         "decode-step profile")
+    ap.add_argument("--src", type=Path, default=None,
+                    help="import repro_torch from this source tree instead "
+                         "of the checkout's src/ (e.g. a parent commit's, "
+                         "unpacked with git archive)")
+    args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is "
               "false); nothing runs on the CPU instead", file=sys.stderr)
         return 2
     root = Path(__file__).resolve().parent
-    sys.path.insert(0, str(root / "src"))
+    src = args.src.resolve() if args.src else root / "src"
+    sys.path.insert(0, str(src))
     from repro_torch.kernels import _build   # fails outside a checkout
     dev = torch.device("cuda")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, card "
@@ -755,38 +1045,34 @@ def main() -> int:
                 log(f"  ptxas {k}: {regs} registers, {stack} bytes stack, "
                     f"{st} bytes spill stores, {ld} bytes spill loads")
     log(f"build: {time.perf_counter() - t0:.1f} s for {len(built)} "
-        f"kernel(s) into {_build.BUILD_DIR.relative_to(root)}")
+        f"kernel(s) into {_build.BUILD_DIR}")
+    if args.decode_profile:
+        log(f"decode-step profile of the port in {src}")
+        decode_profile(torch, dev)
+        card_line(torch)
+        return 0
 
     results = {}
-    check_rsw(torch, dev, results)
+    check_rsw(torch, dev)
+    check_translate_step(torch, dev, results)
     check_paged(torch, dev, results)
     check_flash(torch, dev, results)
     torch.cuda.synchronize()
-    card_vs_cpu(torch, dev)
+    card_vs_cpu_runs(torch, dev)
     torch.cuda.empty_cache()
     launches = full_width(torch, dev)
 
     kernels = []
-    for name in ("utopia_rsw", "paged_attention", "flash_attention"):
-        r = results[name]
+    for name in ("utopia_translate_step", "paged_attention",
+                 "flash_attention"):
+        r = dict(results[name])
         source, replaces = KERNEL_META[name]
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=launches[name], max_abs_err=r["max_abs_err"],
-            ms=r["ms"], kernel_ms=r["ms"], device_ms=r["device_ms"],
-            plain_ms=r["plain_ms"],
-            bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-            library_ms=r["library_ms"],
-            library_device_ms=r["library_device_ms"], shape=r["shape"]))
+            launches=launches[name], max_abs_err=r.pop("max_abs_err"),
+            ms=r["ms"], kernel_ms=r.pop("ms"), **r))
     print(json.dumps({"kernels": kernels}), flush=True)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
-    print(smi, flush=True)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
+    card_line(torch)
     return 0
 
 

@@ -2,12 +2,13 @@
 
 Translation (the paper's technique) runs exactly once per step:
 ``translate_step`` resolves every block vpn of every sequence, plus the
-block being written, in ONE launch of the RSW kernel before the layer
-loop; the resolved slot table then flows into every attention layer, which
-only writes the new token's K/V and runs the paged-attention kernel over
-pre-resolved slots.  The same launch emits the per-vpn telemetry
-(``in_rest`` / ``accesses`` / ``mapped``) the engine feeds back to the
-promotion policy.
+block being written, in ONE launch of the RSW step kernel before the layer
+loop.  The same launch emits the per-vpn telemetry (``in_rest`` /
+``accesses`` / ``mapped``, one int32 block) that the engine feeds back to
+the promotion policy, and per row the flat pool row of the new token's K/V
+and the attention extent.  Every attention layer then only writes the new
+token's K/V at that row and runs the paged-attention kernel over the
+pre-resolved slots: no device op of the layer loop prepares either.
 
 The decode state is a dict of device tensors updated IN PLACE (the JAX
 package rebuilt them functionally): the per-layer KV pools
@@ -20,14 +21,15 @@ translation ever resolves to it.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, NamedTuple
+from typing import Callable, Dict
 
 import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.paged_attention.ops import paged_attention
 from repro_torch.kernels.paged_attention.ref import normalize
-from repro_torch.kernels.utopia_rsw.ops import utopia_rsw
+from repro_torch.kernels.utopia_rsw.ops import translate_step_translator
+from repro_torch.kernels.utopia_rsw.ref import StepTranslation
 from repro_torch.models import layers as Lmod
 from repro_torch.models.transformer import ModelDims, layer_params
 
@@ -68,84 +70,58 @@ def init_decode_state(cfg: ArchConfig, dims: ModelDims, spec: DecodeSpec,
 
 # ----------------------------------------------- once-per-step translation
 
-class StepTranslation(NamedTuple):
-    """Result of the single hybrid translation of a decode step.
-
-    Group-major like the JAX package's (``G == 1`` on one device)."""
-
-    slots: torch.Tensor     # (G, B, nblk) int32 resolved pool slot, -1
-    w_slot: torch.Tensor    # (G, B) int32 slot of the block being written
-    w_valid: torch.Tensor   # (G, B) bool: mapped, in range (and active)
-    in_rest: torch.Tensor   # (G, B, nblk) bool — resolved by the RSW
-    mapped: torch.Tensor    # (G, B, nblk) bool
-    accesses: torch.Tensor  # (G, B, nblk) int32 structure accesses
-    vpns: torch.Tensor      # (B, nblk) int32 vpn grid
-
-
-def _hybrid_lookup(vpns: torch.Tensor, tar: torch.Tensor, sf: torch.Tensor,
-                   flex_flat: torch.Tensor, hash_name: str):
-    """Hybrid RSW ∥ flex lookup with ``translate()``-compatible accounting:
-    the step's only translation primitive, one RSW kernel launch.
-    Returns (slot, in_rest, mapped, accesses), each shaped like ``vpns``."""
-    slot, in_rest, mapped, accesses = utopia_rsw(vpns, tar, sf, flex_flat,
-                                                 hash_name=hash_name)
-    return slot, in_rest.bool(), mapped.bool(), accesses
+def _hybrid_lookup(tar: torch.Tensor, sf: torch.Tensor, flex: torch.Tensor,
+                   positions: torch.Tensor, active, spec: DecodeSpec,
+                   bound: Dict[tuple, Callable]) -> StepTranslation:
+    """Hybrid RSW ∥ flex lookup of the whole step with
+    ``translate()``-compatible accounting: the step's only translation
+    primitive, ONE launch of the RSW step kernel (its plain version on the
+    CPU).  The kernel is bound to the step's geometry, and the tables
+    validated, on the first call for a (batch, device); ``bound`` keeps
+    the bindings."""
+    key = (positions.shape[0], positions.device)
+    fn = bound.get(key)
+    if fn is None:
+        if tar.shape[0] != 1:
+            raise NotImplementedError("grouped translation is sharded "
+                                      "serving (ROADMAP P15)")
+        fn = bound[key] = translate_step_translator(
+            tar, sf, flex, positions, block_size=spec.block_size,
+            nblk=spec.max_blocks_per_seq, hash_name=spec.hash_name,
+            sink=spec.slots_per_group)
+    return fn(tar, sf, flex, positions, active)
 
 
 def translate_step(tar: torch.Tensor, sf: torch.Tensor, flex: torch.Tensor,
-                   positions: torch.Tensor, spec: DecodeSpec
-                   ) -> StepTranslation:
+                   positions: torch.Tensor, spec: DecodeSpec, active=None,
+                   bound=None) -> StepTranslation:
     """Translate every block vpn of every sequence, plus each sequence's
-    current (write) block, in one dispatch.
+    current (write) block, in one launch, and derive in the same launch the
+    write's flat pool row and the attention extent.
 
     tar (1, n_sets, assoc), sf (1, n_sets), flex (1, B*nblk);
-    ``positions`` (B,) the pre-step context lengths (>= 0)."""
-    if tar.shape[0] != 1:
-        raise NotImplementedError("grouped translation is sharded serving "
-                                  "(ROADMAP P15)")
-    nblk, bs = spec.max_blocks_per_seq, spec.block_size
-    B = positions.shape[0]
-    dev = positions.device
-    seq = torch.arange(B, dtype=torch.int32, device=dev)
-    grid = (seq[:, None] * nblk
-            + torch.arange(nblk, dtype=torch.int32, device=dev)[None, :])
-    cur_block = positions // bs
-    # an idle slot's position can run past its vpn range; without the clamp
-    # its write vpn would alias ANOTHER sequence's block
-    in_range = cur_block < nblk
-    cur_vpn = seq * nblk + cur_block.clamp(max=nblk - 1)
-    n_read = B * nblk
-    queries = torch.cat([grid.reshape(-1), cur_vpn.to(torch.int32)])
-    slot, hit, mapped, acc = _hybrid_lookup(queries, tar[0], sf[0], flex[0],
-                                            spec.hash_name)
-    shape3 = (1, B, nblk)
-    return StepTranslation(
-        slots=slot[:n_read].reshape(shape3),
-        w_slot=slot[n_read:][None],
-        w_valid=(mapped[n_read:] & in_range)[None],
-        in_rest=hit[:n_read].reshape(shape3),
-        mapped=mapped[:n_read].reshape(shape3),
-        accesses=acc[:n_read].reshape(shape3),
-        vpns=grid,
-    )
+    ``positions`` (B,) the pre-step context lengths (>= 0); ``active``
+    (B,) bool or None (all active): an inactive row's write goes to the
+    sink slot, as does one that is unmapped or past its vpn range.
+    ``bound`` is the caller's dict of bindings (the decode step keeps one);
+    without it the call binds anew."""
+    return _hybrid_lookup(tar, sf, flex, positions, active, spec,
+                          {} if bound is None else bound)
 
 
 # ------------------------------------------------------ paged attention
 
-def _paged_attn_local(q, k_new, v_new, kp_l, vp_l, trans: StepTranslation,
-                      pos, spec: DecodeSpec):
-    """Write the new token's K/V into its pre-resolved slot (in place; an
-    invalid row writes the sink slot) and attend over the resolved blocks
-    through the paged-attention kernel.  Returns the normalized output
-    (B, H, hd) in q's dtype."""
-    slots = trans.slots[0]
-    w_slot, w_valid = trans.w_slot[0], trans.w_valid[0]
-    sink = kp_l.shape[0] - 1
-    ws = torch.where(w_valid, w_slot, sink).long()
-    t = (pos % spec.block_size).long()
-    kp_l[ws, t] = k_new.to(kp_l.dtype)
-    vp_l[ws, t] = v_new.to(vp_l.dtype)
-    o, m, l = paged_attention(q, kp_l, vp_l, slots, pos + 1)
+def _paged_attn_local(q, k_new, v_new, kp_l, vp_l, slots, w_row, extent):
+    """Write the new token's K/V at its precomputed flat pool row ``w_row``
+    (B,) int64 (in place; an invalid row writes the sink slot's row) and
+    attend over the resolved blocks ``slots`` (B, nblk) up to ``extent``
+    (B,) through the paged-attention kernel: all three come from the
+    step's translation.  Returns the normalized output (B, H, hd) in q's
+    dtype."""
+    rows = (w_row,)
+    kp_l.view(-1, *kp_l.shape[2:]).index_put_(rows, k_new.to(kp_l.dtype))
+    vp_l.view(-1, *vp_l.shape[2:]).index_put_(rows, v_new.to(vp_l.dtype))
+    o, m, l = paged_attention(q, kp_l, vp_l, slots, extent)
     return normalize(o, l).to(q.dtype)
 
 
@@ -174,7 +150,8 @@ def make_serve_step(cfg: ArchConfig, dims: ModelDims, spec: DecodeSpec,
 
     ``dstate`` is updated in place and returned.  ``stats`` holds the
     step's translation telemetry (``slots`` / ``in_rest`` / ``mapped`` /
-    ``accesses``, group-major) and the greedy ``next_token`` (B,) int32.
+    ``accesses``, group-major, and ``telemetry``, the last three as one
+    int32 block) and the greedy ``next_token`` (B,) int32.
     ``active`` (B,) bool marks the slots decoding this step: inactive
     slots neither write their current KV block nor advance ``ctx_len``
     (None = all active)."""
@@ -182,8 +159,9 @@ def make_serve_step(cfg: ArchConfig, dims: ModelDims, spec: DecodeSpec,
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (ROADMAP P10)")
     H, KV, hd = dims.n_heads, dims.n_kv, dims.head_dim
+    bound = {}                       # the translation's bindings
 
-    def attn_sublayer(blk, x, kp_l, vp_l, trans, positions):
+    def attn_sublayer(blk, x, kp_l, vp_l, kv_at, positions):
         B = x.shape[0]
         h = Lmod.rms_norm(x, blk["norm1"], cfg.norm_eps)
         q = Lmod.linear(blk["attn"]["q"], h).reshape(B, H, hd)
@@ -194,29 +172,29 @@ def make_serve_step(cfg: ArchConfig, dims: ModelDims, spec: DecodeSpec,
                                 cfg.rope_theta)[:, 0]
             k = Lmod.apply_rope(k[:, None], positions[:, None],
                                 cfg.rope_theta)[:, 0]
-        out = _paged_attn_local(q, k, v, kp_l, vp_l, trans, positions, spec)
+        out = _paged_attn_local(q, k, v, kp_l, vp_l, *kv_at)
         o = Lmod.linear(blk["attn"]["o"], out.reshape(B, -1).to(x.dtype))
         return x + o
 
     def serve_step(params, dstate, tokens, active=None):
         positions = dstate["ctx_len"]
-        act = (torch.ones_like(positions, dtype=torch.bool) if active is None
-               else active.bool())
+        act = None if active is None else active.bool()
         x = params["embed"]["table"][tokens.long()].to(dtype)
         trans = translate_step(dstate["tar"], dstate["sf"], dstate["flex"],
-                               positions, spec)
-        trans = trans._replace(w_valid=trans.w_valid & act[None])
+                               positions, spec, act, bound)
         stats = dict(slots=trans.slots, in_rest=trans.in_rest,
-                     mapped=trans.mapped, accesses=trans.accesses)
+                     mapped=trans.mapped, accesses=trans.accesses,
+                     telemetry=trans.telemetry)
+        kv_at = (trans.slots[0], trans.w_row, trans.extent)
         for i in range(cfg.num_layers):
             blk = layer_params(params, i)
             x = attn_sublayer(blk, x, dstate["k_pool"][i],
-                              dstate["v_pool"][i], trans, positions)
+                              dstate["v_pool"][i], kv_at, positions)
             x = decode_ffn(blk, x, cfg)
         logits = project_logits(params, x, cfg, dims)
         stats["next_token"] = logits.argmax(dim=-1).to(torch.int32)
         # only active slots advance (in place, after every read above)
-        dstate["ctx_len"] += act.to(torch.int32)
+        dstate["ctx_len"].add_(1 if act is None else act)
         return logits, dstate, stats
 
     return serve_step

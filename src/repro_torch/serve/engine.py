@@ -651,8 +651,8 @@ class Engine:
             parts += [tstats["next_token"], self.dstate["ctx_len"]]
             want_stats = self.track_stats
             if want_stats:
-                parts += [tstats[k].reshape(-1).to(torch.int32)
-                          for k in ("in_rest", "accesses", "mapped")]
+                # in_rest, accesses, mapped: one int32 block, as written
+                parts.append(tstats["telemetry"])
         if not parts:
             return {}
         # ---- the step's ONE device->host copy ---------------------------

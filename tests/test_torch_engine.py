@@ -227,18 +227,18 @@ def test_gpu_engine_matches_cpu(weights):
         pytest.skip("needs a CUDA card (torch.cuda.is_available() is false)")
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.paged_attention.ops import paged_attention
-    from repro_torch.kernels.utopia_rsw.ops import utopia_rsw
+    from repro_torch.kernels.utopia_rsw.ops import utopia_translate_step
     _, _, cfg, tp = weights
     prompts = _prompts(cfg.vocab_size)
     kw = dict(ENGINE)
     cpu = _drain(Engine(cfg, tp, EngineConfig(**kw), device="cpu"), Request,
                  prompts, 8)
-    before = (utopia_rsw.launches, paged_attention.launches,
+    before = (utopia_translate_step.launches, paged_attention.launches,
               flash_attention.launches)
     tp_cuda = jax.tree.map(lambda t: t.to("cuda"), tp)
     card = _drain(Engine(cfg, tp_cuda, EngineConfig(**kw), device="cuda"),
                   Request, prompts, 8)
-    after = (utopia_rsw.launches, paged_attention.launches,
+    after = (utopia_translate_step.launches, paged_attention.launches,
              flash_attention.launches)
     assert all(a > b for a, b in zip(after, before))
     assert card == cpu

@@ -26,7 +26,10 @@ try:
     from repro.kernels.utopia_rsw.ref import rsw_ref as j_rsw_ref
     from repro.kernels.utopia_rsw.utopia_rsw import rsw_pallas
     from repro.models.attention import dense_attention as j_dense
+    from repro.serve.decode import DecodeSpec as JDecodeSpec
     from repro.serve.decode import _hybrid_lookup as j_hybrid_lookup
+    from repro.serve.decode import _paged_attn_local_ref as j_paged_local
+    from repro.serve.decode import translate_step as j_translate_step
 except ImportError:         # a card machine without JAX: gpu tests only
     jnp = None
 from repro_torch.core import HybridConfig, HybridKVManager
@@ -36,8 +39,11 @@ from repro_torch.kernels.paged_attention.ops import (MAX_SPLIT,
                                                      split_plan)
 from repro_torch.kernels.paged_attention.ref import (normalize,
                                                      paged_attention_ref)
-from repro_torch.kernels.utopia_rsw.ops import utopia_rsw
-from repro_torch.kernels.utopia_rsw.ref import rsw_ref
+from repro_torch.kernels.utopia_rsw.ops import (utopia_rsw,
+                                                utopia_translate_step)
+from repro_torch.kernels.utopia_rsw.ref import (StepTranslation, rsw_ref,
+                                                translate_step_ref)
+from repro_torch.serve import decode
 from repro_torch.models.attention import dense_attention
 
 torch.set_num_threads(2)
@@ -64,11 +70,11 @@ def _t(a, dtype=None):
     return t if dtype is None else t.to(dtype)
 
 
-def _tables(hash_name):
+def _tables(hash_name, assoc=8):
     """A populated manager's tables (the port's manager: its state equals
     the JAX manager's, ``test_torch_core.py``)."""
     m = HybridKVManager(HybridConfig(
-        total_slots=256, restseg_fraction=0.75, assoc=8, max_seqs=16,
+        total_slots=256, restseg_fraction=0.75, assoc=assoc, max_seqs=16,
         max_blocks_per_seq=32, hash_name=hash_name))
     for sid in range(6):
         m.register_sequence(sid)
@@ -144,6 +150,125 @@ def test_rsw_plain_out_of_range_flex_gather_matches_jax(hash_name, jax_ref):
         npt.assert_array_equal(g.numpy(), np.asarray(w))
     mapped = got[2].numpy().astype(bool)
     assert mapped[:4].any() and mapped[4:10].any()   # the clamps read maps
+
+
+# ----------------------------------------------- the step's translation
+
+def _step_tables(hash_name, restseg_fraction, B, nblk, bs, slots, seed=0):
+    """A populated manager's tables and a batch's pre-step context lengths
+    and active mask: row 0 is active but idle past its vpn range, row 1's
+    write block is unmapped, row 2 is inactive; the other rows are mapped
+    up to their write block.  Blocks are allocated block-major over the
+    rows, so some land in the RestSeg and the rest go flexible."""
+    m = HybridKVManager(HybridConfig(
+        block_size=bs, total_slots=slots, restseg_fraction=restseg_fraction,
+        assoc=8, max_seqs=B, max_blocks_per_seq=nblk, hash_name=hash_name))
+    rng = np.random.RandomState(seed)
+    ctx = rng.randint(0, nblk * bs, B).astype(np.int32)
+    ctx[0] = nblk * bs + 5
+    ctx[1] = max(ctx[1], bs)
+    last = np.minimum(ctx // bs, nblk - 1)
+    last[1] -= 1
+    for sid in range(B):
+        m.register_sequence(sid)
+    for b in range(nblk):
+        for sid in range(B):
+            if b <= last[sid]:
+                m.allocate_block(sid, b)
+    active = np.ones(B, bool)
+    active[2] = False
+    geom = dict(block_size=bs, nblk=nblk, hash_name=hash_name, sink=slots)
+    tables = (m.tar[None], m.sf[None], m.flex_table.reshape(1, -1))
+    return tables, ctx, active, geom, m.cfg.num_sets
+
+
+STEP_GEOMETRIES = {
+    # B, nblk, bs, pool slots, restseg fraction
+    "small": (6, 8, 8, 40, None),
+    "engine": (4, 16, 64, 80, 0.75),          # the smoke engine's
+    "deployment": (64, 64, 64, 5120, 0.25),   # granite-8b on one H100
+}
+
+
+@pytest.mark.parametrize("hash_name", HASHES)
+@pytest.mark.parametrize("restseg_fraction", [0.25, 0.75])
+def test_translate_step_plain_matches_jax(hash_name, restseg_fraction,
+                                          jax_ref):
+    B, nblk, bs, slots, _ = STEP_GEOMETRIES["small"]
+    tables, ctx, active, geom, n_sets = _step_tables(
+        hash_name, restseg_fraction, B, nblk, bs, slots)
+    jspec = JDecodeSpec(block_size=bs, max_blocks_per_seq=nblk,
+                        slots_per_group=slots, n_sets=n_sets, assoc=8,
+                        hash_name=hash_name)
+    want = j_translate_step(*map(jnp.asarray, tables), jnp.asarray(ctx),
+                            jspec)
+    spec = decode.DecodeSpec(block_size=bs, max_blocks_per_seq=nblk,
+                             slots_per_group=slots, n_sets=n_sets, assoc=8,
+                             hash_name=hash_name)
+    targs = [_t(a) for a in (*tables, ctx)]
+    for act in (None, active):
+        ta = None if act is None else _t(act)
+        for got in (translate_step_ref(*targs, ta, **geom),
+                    decode.translate_step(*targs, spec, ta)):
+            for f in want._fields:
+                w = np.asarray(getattr(want, f))
+                if f == "w_valid" and act is not None:
+                    w = w & act[None]
+                g = getattr(got, f).numpy()
+                npt.assert_array_equal(g, w.astype(g.dtype), err_msg=f)
+            # what _paged_attn_local_ref derives (decode.py:876-880), where
+            # a dropped write (ws == slots) is the port's sink slot
+            wv = np.asarray(want.w_valid[0]) & (True if act is None
+                                                else act)
+            ws = np.where(wv, np.asarray(want.w_slot[0]), slots)
+            npt.assert_array_equal(got.w_row.numpy(), ws * bs + ctx % bs)
+            assert got.w_row.dtype == torch.int64
+            npt.assert_array_equal(got.extent.numpy(), ctx + 1)
+            npt.assert_array_equal(got.telemetry.numpy(), np.concatenate(
+                [getattr(got, k).reshape(-1).numpy()
+                 for k in ("in_rest", "accesses", "mapped")]))
+    w_valid = np.asarray(want.w_valid[0])
+    assert not w_valid[0] and not w_valid[1] and w_valid[3:].all()
+    hit = np.asarray(want.in_rest).reshape(B, nblk)
+    mapped = np.asarray(want.mapped).reshape(B, nblk)
+    assert hit.any() and (mapped & ~hit).any()      # both halves walked
+    assert utopia_translate_step.launches == 0      # CPU: plain version
+
+
+@pytest.mark.parametrize("restseg_fraction", [0.25, 0.75])
+def test_paged_attn_local_writes_and_reads_as_jax(restseg_fraction,
+                                                  jax_ref):
+    """The decode layer's write through the precomputed flat row and its
+    read up to the precomputed extent: the same pool entries and output as
+    JAX's ``_paged_attn_local_ref``; a dropped write lands in the sink."""
+    B, nblk, bs, slots, _ = STEP_GEOMETRIES["small"]
+    H, KV, D = 4, 2, 16
+    tables, ctx, active, geom, n_sets = _step_tables(
+        "modulo", restseg_fraction, B, nblk, bs, slots)
+    rng = np.random.RandomState(3)
+    q, k, v = (rng.randn(B, n, D).astype(np.float32) for n in (H, KV, KV))
+    kp, vp = (rng.randn(slots, bs, KV, D).astype(np.float32)
+              for _ in range(2))
+    jspec = JDecodeSpec(block_size=bs, max_blocks_per_seq=nblk,
+                        slots_per_group=slots, n_sets=n_sets, assoc=8)
+    jt = j_translate_step(*map(jnp.asarray, tables), jnp.asarray(ctx), jspec)
+    jt = jt._replace(w_valid=jt.w_valid & jnp.asarray(active)[None])
+    jout, jkp, jvp = j_paged_local(*map(jnp.asarray, (q, k, v, kp, vp)), jt,
+                                   jnp.asarray(ctx), jspec)
+    trans = translate_step_ref(*[_t(a) for a in (*tables, ctx)],
+                               _t(active), **geom)
+    tkp, tvp = (torch.from_numpy(np.concatenate(
+        [p, np.zeros((1, bs, KV, D), np.float32)])) for p in (kp, vp))
+    out = decode._paged_attn_local(_t(q), _t(k), _t(v), tkp, tvp,
+                                   trans.slots[0], trans.w_row, trans.extent)
+    npt.assert_allclose(out.numpy(), np.asarray(jout), rtol=2e-5, atol=2e-5)
+    for got, want in ((tkp, jkp), (tvp, jvp)):
+        npt.assert_array_equal(got[:slots].numpy(), np.asarray(want))
+    # rows 0 (past its range), 1 (unmapped) and 2 (inactive) wrote the sink
+    sink_rows = {int(r) for r in trans.w_row[:3]}
+    assert sink_rows == {slots * bs + int(c) % bs for c in ctx[:3]}
+    assert (tkp[slots].reshape(bs, -1).abs().sum(1) > 0).sum() == len(
+        sink_rows)
 
 
 # --------------------------------------------------------- paged attention
@@ -325,6 +450,45 @@ def test_gpu_rsw_kernel_matches_plain(cuda, hash_name):
     got = utopia_rsw(*[a.to(cuda) for a in args], hash_name=hash_name)
     for g, w in zip(got, rsw_ref(*args, hash_name=hash_name)):
         assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("assoc", [4, 6, 12, 16])
+def test_gpu_rsw_kernel_any_assoc(cuda, assoc):
+    """The walk's three TAR reads: two 16-byte loads at assoc 8 (above),
+    a loop of them at any other multiple of 4, scalar loads otherwise."""
+    tar, sf, flex = _tables("modulo", assoc)
+    args = [_t(a) for a in (np.arange(16 * 32, dtype=np.int32), tar, sf,
+                            flex)]
+    got = utopia_rsw(*[a.to(cuda) for a in args])
+    want = rsw_ref(*args)
+    assert want[1].any() and not want[1].all()
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("geometry", ["engine", "deployment"])
+@pytest.mark.parametrize("hash_name", HASHES)
+def test_gpu_translate_step_kernel_matches_plain(cuda, geometry, hash_name):
+    """The step entry against ``translate_step_ref`` at the smoke engine's
+    geometry and at a granite-8b deployment's (64 rows of 64 blocks, a
+    5120-slot pool), with a row past its vpn range, an unmapped write block
+    and an inactive row; one launch per call."""
+    B, nblk, bs, slots, frac = STEP_GEOMETRIES[geometry]
+    tables, ctx, active, geom, _ = _step_tables(hash_name, frac, B, nblk, bs,
+                                                slots)
+    args = [_t(a) for a in (*tables, ctx)]
+    for act in (None, _t(active)):
+        want = translate_step_ref(*args, act, **geom)
+        n0 = utopia_translate_step.launches
+        got = utopia_translate_step(*[a.to(cuda) for a in args],
+                                    None if act is None else act.to(cuda),
+                                    **geom)
+        torch.cuda.synchronize()
+        assert utopia_translate_step.launches == n0 + 1
+        for f in StepTranslation._fields:
+            assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
 
 
 @pytest.mark.gpu
