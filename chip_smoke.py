@@ -11,6 +11,10 @@ JAX):
 The second form builds the kernels and runs only phase 4's decode-step
 profile, of this checkout's port or of another commit's (a parent
 unpacked with ``git archive``), so that two commits compare in one call.
+Phases 3 and 4 and the profile pass their engine configuration
+explicitly (flash attention, recompute prefill, no prefix cache), so that
+their numbers compare with earlier commits'; phase 5 runs the engine's
+default admission path.
 
 Phases, each failing loudly:
 
@@ -30,24 +34,40 @@ Phases, each failing loudly:
    range, an unmapped write block and an inactive row; paged attention
    also with a zero-extent row, token-striped shards, and bitwise batch
    and query-rank invariance; flash attention also at every prefill
-   bucket length (8 .. 1024).  Then time kernel, plain version, and for
+   bucket length (8 .. 1024).  Paged attention also at the prefix-KV
+   prefill's read (Q = 256 queries a row over prefix extents 192, 448, 0
+   and 320, the third a padded row that must give l == 0 and m == -1e30).
+   Then time kernel, plain version, and for
    flash attention ``scaled_dot_product_attention`` (CUDA events and
    profiler device time) as a yardstick the port never calls; the step
    translation beside an empty kernel's device time and PR 12's eager
    composition.  The step translation and paged attention must each be
    one device kernel per call;
-3. serve the same greedy requests with a 2-layer full-width granite-8b in
-   float32 on the card and on the CPU, with the same weights, twice: as
-   in earlier slices, and under pool pressure (restseg fraction 0.25, a
-   40-slot pool), where the card must walk the flex table and promote
-   blocks.  Admission logs and manager stats must be identical and the
-   token streams agree (a divergence is tolerated only where the top-2
-   logit margin is below 1e-3);
+3. serve the same requests with a 2-layer full-width granite-8b in
+   float32 on the card and on the CPU, with the same weights, three
+   times: greedy as in earlier slices, greedy under pool pressure
+   (restseg fraction 0.25, a 40-slot pool), where the card must walk the
+   flex table and promote blocks, and on the default admission path
+   (prefix-KV prefill with the paged prefix read, the prefix cache, half
+   the requests sampled with fixed seeds; two requests share a 3-block
+   prefix).  Admission logs, manager stats and the cache's stats must be
+   identical.  In the first two runs a stream may differ only where the
+   top-2 logit margin is below 1e-3; in the third every stream must be
+   identical, and a cache-off rerun on the card must give the same
+   streams;
 4. serve granite-8b at its published width and depth (36 layers, random
-   bfloat16 weights from a seeded generator) through the port's Engine:
-   8 requests, 32 new tokens each; every kernel's launch count must grow.
-   Then profile one admission step and one steady decode step (device
-   time by kernel, device kernels per step, idle share).
+   bfloat16 weights from a seeded generator) through the port's Engine
+   with flash attention and recompute prefill: 8 requests, 32 new tokens
+   each; every kernel's launch count must grow.  Then profile one
+   admission step and one steady decode step (device time by kernel,
+   device kernels per step, idle share);
+5. serve granite-8b at full width and depth again, with phase 4's
+   weights, on the engine's default admission path (dense attention,
+   prefix-KV prefill with the paged prefix read, the prefix cache;
+   budget 256): 8 requests of 64-704 tokens, four sharing a 384-token
+   system prompt, half sampled.  Paged attention must launch with Q > 1,
+   the cache must hit, and every stream must hold 32 in-vocab tokens.
+   Then profile one prefix-KV admission step.
 
 It prints the build times, the kernel checks, one JSON line of kernel
 measurements, the serving numbers, the card's name and power limit, and
@@ -612,6 +632,87 @@ def check_paged(torch, dev, results):
         shape=f"B={B} H={H} KV={KV} D={D} bs={bs} ctx={ctx.tolist()} bf16")
 
 
+# the prefix-KV prefill's pool read: a bucket of 4 chunks of 256 tokens
+# over prefix extents that are no multiples of 256; row 2 is a pad row
+PREFIX_READ = dict(B=4, Q=256, H=32, KV=8, D=128, bs=64, nblk=16,
+                   extents=(192, 448, 0, 320))
+
+
+def _prefix_read_case(torch, dev, gen):
+    """bf16 q (B, Q, H, D) and pools, each row's prefix blocks mapped to
+    distinct slots (the rest -1, a pad row all -1) and its extent."""
+    c = PREFIX_READ
+    B, Q, H, KV, D, bs, nblk = (c[k] for k in ("B", "Q", "H", "KV", "D",
+                                                "bs", "nblk"))
+    n_slots = 64
+    perm = torch.randperm(n_slots, generator=gen)
+    slots = torch.full((B, nblk), -1, dtype=torch.int32)
+    used = 0
+    for b, e in enumerate(c["extents"]):
+        nb = -(-e // bs)
+        slots[b, :nb] = perm[used:used + nb].to(torch.int32)
+        used += nb
+    q = torch.randn((B, Q, H, D), generator=gen).to(dev, torch.bfloat16)
+    kp = torch.randn((n_slots, bs, KV, D), generator=gen).to(
+        dev, torch.bfloat16)
+    vp = torch.randn((n_slots, bs, KV, D), generator=gen).to(
+        dev, torch.bfloat16)
+    ctx = torch.tensor(c["extents"], dtype=torch.int32)
+    return q, kp, vp, slots.to(dev), ctx.to(dev)
+
+
+def check_paged_prefix(torch, dev, results):
+    """Paged attention at the prefix-KV prefill's read (the Q > 1 path of
+    ``serve/prefill.py``, ``prefix_gather="paged"``): held against its
+    plain version at 3e-2, the pad row exact (l == 0, m == -1e30), one
+    device kernel per call; timed beside its plain version and its bytes
+    bound with each row's prefix K/V read once."""
+    from repro_torch.kernels.paged_attention.ops import (paged_attention,
+                                                         split_plan)
+    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+    gen = torch.Generator().manual_seed(SEED + 1)
+    sets = [_prefix_read_case(torch, dev, gen) for _ in range(4)]
+    q, kp, vp, slots, ctx = sets[0]
+    got = paged_attention(q, kp, vp, slots, ctx)
+    want = paged_attention_ref(q, kp, vp, slots, ctx)
+    err = max(check_close("paged_attention[prefix read]", g, w, 3e-2)
+              for g, w in zip(got, want))
+    o, m, l = got
+    if float(l[2].abs().max()) != 0.0 or bool((m[2] != -1e30).any()):
+        raise AssertionError("paged_attention prefix read: the pad row "
+                             "must give l == 0 and m == -1e30")
+    kern = [lambda s=s: paged_attention(*s) for s in sets]
+    plain = [lambda s=s: paged_attention_ref(*s) for s in sets]
+    per_call = launches_per_call(torch, kern[0])
+    if per_call != 1:
+        raise AssertionError(f"paged_attention prefix read: {per_call} "
+                             "device kernels per call, expected 1")
+    c = PREFIX_READ
+    B, Q, H, KV, D, bs = (c[k] for k in ("B", "Q", "H", "KV", "D", "bs"))
+    n_tok = sum(-(-e // bs) * bs for e in c["extents"])
+    nbytes = (B * Q * H * D * 2 + 2 * n_tok * KV * D * 2
+              + slots.numel() * 4 + ctx.numel() * 4
+              + B * Q * H * D * 4 + 2 * B * Q * H * 4)
+    flops = 4 * D * H * Q * sum(c["extents"])
+    bound_bytes = nbytes / HBM_BYTES_PER_S
+    bound_ops = flops / PEAK_FLOPS["bfloat16"]
+    r = dict(
+        max_abs_err=err, ms=time_ms(torch, kern, 40),
+        device_ms=device_ms(torch, kern[0], 10, ("paged_attn_kernel",)),
+        plain_ms=time_ms(torch, plain, 8),
+        bound_ms=max(bound_bytes, bound_ops) * 1e3,
+        bound_by="bytes" if bound_bytes >= bound_ops else "operations",
+        bytes=nbytes, flops=flops, device_kernels_per_call=per_call,
+        ctas=KV * split_plan(c["nblk"])[0] * Q * B,
+        shape=f"B={B} Q={Q} H={H} KV={KV} D={D} bs={bs} nblk={c['nblk']} "
+              f"extents={list(c['extents'])} bf16")
+    results["paged_attention_prefix_read"] = r
+    log("check paged_attention prefix read (" + r["shape"] + "): max abs "
+        f"err {err:.3g} (tol 3e-2), pad row l == 0 and m == -1e30; "
+        + json.dumps({k: (round(v, 6) if isinstance(v, float) else v)
+                      for k, v in r.items() if k != "shape"}))
+
+
 def check_flash(torch, dev, results):
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention.ops import flash_attention
@@ -684,8 +785,8 @@ def to_device(tree, dev):
 
 def serve(eng, requests):
     """Submit, step to completion.  Returns ({seq_id: tokens}, steps):
-    one record per step of (wall s, chunks admitted, rows decoding,
-    {seq_id: token}, {seq_id: batch slot})."""
+    one record per step of (wall s, chunks admitted (ChunkRecords), rows
+    decoding, {seq_id: token}, {seq_id: batch slot})."""
     for r in requests:
         eng.submit(r)
     steps = []
@@ -696,9 +797,8 @@ def serve(eng, requests):
         slots = dict(eng._slot_of)
         t0 = time.perf_counter()
         out = eng.step()             # ends in the step's one .cpu() copy
-        steps.append((time.perf_counter() - t0,
-                      len(eng.admission_log) - n_log, live, out,
-                      {**slots, **eng._slot_of}))
+        steps.append((time.perf_counter() - t0, eng.admission_log[n_log:],
+                      live, out, {**slots, **eng._slot_of}))
         if len(steps) > 10000:
             raise RuntimeError("engine failed to drain")
     return ({sid: list(st.generated) for sid, st in eng._states.items()},
@@ -708,64 +808,86 @@ def serve(eng, requests):
 def record_margins(eng, margins):
     """Wrap the engine's steps to keep each step's top-2 logit margins,
     keyed by (kind, step) and then batch slot."""
-    serve_step, prefill_step = eng._serve_step, eng._prefill_step
+    serve_step = eng._serve_step
 
     def top2(logits):
         v = logits.float().topk(2, dim=-1).values
         return (v[:, 0] - v[:, 1]).tolist()
 
-    def serve_rec(params, dstate, tokens, active=None):
-        logits, dstate, stats = serve_step(params, dstate, tokens, active)
+    def serve_rec(params, dstate, tokens, active=None, **kw):
+        logits, dstate, stats = serve_step(params, dstate, tokens, active,
+                                           **kw)
         margins[("decode", eng.step_count)] = dict(enumerate(top2(logits)))
         return logits, dstate, stats
 
-    def prefill_rec(params, dstate, batch, slots, slot_ids, *rest):
-        last, dstate, stats = prefill_step(params, dstate, batch, slots,
-                                           slot_ids, *rest)
-        row = margins.setdefault(("prefill", eng.step_count), {})
-        for sid, m in zip(slot_ids.tolist(), top2(last)):
-            if sid >= 0:
-                row[sid] = m
-        return last, dstate, stats
+    def first_rec(step, sid_arg):
+        """A prefill step's wrapper; its ``sid_arg``-th argument after the
+        batch is ``slot_ids``."""
+        def rec(params, dstate, batch, *args, **kw):
+            last, dstate, stats = step(params, dstate, batch, *args, **kw)
+            row = margins.setdefault(("prefill", eng.step_count), {})
+            for sid, m in zip(args[sid_arg].tolist(), top2(last)):
+                if sid >= 0:
+                    row[sid] = m
+            return last, dstate, stats
+        return rec
 
-    eng._serve_step, eng._prefill_step = serve_rec, prefill_rec
+    eng._serve_step = serve_rec
+    eng._prefill_step = first_rec(eng._prefill_step, 1)
+    eng._prefix_step = first_rec(eng._prefix_step, 2)
 
 
 def margin_of(margins, steps, sid, i):
-    """Top-2 margin of the logits that produced token ``i`` of ``sid``."""
+    """(step, top-2 margin of the logits) that produced token ``i`` of
+    ``sid``."""
     seen = 0
     for step, (_, _, _, out, slots) in enumerate(steps, start=1):
         if sid in out:
             if seen == i:
                 kind = "prefill" if i == 0 else "decode"
-                return margins[(kind, step)][slots[sid]]
+                return step, margins[(kind, step)][slots[sid]]
             seen += 1
-    return None
+    return None, None
 
 
-def card_vs_cpu(torch, dev, params, prompt_lens, new_tokens, label,
-                **engine_kw):
-    """Serve the same greedy requests on the card and on the CPU with the
-    same weights (a 2-layer full-width granite-8b in float32).  Admission
-    log and manager stats must be identical, and a stream may differ only
-    from a near-tie (top-2 logit margin below 1e-3).  Returns the card's
-    manager stats."""
-    import numpy as np
+# phases 3 and 4 (and the decode profile) pin the configuration of earlier
+# slices, so that their numbers compare with earlier commits'
+EARLIER_PATH = dict(attn_impl="flash", prefill_mode="recompute",
+                    prefix_cache=None)
+SAMPLED = dict(temperature=0.8, top_k=50, top_p=0.95)
+
+
+def card_vs_cpu(torch, dev, params, prompts, new_tokens, label,
+                sampled=(), strict=False, rerun=None, **engine_kw):
+    """Serve the same requests on the card and on the CPU with the same
+    weights (a 2-layer full-width granite-8b in float32); requests whose
+    index is in ``sampled`` sample with fixed seeds.  Admission log,
+    manager stats and the prefix cache's stats must be identical.  A
+    stream may differ only from a near-tie (top-2 logit margin below
+    1e-3), or not at all with ``strict``.  ``rerun`` (engine overrides)
+    serves the requests once more on the card, and its streams must equal
+    the first card run's.  Returns the card's ``stats()``."""
     from repro_torch.serve import Engine, EngineConfig, Request
+    from repro_torch.serve import SamplingParams
     cfg, params = params
-    rng = np.random.RandomState(SEED)
-    prompts = [rng.randint(0, cfg.vocab_size, n) for n in prompt_lens]
+
+    def requests():
+        return [Request(seq_id=i, prompt=pr, max_new_tokens=new_tokens,
+                        sampling=(SamplingParams(seed=SEED + 100 + i,
+                                                 **SAMPLED)
+                                  if i in sampled else SamplingParams()))
+                for i, pr in enumerate(prompts)]
+
     ecfg = EngineConfig(auto_release=True, **engine_kw)
     runs, margins = {}, {}
-    for name, d, p in (("cuda", dev, to_device(params, dev)),
+    cuda_params = to_device(params, dev)
+    for name, d, p in (("cuda", dev, cuda_params),
                        ("cpu", torch.device("cpu"), params)):
         eng = Engine(cfg, p, ecfg, device=d)
         if name == "cuda":
             record_margins(eng, margins)
         t0 = time.perf_counter()
-        streams, steps = serve(eng, [
-            Request(seq_id=i, prompt=pr, max_new_tokens=new_tokens)
-            for i, pr in enumerate(prompts)])
+        streams, steps = serve(eng, requests())
         runs[name] = (streams, steps, eng, time.perf_counter() - t0)
     (cs, csteps, ceng, ct), (ps, _, peng, pt) = runs["cuda"], runs["cpu"]
     # no eos: the schedule, and so the translation, cannot depend on the
@@ -775,6 +897,11 @@ def card_vs_cpu(torch, dev, params, prompt_lens, new_tokens, label,
     if dict(ceng.manager.stats) != dict(peng.manager.stats):
         raise AssertionError(f"{label}: card and CPU translation stats "
                              "differ")
+    cst, pst = ceng.stats(), peng.stats()
+    if cst["prefix_cache"] != pst["prefix_cache"]:
+        raise AssertionError(f"{label}: card and CPU prefix-cache stats "
+                             f"differ ({cst['prefix_cache']} vs "
+                             f"{pst['prefix_cache']})")
     ceng.check_invariants()
     same = 0
     for sid in sorted(cs):
@@ -783,52 +910,92 @@ def card_vs_cpu(torch, dev, params, prompt_lens, new_tokens, label,
             continue
         i = next(k for k, (a, b) in enumerate(zip(cs[sid], ps[sid]))
                  if a != b)
-        m = margin_of(margins, csteps, sid, i)
-        log(f"card vs CPU ({label}): request {sid} diverges at token {i}: "
-            f"card {cs[sid][i]} vs CPU {ps[sid][i]}, top-2 logit margin {m}")
-        if m is None or m >= 1e-3:
-            raise AssertionError("card and CPU streams diverge where the "
-                                 "top-2 margin is not a near-tie")
+        step, m = margin_of(margins, csteps, sid, i)
+        log(f"card vs CPU ({label}): request {sid} "
+            f"({'sampled' if sid in sampled else 'greedy'}) diverges at "
+            f"token {i} (step {step}): card {cs[sid][i]} vs CPU "
+            f"{ps[sid][i]}, top-2 logit margin {m}")
+        if strict or m is None or m >= 1e-3:
+            raise AssertionError(f"{label}: card and CPU streams diverge "
+                                 f"at step {step} (top-2 margin {m})")
+    if rerun is not None:
+        eng = Engine(cfg, cuda_params, dataclasses.replace(ecfg, **rerun),
+                     device=dev)
+        again, _ = serve(eng, requests())
+        for sid in sorted(cs):
+            if again[sid] != cs[sid]:
+                i = next(k for k, (a, b) in enumerate(zip(again[sid],
+                                                          cs[sid]))
+                         if a != b)
+                raise AssertionError(
+                    f"{label}: the card's rerun with {rerun} diverges from "
+                    f"its first run for request {sid} at token {i}")
     stats = dict(ceng.manager.stats)
     log(f"card vs CPU ({label}; granite-8b width, 2 layers, f32, "
-        f"{len(prompts)} requests, {engine_kw}): {same} of {len(cs)} token "
-        f"streams identical, the rest diverge only at near-ties; admission "
-        f"log and manager stats identical: {json.dumps(stats)} "
-        f"({ct:.1f} s on the card, {pt:.1f} s on the CPU)")
-    return stats
+        f"{len(prompts)} requests, {len(sampled)} sampled, {engine_kw}): "
+        f"{same} of {len(cs)} token streams identical"
+        + ("" if strict else ", the rest diverge only at near-ties")
+        + (f", the card's rerun with {rerun} identical" if rerun else "")
+        + f"; admission log, manager and cache stats identical: "
+        f"{json.dumps(stats)} prefix cache {json.dumps(cst['prefix_cache'])}"
+        f" ({ct:.1f} s on the card, {pt:.1f} s on the CPU)")
+    return cst
 
 
 def card_vs_cpu_runs(torch, dev):
-    """Phase 3: the run of earlier slices, then a pressure run whose
-    RestSeg (one set of 8 ways in a 40-slot pool) overflows, so the card
-    walks the flex table, promotes hot flexible blocks and syncs the
-    TAR/SF/flex deltas inside a serving run."""
+    """Phase 3: the run of earlier slices, a pressure run whose RestSeg
+    (one set of 8 ways in a 40-slot pool) overflows, so the card walks the
+    flex table, promotes hot flexible blocks and syncs the TAR/SF/flex
+    deltas inside a serving run, and a run of the default admission path:
+    prefix-KV chunks read the pool through the Q > 1 paged kernel, a
+    request attaches a cached 3-block prefix, half the requests sample."""
+    import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.models import model_dims
     from repro_torch.params import init_params
     cfg = dataclasses.replace(get_config("granite-8b"), num_layers=2)
     params = (cfg, init_params(torch.Generator().manual_seed(SEED), cfg,
                                model_dims(cfg), torch.float32, "cpu"))
-    card_vs_cpu(torch, dev, params, (64, 128, 192), 6, "default",
-                max_batch=4, max_seq_len=256)
-    stats = card_vs_cpu(torch, dev, params, (64, 128, 192, 320, 64, 256), 8,
-                        "pressure", max_batch=4, max_seq_len=512,
-                        restseg_fraction=0.25)
-    if stats.get("flex_walks", 0) <= 0 or stats.get(
+    rng = np.random.RandomState(SEED)
+
+    def prompts(lens):
+        return [rng.randint(0, cfg.vocab_size, n) for n in lens]
+
+    card_vs_cpu(torch, dev, params, prompts((64, 128, 192)), 6, "default",
+                max_batch=4, max_seq_len=256, **EARLIER_PATH)
+    st = card_vs_cpu(torch, dev, params,
+                     prompts((64, 128, 192, 320, 64, 256)), 8, "pressure",
+                     max_batch=4, max_seq_len=512, restseg_fraction=0.25,
+                     **EARLIER_PATH)
+    if st.get("flex_walks", 0) <= 0 or st.get(
             "migrations_flex_to_rest", 0) <= 0:
         raise AssertionError(f"pressure run: no flex walk or no promotion on "
-                             f"the card ({stats})")
-
-
-def full_width(torch, dev):
-    import numpy as np
-    from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention.ops import flash_attention
+                             f"the card ({st})")
+    # requests 0 and 1 share a 3-block prefix; request 0 (320 tokens) and
+    # request 3 (448) chunk under the 256-token budget
+    ps = prompts((320, 256, 128, 448, 64, 192))
+    ps[1][:192] = ps[0][:192]
     from repro_torch.kernels.paged_attention.ops import paged_attention
-    from repro_torch.kernels.utopia_rsw.ops import utopia_translate_step
+    before = paged_attention.launches_multi_query
+    st = card_vs_cpu(torch, dev, params, ps, 8, "prefix-KV, cache, sampled",
+                     sampled=(1, 3, 5), strict=True,
+                     rerun=dict(prefix_cache=None), max_batch=4,
+                     max_seq_len=512, prefill_budget=256,
+                     prefill_mode="prefix_kv", prefix_gather="paged",
+                     prefix_cache="auto")
+    if st["prefix_cache"]["hits"] <= 0:
+        raise AssertionError(f"prefix-KV run: no prefix-cache hit ({st})")
+    if paged_attention.launches_multi_query <= before:
+        raise AssertionError("prefix-KV run: paged attention never ran "
+                             "with Q > 1 on the card")
+
+
+def granite(torch, dev):
+    """granite-8b at its published width and depth with random bf16
+    weights from a seeded generator: (cfg, dims, params)."""
+    from repro_torch.configs import get_config
     from repro_torch.models import model_dims
     from repro_torch.params import init_params
-    from repro_torch.serve import Engine, EngineConfig, Request
     cfg = get_config("granite-8b")
     dims = model_dims(cfg)
     t0 = time.perf_counter()
@@ -840,9 +1007,40 @@ def full_width(torch, dev):
         f"{dims.n_heads}/{dims.n_kv} heads, d_ff {dims.d_ff}, vocab "
         f"{dims.vocab}: {n_params / 1e9:.2f} B bf16 parameters drawn in "
         f"{time.perf_counter() - t0:.1f} s")
+    return cfg, dims, params
+
+
+def _kernel_counts(reset=False):
+    """The kernel wrappers' launch counts (set to 0 first with
+    ``reset``)."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.paged_attention.ops import paged_attention
+    from repro_torch.kernels.utopia_rsw.ops import utopia_translate_step
+    fns = {"utopia_translate_step": (utopia_translate_step, "launches"),
+           "paged_attention": (paged_attention, "launches"),
+           "paged_attention_q_gt1": (paged_attention,
+                                     "launches_multi_query"),
+           "flash_attention": (flash_attention, "launches")}
+    if reset:
+        for fn, attr in fns.values():
+            setattr(fn, attr, 0)
+    return {name: getattr(fn, attr) for name, (fn, attr) in fns.items()}
+
+
+def check_streams(reqs, streams, vocab):
+    for r in reqs:
+        toks = streams[r.seq_id]
+        if len(toks) != r.max_new_tokens or not all(0 <= t < vocab
+                                                    for t in toks):
+            raise AssertionError(f"request {r.seq_id} produced {toks}")
+
+
+def full_width(torch, dev, cfg, dims, params):
+    import numpy as np
+    from repro_torch.serve import Engine, EngineConfig, Request
     eng = Engine(cfg, params, EngineConfig(
         max_batch=4, max_seq_len=1024, auto_release=True,
-        dtype=torch.bfloat16), device=dev)
+        dtype=torch.bfloat16, **EARLIER_PATH), device=dev)
     bs = cfg.kv_block_size
     rng = np.random.RandomState(SEED)
     lens = [bs * n for n in (1, 11, 2, 7, 3, 9, 5, 4)]   # 64 .. 704 tokens
@@ -852,36 +1050,31 @@ def full_width(torch, dev):
 
     serve_step = eng._serve_step
 
-    def checked(params, dstate, tokens, active=None):
-        logits, dstate, stats = serve_step(params, dstate, tokens, active)
+    def checked(params, dstate, tokens, active=None, **kw):
+        logits, dstate, stats = serve_step(params, dstate, tokens, active,
+                                           **kw)
         if not first:
             first["finite"] = bool(torch.isfinite(logits).all())
             first["shape"] = tuple(logits.shape)
         return logits, dstate, stats
 
     eng._serve_step = checked
-    for fn in (utopia_translate_step, paged_attention, flash_attention):
-        fn.launches = 0
+    _kernel_counts(reset=True)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     streams, steps = serve(eng, reqs)
     wall = time.perf_counter() - t0
-    launches = {"utopia_translate_step": utopia_translate_step.launches,
-                "paged_attention": paged_attention.launches,
-                "flash_attention": flash_attention.launches}
-    for name, n in launches.items():
-        if n <= 0:
+    launches = _kernel_counts()
+    for name in ("utopia_translate_step", "paged_attention",
+                 "flash_attention"):
+        if launches[name] <= 0:
             raise AssertionError(f"{name} was never launched on the main "
                                  "path")
     eng.check_invariants()
     if not first.get("finite") or first["shape"] != (4, dims.vocab):
         raise AssertionError(f"decode logits not finite / wrong shape "
                              f"{first}")
-    for r in reqs:
-        toks = streams[r.seq_id]
-        if len(toks) != 32 or not all(0 <= t < cfg.vocab_size
-                                      for t in toks):
-            raise AssertionError(f"request {r.seq_id} produced {toks}")
+    check_streams(reqs, streams, cfg.vocab_size)
     st = eng.stats()
     decode_only = [w for w, admitted, live, _, _ in steps
                    if not admitted and live]
@@ -899,9 +1092,115 @@ def full_width(torch, dev):
                                3),
         launches=launches)
     log("granite-8b full width, 36 layers, bf16, Engine(max_batch=4, "
-        "max_seq_len=1024): " + json.dumps({"serving": summary}))
+        "max_seq_len=1024, attn_impl='flash', prefill_mode='recompute', "
+        "prefix_cache=None): " + json.dumps({"serving": summary}))
     profile_decode_step(torch, eng, rng, cfg)
     return launches
+
+
+# phase 5: the engine's default admission path at full width
+PHASE5 = dict(max_batch=4, max_seq_len=1024, attn_impl="dense",
+              prefill_mode="prefix_kv", prefix_gather="paged",
+              prefix_cache="auto", prefill_budget=256, auto_release=True)
+
+
+def full_width_prefix(torch, dev, cfg, dims, params):
+    """Phase 5: 8 requests of 64-704 tokens, 32 new tokens each; requests
+    1, 3, 5 and 7 open with one 384-token system prompt; requests 0, 3, 4
+    and 7 sample (fixed seeds).  Reads the launch counts of this run
+    alone; then profiles one prefix-KV admission step."""
+    import numpy as np
+    from repro_torch.serve import Engine, EngineConfig, Request
+    from repro_torch.serve import SamplingParams
+    eng = Engine(cfg, params, EngineConfig(dtype=torch.bfloat16, **PHASE5),
+                 device=dev)
+    bs = cfg.kv_block_size
+    rng = np.random.RandomState(SEED + 5)
+    system = rng.randint(0, cfg.vocab_size, 384)
+    lens = [bs * n for n in (1, 11, 2, 7, 3, 9, 5, 8)]   # 64 .. 704 tokens
+    shared, sampled = (1, 3, 5, 7), (0, 3, 4, 7)
+    reqs = []
+    for i, n in enumerate(lens):
+        p = rng.randint(0, cfg.vocab_size, n)
+        if i in shared:
+            p[:384] = system
+        reqs.append(Request(
+            seq_id=i, prompt=p, max_new_tokens=32,
+            sampling=(SamplingParams(seed=SEED + 100 + i, **SAMPLED)
+                      if i in sampled else SamplingParams())))
+    _kernel_counts(reset=True)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    streams, steps = serve(eng, reqs)
+    wall = time.perf_counter() - t0
+    launches = _kernel_counts()
+    for name in ("utopia_translate_step", "paged_attention",
+                 "paged_attention_q_gt1"):
+        if launches[name] <= 0:
+            raise AssertionError(f"phase 5: {name} was never launched on the "
+                                 "default admission path")
+    eng.check_invariants()
+    check_streams(reqs, streams, cfg.vocab_size)
+    st = eng.stats()
+    pc = st["prefix_cache"]
+    if pc["hits"] <= 0:
+        raise AssertionError(f"phase 5: no prefix-cache hit ({pc})")
+    admit = {"recompute": [], "prefix_kv": [], "mixed": []}
+    for w, recs, _, _, _ in steps:
+        paths = {r.path for r in recs}
+        if paths:
+            admit[paths.pop() if len(paths) == 1 else "mixed"].append(w)
+    decode_only = [w for w, recs, live, _, _ in steps if not recs and live]
+    n_tok = sum(len(t) for t in streams.values())
+    summary = dict(
+        requests=len(reqs), prompt_tokens=lens, new_tokens_each=32,
+        shared_system_prompt=dict(tokens=384, requests=list(shared)),
+        sampled_requests=list(sampled), steps=len(steps),
+        admission_steps={k: dict(n=len(v), ms_total=round(sum(v) * 1e3, 3))
+                         for k, v in admit.items()},
+        chunks=[[r.seq_id, r.start, r.end, r.path]
+                for r in eng.admission_log],
+        decode_step_ms_median=round(statistics.median(decode_only) * 1e3, 3),
+        tokens_per_s=round(n_tok / wall, 2), wall_s=round(wall, 3),
+        gpu_mem_peak_gib=round(torch.cuda.max_memory_allocated() / 2 ** 30,
+                               3),
+        prefix_cache=pc, launches=launches)
+    log("phase 5: granite-8b full width, 36 layers, bf16, Engine("
+        + ", ".join(f"{k}={v!r}" for k, v in PHASE5.items()) + "): "
+        + json.dumps({"serving": summary}))
+    profile_prefix_step(torch, eng, rng, cfg)
+    return launches
+
+
+def profile_prefix_step(torch, eng, rng, cfg):
+    """A 512-token prompt admits as chunk 0 (recompute) and then one
+    prefix-KV chunk of 256 tokens over a 256-token prefix; that second
+    admission step runs under the profiler (device ms by kernel, and the
+    share of the Q > 1 paged read)."""
+    from repro_torch.serve import Request
+    eng.submit(Request(seq_id=200, prompt=rng.randint(0, cfg.vocab_size,
+                                                      512),
+                       max_new_tokens=4))
+    eng.step()                                   # chunk 0
+    n_log = len(eng.admission_log)
+    rows = profile_cold(torch, eng.step, tries=1)  # an admission runs once
+    recs = eng.admission_log[n_log:]
+    if [r.path for r in recs] != ["prefix_kv"]:
+        raise AssertionError(f"the profiled step admitted {recs}, not one "
+                             "prefix-KV chunk")
+    while eng.has_unfinished():
+        eng.step()
+    busy = sum(ms for _, ms, _ in rows)
+    paged = sum(ms for name, ms, _ in rows if "paged_attn_kernel" in name)
+    n_paged = sum(n for name, _, n in rows if "paged_attn_kernel" in name)
+    top = [dict(kernel=name[:90], ms=round(ms, 4), launches=n)
+           for name, ms, n in rows[:8]]
+    log("prefix-KV admission step under the profiler (one chunk of 256 "
+        "tokens over a 256-token prefix): " + json.dumps({"profile": dict(
+            device_busy_ms=round(busy, 3), paged_q_gt1_ms=round(paged, 4),
+            paged_q_gt1_launches=n_paged,
+            paged_q_gt1_share=round(paged / busy, 4) if busy else None,
+            kernels=len(rows), top=top)}))
 
 
 def profile_decode_step(torch, eng, rng, cfg):
@@ -970,7 +1269,7 @@ def decode_profile(torch, dev):
                          model_dims(cfg), torch.bfloat16, dev)
     eng = Engine(cfg, params, EngineConfig(
         max_batch=4, max_seq_len=1024, auto_release=True,
-        dtype=torch.bfloat16), device=dev)
+        dtype=torch.bfloat16, **EARLIER_PATH), device=dev)
     profile_decode_step(torch, eng, np.random.RandomState(SEED), cfg)
 
 
@@ -1056,20 +1355,34 @@ def main() -> int:
     check_rsw(torch, dev)
     check_translate_step(torch, dev, results)
     check_paged(torch, dev, results)
+    check_paged_prefix(torch, dev, results)
     check_flash(torch, dev, results)
     torch.cuda.synchronize()
     card_vs_cpu_runs(torch, dev)
     torch.cuda.empty_cache()
-    launches = full_width(torch, dev)
+    cfg, dims, params = granite(torch, dev)
+    paths = {"phase4": full_width(torch, dev, cfg, dims, params)}
+    torch.cuda.empty_cache()
+    paths["phase5"] = full_width_prefix(torch, dev, cfg, dims, params)
 
+    # launches: each path's count was set to 0 just before it and read
+    # just after; the line gives their sum and each path's
+    results["paged_attention"]["prefix_read"] = results.pop(
+        "paged_attention_prefix_read")
     kernels = []
     for name in ("utopia_translate_step", "paged_attention",
                  "flash_attention"):
         r = dict(results[name])
         source, replaces = KERNEL_META[name]
+        extra = {}
+        if name == "paged_attention":
+            extra["launches_q_gt1"] = sum(
+                c["paged_attention_q_gt1"] for c in paths.values())
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=launches[name], max_abs_err=r.pop("max_abs_err"),
+            launches=sum(c[name] for c in paths.values()),
+            launches_by_path={k: c[name] for k, c in paths.items()},
+            **extra, max_abs_err=r.pop("max_abs_err"),
             ms=r["ms"], kernel_ms=r.pop("ms"), **r))
     print(json.dumps({"kernels": kernels}), flush=True)
     card_line(torch)

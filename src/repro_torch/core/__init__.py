@@ -7,6 +7,8 @@ from .tar_sf import (RestSegState, RSWResult, TranslationState, rsw,
 from .policies import SRRIP, CostTracker, CostTrackerConfig
 from .kv_manager import (HybridKVManager, BlockInfo, PoolExhausted,
                          AllocLedger, REST, FLEX, SWAP)
+from .prefix_cache import (CHAIN_SEED, CacheEntry, PrefixCache,
+                           block_hash_chain)
 
 __all__ = [
     "HybridConfig", "RestSegConfig", "FlexSegConfig", "pool_slots_for",
@@ -15,4 +17,5 @@ __all__ = [
     "SRRIP", "CostTracker", "CostTrackerConfig",
     "HybridKVManager", "BlockInfo", "PoolExhausted", "AllocLedger",
     "REST", "FLEX", "SWAP",
+    "CHAIN_SEED", "CacheEntry", "PrefixCache", "block_hash_chain",
 ]

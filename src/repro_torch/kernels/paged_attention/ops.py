@@ -1,7 +1,9 @@
 """Wrapper of the paged-attention kernel (``csrc/paged_attention.cu``).
 
 A CUDA tensor launches the kernel or raises; a CPU tensor takes the plain
-version in ``ref.py``.  ``paged_attention.launches`` counts kernel launches.
+version in ``ref.py``.  ``paged_attention.launches`` counts kernel
+launches; ``paged_attention.launches_multi_query`` counts those among them
+with more than one query per row (the prefix-KV prefill's read).
 """
 from __future__ import annotations
 
@@ -120,7 +122,10 @@ def paged_attention(q, k_pool, v_pool, slots, ctx_len, *,
                     int(vec16), _build.stream_handle(q))
         _build.check_launch("paged_attention", rc)
         paged_attention.launches += 1
+        if Q > 1:
+            paged_attention.launches_multi_query += 1
     return o, m, l
 
 
 paged_attention.launches = 0
+paged_attention.launches_multi_query = 0

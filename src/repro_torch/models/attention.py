@@ -1,7 +1,12 @@
-"""Attention: the dense reference and the dispatch to the flash kernel.
+"""Attention: the dense reference, the prefix-KV parts and the dispatch to
+the flash kernel.
 
 * ``dense_attention`` — materializes the scores; the plain version of the
   flash kernel (``kernels/flash_attention``) and the CPU path.
+* ``causal_attention_parts`` / ``merge_attention_parts`` — the chunk's own
+  causal half of a prefix-KV chunk's attention as an unnormalized
+  ``(o, m, l)`` partial, and the online-softmax combine of such partials
+  (the other half comes from the paged-attention kernel).
 * ``attention(impl=...)`` — ``"flash"`` goes through the flash kernel's
   wrapper (the CUDA kernel on a CUDA tensor, ``dense_attention`` on a CPU
   tensor); ``"dense"`` always runs ``dense_attention``.
@@ -10,6 +15,7 @@ Both support GQA (n_heads = g * n_kv) and causal/full masks.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
@@ -47,6 +53,44 @@ def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqc,bckd->bqkgd", p, v.float())
     return o.reshape(B, Sq, H, D).to(q.dtype)
+
+
+def causal_attention_parts(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor):
+    """Unnormalized causal attention over a chunk's OWN K/V.
+
+    q: (B,S,H,hd), k/v: (B,S,KV,hd) -> (o_weighted (B,S,H,hd) float32,
+    m (B,S,H), l (B,S,H)): the intra-chunk half of the prefix-KV merge,
+    with the ``(o, m, l)`` contract of ``kernels.paged_attention``.  The
+    mask is chunk-relative: query i attends chunk positions j <= i
+    wherever the chunk sits in the sequence (the installed prefix is
+    entirely in the other part)."""
+    B, Sq, H, D = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    g = H // KV
+    qf = q.reshape(B, Sq, KV, g, D).float()
+    s = torch.einsum("bqkgd,bckd->bkgqc", qf, k.float()) * (1.0 / math.sqrt(D))
+    mask = (torch.arange(Sq, device=q.device)[:, None]
+            >= torch.arange(Skv, device=q.device)[None, :])
+    s = torch.where(mask, s, NEG_INF)
+    m = s.amax(dim=-1)                                    # (B,KV,g,Sq)
+    p = torch.where(mask, torch.exp(s - m[..., None]), 0.0)
+    l = p.sum(dim=-1)
+    o = torch.einsum("bkgqc,bckd->bkgqd", p, v.float())
+    o = o.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D)
+    return (o, m.permute(0, 3, 1, 2).reshape(B, Sq, H),
+            l.permute(0, 3, 1, 2).reshape(B, Sq, H))
+
+
+def merge_attention_parts(parts) -> torch.Tensor:
+    """Flash-decoding combine: [(o_weighted, m, l), ...] -> normalized o
+    (float32).  Each part is an unnormalized online-softmax partial over
+    a disjoint KV range; a part with l == 0 everywhere (an empty prefix,
+    m == -1e30) drops out exactly."""
+    m_glob = functools.reduce(torch.maximum, [m for _, m, _ in parts])
+    o = sum(o * torch.exp(m - m_glob)[..., None] for o, m, _ in parts)
+    l = sum(l * torch.exp(m - m_glob) for _, m, l in parts)
+    return o / l.clamp(min=1e-30)[..., None]
 
 
 def attention(q, k, v, *, impl: str = "flash", causal: bool = True):

@@ -32,6 +32,7 @@ from repro_torch.kernels.utopia_rsw.ops import translate_step_translator
 from repro_torch.kernels.utopia_rsw.ref import StepTranslation
 from repro_torch.models import layers as Lmod
 from repro_torch.models.transformer import ModelDims, layer_params
+from .sampling import sample_tokens
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,6 +44,19 @@ class DecodeSpec:
     assoc: int
     mode: str = "batch"          # batch only (striped: ROADMAP P15)
     hash_name: str = "modulo"
+    # prefix-KV chunked prefill: how chunk queries read the installed
+    # prefix blocks.  "exact" places the gathered K/V at their absolute
+    # positions and reuses the recompute forward's dense softmax
+    # (bit-identical to recompute); "paged" is the Q>1 paged-attention
+    # read merged with the chunk's own causal part (equal up to float
+    # associativity)
+    prefix_gather: str = "exact"
+
+    def __post_init__(self):
+        if self.prefix_gather not in ("exact", "paged"):
+            raise ValueError(f"unknown prefix gather impl "
+                             f"{self.prefix_gather!r} (expected 'exact' "
+                             "or 'paged')")
 
 
 def init_decode_state(cfg: ArchConfig, dims: ModelDims, spec: DecodeSpec,
@@ -65,6 +79,16 @@ def init_decode_state(cfg: ArchConfig, dims: ModelDims, spec: DecodeSpec,
         "sf": torch.zeros((1, spec.n_sets), **i32),
         "flex": torch.full((1, batch * spec.max_blocks_per_seq), -1, **i32),
         "ctx_len": torch.zeros((batch,), **i32),
+        # per-slot sampling state (serve/sampling.py), scattered at
+        # admission; zeros = greedy argmax.  The key data are uint32
+        # values held in int64
+        "samp_temp": torch.zeros((batch,), dtype=torch.float32,
+                                 device=device),
+        "samp_topk": torch.zeros((batch,), **i32),
+        "samp_topp": torch.zeros((batch,), dtype=torch.float32,
+                                 device=device),
+        "samp_key": torch.zeros((batch, 2), dtype=torch.int64,
+                                device=device),
     }
 
 
@@ -145,16 +169,19 @@ def project_logits(params, x: torch.Tensor, cfg: ArchConfig,
 
 def make_serve_step(cfg: ArchConfig, dims: ModelDims, spec: DecodeSpec,
                     dtype=torch.float32):
-    """Returns serve_step(params, dstate, tokens (B,), active=None) ->
-    (logits (B, V), dstate, stats).  One new token per live sequence.
+    """Returns serve_step(params, dstate, tokens (B,), active=None, *,
+    sample=False) -> (logits (B, V), dstate, stats).  One new token per
+    live sequence.
 
     ``dstate`` is updated in place and returned.  ``stats`` holds the
     step's translation telemetry (``slots`` / ``in_rest`` / ``mapped`` /
     ``accesses``, group-major, and ``telemetry``, the last three as one
-    int32 block) and the greedy ``next_token`` (B,) int32.
-    ``active`` (B,) bool marks the slots decoding this step: inactive
-    slots neither write their current KV block nor advance ``ctx_len``
-    (None = all active)."""
+    int32 block) and ``next_token`` (B,) int32: the argmax, or with
+    ``sample=True`` each slot's sampled token (greedy slots still take the
+    argmax), the key folded with the pre-step position.  ``active`` (B,)
+    bool marks the slots decoding this step: inactive slots neither write
+    their current KV block nor advance ``ctx_len`` (None = all
+    active)."""
     if cfg.family != "dense":
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (ROADMAP P10)")
@@ -176,7 +203,7 @@ def make_serve_step(cfg: ArchConfig, dims: ModelDims, spec: DecodeSpec,
         o = Lmod.linear(blk["attn"]["o"], out.reshape(B, -1).to(x.dtype))
         return x + o
 
-    def serve_step(params, dstate, tokens, active=None):
+    def serve_step(params, dstate, tokens, active=None, *, sample=False):
         positions = dstate["ctx_len"]
         act = None if active is None else active.bool()
         x = params["embed"]["table"][tokens.long()].to(dtype)
@@ -192,7 +219,12 @@ def make_serve_step(cfg: ArchConfig, dims: ModelDims, spec: DecodeSpec,
                               dstate["v_pool"][i], kv_at, positions)
             x = decode_ffn(blk, x, cfg)
         logits = project_logits(params, x, cfg, dims)
-        stats["next_token"] = logits.argmax(dim=-1).to(torch.int32)
+        if sample:
+            stats["next_token"] = sample_tokens(
+                logits, dstate["samp_temp"], dstate["samp_topk"],
+                dstate["samp_topp"], dstate["samp_key"], positions)
+        else:
+            stats["next_token"] = logits.argmax(dim=-1).to(torch.int32)
         # only active slots advance (in place, after every read above)
         dstate["ctx_len"].add_(1 if act is None else act)
         return logits, dstate, stats

@@ -1,14 +1,20 @@
 """Request-centric continuous-batching engine over the hybrid KV pool.
 
-The port of ``repro.serve.engine`` for the single-device, dense, greedy
-path.  A request runs like this:
+The port of ``repro.serve.engine`` for the single-device, dense path.  A
+request runs like this:
 
 * ``submit`` queues it; the configured :class:`~.scheduler.Scheduler`
   orders the waiting requests;
+* at registration the longest cached prefix of its prompt attaches
+  read-only from the content-addressed prefix cache
+  (``core/prefix_cache.py``), and prefill starts at the tail;
 * every ``step()`` admits prompts up to the per-step prefill token budget,
   chunked at KV-block granularity, bucketed into power-of-two padded
-  lengths, with ONE prefill dispatch per bucket (the full-recompute
-  forward; chunks k > 0 re-forward their prefix);
+  lengths, with ONE prefill dispatch per bucket: chunk 0 runs the
+  full-recompute forward, later chunks (``prefill_mode="prefix_kv"``, the
+  default) forward only their own tokens and read the installed prefix
+  from the pool; the installed chunks are published to the prefix cache
+  after the dispatch;
 * every steady decode step (i) maps the block each live sequence is about
   to write, (ii) uploads the dirty TAR/SF/flex entries to the device
   tables in place, (iii) runs the serve step — one RSW launch translates
@@ -19,7 +25,10 @@ path.  A request runs like this:
 * a request ends at ``max_new_tokens`` ("length") or ``eos_token``
   ("stop"); with ``auto_release=True`` its slot and blocks free at once.
 
-Host contract: a step performs ONE device-to-host copy.  The greedy next
+Tokens are the argmax, or for a request with sampled ``SamplingParams``
+its seeded draw (``serve/sampling.py``).
+
+Host contract: a step performs ONE device-to-host copy.  The next
 tokens, the post-step context lengths, the translation telemetry and the
 first tokens of every prefill that completed this step are packed into one
 int32 tensor and copied with a single ``.cpu()``.
@@ -27,13 +36,16 @@ int32 tensor and copied with a single ``.cpu()``.
 Features of the JAX engine that are not ported yet keep their
 ``EngineConfig`` fields, accept only the value that turns them off and
 raise ``NotImplementedError`` naming the ROADMAP item otherwise.
-Overload follows the fail-fast policy: admission waits until a request's
-whole footprint fits, and a decode-time allocation miss raises
+Overload follows the fail-fast policy (``overload_policy="fail"``; JAX's
+default ``"preempt"`` is ROADMAP P13): admission waits until a request's
+whole footprint fits, a capacity miss first reclaims unreferenced
+prefix-cache entries, and a decode-time allocation miss raises
 ``PoolExhausted``.
 """
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from collections import defaultdict
 from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
@@ -41,11 +53,13 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.core import HybridConfig, HybridKVManager, PoolExhausted, SWAP
+from repro_torch.core import (CHAIN_SEED, HybridConfig, HybridKVManager,
+                              PoolExhausted, PrefixCache, SWAP,
+                              block_hash_chain)
 from repro_torch.models import FwdOptions, model_dims
 from .decode import DecodeSpec, init_decode_state, make_serve_step
-from .prefill import make_prefill_step
-from .sampling import GREEDY, SamplingParams, require_greedy
+from .prefill import make_prefill_step, make_prefix_prefill_step
+from .sampling import GREEDY, SamplingParams, prng_key_data
 from .scheduler import Scheduler, make_scheduler
 
 
@@ -76,29 +90,41 @@ class EngineConfig:
     ``scheduler`` is a policy name (``"fifo"`` / ``"spf"`` /
     ``"priority"``), a ready Scheduler instance, or a zero-arg factory.
     ``prefill_budget`` is NEW prompt tokens admitted per step (None =
-    ``4 * block_size * max_batch``).  ``attn_impl`` picks the prefill's
-    causal attention: ``"flash"`` (the flash kernel on the card, its plain
-    version on the CPU) or ``"dense"`` (always the plain version).
-    ``dtype`` is the activation and KV-pool dtype.
+    ``4 * block_size * max_batch``).  ``attn_impl`` picks the recompute
+    prefill's causal attention: ``"dense"`` (the plain version, the JAX
+    default) or ``"flash"`` (the flash kernel on the card, its plain
+    version on the CPU).  ``dtype`` is the activation and KV-pool dtype.
 
-    Not ported yet, off-values only: ``prefill_mode="recompute"``
-    (prefix-KV: P9), ``prefix_gather="exact"`` (P9), ``spec_decode=None``
-    (P11), ``prefix_cache=None`` (P12), ``overload_policy="fail"`` and
-    ``fault_injector=None`` (P13), ``metrics=None`` (P14),
-    ``mesh_shape=None`` (P15).
+    ``prefill_mode``: ``"prefix_kv"`` (chunks k > 0 forward only their
+    own tokens and read the installed prefix from the pool) or
+    ``"recompute"`` (every chunk re-forwards its whole prefix, the
+    oracle); ``prefix_kv`` is defined against the dense softmax, so with
+    ``attn_impl="flash"`` it warns and falls back to ``"recompute"``.
+    ``prefix_gather``: how a prefix-KV chunk reads the pool, ``"exact"``
+    (gathered blocks, dense softmax; equal to recompute) or ``"paged"``
+    (the paged-attention kernel with Q = chunk length, merged with the
+    chunk's own causal part).  ``prefix_cache``: ``"auto"`` (a
+    ``PrefixCache`` where the configuration supports one), True (demand
+    one), None/False (off) or a ready ``PrefixCache``.
+
+    The defaults are the JAX engine's, except ``overload_policy``, which
+    stays ``"fail"`` until preemption to the host tier is ported.  Not
+    ported yet, off-values only: ``spec_decode=None`` (P11),
+    ``overload_policy="fail"`` and ``fault_injector=None`` (P13),
+    ``metrics=None`` (P14), ``mesh_shape=None`` (P15).
     """
     max_batch: int = 4
     max_seq_len: int = 256
     pool_headroom: float = 1.25
     mode: str = "hybrid"
-    attn_impl: str = "flash"
+    attn_impl: str = "dense"
     dtype: Any = torch.float32
     restseg_fraction: float = 0.75
     track_stats: bool = True
     prefill_budget: Optional[int] = None
     auto_release: bool = False
     scheduler: Any = "fifo"
-    prefill_mode: str = "recompute"
+    prefill_mode: str = "prefix_kv"
     prefix_gather: str = "exact"
     spec_decode: Any = None
     num_draft_tokens: int = 4
@@ -106,20 +132,13 @@ class EngineConfig:
     overload_policy: str = "fail"
     fault_injector: Any = None
     mesh_shape: Optional[Tuple[int, int]] = None
-    prefix_cache: Any = None
+    prefix_cache: Any = "auto"
     metrics: Any = None
 
     def check_ported(self) -> None:
         """Raise for a field set to a feature this slice has not ported."""
-        if self.prefill_mode != "recompute":
-            raise _not_ported(f"prefill_mode={self.prefill_mode!r} "
-                              "(prefix-KV chunked prefill)", "P9")
-        if self.prefix_gather != "exact":
-            raise _not_ported(f"prefix_gather={self.prefix_gather!r}", "P9")
         if self.spec_decode not in (None, False):
             raise _not_ported("speculative decoding", "P11")
-        if self.prefix_cache not in (None, False):
-            raise _not_ported("the prefix cache", "P12")
         if self.overload_policy != "fail":
             raise _not_ported(f"overload_policy={self.overload_policy!r} "
                               "(preemption to the host tier)", "P13")
@@ -132,17 +151,21 @@ class EngineConfig:
         if self.attn_impl not in ("flash", "dense"):
             raise ValueError(f"unknown attn_impl {self.attn_impl!r} "
                              "(expected 'flash' or 'dense')")
+        if self.prefill_mode not in ("prefix_kv", "recompute"):
+            raise ValueError(f"unknown prefill_mode {self.prefill_mode!r}"
+                             " (expected 'prefix_kv' or 'recompute')")
 
 
 class ChunkRecord(NamedTuple):
     """One admitted prompt chunk in ``Engine.admission_log``.
 
-    ``fwd_tokens`` is the number of tokens fed through the chunk forward
-    (``end``: the recompute path re-forwards the whole prefix)."""
+    ``fwd_tokens`` is the number of tokens fed through the chunk forward:
+    ``end - start`` on the prefix-KV path (constant in chunk index),
+    ``end`` on the recompute path (grows with every chunk)."""
     seq_id: int
     start: int
     end: int
-    path: str          # "recompute" ("prefix_kv": ROADMAP P9)
+    path: str          # "recompute" | "prefix_kv"
     fwd_tokens: int
 
 
@@ -190,6 +213,7 @@ class RequestState:
     rsw_hits: int = 0
     flex_walks: int = 0
     swap_faults: int = 0
+    cached_blocks: int = 0           # prompt blocks attached from the cache
 
 
 @dataclasses.dataclass(frozen=True)
@@ -233,11 +257,23 @@ class Engine:
             mode=config.mode)
         self.track_stats = config.track_stats
         self.manager = HybridKVManager(self.hybrid_cfg)
+        self.prefill_mode = config.prefill_mode
+        if self.prefill_mode == "prefix_kv" and config.attn_impl != "dense":
+            # the prefix chunk forward implements the dense softmax; mixing
+            # it with a flash chunk-0 forward would let chunk k>0 drift from
+            # the recompute oracle in float summation order
+            warnings.warn(
+                f"prefix-KV chunked prefill is defined against the dense "
+                f"attention forward; falling back to "
+                f"prefill_mode='recompute' for attn_impl="
+                f"{config.attn_impl!r}", stacklevel=2)
+            self.prefill_mode = "recompute"
         self.spec = DecodeSpec(
             block_size=bs, max_blocks_per_seq=max_blocks,
             slots_per_group=self.hybrid_cfg.total_slots,
             n_sets=self.hybrid_cfg.num_sets, assoc=self.hybrid_cfg.assoc,
-            mode="batch", hash_name=self.hybrid_cfg.hash_name)
+            mode="batch", hash_name=self.hybrid_cfg.hash_name,
+            prefix_gather=config.prefix_gather)
         dtype = config.dtype
         self.dstate = init_decode_state(cfg, self.dims, self.spec, max_batch,
                                         1, dtype=dtype, device=self.device)
@@ -268,18 +304,47 @@ class Engine:
                                            dtype=dtype)
         self._prefill_step = make_prefill_step(cfg, self.dims, self.spec,
                                                fwd=self.fwd)
+        self._prefix_step = make_prefix_prefill_step(cfg, self.dims,
+                                                     self.spec, fwd=self.fwd)
         self.requests: Dict[int, Request] = {}      # registered, live
         self.finished: Dict[int, Request] = {}
         self._states: Dict[int, RequestState] = {}
         self._current: Optional[Request] = None     # mid-chunk prefill
         self._slot_of: Dict[int, int] = {}
         self._prefilling: Dict[int, int] = {}   # seq_id -> tokens installed
+        # newly registered (batch slot, request) whose SamplingParams are
+        # not on the device yet
+        self._pending_samp: List[Tuple[int, Request]] = []
         self._step_count = 0                    # scheduler clock (aging)
         self.admission_log: List[ChunkRecord] = []
         # host mirror of ctx_len: block-boundary checks never read the
         # device tensor
         self._ctx_host = np.zeros(max_batch, np.int64)
         self._synced_full = False
+        # ---- the content-addressed prefix cache -------------------------
+        pc = config.prefix_cache
+        reason = self._prefix_cache_unsupported()
+        if pc is True and reason is not None:
+            raise ValueError(f"prefix_cache=True is unsupported here: "
+                             f"{reason}")
+        self.prefix_cache: Optional[PrefixCache] = None
+        if pc not in (None, False) and reason is None:
+            self.prefix_cache = (pc if isinstance(pc, PrefixCache)
+                                 else PrefixCache(self.manager))
+        # per-request memo of the prompt's block chain hashes (used by the
+        # registration-time match and the post-dispatch inserts)
+        self._chain_cache: Dict[int, np.ndarray] = {}
+
+    def _prefix_cache_unsupported(self) -> Optional[str]:
+        """Why the prefix cache cannot run on this configuration (None =
+        supported).  ``prefix_cache="auto"`` silently disables on these;
+        ``prefix_cache=True`` raises with the reason.  (The JAX engine's
+        other reasons, attention-free families and vlm frontend blocks,
+        belong to families the port does not run yet.)"""
+        if self.hybrid_cfg.mode == "restrictive_only":
+            return ("content sharing needs a flexible segment (a "
+                    "restrictive slot is tag-bound to a single vpn)")
+        return None
 
     # ------------------------------------------------------------ admission
     @property
@@ -306,7 +371,6 @@ class Engine:
         if S % bs:
             raise ValueError(f"prompt length {S} must be a multiple of the "
                              f"KV block size {bs} (pad upstream)")
-        require_greedy(req.sampling)
         if req.frontend is not None:
             raise _not_ported("frontend (vlm/audio) inputs", "P10")
         if req.deadline_ms is not None:
@@ -321,6 +385,7 @@ class Engine:
                 f"sequence slot; call release({req.seq_id}) first or "
                 "construct the engine with auto_release=True")
         self.finished.pop(req.seq_id, None)
+        self._chain_cache.pop(req.seq_id, None)   # fresh chains on reuse
         state = RequestState(request=req, arrival=self._step_count)
         object.__setattr__(req, "_engine_state", state)
         self._states[req.seq_id] = state
@@ -362,6 +427,9 @@ class Engine:
                 self._slot_of[req.seq_id] = slot
                 self.requests[req.seq_id] = req
                 self._prefilling[req.seq_id] = 0
+                self._pending_samp.append((slot, req))
+                if self.prefix_cache is not None:
+                    self._attach_cached_prefix(req)
             start = self._prefilling[req.seq_id]
             total = len(np.asarray(req.prompt))
             take = min(total - start, budget // bs * bs)
@@ -387,20 +455,53 @@ class Engine:
             budget -= take
             self._prefilling[req.seq_id] = end
             final = end == total
-            chunks.append((req, start, end, final))
+            # chunk 0 has no prefix to read; later chunks (and the first
+            # chunk after a cache hit) read the installed prefix unless
+            # the oracle mode forces recompute
+            use_prefix = self.prefill_mode == "prefix_kv" and start > 0
+            chunks.append((req, start, end, final, use_prefix))
             self.admission_log.append(ChunkRecord(
-                req.seq_id, start, end, "recompute", end))
+                req.seq_id, start, end,
+                "prefix_kv" if use_prefix else "recompute",
+                (end - start) if use_prefix else end))
             if final:
                 self._current = None
 
-        # ---- bucket by padded prefix length; one dispatch per bucket ----
+        # newly registered sequences' SamplingParams must be on the device
+        # before any prefill dispatch samples a first token
+        self._install_sampling()
+
+        # ---- bucket by padded length; one dispatch per bucket -----------
+        # recompute chunks bucket by padded PREFIX length, prefix-KV chunks
+        # by padded CHUNK length and the prefix read-buffer width
         pending: List[Tuple[Request, torch.Tensor]] = []
         buckets: Dict[int, list] = defaultdict(list)
-        for req, start, end, final in chunks:
-            buckets[bs * _next_pow2(end // bs)].append((req, start, end,
-                                                        final))
+        pbuckets: Dict[Tuple[int, int], list] = defaultdict(list)
+        for req, start, end, final, use_prefix in chunks:
+            if use_prefix:
+                s_pad = bs * _next_pow2((end - start) // bs)
+                # the read-buffer width is the padded KV extent the
+                # recompute forward would pad THIS row to (float
+                # reductions nest bitwise across pow2 tails, not across
+                # arbitrary length pairs): part of the bucket key, not a
+                # bucket maximum
+                nblk_buf = _next_pow2(end // bs)
+                pbuckets[(s_pad, nblk_buf)].append((req, start, end, final))
+            else:
+                buckets[bs * _next_pow2(end // bs)].append(
+                    (req, start, end, final))
         for s_pad, grp in sorted(buckets.items()):
             pending.extend(self._prefill_bucket(grp, s_pad))
+        for (s_pad, nblk_buf), grp in sorted(pbuckets.items()):
+            pending.extend(self._prefix_bucket(grp, s_pad, nblk_buf))
+        # ---- publish installed chunks to the prefix cache ---------------
+        # after the dispatch: entries become matchable from the next
+        # admission round, so a same-round duplicate never attaches a
+        # block whose install has not run, and the pin migrations' copies
+        # land with the next _apply_copies before anything reads them
+        if self.prefix_cache is not None:
+            for req, start, end, final, use_prefix in chunks:
+                self._cache_insert_chunk(req, start, end)
         return pending
 
     def _chunk_vpns(self, req, start: int, end: int) -> List[int]:
@@ -413,11 +514,64 @@ class Engine:
         return [self.hybrid_cfg.vpn(s, cb) for cb in range(cb0, end // bs)
                 if m.lookup(req.seq_id, cb)[0] < 0]
 
+    # --------------------------------------------- prefix cache plumbing
+    def _chains(self, req: Request) -> np.ndarray:
+        """Memoized per-block chain hashes of a request's prompt."""
+        c = self._chain_cache.get(req.seq_id)
+        if c is None:
+            c = block_hash_chain(np.asarray(req.prompt),
+                                 self.cfg.kv_block_size)
+            self._chain_cache[req.seq_id] = c
+        return c
+
+    def _attach_cached_prefix(self, req: Request) -> None:
+        """Longest-cached-prefix match at registration: matched blocks
+        attach read-only and prefill starts at the tail.  The match is
+        capped one block short of the prompt, so the FINAL chunk always
+        runs: it produces the request's first-token logits."""
+        pc = self.prefix_cache
+        m = self.manager
+        bs = self.cfg.kv_block_size
+        pc.stats["lookups"] += 1
+        prompt = np.asarray(req.prompt)
+        entries = pc.match(prompt, self._chains(req))
+        entries = entries[:len(prompt) // bs - 1]
+        if not entries:
+            return
+        for cb, e in enumerate(entries):
+            m.attach_cached_block(req.seq_id, cb, e.slot)
+        self._prefilling[req.seq_id] = len(entries) * bs
+        self._states[req.seq_id].cached_blocks += len(entries)
+        pc.stats["hits"] += 1
+        pc.stats["dedup_blocks"] += len(entries)
+
+    def _cache_insert_chunk(self, req: Request, start: int,
+                            end: int) -> None:
+        """Publish a freshly installed chunk's blocks to the cache (one
+        parent-chained insert per covered block; dedup and full-set bypass
+        are the cache's business)."""
+        bs = self.cfg.kv_block_size
+        chains = self._chains(req)
+        prompt = np.asarray(req.prompt)
+        for cb in range(start // bs, end // bs):
+            parent = CHAIN_SEED if cb == 0 else int(chains[cb - 1])
+            self.prefix_cache.insert(
+                int(chains[cb]), parent, prompt[cb * bs:(cb + 1) * bs],
+                req.seq_id, cb)
+
     def _capacity_ok(self, reserved, need) -> bool:
         """Exact dry-run: could the pool allocate ``reserved`` (this
-        round's already-accepted vpns) plus ``need`` right now?"""
-        return self.manager.alloc_ledger().reserve(list(reserved)
-                                                   + list(need))
+        round's already-accepted vpns) plus ``need`` right now?  A miss
+        first reclaims UNREFERENCED prefix-cache entries (the cheapest
+        rung: dropping clean cache frees one FlexSeg slot each) and
+        re-runs the dry-run against a fresh ledger."""
+        want = list(reserved) + list(need)
+        while True:
+            if self.manager.alloc_ledger().reserve(want):
+                return True
+            if (self.prefix_cache is None
+                    or not self.prefix_cache.evict_one()):
+                return False
 
     def _others_hold_blocks(self, seq_id: int) -> bool:
         m = self.manager
@@ -499,6 +653,28 @@ class Engine:
         else:
             m.allocate_block(sid, b)
 
+    def _install_sampling(self) -> None:
+        """Scatter newly registered requests' SamplingParams into the
+        per-slot device tensors (admission path only; the steady decode
+        step never touches them)."""
+        if not self._pending_samp:
+            return
+        rows = np.asarray([s for s, _ in self._pending_samp], np.int64)
+        sp = [r.sampling for _, r in self._pending_samp]
+        keys = np.stack([prng_key_data(p, r.seq_id)
+                         for p, (_, r) in zip(sp, self._pending_samp)])
+        self._pending_samp.clear()
+        dev = self.device
+        idx = _upload(rows, dev)
+        ds = self.dstate
+        ds["samp_temp"][idx] = _upload(
+            np.asarray([p.temperature for p in sp], np.float32), dev)
+        ds["samp_topk"][idx] = _upload(
+            np.asarray([p.top_k for p in sp], np.int32), dev)
+        ds["samp_topp"][idx] = _upload(
+            np.asarray([p.top_p for p in sp], np.float32), dev)
+        ds["samp_key"][idx] = _upload(keys.astype(np.int64), dev)
+
     def _prefill_bucket(self, grp, s_pad: int):
         """Allocate blocks and run ONE batched prefill dispatch for a
         bucket of same-padded-length chunks."""
@@ -538,13 +714,77 @@ class Engine:
         _, self.dstate, pstats = self._prefill_step(
             self.params, self.dstate, {"tokens": _upload(tokens, dev)},
             _upload(slots, dev), _upload(slot_ids, dev), _upload(ctx, dev),
-            _upload(last_pos, dev))
+            _upload(last_pos, dev), sample=self._any_sampled(grp))
+        return self._bucket_firsts(grp, slot_ids, ctx, pstats)
+
+    @staticmethod
+    def _any_sampled(grp) -> bool:
+        return any(not req.sampling.is_greedy for req, *_ in grp)
+
+    def _bucket_firsts(self, grp, slot_ids, ctx, pstats):
+        """Record the bucket's context lengths; return [(request, first
+        token (1,))] for its final chunks."""
         out = []
         for i, (req, start, end, final) in enumerate(grp):
             self._ctx_host[slot_ids[i]] = int(ctx[i])
             if final:
                 out.append((req, pstats["next_token"][i:i + 1]))
         return out
+
+    def _prefix_bucket(self, grp, s_pad: int, nblk_buf: int):
+        """ONE batched prefix-KV dispatch for a bucket of same-shaped
+        chunks: allocate the chunks' new blocks, then forward ONLY the
+        chunk tokens, reading the prefix's installed pool blocks through
+        their translated slots."""
+        m = self.manager
+        bs = self.cfg.kv_block_size
+        B_pad = _next_pow2(len(grp))
+        tokens = np.zeros((B_pad, s_pad), np.int64)
+        new_slots = -np.ones((B_pad, s_pad // bs), np.int32)
+        prefix_slots = -np.ones((B_pad, nblk_buf), np.int32)
+        slot_ids = np.full(B_pad, -1, np.int32)
+        ctx = np.zeros(B_pad, np.int32)
+        pctx = np.zeros(B_pad, np.int32)
+        last_pos = np.zeros(B_pad, np.int32)
+        allocated: List[Tuple[int, int, int, int]] = []
+        for i, (req, start, end, final) in enumerate(grp):
+            prompt = np.asarray(req.prompt)
+            tokens[i, :end - start] = prompt[start:end]
+            slot_ids[i] = self._slot_of[req.seq_id]
+            ctx[i] = end
+            pctx[i] = start
+            last_pos[i] = end - start - 1
+            for j, cb in enumerate(range(start // bs, end // bs)):
+                if m.lookup(req.seq_id, cb)[0] >= 0:
+                    continue
+                info = m.allocate_block(req.seq_id, cb)
+                if info.seg == SWAP:
+                    raise RuntimeError("pool exhausted during prefill")
+                allocated.append((i, j, req.seq_id, cb))
+        # allocation-time evictions queue slot migrations: drain them
+        # BEFORE reading the prefix slots, and re-resolve the new slots
+        # (a later allocation may have evict-migrated an earlier one)
+        self._apply_copies()
+        for i, j, sid, cb in allocated:
+            new_slots[i, j] = m.lookup(sid, cb)[0]
+        for i, (req, start, end, final) in enumerate(grp):
+            for cb in range(start // bs):
+                slot, _ = m.lookup(req.seq_id, cb)
+                if slot < 0:
+                    # a prefix block was evicted to swap: its data is gone
+                    # and the prefix-KV read cannot rebuild it
+                    raise RuntimeError(
+                        "prefix block swapped out during chunked "
+                        "prefill; grow the pool or use "
+                        "prefill_mode='recompute'")
+                prefix_slots[i, cb] = slot
+        dev = self.device
+        _, self.dstate, pstats = self._prefix_step(
+            self.params, self.dstate, {"tokens": _upload(tokens, dev)},
+            _upload(new_slots, dev), _upload(prefix_slots, dev),
+            _upload(slot_ids, dev), _upload(ctx, dev), _upload(pctx, dev),
+            _upload(last_pos, dev), sample=self._any_sampled(grp))
+        return self._bucket_firsts(grp, slot_ids, ctx, pstats)
 
     def _complete_prefill(self, req: Request, nxt: int) -> None:
         self._prefilling.pop(req.seq_id, None)
@@ -647,7 +887,9 @@ class Engine:
             ctx_pre = self._ctx_host.copy()
             _, self.dstate, tstats = self._serve_step(
                 self.params, self.dstate, _upload(tokens, self.device),
-                _upload(active, self.device))
+                _upload(active, self.device),
+                sample=any(not st.request.sampling.is_greedy
+                           for st in live))
             parts += [tstats["next_token"], self.dstate["ctx_len"]]
             want_stats = self.track_stats
             if want_stats:
@@ -749,6 +991,7 @@ class Engine:
     # ------------------------------------------------------------ teardown
     def release(self, seq_id: int) -> None:
         self.manager.free_sequence(seq_id)
+        self._chain_cache.pop(seq_id, None)
         slot = self._slot_of.pop(seq_id)
         self.dstate["ctx_len"][slot] = 0
         self._ctx_host[slot] = 0
@@ -761,20 +1004,46 @@ class Engine:
         self._sync_translation()
 
     # ---------------------------------------------------------- telemetry
+    def _kv_block_bytes(self) -> int:
+        """Device bytes one pool block occupies across both KV pools (all
+        layers): the unit behind ``bytes_saved``."""
+        k, v = self.dstate["k_pool"], self.dstate["v_pool"]
+        return (k.nbytes + v.nbytes) // k.shape[1]
+
     def stats(self) -> dict:
-        """Global manager counters plus ``"per_request"``: RestSeg hits /
-        flexible walks / swap faults attributed to each seq_id."""
+        """Global manager counters, ``"prefix_cache"`` (the cache's
+        counters as the JAX engine reports them) and ``"per_request"``:
+        RestSeg hits / flexible walks / swap faults / cache-attached
+        blocks attributed to each seq_id (the ``cached_blocks`` rows sum
+        to ``dedup_blocks``)."""
         s = dict(self.manager.stats)
+        pc = self.prefix_cache
+        s["prefix_cache"] = {
+            "enabled": pc is not None,
+            "lookups": int(pc.stats["lookups"]) if pc else 0,
+            "hits": int(pc.stats["hits"]) if pc else 0,
+            "dedup_blocks": int(pc.stats["dedup_blocks"]) if pc else 0,
+            "bytes_saved": (int(pc.stats["dedup_blocks"])
+                            * self._kv_block_bytes() if pc else 0),
+            "inserts": int(pc.stats["inserts"]) if pc else 0,
+            "insert_bypass": int(pc.stats["insert_bypass"]) if pc else 0,
+            "evictions": int(pc.stats["evictions"]) if pc else 0,
+            "cached_blocks": pc.n_entries if pc else 0,
+        }
         s["per_request"] = {
             sid: {"rsw_hits": st.rsw_hits, "flex_walks": st.flex_walks,
-                  "swap_faults": st.swap_faults}
+                  "swap_faults": st.swap_faults,
+                  "cached_blocks": st.cached_blocks}
             for sid, st in self._states.items()}
         return s
 
     def check_invariants(self) -> None:
         """The manager's structural oracle, plus: the device translation
-        tables equal the host tables."""
+        tables equal the host tables, and the prefix cache's directory
+        agrees with the manager."""
         self.manager.check_invariants()
+        if self.prefix_cache is not None:
+            self.prefix_cache.check_invariants()
         m = self.manager
         tar = self.dstate["tar"][0].cpu().numpy()
         sf = self.dstate["sf"][0].cpu().numpy()

@@ -1,22 +1,33 @@
-"""Prefill step: install prompt K/V into the hybrid KV pool.
+"""Prefill steps: install prompt K/V into the hybrid KV pool.
 
-``make_prefill_step`` is the full-(re)compute forward of the JAX package's
-``repro.serve.prefill.make_prefill_step``: the batch rows hold the WHOLE
-prefix up to the chunk end, the forward recomputes every position and the
-chunk's new blocks are installed.  (The prefix-KV chunk step is ROADMAP
-P9.)
+The port of ``repro.serve.prefill`` for the dense family.  Two ways to
+admit a prompt chunk, sharing the install and ``ctx_len`` scatter:
+
+* ``make_prefill_step`` — the full-(re)compute forward: the batch rows
+  hold the WHOLE prefix up to the chunk end, the forward recomputes every
+  position and the chunk's new blocks are installed.  Exact, but a
+  chunked admission pays O(chunks²) compute.
+* ``make_prefix_prefill_step`` — the prefix-KV chunk forward (chunk
+  k > 0, and the first chunk after a prefix-cache hit): the rows hold
+  ONLY the chunk's new tokens, and each attention layer reads the
+  prefix's installed pool blocks through the translated ``prefix_slots``
+  besides the chunk's own causal K/V.  Chunk cost is linear in chunk
+  length.
 
 Calling convention (the engine's admission contract):
 
 * ``batch["tokens"]`` (B, S) — right-padded token rows (exact under causal
   attention: a position never attends past itself);
-* ``slots`` (B, S // bs) int32 — pool slot per cache block to install;
-  ``-1`` blocks are not installed (pad blocks, blocks an earlier chunk
-  installed);
+* ``slots`` / ``new_slots`` (B, S // bs) int32 — pool slot per cache block
+  to install; ``-1`` blocks are not installed (pad blocks, blocks an
+  earlier chunk installed, cache-attached blocks).  The recompute step
+  indexes blocks absolutely, the prefix step chunk-locally;
 * ``slot_ids`` (B,) int32 — the batch slot of each row; ``-1`` rows
   (bucket padding) write nothing;
 * ``ctx`` (B,) int32 — post-install context length per row;
-* ``last_pos`` (B,) int32 — index of each row's final real token.
+* ``last_pos`` (B,) int32 — index of each row's final real token;
+* ``sample`` (keyword) — False: the first token is the argmax; True: each
+  row's sampled token (greedy rows still take the argmax).
 
 The decode state is updated in place: the pools through the forward's
 collected K/V (a ``-1`` block is written into the pool's sink slot
@@ -30,8 +41,16 @@ import dataclasses
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.transformer import FwdOptions, ModelDims, forward
+from repro_torch.kernels.paged_attention.ops import paged_attention
+from repro_torch.kernels.paged_attention.ref import gather_pool_blocks
+from repro_torch.models import layers as Lmod
+from repro_torch.models.attention import (causal_attention_parts,
+                                          dense_attention,
+                                          merge_attention_parts)
+from repro_torch.models.transformer import (FwdOptions, ModelDims, _ffn,
+                                            forward, layer_params)
 from .decode import DecodeSpec
+from .sampling import sample_tokens
 
 
 def _install_kv(spec: DecodeSpec, dstate, caches, eff_slots, B: int) -> None:
@@ -49,35 +68,153 @@ def _install_kv(spec: DecodeSpec, dstate, caches, eff_slots, B: int) -> None:
         pool[:, idx] = c.reshape(L, B * nblk, bs, KV, hd).to(pool.dtype)
 
 
-def _first_token_stats(last: torch.Tensor):
-    """First generated token per row (greedy)."""
+def _scatter_ctx(dstate, slot_ids, ctx) -> None:
+    """Set ``ctx_len`` at PARTICIPATING slots only: a one-hot match of the
+    batch slots against the rows (pad rows, -1, never match)."""
+    ctx_len = dstate["ctx_len"]
+    n = ctx_len.shape[0]
+    match = (torch.arange(n, device=ctx_len.device)[:, None]
+             == slot_ids[None, :])                               # (n, B)
+    new = (match.to(torch.int64) * ctx[None, :]).sum(dim=1)
+    ctx_len.copy_(torch.where(match.any(dim=1), new.to(ctx_len.dtype),
+                              ctx_len))
+
+
+def _first_token_stats(dstate, last, slot_ids, ctx, sample: bool):
+    """First generated token per row.  Sampled rows use their slot's
+    sampling state (scattered by the engine before the dispatch) and fold
+    position ctx - 1: a token drawn from k context tokens folds k - 1, as
+    the decode step does (its pre-step ctx_len is k), so the stream does
+    not depend on chunking or schedule.  Pad rows read slot 0's state;
+    their token is never read."""
+    if sample:
+        n = dstate["ctx_len"].shape[0]
+        sid = slot_ids.clamp(0, n - 1).long()
+        fold = (ctx - 1).clamp(min=0)
+        return {"next_token": sample_tokens(
+            last, dstate["samp_temp"][sid], dstate["samp_topk"][sid],
+            dstate["samp_topp"][sid], dstate["samp_key"][sid], fold)}
     return {"next_token": last.argmax(dim=-1).to(torch.int32)}
 
 
 def make_prefill_step(cfg: ArchConfig, dims: ModelDims, spec: DecodeSpec,
                       fwd: FwdOptions = FwdOptions()):
     """Returns prefill_step(params, dstate, batch, slots, slot_ids, ctx,
-    last_pos) -> (last_logits (B, V), dstate, stats);
+    last_pos, *, sample=False) -> (last_logits (B, V), dstate, stats);
     ``stats["next_token"]`` is the first generated token per row."""
     fwd_collect = dataclasses.replace(fwd, collect_cache=True)
 
-    def prefill_step(params, dstate, batch, slots, slot_ids, ctx, last_pos):
+    def prefill_step(params, dstate, batch, slots, slot_ids, ctx, last_pos,
+                     *, sample=False):
         logits, _, caches = forward(params, batch, cfg, dims, fwd_collect)
         B = batch["tokens"].shape[0]
         row_ok = slot_ids >= 0
         _install_kv(spec, dstate, caches,
                     torch.where(row_ok[:, None], slots, -1), B)
-        # scatter ctx to PARTICIPATING slots only: a one-hot match of the
-        # batch slots against the rows (pad rows, -1, never match)
-        ctx_len = dstate["ctx_len"]
-        n = ctx_len.shape[0]
-        match = (torch.arange(n, device=ctx_len.device)[:, None]
-                 == slot_ids[None, :])                           # (n, B)
-        new = (match.to(torch.int64) * ctx[None, :]).sum(dim=1)
-        ctx_len.copy_(torch.where(match.any(dim=1), new.to(ctx_len.dtype),
-                                  ctx_len))
+        _scatter_ctx(dstate, slot_ids, ctx)
         rows = torch.arange(B, device=logits.device)
         last = logits[rows, last_pos.long()]
-        return last, dstate, _first_token_stats(last)
+        return last, dstate, _first_token_stats(dstate, last, slot_ids, ctx,
+                                                sample)
 
     return prefill_step
+
+
+def make_prefix_prefill_step(cfg: ArchConfig, dims: ModelDims,
+                             spec: DecodeSpec,
+                             fwd: FwdOptions = FwdOptions()):
+    """Chunk-k (k > 0) prefill: forward ONLY the chunk's new tokens.
+
+    Returns prefix_prefill_step(params, dstate, batch, new_slots,
+    prefix_slots, slot_ids, ctx, prefix_ctx, last_pos, *, sample=False)
+    -> (last_logits (B, V), dstate, stats) where
+
+    * ``batch["tokens"]`` (B, S) — the chunk's tokens only, right-padded;
+    * ``new_slots`` (B, S // bs) — install slot per CHUNK-LOCAL block;
+    * ``prefix_slots`` (B, nblk_buf) — the translated pool slot of every
+      absolute block below the row's prefix (entries at or after the
+      chunk start, and pad rows, are -1);
+    * ``prefix_ctx`` (B,) — installed prefix tokens: the absolute position
+      of the chunk's first token;
+    * ``ctx`` (B,) — post-install context length (= prefix_ctx + take).
+
+    ``spec.prefix_gather``: ``"exact"`` places the gathered prefix blocks
+    and the chunk's K/V at their absolute block positions and runs the
+    recompute forward's own ``dense_attention`` with the per-row
+    ``q_offset``, so installed blocks and logits equal the recompute
+    path's; ``"paged"`` reads the pool through the paged-attention kernel
+    with Q = S queries per row (its plain version on the CPU) and merges
+    that partial with ``causal_attention_parts`` over the chunk's own K/V,
+    equal to "exact" up to float associativity.
+    """
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported yet (ROADMAP P10)")
+    paged = spec.prefix_gather == "paged"
+    bs = spec.block_size
+    H, KV, hd = dims.n_heads, dims.n_kv, dims.head_dim
+
+    def attn_read(q, k_new, v_new, kp_l, vp_l, prefix_slots, prefix_ctx):
+        B, S = q.shape[:2]
+        if paged:
+            pool = paged_attention(q, kp_l, vp_l, prefix_slots, prefix_ctx)
+            own = causal_attention_parts(q, k_new, v_new)
+            return merge_attention_parts([pool, own]).to(q.dtype)
+        nblk_buf = prefix_slots.shape[1]
+        nblk_chunk = S // bs
+        ok = (prefix_slots >= 0)[..., None, None, None]
+        gk = torch.where(ok, gather_pool_blocks(kp_l, prefix_slots),
+                         0.0).to(k_new.dtype)          # (B, nbuf, bs, KV, hd)
+        gv = torch.where(ok, gather_pool_blocks(vp_l, prefix_slots),
+                         0.0).to(v_new.dtype)
+        ck = k_new.reshape(B, nblk_chunk, bs, KV, hd)
+        cv = v_new.reshape(B, nblk_chunk, bs, KV, hd)
+        start_blk = prefix_ctx // bs
+        j = torch.arange(nblk_buf, device=q.device)
+        is_prefix = j[None, :] < start_blk[:, None]
+        cj = (j[None, :] - start_blk[:, None]).clamp(0, nblk_chunk - 1)
+        rows = torch.arange(B, device=q.device)[:, None]
+        sel = is_prefix[..., None, None, None]
+        # buffer blocks past the row's chunk end hold clipped duplicates;
+        # they sit above every real query position, so the causal mask
+        # removes them exactly
+        k_full = torch.where(sel, gk, ck[rows, cj]).reshape(
+            B, nblk_buf * bs, KV, hd)
+        v_full = torch.where(sel, gv, cv[rows, cj]).reshape(
+            B, nblk_buf * bs, KV, hd)
+        return dense_attention(q, k_full, v_full, causal=True,
+                               q_offset=prefix_ctx)
+
+    def prefix_prefill_step(params, dstate, batch, new_slots, prefix_slots,
+                            slot_ids, ctx, prefix_ctx, last_pos, *,
+                            sample=False):
+        tokens = batch["tokens"]
+        B, S = tokens.shape
+        x = Lmod.embed(params["embed"], tokens).to(fwd.dtype)
+        positions = (prefix_ctx[:, None]
+                     + torch.arange(S, dtype=torch.int32,
+                                    device=tokens.device)[None, :])
+        ks, vs = [], []
+        for i in range(cfg.num_layers):
+            blk = layer_params(params, i)
+            h = Lmod.rms_norm(x, blk["norm1"], cfg.norm_eps)
+            q, k, v = Lmod.qkv_project(blk["attn"], h, h, H, KV, hd,
+                                       positions, positions, cfg.rope_theta)
+            o = attn_read(q, k, v, dstate["k_pool"][i], dstate["v_pool"][i],
+                          prefix_slots, prefix_ctx)
+            x = x + Lmod.linear(blk["attn"]["o"], o.reshape(B, S, -1))
+            x = _ffn(blk, x, cfg)
+            ks.append(k)
+            vs.append(v)
+        row_ok = slot_ids >= 0
+        _install_kv(spec, dstate, {"k": torch.stack(ks), "v": torch.stack(vs)},
+                    torch.where(row_ok[:, None], new_slots, -1), B)
+        _scatter_ctx(dstate, slot_ids, ctx)
+        x = Lmod.rms_norm(x, params["final_norm"], cfg.norm_eps)
+        head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+        logits = Lmod.unembed(head, x, dims.logical_vocab)
+        last = logits[torch.arange(B, device=logits.device), last_pos.long()]
+        return last, dstate, _first_token_stats(dstate, last, slot_ids, ctx,
+                                                sample)
+
+    return prefix_prefill_step

@@ -1,8 +1,9 @@
 """The port's Engine against the JAX Engine on the same requests.
 
-Both run the reduced granite-8b with the same float32 weights; the JAX
-engine with ``prefill_mode="recompute"``, ``prefix_cache=None`` and
-``overload_policy="fail"`` (the path this slice ports), the port on the
+Both run the reduced granite-8b with the same float32 weights, with
+``prefill_mode="recompute"``, ``prefix_cache=None`` and
+``overload_policy="fail"`` (the recompute admission path; the prefix-KV
+path and the prefix cache have their own test files), the port on the
 CPU.  The workload mixes prompt lengths, chunks one prompt longer than the
 prefill budget, recycles slots (more requests than ``max_batch`` with
 ``auto_release``) and stops one request on its ``eos_token``.  Admission
@@ -73,14 +74,15 @@ def _recording(eng, margins):
         v = logits.float().topk(2, dim=-1).values
         return (v[:, 0] - v[:, 1]).tolist()
 
-    def serve_rec(params, dstate, tokens, active=None):
-        logits, dstate, stats = serve(params, dstate, tokens, active)
+    def serve_rec(params, dstate, tokens, active=None, **kw):
+        logits, dstate, stats = serve(params, dstate, tokens, active, **kw)
         margins["decode"][eng.step_count] = top2(logits)
         return logits, dstate, stats
 
-    def pre_rec(params, dstate, batch, slots, slot_ids, ctx, last_pos):
+    def pre_rec(params, dstate, batch, slots, slot_ids, ctx, last_pos,
+                **kw):
         last, dstate, stats = pre(params, dstate, batch, slots, slot_ids,
-                                  ctx, last_pos)
+                                  ctx, last_pos, **kw)
         row = margins["prefill"].setdefault(eng.step_count, {})
         for i, sid in enumerate(slot_ids.tolist()):
             if sid >= 0:
@@ -95,7 +97,9 @@ def test_engine_streams_and_telemetry_match(weights):
     prompts = _prompts(cfg.vocab_size)
 
     # a port-only run picks an eos that the EOS request really produces
-    probe = Engine(cfg, tp, EngineConfig(**ENGINE), device="cpu")
+    port_cfg = EngineConfig(prefill_mode="recompute", prefix_cache=None,
+                            **ENGINE)
+    probe = Engine(cfg, tp, port_cfg, device="cpu")
     eos = [t for _, t in _run(probe, Request, prompts)[EOS_REQ]][2]
 
     jeng = JEngine(jcfg, jp, JConfig(prefill_mode="recompute",
@@ -103,7 +107,7 @@ def test_engine_streams_and_telemetry_match(weights):
                                      overload_policy="fail", **ENGINE))
     jstreams = _run(jeng, JRequest, prompts, eos)
 
-    teng = Engine(cfg, tp, EngineConfig(**ENGINE), device="cpu")
+    teng = Engine(cfg, tp, port_cfg, device="cpu")
     margins = {"decode": {}, "prefill": {}, "slots": {}}
     _recording(teng, margins)
     tstreams = _run(teng, Request, prompts, eos, margins)
@@ -136,17 +140,22 @@ def test_engine_streams_and_telemetry_match(weights):
 
 
 def test_engine_refuses_unported_features(weights):
+    """Only the features still unported raise (speculative decoding,
+    preemption and the fault injector, metrics, meshes); the JAX engine's
+    defaults (prefix-KV prefill, the prefix cache) construct, and a
+    sampled request is accepted."""
     _, _, cfg, tp = weights
-    for kw in (dict(prefill_mode="prefix_kv"), dict(spec_decode="ngram"),
-               dict(prefix_cache="auto"), dict(overload_policy="preempt"),
-               dict(mesh_shape=(1, 1)), dict(metrics=object())):
+    for kw in (dict(spec_decode="ngram"), dict(overload_policy="preempt"),
+               dict(fault_injector=object()), dict(mesh_shape=(1, 1)),
+               dict(metrics=object())):
         with pytest.raises(NotImplementedError, match="ROADMAP P"):
             Engine(cfg, tp, EngineConfig(**kw), device="cpu")
     eng = Engine(cfg, tp, EngineConfig(), device="cpu")
+    assert eng.prefill_mode == "prefix_kv"
+    assert eng.prefix_cache is not None
     from repro_torch.serve import SamplingParams
-    with pytest.raises(NotImplementedError, match="ROADMAP P8"):
-        eng.submit(Request(seq_id=0, prompt=np.zeros(8, np.int64),
-                           sampling=SamplingParams(temperature=1.0)))
+    eng.submit(Request(seq_id=0, prompt=np.zeros(8, np.int64),
+                       sampling=SamplingParams(temperature=1.0)))
 
 
 def test_steady_step_translates_once_and_copies_once(weights, monkeypatch):
@@ -208,8 +217,9 @@ def test_engine_modes_match(weights, mode):
     want = _drain(JEngine(jcfg, jp, JConfig(
         prefill_mode="recompute", prefix_cache=None, overload_policy="fail",
         **kw)), JRequest, prompts, 12)
-    got = _drain(Engine(cfg, tp, EngineConfig(**kw), device="cpu"), Request,
-                 prompts, 12)
+    got = _drain(Engine(cfg, tp, EngineConfig(
+        prefill_mode="recompute", prefix_cache=None, **kw), device="cpu"),
+        Request, prompts, 12)
     assert got == want
     stats = got[1]
     if mode == "restrictive_only":
@@ -230,7 +240,9 @@ def test_gpu_engine_matches_cpu(weights):
     from repro_torch.kernels.utopia_rsw.ops import utopia_translate_step
     _, _, cfg, tp = weights
     prompts = _prompts(cfg.vocab_size)
-    kw = dict(ENGINE)
+    # the flash kernel runs on the recompute prefill only
+    kw = dict(ENGINE, attn_impl="flash", prefill_mode="recompute",
+              prefix_cache=None)
     cpu = _drain(Engine(cfg, tp, EngineConfig(**kw), device="cpu"), Request,
                  prompts, 8)
     before = (utopia_translate_step.launches, paged_attention.launches,
