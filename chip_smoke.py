@@ -11,10 +11,11 @@ JAX):
 The second form builds the kernels and runs only phase 4's decode-step
 profile, of this checkout's port or of another commit's (a parent
 unpacked with ``git archive``), so that two commits compare in one call.
-Phases 3 and 4 and the profile pass their engine configuration
-explicitly (flash attention, recompute prefill, no prefix cache), so that
-their numbers compare with earlier commits'; phase 5 runs the engine's
-default admission path.
+Phase 3's first two runs, phase 4 and the profile pass their engine
+configuration explicitly (flash attention, recompute prefill, no prefix
+cache, ``overload_policy="fail"``), so that their numbers compare with
+earlier commits'; phases 5 and 6 run the engine's defaults (with the
+paged prefix read), which include preemption to the host KV tier.
 
 Phases, each failing loudly:
 
@@ -54,7 +55,16 @@ Phases, each failing loudly:
    identical.  In the first two runs a stream may differ only where the
    top-2 logit margin is below 1e-3; in the third every stream must be
    identical, and a cache-off rerun on the card must give the same
-   streams;
+   streams.  A fourth run overloads the engine (``OVERLOAD``: 12 requests
+   on a 16-slot pool, budget 256, half sampled) under a fault schedule
+   (forced "pre" and "post" preemptions, one of them between a prompt's
+   chunks, denials at admit, decode and resume, and the schedule on which
+   the JAX engine admits a prompt twice): admission logs, overload,
+   manager and cache stats and injector logs identical card vs CPU,
+   streams identical except at near-ties; on the card a roomy pool gives
+   the same streams under the near-tie rule, and a ``ResilientServe`` run
+   with a "pre" and a "post" crash delivers streams bitwise equal to the
+   uncrashed run's;
 4. serve granite-8b at its published width and depth (36 layers, random
    bfloat16 weights from a seeded generator) through the port's Engine
    with flash attention and recompute prefill: 8 requests, 32 new tokens
@@ -67,10 +77,25 @@ Phases, each failing loudly:
    budget 256): 8 requests of 64-704 tokens, four sharing a 384-token
    system prompt, half sampled.  Paged attention must launch with Q > 1,
    the cache must hit, and every stream must hold 32 in-vocab tokens.
-   Then profile one prefix-KV admission step.
+   Then profile one prefix-KV admission step;
+6. serve granite-8b at full width and depth once more (``PHASE6_RUN``):
+   12 requests of 320-704 tokens, 32 new tokens each, half sampled, on
+   the engine's defaults with the paged prefix read, three times: (a) on
+   the default 80-slot pool, which must not preempt; (b) on a 24-slot
+   pool under a fault schedule, which must preempt and resume every
+   victim, hold ``check_invariants`` after every step, admit each prompt
+   range once, leave nothing mapped or on the host tier, and read back
+   from the pool, at every resume, exactly the bytes its preemption
+   gathered; (c) run (b) under ``ResilientServe(snapshot_every=8)`` with
+   two crashes, whose delivered streams must equal (b)'s bitwise.  It
+   prints the preempt and resume ms, swap bytes, tokens/s of (a) and
+   (b), snapshot and restore ms, and where a stream of (b) differs from
+   (a)'s, the token, its step, the top-2 margin and both runs' prefill
+   buckets.
 
-It prints the build times, the kernel checks, one JSON line of kernel
-measurements, the serving numbers, the card's name and power limit, and
+It prints the build times, the kernel checks, the serving numbers, one
+JSON line of kernel measurements (launches counted on phases 4, 5 and 6,
+each from 0), the card's name and power limit, and
 as its last line ``{"ok": true, "device": {...}}``.  Without a CUDA card,
 or without the rest of the repository beside it, it exits non-zero and
 prints no result.
@@ -783,9 +808,10 @@ def to_device(tree, dev):
     return tree.to(dev)
 
 
-def serve(eng, requests):
-    """Submit, step to completion.  Returns ({seq_id: tokens}, steps):
-    one record per step of (wall s, chunks admitted (ChunkRecords), rows
+def serve(eng, requests, each_step=None):
+    """Submit, step to completion; ``each_step(eng)`` runs after every
+    step, outside its timing.  Returns ({seq_id: tokens}, steps): one
+    record per step of (wall s, chunks admitted (ChunkRecords), rows
     decoding, {seq_id: token}, {seq_id: batch slot})."""
     for r in requests:
         eng.submit(r)
@@ -799,6 +825,8 @@ def serve(eng, requests):
         out = eng.step()             # ends in the step's one .cpu() copy
         steps.append((time.perf_counter() - t0, eng.admission_log[n_log:],
                       live, out, {**slots, **eng._slot_of}))
+        if each_step is not None:
+            each_step(eng)
         if len(steps) > 10000:
             raise RuntimeError("engine failed to drain")
     return ({sid: list(st.generated) for sid, st in eng._states.items()},
@@ -807,34 +835,85 @@ def serve(eng, requests):
 
 def record_margins(eng, margins):
     """Wrap the engine's steps to keep each step's top-2 logit margins,
-    keyed by (kind, step) and then batch slot."""
+    keyed by (kind, step) and then batch slot, a digest of each row's
+    logits, keyed by (kind + "_digest", step), and the shape of each
+    prefill bucket a slot ran in, keyed by ("bucket", step): (path,
+    (padded rows, padded tokens[, prefix read width in blocks]))."""
+    import torch
     serve_step = eng._serve_step
 
     def top2(logits):
         v = logits.float().topk(2, dim=-1).values
         return (v[:, 0] - v[:, 1]).tolist()
 
+    def digest(logits):
+        """A hash of each row's float32 bit pattern: two rows' logits are
+        bitwise equal when (up to collisions) their digests are."""
+        bits = logits.float().view(torch.int32).to(torch.int64)
+        w = torch.arange(bits.shape[-1], device=bits.device) % 251 + 1
+        return (bits * w).sum(-1).tolist()
+
     def serve_rec(params, dstate, tokens, active=None, **kw):
         logits, dstate, stats = serve_step(params, dstate, tokens, active,
                                            **kw)
         margins[("decode", eng.step_count)] = dict(enumerate(top2(logits)))
+        margins[("decode_digest", eng.step_count)] = dict(
+            enumerate(digest(logits)))
         return logits, dstate, stats
 
-    def first_rec(step, sid_arg):
+    def first_rec(step, sid_arg, path):
         """A prefill step's wrapper; its ``sid_arg``-th argument after the
-        batch is ``slot_ids``."""
+        batch is ``slot_ids`` (the prefix-KV step's first is the new
+        slots, its second the prefix read buffer)."""
         def rec(params, dstate, batch, *args, **kw):
             last, dstate, stats = step(params, dstate, batch, *args, **kw)
             row = margins.setdefault(("prefill", eng.step_count), {})
-            for sid, m in zip(args[sid_arg].tolist(), top2(last)):
+            shape = tuple(batch["tokens"].shape)
+            if path == "prefix_kv":
+                shape += (int(args[1].shape[1]),)
+            buckets = margins.setdefault(("bucket", eng.step_count), {})
+            digests = margins.setdefault(("prefill_digest", eng.step_count),
+                                         {})
+            for sid, m, d in zip(args[sid_arg].tolist(), top2(last),
+                                 digest(last)):
                 if sid >= 0:
                     row[sid] = m
+                    buckets[sid] = (path, shape)
+                    digests[sid] = d
             return last, dstate, stats
         return rec
 
     eng._serve_step = serve_rec
-    eng._prefill_step = first_rec(eng._prefill_step, 1)
-    eng._prefix_step = first_rec(eng._prefix_step, 2)
+    eng._prefill_step = first_rec(eng._prefill_step, 1, "recompute")
+    eng._prefix_step = first_rec(eng._prefix_step, 2, "prefix_kv")
+
+
+def buckets_of(margins, steps, sid):
+    """[(step, path, bucket shape)] of every prefill dispatch ``sid`` ran
+    in."""
+    out = []
+    for step, rec in enumerate(steps, start=1):
+        row = margins.get(("bucket", step), {})
+        slot = rec[4].get(sid)
+        if slot in row:
+            out.append((step,) + row[slot])
+    return out
+
+
+def first_logits_difference(run_a, run_b, sid):
+    """Index of the first token of ``sid`` whose logits differ bitwise
+    between two runs recorded by ``record_margins`` (each run given as
+    (margins, steps)), or None when they never do."""
+    def digests(margins, steps):
+        out = []
+        for step, (_, _, _, toks, slots) in enumerate(steps, start=1):
+            if sid in toks:
+                kind = "prefill" if not out else "decode"
+                out.append(margins[(kind + "_digest", step)][slots[sid]])
+        return out
+
+    a, b = digests(*run_a), digests(*run_b)
+    return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
 
 
 def margin_of(margins, steps, sid, i):
@@ -853,42 +932,67 @@ def margin_of(margins, steps, sid, i):
 # phases 3 and 4 (and the decode profile) pin the configuration of earlier
 # slices, so that their numbers compare with earlier commits'
 EARLIER_PATH = dict(attn_impl="flash", prefill_mode="recompute",
-                    prefix_cache=None)
+                    prefix_cache=None, overload_policy="fail")
 SAMPLED = dict(temperature=0.8, top_k=50, top_p=0.95)
 
 
+def smoke_requests(prompts, new_tokens, sampled=()):
+    """One request per prompt; those whose index is in ``sampled`` sample
+    with fixed seeds."""
+    from repro_torch.serve import Request, SamplingParams
+    return [Request(seq_id=i, prompt=p, max_new_tokens=new_tokens,
+                    sampling=(SamplingParams(seed=SEED + 100 + i, **SAMPLED)
+                              if i in sampled else SamplingParams()))
+            for i, p in enumerate(prompts)]
+
+
+def near_tie(margins, steps, a, b, sid):
+    """None when streams ``a`` and ``b`` of ``sid`` are equal, else (index
+    of the first differing token, its step, the top-2 logit margin of the
+    run that recorded ``margins`` and ``steps``)."""
+    if a == b:
+        return None
+    i = next((k for k, (x, y) in enumerate(zip(a, b)) if x != y),
+             min(len(a), len(b)))
+    step, m = margin_of(margins, steps, sid, i)
+    return i, step, m
+
+
 def card_vs_cpu(torch, dev, params, prompts, new_tokens, label,
-                sampled=(), strict=False, rerun=None, **engine_kw):
+                sampled=(), strict=False, rerun=None, schedule=None,
+                **engine_kw):
     """Serve the same requests on the card and on the CPU with the same
     weights (a 2-layer full-width granite-8b in float32); requests whose
-    index is in ``sampled`` sample with fixed seeds.  Admission log,
-    manager stats and the prefix cache's stats must be identical.  A
-    stream may differ only from a near-tie (top-2 logit margin below
-    1e-3), or not at all with ``strict``.  ``rerun`` (engine overrides)
-    serves the requests once more on the card, and its streams must equal
-    the first card run's.  Returns the card's ``stats()``."""
-    from repro_torch.serve import Engine, EngineConfig, Request
-    from repro_torch.serve import SamplingParams
+    index is in ``sampled`` sample with fixed seeds, and ``schedule``
+    (``ServeFaultInjector`` arguments) gives each run a fault injector.
+    Admission log, manager stats, the prefix cache's and the overload
+    stats and the injector logs must be identical.  A stream may differ
+    only from a near-tie (top-2 logit margin below 1e-3), or not at all
+    with ``strict``.  ``rerun`` (engine overrides) serves the requests
+    once more on the card, and its streams must equal the first card
+    run's.  Returns the card's ``stats()``, streams, margins and steps."""
+    from repro_torch.runtime import ServeFaultInjector
+    from repro_torch.serve import Engine, EngineConfig
     cfg, params = params
 
     def requests():
-        return [Request(seq_id=i, prompt=pr, max_new_tokens=new_tokens,
-                        sampling=(SamplingParams(seed=SEED + 100 + i,
-                                                 **SAMPLED)
-                                  if i in sampled else SamplingParams()))
-                for i, pr in enumerate(prompts)]
+        return smoke_requests(prompts, new_tokens, sampled)
 
     ecfg = EngineConfig(auto_release=True, **engine_kw)
-    runs, margins = {}, {}
+    runs, margins, logs = {}, {}, {}
     cuda_params = to_device(params, dev)
     for name, d, p in (("cuda", dev, cuda_params),
                        ("cpu", torch.device("cpu"), params)):
-        eng = Engine(cfg, p, ecfg, device=d)
+        inj = (ServeFaultInjector(**schedule) if schedule is not None
+               else None)
+        eng = Engine(cfg, p, dataclasses.replace(ecfg, fault_injector=inj),
+                     device=d)
         if name == "cuda":
             record_margins(eng, margins)
         t0 = time.perf_counter()
         streams, steps = serve(eng, requests())
         runs[name] = (streams, steps, eng, time.perf_counter() - t0)
+        logs[name] = None if inj is None else inj.log
     (cs, csteps, ceng, ct), (ps, _, peng, pt) = runs["cuda"], runs["cpu"]
     # no eos: the schedule, and so the translation, cannot depend on the
     # token values, only the streams can
@@ -898,19 +1002,21 @@ def card_vs_cpu(torch, dev, params, prompts, new_tokens, label,
         raise AssertionError(f"{label}: card and CPU translation stats "
                              "differ")
     cst, pst = ceng.stats(), peng.stats()
-    if cst["prefix_cache"] != pst["prefix_cache"]:
-        raise AssertionError(f"{label}: card and CPU prefix-cache stats "
-                             f"differ ({cst['prefix_cache']} vs "
-                             f"{pst['prefix_cache']})")
+    for key in ("prefix_cache", "overload"):
+        if cst[key] != pst[key]:
+            raise AssertionError(f"{label}: card and CPU {key} stats "
+                                 f"differ ({cst[key]} vs {pst[key]})")
+    if logs["cuda"] != logs["cpu"]:
+        raise AssertionError(f"{label}: card and CPU injector logs differ "
+                             f"({logs['cuda']} vs {logs['cpu']})")
     ceng.check_invariants()
     same = 0
     for sid in sorted(cs):
-        if cs[sid] == ps[sid]:
+        diff = near_tie(margins, csteps, cs[sid], ps[sid], sid)
+        if diff is None:
             same += 1
             continue
-        i = next(k for k, (a, b) in enumerate(zip(cs[sid], ps[sid]))
-                 if a != b)
-        step, m = margin_of(margins, csteps, sid, i)
+        i, step, m = diff
         log(f"card vs CPU ({label}): request {sid} "
             f"({'sampled' if sid in sampled else 'greedy'}) diverges at "
             f"token {i} (step {step}): card {cs[sid][i]} vs CPU "
@@ -932,14 +1038,17 @@ def card_vs_cpu(torch, dev, params, prompts, new_tokens, label,
                     f"its first run for request {sid} at token {i}")
     stats = dict(ceng.manager.stats)
     log(f"card vs CPU ({label}; granite-8b width, 2 layers, f32, "
-        f"{len(prompts)} requests, {len(sampled)} sampled, {engine_kw}): "
+        f"{len(prompts)} requests, {len(sampled)} sampled, {engine_kw}"
+        + (f", injector {schedule}" if schedule else "") + "): "
         f"{same} of {len(cs)} token streams identical"
         + ("" if strict else ", the rest diverge only at near-ties")
         + (f", the card's rerun with {rerun} identical" if rerun else "")
-        + f"; admission log, manager and cache stats identical: "
+        + f"; admission log, manager, cache and overload stats identical: "
         f"{json.dumps(stats)} prefix cache {json.dumps(cst['prefix_cache'])}"
-        f" ({ct:.1f} s on the card, {pt:.1f} s on the CPU)")
-    return cst
+        f" overload {json.dumps(cst['overload'])}"
+        + (f" injector log {logs['cuda']}" if schedule else "")
+        + f" ({ct:.1f} s on the card, {pt:.1f} s on the CPU)")
+    return cst, cs, margins, csteps
 
 
 def card_vs_cpu_runs(torch, dev):
@@ -963,10 +1072,10 @@ def card_vs_cpu_runs(torch, dev):
 
     card_vs_cpu(torch, dev, params, prompts((64, 128, 192)), 6, "default",
                 max_batch=4, max_seq_len=256, **EARLIER_PATH)
-    st = card_vs_cpu(torch, dev, params,
-                     prompts((64, 128, 192, 320, 64, 256)), 8, "pressure",
-                     max_batch=4, max_seq_len=512, restseg_fraction=0.25,
-                     **EARLIER_PATH)
+    st, *_ = card_vs_cpu(torch, dev, params,
+                         prompts((64, 128, 192, 320, 64, 256)), 8,
+                         "pressure", max_batch=4, max_seq_len=512,
+                         restseg_fraction=0.25, **EARLIER_PATH)
     if st.get("flex_walks", 0) <= 0 or st.get(
             "migrations_flex_to_rest", 0) <= 0:
         raise AssertionError(f"pressure run: no flex walk or no promotion on "
@@ -977,17 +1086,131 @@ def card_vs_cpu_runs(torch, dev):
     ps[1][:192] = ps[0][:192]
     from repro_torch.kernels.paged_attention.ops import paged_attention
     before = paged_attention.launches_multi_query
-    st = card_vs_cpu(torch, dev, params, ps, 8, "prefix-KV, cache, sampled",
-                     sampled=(1, 3, 5), strict=True,
-                     rerun=dict(prefix_cache=None), max_batch=4,
-                     max_seq_len=512, prefill_budget=256,
-                     prefill_mode="prefix_kv", prefix_gather="paged",
-                     prefix_cache="auto")
+    st, *_ = card_vs_cpu(torch, dev, params, ps, 8,
+                         "prefix-KV, cache, sampled",
+                         sampled=(1, 3, 5), strict=True,
+                         rerun=dict(prefix_cache=None), max_batch=4,
+                         max_seq_len=512, prefill_budget=256,
+                         prefill_mode="prefix_kv", prefix_gather="paged",
+                         prefix_cache="auto")
     if st["prefix_cache"]["hits"] <= 0:
         raise AssertionError(f"prefix-KV run: no prefix-cache hit ({st})")
     if paged_attention.launches_multi_query <= before:
         raise AssertionError("prefix-KV run: paged attention never ran "
                              "with Q > 1 on the card")
+    overload_card_vs_cpu(torch, dev, params, prompts(OVERLOAD["lens"]))
+
+
+# phase 3's fourth run: 12 requests on a 16-slot pool (room for about 4
+# sequences), budget 256, prefix-KV chunks through the paged read, half the
+# requests sampled, and a fault schedule: the reference engine's
+# double-admission schedule at step 1 (a chunk denied, then its queued
+# sequence preempted), a "pre" preemption of a sequence between its
+# chunks, a "post" preemption, and denials at admit, decode and resume.
+# The crashes come after every scheduled event and after a snapshot, so
+# the replayed steps meet the same schedule as the uncrashed run.
+OVERLOAD = dict(
+    lens=(320, 64, 192, 320, 128, 256, 64, 320, 192, 128, 256, 64),
+    new_tokens=16, sampled=(1, 3, 5, 7, 9, 11),
+    engine=dict(max_batch=4, max_seq_len=512, pool_headroom=0.5,
+                prefill_budget=256, prefix_gather="paged"),
+    schedule=dict(preempt_at=[(1, "post", "auto"), (3, "pre", 0),
+                              (6, "post", "auto")],
+                  alloc_fail_at=[(1, "admit"), (4, "decode"),
+                                 (36, "resume")]),
+    snapshot_every=4, crash_at=[(41, "pre"), (46, "post")])
+
+
+def admitted_once(eng, label):
+    """Each prompt token is admitted by exactly one chunk."""
+    seen = {}
+    for r in eng.admission_log:
+        seen.setdefault(r.seq_id, []).extend(range(r.start, r.end))
+    for sid, toks in seen.items():
+        if len(toks) != len(set(toks)):
+            raise AssertionError(f"{label}: request {sid} had a prompt "
+                                 "range admitted twice")
+
+
+def supervised(sup, requests, each_step=None):
+    """Submit through a ``ResilientServe`` and poll it to completion;
+    returns the delivered streams."""
+    for r in requests:
+        sup.submit(r)
+    outs = {r.seq_id: [] for r in requests}
+    while sup.has_unfinished():
+        for ro in sup.poll():
+            outs[ro.seq_id].extend(ro.new_token_ids)
+        if each_step is not None:
+            each_step(sup.engine)
+    return outs
+
+
+def overload_card_vs_cpu(torch, dev, params, prompts):
+    """Phase 3's fourth run (``OVERLOAD``): preemption to the host tier
+    under a fault schedule, card against CPU (admission logs, overload,
+    manager and cache stats, injector logs identical; streams identical
+    except at near-ties); on the card, the same requests on a roomy pool
+    (no preemption) give the same streams under the near-tie rule, and a
+    ``ResilientServe`` run with a "pre" and a "post" crash delivers
+    streams bitwise equal to the uncrashed card run's."""
+    from repro_torch.runtime import ResilientServe, ServeFaultInjector
+    from repro_torch.serve import Engine, EngineConfig
+    cfg, cpu_params = params
+    o = OVERLOAD
+    label = "overload, host tier, faults"
+    st, cs, margins, csteps = card_vs_cpu(
+        torch, dev, params, prompts, o["new_tokens"], label,
+        sampled=o["sampled"], schedule=o["schedule"], **o["engine"])
+    ov = st["overload"]
+    n_events = len(o["schedule"]["preempt_at"]) + len(
+        o["schedule"]["alloc_fail_at"])
+    if ov["preempted_seqs"] <= 0 or ov["resumed_seqs"] != ov[
+            "preempted_seqs"] or ov["host_tier_seqs"]:
+        raise AssertionError(f"{label}: overload stats {ov}")
+    cuda_params = to_device(cpu_params, dev)
+
+    def requests():
+        return smoke_requests(prompts, o["new_tokens"], o["sampled"])
+
+    def engine(**kw):
+        return Engine(cfg, cuda_params, EngineConfig(
+            auto_release=True, **dict(o["engine"], **kw)), device=dev)
+
+    roomy, _ = serve(engine(pool_headroom=2.0), requests())
+    same = 0
+    for sid in sorted(cs):
+        diff = near_tie(margins, csteps, cs[sid], roomy[sid], sid)
+        if diff is None:
+            same += 1
+            continue
+        i, step, m = diff
+        log(f"{label}: tight vs roomy pool on the card, request {sid} "
+            f"diverges at token {i} (tight run's step {step}), top-2 "
+            f"margin {m}")
+        if m is None or m >= 1e-3:
+            raise AssertionError(f"{label}: tight and roomy pools diverge "
+                                 f"at step {step} (top-2 margin {m})")
+    inj = ServeFaultInjector(crash_at=o["crash_at"], **o["schedule"])
+    eng = engine(fault_injector=inj)
+    sup = ResilientServe(eng, snapshot_every=o["snapshot_every"])
+    crashed = supervised(sup, requests())
+    eng.check_invariants()
+    admitted_once(eng, label)
+    if sup.restarts != len(o["crash_at"]) or crashed != {
+            sid: cs[sid] for sid in crashed}:
+        raise AssertionError(f"{label}: the crashed run's delivered "
+                             f"streams differ from the uncrashed run's "
+                             f"({sup.restarts} restarts)")
+    if sum(1 for ev in inj.log if ev[0] != "crash") != n_events:
+        raise AssertionError(f"{label}: not every scheduled fault fired "
+                             f"({inj.log})")
+    log(f"{label}: on the card, {same} of {len(cs)} streams of the tight "
+        f"pool equal the roomy pool's (the rest differ only at near-ties); "
+        f"the ResilientServe run with crashes at {o['crash_at']} "
+        f"(snapshot every {o['snapshot_every']} steps, "
+        f"{sup.replayed_steps} steps replayed) delivered every stream "
+        f"bitwise equal to the uncrashed run's")
 
 
 def granite(torch, dev):
@@ -1203,6 +1426,263 @@ def profile_prefix_step(torch, eng, rng, cfg):
             kernels=len(rows), top=top)}))
 
 
+# phase 6: overload and recovery at full width and depth, on the engine's
+# defaults (overload_policy="preempt") with phase 5's paged prefix read.
+# Run (a) has the default 80-slot pool; (b) a 24-slot pool (room for
+# about two of these requests) and a fault schedule; (c) is (b) under a
+# ResilientServe with two crashes placed after every scheduled event and
+# after a snapshot, so that its replayed steps meet (b)'s schedule.
+PHASE6 = dict(max_batch=4, max_seq_len=1024, prefill_budget=256,
+              auto_release=True, prefix_gather="paged")
+PHASE6_RUN = dict(
+    lens=tuple(64 * n for n in (5, 11, 7, 9, 6, 10, 8, 11, 5, 7, 9, 6)),
+    sampled=(1, 3, 5, 7, 9, 11), roomy=1.25, tight=0.375,
+    schedule=dict(preempt_at=[(2, "pre", 0), (5, "post", "auto")],
+                  alloc_fail_at=[(3, "admit"), (8, "decode"),
+                                 (107, "resume")]),
+    snapshot_every=8, crash_at=[(121, "pre"), (138, "post")])
+
+
+def decode_row_dependence(torch, dev, cfg, params):
+    """Does a decode GEMM row's result depend on the batch around it?
+    For each of layer 0's projections and the vocab head at the decode
+    shape (4 rows, bf16, the port's ``linear``), compare bitwise: the rows
+    of a batch against the rows of its permutation (a row in another
+    batch slot), and row 0 against row 0 beside other neighbours.
+    Reported, not held (phase 6's tight-vs-roomy comparison reads it)."""
+    from repro_torch.models import layers as L
+    from repro_torch.models.transformer import layer_params
+    blk = layer_params(params, 0)
+    mats = {"q": blk["attn"]["q"], "k": blk["attn"]["k"],
+            "v": blk["attn"]["v"], "gate": blk["mlp"]["gate"],
+            "up": blk["mlp"]["up"]}
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    out = {}
+    for name, p in list(mats.items()) + [("o", blk["attn"]["o"]),
+                                         ("down", blk["mlp"]["down"]),
+                                         ("head", None)]:
+        d_in = (p["w"].shape[0] if p is not None else cfg.d_model)
+        x = torch.randn((4, d_in), generator=gen, device=dev).to(
+            torch.bfloat16)
+
+        def f(x):
+            if p is None:
+                return x @ params["embed"]["table"].T.to(x.dtype)
+            return L.linear(p, x)
+
+        y = f(x)
+        perm = torch.tensor([2, 0, 3, 1], device=dev)
+        yp = f(x[perm].contiguous())
+        x2 = x.clone()
+        x2[1:] = torch.randn((3, d_in), generator=gen, device=dev).to(
+            torch.bfloat16)
+        y2 = f(x2)
+        out[name] = dict(
+            slot_moved_equal=bool(torch.equal(yp, y[perm])),
+            neighbours_changed_equal=bool(torch.equal(y2[0], y[0])),
+            max_abs_diff=max(float((yp - y[perm]).abs().max()),
+                             float((y2[0] - y[0]).abs().max())))
+    return out
+
+
+def full_width_overload(torch, dev, cfg, dims, params):
+    """Phase 6 (``PHASE6_RUN``): 12 requests of 320-704 tokens, 32 new
+    tokens each, half sampled.  (a) must not preempt; (b) must preempt and
+    resume everything, leave no block mapped and nothing on the host tier,
+    hold ``check_invariants`` after every step and admit each prompt range
+    once, and every resume must read back from the pool exactly the bytes
+    its preemption gathered; (c) must deliver (b)'s streams bitwise.
+    Reads the launch counts of the three runs together."""
+    import numpy as np
+    from repro_torch.runtime import ResilientServe, ServeFaultInjector
+    from repro_torch.serve import Engine, EngineConfig
+    o = PHASE6_RUN
+    rng = np.random.RandomState(SEED + 6)
+    prompts = [rng.randint(0, cfg.vocab_size, n) for n in o["lens"]]
+
+    def requests():
+        return smoke_requests(prompts, 32, o["sampled"])
+
+    def engine(headroom, injector=None):
+        return Engine(cfg, params, EngineConfig(
+            dtype=torch.bfloat16, pool_headroom=headroom,
+            fault_injector=injector, **PHASE6), device=dev)
+
+    def sync_ms(fn, *args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def tokens_per_s(streams, steps):
+        return sum(len(t) for t in streams.values()) / sum(
+            w for w, *_ in steps)
+
+    _kernel_counts(reset=True)
+    # (a) the default pool
+    eng_a = engine(o["roomy"])
+    margins_a = {}
+    record_margins(eng_a, margins_a)
+    streams_a, steps_a = serve(eng_a, requests())
+    check_streams(requests(), streams_a, cfg.vocab_size)
+    if eng_a.stats()["overload"]["preempted_seqs"]:
+        raise AssertionError("phase 6 (a): the default pool preempted")
+    pool_a = eng_a.hybrid_cfg.total_slots
+    log_a = list(eng_a.admission_log)
+    del eng_a
+    torch.cuda.empty_cache()
+
+    # (b) the tight pool and the fault schedule
+    inj_b = ServeFaultInjector(**o["schedule"])
+    eng_b = engine(o["tight"], inj_b)
+    margins_b = {}
+    record_margins(eng_b, margins_b)
+    swap = {"preempt_ms": [], "resume_ms": [], "round_trips": 0}
+    saved = {}
+    preempt, resume = eng_b.preempt_request, eng_b._resume_preempted
+
+    def timed_preempt(sid):
+        _, ms = sync_ms(preempt, sid)
+        swap["preempt_ms"].append(ms)
+        rec = eng_b._preempted[sid]
+        saved[sid] = (list(rec.blocks), rec.kv)
+
+    def timed_resume(req, reserved, busy):
+        ok, ms = sync_ms(resume, req, reserved, busy)
+        if ok:
+            swap["resume_ms"].append(ms)
+            blocks, kv = saved.pop(req.seq_id)
+            if kv is not None:
+                idx = torch.tensor([eng_b.manager.lookup(req.seq_id, b)[0]
+                                    for b, _ in blocks], device=dev)
+                back = torch.stack([eng_b.dstate["k_pool"][:, idx],
+                                    eng_b.dstate["v_pool"][:, idx]]).cpu()
+                if not torch.equal(back.view(torch.int16),
+                                   kv.view(torch.int16)):
+                    raise AssertionError(
+                        f"phase 6 (b): request {req.seq_id}'s resumed "
+                        "blocks differ from the bytes its preemption "
+                        "gathered")
+                swap["round_trips"] += 1
+        return ok
+
+    eng_b.preempt_request, eng_b._resume_preempted = (timed_preempt,
+                                                      timed_resume)
+    streams_b, steps_b = serve(eng_b, requests(),
+                               each_step=lambda e: e.check_invariants())
+    check_streams(requests(), streams_b, cfg.vocab_size)
+    admitted_once(eng_b, "phase 6 (b)")
+    ov = eng_b.stats()["overload"]
+    n_events = sum(len(v) for v in o["schedule"].values())
+    if (ov["preempted_seqs"] <= 0 or ov["resumed_seqs"] != ov[
+            "preempted_seqs"] or ov["host_tier_seqs"]
+            or ov["swap_bytes_in"] != ov["swap_bytes_out"]
+            or eng_b.manager.blocks or len(inj_b.log) != n_events
+            or swap["round_trips"] <= 0):
+        raise AssertionError(f"phase 6 (b): overload {ov}, blocks left "
+                             f"{len(eng_b.manager.blocks)}, injector log "
+                             f"{inj_b.log}, {swap['round_trips']} round "
+                             "trips checked")
+    pool_b = eng_b.hybrid_cfg.total_slots
+    log_b = list(eng_b.admission_log)
+    del eng_b
+    torch.cuda.empty_cache()
+
+    # (c) = (b) under ResilientServe with two crashes
+    inj_c = ServeFaultInjector(crash_at=o["crash_at"], **o["schedule"])
+    eng_c = engine(o["tight"], inj_c)
+    rec = {"snapshot_ms": [], "snapshot_bytes": [], "restore_ms": []}
+    snapshot, restore = eng_c.snapshot, eng_c.restore
+
+    def timed_snapshot():
+        snap, ms = sync_ms(snapshot)
+        rec["snapshot_ms"].append(ms)
+        rec["snapshot_bytes"].append(len(snap.host_blob) + sum(
+            t.nbytes for t in snap.dstate.values()))
+        return snap
+
+    def timed_restore(snap):
+        _, ms = sync_ms(restore, snap)
+        rec["restore_ms"].append(ms)
+
+    eng_c.snapshot, eng_c.restore = timed_snapshot, timed_restore
+    sup = ResilientServe(eng_c, snapshot_every=o["snapshot_every"])
+    t0 = time.perf_counter()
+    streams_c = supervised(sup, requests(),
+                           each_step=lambda e: e.check_invariants())
+    wall_c = time.perf_counter() - t0
+    admitted_once(eng_c, "phase 6 (c)")
+    if sup.restarts != len(o["crash_at"]) or streams_c != streams_b:
+        raise AssertionError(f"phase 6 (c): {sup.restarts} restarts; the "
+                             "delivered streams differ from (b)'s")
+    launches = _kernel_counts()
+    for name in ("utopia_translate_step", "paged_attention",
+                 "paged_attention_q_gt1"):
+        if launches[name] <= 0:
+            raise AssertionError(f"phase 6: {name} was never launched")
+    replayed = sup.replayed_steps
+    del eng_c, sup
+    torch.cuda.empty_cache()
+
+    # (b) against (a): reported here, held in phase 3 (float32).  For
+    # each request, the first token whose logits already differ bitwise,
+    # and for a diverging stream both runs' prompt chunks (start, end):
+    # the budget is shared by the requests of a step, so another schedule
+    # splits a prompt elsewhere
+    def chunks(log, sid):
+        return [(r.start, r.end) for r in log if r.seq_id == sid]
+
+    diverged, logits_from = [], {}
+    for sid in sorted(streams_a):
+        logits_from[sid] = first_logits_difference(
+            (margins_a, steps_a), (margins_b, steps_b), sid)
+        diff = near_tie(margins_b, steps_b, streams_b[sid], streams_a[sid],
+                        sid)
+        if diff is not None:
+            i, step, m = diff
+            diverged.append(dict(
+                request=sid, token=i, step_b=step, top2_margin_b=m,
+                buckets_a=buckets_of(margins_a, steps_a, sid),
+                buckets_b=buckets_of(margins_b, steps_b, sid),
+                chunks_a=chunks(log_a, sid), chunks_b=chunks(log_b, sid)))
+
+    def med_max(xs):
+        return ([round(statistics.median(xs), 3), round(max(xs), 3)]
+                if xs else None)
+
+    summary = dict(
+        requests=len(prompts), prompt_tokens=list(o["lens"]),
+        new_tokens_each=32, sampled_requests=list(o["sampled"]),
+        pool_slots={"a": pool_a, "b": pool_b},
+        schedule=o["schedule"], injector_log_b=inj_b.log,
+        overload_b=ov, swap_mb_per_preempt_mean=round(
+            ov["swap_bytes_out"] / max(ov["request_preempts"], 1) / 1e6, 3),
+        preempt_ms_median_max=med_max(swap["preempt_ms"]),
+        resume_ms_median_max=med_max(swap["resume_ms"]),
+        round_trips_byte_equal=swap["round_trips"],
+        steps={"a": len(steps_a), "b": len(steps_b)},
+        tokens_per_s={"a": round(tokens_per_s(streams_a, steps_a), 2),
+                      "b": round(tokens_per_s(streams_b, steps_b), 2)},
+        snapshots=len(rec["snapshot_ms"]),
+        snapshot_ms_median_max=med_max(rec["snapshot_ms"]),
+        snapshot_mb_median=round(statistics.median(
+            rec["snapshot_bytes"]) / 1e6, 3),
+        restore_ms=[round(x, 3) for x in rec["restore_ms"]],
+        replayed_steps=replayed, crash_at=o["crash_at"],
+        wall_s_c=round(wall_c, 3),
+        streams_b_equal_a=len(streams_a) - len(diverged),
+        diverged_b_vs_a=diverged,
+        first_token_with_other_logits_b_vs_a=logits_from,
+        decode_gemm_rows=decode_row_dependence(torch, dev, cfg, params),
+        launches=launches)
+    log("phase 6: granite-8b full width, 36 layers, bf16, Engine("
+        + ", ".join(f"{k}={v!r}" for k, v in PHASE6.items())
+        + f", pool_headroom {o['roomy']} (a) / {o['tight']} (b, c)): "
+        + json.dumps({"overload": summary}))
+    return launches
+
+
 def profile_decode_step(torch, eng, rng, cfg):
     """An admission step under the profiler (device ms by kernel), then a
     steady decode step at B=4: its wall ms unprofiled, then the same kind
@@ -1364,6 +1844,8 @@ def main() -> int:
     paths = {"phase4": full_width(torch, dev, cfg, dims, params)}
     torch.cuda.empty_cache()
     paths["phase5"] = full_width_prefix(torch, dev, cfg, dims, params)
+    torch.cuda.empty_cache()
+    paths["phase6"] = full_width_overload(torch, dev, cfg, dims, params)
 
     # launches: each path's count was set to 0 just before it and read
     # just after; the line gives their sum and each path's

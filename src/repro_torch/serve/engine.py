@@ -22,29 +22,50 @@ request runs like this:
   translation telemetry back to the manager (SRRIP hits, flexible-walk
   cost tracking, promotions) globally and per request, and (v) applies
   pending slot migrations as one batched gather/scatter per pool;
-* a request ends at ``max_new_tokens`` ("length") or ``eos_token``
-  ("stop"); with ``auto_release=True`` its slot and blocks free at once.
+* a request ends at ``max_new_tokens`` ("length"), ``eos_token``
+  ("stop"), ``Engine.cancel`` ("cancelled") or its ``deadline_ms``
+  ("deadline"); with ``auto_release=True`` its slot and blocks free at
+  once.
 
 Tokens are the argmax, or for a request with sampled ``SamplingParams``
 its seeded draw (``serve/sampling.py``).
 
+Overload (``overload_policy="preempt"``, the default): when a KV block
+cannot be allocated the engine walks the degradation ladder — reclaim
+unreferenced prefix-cache entries, defer admission, PREEMPT a victim
+sequence to the host KV tier (``preempt_request``: one gather of its pool
+blocks and one device-to-host copy) — and rejects only requests that can
+never run.  A preempted request re-enters the scheduler queue with its
+original arrival and resumes (``_resume_preempted``: one host-to-device
+copy and one scatter into fresh pool slots) bit-identically: sampling
+keys derive from (seed, seq_id) and fold the absolute position.
+``overload_policy="fail"`` is the fail-fast baseline: admission waits
+until a request's whole footprint fits and a decode-time miss raises
+``PoolExhausted``.  A ``runtime.fault.ServeFaultInjector`` can force
+allocation denials, preemptions and crashes at the step's safe points.
+
+Recovery: ``snapshot()`` captures the whole serving state as one
+``EngineSnapshot`` (the decode-state tensors, copied to the host in one
+batch, and one pickle of the host side); ``restore()`` writes it back in
+place (``runtime/resilient_serve.py`` restores and replays after a
+crash).  ``EngineConfig.metrics`` takes a ``serve.metrics.MetricsLogger``
+fed one host-side event per step.
+
 Host contract: a step performs ONE device-to-host copy.  The next
 tokens, the post-step context lengths, the translation telemetry and the
 first tokens of every prefill that completed this step are packed into one
-int32 tensor and copied with a single ``.cpu()``.
+int32 tensor and copied with a single ``.cpu()``; a preemption adds its
+own copy only when a victim is actually swapped.
 
 Features of the JAX engine that are not ported yet keep their
 ``EngineConfig`` fields, accept only the value that turns them off and
 raise ``NotImplementedError`` naming the ROADMAP item otherwise.
-Overload follows the fail-fast policy (``overload_policy="fail"``; JAX's
-default ``"preempt"`` is ROADMAP P13): admission waits until a request's
-whole footprint fits, a capacity miss first reclaims unreferenced
-prefix-cache entries, and a decode-time allocation miss raises
-``PoolExhausted``.
 """
 from __future__ import annotations
 
 import dataclasses
+import pickle
+import time
 import warnings
 from collections import defaultdict
 from typing import Any, Dict, List, NamedTuple, Optional, Tuple
@@ -60,7 +81,7 @@ from repro_torch.models import FwdOptions, model_dims
 from .decode import DecodeSpec, init_decode_state, make_serve_step
 from .prefill import make_prefill_step, make_prefix_prefill_step
 from .sampling import GREEDY, SamplingParams, prng_key_data
-from .scheduler import Scheduler, make_scheduler
+from .scheduler import Scheduler, default_victim, make_scheduler
 
 
 def _next_pow2(n: int) -> int:
@@ -107,11 +128,15 @@ class EngineConfig:
     ``PrefixCache`` where the configuration supports one), True (demand
     one), None/False (off) or a ready ``PrefixCache``.
 
-    The defaults are the JAX engine's, except ``overload_policy``, which
-    stays ``"fail"`` until preemption to the host tier is ported.  Not
-    ported yet, off-values only: ``spec_decode=None`` (P11),
-    ``overload_policy="fail"`` and ``fault_injector=None`` (P13),
-    ``metrics=None`` (P14), ``mesh_shape=None`` (P15).
+    ``overload_policy``: ``"preempt"`` (swap a victim sequence out to
+    the host KV tier when a block cannot be allocated) or ``"fail"``
+    (footprint-gated admission; a decode-time miss raises
+    ``PoolExhausted``).  ``fault_injector``: a
+    ``runtime.fault.ServeFaultInjector`` or None.  ``metrics``: a
+    ``serve.metrics.MetricsLogger`` or None.
+
+    The defaults are the JAX engine's.  Not ported yet, off-values only:
+    ``spec_decode=None`` (P11), ``mesh_shape=None`` (P15).
     """
     max_batch: int = 4
     max_seq_len: int = 256
@@ -129,7 +154,7 @@ class EngineConfig:
     spec_decode: Any = None
     num_draft_tokens: int = 4
     spec_ngram: int = 2
-    overload_policy: str = "fail"
+    overload_policy: str = "preempt"
     fault_injector: Any = None
     mesh_shape: Optional[Tuple[int, int]] = None
     prefix_cache: Any = "auto"
@@ -139,13 +164,6 @@ class EngineConfig:
         """Raise for a field set to a feature this slice has not ported."""
         if self.spec_decode not in (None, False):
             raise _not_ported("speculative decoding", "P11")
-        if self.overload_policy != "fail":
-            raise _not_ported(f"overload_policy={self.overload_policy!r} "
-                              "(preemption to the host tier)", "P13")
-        if self.fault_injector is not None:
-            raise _not_ported("the serve fault injector", "P13")
-        if self.metrics is not None:
-            raise _not_ported("the metrics logger", "P14")
         if self.mesh_shape is not None:
             raise _not_ported("sharded serving (mesh_shape)", "P15")
         if self.attn_impl not in ("flash", "dense"):
@@ -154,6 +172,10 @@ class EngineConfig:
         if self.prefill_mode not in ("prefix_kv", "recompute"):
             raise ValueError(f"unknown prefill_mode {self.prefill_mode!r}"
                              " (expected 'prefix_kv' or 'recompute')")
+        if self.overload_policy not in ("preempt", "fail"):
+            raise ValueError(
+                f"unknown overload_policy {self.overload_policy!r} "
+                "(expected 'preempt' or 'fail')")
 
 
 class ChunkRecord(NamedTuple):
@@ -173,7 +195,14 @@ class ChunkRecord(NamedTuple):
 class Request:
     """Immutable request submission.  The prompt array is copied and
     marked read-only; runtime state lives in the engine's
-    ``RequestState`` and surfaces through ``RequestOutput`` snapshots."""
+    ``RequestState`` and surfaces through ``RequestOutput`` snapshots.
+
+    ``deadline_ms`` is a wall-clock budget from submission (None = no
+    deadline): ``poll()`` cancels the request wherever it is (queued,
+    mid-chunk prefill, decoding, or parked on the host tier) once it
+    elapses, and the stream finishes with ``finish_reason="deadline"``.
+    The clock is the monotonic ``time.perf_counter``; across a
+    snapshot/restore the REMAINING budget carries over."""
     seq_id: int
     prompt: np.ndarray
     frontend: Optional[np.ndarray] = None
@@ -206,7 +235,12 @@ class RequestState:
     arrival: int                     # engine step at submission (aging)
     generated: List[int] = dataclasses.field(default_factory=list)
     done: bool = False
-    finish_reason: Optional[str] = None   # "stop" | "length"
+    # "stop" | "length" | "cancelled" | "deadline"
+    finish_reason: Optional[str] = None
+    # absolute monotonic deadline (perf_counter seconds), set at submit
+    # from Request.deadline_ms; snapshot/restore rebases it so only the
+    # remaining budget survives a crash
+    deadline_at: Optional[float] = None
     new_tokens: List[int] = dataclasses.field(default_factory=list)
     finish_reported: bool = False
     # per-request translation telemetry (stats()["per_request"])
@@ -214,16 +248,104 @@ class RequestState:
     flex_walks: int = 0
     swap_faults: int = 0
     cached_blocks: int = 0           # prompt blocks attached from the cache
+    # overload bookkeeping: step of the latest decode commit (the LRU key
+    # of victim selection) and how often this request was preempted /
+    # resumed.  stats()["overload"] keeps separate monotone engine
+    # counters: a finished request's row is dropped on seq_id reuse
+    last_step: int = 0
+    preempts: int = 0
+    resumes: int = 0
+
+
+@dataclasses.dataclass
+class _HostTierSeq:
+    """One preempted sequence parked in host memory (the KV tier).
+
+    Everything it needs to continue bit-identically: the pool blocks it
+    had mapped (``kv``, a host tensor (2 = k/v, layers, n_blocks, block,
+    KV heads, head dim) in the pool dtype, a bitwise copy), the committed
+    context length and, for a mid-prefill victim, how many prompt tokens
+    were installed.  Sampling state needs no save: per-slot keys derive
+    from (seed, seq_id) and fold the absolute position, so they are
+    re-scattered on resume."""
+    seq_id: int
+    ctx: int
+    prefill_progress: Optional[int]     # tokens installed, None = done
+    blocks: List[Tuple[int, bool]]      # (block_idx, writable) at preempt
+    kv: Optional[torch.Tensor]
+    nbytes: int
 
 
 @dataclasses.dataclass(frozen=True)
 class RequestOutput:
-    """Streaming snapshot for one request, drained by ``Engine.poll()``."""
+    """Streaming snapshot for one request, drained by ``Engine.poll()``:
+    the tokens produced since the previous poll, all tokens so far, and
+    once finished the reason (``"stop"``, ``"length"``, ``"cancelled"``
+    or ``"deadline"``)."""
     seq_id: int
     new_token_ids: Tuple[int, ...]
     token_ids: Tuple[int, ...]
     finished: bool
     finish_reason: Optional[str]
+
+
+# ------------------------------------------------------- crash-safe snapshot
+
+SNAPSHOT_VERSION = 1
+# the translation tables are functions of the manager's host tables: a
+# snapshot stores the host tables, and restore re-uploads them
+_TRANSLATION = ("tar", "sf", "flex")
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineSnapshot:
+    """The whole serving state at a step boundary.
+
+    ``dstate`` holds HOST copies (CPU tensors) of every decode-state
+    tensor except the TAR/SF/flex translation tables: the manager's host
+    tables inside ``host_blob`` are authoritative for those, and
+    ``Engine.restore`` re-uploads them through the full translation sync.
+    ``host_blob`` pickles the whole host side in one dump (manager, prefix
+    cache, scheduler, request states, the host KV tier, monotone
+    counters), so shared references (the cache's manager, a ``Request``
+    held by both the scheduler queue and the states) survive as the SAME
+    object on restore.
+
+    ``to_arrays``/``from_arrays`` flatten it to ``{name: ndarray}``
+    (numpy has no bfloat16: such tensors travel as their int16 bits under
+    a ``:bf16`` key suffix)."""
+    version: int
+    step: int
+    dstate: Dict[str, torch.Tensor]
+    host_blob: bytes
+
+    def to_arrays(self) -> Dict[str, np.ndarray]:
+        out: Dict[str, np.ndarray] = {
+            "meta": np.asarray([self.version, self.step], np.int64),
+            "host": np.frombuffer(self.host_blob, np.uint8),
+        }
+        for k, v in self.dstate.items():
+            if v.dtype == torch.bfloat16:
+                out[f"d.{k}:bf16"] = v.view(torch.int16).numpy()
+            else:
+                out[f"d.{k}"] = v.numpy()
+        return out
+
+    @classmethod
+    def from_arrays(cls, arrays: Dict[str, np.ndarray]
+                    ) -> "EngineSnapshot":
+        meta = np.asarray(arrays["meta"])
+        dstate = {}
+        for k, v in arrays.items():
+            if not k.startswith("d."):
+                continue
+            t = torch.from_numpy(np.array(v, copy=True))
+            if k.endswith(":bf16"):
+                dstate[k[2:-5]] = t.view(torch.bfloat16)
+            else:
+                dstate[k[2:]] = t
+        return cls(version=int(meta[0]), step=int(meta[1]), dstate=dstate,
+                   host_blob=np.asarray(arrays["host"]).tobytes())
 
 
 # ------------------------------------------------------------------ engine
@@ -287,6 +409,33 @@ class Engine:
                 f"the KV block size {bs}: no prompt chunk could ever be "
                 "admitted")
         self.auto_release = config.auto_release
+        self.overload_policy = config.overload_policy
+        self._injector = config.fault_injector
+        # host KV tier: preempted sequences parked off the device
+        self._preempted: Dict[int, _HostTierSeq] = {}
+        self._swap_bytes_out = 0
+        self._swap_bytes_in = 0
+        # swap traffic per KV shard; one shard on a single device (the
+        # sharded split is ROADMAP P15).  The rows sum to the globals
+        self._shard_swap_out = np.zeros(1, np.int64)
+        self._shard_swap_in = np.zeros(1, np.int64)
+        # monotone count of preempt/resume/cancel events: poll()'s
+        # no-progress guard counts any of them as progress
+        self._progress_events = 0
+        # monotone engine-level preempt/resume counters (not sums over
+        # the per-request rows, which seq_id reuse drops; the dropped
+        # share is banked: sum(rows) + dropped == global)
+        self._request_preempts = 0
+        self._request_resumes = 0
+        self._dropped_preempts = 0
+        self._dropped_resumes = 0
+        # monotone count of tokens committed to any stream (the metrics
+        # logger's tokens delta)
+        self._tokens_emitted = 0
+        # request-lifecycle counters: explicit cancels, deadline expiries
+        self._cancelled = 0
+        self._deadline_expired = 0
+        self.metrics = config.metrics
         self.scheduler: Scheduler = make_scheduler(config.scheduler)
         # a scheduler instance is mutable state: sharing one between two
         # engines would let one engine admit the other's requests
@@ -373,8 +522,6 @@ class Engine:
                              f"KV block size {bs} (pad upstream)")
         if req.frontend is not None:
             raise _not_ported("frontend (vlm/audio) inputs", "P10")
-        if req.deadline_ms is not None:
-            raise _not_ported("request deadlines", "P14")
         old = self._states.get(req.seq_id)
         if old is not None and not old.done:
             raise ValueError(f"seq_id {req.seq_id} is already queued or "
@@ -384,12 +531,24 @@ class Engine:
                 f"seq_id {req.seq_id} finished but still holds its "
                 f"sequence slot; call release({req.seq_id}) first or "
                 "construct the engine with auto_release=True")
+        if old is not None:
+            # the old incarnation's row is about to be dropped: bank its
+            # preempt/resume counts (sum(rows) + dropped == global)
+            self._dropped_preempts += old.preempts
+            self._dropped_resumes += old.resumes
         self.finished.pop(req.seq_id, None)
         self._chain_cache.pop(req.seq_id, None)   # fresh chains on reuse
         state = RequestState(request=req, arrival=self._step_count)
+        if req.deadline_ms is not None:
+            if req.deadline_ms < 0:
+                raise ValueError(f"deadline_ms must be >= 0, got "
+                                 f"{req.deadline_ms}")
+            state.deadline_at = time.perf_counter() + req.deadline_ms / 1e3
         object.__setattr__(req, "_engine_state", state)
         self._states[req.seq_id] = state
         self.scheduler.add(req, state.arrival)
+        if self.metrics is not None:
+            self.metrics.on_submit(req.seq_id, self._step_count)
 
     def _admit(self, budget: Optional[int]
                ) -> List[Tuple[Request, torch.Tensor]]:
@@ -418,10 +577,21 @@ class Engine:
                 req = self.scheduler.select(self._step_count)
                 if req is None:
                     break
+                if req.seq_id in self._preempted:
+                    # a preempted sequence re-entered through the queue:
+                    # resume restores its saved blocks, charging no
+                    # prefill budget (nothing is re-forwarded)
+                    if not self._resume_preempted(
+                            req, reserved, {c[0].seq_id for c in chunks}):
+                        break              # no slot / no capacity yet
+                    if req.seq_id not in self._prefilling:
+                        continue           # decode-live again this step
+                    req = self._current    # mid-prefill: keep chunking
             if req.seq_id not in self._slot_of:
                 if not m._free_seq_slots:
                     break                      # wait for a release
-                if gate_alloc and not self._footprint_admit(req):
+                if (self.overload_policy == "fail" and gate_alloc
+                        and not self._footprint_admit(req)):
                     break          # fail-fast: serve only what fits whole
                 slot = m.register_sequence(req.seq_id)
                 self._slot_of[req.seq_id] = slot
@@ -438,14 +608,25 @@ class Engine:
             end = start + take
             if gate_alloc:
                 need = self._chunk_vpns(req, start, end)
+                if (need and self._injector is not None
+                        and self._injector.alloc_unavailable(
+                            self._step_count, "admit")):
+                    break      # injected transient denial: defer a step
                 if need and not self._capacity_ok(reserved, need):
                     if (not reserved
                             and not self._others_hold_blocks(req.seq_id)):
+                        # nothing else holds pool blocks, yet this prompt
+                        # does not fit: no preemption can ever admit it
                         raise PoolExhausted(
                             f"request {req.seq_id}'s prompt alone "
                             "exceeds the KV pool and cannot be admitted",
                             **self._pool_diag())
-                    break              # defer: stay queued / mid-prefill
+                    if (self.overload_policy != "preempt"
+                            or not self._make_room(
+                                self._states[req.seq_id], reserved, need,
+                                exclude={c[0].seq_id for c in chunks}
+                                | {req.seq_id})):
+                        break          # defer: stay queued / mid-prefill
                 reserved.extend(need)
             if self._current is None:
                 # first chunk admitted: the engine owns the request until
@@ -579,6 +760,44 @@ class Engine:
         nblk = self.hybrid_cfg.max_blocks_per_seq
         return any(vpn // nblk != s for vpn in m.blocks)
 
+    # -------------------------------------------- overload / host KV tier
+    def _pick_victim(self, exclude=frozenset()):
+        """Choose a preemption victim through the scheduler's policy.
+
+        Decode-live sequences are preferred over mid-prefill ones;
+        finished-but-unreleased sequences are never victims (``release``
+        is the tool for those).  Returns a RequestState or None."""
+        decode, prefill = [], []
+        for sid in self._slot_of:
+            if sid in exclude:
+                continue
+            st = self._states.get(sid)
+            if st is None or st.done:
+                continue
+            (prefill if sid in self._prefilling else decode).append(st)
+        cands = decode or prefill
+        if not cands:
+            return None
+        vic_fn = getattr(self.scheduler, "victim", None) or default_victim
+        return vic_fn(cands, self._step_count)
+
+    def _make_room(self, incoming_st, reserved, need, exclude) -> bool:
+        """Preempt policy-approved victims until ``reserved + need`` fits.
+        ``should_preempt`` gates every eviction (FIFO/SPF always say no —
+        admission waits; priority lets a strictly higher-effective request
+        evict), and each preemption removes one candidate."""
+        while not self._capacity_ok(reserved, need):
+            vic = self._pick_victim(exclude)
+            if vic is None:
+                return False
+            sp = getattr(self.scheduler, "should_preempt", None)
+            if sp is None or not sp(incoming_st.request,
+                                    incoming_st.arrival, vic,
+                                    self._step_count):
+                return False
+            self.preempt_request(vic.request.seq_id)
+        return True
+
     def _footprint_blocks(self, req) -> int:
         """Whole-request KV footprint in blocks (prompt + all of
         max_new_tokens), clamped to the per-sequence maximum."""
@@ -619,13 +838,167 @@ class Engine:
             live=sum(1 for sid in self.requests
                      if not self._states[sid].done),
             finished_unreleased=sum(1 for sid in self._slot_of
-                                    if self._states[sid].done))
+                                    if self._states[sid].done),
+            preempted=len(self._preempted))
+
+    def _attribute_swap(self, counter: np.ndarray,
+                        rec: _HostTierSeq) -> None:
+        """Charge a swap record's bytes to the KV shards.  A single device
+        holds one shard, which takes everything (the split across shards
+        by each block's owner is ROADMAP P15)."""
+        counter[0] += rec.nbytes
+
+    def preempt_request(self, seq_id: int) -> None:
+        """Swap a live sequence out to the host KV tier.
+
+        Safe points only: between steps, or inside ``step()`` before
+        admission / after the commit (the injector's "pre"/"post"
+        phases), or at an allocation miss after the step's prefill
+        dispatches.  Pending slot migrations land first; then ONE gather
+        of the sequence's mapped ``k_pool``/``v_pool`` rows and ONE
+        device-to-host copy save its KV.  Sampling keys need no save.
+        The request re-enters the scheduler queue with its ORIGINAL
+        arrival step, so aging policies keep its seniority.
+
+        Two states need care (the JAX engine mishandles both): a request
+        that registered but has not had a chunk admitted is still queued
+        and stays where it is (queueing it twice admitted its prompt
+        twice); and a request whose final chunk was dispatched this step
+        parks as decode-live, since its whole prompt is installed and its
+        first token lands at this step's commit (parking it mid-prefill
+        waited forever for a chunk that does not exist)."""
+        st = self._states.get(seq_id)
+        if st is None or st.done or seq_id not in self._slot_of:
+            raise ValueError(f"sequence {seq_id} is not live")
+        m = self.manager
+        slot = self._slot_of[seq_id]
+        # the manager's slot map is post-copy; the pool must be too
+        self._apply_copies()
+        mapped = [bslot for bslot in (m.lookup(seq_id, b)[0] for b in
+                                      range(self.spec.max_blocks_per_seq))
+                  if bslot >= 0]
+        kv = None
+        if mapped:
+            idx = _upload(np.asarray(mapped, np.int64), self.device)
+            kv = torch.stack([self.dstate["k_pool"][:, idx],
+                              self.dstate["v_pool"][:, idx]]).cpu()
+        saved = m.preempt(seq_id)
+        if len(saved) != len(mapped):
+            raise RuntimeError("preempt: gathered and released blocks "
+                               "differ")
+        progress = self._prefilling.get(seq_id)
+        if progress == len(st.request.prompt):
+            progress = None          # installed; first token in flight
+        rec = _HostTierSeq(
+            seq_id=seq_id, ctx=int(self._ctx_host[slot]),
+            prefill_progress=progress, blocks=saved,
+            kv=kv, nbytes=0 if kv is None else kv.nbytes)
+        # engine-side slot teardown (release() minus the finishing)
+        del self._slot_of[seq_id]
+        self.dstate["ctx_len"][slot] = 0
+        self._ctx_host[slot] = 0
+        req = self.requests.pop(seq_id)
+        queued = (req is not self._current and seq_id in self._prefilling
+                  and any(r is req for r in self.scheduler.pending()))
+        self._prefilling.pop(seq_id, None)
+        if self._current is req:
+            self._current = None
+        self._pending_samp = [(s, r) for s, r in self._pending_samp
+                              if r.seq_id != seq_id]
+        self._preempted[seq_id] = rec
+        self._swap_bytes_out += rec.nbytes
+        self._attribute_swap(self._shard_swap_out, rec)
+        st.preempts += 1
+        self._request_preempts += 1
+        self._progress_events += 1
+        if not queued:
+            self.scheduler.add(req, st.arrival)
+        self._sync_translation()
+
+    def _resume_preempted(self, req: Request, reserved, busy) -> bool:
+        """Bring a preempted sequence back from the host tier: a fresh
+        sequence slot and fresh pool slots (capacity-gated against the
+        ledger, preempting policy-approved victims if needed), the saved
+        KV copied to the card once and scattered into the pool, the
+        context restored, sampling re-scattered.  A mid-prefill victim
+        becomes the engine-owned chunk request again.  ``busy`` holds the
+        sequences with a chunk accepted earlier in this admission round:
+        their blocks are reserved but not allocated yet, so they are no
+        victims.  Returns False, leaving the request queued, when no
+        sequence slot or capacity is available yet."""
+        m = self.manager
+        sid = req.seq_id
+        rec = self._preempted[sid]
+        st = self._states[sid]
+        if not m._free_seq_slots:
+            return False
+        if (self._injector is not None
+                and self._injector.alloc_unavailable(self._step_count,
+                                                     "resume")):
+            return False
+        trial = m._free_seq_slots[-1]    # the slot register_sequence pops
+        vpns = [self.hybrid_cfg.vpn(trial, b) for b, _ in rec.blocks]
+        if not self._capacity_ok(reserved, vpns):
+            if (self.overload_policy != "preempt"
+                    or not self._make_room(st, reserved, vpns,
+                                           exclude=busy | {sid})):
+                return False
+        self.scheduler.pop(req)
+        slot = m.register_sequence(sid)
+        m.resume(sid, rec.blocks)
+        self._apply_copies()        # resume-time evictions land first
+        if rec.kv is not None:
+            # re-resolve AFTER the copies: a later block's allocation may
+            # have evict-migrated an earlier one within this resume, so
+            # the scatter targets where each block lives now
+            dst = _upload(np.asarray([m.lookup(sid, b)[0]
+                                      for b, _ in rec.blocks], np.int64),
+                          self.device)
+            kv = (rec.kv if self.device.type == "cpu"
+                  else rec.kv.to(self.device, non_blocking=True))
+            self.dstate["k_pool"][:, dst] = kv[0]
+            self.dstate["v_pool"][:, dst] = kv[1]
+        self.dstate["ctx_len"][slot] = rec.ctx
+        self._ctx_host[slot] = rec.ctx
+        self._slot_of[sid] = slot
+        self.requests[sid] = req
+        self._pending_samp.append((slot, req))
+        if rec.prefill_progress is not None:
+            self._prefilling[sid] = rec.prefill_progress
+            self._current = req
+        del self._preempted[sid]
+        self._swap_bytes_in += rec.nbytes
+        self._attribute_swap(self._shard_swap_in, rec)
+        st.last_step = self._step_count
+        st.resumes += 1
+        self._request_resumes += 1
+        self._progress_events += 1
+        return True
+
+    def _run_forced_preempts(self, targets) -> None:
+        """Apply the injector's forced preemptions; ``"auto"`` targets
+        resolve through the victim policy, and targets that are not live
+        are skipped (a schedule may outlive the sequence it named)."""
+        for t in targets:
+            if t == "auto" or t is None:
+                vic = self._pick_victim()
+                sid = None if vic is None else vic.request.seq_id
+            else:
+                sid = int(t)
+            st = self._states.get(sid) if sid is not None else None
+            if (st is None or st.done or sid not in self._slot_of
+                    or self.hybrid_cfg.mode == "restrictive_only"):
+                continue
+            self.preempt_request(sid)
 
     def _ensure_decode_blocks(self, st: RequestState) -> None:
         """Map the block the next decode dispatch writes for ``st`` (when
-        its position sits on a block boundary).  A capacity miss raises
-        ``PoolExhausted`` (fail-fast); ``restrictive_only`` swaps on a set
-        conflict by design (Fig. 9)."""
+        its position sits on a block boundary).
+
+        A capacity miss walks the degradation ladder: preempt a
+        policy-chosen victim and retry.  Under ``overload_policy="fail"``
+        the miss raises ``PoolExhausted`` with occupancy diagnostics.
+        ``restrictive_only`` swaps on a set conflict by design (Fig. 9)."""
         m = self.manager
         bs = self.cfg.kv_block_size
         sid = st.request.seq_id
@@ -643,10 +1016,21 @@ class Engine:
                 st.swap_faults += 1
             return
         vpn = self.hybrid_cfg.vpn(m.seq_slot(sid), b)
-        if not self._capacity_ok((), (vpn,)):
-            raise PoolExhausted(
-                f"decode step cannot allocate a KV block for sequence "
-                f"{sid}", **self._pool_diag())
+        forced = (self._injector is not None
+                  and self._injector.alloc_unavailable(self._step_count,
+                                                       "decode"))
+        while forced or not self._capacity_ok((), (vpn,)):
+            forced = False
+            if self.overload_policy != "preempt":
+                raise PoolExhausted(
+                    f"decode step cannot allocate a KV block for sequence "
+                    f"{sid}", **self._pool_diag())
+            vic = self._pick_victim(exclude={sid})
+            if vic is None:
+                raise PoolExhausted(
+                    f"sequence {sid} cannot hold its own KV blocks and "
+                    "nothing is left to preempt", **self._pool_diag())
+            self.preempt_request(vic.request.seq_id)
         if seg == SWAP:
             m.swap_in(sid, b)
             st.swap_faults += 1
@@ -791,13 +1175,23 @@ class Engine:
         st = self._states[req.seq_id]
         st.generated.append(nxt)
         st.new_tokens.append(nxt)
+        self._tokens_emitted += 1
         self._maybe_finish(st, nxt)
 
     def _finish(self, st: RequestState, reason: str) -> None:
         st.done = True
         st.finish_reason = reason
-        if self.auto_release and st.request.seq_id in self._slot_of:
-            self.release(st.request.seq_id)
+        sid = st.request.seq_id
+        if self._preempted.pop(sid, None) is not None:
+            # parked while its first token was in flight, and that token
+            # finished it: nothing is left to resume
+            self.scheduler.remove(st.request)
+            self.finished[sid] = st.request
+        if self.auto_release and sid in self._slot_of:
+            self.release(sid)
+        if self.metrics is not None:
+            self.metrics.on_finish(sid, self._step_count, len(st.generated),
+                                   reason)
 
     def _maybe_finish(self, st: RequestState, nxt: int) -> None:
         if st.done:
@@ -858,8 +1252,41 @@ class Engine:
     def step(self) -> Dict[int, int]:
         """One engine step: admit under the prefill budget, then decode
         all live sequences.  Returns {seq_id: token} for every sequence
-        that produced a token (prefill completions AND decodes)."""
+        that produced a token (prefill completions AND decodes).
+
+        With a ``MetricsLogger`` attached (``EngineConfig.metrics``) each
+        step also emits one host-side event (wall time on the monotonic
+        clock, counter deltas, occupancy gauges) after the commit; the
+        logger touches no tensor, so streams are bit-identical logger-on
+        and logger-off."""
+        if self.metrics is None:
+            return self._step_impl()
+        t0 = time.perf_counter()
+        out = self._step_impl()
+        wall = time.perf_counter() - t0
+        self.metrics.on_step(self._step_count, wall,
+                             self._metrics_counters(),
+                             self._metrics_gauges())
+        return out
+
+    def _injected(self, phase: str) -> None:
+        """The injector's forced preemptions at a safe point, then its
+        crash point of the same phase (a scheduled ``InjectedStepFault``
+        simulates the process dying there; recovery restores a snapshot,
+        never unwinds).  At ``"pre"`` the crash comes first: the step has
+        not mutated anything yet."""
+        inj = self._injector
+        if phase == "pre":
+            inj.maybe_crash(self._step_count, "pre")
+        self._run_forced_preempts(
+            inj.forced_preempts(self._step_count, phase))
+        if phase == "post":
+            inj.maybe_crash(self._step_count, "post")
+
+    def _step_impl(self) -> Dict[int, int]:
         self._step_count += 1
+        if self._injector is not None:
+            self._injected("pre")
         pending = self._admit(self.prefill_budget)
         live = [self._states[sid] for sid in self.requests
                 if not self._states[sid].done
@@ -871,9 +1298,14 @@ class Engine:
         parts = [tok for _, tok in pending]
         want_stats = False
         if live:
-            # map the blocks this dispatch will write FIRST
+            # map the blocks this dispatch will write FIRST: an allocation
+            # miss may preempt another live sequence (it then drops out of
+            # the batch), so tokens/active are built once residency settles
             for st in live:
-                self._ensure_decode_blocks(st)
+                if st.request.seq_id in self._slot_of:
+                    self._ensure_decode_blocks(st)
+            live = [st for st in live if st.request.seq_id in self._slot_of]
+        if live:
             tokens = np.zeros(B, np.int64)
             active = np.zeros(B, bool)
             for st in live:
@@ -896,6 +1328,8 @@ class Engine:
                 # in_rest, accesses, mapped: one int32 block, as written
                 parts.append(tstats["telemetry"])
         if not parts:
+            if self._injector is not None:
+                self._injected("post")
             return {}
         # ---- the step's ONE device->host copy ---------------------------
         host = torch.cat(parts).cpu().numpy()
@@ -936,11 +1370,15 @@ class Engine:
                 nxt = int(nxt_all[self._slot_of[sid]])
                 st.generated.append(nxt)
                 st.new_tokens.append(nxt)
+                st.last_step = self._step_count
+                self._tokens_emitted += 1
                 out[sid] = nxt
                 self._maybe_finish(st, nxt)
         for (r, _), nxt in zip(pending, firsts):
             self._complete_prefill(r, int(nxt))
             out[r.seq_id] = int(nxt)
+        if self._injector is not None:
+            self._injected("post")
         return out
 
     # ---------------------------------------------------- streaming output
@@ -949,24 +1387,38 @@ class Engine:
         return self._step_count
 
     def poll(self) -> List[RequestOutput]:
-        """Advance the engine one step (if any work remains) and return a
-        ``RequestOutput`` per request that produced tokens or finished
-        since the previous poll.  Raises ``PoolExhausted`` when a step
-        makes no progress while requests are queued (every slot held by
-        a finished-but-unreleased sequence)."""
+        """Cancel requests whose deadline elapsed, advance the engine one
+        step (if any work remains) and return a ``RequestOutput`` per
+        request that produced tokens or finished since the previous poll.
+
+        Under overload (``overload_policy="preempt"``) a full pool
+        preempts victims to the host KV tier and keeps serving.  Raises
+        ``PoolExhausted`` when a step makes NO progress (no token, no
+        chunk admitted, no preempt/resume, no injected fault) while
+        requests are queued: every slot is held by a
+        finished-but-unreleased sequence.  (The JAX engine also raises
+        after a step whose only event was an injected allocation denial,
+        which is transient by definition.)"""
+        self._enforce_deadlines()
         if self.has_unfinished():
-            before = (dict(self._prefilling), len(self.waiting),
-                      len(self._slot_of))
+            before = self._progress_mark()
             out = self.step()
             if (not out and self.waiting
-                    and before == (self._prefilling, len(self.waiting),
-                                   len(self._slot_of))):
+                    and before == self._progress_mark()):
                 raise PoolExhausted(
                     f"{len(self.waiting)} queued request(s) cannot be "
                     "admitted and nothing is decoding: release finished "
                     "sequences or construct the engine with "
                     "auto_release=True", **self._pool_diag())
         return self._drain_outputs()
+
+    def _progress_mark(self):
+        """What a step that made progress changes (poll's no-progress
+        guard): prefill progress, the queue, residency, preempt / resume /
+        cancel events, and the injector's log."""
+        fired = len(self._injector.log) if self._injector is not None else 0
+        return (dict(self._prefilling), len(self.waiting),
+                len(self._slot_of), self._progress_events, fired)
 
     def stream(self):
         """Iterate ``RequestOutput`` snapshots until every submitted
@@ -988,6 +1440,68 @@ class Engine:
                     st.finish_reported = True
         return outs
 
+    # -------------------------------------------- cancellation / deadlines
+    def cancel(self, seq_id: int, reason: str = "cancelled") -> bool:
+        """Terminate a request wherever it is in its lifecycle — queued,
+        mid-chunk prefill, decoding, or parked on the host KV tier — and
+        reclaim everything it holds: its sequence slot, KV blocks, prefix
+        cache references and ledger claims.
+
+        The final ``RequestOutput`` carries ``finished=True`` with
+        ``finish_reason="cancelled"`` (``"deadline"`` from the deadline
+        sweep) and the tokens generated before the cut.  Returns False,
+        touching nothing, when the id is unknown or already finished.  The
+        slot is released even under ``auto_release=False``."""
+        st = self._states.get(seq_id)
+        if st is None or st.done:
+            return False
+        req = st.request
+        if self._current is req:
+            self._current = None
+        try:
+            # queued (never admitted) or preempted requests sit in the
+            # scheduler queue; live decoders do not
+            self.scheduler.remove(req)
+        except (ValueError, AttributeError):
+            pass
+        # a host-tier copy dies with the cancel (preempt_request already
+        # freed the manager side)
+        self._preempted.pop(seq_id, None)
+        self._pending_samp = [(s, r) for s, r in self._pending_samp
+                              if r.seq_id != seq_id]
+        st.done = True
+        st.finish_reason = reason
+        if reason == "deadline":
+            self._deadline_expired += 1
+        else:
+            self._cancelled += 1
+        # a cancel is progress for poll()'s no-progress guard: the freed
+        # capacity admits a queued request on the next step
+        self._progress_events += 1
+        if seq_id in self._slot_of:
+            self.release(seq_id)     # frees slot, blocks, pins, ledger
+        else:
+            rq = self.requests.pop(seq_id, None)
+            self.finished[seq_id] = rq if rq is not None else req
+            self._prefilling.pop(seq_id, None)
+            self._chain_cache.pop(seq_id, None)
+        if self.metrics is not None:
+            self.metrics.on_finish(seq_id, self._step_count,
+                                   len(st.generated), reason)
+        return True
+
+    def _enforce_deadlines(self) -> None:
+        """Cancel every live request whose wall-clock budget elapsed, with
+        ``finish_reason="deadline"`` (one clock read per poll, none when
+        no request carries a deadline)."""
+        now = None
+        for sid in [s for s, st in self._states.items()
+                    if not st.done and st.deadline_at is not None]:
+            if now is None:
+                now = time.perf_counter()
+            if now >= self._states[sid].deadline_at:
+                self.cancel(sid, reason="deadline")
+
     # ------------------------------------------------------------ teardown
     def release(self, seq_id: int) -> None:
         self.manager.free_sequence(seq_id)
@@ -1003,6 +1517,124 @@ class Engine:
         self._prefilling.pop(seq_id, None)
         self._sync_translation()
 
+    # --------------------------------------------------- snapshot / restore
+    _SNAP_FIELDS = (
+        "requests", "finished", "_states", "_current", "_slot_of",
+        "_prefilling", "_pending_samp", "_step_count", "admission_log",
+        "_preempted", "_swap_bytes_out", "_swap_bytes_in",
+        "_progress_events", "_request_preempts", "_request_resumes",
+        "_dropped_preempts", "_dropped_resumes", "_tokens_emitted",
+        "_cancelled", "_deadline_expired", "_chain_cache",
+    )
+
+    def snapshot(self) -> EngineSnapshot:
+        """Capture the whole serving state as one value, at a step
+        boundary (the safe points of ``preempt_request``).
+
+        Device side: every decode-state tensor except the TAR/SF/flex
+        tables (functions of the host tables, re-uploaded on restore),
+        copied to the host in one batch of asynchronous copies and one
+        synchronisation.  Host side: ONE ``pickle.dumps`` of the manager,
+        prefix cache, scheduler queue, request registries and states
+        (mid-chunk progress and the host KV tier included) and all
+        monotone counters; absolute deadlines become remaining budgets.
+        The snapshot stays valid after the engine advances, and restoring
+        it on an engine of the same configuration replays
+        bit-identically."""
+        # pending slot migrations land first, so the pool bytes agree with
+        # the manager's (pickled) post-copy slot map
+        self._apply_copies()
+        keys = [k for k in self.dstate if k not in _TRANSLATION]
+        if self.device.type == "cpu":
+            dstate = {k: self.dstate[k].clone() for k in keys}
+        else:
+            # a non-blocking copy to the host lands in pinned memory
+            dstate = {k: self.dstate[k].to("cpu", non_blocking=True)
+                      for k in keys}
+            torch.cuda.current_stream(self.device).synchronize()
+        now = time.perf_counter()
+        payload: Dict[str, Any] = {f: getattr(self, f)
+                                   for f in self._SNAP_FIELDS}
+        payload.update(
+            manager=self.manager, prefix_cache=self.prefix_cache,
+            scheduler=self.scheduler, _ctx_host=self._ctx_host,
+            _shard_swap_out=self._shard_swap_out,
+            _shard_swap_in=self._shard_swap_in,
+            deadline_remaining={
+                sid: st.deadline_at - now
+                for sid, st in self._states.items()
+                if st.deadline_at is not None and not st.done})
+        # the scheduler's back-pointer would drag the whole Engine (and
+        # its params) into the blob; strip it around the dump
+        sched = self.scheduler
+        bound = getattr(sched, "_bound_engine", None)
+        if bound is not None:
+            sched._bound_engine = None
+        try:
+            blob = pickle.dumps(payload, pickle.HIGHEST_PROTOCOL)
+        finally:
+            if bound is not None:
+                sched._bound_engine = bound
+        return EngineSnapshot(version=SNAPSHOT_VERSION,
+                              step=self._step_count, dstate=dstate,
+                              host_blob=blob)
+
+    def restore(self, snap: EngineSnapshot) -> None:
+        """Overwrite this engine's serving state with ``snap``'s.
+
+        The engine must have the configuration the snapshot was taken
+        under (the device tensors' names, shapes and dtypes are checked).
+        Everything live is discarded: requests submitted after the
+        snapshot are gone (``ResilientServe`` journals and resubmits
+        them).  The device tensors are written back in place (``copy_``),
+        so the pool is never held twice and every tensor a kernel reads
+        by pointer stays where it was; the translation tables are
+        re-uploaded from the restored host tables."""
+        if snap.version != SNAPSHOT_VERSION:
+            raise ValueError(
+                f"snapshot version {snap.version} != engine "
+                f"{SNAPSHOT_VERSION}: cross-version restore unsupported")
+        expect = {k: (tuple(v.shape), v.dtype)
+                  for k, v in self.dstate.items() if k not in _TRANSLATION}
+        got = {k: (tuple(v.shape), v.dtype) for k, v in snap.dstate.items()}
+        if got != expect:
+            diff = sorted(k for k in set(expect) | set(got)
+                          if expect.get(k) != got.get(k))
+            raise ValueError("snapshot device state does not match this "
+                             f"engine config: {diff} differ")
+        host = pickle.loads(snap.host_blob)
+        for f in self._SNAP_FIELDS:
+            setattr(self, f, host[f])
+        self.manager = host["manager"]
+        self.prefix_cache = host["prefix_cache"]
+        if getattr(self.scheduler, "_bound_engine", None) is self:
+            self.scheduler._bound_engine = None
+        self.scheduler = host["scheduler"]
+        try:
+            self.scheduler._bound_engine = self
+        except AttributeError:
+            pass
+        self._ctx_host = np.asarray(host["_ctx_host"], np.int64).copy()
+        self._shard_swap_out = np.asarray(host["_shard_swap_out"],
+                                          np.int64).copy()
+        self._shard_swap_in = np.asarray(host["_shard_swap_in"],
+                                         np.int64).copy()
+        # deadline budgets restart from the remaining time at snapshot:
+        # the crash and restore pause does not count against a request
+        now = time.perf_counter()
+        for sid, rem in host["deadline_remaining"].items():
+            st = self._states.get(sid)
+            if st is not None:
+                st.deadline_at = now + rem
+        for k, v in snap.dstate.items():
+            self.dstate[k].copy_(v, non_blocking=True)
+        self._synced_full = False
+        self._sync_translation(full=True)
+        if self.metrics is not None:
+            # the logger differentiates ABSOLUTE counters: rebase it so
+            # the rewind gives no negative deltas
+            self.metrics.rebase(self._metrics_counters())
+
     # ---------------------------------------------------------- telemetry
     def _kv_block_bytes(self) -> int:
         """Device bytes one pool block occupies across both KV pools (all
@@ -1010,13 +1642,65 @@ class Engine:
         k, v = self.dstate["k_pool"], self.dstate["v_pool"]
         return (k.nbytes + v.nbytes) // k.shape[1]
 
+    def _metrics_counters(self) -> Dict[str, int]:
+        """ABSOLUTE monotone counters for the metrics logger (it
+        differentiates them into per-step deltas); host reads only, so the
+        logger's totals agree with ``stats()`` at every step."""
+        m = self.manager
+        pc = self.prefix_cache
+        return {
+            "tokens": self._tokens_emitted,
+            "rsw_hits": int(m.stats.get("rsw_hits", 0)),
+            "flex_walks": int(m.stats.get("flex_walks", 0)),
+            "swap_faults": int(m.stats.get("faults", 0)),
+            "request_preempts": self._request_preempts,
+            "request_resumes": self._request_resumes,
+            "swap_bytes_out": self._swap_bytes_out,
+            "swap_bytes_in": self._swap_bytes_in,
+            "prefix_lookups": int(pc.stats["lookups"]) if pc else 0,
+            "prefix_hits": int(pc.stats["hits"]) if pc else 0,
+            "cancelled": self._cancelled,
+            "deadline_expired": self._deadline_expired,
+        }
+
+    def _metrics_gauges(self) -> Dict[str, Any]:
+        """Point-in-time gauges copied into the step event verbatim."""
+        total = self.hybrid_cfg.total_slots
+        mapped = sum(1 for i in self.manager.blocks.values() if i.slot >= 0)
+        return {
+            "pool_blocks": total,
+            "mapped_blocks": mapped,
+            "occupancy": mapped / max(total, 1),
+            "live": sum(1 for sid in self.requests
+                        if not self._states[sid].done),
+            "queued": len(self.waiting),
+            "host_tier_seqs": len(self._preempted),
+        }
+
     def stats(self) -> dict:
-        """Global manager counters, ``"prefix_cache"`` (the cache's
-        counters as the JAX engine reports them) and ``"per_request"``:
+        """Global manager counters; ``"overload"``: sequence-granularity
+        preempt/resume counts (the manager's), host-tier residency, swap
+        bytes each way and the monotone per-request preempt/resume
+        counters with the share banked on seq_id reuse; ``"lifecycle"``:
+        cancels and deadline expiries; ``"prefix_cache"`` (the cache's
+        counters as the JAX engine reports them); and ``"per_request"``:
         RestSeg hits / flexible walks / swap faults / cache-attached
-        blocks attributed to each seq_id (the ``cached_blocks`` rows sum
-        to ``dedup_blocks``)."""
+        blocks / preempts / resumes of each seq_id (the ``cached_blocks``
+        rows sum to ``dedup_blocks``)."""
         s = dict(self.manager.stats)
+        s["overload"] = {
+            "preempted_seqs": int(self.manager.stats.get("preempt_out", 0)),
+            "resumed_seqs": int(self.manager.stats.get("preempt_in", 0)),
+            "host_tier_seqs": len(self._preempted),
+            "swap_bytes_out": self._swap_bytes_out,
+            "swap_bytes_in": self._swap_bytes_in,
+            "request_preempts": self._request_preempts,
+            "request_resumes": self._request_resumes,
+            "dropped_request_preempts": self._dropped_preempts,
+            "dropped_request_resumes": self._dropped_resumes,
+        }
+        s["lifecycle"] = {"cancelled": self._cancelled,
+                          "deadline_expired": self._deadline_expired}
         pc = self.prefix_cache
         s["prefix_cache"] = {
             "enabled": pc is not None,
@@ -1033,17 +1717,32 @@ class Engine:
         s["per_request"] = {
             sid: {"rsw_hits": st.rsw_hits, "flex_walks": st.flex_walks,
                   "swap_faults": st.swap_faults,
-                  "cached_blocks": st.cached_blocks}
+                  "cached_blocks": st.cached_blocks,
+                  "preempts": st.preempts, "resumes": st.resumes}
             for sid, st in self._states.items()}
         return s
 
     def check_invariants(self) -> None:
-        """The manager's structural oracle, plus: the device translation
-        tables equal the host tables, and the prefix cache's directory
-        agrees with the manager."""
+        """The manager's structural oracle, plus: the prefix cache's
+        directory agrees with the manager, the monotone preempt/resume
+        counters equal the per-request rows plus the banked share, the
+        per-shard swap bytes sum to the global ones, and the device
+        translation tables equal the host tables (after uploading the
+        deltas a step leaves for the next step's sync)."""
+        self._sync_translation()
         self.manager.check_invariants()
         if self.prefix_cache is not None:
             self.prefix_cache.check_invariants()
+        assert (sum(st.preempts for st in self._states.values())
+                + self._dropped_preempts == self._request_preempts), \
+            "per-request preempts + dropped != global request_preempts"
+        assert (sum(st.resumes for st in self._states.values())
+                + self._dropped_resumes == self._request_resumes), \
+            "per-request resumes + dropped != global request_resumes"
+        assert int(self._shard_swap_out.sum()) == self._swap_bytes_out, \
+            "per-shard swap-out bytes != global"
+        assert int(self._shard_swap_in.sum()) == self._swap_bytes_in, \
+            "per-shard swap-in bytes != global"
         m = self.manager
         tar = self.dstate["tar"][0].cpu().numpy()
         sf = self.dstate["sf"][0].cpu().numpy()

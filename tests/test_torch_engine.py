@@ -98,7 +98,7 @@ def test_engine_streams_and_telemetry_match(weights):
 
     # a port-only run picks an eos that the EOS request really produces
     port_cfg = EngineConfig(prefill_mode="recompute", prefix_cache=None,
-                            **ENGINE)
+                            overload_policy="fail", **ENGINE)
     probe = Engine(cfg, tp, port_cfg, device="cpu")
     eos = [t for _, t in _run(probe, Request, prompts)[EOS_REQ]][2]
 
@@ -141,18 +141,19 @@ def test_engine_streams_and_telemetry_match(weights):
 
 def test_engine_refuses_unported_features(weights):
     """Only the features still unported raise (speculative decoding,
-    preemption and the fault injector, metrics, meshes); the JAX engine's
-    defaults (prefix-KV prefill, the prefix cache) construct, and a
-    sampled request is accepted."""
+    meshes); the JAX engine's defaults (prefix-KV prefill, the prefix
+    cache, preemption to the host tier) construct, and a sampled request
+    is accepted."""
     _, _, cfg, tp = weights
-    for kw in (dict(spec_decode="ngram"), dict(overload_policy="preempt"),
-               dict(fault_injector=object()), dict(mesh_shape=(1, 1)),
-               dict(metrics=object())):
+    for kw in (dict(spec_decode="ngram"), dict(mesh_shape=(1, 1))):
         with pytest.raises(NotImplementedError, match="ROADMAP P"):
             Engine(cfg, tp, EngineConfig(**kw), device="cpu")
+    with pytest.raises(ValueError, match="overload_policy"):
+        Engine(cfg, tp, EngineConfig(overload_policy="swap"), device="cpu")
     eng = Engine(cfg, tp, EngineConfig(), device="cpu")
     assert eng.prefill_mode == "prefix_kv"
     assert eng.prefix_cache is not None
+    assert eng.overload_policy == "preempt"
     from repro_torch.serve import SamplingParams
     eng.submit(Request(seq_id=0, prompt=np.zeros(8, np.int64),
                        sampling=SamplingParams(temperature=1.0)))
@@ -218,8 +219,8 @@ def test_engine_modes_match(weights, mode):
         prefill_mode="recompute", prefix_cache=None, overload_policy="fail",
         **kw)), JRequest, prompts, 12)
     got = _drain(Engine(cfg, tp, EngineConfig(
-        prefill_mode="recompute", prefix_cache=None, **kw), device="cpu"),
-        Request, prompts, 12)
+        prefill_mode="recompute", prefix_cache=None, overload_policy="fail",
+        **kw), device="cpu"), Request, prompts, 12)
     assert got == want
     stats = got[1]
     if mode == "restrictive_only":

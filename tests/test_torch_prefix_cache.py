@@ -167,7 +167,8 @@ def test_engine_cache_matches_jax(weights, gather):
                                      prefix_gather=gather, **ENGINE))
     want = _fanout(jeng, JRequest, JSamplingParams, cfg.vocab_size,
                    sampled=True)
-    teng = Engine(cfg, tp, EngineConfig(prefix_gather=gather, **ENGINE),
+    teng = Engine(cfg, tp, EngineConfig(overload_policy="fail",
+                                        prefix_gather=gather, **ENGINE),
                   device="cpu")
     got = _fanout(teng, Request, SamplingParams, cfg.vocab_size,
                   sampled=True)

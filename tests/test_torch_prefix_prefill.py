@@ -218,7 +218,8 @@ def test_engine_prefix_kv_matches_jax(weights, gather):
     jeng = JEngine(jcfg, jp, JConfig(overload_policy="fail",
                                      prefix_gather=gather, **ENGINE))
     want = _serve(jeng, JRequest, JSamplingParams, prompts)
-    teng = Engine(cfg, tp, EngineConfig(prefix_gather=gather, **ENGINE),
+    teng = Engine(cfg, tp, EngineConfig(overload_policy="fail",
+                                        prefix_gather=gather, **ENGINE),
                   device="cpu")
     got = _serve(teng, Request, SamplingParams, prompts)
     assert teng.admission_log == jeng.admission_log

@@ -178,7 +178,8 @@ def test_engine_sampled_streams_match_jax(weights):
     jeng = JEngine(jcfg, jp, JConfig(overload_policy="fail", **ENGINE))
     want = _drain(jeng, _requests(JRequest, JSamplingParams,
                                   cfg.vocab_size))
-    teng = Engine(cfg, tp, EngineConfig(**ENGINE), device="cpu")
+    teng = Engine(cfg, tp, EngineConfig(overload_policy="fail", **ENGINE),
+                  device="cpu")
     got = _drain(teng, _requests(Request, SamplingParams, cfg.vocab_size))
     assert teng.admission_log == jeng.admission_log
     assert dict(teng.manager.stats) == dict(jeng.manager.stats)
