@@ -15,7 +15,8 @@ Phase 3's first two runs, phase 4 and the profile pass their engine
 configuration explicitly (flash attention, recompute prefill, no prefix
 cache, ``overload_policy="fail"``), so that their numbers compare with
 earlier commits'; phases 5 and 6 run the engine's defaults (with the
-paged prefix read), which include preemption to the host KV tier.
+paged prefix read), which include preemption to the host KV tier, and
+phase 7 the defaults with speculative decoding.
 
 Phases, each failing loudly:
 
@@ -32,12 +33,18 @@ Phases, each failing loudly:
    translation in one launch) for all five hashes at the smoke engine's
    geometry and at a granite-8b deployment's (64 rows of 64 blocks, a
    5120-slot pool at restseg fraction 0.25), with a row past its vpn
-   range, an unmapped write block and an inactive row; paged attention
+   range, an unmapped write block and an inactive row, and with the
+   verify step's window of 5 positions (windows crossing into a mapped
+   and an unmapped block, past the last block and the vpn range, an
+   inactive row), one launch a call; paged attention
    also with a zero-extent row, token-striped shards, and bitwise batch
    and query-rank invariance; flash attention also at every prefill
    bucket length (8 .. 1024).  Paged attention also at the prefix-KV
    prefill's read (Q = 256 queries a row over prefix extents 192, 448, 0
-   and 320, the third a padded row that must give l == 0 and m == -1e30).
+   and 320, the third a padded row that must give l == 0 and m == -1e30)
+   and at the verify step's (Q = 5 queries a row, one extent a query:
+   query i must equal a Q = 1 launch at its extent bitwise, f32 and
+   bf16).
    Then time kernel, plain version, and for
    flash attention ``scaled_dot_product_attention`` (CUDA events and
    profiler device time) as a yardstick the port never calls; the step
@@ -64,7 +71,11 @@ Phases, each failing loudly:
    streams identical except at near-ties; on the card a roomy pool gives
    the same streams under the near-tie rule, and a ``ResilientServe`` run
    with a "pre" and a "post" crash delivers streams bitwise equal to the
-   uncrashed run's;
+   uncrashed run's.  A fifth run decodes speculatively (``SPEC3``: K = 4,
+   two of six prompts repeating a passage, half sampled): admission logs,
+   manager and cache stats and the spec counters identical card vs CPU,
+   streams identical except at near-ties, and on the card spec-off gives
+   the same streams under the near-tie rule;
 4. serve granite-8b at its published width and depth (36 layers, random
    bfloat16 weights from a seeded generator) through the port's Engine
    with flash attention and recompute prefill: 8 requests, 32 new tokens
@@ -91,11 +102,23 @@ Phases, each failing loudly:
    prints the preempt and resume ms, swap bytes, tokens/s of (a) and
    (b), snapshot and restore ms, and where a stream of (b) differs from
    (a)'s, the token, its step, the top-2 margin and both runs' prefill
-   buckets.
+   buckets;
+7. serve granite-8b at full width and depth with speculative decoding
+   (``PHASE7``: the engine's defaults plus ``spec_decode="ngram"``, K =
+   4): phase 5's 8 requests and two whose prompts repeat a passage,
+   spec-off and then spec-on in the same process, ``check_invariants``
+   after every step.  Every stream must hold 32 in-vocab tokens, drafts
+   must be proposed and accepted on a repetitive request, the per-query
+   paged read must launch, and each decoding step must launch the
+   translation once.  It prints tokens/s and steps of both, emitted
+   tokens per row-step, the acceptance rate, a steady verify step's wall
+   and device ms beside a decode step's, where a spec-on stream differs
+   from spec-off the token, its step and both top-2 margins, and whether
+   the decode GEMMs round a row alike at M = 4 and M = 20.
 
 It prints the build times, the kernel checks, the serving numbers, one
-JSON line of kernel measurements (launches counted on phases 4, 5 and 6,
-each from 0), the card's name and power limit, and
+JSON line of kernel measurements (launches counted on phases 4, 5, 6 and
+7, each from 0), the card's name and power limit, and
 as its last line ``{"ok": true, "device": {...}}``.  Without a CUDA card,
 or without the rest of the repository beside it, it exits non-zero and
 prints no result.
@@ -535,6 +558,80 @@ def check_translate_step(torch, dev, results):
               + ", ".join(f"{k} {v}" for k, v in STEP_GEOMETRIES.items()))
 
 
+# the verify step's window: K + 1 positions a row (K = 4 drafts)
+WINDOW = 5
+
+
+def _window_case(torch, dev, hash_name, B=6, nblk=16, bs=64, slots=80,
+                 frac=0.25):
+    """Tables and context lengths whose windows of ``WINDOW`` positions
+    run past the last block (row 0), cross into a mapped next block
+    (row 1) or an unmapped one (row 2), lie past the vpn range (row 4) or
+    inside one block (row 5); row 3 is inactive."""
+    import numpy as np
+    from repro_torch.core import HybridConfig, HybridKVManager
+    m = HybridKVManager(HybridConfig(
+        block_size=bs, total_slots=slots, restseg_fraction=frac, assoc=8,
+        max_seqs=B, max_blocks_per_seq=nblk, hash_name=hash_name))
+    ctx = np.asarray([nblk * bs - 2, 2 * bs - 2, 3 * bs - 3, bs + 3,
+                      nblk * bs + 5, 1], np.int32)
+    last = [nblk - 1, 2, 2, 1, nblk - 1, 0]
+    for sid in range(B):
+        m.register_sequence(sid)
+    for b in range(nblk):
+        for sid in range(B):
+            if b <= last[sid]:
+                m.allocate_block(sid, b)
+    active = np.asarray([True, True, True, False, True, True])
+    up = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (
+        m.tar[None], m.sf[None], m.flex_table.reshape(1, -1), ctx, active)]
+    geom = dict(block_size=bs, nblk=nblk, hash_name=hash_name, sink=slots)
+    return up, geom, m.cfg.num_sets
+
+
+def check_translate_window(torch, dev, results):
+    """The step entry with a window (the verify step's translation, W =
+    K + 1) against its plain version, exactly (the whole output buffer),
+    at W = 1 and W = ``WINDOW`` for all five hashes, with and without the
+    active mask; then its device kernels per call through
+    ``translate_step``, which must be 1, and its device time."""
+    from repro_torch.kernels.utopia_rsw.ops import utopia_translate_step
+    from repro_torch.kernels.utopia_rsw.ref import translate_step_ref
+    from repro_torch.serve.decode import DecodeSpec, translate_step
+    for h in HASHES:
+        (tar, sf, flex, ctx, active), geom, n_sets = _window_case(torch, dev,
+                                                                  h)
+        for W in (1, WINDOW):
+            for act in (None, active):
+                got = utopia_translate_step(tar, sf, flex, ctx, act,
+                                            window=W, **geom)
+                want = translate_step_ref(tar, sf, flex, ctx, act, window=W,
+                                          **geom)
+                if not torch.equal(got.out, want.out):
+                    raise AssertionError(f"translate_step window {W} [{h}] "
+                                         "differs from the plain version")
+    spec = DecodeSpec(block_size=geom["block_size"],
+                      max_blocks_per_seq=geom["nblk"],
+                      slots_per_group=geom["sink"], n_sets=n_sets, assoc=8,
+                      hash_name=h)
+    bound = {}
+    fn = lambda: translate_step(tar, sf, flex, ctx, spec, active, bound,
+                                window=WINDOW)
+    per_call = launches_per_call(torch, fn)
+    if per_call != 1:
+        raise AssertionError(f"translate_step window {WINDOW}: {per_call} "
+                             "device kernels per call, expected 1")
+    r = dict(window=WINDOW, rows=int(ctx.shape[0]), kernels_per_call=per_call,
+             device_ms=device_ms(torch, fn, 100, ("translate_step_kernel",)),
+             ms=time_ms(torch, [fn], 400))
+    results["utopia_translate_step"]["window"] = r
+    log(f"check translate_step window: exact at W = 1 and {WINDOW} on 5 "
+        "hashes (windows past the last block, into a mapped and an "
+        "unmapped block, past the vpn range, an inactive row); "
+        + json.dumps({k: (round(v, 6) if isinstance(v, float) else v)
+                      for k, v in r.items()}))
+
+
 def _paged_case(torch, dev, dtype, B=4, H=32, KV=8, D=128, bs=64, nblk=16,
                 L=1, Q=None, per_query=False, gen=None):
     """A granite-8b decode read: each row maps its first ceil(ctx/bs)
@@ -655,6 +752,71 @@ def check_paged(torch, dev, results):
         library_ms=None, library_device_ms=None,
         device_kernels_per_call=per_call,
         shape=f"B={B} H={H} KV={KV} D={D} bs={bs} ctx={ctx.tolist()} bf16")
+
+
+def check_paged_verify(torch, dev, results):
+    """The verify step's read: one query a window position and one extent
+    a query.  Query i of a Q = K + 1 launch with extents pos+1 .. pos+K+1
+    must equal, bitwise, a Q = 1 launch at extent pos+i+1, in float32 and
+    bf16 (the kernel half of spec decode's losslessness); then the bf16
+    read at B=4, Q=5, H=32, KV=8, D=128 is held to its plain version
+    (3e-2) and timed beside its bytes bound, each row's blocks up to its
+    last extent read once."""
+    from repro_torch.kernels.paged_attention.ops import paged_attention
+    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+    gen = torch.Generator().manual_seed(SEED + 2)
+    for dtype in (torch.float32, torch.bfloat16):
+        q, kp, vp, slots, ext = _paged_case(torch, dev, dtype, Q=WINDOW,
+                                            per_query=True, gen=gen)
+        q = q.to(dtype)
+        wide = paged_attention(q, kp[0], vp[0], slots, ext)
+        for i in range(WINDOW):
+            one = paged_attention(q[:, i].contiguous(), kp[0], vp[0], slots,
+                                  ext[:, i].contiguous())
+            if not all(torch.equal(x, y[:, i]) for x, y in zip(one, wide)):
+                raise AssertionError(
+                    f"paged_attention per-query [{dtype}]: query {i} of "
+                    f"Q={WINDOW} differs from a Q=1 launch at its extent")
+    L = 8
+    q, kp, vp, slots, ext = _paged_case(torch, dev, torch.bfloat16, L=L,
+                                        Q=WINDOW, per_query=True, gen=gen)
+    q = q.to(torch.bfloat16)
+    err = max(check_close("paged_attention[verify read]", g, w, 3e-2)
+              for g, w in zip(paged_attention(q, kp[0], vp[0], slots, ext),
+                              paged_attention_ref(q, kp[0], vp[0], slots,
+                                                  ext)))
+    kern = [lambda i=i: paged_attention(q, kp[i], vp[i], slots, ext)
+            for i in range(L)]
+    plain = [lambda i=i: paged_attention_ref(q, kp[i], vp[i], slots, ext)
+             for i in range(L)]
+    per_call = launches_per_call(torch, kern[0])
+    if per_call != 1:
+        raise AssertionError(f"paged_attention verify read: {per_call} "
+                             "device kernels per call, expected 1")
+    B, Q, H, D = q.shape
+    bs, KV = kp.shape[2], kp.shape[3]
+    last = ext[:, -1].tolist()
+    n_tok = sum(-(-e // bs) * bs for e in last) - bs    # the hole in row 0
+    nbytes = (q.numel() * 2 + 2 * n_tok * KV * D * 2 + slots.numel() * 4
+              + ext.numel() * 4 + B * Q * H * D * 4 + 2 * B * Q * H * 4)
+    flops = 4 * D * H * int(ext.sum())
+    bound_bytes = nbytes / HBM_BYTES_PER_S
+    bound_ops = flops / PEAK_FLOPS["bfloat16"]
+    r = dict(
+        max_abs_err=err, ms=time_ms(torch, kern, 80),
+        device_ms=device_ms(torch, kern[0], 20, ("paged_attn_kernel",)),
+        plain_ms=time_ms(torch, plain, 16),
+        bound_ms=max(bound_bytes, bound_ops) * 1e3,
+        bound_by="bytes" if bound_bytes >= bound_ops else "operations",
+        bytes=nbytes, flops=flops, device_kernels_per_call=per_call,
+        shape=f"B={B} Q={Q} H={H} KV={KV} D={D} bs={bs} per-query extents "
+              f"{ext.tolist()} bf16")
+    results["paged_attention_verify_read"] = r
+    log(f"check paged_attention verify read: query i of Q={WINDOW} == a "
+        "Q=1 launch at extent pos+i+1 bitwise (f32 and bf16); max abs err "
+        f"{err:.3g} (tol 3e-2); " + json.dumps(
+            {k: (round(v, 6) if isinstance(v, float) else v)
+             for k, v in r.items()}))
 
 
 # the prefix-KV prefill's pool read: a bucket of 4 chunks of 256 tokens
@@ -883,9 +1045,26 @@ def record_margins(eng, margins):
             return last, dstate, stats
         return rec
 
+    def spec_rec(params, dstate, tokens, active=None, **kw):
+        """A verify step: per active slot, the stream length before the
+        step and the top-2 margins of its K+1 window positions."""
+        lens = {slot: len(eng._states[sid].generated)
+                for sid, slot in eng._slot_of.items()}
+        logits, dstate, stats = spec_step(params, dstate, tokens, active,
+                                          **kw)
+        v = logits.float().topk(2, dim=-1).values
+        m = (v[..., 0] - v[..., 1]).tolist()
+        act = active.tolist()
+        margins[("verify", eng.step_count)] = {
+            slot: (n, m[slot]) for slot, n in lens.items() if act[slot]}
+        return logits, dstate, stats
+
     eng._serve_step = serve_rec
     eng._prefill_step = first_rec(eng._prefill_step, 1, "recompute")
     eng._prefix_step = first_rec(eng._prefix_step, 2, "prefix_kv")
+    spec_step = getattr(eng, "_spec_step", None)
+    if spec_step is not None:
+        eng._spec_step = spec_rec
 
 
 def buckets_of(margins, steps, sid):
@@ -918,15 +1097,23 @@ def first_logits_difference(run_a, run_b, sid):
 
 def margin_of(margins, steps, sid, i):
     """(step, top-2 margin of the logits) that produced token ``i`` of
-    ``sid``."""
-    seen = 0
+    ``sid``: under speculative decoding, the window position of the last
+    verify step whose window held token i."""
+    seen, found = 0, (None, None)
     for step, (_, _, _, out, slots) in enumerate(steps, start=1):
-        if sid in out:
-            if seen == i:
-                kind = "prefill" if i == 0 else "decode"
-                return step, margins[(kind, step)][slots[sid]]
-            seen += 1
-    return None, None
+        if sid not in out:
+            continue
+        spec = margins.get(("verify", step), {}).get(slots[sid])
+        if spec is not None:
+            n0, ms = spec
+            if n0 <= i < n0 + len(ms):
+                found = (step, ms[i - n0])
+            continue
+        if seen == i:
+            kind = "prefill" if i == 0 else "decode"
+            return step, margins[(kind, step)][slots[sid]]
+        seen += 1
+    return found
 
 
 # phases 3 and 4 (and the decode profile) pin the configuration of earlier
@@ -1002,7 +1189,7 @@ def card_vs_cpu(torch, dev, params, prompts, new_tokens, label,
         raise AssertionError(f"{label}: card and CPU translation stats "
                              "differ")
     cst, pst = ceng.stats(), peng.stats()
-    for key in ("prefix_cache", "overload"):
+    for key in ("prefix_cache", "overload", "spec_drafted", "spec_accepted"):
         if cst[key] != pst[key]:
             raise AssertionError(f"{label}: card and CPU {key} stats "
                                  f"differ ({cst[key]} vs {pst[key]})")
@@ -1099,6 +1286,56 @@ def card_vs_cpu_runs(torch, dev):
         raise AssertionError("prefix-KV run: paged attention never ran "
                              "with Q > 1 on the card")
     overload_card_vs_cpu(torch, dev, params, prompts(OVERLOAD["lens"]))
+    # two prompts that repeat a pattern (prompt-lookup traffic) beside
+    # random ones
+    ps = prompts(SPEC3["lens"])
+    for i, n in SPEC3["repeats"].items():
+        ps[i] = np.tile(ps[i][:n], len(ps[i]) // n)
+    spec_card_vs_cpu(torch, dev, params, ps)
+
+
+# phase 3's fifth run: speculative decoding (K = 4, n-gram 2), card vs CPU
+SPEC3 = dict(lens=(64, 256, 128, 192, 256, 128), repeats={1: 32, 4: 64},
+             sampled=(1, 3, 5), new_tokens=16,
+             engine=dict(max_batch=4, max_seq_len=512, spec_decode="ngram",
+                         num_draft_tokens=4, spec_ngram=2))
+
+
+def spec_card_vs_cpu(torch, dev, params, prompts):
+    """Phase 3's fifth run (``SPEC3``): admission logs, manager and cache
+    stats, spec counters identical card vs CPU, streams identical except
+    at near-ties; on the card, spec-off serves the same requests with the
+    same streams under the near-tie rule."""
+    from repro_torch.serve import Engine, EngineConfig
+    o = SPEC3
+    label = "spec decode K=4"
+    st, cs, margins, csteps = card_vs_cpu(
+        torch, dev, params, prompts, o["new_tokens"], label,
+        sampled=o["sampled"], **o["engine"])
+    if st["spec_drafted"] <= 0:
+        raise AssertionError(f"{label}: no draft proposed")
+    cfg, cpu_params = params
+    eng = Engine(cfg, to_device(cpu_params, dev), EngineConfig(
+        auto_release=True, **dict(o["engine"], spec_decode=None)),
+        device=dev)
+    off, steps_off = serve(eng, smoke_requests(prompts, o["new_tokens"],
+                                               o["sampled"]))
+    same = 0
+    for sid in sorted(cs):
+        diff = near_tie(margins, csteps, cs[sid], off[sid], sid)
+        if diff is None:
+            same += 1
+            continue
+        i, step, m = diff
+        log(f"{label}: spec-on vs spec-off on the card, request {sid} "
+            f"diverges at token {i} (spec-on step {step}), top-2 margin {m}")
+        if m is None or m >= 1e-3:
+            raise AssertionError(f"{label}: spec-on and spec-off diverge at "
+                                 f"step {step} (top-2 margin {m})")
+    log(f"{label}: on the card, {same} of {len(cs)} spec-on streams equal "
+        f"spec-off's (the rest differ only at near-ties), in {len(csteps)} "
+        f"steps against {len(steps_off)}; drafted {st['spec_drafted']}, "
+        f"accepted {st['spec_accepted']}")
 
 
 # phase 3's fourth run: 12 requests on a 16-slot pool (room for about 4
@@ -1243,6 +1480,8 @@ def _kernel_counts(reset=False):
            "paged_attention": (paged_attention, "launches"),
            "paged_attention_q_gt1": (paged_attention,
                                      "launches_multi_query"),
+           "paged_attention_q_per_query": (paged_attention,
+                                           "launches_q_per_query"),
            "flash_attention": (flash_attention, "launches")}
     if reset:
         for fn, attr in fns.values():
@@ -1327,18 +1566,13 @@ PHASE5 = dict(max_batch=4, max_seq_len=1024, attn_impl="dense",
               prefix_cache="auto", prefill_budget=256, auto_release=True)
 
 
-def full_width_prefix(torch, dev, cfg, dims, params):
-    """Phase 5: 8 requests of 64-704 tokens, 32 new tokens each; requests
-    1, 3, 5 and 7 open with one 384-token system prompt; requests 0, 3, 4
-    and 7 sample (fixed seeds).  Reads the launch counts of this run
-    alone; then profiles one prefix-KV admission step."""
-    import numpy as np
-    from repro_torch.serve import Engine, EngineConfig, Request
-    from repro_torch.serve import SamplingParams
-    eng = Engine(cfg, params, EngineConfig(dtype=torch.bfloat16, **PHASE5),
-                 device=dev)
+def phase5_requests(cfg, rng):
+    """Phase 5's 8 requests of 64-704 tokens, 32 new tokens each: requests
+    1, 3, 5 and 7 open with one 384-token system prompt, requests 0, 3, 4
+    and 7 sample (fixed seeds).  Returns (requests, prompt lengths, the
+    sharing requests, the sampled ones)."""
+    from repro_torch.serve import Request, SamplingParams
     bs = cfg.kv_block_size
-    rng = np.random.RandomState(SEED + 5)
     system = rng.randint(0, cfg.vocab_size, 384)
     lens = [bs * n for n in (1, 11, 2, 7, 3, 9, 5, 8)]   # 64 .. 704 tokens
     shared, sampled = (1, 3, 5, 7), (0, 3, 4, 7)
@@ -1351,6 +1585,20 @@ def full_width_prefix(torch, dev, cfg, dims, params):
             seq_id=i, prompt=p, max_new_tokens=32,
             sampling=(SamplingParams(seed=SEED + 100 + i, **SAMPLED)
                       if i in sampled else SamplingParams())))
+    return reqs, lens, shared, sampled
+
+
+def full_width_prefix(torch, dev, cfg, dims, params):
+    """Phase 5: 8 requests of 64-704 tokens, 32 new tokens each; requests
+    1, 3, 5 and 7 open with one 384-token system prompt; requests 0, 3, 4
+    and 7 sample (fixed seeds).  Reads the launch counts of this run
+    alone; then profiles one prefix-KV admission step."""
+    import numpy as np
+    from repro_torch.serve import Engine, EngineConfig
+    eng = Engine(cfg, params, EngineConfig(dtype=torch.bfloat16, **PHASE5),
+                 device=dev)
+    rng = np.random.RandomState(SEED + 5)
+    reqs, lens, shared, sampled = phase5_requests(cfg, rng)
     _kernel_counts(reset=True)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1448,8 +1696,11 @@ def decode_row_dependence(torch, dev, cfg, params):
     For each of layer 0's projections and the vocab head at the decode
     shape (4 rows, bf16, the port's ``linear``), compare bitwise: the rows
     of a batch against the rows of its permutation (a row in another
-    batch slot), and row 0 against row 0 beside other neighbours.
-    Reported, not held (phase 6's tight-vs-roomy comparison reads it)."""
+    batch slot), row 0 against row 0 beside other neighbours, and the 4
+    rows against the same rows inside a product of M = 20 rows (the
+    verify step's B * (K + 1) at B = 4, K = 4).  Reported, not held
+    (phase 6's tight-vs-roomy and phase 7's spec-on-vs-off comparisons
+    read it)."""
     from repro_torch.models import layers as L
     from repro_torch.models.transformer import layer_params
     blk = layer_params(params, 0)
@@ -1477,11 +1728,16 @@ def decode_row_dependence(torch, dev, cfg, params):
         x2[1:] = torch.randn((3, d_in), generator=gen, device=dev).to(
             torch.bfloat16)
         y2 = f(x2)
+        x20 = torch.cat([x, torch.randn((16, d_in), generator=gen,
+                                        device=dev).to(torch.bfloat16)])
+        y20 = f(x20)[:4]
         out[name] = dict(
             slot_moved_equal=bool(torch.equal(yp, y[perm])),
             neighbours_changed_equal=bool(torch.equal(y2[0], y[0])),
             max_abs_diff=max(float((yp - y[perm]).abs().max()),
-                             float((y2[0] - y[0]).abs().max())))
+                             float((y2[0] - y[0]).abs().max())),
+            rows_equal_at_m20=bool(torch.equal(y20, y)),
+            m20_max_abs_diff=float((y20.float() - y.float()).abs().max()))
     return out
 
 
@@ -1683,6 +1939,160 @@ def full_width_overload(torch, dev, cfg, dims, params):
     return launches
 
 
+# phase 7: speculative decoding at full width and depth, on the engine's
+# defaults plus spec_decode="ngram" (K = 4): phase 5's 8 requests and two
+# whose prompts repeat a passage (the "rewrite this document" and code-edit
+# traffic whose output copies its prompt, which prompt lookup serves)
+PHASE7 = dict(max_batch=4, max_seq_len=1024, auto_release=True)
+PHASE7_K = 4
+
+
+def phase7_requests(cfg):
+    import numpy as np
+    from repro_torch.serve import Request
+    rng = np.random.RandomState(SEED + 5)
+    reqs, *_ = phase5_requests(cfg, rng)
+    doc = rng.randint(0, cfg.vocab_size, 128)
+    snippet = rng.randint(0, cfg.vocab_size, 48)
+    reqs += [Request(seq_id=8, prompt=np.tile(doc, 3), max_new_tokens=32),
+             Request(seq_id=9, prompt=np.tile(snippet, 4),
+                     max_new_tokens=32)]
+    return reqs
+
+
+def steady_step(torch, eng, cfg):
+    """Four requests of 512 random tokens admitted, then steady steps at
+    B=4: the median wall ms of three, and one step's device ms under the
+    profiler (busy ms, kernels, the paged read's ms, the idle share).  The
+    requests are cancelled afterwards."""
+    import numpy as np
+    from repro_torch.serve import Request
+    rng = np.random.RandomState(SEED + 7)
+    sids = [300 + i for i in range(4)]
+    for sid in sids:
+        eng.submit(Request(seq_id=sid, prompt=rng.randint(
+            0, cfg.vocab_size, 512), max_new_tokens=64))
+    while eng._prefilling or eng.waiting:
+        eng.step()
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.step()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    rows = profile_device(torch, eng.step, 1)
+    for sid in sids:
+        eng.cancel(sid)
+    wall = statistics.median(walls)
+    busy = sum(ms for _, ms, _ in rows)
+    return dict(
+        wall_ms=round(wall, 3), device_busy_ms=round(busy, 3),
+        idle_share=round(1 - busy / wall, 4) if rows else None,
+        device_kernels=int(round(sum(n for _, _, n in rows))),
+        paged_attention_ms=round(sum(ms for name, ms, _ in rows
+                                     if "paged_attn_kernel" in name), 4))
+
+
+def full_width_spec(torch, dev, cfg, dims, params):
+    """Phase 7: the same 10 requests spec-off, then spec-on (the path;
+    its launch counts are read), each step held by ``check_invariants``.
+    Fails unless every stream holds 32 in-vocab tokens, drafts were
+    proposed and a repetitive request accepted some, the per-query paged
+    read launched, and each step that decoded launched the translation
+    exactly once.  Prints tokens/s and steps of both, emitted tokens per
+    row-step, the acceptance rate, a steady verify step's wall and device
+    ms beside a decode step's, and where a spec-on stream differs from
+    spec-off the first differing token, its step, both runs' top-2 margins
+    and the decode GEMMs' row dependence at M = 4 and 20."""
+    from repro_torch.kernels.utopia_rsw.ops import utopia_translate_step
+    from repro_torch.serve import Engine, EngineConfig
+    runs = {}
+    for name, spec in (("off", None), ("on", "ngram")):
+        eng = Engine(cfg, params, EngineConfig(
+            dtype=torch.bfloat16, spec_decode=spec,
+            num_draft_tokens=PHASE7_K, **PHASE7), device=dev)
+        margins = {}
+        record_margins(eng, margins)
+        if spec:
+            _kernel_counts(reset=True)
+        trans = {"last": utopia_translate_step.launches, "per_step": []}
+
+        def each(e, trans=trans):
+            n = utopia_translate_step.launches
+            trans["per_step"].append(n - trans["last"])
+            trans["last"] = n
+            e.check_invariants()
+
+        reqs = phase7_requests(cfg)
+        streams, steps = serve(eng, reqs, each_step=each)
+        launches = _kernel_counts() if spec else None
+        check_streams(reqs, streams, cfg.vocab_size)
+        want = [1 if live else 0 for _, _, live, _, _ in steps]
+        if trans["per_step"] != want:
+            raise AssertionError(f"phase 7 ({name}): translation launches "
+                                 f"per step {trans['per_step']}, expected "
+                                 f"{want}")
+        st = eng.stats()
+        runs[name] = dict(streams=streams, steps=steps, margins=margins,
+                          stats=st, launches=launches,
+                          steady=steady_step(torch, eng, cfg))
+        del eng
+        torch.cuda.empty_cache()
+    on, off = runs["on"], runs["off"]
+    st = on["stats"]
+    rep = {sid: st["per_request"][sid]["accepted"] for sid in (8, 9)}
+    if st["spec_drafted"] <= 0 or max(rep.values()) <= 0:
+        raise AssertionError(f"phase 7: drafted {st['spec_drafted']}, "
+                             f"accepted on the repetitive requests {rep}")
+    launches = on["launches"]
+    if launches["paged_attention_q_per_query"] <= 0:
+        raise AssertionError("phase 7: the per-query paged read was never "
+                             "launched")
+
+    def tokens_per_s(r):
+        return sum(len(t) for t in r["streams"].values()) / sum(
+            w for w, *_ in r["steps"])
+
+    def step_ms(r):
+        ws = [w for w, recs, live, _, _ in r["steps"] if live and not recs]
+        return round(statistics.median(ws) * 1e3, 3)
+
+    n_req = len(on["streams"])
+    row_steps = sum(live for _, _, live, _, _ in on["steps"])
+    decoded = sum(len(t) for t in on["streams"].values()) - n_req
+    diverged = []
+    for sid in sorted(on["streams"]):
+        diff = near_tie(on["margins"], on["steps"], on["streams"][sid],
+                        off["streams"][sid], sid)
+        if diff is not None:
+            i, step, m = diff
+            step_off, m_off = margin_of(off["margins"], off["steps"], sid, i)
+            diverged.append(dict(request=sid, token=i, step_on=step,
+                                 top2_margin_on=m, step_off=step_off,
+                                 top2_margin_off=m_off))
+    summary = dict(
+        requests=n_req, new_tokens_each=32, repetitive_requests=[8, 9],
+        num_draft_tokens=PHASE7_K,
+        steps={"on": len(on["steps"]), "off": len(off["steps"])},
+        tokens_per_s={k: round(tokens_per_s(r), 2) for k, r in runs.items()},
+        step_ms_median={"verify": step_ms(on), "decode": step_ms(off)},
+        steady_b4={"verify": on["steady"], "decode": off["steady"]},
+        emitted_per_row_step=round(decoded / max(row_steps, 1), 4),
+        spec_drafted=st["spec_drafted"], spec_accepted=st["spec_accepted"],
+        acceptance_rate=round(st["spec_accepted"]
+                              / max(st["spec_drafted"], 1), 4),
+        accepted_by_request={sid: row["accepted"] for sid, row
+                             in st["per_request"].items()},
+        streams_on_equal_off=n_req - len(diverged), diverged=diverged,
+        decode_gemm_rows=decode_row_dependence(torch, dev, cfg, params),
+        launches=launches)
+    log("phase 7: granite-8b full width, 36 layers, bf16, Engine("
+        + ", ".join(f"{k}={v!r}" for k, v in PHASE7.items())
+        + f", spec_decode='ngram', num_draft_tokens={PHASE7_K}) against "
+        "spec_decode=None: " + json.dumps({"spec": summary}))
+    return launches
+
+
 def profile_decode_step(torch, eng, rng, cfg):
     """An admission step under the profiler (device ms by kernel), then a
     steady decode step at B=4: its wall ms unprofiled, then the same kind
@@ -1834,7 +2244,9 @@ def main() -> int:
     results = {}
     check_rsw(torch, dev)
     check_translate_step(torch, dev, results)
+    check_translate_window(torch, dev, results)
     check_paged(torch, dev, results)
+    check_paged_verify(torch, dev, results)
     check_paged_prefix(torch, dev, results)
     check_flash(torch, dev, results)
     torch.cuda.synchronize()
@@ -1846,11 +2258,15 @@ def main() -> int:
     paths["phase5"] = full_width_prefix(torch, dev, cfg, dims, params)
     torch.cuda.empty_cache()
     paths["phase6"] = full_width_overload(torch, dev, cfg, dims, params)
+    torch.cuda.empty_cache()
+    paths["phase7"] = full_width_spec(torch, dev, cfg, dims, params)
 
     # launches: each path's count was set to 0 just before it and read
     # just after; the line gives their sum and each path's
     results["paged_attention"]["prefix_read"] = results.pop(
         "paged_attention_prefix_read")
+    results["paged_attention"]["verify_read"] = results.pop(
+        "paged_attention_verify_read")
     kernels = []
     for name in ("utopia_translate_step", "paged_attention",
                  "flash_attention"):
@@ -1860,6 +2276,8 @@ def main() -> int:
         if name == "paged_attention":
             extra["launches_q_gt1"] = sum(
                 c["paged_attention_q_gt1"] for c in paths.values())
+            extra["launches_q_per_query"] = sum(
+                c["paged_attention_q_per_query"] for c in paths.values())
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=sum(c[name] for c in paths.values()),

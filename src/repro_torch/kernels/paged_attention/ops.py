@@ -3,7 +3,9 @@
 A CUDA tensor launches the kernel or raises; a CPU tensor takes the plain
 version in ``ref.py``.  ``paged_attention.launches`` counts kernel
 launches; ``paged_attention.launches_multi_query`` counts those among them
-with more than one query per row (the prefix-KV prefill's read).
+with more than one query per row (the prefix-KV prefill's read and the
+speculative verify read), and ``paged_attention.launches_q_per_query``
+those with one extent per query, ``ctx_len (B, Q)`` (the verify read).
 """
 from __future__ import annotations
 
@@ -124,8 +126,11 @@ def paged_attention(q, k_pool, v_pool, slots, ctx_len, *,
         paged_attention.launches += 1
         if Q > 1:
             paged_attention.launches_multi_query += 1
+        if ctx_len.dim() == 2:
+            paged_attention.launches_q_per_query += 1
     return o, m, l
 
 
 paged_attention.launches = 0
 paged_attention.launches_multi_query = 0
+paged_attention.launches_q_per_query = 0

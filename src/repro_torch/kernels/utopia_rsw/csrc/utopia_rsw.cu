@@ -21,10 +21,14 @@
 // (query i is vpn i; row b's write block, as the JAX package's
 // `_translate_queries` picks it, is one of row b's own queries), walks
 // it, and writes the telemetry, the
-// resolved slots and, per row, the write validity, the flat pool row of the
-// new token's K/V (the sink slot's row when the write is invalid or the row
-// inactive) and the attention extent.  The step then runs no other device
-// op for its translation, and the layer loop none to prepare its writes.
+// resolved slots and, per row and window position, the write validity, the
+// flat pool row of that position's K/V (the sink slot's row when the write
+// is invalid or the row inactive) and the attention extent.  The window is
+// W positions from the row's context length: W = 1 for a decode step,
+// K + 1 for a speculative verify step, whose positions' write blocks are
+// read from the same walk (the JAX package gathers them from the step's
+// one translation).  The step then runs no other device op for its
+// translation, and the layer loop none to prepare its writes.
 //
 // Hash arithmetic follows src/repro_torch/core/hashes.py on int32 with
 // wrap-around; the multiplies run in uint32 (signed overflow is undefined
@@ -165,37 +169,41 @@ __global__ void rsw_kernel(const int* __restrict__ vpns, Tables T, int n,
 
 // The step's geometry, bound once on the host (see StepParams below).
 struct Step {
-  int batch, nblk, block_size, sink;
+  int batch, nblk, block_size, sink, window;
 };
 
-// Output layout of the step entry, in int32 words of one buffer:
-//   [0, 2B)           w_row    int64 (B,) flat pool row of the write
-//   [2B, 3B)          w_slot   (B,) slot of the write block, -1 unmapped
-//   [3B, 4B)          w_valid  (B,) mapped, in range and active
-//   [4B, 5B)          extent   (B,) ctx_len + 1
-//   [5B, 5B + 3N)     in_rest, accesses, mapped, (N,) each, N = B * nblk
-//   [5B + 3N, 5B + 4N) slots  (N,)
-// The telemetry block is what the engine fetches, as it lies.
+// Output layout of the step entry, in int32 words of one buffer, with
+// W = window and N = B * nblk; entry (b, i) is row b's position
+// ctx_len[b] + i:
+//   [0, 2BW)          w_row    int64 (B, W) flat pool row of the write
+//   [2BW, 3BW)        w_slot   (B, W) slot of the write block, -1 unmapped
+//   [3BW, 4BW)        w_valid  (B, W) mapped, in range and active
+//   [4BW, 5BW)        extent   (B, W) ctx_len + i + 1
+//   [5BW, 5BW + 3N)   in_rest, accesses, mapped, (N,) each
+//   [5BW + 3N, +N)    slots    (N,)
+// At W = 1 this is the decode step's layout.  The telemetry block is what
+// the engine fetches, as it lies.
 __global__ void translate_step_kernel(Tables T, Step S,
                                       const int* __restrict__ ctx_len,
                                       const unsigned char* __restrict__ active,
                                       int* __restrict__ out) {
-  const int B = S.batch, n = B * S.nblk;
+  const int B = S.batch, W = S.window, n = B * S.nblk, bw = B * W;
   long long* w_row = reinterpret_cast<long long*>(out);
-  int* w_slot = out + 2 * B;
-  int* w_valid = w_slot + B;
-  int* extent = w_valid + B;
-  int* in_rest = extent + B;
+  int* w_slot = out + 2 * bw;
+  int* w_valid = w_slot + bw;
+  int* extent = w_valid + bw;
+  int* in_rest = extent + bw;
   int* accesses = in_rest + n;
   int* mapped = accesses + n;
   int* slots = mapped + n;
   for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += gridDim.x * blockDim.x) {
-    // query i is vpn i, block j of row b.  Row b's write block is one of
-    // its own grid blocks (the JAX package walks it as an extra query), so
-    // the thread of that block writes the row's outputs too: its context
-    // length is loaded beside the walk's loads, and the step costs one
-    // memory round trip.
+    // query i is vpn i, block j of row b.  Each window position's write
+    // block is one of its row's own grid blocks (the JAX package walks it
+    // as an extra query, or gathers it from the walk), so the thread of
+    // that block writes the position's outputs too: its context length is
+    // loaded beside the walk's loads, and the step costs one memory round
+    // trip.
     const int b = i / S.nblk, j = i - b * S.nblk;
     const int pos = __ldg(ctx_len + b);
     const int act = active == nullptr || __ldg(active + b) != 0;
@@ -206,14 +214,19 @@ __global__ void translate_step_kernel(Tables T, Step S,
     mapped[i] = r.mapped;
     // an idle row's position can run past its vpn range; without the
     // clamp its write block would alias ANOTHER row's block
-    const int cur = floor_div(pos, S.block_size);
-    if (j != min(max(cur, 0), S.nblk - 1)) continue;
-    const int valid = r.mapped && cur < S.nblk && act;
-    w_slot[b] = r.slot;
-    w_valid[b] = valid;
-    w_row[b] = (long long)(valid ? r.slot : S.sink) * S.block_size
-               + floor_mod(pos, S.block_size);
-    extent[b] = pos + 1;
+    if (j < min(max(floor_div(pos, S.block_size), 0), S.nblk - 1)) continue;
+    for (int k = 0; k < W; ++k) {
+      const int p = pos + k;
+      const int cur = floor_div(p, S.block_size);
+      if (j != min(max(cur, 0), S.nblk - 1)) continue;
+      const int valid = r.mapped && cur < S.nblk && act;
+      const int e = b * W + k;
+      w_slot[e] = r.slot;
+      w_valid[e] = valid;
+      w_row[e] = (long long)(valid ? r.slot : S.sink) * S.block_size
+                 + floor_mod(p, S.block_size);
+      extent[e] = p + 1;
+    }
   }
 }
 
@@ -227,7 +240,7 @@ extern "C" {
 // is bound, and passed by address on every call.
 struct StepParams {
   int n_sets, assoc, flex_len, hash_id, p;
-  int batch, nblk, block_size, sink;
+  int batch, nblk, block_size, sink, window;
 };
 
 int utopia_translate_step_launch(const void* tar, const void* sf,
@@ -236,7 +249,7 @@ int utopia_translate_step_launch(const void* tar, const void* sf,
                                  const StepParams* prm, void* stream) {
   Tables T{(const int*)tar, (const int*)sf, (const int*)flex, prm->n_sets,
            prm->assoc, prm->flex_len, prm->hash_id, prm->p};
-  Step S{prm->batch, prm->nblk, prm->block_size, prm->sink};
+  Step S{prm->batch, prm->nblk, prm->block_size, prm->sink, prm->window};
   int total = prm->batch * prm->nblk;
   int blocks = (total + kThreads - 1) / kThreads;
   blocks = blocks < 1 ? 1 : (blocks > 1024 ? 1024 : blocks);

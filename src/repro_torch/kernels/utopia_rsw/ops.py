@@ -34,7 +34,7 @@ class _StepParams(ctypes.Structure):
     """``StepParams`` of the C source: the step's fixed arguments."""
     _fields_ = [(f, ctypes.c_int) for f in (
         "n_sets", "assoc", "flex_len", "hash_id", "p", "batch", "nblk",
-        "block_size", "sink")]
+        "block_size", "sink", "window")]
 
 
 def _check(name: str, t: torch.Tensor, shape, dtype, device) -> None:
@@ -49,10 +49,12 @@ def _check(name: str, t: torch.Tensor, shape, dtype, device) -> None:
 def translate_step_translator(tar: torch.Tensor, sf: torch.Tensor,
                               flex: torch.Tensor, ctx_len: torch.Tensor, *,
                               block_size: int, nblk: int, hash_name: str,
-                              sink: int):
+                              sink: int, window: int = 1):
     """Bind the decode step's translation to the geometry of these tables:
     tar ``(1, n_sets, assoc)``, sf ``(1, n_sets)``, flex ``(1, B * nblk)``,
-    all int32, and ``ctx_len (B,)`` int32, on one device.
+    all int32, and ``ctx_len (B,)`` int32, on one device, and to the
+    ``window`` of positions each row writes (1 for a decode step, K + 1
+    for a speculative verify step).
 
     Validates shapes, dtypes and the device once, here, and returns
     ``translate(tar, sf, flex, ctx_len, active=None) -> StepTranslation``,
@@ -72,8 +74,11 @@ def translate_step_translator(tar: torch.Tensor, sf: torch.Tensor,
         _check(name, t, shape, torch.int32, dev)
     if hash_name not in HASH_IDS:
         raise KeyError(f"unknown hash {hash_name!r}")
+    if window < 1:
+        raise ValueError(f"translate_step: window must be >= 1, got "
+                         f"{window}")
     geom = dict(block_size=block_size, nblk=nblk, hash_name=hash_name,
-                sink=sink)
+                sink=sink, window=window)
     if dev.type == "cpu":
         return lambda tar, sf, flex, ctx_len, active=None: (
             translate_step_ref(tar, sf, flex, ctx_len, active, **geom))
@@ -82,9 +87,9 @@ def translate_step_translator(tar: torch.Tensor, sf: torch.Tensor,
     fn = _entry("utopia_translate_step_launch", [_P] * 6 + [_P, _P])
     prm = _StepParams(n_sets, assoc, B * nblk, HASH_IDS[hash_name],
                       hash_param(hash_name, n_sets), B, nblk, block_size,
-                      sink)
+                      sink, window)
     prm_ptr = ctypes.addressof(prm)
-    words = step_words(B, nblk)
+    words = step_words(B, nblk, window)
     grid = vpn_grid(B, nblk, dev)
     index = dev.index if dev.index is not None else torch.cuda.current_device()
     stream = torch._C._cuda_getCurrentRawStream
@@ -99,7 +104,7 @@ def translate_step_translator(tar: torch.Tensor, sf: torch.Tensor,
         if rc:
             _build.check_launch("utopia_translate_step", rc)
         utopia_translate_step.launches += 1
-        return StepTranslation(out, grid)
+        return StepTranslation(out, grid, window)
 
     translate.params = prm                   # keeps the struct alive
     return translate
@@ -107,12 +112,13 @@ def translate_step_translator(tar: torch.Tensor, sf: torch.Tensor,
 
 def utopia_translate_step(tar, sf, flex, ctx_len, active=None, *,
                           block_size: int, nblk: int, hash_name: str,
-                          sink: int):
+                          sink: int, window: int = 1):
     """One call of the decode step's translation (binds, then launches).
     The decode step binds once and calls the bound function instead."""
     return translate_step_translator(
         tar, sf, flex, ctx_len, block_size=block_size, nblk=nblk,
-        hash_name=hash_name, sink=sink)(tar, sf, flex, ctx_len, active)
+        hash_name=hash_name, sink=sink, window=window)(tar, sf, flex,
+                                                       ctx_len, active)
 
 
 utopia_translate_step.launches = 0

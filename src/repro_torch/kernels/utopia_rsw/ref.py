@@ -53,25 +53,28 @@ class StepTranslation:
     Every field is a view of the step's ONE int32 output buffer, made the
     first time it is read (a step reads only what it uses: the layer loop
     ``slots``, ``w_row`` and ``extent``, the engine ``telemetry``).  The
-    buffer's layout, in int32 words, N = B * nblk (the C source writes
-    it so):
+    buffer's layout, in int32 words, N = B * nblk and W the window (1 for
+    a decode step, K + 1 for a speculative verify step; entry (b, i) is
+    row b's position ctx_len[b] + i), as the C source writes it:
 
-    ==============  =====================  ================================
-    words           field                  meaning
-    ==============  =====================  ================================
-    [0, 2B)         w_row (B,) int64       flat pool row of the new token's
-                                           K/V, w_slot * bs + ctx_len % bs;
-                                           the sink slot's row when the
-                                           write is not valid
-    [2B, 3B)        w_slot (G, B)          slot of the block being written
-    [3B, 4B)        w_valid (G, B) 0/1     mapped, in range and active
-    [4B, 5B)        extent (B,)            attention extent, ctx_len + 1
-    [5B, 5B + 3N)   telemetry (3N,)        in_rest, accesses, mapped
-    [5B + 3N, +N)   slots (G, B, nblk)     resolved pool slot, -1 unmapped
-    ==============  =====================  ================================
+    ================  ======================  ==============================
+    words             field                   meaning
+    ================  ======================  ==============================
+    [0, 2BW)          w_row (B[, W]) int64    flat pool row of the position's
+                                              K/V, w_slot * bs + pos % bs;
+                                              the sink slot's row when the
+                                              write is not valid
+    [2BW, 3BW)        w_slot (G, B[, W])      slot of the block written
+    [3BW, 4BW)        w_valid (G, B[, W])     mapped, in range and active
+    [4BW, 5BW)        extent (B[, W])         attention extent, pos + 1
+    [5BW, 5BW + 3N)   telemetry (3N,)         in_rest, accesses, mapped
+    [5BW + 3N, +N)    slots (G, B, nblk)      resolved pool slot, -1
+                                              unmapped
+    ================  ======================  ==============================
 
-    ``in_rest`` (resolved by the RSW), ``accesses`` (structure accesses)
-    and ``mapped`` are the telemetry's thirds, each (G, B, nblk); ``vpns``
+    The per-position fields drop the window axis at W = 1.  ``in_rest``
+    (resolved by the RSW), ``accesses`` (structure accesses) and
+    ``mapped`` are the telemetry's thirds, each (G, B, nblk); ``vpns``
     (B, nblk) is the vpn grid.  Group-major like the JAX package's
     (``G == 1`` on one device); the flags are int32 0/1 where the JAX
     package's are bool."""
@@ -79,9 +82,12 @@ class StepTranslation:
     _fields = ("slots", "w_slot", "w_valid", "in_rest", "mapped",
                "accesses", "vpns", "w_row", "extent", "telemetry")
 
-    def __init__(self, out: torch.Tensor, vpns: torch.Tensor):
-        self.out, self.vpns = out, vpns
+    def __init__(self, out: torch.Tensor, vpns: torch.Tensor,
+                 window: int = 1):
+        self.out, self.vpns, self.window = out, vpns, window
         self._b, self._nblk = vpns.shape
+        self._bw = self._b * window
+        self._pos = (self._b,) if window == 1 else (self._b, window)
 
     def _words(self, start: int, *shape) -> torch.Tensor:
         """A contiguous view of ``shape`` from int32 word ``start`` on."""
@@ -92,27 +98,27 @@ class StepTranslation:
 
     @functools.cached_property
     def w_row(self) -> torch.Tensor:
-        return self.out[:2 * self._b].view(torch.int64)
+        return self.out[:2 * self._bw].view(torch.int64).view(self._pos)
 
     @functools.cached_property
     def w_slot(self) -> torch.Tensor:
-        return self._words(2 * self._b, 1, self._b)
+        return self._words(2 * self._bw, 1, *self._pos)
 
     @functools.cached_property
     def w_valid(self) -> torch.Tensor:
-        return self._words(3 * self._b, 1, self._b)
+        return self._words(3 * self._bw, 1, *self._pos)
 
     @functools.cached_property
     def extent(self) -> torch.Tensor:
-        return self._words(4 * self._b, self._b)
+        return self._words(4 * self._bw, *self._pos)
 
     @functools.cached_property
     def telemetry(self) -> torch.Tensor:
-        return self._words(5 * self._b, 3 * self._b * self._nblk)
+        return self._words(5 * self._bw, 3 * self._b * self._nblk)
 
     def _grid(self, k: int) -> torch.Tensor:
         B, nblk = self._b, self._nblk
-        return self._words(5 * B + k * B * nblk, 1, B, nblk)
+        return self._words(5 * self._bw + k * B * nblk, 1, B, nblk)
 
     @functools.cached_property
     def in_rest(self) -> torch.Tensor:
@@ -131,9 +137,9 @@ class StepTranslation:
         return self._grid(3)
 
 
-def step_words(batch: int, nblk: int) -> int:
+def step_words(batch: int, nblk: int, window: int = 1) -> int:
     """int32 words of the step's one output buffer (``StepTranslation``)."""
-    return 5 * batch + 4 * batch * nblk
+    return 5 * batch * window + 4 * batch * nblk
 
 
 def vpn_grid(batch: int, nblk: int, device) -> torch.Tensor:
@@ -145,10 +151,13 @@ def vpn_grid(batch: int, nblk: int, device) -> torch.Tensor:
 def translate_step_ref(tar: torch.Tensor, sf: torch.Tensor,
                        flex: torch.Tensor, ctx_len: torch.Tensor,
                        active=None, *, block_size: int, nblk: int,
-                       hash_name: str, sink: int) -> StepTranslation:
-    """The decode step's translation in plain torch: the query grid (every
-    block vpn of every row, then each row's write block), ``rsw_ref`` over
-    it, and what the layer loop derives from the result.
+                       hash_name: str, sink: int,
+                       window: int = 1) -> StepTranslation:
+    """The step's translation in plain torch: ``rsw_ref`` over the query
+    grid (every block vpn of every row), and what the layer loop derives
+    from the result for each of a row's ``window`` positions ctx_len + i:
+    the slot and mapped flag of its block, gathered from the walk (the
+    block index clamped into the row), its write row and its extent.
 
     tar (1, n_sets, assoc), sf (1, n_sets), flex (1, B * nblk) int32;
     ``ctx_len`` (B,) int32, the pre-step context lengths; ``active`` (B,)
@@ -157,23 +166,26 @@ def translate_step_ref(tar: torch.Tensor, sf: torch.Tensor,
     bs = block_size
     dev = ctx_len.device
     grid = vpn_grid(B, nblk, dev)
-    cur_block = torch.div(ctx_len, bs, rounding_mode="floor")
+    pos = (ctx_len[:, None]
+           + torch.arange(window, dtype=torch.int32, device=dev)[None, :])
+    blk = torch.div(pos, bs, rounding_mode="floor")
     # an idle row's position can run past its vpn range; without the clamp
-    # its write vpn would alias ANOTHER row's block (a context length is
+    # its write block would alias ANOTHER row's block (a context length is
     # never negative: the lower clamp keeps the write block in the row,
     # as the kernel's is)
-    in_range = cur_block < nblk
-    cur_vpn = grid[:, 0] + cur_block.clamp(0, nblk - 1)
-    n = B * nblk
-    slot, hit, mapped, acc = rsw_ref(
-        torch.cat([grid.reshape(-1), cur_vpn.to(torch.int32)]), tar[0],
-        sf[0], flex[0], hash_name=hash_name)
+    in_range = blk < nblk
+    blk = blk.clamp(0, nblk - 1).long()
+    slot, hit, mapped, acc = rsw_ref(grid.reshape(-1), tar[0], sf[0],
+                                     flex[0], hash_name=hash_name)
+    w_slot = slot.view(B, nblk).gather(1, blk)
     act = (torch.ones(B, dtype=torch.bool, device=dev) if active is None
            else active.bool())
-    w_valid = mapped[n:].bool() & in_range & act
-    w_row = (torch.where(w_valid, slot[n:], sink).long() * bs
-             + torch.remainder(ctx_len, bs).long())
-    out = torch.cat([w_row.view(torch.int32), slot[n:],
-                     w_valid.to(torch.int32), (ctx_len + 1).to(torch.int32),
-                     hit[:n], acc[:n], mapped[:n], slot[:n]])
-    return StepTranslation(out, grid)
+    w_valid = (mapped.view(B, nblk).gather(1, blk).bool() & in_range
+               & act[:, None])
+    w_row = (torch.where(w_valid, w_slot, sink).long() * bs
+             + torch.remainder(pos, bs).long())
+    out = torch.cat([w_row.reshape(-1).view(torch.int32),
+                     w_slot.reshape(-1), w_valid.to(torch.int32).reshape(-1),
+                     (pos + 1).to(torch.int32).reshape(-1),
+                     hit, acc, mapped, slot])
+    return StepTranslation(out, grid, window)

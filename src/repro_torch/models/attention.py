@@ -7,9 +7,10 @@ the flash kernel.
   causal half of a prefix-KV chunk's attention as an unnormalized
   ``(o, m, l)`` partial, and the online-softmax combine of such partials
   (the other half comes from the paged-attention kernel).
-* ``attention(impl=...)`` — ``"flash"`` goes through the flash kernel's
-  wrapper (the CUDA kernel on a CUDA tensor, ``dense_attention`` on a CPU
-  tensor); ``"dense"`` always runs ``dense_attention``.
+* ``attention(impl=...)`` — ``"pallas"`` (the JAX package's name; alias
+  ``"flash"``) goes through the flash kernel's wrapper (the CUDA kernel on
+  a CUDA tensor, ``dense_attention`` on a CPU tensor); ``"dense"``, the
+  default as in the JAX package, always runs ``dense_attention``.
 
 Both support GQA (n_heads = g * n_kv) and causal/full masks.
 """
@@ -93,11 +94,17 @@ def merge_attention_parts(parts) -> torch.Tensor:
     return o / l.clamp(min=1e-30)[..., None]
 
 
-def attention(q, k, v, *, impl: str = "flash", causal: bool = True):
+def attention(q, k, v, *, impl: str = "dense", causal: bool = True):
+    """``impl``: ``"dense"`` or ``"pallas"`` (the JAX package's name of
+    the flash kernel; ``"flash"`` is the same)."""
     if impl == "dense":
         return dense_attention(q, k, v, causal=causal)
-    if impl == "flash":
+    if impl in ("pallas", "flash"):
         from repro_torch.kernels.flash_attention.ops import flash_attention
         return flash_attention(q, k, v, causal=causal)
-    raise ValueError(f"unknown attention impl {impl!r} (expected 'flash' "
-                     "or 'dense')")
+    if impl == "flash_jax":
+        raise NotImplementedError("attention impl 'flash_jax' (the JAX "
+                                  "training attention) is not ported yet "
+                                  "(ROADMAP P16)")
+    raise ValueError(f"unknown attention impl {impl!r} (expected 'dense' "
+                     "or 'pallas')")

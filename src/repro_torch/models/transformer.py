@@ -40,7 +40,7 @@ def model_dims(cfg: ArchConfig, tp: int = 1) -> ModelDims:
 
 @dataclasses.dataclass(frozen=True)
 class FwdOptions:
-    attn_impl: str = "flash"           # flash | dense
+    attn_impl: str = "dense"           # dense | pallas (alias flash)
     dtype: Any = torch.float32
     collect_cache: bool = False        # prefill: emit per-layer K/V
 

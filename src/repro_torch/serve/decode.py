@@ -94,54 +94,64 @@ def init_decode_state(cfg: ArchConfig, dims: ModelDims, spec: DecodeSpec,
 
 # ----------------------------------------------- once-per-step translation
 
+def not_ported(what: str, item: str) -> NotImplementedError:
+    """The error of a JAX feature that the port does not run yet."""
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
+
+
 def _hybrid_lookup(tar: torch.Tensor, sf: torch.Tensor, flex: torch.Tensor,
                    positions: torch.Tensor, active, spec: DecodeSpec,
-                   bound: Dict[tuple, Callable]) -> StepTranslation:
+                   bound: Dict[tuple, Callable],
+                   window: int) -> StepTranslation:
     """Hybrid RSW ∥ flex lookup of the whole step with
     ``translate()``-compatible accounting: the step's only translation
     primitive, ONE launch of the RSW step kernel (its plain version on the
     CPU).  The kernel is bound to the step's geometry, and the tables
-    validated, on the first call for a (batch, device); ``bound`` keeps
-    the bindings."""
-    key = (positions.shape[0], positions.device)
+    validated, on the first call for a (batch, device, window); ``bound``
+    keeps the bindings."""
+    key = (positions.shape[0], positions.device, window)
     fn = bound.get(key)
     if fn is None:
         if tar.shape[0] != 1:
-            raise NotImplementedError("grouped translation is sharded "
-                                      "serving (ROADMAP P15)")
+            raise not_ported("grouped translation (sharded serving)", "P15")
         fn = bound[key] = translate_step_translator(
             tar, sf, flex, positions, block_size=spec.block_size,
             nblk=spec.max_blocks_per_seq, hash_name=spec.hash_name,
-            sink=spec.slots_per_group)
+            sink=spec.slots_per_group, window=window)
     return fn(tar, sf, flex, positions, active)
 
 
 def translate_step(tar: torch.Tensor, sf: torch.Tensor, flex: torch.Tensor,
                    positions: torch.Tensor, spec: DecodeSpec, active=None,
-                   bound=None) -> StepTranslation:
-    """Translate every block vpn of every sequence, plus each sequence's
-    current (write) block, in one launch, and derive in the same launch the
-    write's flat pool row and the attention extent.
+                   bound=None, window: int = 1) -> StepTranslation:
+    """Translate every block vpn of every sequence in one launch, and
+    derive in the same launch, for each of a row's ``window`` positions
+    ``positions + i`` (1 for a decode step, K + 1 for a speculative verify
+    step), the write's flat pool row and the attention extent.
 
     tar (1, n_sets, assoc), sf (1, n_sets), flex (1, B*nblk);
     ``positions`` (B,) the pre-step context lengths (>= 0); ``active``
-    (B,) bool or None (all active): an inactive row's write goes to the
-    sink slot, as does one that is unmapped or past its vpn range.
-    ``bound`` is the caller's dict of bindings (the decode step keeps one);
-    without it the call binds anew."""
+    (B,) bool or None (all active): an inactive row's writes go to the
+    sink slot, as do those that are unmapped or past the vpn range.
+    ``bound`` is the caller's dict of bindings (the decode and verify
+    steps share one); without it the call binds anew."""
     return _hybrid_lookup(tar, sf, flex, positions, active, spec,
-                          {} if bound is None else bound)
+                          {} if bound is None else bound, window)
 
 
 # ------------------------------------------------------ paged attention
 
 def _paged_attn_local(q, k_new, v_new, kp_l, vp_l, slots, w_row, extent):
-    """Write the new token's K/V at its precomputed flat pool row ``w_row``
-    (B,) int64 (in place; an invalid row writes the sink slot's row) and
-    attend over the resolved blocks ``slots`` (B, nblk) up to ``extent``
-    (B,) through the paged-attention kernel: all three come from the
-    step's translation.  Returns the normalized output (B, H, hd) in q's
-    dtype."""
+    """Write the new tokens' K/V at their precomputed flat pool rows
+    ``w_row`` (B[, Q]) int64 (in place; an invalid write goes to the sink
+    slot's row) and attend over the resolved blocks ``slots`` (B, nblk) up
+    to ``extent`` (B[, Q]), one extent per query, through the
+    paged-attention kernel: all three come from the step's translation.
+    Returns the normalized output (B[, Q], H, hd) in q's dtype.
+
+    Several invalid writes of one call may land on the same sink row;
+    which of them wins is undefined on the card, which is harmless
+    because no translation resolves to the sink slot."""
     rows = (w_row,)
     kp_l.view(-1, *kp_l.shape[2:]).index_put_(rows, k_new.to(kp_l.dtype))
     vp_l.view(-1, *vp_l.shape[2:]).index_put_(rows, v_new.to(vp_l.dtype))
@@ -165,10 +175,38 @@ def project_logits(params, x: torch.Tensor, cfg: ArchConfig,
     return Lmod.unembed(head, x, dims.logical_vocab)
 
 
+def decode_attn(blk, x: torch.Tensor, kp_l: torch.Tensor,
+                vp_l: torch.Tensor, kv_at, positions: torch.Tensor,
+                cfg: ArchConfig, dims: ModelDims) -> torch.Tensor:
+    """The attention sublayer of a decode step (one token a row: ``x``
+    (B, d), ``positions`` (B,)) or of a verify step (Q tokens a row: ``x``
+    (B, Q, d), ``positions`` (B, Q)): project, rotate, write every token's
+    K/V and read the pool through the paged-attention kernel.  ``kv_at``
+    is the step translation's ``(slots, w_row, extent)``, shaped like
+    ``positions`` past the slots; the verify's per-query extents are the
+    sequential decode's causal mask inside one pool read."""
+    lead = x.shape[:-1]
+    B = lead[0]
+    H, KV, hd = dims.n_heads, dims.n_kv, dims.head_dim
+    h = Lmod.rms_norm(x, blk["norm1"], cfg.norm_eps)
+    q = Lmod.linear(blk["attn"]["q"], h).reshape(*lead, H, hd)
+    k = Lmod.linear(blk["attn"]["k"], h).reshape(*lead, KV, hd)
+    v = Lmod.linear(blk["attn"]["v"], h).reshape(*lead, KV, hd)
+    if cfg.rope_theta > 0:
+        pos = positions.reshape(B, -1)
+        q = Lmod.apply_rope(q.reshape(B, -1, H, hd), pos,
+                            cfg.rope_theta).reshape(q.shape)
+        k = Lmod.apply_rope(k.reshape(B, -1, KV, hd), pos,
+                            cfg.rope_theta).reshape(k.shape)
+    out = _paged_attn_local(q, k, v, kp_l, vp_l, *kv_at)
+    o = Lmod.linear(blk["attn"]["o"], out.reshape(*lead, -1).to(x.dtype))
+    return x + o
+
+
 # --------------------------------------------------------- full serve step
 
 def make_serve_step(cfg: ArchConfig, dims: ModelDims, spec: DecodeSpec,
-                    dtype=torch.float32):
+                    dtype=torch.float32, bound=None):
     """Returns serve_step(params, dstate, tokens (B,), active=None, *,
     sample=False) -> (logits (B, V), dstate, stats).  One new token per
     live sequence.
@@ -181,27 +219,11 @@ def make_serve_step(cfg: ArchConfig, dims: ModelDims, spec: DecodeSpec,
     argmax), the key folded with the pre-step position.  ``active`` (B,)
     bool marks the slots decoding this step: inactive slots neither write
     their current KV block nor advance ``ctx_len`` (None = all
-    active)."""
+    active).  ``bound`` is a dict of translation bindings to share with a
+    speculative verify step (``serve/spec_decode.py``)."""
     if cfg.family != "dense":
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ROADMAP P10)")
-    H, KV, hd = dims.n_heads, dims.n_kv, dims.head_dim
-    bound = {}                       # the translation's bindings
-
-    def attn_sublayer(blk, x, kp_l, vp_l, kv_at, positions):
-        B = x.shape[0]
-        h = Lmod.rms_norm(x, blk["norm1"], cfg.norm_eps)
-        q = Lmod.linear(blk["attn"]["q"], h).reshape(B, H, hd)
-        k = Lmod.linear(blk["attn"]["k"], h).reshape(B, KV, hd)
-        v = Lmod.linear(blk["attn"]["v"], h).reshape(B, KV, hd)
-        if cfg.rope_theta > 0:
-            q = Lmod.apply_rope(q[:, None], positions[:, None],
-                                cfg.rope_theta)[:, 0]
-            k = Lmod.apply_rope(k[:, None], positions[:, None],
-                                cfg.rope_theta)[:, 0]
-        out = _paged_attn_local(q, k, v, kp_l, vp_l, *kv_at)
-        o = Lmod.linear(blk["attn"]["o"], out.reshape(B, -1).to(x.dtype))
-        return x + o
+        raise not_ported(f"family {cfg.family!r}", "P10")
+    bound = {} if bound is None else bound   # the translation's bindings
 
     def serve_step(params, dstate, tokens, active=None, *, sample=False):
         positions = dstate["ctx_len"]
@@ -215,8 +237,8 @@ def make_serve_step(cfg: ArchConfig, dims: ModelDims, spec: DecodeSpec,
         kv_at = (trans.slots[0], trans.w_row, trans.extent)
         for i in range(cfg.num_layers):
             blk = layer_params(params, i)
-            x = attn_sublayer(blk, x, dstate["k_pool"][i],
-                              dstate["v_pool"][i], kv_at, positions)
+            x = decode_attn(blk, x, dstate["k_pool"][i],
+                            dstate["v_pool"][i], kv_at, positions, cfg, dims)
             x = decode_ffn(blk, x, cfg)
         logits = project_logits(params, x, cfg, dims)
         if sample:

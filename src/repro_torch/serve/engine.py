@@ -30,6 +30,15 @@ request runs like this:
 Tokens are the argmax, or for a request with sampled ``SamplingParams``
 its seeded draw (``serve/sampling.py``).
 
+Speculative decoding (``spec_decode="ngram"``, ``serve/spec_decode.py``):
+each decode step drafts K tokens a row from the row's own token history,
+verifies the K+1 window in one forward and commits up to K+1 tokens; the
+streams are the non-speculative engine's, greedy and sampled.  The engine
+keeps the history (``dstate["hist"]``, fed at admission), maps the
+window's blocks before the step and, after it, truncates at eos /
+``max_new_tokens`` / the KV capacity, rewinds ``ctx_len`` and frees the
+blocks a rejected tail crossed into (``_commit_spec``).
+
 Overload (``overload_policy="preempt"``, the default): when a KV block
 cannot be allocated the engine walks the degradation ladder — reclaim
 unreferenced prefix-cache entries, defer admission, PREEMPT a victim
@@ -52,10 +61,15 @@ crash).  ``EngineConfig.metrics`` takes a ``serve.metrics.MetricsLogger``
 fed one host-side event per step.
 
 Host contract: a step performs ONE device-to-host copy.  The next
-tokens, the post-step context lengths, the translation telemetry and the
+tokens (under speculative decoding each row's K+1 window tokens and its
+emitted count), the post-step context lengths, the translation telemetry and the
 first tokens of every prefill that completed this step are packed into one
 int32 tensor and copied with a single ``.cpu()``; a preemption adds its
 own copy only when a victim is actually swapped.
+
+The JAX engine's legacy API works as there, warnings included:
+``Engine(cfg, params, **kwargs)``, ``submit(req, share_prefix_from=,
+shared_blocks=)`` (accepted, no-op) and the blocking ``add_request``.
 
 Features of the JAX engine that are not ported yet keep their
 ``EngineConfig`` fields, accept only the value that turns them off and
@@ -79,9 +93,11 @@ from repro_torch.core import (CHAIN_SEED, HybridConfig, HybridKVManager,
                               block_hash_chain)
 from repro_torch.models import FwdOptions, model_dims
 from .decode import DecodeSpec, init_decode_state, make_serve_step
+from .decode import not_ported as _not_ported
 from .prefill import make_prefill_step, make_prefix_prefill_step
 from .sampling import GREEDY, SamplingParams, prng_key_data
 from .scheduler import Scheduler, default_victim, make_scheduler
+from .spec_decode import make_spec_decode_step
 
 
 def _next_pow2(n: int) -> int:
@@ -98,10 +114,6 @@ def _upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
     return t.to(device, non_blocking=True)
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
-
-
 # ------------------------------------------------------------- request API
 
 @dataclasses.dataclass(frozen=True)
@@ -113,14 +125,16 @@ class EngineConfig:
     ``prefill_budget`` is NEW prompt tokens admitted per step (None =
     ``4 * block_size * max_batch``).  ``attn_impl`` picks the recompute
     prefill's causal attention: ``"dense"`` (the plain version, the JAX
-    default) or ``"flash"`` (the flash kernel on the card, its plain
-    version on the CPU).  ``dtype`` is the activation and KV-pool dtype.
+    default) or ``"pallas"`` (the JAX name of the flash kernel: the port's
+    CUDA flash kernel on the card, its plain version on the CPU), also
+    called ``"flash"``; JAX's ``"flash_jax"`` comes with the training
+    stack (P16).  ``dtype`` is the activation and KV-pool dtype.
 
     ``prefill_mode``: ``"prefix_kv"`` (chunks k > 0 forward only their
     own tokens and read the installed prefix from the pool) or
     ``"recompute"`` (every chunk re-forwards its whole prefix, the
     oracle); ``prefix_kv`` is defined against the dense softmax, so with
-    ``attn_impl="flash"`` it warns and falls back to ``"recompute"``.
+    any other ``attn_impl`` it warns and falls back to ``"recompute"``.
     ``prefix_gather``: how a prefix-KV chunk reads the pool, ``"exact"``
     (gathered blocks, dense softmax; equal to recompute) or ``"paged"``
     (the paged-attention kernel with Q = chunk length, merged with the
@@ -135,8 +149,12 @@ class EngineConfig:
     ``runtime.fault.ServeFaultInjector`` or None.  ``metrics``: a
     ``serve.metrics.MetricsLogger`` or None.
 
+    ``spec_decode``: None/False (off) or ``"ngram"`` (True is ``"ngram"``),
+    speculative decoding with ``num_draft_tokens`` drafts a step from the
+    prompt-lookup drafter of order ``spec_ngram``.
+
     The defaults are the JAX engine's.  Not ported yet, off-values only:
-    ``spec_decode=None`` (P11), ``mesh_shape=None`` (P15).
+    ``mesh_shape=None`` (P15).
     """
     max_batch: int = 4
     max_seq_len: int = 256
@@ -161,14 +179,29 @@ class EngineConfig:
     metrics: Any = None
 
     def check_ported(self) -> None:
-        """Raise for a field set to a feature this slice has not ported."""
-        if self.spec_decode not in (None, False):
-            raise _not_ported("speculative decoding", "P11")
+        """Raise for a field set to a feature the port does not run yet,
+        and for the values the JAX engine refuses."""
         if self.mesh_shape is not None:
             raise _not_ported("sharded serving (mesh_shape)", "P15")
-        if self.attn_impl not in ("flash", "dense"):
+        if self.attn_impl == "flash_jax":
+            raise _not_ported("attn_impl='flash_jax' (the JAX training "
+                              "attention)", "P16")
+        if self.attn_impl not in ("dense", "pallas", "flash"):
             raise ValueError(f"unknown attn_impl {self.attn_impl!r} "
-                             "(expected 'flash' or 'dense')")
+                             "(expected 'dense' or 'pallas')")
+        if self.spec_decode not in (None, False, True, "ngram"):
+            raise ValueError(f"unknown spec_decode drafter "
+                             f"{self.spec_decode!r} (expected None/False "
+                             "or 'ngram')")
+        if self.spec_decode:
+            if self.num_draft_tokens < 1:
+                raise ValueError("num_draft_tokens must be >= 1, got "
+                                 f"{self.num_draft_tokens}")
+            if self.spec_ngram < 1:
+                # a non-positive n-gram would degrade the drafter to
+                # repeating the current token
+                raise ValueError("spec_ngram must be >= 1, got "
+                                 f"{self.spec_ngram}")
         if self.prefill_mode not in ("prefix_kv", "recompute"):
             raise ValueError(f"unknown prefill_mode {self.prefill_mode!r}"
                              " (expected 'prefix_kv' or 'recompute')")
@@ -247,6 +280,10 @@ class RequestState:
     rsw_hits: int = 0
     flex_walks: int = 0
     swap_faults: int = 0
+    # speculative decoding: drafts proposed for / accepted into this
+    # stream (the rows sum to the global spec_drafted / spec_accepted)
+    drafted: int = 0
+    accepted: int = 0
     cached_blocks: int = 0           # prompt blocks attached from the cache
     # overload bookkeeping: step of the latest decode commit (the LRU key
     # of victim selection) and how often this request was preempted /
@@ -263,7 +300,8 @@ class _HostTierSeq:
 
     Everything it needs to continue bit-identically: the pool blocks it
     had mapped (``kv``, a host tensor (2 = k/v, layers, n_blocks, block,
-    KV heads, head dim) in the pool dtype, a bitwise copy), the committed
+    KV heads, head dim) in the pool dtype, a bitwise copy), under
+    speculative decoding its token-history row (``hist``), the committed
     context length and, for a mid-prefill victim, how many prompt tokens
     were installed.  Sampling state needs no save: per-slot keys derive
     from (seed, seq_id) and fold the absolute position, so they are
@@ -274,6 +312,7 @@ class _HostTierSeq:
     blocks: List[Tuple[int, bool]]      # (block_idx, writable) at preempt
     kv: Optional[torch.Tensor]
     nbytes: int
+    hist: Optional[torch.Tensor] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -348,16 +387,61 @@ class EngineSnapshot:
                    host_blob=np.asarray(arrays["host"]).tobytes())
 
 
+# ------------------------------------------------------------ legacy API
+
+_LEGACY_KWARGS_WARNED = False
+_SHARE_KWARG_WARNED = False
+
+
+def _warn_share_kwarg() -> None:
+    global _SHARE_KWARG_WARNED
+    if _SHARE_KWARG_WARNED:
+        return
+    _SHARE_KWARG_WARNED = True
+    warnings.warn(
+        "submit(share_prefix_from=..., shared_blocks=...) is deprecated: "
+        "the engine's content-addressed prefix cache "
+        "(EngineConfig.prefix_cache, on by default) dedupes shared "
+        "prompt prefixes automatically — the kwargs are accepted but "
+        "the cache decides what is shared; with the cache disabled the "
+        "prompt is simply recomputed (sharing was always best-effort)",
+        DeprecationWarning, stacklevel=3)
+
+
+def _warn_legacy_kwargs(kwargs) -> None:
+    global _LEGACY_KWARGS_WARNED
+    if _LEGACY_KWARGS_WARNED:
+        return
+    _LEGACY_KWARGS_WARNED = True
+    warnings.warn(
+        f"Engine(cfg, params, {', '.join(sorted(kwargs))}=...) kwargs are "
+        "deprecated; pass Engine(cfg, params, EngineConfig(...)) instead",
+        DeprecationWarning, stacklevel=3)
+
+
 # ------------------------------------------------------------------ engine
 
 class Engine:
     """Continuous-batching engine on ``device`` (default ``"cuda"``).
 
     ``params`` must already live on ``device`` (``params.init_params`` or
-    ``params.params_from_numpy``)."""
+    ``params.params_from_numpy``).  ``EngineConfig`` fields given as
+    keyword arguments instead of ``config`` (the JAX engine's legacy form)
+    build the config, with a deprecation warning once a process."""
 
     def __init__(self, cfg: ArchConfig, params,
-                 config: Optional[EngineConfig] = None, device="cuda"):
+                 config: Optional[EngineConfig] = None, device="cuda",
+                 **legacy):
+        if legacy:
+            if config is not None:
+                raise TypeError("pass an EngineConfig OR legacy kwargs, "
+                                "not both")
+            known = {f.name for f in dataclasses.fields(EngineConfig)}
+            unknown = set(legacy) - known
+            if unknown:
+                raise TypeError(f"unknown Engine kwargs {sorted(unknown)}")
+            _warn_legacy_kwargs(legacy)
+            config = EngineConfig(**legacy)
         config = config if config is not None else EngineConfig()
         config.check_ported()
         if cfg.family != "dense":
@@ -449,8 +533,26 @@ class Engine:
             pass                       # slotted/frozen scheduler: skip
         self.fwd = FwdOptions(attn_impl=config.attn_impl, dtype=dtype,
                               collect_cache=True)
+        bound = {}       # translation bindings, shared by the decode steps
         self._serve_step = make_serve_step(cfg, self.dims, self.spec,
-                                           dtype=dtype)
+                                           dtype=dtype, bound=bound)
+        # ---- speculative decoding (serve/spec_decode.py) ----------------
+        # (the JAX engine's fallback for recurrent families comes with
+        # them, ROADMAP P10)
+        self.spec_K = 0
+        if config.spec_decode:
+            self.spec_K = int(config.num_draft_tokens)
+            self._spec_step = make_spec_decode_step(
+                cfg, self.dims, self.spec, self.spec_K, dtype=dtype,
+                ngram=config.spec_ngram, bound=bound)
+            # each slot's token history for the drafter (prompt scattered
+            # at admission, accepted tokens appended by the step; -1 =
+            # unknown)
+            self.dstate["hist"] = torch.full(
+                (max_batch, max_seq_len), -1, dtype=torch.int32,
+                device=self.device)
+        self._spec_drafted = 0
+        self._spec_accepted = 0
         self._prefill_step = make_prefill_step(cfg, self.dims, self.spec,
                                                fwd=self.fwd)
         self._prefix_step = make_prefix_prefill_step(cfg, self.dims,
@@ -508,10 +610,16 @@ class Engine:
         return bool(self.waiting) or any(
             not self._states[sid].done for sid in self.requests)
 
-    def submit(self, req: Request) -> None:
+    def submit(self, req: Request, share_prefix_from: Optional[int] = None,
+               shared_blocks: int = 0) -> None:
         """Enqueue a request; ``step()`` admits it under the token budget
         in the order the configured scheduler decides.  A ``seq_id`` may
-        be reused once its previous request finished and was released."""
+        be reused once its previous request finished and was released.
+
+        ``share_prefix_from`` / ``shared_blocks`` are the JAX engine's
+        legacy pairwise sharing: accepted with a deprecation warning once a
+        process, and otherwise ignored (the prefix cache attaches the same
+        blocks at admission)."""
         bs = self.cfg.kv_block_size
         S = len(np.asarray(req.prompt))
         if S == 0:
@@ -538,6 +646,8 @@ class Engine:
             self._dropped_resumes += old.resumes
         self.finished.pop(req.seq_id, None)
         self._chain_cache.pop(req.seq_id, None)   # fresh chains on reuse
+        if share_prefix_from is not None and shared_blocks:
+            _warn_share_kwarg()
         state = RequestState(request=req, arrival=self._step_count)
         if req.deadline_ms is not None:
             if req.deadline_ms < 0:
@@ -549,6 +659,28 @@ class Engine:
         self.scheduler.add(req, state.arrival)
         if self.metrics is not None:
             self.metrics.on_submit(req.seq_id, self._step_count)
+
+    def add_request(self, req: Request,
+                    share_prefix_from: Optional[int] = None,
+                    shared_blocks: int = 0) -> int:
+        """Legacy blocking admission: enqueue, then prefill the whole
+        prompt at once (and everything queued ahead of it), with one
+        device-to-host copy of the first tokens.  Returns the request's
+        batch slot; raises ``PoolExhausted`` when no slot is free."""
+        self.submit(req, share_prefix_from, shared_blocks)
+        pending = self._admit(budget=None)
+        stuck = any(r is req for r in self.waiting)   # could not register
+        # the slot is read before an auto-release can free it
+        slot = None if stuck else self._slot_of[req.seq_id]
+        if pending:
+            # (requests queued ahead of it complete even when it is stuck)
+            firsts = torch.cat([t for _, t in pending]).cpu().numpy()
+            for (r, _), nxt in zip(pending, firsts):
+                self._complete_prefill(r, int(nxt))
+        if stuck:
+            raise PoolExhausted("no free sequence slot for blocking "
+                                "add_request; release a sequence first")
+        return slot
 
     def _admit(self, budget: Optional[int]
                ) -> List[Tuple[Request, torch.Tensor]]:
@@ -566,6 +698,9 @@ class Engine:
         if budget is None:
             budget = sum(len(np.asarray(r.prompt)) for r in self.waiting)
         chunks: List[Tuple[Request, int, int, bool]] = []
+        # spans of cache-attached prefixes, for the drafter history (no
+        # chunk covers them)
+        hist_extra: List[Tuple[Request, int, int, bool, bool]] = []
         # exact capacity gating: every accepted chunk's unmapped covering
         # blocks are reserved against a dry-run ledger BEFORE the chunk is
         # committed, so the bucket allocations below never exhaust the pool
@@ -599,7 +734,7 @@ class Engine:
                 self._prefilling[req.seq_id] = 0
                 self._pending_samp.append((slot, req))
                 if self.prefix_cache is not None:
-                    self._attach_cached_prefix(req)
+                    self._attach_cached_prefix(req, hist_extra)
             start = self._prefilling[req.seq_id]
             total = len(np.asarray(req.prompt))
             take = min(total - start, budget // bs * bs)
@@ -649,8 +784,11 @@ class Engine:
                 self._current = None
 
         # newly registered sequences' SamplingParams must be on the device
-        # before any prefill dispatch samples a first token
+        # before any prefill dispatch samples a first token, and under
+        # speculative decoding the admitted prompt tokens must be in the
+        # drafter's history
         self._install_sampling()
+        self._install_hist(chunks + hist_extra)
 
         # ---- bucket by padded length; one dispatch per bucket -----------
         # recompute chunks bucket by padded PREFIX length, prefix-KV chunks
@@ -705,11 +843,13 @@ class Engine:
             self._chain_cache[req.seq_id] = c
         return c
 
-    def _attach_cached_prefix(self, req: Request) -> None:
+    def _attach_cached_prefix(self, req: Request, hist_extra) -> None:
         """Longest-cached-prefix match at registration: matched blocks
         attach read-only and prefill starts at the tail.  The match is
         capped one block short of the prompt, so the FINAL chunk always
-        runs: it produces the request's first-token logits."""
+        runs: it produces the request's first-token logits.  Under
+        speculative decoding the attached span joins ``hist_extra``: the
+        tail's chunks never cover its tokens."""
         pc = self.prefix_cache
         m = self.manager
         bs = self.cfg.kv_block_size
@@ -725,6 +865,8 @@ class Engine:
         self._states[req.seq_id].cached_blocks += len(entries)
         pc.stats["hits"] += 1
         pc.stats["dedup_blocks"] += len(entries)
+        if self.spec_K:
+            hist_extra.append((req, 0, len(entries) * bs, False, False))
 
     def _cache_insert_chunk(self, req: Request, start: int,
                             end: int) -> None:
@@ -800,10 +942,12 @@ class Engine:
 
     def _footprint_blocks(self, req) -> int:
         """Whole-request KV footprint in blocks (prompt + all of
-        max_new_tokens), clamped to the per-sequence maximum."""
+        max_new_tokens, plus one spare block for a speculative window's
+        overshoot), clamped to the per-sequence maximum."""
         bs = self.cfg.kv_block_size
         total = len(np.asarray(req.prompt)) + req.max_new_tokens
-        return min((total + bs - 1) // bs, self.spec.max_blocks_per_seq)
+        need = (total + bs - 1) // bs + (1 if self.spec_K else 0)
+        return min(need, self.spec.max_blocks_per_seq)
 
     def _footprint_admit(self, req) -> bool:
         """Fail-fast admission gate: admit only when the request's FULL
@@ -856,7 +1000,8 @@ class Engine:
         phases), or at an allocation miss after the step's prefill
         dispatches.  Pending slot migrations land first; then ONE gather
         of the sequence's mapped ``k_pool``/``v_pool`` rows and ONE
-        device-to-host copy save its KV.  Sampling keys need no save.
+        device-to-host batch save its KV (and, under speculative decoding,
+        its token-history row).  Sampling keys need no save.
         The request re-enters the scheduler queue with its ORIGINAL
         arrival step, so aging policies keep its seniority.
 
@@ -877,11 +1022,14 @@ class Engine:
         mapped = [bslot for bslot in (m.lookup(seq_id, b)[0] for b in
                                       range(self.spec.max_blocks_per_seq))
                   if bslot >= 0]
-        kv = None
+        kv = hist = None
         if mapped:
             idx = _upload(np.asarray(mapped, np.int64), self.device)
             kv = torch.stack([self.dstate["k_pool"][:, idx],
-                              self.dstate["v_pool"][:, idx]]).cpu()
+                              self.dstate["v_pool"][:, idx]])
+        if self.spec_K:
+            hist = self.dstate["hist"][slot]
+        kv, hist = self._to_host(kv, hist)
         saved = m.preempt(seq_id)
         if len(saved) != len(mapped):
             raise RuntimeError("preempt: gathered and released blocks "
@@ -891,12 +1039,12 @@ class Engine:
             progress = None          # installed; first token in flight
         rec = _HostTierSeq(
             seq_id=seq_id, ctx=int(self._ctx_host[slot]),
-            prefill_progress=progress, blocks=saved,
-            kv=kv, nbytes=0 if kv is None else kv.nbytes)
+            prefill_progress=progress, blocks=saved, kv=kv,
+            nbytes=sum(t.nbytes for t in (kv, hist) if t is not None),
+            hist=hist)
         # engine-side slot teardown (release() minus the finishing)
         del self._slot_of[seq_id]
-        self.dstate["ctx_len"][slot] = 0
-        self._ctx_host[slot] = 0
+        self._clear_slot(slot)
         req = self.requests.pop(seq_id)
         queued = (req is not self._current and seq_id in self._prefilling
                   and any(r is req for r in self.scheduler.pending()))
@@ -958,6 +1106,9 @@ class Engine:
                   else rec.kv.to(self.device, non_blocking=True))
             self.dstate["k_pool"][:, dst] = kv[0]
             self.dstate["v_pool"][:, dst] = kv[1]
+        if rec.hist is not None:
+            self.dstate["hist"][slot] = rec.hist.to(self.device,
+                                                    non_blocking=True)
         self.dstate["ctx_len"][slot] = rec.ctx
         self._ctx_host[slot] = rec.ctx
         self._slot_of[sid] = slot
@@ -992,20 +1143,33 @@ class Engine:
             self.preempt_request(sid)
 
     def _ensure_decode_blocks(self, st: RequestState) -> None:
-        """Map the block the next decode dispatch writes for ``st`` (when
-        its position sits on a block boundary).
+        """Map every block the next decode dispatch writes for ``st``: the
+        block of its position when that sits on a block boundary, or
+        under speculative decoding every block of the window
+        ``[pos, pos + K]`` within the row's range.
 
         A capacity miss walks the degradation ladder: preempt a
         policy-chosen victim and retry.  Under ``overload_policy="fail"``
         the miss raises ``PoolExhausted`` with occupancy diagnostics.
         ``restrictive_only`` swaps on a set conflict by design (Fig. 9)."""
-        m = self.manager
         bs = self.cfg.kv_block_size
-        sid = st.request.seq_id
-        pos = int(self._ctx_host[self._slot_of[sid]])
-        if pos % bs:
+        K = self.spec_K
+        nblk = self.spec.max_blocks_per_seq
+        pos = int(self._ctx_host[self._slot_of[st.request.seq_id]])
+        if K:
+            blocks = range(pos // bs, min((pos + K) // bs, nblk - 1) + 1)
+        elif pos % bs == 0:
+            blocks = (pos // bs,)
+        else:
             return
-        b = pos // bs
+        for b in blocks:
+            self._map_decode_block(st, b)
+
+    def _map_decode_block(self, st: RequestState, b: int) -> None:
+        """Map block ``b`` of ``st`` for a decode write (a no-op when it is
+        mapped), preempting victims on a capacity miss."""
+        m = self.manager
+        sid = st.request.seq_id
         bslot, seg = m.lookup(sid, b)
         if bslot >= 0:
             return
@@ -1058,6 +1222,24 @@ class Engine:
         ds["samp_topp"][idx] = _upload(
             np.asarray([p.top_p for p in sp], np.float32), dev)
         ds["samp_key"][idx] = _upload(keys.astype(np.int64), dev)
+
+    def _install_hist(self, chunks) -> None:
+        """Scatter admitted prompt spans into the drafter's token history
+        (one scatter an admission call; decode steps append accepted
+        tokens themselves).  ``chunks`` holds (request, start, end, ...)
+        records; positions past the history drop."""
+        if not self.spec_K or not chunks:
+            return
+        H = self.dstate["hist"].shape[1]
+        idxs, vals = [], []
+        for req, start, end, *_ in chunks:
+            pos = np.arange(start, min(end, H), dtype=np.int64)
+            idxs.append(self._slot_of[req.seq_id] * H + pos)
+            vals.append(np.asarray(req.prompt[start:start + pos.size],
+                                   np.int32))
+        dev = self.device
+        self.dstate["hist"].view(-1)[_upload(np.concatenate(idxs), dev)] = (
+            _upload(np.concatenate(vals), dev))
 
     def _prefill_bucket(self, grp, s_pad: int):
         """Allocate blocks and run ONE batched prefill dispatch for a
@@ -1295,6 +1477,7 @@ class Engine:
         bs = self.cfg.kv_block_size
         nblk = self.spec.max_blocks_per_seq
         B = self.max_batch
+        K = self.spec_K
         parts = [tok for _, tok in pending]
         want_stats = False
         if live:
@@ -1317,12 +1500,20 @@ class Engine:
             # pre-step context snapshot: the telemetry mask counts the
             # blocks that existed when the step TRANSLATED
             ctx_pre = self._ctx_host.copy()
-            _, self.dstate, tstats = self._serve_step(
+            step_fn = self._spec_step if K else self._serve_step
+            _, self.dstate, tstats = step_fn(
                 self.params, self.dstate, _upload(tokens, self.device),
                 _upload(active, self.device),
                 sample=any(not st.request.sampling.is_greedy
                            for st in live))
-            parts += [tstats["next_token"], self.dstate["ctx_len"]]
+            if K:
+                # each row's K+1 window tokens and its emitted count ride
+                # the step's one copy
+                parts += [tstats["acc_tokens"].reshape(-1),
+                          tstats["n_emit"]]
+            else:
+                parts.append(tstats["next_token"])
+            parts.append(self.dstate["ctx_len"])
             want_stats = self.track_stats
             if want_stats:
                 # in_rest, accesses, mapped: one int32 block, as written
@@ -1337,19 +1528,24 @@ class Engine:
 
         out: Dict[int, int] = {}
         if live:
-            nxt_all, ctx_all = host[:B], host[B:2 * B]
+            if K:
+                acc_all = host[:B * (K + 1)].reshape(B, K + 1)
+                host = host[B * (K + 1):]
+            nxt_all, host = host[:B], host[B:]      # (n_emit under spec)
+            ctx_all, host = host[:B], host[B:]
             self._ctx_host[:] = ctx_all
             if want_stats:
                 in_rest, accesses, mapped = (
-                    host[2 * B + i * B * nblk:2 * B + (i + 1) * B * nblk
-                         ].reshape(B, nblk) for i in range(3))
+                    host[i * B * nblk:(i + 1) * B * nblk].reshape(B, nblk)
+                    for i in range(3))
                 live_slots = [self._slot_of[st.request.seq_id]
                               for st in live]
                 live_mask = np.zeros(B, bool)
                 live_mask[live_slots] = True
-                # pre-step block counts: blocks covering [0, pos], masked
-                # by the device ``mapped`` flag
-                n_pre = np.minimum(ctx_pre // bs + 1, nblk)
+                # pre-step block counts: blocks covering [0, pos] ([0,
+                # pos + K] under speculation, the window the verify
+                # reads), masked by the device ``mapped`` flag
+                n_pre = np.minimum((ctx_pre + K) // bs + 1, nblk)
                 valid = (live_mask[:, None]
                          & (np.arange(nblk)[None, :] < n_pre[:, None])
                          & mapped.astype(bool))
@@ -1365,21 +1561,88 @@ class Engine:
                     st.flex_walks += int(walks_slot[slot])
                 m.run_promotions()
                 self._apply_copies()
-            for st in live:
-                sid = st.request.seq_id
-                nxt = int(nxt_all[self._slot_of[sid]])
-                st.generated.append(nxt)
-                st.new_tokens.append(nxt)
-                st.last_step = self._step_count
-                self._tokens_emitted += 1
-                out[sid] = nxt
-                self._maybe_finish(st, nxt)
+            if K:
+                self._commit_spec(live, acc_all, nxt_all, ctx_pre, out)
+            else:
+                for st in live:
+                    sid = st.request.seq_id
+                    nxt = int(nxt_all[self._slot_of[sid]])
+                    st.generated.append(nxt)
+                    st.new_tokens.append(nxt)
+                    st.last_step = self._step_count
+                    self._tokens_emitted += 1
+                    out[sid] = nxt
+                    self._maybe_finish(st, nxt)
         for (r, _), nxt in zip(pending, firsts):
             self._complete_prefill(r, int(nxt))
             out[r.seq_id] = int(nxt)
         if self._injector is not None:
             self._injected("post")
         return out
+
+    def _commit_spec(self, live, acc_all, n_emit_all, ctx_pre, out) -> None:
+        """Variable-length commit of the speculative windows.
+
+        The step advanced ``ctx_len`` by ``n_emit`` on the device; the
+        host walks each row's emitted tokens in order and stops at eos /
+        ``max_new_tokens`` where sequential decode stops.  The capacity
+        clamp commits no token from a query position whose K/V write fell
+        past the row's last KV block (``nblk * bs``): such a token is not
+        exact; at ``cap <= 0`` nothing can be, and the row finishes with a
+        ``"length"`` stop.  A row that committed fewer tokens than the
+        device advanced is rewound (one upload, no copy back), and the
+        blocks a rejected or truncated tail crossed into are freed: all
+        but the block of a live row's next write position."""
+        m = self.manager
+        bs = self.cfg.kv_block_size
+        K = self.spec_K
+        nblk = self.spec.max_blocks_per_seq
+        rewinds: Dict[int, int] = {}
+        for st in live:
+            sid = st.request.seq_id
+            slot = self._slot_of[sid]
+            pos = int(ctx_pre[slot])
+            cap = nblk * bs - pos
+            n_emit = int(n_emit_all[slot])
+            n = min(n_emit, cap) if cap > 0 else 0
+            committed = 0
+            for t in acc_all[slot, :n].tolist():
+                st.generated.append(t)
+                st.new_tokens.append(t)
+                out[sid] = t
+                committed += 1
+                self._maybe_finish(st, t)
+                if st.done:
+                    break
+            # acceptance counts the drafts that entered the stream (the
+            # last committed token is the target's own)
+            st.drafted += K
+            st.accepted += max(committed - 1, 0)
+            st.last_step = self._step_count
+            self._tokens_emitted += committed
+            self._spec_drafted += K
+            self._spec_accepted += max(committed - 1, 0)
+            if cap <= 0 and not st.done:
+                self._finish(st, "length")
+            if sid not in self._slot_of:
+                continue        # finished and auto-released: slot reset
+            new_ctx = pos + committed
+            if committed < n_emit:
+                rewinds[slot] = new_ctx
+                self._ctx_host[slot] = new_ctx
+            # a live row keeps the block of its next write position (the
+            # bonus token is fed there next step); a finished row keeps
+            # nothing it will not read
+            threshold = new_ctx if st.done else new_ctx + 1
+            for b in range((threshold + bs - 1) // bs,
+                           min((pos + K) // bs, nblk - 1) + 1):
+                m.free_block(sid, b)
+        if rewinds:
+            dev = self.device
+            self.dstate["ctx_len"][_upload(
+                np.fromiter(rewinds, np.int64, len(rewinds)), dev)] = (
+                _upload(np.fromiter(rewinds.values(), np.int32,
+                                    len(rewinds)), dev))
 
     # ---------------------------------------------------- streaming output
     @property
@@ -1503,12 +1766,30 @@ class Engine:
                 self.cancel(sid, reason="deadline")
 
     # ------------------------------------------------------------ teardown
+    def _clear_slot(self, slot: int) -> None:
+        """Reset a batch slot's context (and its drafter history: a
+        recycled slot must not draft from its predecessor's tokens)."""
+        self.dstate["ctx_len"][slot] = 0
+        self._ctx_host[slot] = 0
+        if self.spec_K:
+            self.dstate["hist"][slot] = -1
+
+    def _to_host(self, *tensors):
+        """Host copies of device tensors (None passes through): a batch
+        of asynchronous copies and one synchronisation."""
+        if self.device.type == "cpu":
+            return [None if t is None else t.clone() for t in tensors]
+        # a non-blocking copy to the host lands in pinned memory
+        out = [None if t is None else t.to("cpu", non_blocking=True)
+               for t in tensors]
+        torch.cuda.current_stream(self.device).synchronize()
+        return out
+
     def release(self, seq_id: int) -> None:
         self.manager.free_sequence(seq_id)
         self._chain_cache.pop(seq_id, None)
         slot = self._slot_of.pop(seq_id)
-        self.dstate["ctx_len"][slot] = 0
-        self._ctx_host[slot] = 0
+        self._clear_slot(slot)
         req = self.requests.pop(seq_id, None)
         if req is not None:
             self.finished[seq_id] = req
@@ -1524,7 +1805,8 @@ class Engine:
         "_preempted", "_swap_bytes_out", "_swap_bytes_in",
         "_progress_events", "_request_preempts", "_request_resumes",
         "_dropped_preempts", "_dropped_resumes", "_tokens_emitted",
-        "_cancelled", "_deadline_expired", "_chain_cache",
+        "_spec_drafted", "_spec_accepted", "_cancelled",
+        "_deadline_expired", "_chain_cache",
     )
 
     def snapshot(self) -> EngineSnapshot:
@@ -1545,13 +1827,8 @@ class Engine:
         # the manager's (pickled) post-copy slot map
         self._apply_copies()
         keys = [k for k in self.dstate if k not in _TRANSLATION]
-        if self.device.type == "cpu":
-            dstate = {k: self.dstate[k].clone() for k in keys}
-        else:
-            # a non-blocking copy to the host lands in pinned memory
-            dstate = {k: self.dstate[k].to("cpu", non_blocking=True)
-                      for k in keys}
-            torch.cuda.current_stream(self.device).synchronize()
+        dstate = dict(zip(keys, self._to_host(*(self.dstate[k]
+                                                for k in keys))))
         now = time.perf_counter()
         payload: Dict[str, Any] = {f: getattr(self, f)
                                    for f in self._SNAP_FIELDS}
@@ -1653,6 +1930,8 @@ class Engine:
             "rsw_hits": int(m.stats.get("rsw_hits", 0)),
             "flex_walks": int(m.stats.get("flex_walks", 0)),
             "swap_faults": int(m.stats.get("faults", 0)),
+            "spec_drafted": self._spec_drafted,
+            "spec_accepted": self._spec_accepted,
             "request_preempts": self._request_preempts,
             "request_resumes": self._request_resumes,
             "swap_bytes_out": self._swap_bytes_out,
@@ -1678,16 +1957,21 @@ class Engine:
         }
 
     def stats(self) -> dict:
-        """Global manager counters; ``"overload"``: sequence-granularity
+        """Global manager counters; ``spec_drafted`` / ``spec_accepted``
+        (speculative decoding: drafts proposed, drafts that entered a
+        stream); ``"overload"``: sequence-granularity
         preempt/resume counts (the manager's), host-tier residency, swap
         bytes each way and the monotone per-request preempt/resume
         counters with the share banked on seq_id reuse; ``"lifecycle"``:
         cancels and deadline expiries; ``"prefix_cache"`` (the cache's
         counters as the JAX engine reports them); and ``"per_request"``:
-        RestSeg hits / flexible walks / swap faults / cache-attached
-        blocks / preempts / resumes of each seq_id (the ``cached_blocks``
-        rows sum to ``dedup_blocks``)."""
+        RestSeg hits / flexible walks / swap faults / drafts proposed and
+        accepted / cache-attached blocks / preempts / resumes of each
+        seq_id (the ``drafted``, ``accepted`` and ``cached_blocks`` rows sum
+        to ``spec_drafted``, ``spec_accepted`` and ``dedup_blocks``)."""
         s = dict(self.manager.stats)
+        s["spec_drafted"] = self._spec_drafted
+        s["spec_accepted"] = self._spec_accepted
         s["overload"] = {
             "preempted_seqs": int(self.manager.stats.get("preempt_out", 0)),
             "resumed_seqs": int(self.manager.stats.get("preempt_in", 0)),
@@ -1716,7 +2000,8 @@ class Engine:
         }
         s["per_request"] = {
             sid: {"rsw_hits": st.rsw_hits, "flex_walks": st.flex_walks,
-                  "swap_faults": st.swap_faults,
+                  "swap_faults": st.swap_faults, "drafted": st.drafted,
+                  "accepted": st.accepted,
                   "cached_blocks": st.cached_blocks,
                   "preempts": st.preempts, "resumes": st.resumes}
             for sid, st in self._states.items()}

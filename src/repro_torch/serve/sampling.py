@@ -184,3 +184,44 @@ def sample_tokens(logits: torch.Tensor, temperature: torch.Tensor,
     noise = gumbel(fold_in(keys, steps), logits.shape[-1])
     sampled = (masked + noise).argmax(dim=-1).to(torch.int32)
     return torch.where(temperature > 0, sampled, greedy)
+
+
+# ------------------------------------- speculative-decode verification
+
+def sample_tokens_q(logits: torch.Tensor, temperature: torch.Tensor,
+                    top_k: torch.Tensor, top_p: torch.Tensor,
+                    keys: torch.Tensor, steps: torch.Tensor) -> torch.Tensor:
+    """Multi-position sampler: ``logits (B, Q, V)`` -> ``(B, Q) int32``.
+
+    Position ``i`` of row ``b`` draws with the key :func:`sample_tokens`
+    folds after ``steps[b, i]`` context tokens, so each draw is the token
+    the non-speculative stream emits at that position for the same
+    logits.  ``temperature``/``top_k``/``top_p``/``keys`` are per row and
+    shared by the row's positions; ``steps`` is ``(B, Q)``."""
+    B, Q, V = logits.shape
+
+    def rep(a):
+        return a.repeat_interleave(Q, dim=0)
+
+    flat = sample_tokens(logits.reshape(B * Q, V), rep(temperature),
+                         rep(top_k), rep(top_p), rep(keys),
+                         steps.reshape(B * Q))
+    return flat.reshape(B, Q)
+
+
+def verify_draft_tokens(target_tokens: torch.Tensor, drafts: torch.Tensor):
+    """Draft acceptance: ``target_tokens (B, K+1)`` (the target's token at
+    each window position: the argmax, or :func:`sample_tokens_q`'s draw)
+    against ``drafts (B, K)``.
+
+    Returns ``(accepted_tokens (B, K+1) int32, n_emit (B,) int32)``: a
+    step emits ``accepted_tokens[b, :n_emit[b]]``, every leading draft
+    that matched the target's token plus the target's own token at the
+    first mismatch (or after the last draft), so ``1 <= n_emit <= K+1``.
+    For a sampled row the position-folded draw is a maximal coupling of
+    rejection sampling against the point-mass drafter: each emitted token
+    is the draw the non-speculative stream makes at its position."""
+    accept = (target_tokens[:, :-1] == drafts).to(torch.int32)
+    keep = torch.cumprod(accept, dim=1)          # leading-accept prefix
+    n_emit = (keep.sum(dim=1) + 1).to(torch.int32)
+    return target_tokens.to(torch.int32), n_emit

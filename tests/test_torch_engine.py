@@ -140,14 +140,15 @@ def test_engine_streams_and_telemetry_match(weights):
 
 
 def test_engine_refuses_unported_features(weights):
-    """Only the features still unported raise (speculative decoding,
-    meshes); the JAX engine's defaults (prefix-KV prefill, the prefix
-    cache, preemption to the host tier) construct, and a sampled request
-    is accepted."""
+    """Only the features still unported raise (meshes); the JAX engine's
+    defaults (prefix-KV prefill, the prefix cache, preemption to the host
+    tier) construct, speculative decoding constructs, and a sampled
+    request is accepted."""
     _, _, cfg, tp = weights
-    for kw in (dict(spec_decode="ngram"), dict(mesh_shape=(1, 1))):
-        with pytest.raises(NotImplementedError, match="ROADMAP P"):
-            Engine(cfg, tp, EngineConfig(**kw), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP P15"):
+        Engine(cfg, tp, EngineConfig(mesh_shape=(1, 1)), device="cpu")
+    assert Engine(cfg, tp, EngineConfig(spec_decode="ngram"),
+                  device="cpu").spec_K == 4
     with pytest.raises(ValueError, match="overload_policy"):
         Engine(cfg, tp, EngineConfig(overload_policy="swap"), device="cpu")
     eng = Engine(cfg, tp, EngineConfig(), device="cpu")

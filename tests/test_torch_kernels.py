@@ -271,6 +271,103 @@ def test_paged_attn_local_writes_and_reads_as_jax(restseg_fraction,
         sink_rows)
 
 
+# ----------------------------- the verify step's windowed translation
+
+WINDOW = 5                   # K + 1 positions of a K = 4 verify step
+
+
+def _window_tables(hash_name, restseg_fraction, B=6, nblk=8, bs=8,
+                   slots=40):
+    """Tables and context lengths whose windows of ``WINDOW`` positions
+    cross into a mapped next block (row 1), into an unmapped one (row 2),
+    run past the last block (row 0), lie past the vpn range (row 4) or
+    inside one block (row 5); row 3 is inactive."""
+    m = HybridKVManager(HybridConfig(
+        block_size=bs, total_slots=slots, restseg_fraction=restseg_fraction,
+        assoc=8, max_seqs=B, max_blocks_per_seq=nblk, hash_name=hash_name))
+    ctx = np.asarray([nblk * bs - 2, 2 * bs - 2, 3 * bs - 3, bs + 3,
+                      nblk * bs + 5, 1], np.int32)
+    last = [nblk - 1, 2, 2, 1, nblk - 1, 0]      # last mapped block a row
+    for sid in range(B):
+        m.register_sequence(sid)
+    for b in range(nblk):
+        for sid in range(B):
+            if b <= last[sid]:
+                m.allocate_block(sid, b)
+    active = np.ones(B, bool)
+    active[3] = False
+    geom = dict(block_size=bs, nblk=nblk, hash_name=hash_name, sink=slots)
+    tables = (m.tar[None], m.sf[None], m.flex_table.reshape(1, -1))
+    return tables, ctx, active, geom, m.cfg.num_sets
+
+
+@pytest.mark.parametrize("hash_name", HASHES)
+@pytest.mark.parametrize("window", [1, WINDOW])
+def test_window_translate_plain_matches_jax_gather(hash_name, window,
+                                                   jax_ref):
+    """The windowed step translation's plain version against what the JAX
+    verify step derives from its one translation: the slot and mapped
+    flag of each position's block gathered from the walk (the block index
+    clamped into the row), valid when mapped, below ``nblk * bs`` and
+    active; the flat write row (the sink's row when invalid) and the
+    extent ``pos + i + 1``."""
+    tables, ctx, active, geom, n_sets = _window_tables(hash_name, 0.25)
+    bs, nblk, slots = geom["block_size"], geom["nblk"], geom["sink"]
+    jspec = JDecodeSpec(block_size=bs, max_blocks_per_seq=nblk,
+                        slots_per_group=slots, n_sets=n_sets, assoc=8,
+                        hash_name=hash_name)
+    jt = j_translate_step(*map(jnp.asarray, tables), jnp.asarray(ctx), jspec)
+    pos = ctx[:, None] + np.arange(window)[None, :]
+    blk = np.clip(pos // bs, 0, nblk - 1)
+    w_slot = np.take_along_axis(np.asarray(jt.slots[0]), blk, axis=1)
+    w_map = np.take_along_axis(np.asarray(jt.mapped[0]), blk, axis=1)
+    got = translate_step_ref(*[_t(a) for a in (*tables, ctx)], _t(active),
+                             window=window, **geom)
+    w_valid = w_map & (pos < nblk * bs) & active[:, None]
+    squeeze = (lambda a: a[:, 0]) if window == 1 else (lambda a: a)
+    npt.assert_array_equal(got.w_slot[0].numpy(), squeeze(w_slot))
+    npt.assert_array_equal(got.w_valid[0].numpy(), squeeze(w_valid))
+    npt.assert_array_equal(got.w_row.numpy(), squeeze(
+        np.where(w_valid, w_slot, slots) * bs + pos % bs))
+    npt.assert_array_equal(got.extent.numpy(), squeeze(pos + 1))
+    for f in ("slots", "in_rest", "mapped", "accesses"):
+        npt.assert_array_equal(getattr(got, f).numpy(),
+                               np.asarray(getattr(jt, f)), err_msg=f)
+    if window > 1:
+        wv = got.w_valid[0].numpy().astype(bool)
+        assert wv[1].all() and wv[2, :3].all() and not wv[2, 3:].any()
+        assert wv[0, :2].all() and not wv[0, 2:].any()
+        assert not wv[3].any() and not wv[4].any() and wv[5].all()
+
+
+@pytest.mark.parametrize("hash_name", HASHES)
+def test_window_one_buffer_is_the_decode_layout(hash_name, jax_ref):
+    """At W = 1 the step's one output buffer is, word for word, the decode
+    step's layout built from JAX's ``translate_step``: w_row (int64), the
+    write slot, its validity, the extent, then in_rest, accesses, mapped
+    and the slots."""
+    B, nblk, bs, slots, _ = STEP_GEOMETRIES["small"]
+    tables, ctx, active, geom, n_sets = _step_tables(hash_name, 0.75, B, nblk,
+                                                     bs, slots)
+    jspec = JDecodeSpec(block_size=bs, max_blocks_per_seq=nblk,
+                        slots_per_group=slots, n_sets=n_sets, assoc=8,
+                        hash_name=hash_name)
+    jt = j_translate_step(*map(jnp.asarray, tables), jnp.asarray(ctx), jspec)
+    wv = np.asarray(jt.w_valid[0]) & active
+    w_row = np.where(wv, np.asarray(jt.w_slot[0]), slots) * bs + ctx % bs
+    want = np.concatenate([
+        w_row.astype(np.int64).view(np.int32), np.asarray(jt.w_slot[0]),
+        wv.astype(np.int32), ctx + 1]
+        + [np.asarray(getattr(jt, f)).reshape(-1).astype(np.int32)
+           for f in ("in_rest", "accesses", "mapped", "slots")])
+    for window in (None, 1):
+        kw = {} if window is None else {"window": window}
+        got = translate_step_ref(*[_t(a) for a in (*tables, ctx)],
+                                 _t(active), **geom, **kw)
+        npt.assert_array_equal(got.out.numpy(), want)
+        assert got.w_row.shape == (B,) and got.extent.shape == (B,)
+
+
 # --------------------------------------------------------- paged attention
 
 def _paged_inputs(B, Q, H, KV, D, bs, nblk, nslots, seed, per_query=False):
@@ -606,3 +703,52 @@ def test_gpu_flash_kernel_kv_longer_or_shorter(cuda, skv, dtype, causal):
     tol = 1e-4 if dtype == "float32" else 3e-2
     npt.assert_allclose(got.float().cpu().numpy(),
                         want.float().cpu().numpy(), rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hash_name", HASHES)
+@pytest.mark.parametrize("window", [1, WINDOW])
+def test_gpu_window_translate_kernel_matches_plain(cuda, hash_name, window):
+    """The step entry with a window of positions against its plain
+    version, exactly, in every field: windows crossing into a mapped and
+    an unmapped block, past the last block and the vpn range, and an
+    inactive row; still one launch per call."""
+    tables, ctx, active, geom, _ = _window_tables(hash_name, 0.25)
+    args = [_t(a) for a in (*tables, ctx)]
+    for act in (None, _t(active)):
+        want = translate_step_ref(*args, act, window=window, **geom)
+        n0 = utopia_translate_step.launches
+        got = utopia_translate_step(*[a.to(cuda) for a in args],
+                                    None if act is None else act.to(cuda),
+                                    window=window, **geom)
+        torch.cuda.synchronize()
+        assert utopia_translate_step.launches == n0 + 1
+        assert torch.equal(got.out.cpu(), want.out)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gpu_paged_per_query_equals_single_query(cuda, dtype):
+    """The verify read's per-query mode: query i of a Q = K+1 launch with
+    extents pos+1 .. pos+K+1 equals, bitwise, a Q = 1 launch of the same
+    query at extent pos+i+1 (the kernel half of spec decode's
+    losslessness)."""
+    B, Q, H, KV, D, bs, nblk = 4, 5, 32, 8, 128, 64, 16
+    rng = np.random.RandomState(11)
+    tdt = getattr(torch, dtype)
+    q = _t(rng.randn(B, Q, H, D).astype(np.float32)).to(cuda, tdt)
+    kp = _t(rng.randn(81, bs, KV, D).astype(np.float32)).to(cuda, tdt)
+    vp = _t(rng.randn(81, bs, KV, D).astype(np.float32)).to(cuda, tdt)
+    slots = _t(rng.permutation(80)[:B * nblk].reshape(B, nblk)
+               .astype(np.int32)).to(cuda)
+    pos = torch.tensor([1017, 62, 0, 300], dtype=torch.int32, device=cuda)
+    ext = (pos[:, None] + 1
+           + torch.arange(Q, dtype=torch.int32, device=cuda)).contiguous()
+    n0 = paged_attention.launches_q_per_query
+    wide = paged_attention(q, kp, vp, slots, ext)
+    assert paged_attention.launches_q_per_query == n0 + 1
+    for i in range(Q):
+        one = paged_attention(q[:, i].contiguous(), kp, vp, slots,
+                              ext[:, i].contiguous())
+        for x, y in zip(one, wide):
+            assert torch.equal(x, y[:, i])
