@@ -7,10 +7,13 @@ JAX):
 
     python3 chip_smoke.py
     python3 chip_smoke.py --decode-profile [--src OTHER_CHECKOUT/src]
+    python3 chip_smoke.py --paged-reads [--src OTHER_CHECKOUT/src]
 
 The second form builds the kernels and runs only phase 4's decode-step
-profile, of this checkout's port or of another commit's (a parent
-unpacked with ``git archive``), so that two commits compare in one call.
+profile, the third only phase 2's paged-attention checks and timings (the
+decode, verify and prefix reads), of this checkout's port or of another
+commit's (a parent unpacked with ``git archive``), so that two commits
+compare in one call.
 Phase 3's first two runs, phase 4 and the profile pass their engine
 configuration explicitly (flash attention, recompute prefill, no prefix
 cache, ``overload_policy="fail"``), so that their numbers compare with
@@ -41,10 +44,11 @@ Phases, each failing loudly:
    and query-rank invariance; flash attention also at every prefill
    bucket length (8 .. 1024).  Paged attention also at the prefix-KV
    prefill's read (Q = 256 queries a row over prefix extents 192, 448, 0
-   and 320, the third a padded row that must give l == 0 and m == -1e30)
-   and at the verify step's (Q = 5 queries a row, one extent a query:
-   query i must equal a Q = 1 launch at its extent bitwise, f32 and
-   bf16).
+   and 320, the third a padded row that must give l == 0 and m == -1e30;
+   queries 0, 3, 4, 127 and 255 must equal Q = 1 launches bitwise) and at
+   the verify step's (Q = 5 queries a row, one extent a query: query i
+   must equal a Q = 1 launch at its extent bitwise, f32 and bf16), with
+   their CTAs a call.
    Then time kernel, plain version, and for
    flash attention ``scaled_dot_product_attention`` (CUDA events and
    profiler device time) as a yardstick the port never calls; the step
@@ -98,7 +102,9 @@ Phases, each failing loudly:
    range once, leave nothing mapped or on the host tier, and read back
    from the pool, at every resume, exactly the bytes its preemption
    gathered; (c) run (b) under ``ResilientServe(snapshot_every=8)`` with
-   two crashes, whose delivered streams must equal (b)'s bitwise.  It
+   two crashes, whose delivered streams must equal (b)'s bitwise; then
+   (d) and (e), runs (a) and (b) on the engine's default
+   ``prefix_gather="exact"``, whose tight-vs-roomy streams it reports.  It
    prints the preempt and resume ms, swap bytes, tokens/s of (a) and
    (b), snapshot and restore ms, and where a stream of (b) differs from
    (a)'s, the token, its step, the top-2 margin and both runs' prefill
@@ -109,12 +115,17 @@ Phases, each failing loudly:
    spec-off and then spec-on in the same process, ``check_invariants``
    after every step.  Every stream must hold 32 in-vocab tokens, drafts
    must be proposed and accepted on a repetitive request, the per-query
-   paged read must launch, and each decoding step must launch the
-   translation once.  It prints tokens/s and steps of both, emitted
-   tokens per row-step, the acceptance rate, a steady verify step's wall
-   and device ms beside a decode step's, where a spec-on stream differs
-   from spec-off the token, its step and both top-2 margins, and whether
-   the decode GEMMs round a row alike at M = 4 and M = 20.
+   paged read must launch, each decoding step must launch the
+   translation once, and every spec-on stream must equal its spec-off
+   stream.  It prints tokens/s and steps of both, emitted tokens per
+   row-step, the acceptance rate, a steady verify step's wall and device
+   ms beside a decode step's, where a spec-on stream differs from
+   spec-off the token, its step and both top-2 margins, and, on one
+   verify step's recorded activations, which ops of a layer round a row
+   otherwise at the verify's (B, K + 1) shape than at the decode's (B,).
+
+Each serving phase prints a digest of its streams (``streams_sha256``), so
+that two commits' runs compare token for token.
 
 It prints the build times, the kernel checks, the serving numbers, one
 JSON line of kernel measurements (launches counted on phases 4, 5, 6 and
@@ -809,6 +820,7 @@ def check_paged_verify(torch, dev, results):
         bound_ms=max(bound_bytes, bound_ops) * 1e3,
         bound_by="bytes" if bound_bytes >= bound_ops else "operations",
         bytes=nbytes, flops=flops, device_kernels_per_call=per_call,
+        ctas=_grid_ctas(B, Q, H, KV, D, slots.shape[1]),
         shape=f"B={B} Q={Q} H={H} KV={KV} D={D} bs={bs} per-query extents "
               f"{ext.tolist()} bf16")
     results["paged_attention_verify_read"] = r
@@ -848,14 +860,27 @@ def _prefix_read_case(torch, dev, gen):
     return q, kp, vp, slots.to(dev), ctx.to(dev)
 
 
+def _grid_ctas(B, Q, H, KV, D, nblk):
+    """CTAs a call of the paged read launches (None for a port from before
+    the query tiles, run with ``--src``, whose ops have no ``cta_grid``)."""
+    from repro_torch.kernels.paged_attention import ops
+    if not hasattr(ops, "cta_grid"):
+        return None
+    x, y, z = ops.cta_grid(B, Q, H, KV, D, nblk)
+    return x * y * z
+
+
+PREFIX_QUERIES = (0, 3, 4, 127, 255)     # sampled queries held bitwise
+
+
 def check_paged_prefix(torch, dev, results):
     """Paged attention at the prefix-KV prefill's read (the Q > 1 path of
     ``serve/prefill.py``, ``prefix_gather="paged"``): held against its
-    plain version at 3e-2, the pad row exact (l == 0, m == -1e30), one
-    device kernel per call; timed beside its plain version and its bytes
-    bound with each row's prefix K/V read once."""
-    from repro_torch.kernels.paged_attention.ops import (paged_attention,
-                                                         split_plan)
+    plain version at 3e-2, the pad row exact (l == 0, m == -1e30), queries
+    ``PREFIX_QUERIES`` bitwise equal to Q = 1 launches, one device kernel
+    per call; timed beside its plain version and its bytes bound with each
+    row's prefix K/V read once."""
+    from repro_torch.kernels.paged_attention.ops import paged_attention
     from repro_torch.kernels.paged_attention.ref import paged_attention_ref
     gen = torch.Generator().manual_seed(SEED + 1)
     sets = [_prefix_read_case(torch, dev, gen) for _ in range(4)]
@@ -868,6 +893,11 @@ def check_paged_prefix(torch, dev, results):
     if float(l[2].abs().max()) != 0.0 or bool((m[2] != -1e30).any()):
         raise AssertionError("paged_attention prefix read: the pad row "
                              "must give l == 0 and m == -1e30")
+    for i in PREFIX_QUERIES:
+        one = paged_attention(q[:, i].contiguous(), kp, vp, slots, ctx)
+        if not all(torch.equal(x, y[:, i]) for x, y in zip(one, got)):
+            raise AssertionError(f"paged_attention prefix read: query {i} "
+                                 "differs from a Q=1 launch")
     kern = [lambda s=s: paged_attention(*s) for s in sets]
     plain = [lambda s=s: paged_attention_ref(*s) for s in sets]
     per_call = launches_per_call(torch, kern[0])
@@ -890,12 +920,13 @@ def check_paged_prefix(torch, dev, results):
         bound_ms=max(bound_bytes, bound_ops) * 1e3,
         bound_by="bytes" if bound_bytes >= bound_ops else "operations",
         bytes=nbytes, flops=flops, device_kernels_per_call=per_call,
-        ctas=KV * split_plan(c["nblk"])[0] * Q * B,
+        ctas=_grid_ctas(B, Q, H, KV, D, c["nblk"]),
         shape=f"B={B} Q={Q} H={H} KV={KV} D={D} bs={bs} nblk={c['nblk']} "
               f"extents={list(c['extents'])} bf16")
     results["paged_attention_prefix_read"] = r
     log("check paged_attention prefix read (" + r["shape"] + "): max abs "
-        f"err {err:.3g} (tol 3e-2), pad row l == 0 and m == -1e30; "
+        f"err {err:.3g} (tol 3e-2), pad row l == 0 and m == -1e30, queries "
+        f"{list(PREFIX_QUERIES)} == Q=1 launches bitwise; "
         + json.dumps({k: (round(v, 6) if isinstance(v, float) else v)
                       for k, v in r.items() if k != "shape"}))
 
@@ -1489,6 +1520,16 @@ def _kernel_counts(reset=False):
     return {name: getattr(fn, attr) for name, (fn, attr) in fns.items()}
 
 
+def stream_digest(streams) -> str:
+    """16 hex digits of the sha256 of a run's streams (request id and
+    tokens, in id order): two runs, or two commits' runs, served the same
+    tokens when their digests agree."""
+    import hashlib
+    return hashlib.sha256(json.dumps(sorted(
+        (int(k), [int(t) for t in v]) for k, v in streams.items())).encode()
+    ).hexdigest()[:16]
+
+
 def check_streams(reqs, streams, vocab):
     for r in reqs:
         toks = streams[r.seq_id]
@@ -1552,7 +1593,7 @@ def full_width(torch, dev, cfg, dims, params):
         rsw_hit_share=round(hits / max(hits + walks, 1), 4),
         gpu_mem_peak_gib=round(torch.cuda.max_memory_allocated() / 2 ** 30,
                                3),
-        launches=launches)
+        streams_sha256=stream_digest(streams), launches=launches)
     log("granite-8b full width, 36 layers, bf16, Engine(max_batch=4, "
         "max_seq_len=1024, attn_impl='flash', prefill_mode='recompute', "
         "prefix_cache=None): " + json.dumps({"serving": summary}))
@@ -1635,7 +1676,8 @@ def full_width_prefix(torch, dev, cfg, dims, params):
         tokens_per_s=round(n_tok / wall, 2), wall_s=round(wall, 3),
         gpu_mem_peak_gib=round(torch.cuda.max_memory_allocated() / 2 ** 30,
                                3),
-        prefix_cache=pc, launches=launches)
+        prefix_cache=pc, streams_sha256=stream_digest(streams),
+        launches=launches)
     log("phase 5: granite-8b full width, 36 layers, bf16, Engine("
         + ", ".join(f"{k}={v!r}" for k, v in PHASE5.items()) + "): "
         + json.dumps({"serving": summary}))
@@ -1691,53 +1733,125 @@ PHASE6_RUN = dict(
     snapshot_every=8, crash_at=[(121, "pre"), (138, "post")])
 
 
-def decode_row_dependence(torch, dev, cfg, params):
-    """Does a decode GEMM row's result depend on the batch around it?
-    For each of layer 0's projections and the vocab head at the decode
-    shape (4 rows, bf16, the port's ``linear``), compare bitwise: the rows
-    of a batch against the rows of its permutation (a row in another
-    batch slot), row 0 against row 0 beside other neighbours, and the 4
-    rows against the same rows inside a product of M = 20 rows (the
-    verify step's B * (K + 1) at B = 4, K = 4).  Reported, not held
-    (phase 6's tight-vs-roomy and phase 7's spec-on-vs-off comparisons
-    read it)."""
+def decode_row_dependence(torch, eng, cfg):
+    """Does a row's result depend on the batch around it, on the verify
+    step's own activations?  One step of the spec-on engine ``eng`` (a
+    (B, K + 1) window) runs with the input of every op of every layer
+    recorded: the RMS norms, the q and o projections (k and v take q's
+    input), RoPE on q and k, the attention's normalization, the MLP's
+    gate, up and down, the final norm and the head.  Each op then runs
+    again on each recorded input, at the verify's (B, K + 1, ...) shape and
+    on every window position's contiguous (B, ...) slice (the decode
+    step's shape), and the two are compared bitwise; for the norms also
+    their float32 mean square, one value a row, whose rounding a bf16
+    output mostly hides.  At the decode shape each op's rows are also
+    compared with a permutation's (a row in another batch slot) and row 0
+    beside other neighbours.  The norms run as ``Lmod.rms_norm`` does,
+    over the whole window, whatever the verify step does with them.
+    Reported, not held; ``verify_per_position`` names the ops that the
+    verify step runs at the decode shape (``serve/decode.py``)."""
+    import repro_torch.serve.decode as dmod
     from repro_torch.models import layers as L
     from repro_torch.models.transformer import layer_params
-    blk = layer_params(params, 0)
-    mats = {"q": blk["attn"]["q"], "k": blk["attn"]["k"],
-            "v": blk["attn"]["v"], "gate": blk["mlp"]["gate"],
-            "up": blk["mlp"]["up"]}
-    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
-    out = {}
-    for name, p in list(mats.items()) + [("o", blk["attn"]["o"]),
-                                         ("down", blk["mlp"]["down"]),
-                                         ("head", None)]:
-        d_in = (p["w"].shape[0] if p is not None else cfg.d_model)
-        x = torch.randn((4, d_in), generator=gen, device=dev).to(
-            torch.bfloat16)
+    params = eng.params
+    names = {params["final_norm"].data_ptr(): ("final_norm", None)}
+    for li in range(cfg.num_layers):
+        blk = layer_params(params, li)
+        names[blk["norm1"].data_ptr()] = ("norm1", li)
+        names[blk["norm2"].data_ptr()] = ("norm2", li)
+        for grp, keys in (("attn", "qkvo"), ("mlp", ("gate", "up", "down"))):
+            for k in keys:
+                names[blk[grp][k]["w"].data_ptr()] = (k, li)
+    rec = []
+    orig = (dmod._rms_norm, L.linear, L.apply_rope, L.unembed,
+            dmod.normalize)
 
-        def f(x):
-            if p is None:
-                return x @ params["embed"]["table"].T.to(x.dtype)
-            return L.linear(p, x)
+    def rms(x, scale, eps):
+        if x.dim() == 3:
+            rec.append((names[scale.data_ptr()], x,
+                        lambda t, s=scale: L.rms_norm(t, s, eps)))
+        return orig[0](x, scale, eps)
 
-        y = f(x)
-        perm = torch.tensor([2, 0, 3, 1], device=dev)
-        yp = f(x[perm].contiguous())
-        x2 = x.clone()
-        x2[1:] = torch.randn((3, d_in), generator=gen, device=dev).to(
-            torch.bfloat16)
-        y2 = f(x2)
-        x20 = torch.cat([x, torch.randn((16, d_in), generator=gen,
-                                        device=dev).to(torch.bfloat16)])
-        y20 = f(x20)[:4]
-        out[name] = dict(
-            slot_moved_equal=bool(torch.equal(yp, y[perm])),
-            neighbours_changed_equal=bool(torch.equal(y2[0], y[0])),
-            max_abs_diff=max(float((yp - y[perm]).abs().max()),
-                             float((y2[0] - y[0]).abs().max())),
-            rows_equal_at_m20=bool(torch.equal(y20, y)),
-            m20_max_abs_diff=float((y20.float() - y.float()).abs().max()))
+    def lin(p, x):
+        key = names.get(p["w"].data_ptr())
+        if x.dim() == 3 and key is not None:
+            rec.append((key, x, lambda t, p=p: orig[1](p, t)))
+            if key[0] == "q":
+                blk = layer_params(params, key[1])["attn"]
+                rec.extend(((k, key[1]), x, lambda t, p=blk[k]: orig[1](p, t))
+                           for k in "kv")
+        return orig[1](p, x)
+
+    def rope(x, pos, theta):
+        name = "rope_k" if x.shape[-2] == cfg.num_kv_heads else "rope_q"
+        rec.append(((name, None), (x, pos),
+                    lambda t, u: orig[2](t, u, theta)))
+        return orig[2](x, pos, theta)
+
+    def unembed(p, x, vocab):
+        rec.append((("head", None), x, lambda t: orig[3](p, t, vocab)))
+        return orig[3](p, x, vocab)
+
+    def normalize(o, l):
+        rec.append((("attn_normalize", None), (o, l), orig[4]))
+        return orig[4](o, l)
+
+    dmod._rms_norm, L.linear, L.apply_rope, L.unembed, dmod.normalize = (
+        rms, lin, rope, unembed, normalize)
+    try:
+        eng.step()
+    finally:
+        (dmod._rms_norm, L.linear, L.apply_rope, L.unembed,
+         dmod.normalize) = orig
+    out, first_norm = {}, None
+    for (name, li), x, f in rec:
+        xs = x if isinstance(x, tuple) else (x,)
+        if "rope" in name and xs[0].shape[1] == 1:
+            continue                     # a decode step's, not the window's
+        Q = xs[0].shape[1]
+        r = out.setdefault(name, dict(rows=0, rows_differ=0,
+                                      max_abs_diff=0.0, layers_differ=[],
+                                      slot_moved_equal=True,
+                                      neighbours_changed_equal=True))
+        y = f(*xs)
+        at = [tuple(t[:, c:c + 1].contiguous() if "rope" in name
+                    else t[:, c].contiguous() for t in xs)
+              for c in range(Q)]
+        differ = 0
+        for c, xc in enumerate(at):
+            yc = f(*xc)
+            yc = yc[:, 0] if "rope" in name else yc
+            row = (yc != y[:, c]).flatten(1).any(1)
+            differ += int(row.sum())
+            r["max_abs_diff"] = max(r["max_abs_diff"], float(
+                (yc.float() - y[:, c].float()).abs().max()))
+        r["rows"] += y.shape[0] * Q
+        r["rows_differ"] += differ
+        if differ and li is not None and li not in r["layers_differ"]:
+            r["layers_differ"].append(li)
+        # the decode shape's own batch: a permutation, other neighbours
+        x0, x1 = at[0], at[1]
+        y0 = f(*x0)
+        perm = torch.arange(y0.shape[0] - 1, -1, -1, device=y0.device)
+        r["slot_moved_equal"] &= bool(torch.equal(
+            f(*(t[perm].contiguous() for t in x0)), y0[perm]))
+        mixed = tuple(torch.cat([t0[:1], t1[1:]]) for t0, t1 in zip(x0, x1))
+        r["neighbours_changed_equal"] &= bool(torch.equal(f(*mixed)[0],
+                                                          y0[0]))
+        if name in ("norm1", "norm2", "final_norm"):
+            ms = xs[0].float().square().mean(dim=-1)
+            msd = sum(int((a[0].float().square().mean(dim=-1)
+                           != ms[:, c]).sum()) for c, a in enumerate(at))
+            r["mean_square_rows_differ"] = (
+                r.get("mean_square_rows_differ", 0) + msd)
+            if first_norm is None:
+                first_norm = dict(
+                    window=dict(shape=list(x.shape), stride=list(x.stride()),
+                                dtype=str(x.dtype)),
+                    position=dict(shape=list(at[0][0].shape),
+                                  stride=list(at[0][0].stride())))
+    out["norm_input"] = first_norm
+    out["verify_per_position"] = ["norm1", "norm2", "final_norm", "k", "v"]
     return out
 
 
@@ -1748,7 +1862,9 @@ def full_width_overload(torch, dev, cfg, dims, params):
     hold ``check_invariants`` after every step and admit each prompt range
     once, and every resume must read back from the pool exactly the bytes
     its preemption gathered; (c) must deliver (b)'s streams bitwise.
-    Reads the launch counts of the three runs together."""
+    Reads the launch counts of the three runs together.  (d) and (e)
+    rerun (a) and (b) with ``prefix_gather="exact"``; their tight-vs-
+    roomy streams are reported, not held."""
     import numpy as np
     from repro_torch.runtime import ResilientServe, ServeFaultInjector
     from repro_torch.serve import Engine, EngineConfig
@@ -1759,10 +1875,10 @@ def full_width_overload(torch, dev, cfg, dims, params):
     def requests():
         return smoke_requests(prompts, 32, o["sampled"])
 
-    def engine(headroom, injector=None):
+    def engine(headroom, injector=None, **kw):
         return Engine(cfg, params, EngineConfig(
             dtype=torch.bfloat16, pool_headroom=headroom,
-            fault_injector=injector, **PHASE6), device=dev)
+            fault_injector=injector, **dict(PHASE6, **kw)), device=dev)
 
     def sync_ms(fn, *args):
         torch.cuda.synchronize()
@@ -1881,7 +1997,24 @@ def full_width_overload(torch, dev, cfg, dims, params):
     del eng_c, sup
     torch.cuda.empty_cache()
 
-    # (b) against (a): reported here, held in phase 3 (float32).  For
+    # (d, e) = (a, b) on the engine's default prefix gather, "exact"
+    # (ROADMAP Queue 3: is the paged read where a prompt's split shows?);
+    # tight = roomy is reported, not held
+    exact = {}
+    for run, headroom, injector in (
+            ("d", o["roomy"], None),
+            ("e", o["tight"], ServeFaultInjector(**o["schedule"]))):
+        eng = engine(headroom, injector, prefix_gather="exact")
+        margins = {}
+        record_margins(eng, margins)
+        streams, steps = serve(eng, requests())
+        check_streams(requests(), streams, cfg.vocab_size)
+        exact[run] = (streams, steps, margins, list(eng.admission_log),
+                      eng.stats()["overload"]["preempted_seqs"])
+        del eng
+        torch.cuda.empty_cache()
+
+    # tight against roomy: reported here, held in phase 3 (float32).  For
     # each request, the first token whose logits already differ bitwise,
     # and for a diverging stream both runs' prompt chunks (start, end):
     # the budget is shared by the requests of a step, so another schedule
@@ -1889,19 +2022,27 @@ def full_width_overload(torch, dev, cfg, dims, params):
     def chunks(log, sid):
         return [(r.start, r.end) for r in log if r.seq_id == sid]
 
-    diverged, logits_from = [], {}
-    for sid in sorted(streams_a):
-        logits_from[sid] = first_logits_difference(
-            (margins_a, steps_a), (margins_b, steps_b), sid)
-        diff = near_tie(margins_b, steps_b, streams_b[sid], streams_a[sid],
-                        sid)
-        if diff is not None:
-            i, step, m = diff
-            diverged.append(dict(
-                request=sid, token=i, step_b=step, top2_margin_b=m,
-                buckets_a=buckets_of(margins_a, steps_a, sid),
-                buckets_b=buckets_of(margins_b, steps_b, sid),
-                chunks_a=chunks(log_a, sid), chunks_b=chunks(log_b, sid)))
+    def compare(ra, rb):
+        (s_a, st_a, m_a, log_a_), (s_b, st_b, m_b, log_b_) = ra, rb
+        diverged, logits_from = [], {}
+        for sid in sorted(s_a):
+            logits_from[sid] = first_logits_difference((m_a, st_a),
+                                                       (m_b, st_b), sid)
+            diff = near_tie(m_b, st_b, s_b[sid], s_a[sid], sid)
+            if diff is not None:
+                i, step, m = diff
+                diverged.append(dict(
+                    request=sid, token=i, step_b=step, top2_margin_b=m,
+                    buckets_a=buckets_of(m_a, st_a, sid),
+                    buckets_b=buckets_of(m_b, st_b, sid),
+                    chunks_a=chunks(log_a_, sid),
+                    chunks_b=chunks(log_b_, sid)))
+        return diverged, logits_from
+
+    diverged, logits_from = compare(
+        (streams_a, steps_a, margins_a, log_a),
+        (streams_b, steps_b, margins_b, log_b))
+    diverged_exact, _ = compare(exact["d"][:4], exact["e"][:4])
 
     def med_max(xs):
         return ([round(statistics.median(xs), 3), round(max(xs), 3)]
@@ -1927,14 +2068,24 @@ def full_width_overload(torch, dev, cfg, dims, params):
         restore_ms=[round(x, 3) for x in rec["restore_ms"]],
         replayed_steps=replayed, crash_at=o["crash_at"],
         wall_s_c=round(wall_c, 3),
+        streams_sha256={"a": stream_digest(streams_a),
+                        "b": stream_digest(streams_b),
+                        "c": stream_digest(streams_c),
+                        "d": stream_digest(exact["d"][0]),
+                        "e": stream_digest(exact["e"][0])},
         streams_b_equal_a=len(streams_a) - len(diverged),
         diverged_b_vs_a=diverged,
         first_token_with_other_logits_b_vs_a=logits_from,
-        decode_gemm_rows=decode_row_dependence(torch, dev, cfg, params),
+        exact_gather=dict(
+            preempted_seqs={"d": exact["d"][4], "e": exact["e"][4]},
+            steps={"d": len(exact["d"][1]), "e": len(exact["e"][1])},
+            streams_e_equal_d=len(streams_a) - len(diverged_exact),
+            diverged_e_vs_d=diverged_exact),
         launches=launches)
     log("phase 6: granite-8b full width, 36 layers, bf16, Engine("
         + ", ".join(f"{k}={v!r}" for k, v in PHASE6.items())
-        + f", pool_headroom {o['roomy']} (a) / {o['tight']} (b, c)): "
+        + f", pool_headroom {o['roomy']} (a, d) / {o['tight']} (b, c, e); "
+        "d and e with prefix_gather='exact'): "
         + json.dumps({"overload": summary}))
     return launches
 
@@ -1960,11 +2111,12 @@ def phase7_requests(cfg):
     return reqs
 
 
-def steady_step(torch, eng, cfg):
+def steady_step(torch, eng, cfg, probe=None):
     """Four requests of 512 random tokens admitted, then steady steps at
     B=4: the median wall ms of three, and one step's device ms under the
-    profiler (busy ms, kernels, the paged read's ms, the idle share).  The
-    requests are cancelled afterwards."""
+    profiler (busy ms, kernels, the paged read's ms, the idle share);
+    then ``probe(eng)``, if given, under ``probe``.  The requests are
+    cancelled afterwards."""
     import numpy as np
     from repro_torch.serve import Request
     rng = np.random.RandomState(SEED + 7)
@@ -1981,11 +2133,12 @@ def steady_step(torch, eng, cfg):
         eng.step()
         walls.append((time.perf_counter() - t0) * 1e3)
     rows = profile_device(torch, eng.step, 1)
+    probed = {} if probe is None else {"probe": probe(eng)}
     for sid in sids:
         eng.cancel(sid)
     wall = statistics.median(walls)
     busy = sum(ms for _, ms, _ in rows)
-    return dict(
+    return dict(**probed,
         wall_ms=round(wall, 3), device_busy_ms=round(busy, 3),
         idle_share=round(1 - busy / wall, 4) if rows else None,
         device_kernels=int(round(sum(n for _, _, n in rows))),
@@ -1998,12 +2151,14 @@ def full_width_spec(torch, dev, cfg, dims, params):
     its launch counts are read), each step held by ``check_invariants``.
     Fails unless every stream holds 32 in-vocab tokens, drafts were
     proposed and a repetitive request accepted some, the per-query paged
-    read launched, and each step that decoded launched the translation
-    exactly once.  Prints tokens/s and steps of both, emitted tokens per
-    row-step, the acceptance rate, a steady verify step's wall and device
-    ms beside a decode step's, and where a spec-on stream differs from
-    spec-off the first differing token, its step, both runs' top-2 margins
-    and the decode GEMMs' row dependence at M = 4 and 20."""
+    read launched, each step that decoded launched the translation
+    exactly once, and every spec-on stream equals its spec-off stream.
+    Prints tokens/s and steps of both, emitted tokens per row-step, the
+    acceptance rate, a steady verify step's wall and device ms beside a
+    decode step's, where a spec-on stream differs from spec-off the first
+    differing token, its step and both runs' top-2 margins (before
+    failing), and each op's row dependence on a verify step's own
+    activations (``decode_row_dependence``)."""
     from repro_torch.kernels.utopia_rsw.ops import utopia_translate_step
     from repro_torch.serve import Engine, EngineConfig
     runs = {}
@@ -2033,9 +2188,10 @@ def full_width_spec(torch, dev, cfg, dims, params):
                                  f"per step {trans['per_step']}, expected "
                                  f"{want}")
         st = eng.stats()
+        probe = spec and (lambda e: decode_row_dependence(torch, e, cfg))
         runs[name] = dict(streams=streams, steps=steps, margins=margins,
                           stats=st, launches=launches,
-                          steady=steady_step(torch, eng, cfg))
+                          steady=steady_step(torch, eng, cfg, probe or None))
         del eng
         torch.cuda.empty_cache()
     on, off = runs["on"], runs["off"]
@@ -2083,13 +2239,17 @@ def full_width_spec(torch, dev, cfg, dims, params):
                               / max(st["spec_drafted"], 1), 4),
         accepted_by_request={sid: row["accepted"] for sid, row
                              in st["per_request"].items()},
+        streams_sha256={k: stream_digest(r["streams"])
+                        for k, r in runs.items()},
         streams_on_equal_off=n_req - len(diverged), diverged=diverged,
-        decode_gemm_rows=decode_row_dependence(torch, dev, cfg, params),
-        launches=launches)
+        decode_rows=on["steady"].pop("probe"), launches=launches)
     log("phase 7: granite-8b full width, 36 layers, bf16, Engine("
         + ", ".join(f"{k}={v!r}" for k, v in PHASE7.items())
         + f", spec_decode='ngram', num_draft_tokens={PHASE7_K}) against "
         "spec_decode=None: " + json.dumps({"spec": summary}))
+    if diverged:
+        raise AssertionError(f"phase 7: {len(diverged)} of {n_req} bf16 "
+                             "spec-on streams differ from spec-off")
     return launches
 
 
@@ -2202,6 +2362,10 @@ def main() -> int:
     ap.add_argument("--decode-profile", action="store_true",
                     help="build the kernels and run only phase 4's "
                          "decode-step profile")
+    ap.add_argument("--paged-reads", action="store_true",
+                    help="build the kernels and run only phase 2's paged "
+                         "attention checks and timings (the decode, verify "
+                         "and prefix reads)")
     ap.add_argument("--src", type=Path, default=None,
                     help="import repro_torch from this source tree instead "
                          "of the checkout's src/ (e.g. a parent commit's, "
@@ -2240,8 +2404,18 @@ def main() -> int:
         decode_profile(torch, dev)
         card_line(torch)
         return 0
-
     results = {}
+    if args.paged_reads:
+        check_paged(torch, dev, results)
+        check_paged_verify(torch, dev, results)
+        check_paged_prefix(torch, dev, results)
+        log(f"paged reads of the port in {src}: " + json.dumps({
+            k: {f: r.get(f) for f in ("device_ms", "ms", "plain_ms",
+                                      "bound_ms", "ctas")}
+            for k, r in results.items()}))
+        card_line(torch)
+        return 0
+
     check_rsw(torch, dev)
     check_translate_step(torch, dev, results)
     check_translate_window(torch, dev, results)

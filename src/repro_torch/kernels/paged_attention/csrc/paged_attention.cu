@@ -17,29 +17,53 @@
 // * Split.  The block axis is cut into n_split chunks of blocks_per_split
 //   blocks (the plan is `split_plan` in ops.py, a function of nblk alone,
 //   so a row's result does not depend on its batch neighbours or on the
-//   number of queries).  One CTA owns one (row, query, KV head, chunk); the
-//   n_split <= 8 CTAs of one (row, query, KV head) form a thread-block
-//   cluster.
+//   number of queries).  One CTA owns one (row, query tile, KV head,
+//   chunk); the n_split <= 8 CTAs of one (row, query tile, KV head) form a
+//   thread-block cluster.
+// * Query tiles.  With Q > 1 (the prefix-KV prefill's read, the verify
+//   step's) a CTA takes QT consecutive queries (`query_tile` in ops.py:
+//   32 (query, head) rows at D <= 128 and 16 above on the tensor cores, 8
+//   on the CUDA cores), so a row's K/V tiles are staged once per query
+//   tile and not once per query.  The decode read (Q = 1) is a query tile
+//   of one.
 // * Staging.  K and V stay in the pool's dtype in shared memory: each tile
 //   (up to 16 KB of K and as much of V) arrives by 16-byte cp.async copies
 //   into a ring of two stages, so the next tile's copy is in flight while
-//   the current one is computed.  A hole block (slot < 0) and a tile
-//   wholly past the extent are never loaded.
+//   the current one is computed.  A hole block (slot < 0) and a tile past
+//   the extent of every query of the tile are never loaded.
 // * Math, chosen per call by dtype (TensorMath / CoreMath below).  With
-//   bf16 q and pool (the decode path) the g query heads are the rows of
-//   16x8x16 tensor-core MMAs: a warp scores 16 tokens at a time and adds
-//   P V from the same registers (P split into bf16 hi and lo parts, two
-//   MMAs each, so it keeps float32's precision as in the Pallas kernel),
-//   K and V read by ldmatrix from a swizzled tile.  Otherwise (float32 q or pool) the CUDA cores do it in
-//   f32, a token per D / 8 lanes (bf16; D / 4 for f32).  Either way each
-//   warp (or token group) keeps its own online-softmax state, and, as in
-//   the Pallas kernel, masked positions add nothing, so a query whose
-//   extent is 0 comes out with l == 0 and m == -1e30.
+//   bf16 q and pool (the decode path) the (query, head) pairs are the rows
+//   of 16x8x16 tensor-core MMAs (at Q = 1 the g heads, padded to 16; with
+//   a query tile whole m16 tiles, one or two a warp): a warp scores 16
+//   tokens at a time and adds P V from the same registers (P split into
+//   bf16 hi and lo parts, two MMAs each, so it keeps float32's precision
+//   as in the Pallas kernel), K and V (and a query tile's q) read by
+//   ldmatrix from swizzled tiles, each K and V fragment once for every
+//   m16 tile.  Otherwise (float32 q or pool) the CUDA cores do it in f32,
+//   a token per D / 8 lanes (bf16; D / 4 for f32), one query after the
+//   other against the staged tile (QT * G <= 8 rows, their state in
+//   registers).  Either way each warp (or token group)
+//   keeps its own online-softmax state, and, as in the Pallas kernel,
+//   masked positions add nothing, so a query whose extent is 0 comes out
+//   with l == 0 and m == -1e30.
 // * Merge in the same launch.  The token groups of a CTA merge through
 //   shared memory; the CTAs of a cluster then merge through distributed
 //   shared memory: each rank takes a slice of the outputs and reads every
 //   rank's partial for it in rank order, so the result is deterministic
 //   run to run.
+//
+// The contract the query tiles keep: a (query, head) row's arithmetic is
+// the same wherever the row sits in an m16 tile or a query tile, and the
+// same as in a Q = 1 launch at that query's extent: the split, the tokens
+// each warp or token group takes and their order, the masking by the
+// query's own extent, the online-softmax update order, the P hi/lo split
+// and the merge order.  A tile that lies past one query's extent but not
+// past another's leaves the first query's state as it is (every position
+// masked: the rescale is by exp2(0) == 1 and P is 0; on the CUDA cores
+// the query skips the tile).  A row no token reached is m == -1e30, l ==
+// 0, o == 0 in every partial, and adds exactly nothing to a merge, so a
+// query tile's merge skips reading it.  So query i of any launch is bitwise a Q = 1
+// launch at its extent, which speculative decoding's losslessness needs.
 //
 // Positions: token t of block j sits at j * block_tokens + tok_offset +
 // t * tok_stride; extents are ctx[b] (one per row) or ctx[b, q] (one per
@@ -62,6 +86,10 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kMaxSplit = 8;          // portable cluster size
 constexpr int kStages = 2;            // cp.async ring depth
 constexpr int kTileBytes = 16 * 1024; // one stage of K (and as much of V)
+// row stride (floats) of the token groups' o partials in shared memory: 8
+// floats of padding put the rows of one MMA fragment store in other banks
+template <int DP>
+constexpr int kOStride = DP + 8;
 
 template <typename T, int DP>
 struct Geo {
@@ -194,6 +222,16 @@ __device__ __forceinline__ void mma_bf16(float* d, uint32_t a0, uint32_t a2,
       : "+f"(d[0]), "+f"(d[1]), "+f"(z0), "+f"(z1)
       : "r"(a0), "r"(0u), "r"(a2), "r"(0u), "r"(b0), "r"(b1));
 }
+// d (16 x 8, f32: rows r and r + 8 of this lane) += a (16 x 16) * b, all
+// 16 rows kept (a query tile's (query, head) rows)
+__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
 __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
@@ -210,12 +248,21 @@ __device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi,
   lo = *reinterpret_cast<const uint32_t*>(&r);
 }
 
+// The CTA's query tile: queries qt0 .. qt0 + nq - 1 of row b.
+struct QTile {
+  long long head0;   // q/o head index of query qt0's first head of the KV head
+  const int* ctx;    // query qt0's extent; query qt0 + j's at ctx[j * cstep]
+  int cstep, nq, g;
+};
+
 // One tile's arithmetic on the CUDA cores, any dtype.  A token group
 // (LPT lanes of a warp, one 16-byte chunk of the row each) keeps its own
 // online-softmax state for the g heads and scores NB of its tokens before
 // one max and one rescale, so the shuffles and exps of those tokens
-// overlap.
-template <typename T, int DP, int G>
+// overlap.  A query tile (QT * G <= 8 rows, so the state stays in as many
+// registers as eight heads take) goes query after query over the staged
+// tile, each query skipping a tile that lies past its own extent.
+template <typename T, int DP, int G, int QT>
 struct CoreMath {
   using Ge = Geo<T, DP>;
   static constexpr int VEC = Ge::VEC, LPT = Ge::LPT, CPL = Ge::CPL;
@@ -223,35 +270,45 @@ struct CoreMath {
   // tokens scored together: as many as a tile gives a group, at most 32
   // score registers
   static constexpr int NB = Ge::TPG < 32 / G ? Ge::TPG : 32 / G;
+  static constexpr int R = QT * G;                     // row = query * G + head
+  static_assert(R <= 8, "the CUDA cores keep at most 8 rows' state");
   static constexpr bool kSwizzle = false;
+  static constexpr int kQBytes = 0;
   static constexpr int kGroups = NGRP;
-  float qv[G][EPL], mr[G], lr[G], acc[G][EPL];
-  int grp, sub;
+  float qv[R][EPL], mr[R], lr[R], acc[R][EPL];
+  int ext[QT];                                         // each query's extent
+  int grp, sub, nq;
 
-  __device__ __forceinline__ void init(const Params& P, long long head0,
-                                       int g, int tid) {
+  __device__ __forceinline__ void init(const Params& P, const QTile& qt,
+                                       int tid, unsigned char*) {
     const int lane = tid & 31;
     grp = (tid >> 5) * Ge::TPW + lane / LPT;
     sub = lane % LPT;
+    nq = qt.nq;
 #pragma unroll
-    for (int i = 0; i < G; ++i)
+    for (int j = 0; j < QT; ++j) {
+      ext[j] = j < qt.nq ? qt.ctx[j * qt.cstep] : 0;
 #pragma unroll
-      for (int c = 0; c < CPL; ++c)
+      for (int i = 0; i < G; ++i)
 #pragma unroll
-        for (int e = 0; e < VEC; ++e) {
-          const int d = (sub + c * LPT) * VEC + e;
-          float x = 0.f;
-          if (i < g && d < P.D) {
-            const long long at = (head0 + i) * P.D + d;
-            x = P.q_bf16
-                    ? __bfloat162float(
-                          reinterpret_cast<const __nv_bfloat16*>(P.q)[at])
-                    : reinterpret_cast<const float*>(P.q)[at];
+        for (int c = 0; c < CPL; ++c)
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) {
+            const int d = (sub + c * LPT) * VEC + e;
+            float x = 0.f;
+            if (j < qt.nq && i < qt.g && d < P.D) {
+              const long long at =
+                  (qt.head0 + (long long)j * P.H + i) * P.D + d;
+              x = P.q_bf16
+                      ? __bfloat162float(
+                            reinterpret_cast<const __nv_bfloat16*>(P.q)[at])
+                      : reinterpret_cast<const float*>(P.q)[at];
+            }
+            qv[j * G + i][c * VEC + e] = x * P.scale;
           }
-          qv[i][c * VEC + e] = x * P.scale;
-        }
+    }
 #pragma unroll
-    for (int i = 0; i < G; ++i) {
+    for (int i = 0; i < R; ++i) {
       mr[i] = kNegInf;
       lr[i] = 0.f;
 #pragma unroll
@@ -259,9 +316,10 @@ struct CoreMath {
     }
   }
 
-  __device__ __forceinline__ void tile(const Params& P, const T* tk,
-                                       const T* tv, int rows, int p0,
-                                       int extent) {
+  // query j's arithmetic over one staged tile, masked by its extent
+  __device__ __forceinline__ void tile_one(const Params& P, const T* tk,
+                                           const T* tv, int rows, int p0,
+                                           int j) {
     const int iters = (rows + NGRP - 1) / NGRP;
     for (int it0 = 0; it0 < iters; it0 += NB) {
       float s[NB][G];
@@ -270,7 +328,7 @@ struct CoreMath {
       for (int n = 0; n < NB; ++n) {
         const int r = grp + (it0 + n) * NGRP;
         const bool in_tile = it0 + n < iters && r < rows;
-        valid[n] = in_tile && p0 + r * P.tok_stride < extent;
+        valid[n] = in_tile && p0 + r * P.tok_stride < ext[j];
 #pragma unroll
         for (int i = 0; i < G; ++i) s[n][i] = 0.f;
         if (in_tile) {
@@ -282,7 +340,7 @@ struct CoreMath {
             for (int i = 0; i < G; ++i)
 #pragma unroll
               for (int e = 0; e < VEC; ++e)
-                s[n][i] = fmaf(qv[i][c * VEC + e], kf[e], s[n][i]);
+                s[n][i] = fmaf(qv[j * G + i][c * VEC + e], kf[e], s[n][i]);
           }
         }
       }
@@ -295,22 +353,23 @@ struct CoreMath {
             s[n][i] += __shfl_xor_sync(0xffffffffu, s[n][i], off);
 #pragma unroll
       for (int i = 0; i < G; ++i) {
+        const int w = j * G + i;
         float bm = kNegInf;
 #pragma unroll
         for (int n = 0; n < NB; ++n)
           if (valid[n]) bm = fmaxf(bm, s[n][i]);
-        const float m_new = fmaxf(mr[i], bm);
-        const float corr = exp2f((mr[i] - m_new) * kLog2e);
-        mr[i] = m_new;
+        const float m_new = fmaxf(mr[w], bm);
+        const float corr = exp2f((mr[w] - m_new) * kLog2e);
+        mr[w] = m_new;
         float psum = 0.f;
 #pragma unroll
         for (int n = 0; n < NB; ++n) {
           s[n][i] = valid[n] ? exp2f((s[n][i] - m_new) * kLog2e) : 0.f;
           psum += s[n][i];
         }
-        lr[i] = fmaf(lr[i], corr, psum);
+        lr[w] = fmaf(lr[w], corr, psum);
 #pragma unroll
-        for (int e = 0; e < EPL; ++e) acc[i][e] *= corr;
+        for (int e = 0; e < EPL; ++e) acc[w][e] *= corr;
       }
 #pragma unroll
       for (int n = 0; n < NB; ++n) {
@@ -324,28 +383,37 @@ struct CoreMath {
         for (int i = 0; i < G; ++i)
 #pragma unroll
           for (int e = 0; e < EPL; ++e)
-            acc[i][e] = fmaf(s[n][i], vf[e], acc[i][e]);
+            acc[j * G + i][e] = fmaf(s[n][i], vf[e], acc[j * G + i][e]);
       }
     }
   }
 
-  // the group's partial: m (natural log units), l, o for each head
+  __device__ __forceinline__ void tile(const Params& P, const T* tk,
+                                       const T* tv, int rows, int p0) {
+#pragma unroll
+    for (int j = 0; j < QT; ++j)
+      // a Q = 1 launch at query j's extent never loads a tile past it
+      if (j < nq && (P.tok_stride < 0 || p0 < ext[j]))
+        tile_one(P, tk, tv, rows, p0, j);
+  }
+
+  // the group's partial: m (natural log units), l, o for each row
   __device__ __forceinline__ void store(float* gm, float* gl,
                                         float* go) const {
     if (sub == 0) {
 #pragma unroll
-      for (int i = 0; i < G; ++i) {
-        gm[grp * G + i] = mr[i];
-        gl[grp * G + i] = lr[i];
+      for (int i = 0; i < R; ++i) {
+        gm[grp * R + i] = mr[i];
+        gl[grp * R + i] = lr[i];
       }
     }
 #pragma unroll
-    for (int i = 0; i < G; ++i)
+    for (int i = 0; i < R; ++i)
 #pragma unroll
       for (int c = 0; c < CPL; ++c)
 #pragma unroll
         for (int e = 0; e < VEC; e += 4)
-          *reinterpret_cast<float4*>(go + (grp * G + i) * DP +
+          *reinterpret_cast<float4*>(go + (grp * R + i) * kOStride<DP> +
                                      (sub + c * LPT) * VEC + e) =
               make_float4(acc[i][c * VEC + e], acc[i][c * VEC + e + 1],
                           acc[i][c * VEC + e + 2], acc[i][c * VEC + e + 3]);
@@ -353,56 +421,111 @@ struct CoreMath {
 };
 
 // One tile's arithmetic on the tensor cores, for bf16 q and pool (the
-// decode path): the g query heads are the rows of 16x8x16 bf16 MMAs
-// (padded to 16), so a warp scores 16 tokens of the tile in 2 * D / 16
-// MMAs, takes the row max and sum over the 4 threads that share a head,
-// and adds P V in D / 4 more, P re-packed from the score fragment in
-// registers as bf16 hi + lo parts.  K and V come out of the swizzled tile by ldmatrix.  Each
-// warp keeps its own state: the CTA merges 4 partials.
-template <int DP, int G>
+// decode path): the (query, head) rows are the rows of 16x8x16 bf16 MMAs,
+// so a warp scores 16 tokens of the tile in 2 * D / 16 MMAs an m16 tile,
+// takes the row max and sum over the 4 threads that share a row, and adds
+// P V in D / 4 more, P re-packed from the score fragment in registers as
+// bf16 hi + lo parts.  K and V come out of the swizzled tile by ldmatrix,
+// each fragment once for all of the warp's m16 tiles.  At Q = 1 the g
+// heads are rows 0..7 (rows 8..15 zero, not kept) and q's fragment stays
+// in registers; a query tile's QT * G rows fill MT whole m16 tiles, its q
+// staged in shared memory and read by ldmatrix.  Each warp keeps its own
+// state: the CTA merges 4 partials.
+template <int DP, int G, int QT>
 struct TensorMath {
   static constexpr int KS = DP / 16;                   // k16 steps over D
+  static constexpr int R = QT * G;
+  static constexpr bool kFull = R > 8;
+  static_assert(kFull ? R % 16 == 0 : QT == 1,
+                "a query tile fills whole m16 tiles");
+  static constexpr int MT = kFull ? R / 16 : 1;        // m16 tiles a warp
+  static constexpr int NH = kFull ? 2 : 1;   // rows a lane holds: r, r + 8
   static constexpr bool kSwizzle = true;
+  static constexpr int kQBytes = kFull ? R * DP * 2 : 0;  // staged q tile
   static constexpr int kGroups = kWarps;
-  uint32_t qa[KS][2];     // q fragment (rows 0..7 = heads), cols k, k + 8
-  float o[DP / 8][2];     // rows 0..7 (the heads) of the P V fragment
-  float m2, ls, scale_log2;
+  uint32_t qa[kFull ? 1 : KS][2];  // Q = 1: q fragment, cols k, k + 8
+  float o[MT][DP / 8][2 * NH];     // the P V fragments of this lane's rows
+  float m2[MT][NH], ls[MT][NH], scale_log2;
+  int ext[MT][NH];                 // the extent of each row's query
+  uint32_t qs;                     // the staged q tile (shared address)
   int lane, warp;
 
-  __device__ __forceinline__ void init(const Params& P, long long head0,
-                                       int g, int tid) {
+  __device__ __forceinline__ void init(const Params& P, const QTile& qt,
+                                       int tid, unsigned char* extra) {
     lane = tid & 31;
     warp = tid >> 5;
     scale_log2 = P.scale * kLog2e;
     const int r = lane >> 2, c0 = 2 * (lane & 3);
-    const __nv_bfloat16* qh =
-        reinterpret_cast<const __nv_bfloat16*>(P.q) + (head0 + r) * P.D;
+    if constexpr (!kFull) {
+      const __nv_bfloat16* qh =
+          reinterpret_cast<const __nv_bfloat16*>(P.q) + (qt.head0 + r) * P.D;
 #pragma unroll
-    for (int ks = 0; ks < KS; ++ks)
+      for (int ks = 0; ks < KS; ++ks)
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int d = ks * 16 + h * 8 + c0;
-        qa[ks][h] = r < g && d < P.D
-                        ? *reinterpret_cast<const uint32_t*>(qh + d)
-                        : 0u;
+        for (int h = 0; h < 2; ++h) {
+          const int d = ks * 16 + h * 8 + c0;
+          qa[ks][h] = r < qt.g && d < P.D
+                          ? *reinterpret_cast<const uint32_t*>(qh + d)
+                          : 0u;
+        }
+      ext[0][0] = qt.ctx[0];
+    } else {
+      // row = query * G + head, chunk c of a row at chunk_at(c, row) as in
+      // the K tile (rows of absent queries and heads are zero)
+      __nv_bfloat16* sq = reinterpret_cast<__nv_bfloat16*>(extra);
+      const uint32_t* q32 = reinterpret_cast<const uint32_t*>(P.q);
+      for (int e = tid; e < R * (DP / 8); e += kThreads) {
+        const int row = e / (DP / 8), c = e - row * (DP / 8);
+        const int j = row / G, i = row - j * G;
+        uint4 v = make_uint4(0u, 0u, 0u, 0u);
+        if (j < qt.nq && i < qt.g && c * 8 < P.D) {
+          const long long at =
+              ((qt.head0 + (long long)j * P.H + i) * P.D + c * 8) / 2;
+          v = make_uint4(q32[at], q32[at + 1], q32[at + 2], q32[at + 3]);
+        }
+        *reinterpret_cast<uint4*>(sq + row * DP +
+                                  chunk_at<DP, true>(c, row) * 8) = v;
       }
+      qs = (uint32_t)__cvta_generic_to_shared(sq);
 #pragma unroll
-    for (int n = 0; n < DP / 8; ++n) o[n][0] = o[n][1] = 0.f;
-    m2 = -INFINITY;
-    ls = 0.f;
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int h = 0; h < NH; ++h) {
+          const int j = min((mt * 16 + h * 8 + r) / G, qt.nq - 1);
+          ext[mt][h] = qt.ctx[j * qt.cstep];
+        }
+    }
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+      for (int n = 0; n < DP / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 2 * NH; ++e) o[mt][n][e] = 0.f;
+#pragma unroll
+      for (int h = 0; h < NH; ++h) {
+        m2[mt][h] = -INFINITY;
+        ls[mt][h] = 0.f;
+      }
+    }
   }
 
   __device__ __forceinline__ void tile(const Params& P,
                                        const __nv_bfloat16* tk,
                                        const __nv_bfloat16* tv, int rows,
-                                       int p0, int extent) {
+                                       int p0) {
     const uint32_t kb = (uint32_t)__cvta_generic_to_shared(tk);
     const uint32_t vb = (uint32_t)__cvta_generic_to_shared(tv);
     const int c0 = 2 * (lane & 3);
     const int mi = lane >> 3, ri = lane & 7;          // ldmatrix: matrix, row
     for (int t0 = warp * 16; t0 < rows; t0 += kWarps * 16) {
       // S = Q K^T for tokens t0 .. t0 + 15 (two n8 tiles)
-      float s[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+      float s[MT][2][2 * NH];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+#pragma unroll
+          for (int e = 0; e < 2 * NH; ++e) s[mt][n][e] = 0.f;
       const int tk_row = t0 + (mi >> 1) * 8 + ri;
 #pragma unroll
       for (int ks = 0; ks < KS; ++ks) {
@@ -410,46 +533,66 @@ struct TensorMath {
         const int ch = 2 * ks + (mi & 1);
         ldsm_x4(kb + (tk_row * DP + chunk_at<DP, true>(ch, tk_row) * 8) * 2,
                 b);
-        mma_bf16(s[0], qa[ks][0], qa[ks][1], b[0], b[1]);
-        mma_bf16(s[1], qa[ks][0], qa[ks][1], b[2], b[3]);
-      }
-      // online softmax of this thread's head (row lane / 4) over its 4
-      // tokens; rows 8..15 are padding and are left at zero
-      float x[2][2], mx = -INFINITY;
+        if constexpr (kFull) {
 #pragma unroll
-      for (int n = 0; n < 2; ++n)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int t = t0 + n * 8 + c0 + e;
-          const bool valid = t < rows && p0 + t * P.tok_stride < extent;
-          x[n][e] = valid ? s[n][e] * scale_log2 : -INFINITY;
-          mx = fmaxf(mx, x[n][e]);
+          for (int mt = 0; mt < MT; ++mt) {
+            uint32_t a[4];
+            const int qr = mt * 16 + (mi & 1) * 8 + ri;
+            ldsm_x4(qs + (qr * DP +
+                          chunk_at<DP, true>(2 * ks + (mi >> 1), qr) * 8) * 2,
+                    a);
+            mma_bf16(s[mt][0], a, b[0], b[1]);
+            mma_bf16(s[mt][1], a, b[2], b[3]);
+          }
+        } else {
+          mma_bf16(s[0][0], qa[ks][0], qa[ks][1], b[0], b[1]);
+          mma_bf16(s[0][1], qa[ks][0], qa[ks][1], b[2], b[3]);
         }
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_new = fmaxf(m2, mx);
-      const float mu = m_new == -INFINITY ? 0.f : m_new;
-      const float corr = ex2(m2 - mu);
-      m2 = m_new;
-      float psum = 0.f;
-#pragma unroll
-      for (int n = 0; n < 2; ++n)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          x[n][e] = ex2(x[n][e] - mu);
-          psum += x[n][e];
-        }
-      ls = fmaf(ls, corr, psum);
-#pragma unroll
-      for (int n = 0; n < DP / 8; ++n) {
-        o[n][0] *= corr;
-        o[n][1] *= corr;
       }
-      // P as hi + lo bf16 parts, so P V keeps P's float32 precision (V is
-      // bf16 already, and the products accumulate in f32)
-      uint32_t h0, l0, h2, l2;
-      split_bf16(x[0][0], x[0][1], h0, l0);
-      split_bf16(x[1][0], x[1][1], h2, l2);
+      // online softmax of each row this thread holds over its 4 tokens
+      // (at Q = 1 rows 8..15 are padding and are left at zero); P's A
+      // fragment: ph/pl[mt][h + NH * n] for row half h, token half n
+      uint32_t ph[MT][2 * NH], pl[MT][2 * NH];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int h = 0; h < NH; ++h) {
+          float x[2][2], mx = -INFINITY;
+#pragma unroll
+          for (int n = 0; n < 2; ++n)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int t = t0 + n * 8 + c0 + e;
+              const bool valid =
+                  t < rows && p0 + t * P.tok_stride < ext[mt][h];
+              x[n][e] = valid ? s[mt][n][2 * h + e] * scale_log2 : -INFINITY;
+              mx = fmaxf(mx, x[n][e]);
+            }
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+          const float m_new = fmaxf(m2[mt][h], mx);
+          const float mu = m_new == -INFINITY ? 0.f : m_new;
+          const float corr = ex2(m2[mt][h] - mu);
+          m2[mt][h] = m_new;
+          float psum = 0.f;
+#pragma unroll
+          for (int n = 0; n < 2; ++n)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              x[n][e] = ex2(x[n][e] - mu);
+              psum += x[n][e];
+            }
+          ls[mt][h] = fmaf(ls[mt][h], corr, psum);
+#pragma unroll
+          for (int n = 0; n < DP / 8; ++n) {
+            o[mt][n][2 * h] *= corr;
+            o[mt][n][2 * h + 1] *= corr;
+          }
+          // P as hi + lo bf16 parts, so P V keeps P's float32 precision
+          // (V is bf16 already, and the products accumulate in f32)
+          split_bf16(x[0][0], x[0][1], ph[mt][h], pl[mt][h]);
+          split_bf16(x[1][0], x[1][1], ph[mt][h + NH], pl[mt][h + NH]);
+        }
       // O += P V: V rows t0 .. t0 + 15 read transposed, two n8 tiles each
       const int tv_row = t0 + (mi & 1) * 8 + ri;
 #pragma unroll
@@ -458,67 +601,97 @@ struct TensorMath {
         const int ch = 2 * nn + (mi >> 1);
         ldsm_x4_trans(
             vb + (tv_row * DP + chunk_at<DP, true>(ch, tv_row) * 8) * 2, b);
-        mma_bf16(o[2 * nn], h0, h2, b[0], b[1]);
-        mma_bf16(o[2 * nn], l0, l2, b[0], b[1]);
-        mma_bf16(o[2 * nn + 1], h0, h2, b[2], b[3]);
-        mma_bf16(o[2 * nn + 1], l0, l2, b[2], b[3]);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          if constexpr (kFull) {
+            mma_bf16(o[mt][2 * nn], ph[mt], b[0], b[1]);
+            mma_bf16(o[mt][2 * nn], pl[mt], b[0], b[1]);
+            mma_bf16(o[mt][2 * nn + 1], ph[mt], b[2], b[3]);
+            mma_bf16(o[mt][2 * nn + 1], pl[mt], b[2], b[3]);
+          } else {
+            mma_bf16(o[0][2 * nn], ph[0][0], ph[0][1], b[0], b[1]);
+            mma_bf16(o[0][2 * nn], pl[0][0], pl[0][1], b[0], b[1]);
+            mma_bf16(o[0][2 * nn + 1], ph[0][0], ph[0][1], b[2], b[3]);
+            mma_bf16(o[0][2 * nn + 1], pl[0][0], pl[0][1], b[2], b[3]);
+          }
+        }
       }
     }
   }
 
   __device__ __forceinline__ void store(float* gm, float* gl, float* go) {
     const int r = lane >> 2, c0 = 2 * (lane & 3);
-    ls += __shfl_xor_sync(0xffffffffu, ls, 1);
-    ls += __shfl_xor_sync(0xffffffffu, ls, 2);
-    if (r < G) {
-      if ((lane & 3) == 0) {
-        gm[warp * G + r] = m2 == -INFINITY ? kNegInf : m2 / kLog2e;
-        gl[warp * G + r] = ls;
-      }
 #pragma unroll
-      for (int n = 0; n < DP / 8; ++n) {
-        go[(warp * G + r) * DP + n * 8 + c0] = o[n][0];
-        go[(warp * G + r) * DP + n * 8 + c0 + 1] = o[n][1];
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int h = 0; h < NH; ++h) {
+        const int row = mt * 16 + h * 8 + r;
+        float l = ls[mt][h];
+        l += __shfl_xor_sync(0xffffffffu, l, 1);
+        l += __shfl_xor_sync(0xffffffffu, l, 2);
+        if (row < R) {
+          if ((lane & 3) == 0) {
+            gm[warp * R + row] =
+                m2[mt][h] == -INFINITY ? kNegInf : m2[mt][h] / kLog2e;
+            gl[warp * R + row] = l;
+          }
+#pragma unroll
+          for (int n = 0; n < DP / 8; ++n)
+            *reinterpret_cast<float2*>(go + (warp * R + row) * kOStride<DP> +
+                                       n * 8 + c0) =
+                make_float2(o[mt][n][2 * h], o[mt][n][2 * h + 1]);
+        }
       }
-    }
   }
 };
 
-template <typename T, int DP, int G, typename Math>
+template <typename T, int DP, int G, int QT, typename Math>
 __global__ void __launch_bounds__(kThreads)
     paged_attn_kernel(const __grid_constant__ Params P) {
-  constexpr int TT = Geo<T, DP>::TT, NG = Math::kGroups;
+  constexpr int TT = Geo<T, DP>::TT, NG = Math::kGroups, R = QT * G;
+  constexpr int OS = kOStride<DP>;
   constexpr bool SWZ = Math::kSwizzle;
+  constexpr int kRing = 2 * kStages * TT * DP * (int)sizeof(T);
   cg::cluster_group cluster = cg::this_cluster();
   const int split = blockIdx.x % P.n_split, kvh = blockIdx.x / P.n_split;
-  const int qi = blockIdx.y, b = blockIdx.z;
+  const int qt0 = blockIdx.y * QT, b = blockIdx.z;
   const int g = P.H / P.KV;
   const int tid = threadIdx.x;
 
   extern __shared__ __align__(128) unsigned char smem[];
   T* sK = reinterpret_cast<T*>(smem);                  // (stages, TT, DP)
   T* sV = sK + kStages * TT * DP;
-  // after the loop the ring is reused for the merge:
-  float* gm = reinterpret_cast<float*>(smem);          // (NG, G)
-  float* gl = gm + NG * G;                             // (NG, G)
-  float* go = gl + NG * G;                             // (NG, G, DP)
-  float* cm = go + NG * G * DP;                        // (G,) CTA partial
-  float* cl = cm + G;
-  float* co = cl + G;                                  // (G, DP)
-  float* am = co + G * DP;                 // (n_split, G): every rank's m
-  float* al = am + kMaxSplit * G;          // and l, for the cluster merge
+  // after the loop the ring (and the q tile) is reused for the merge:
+  float* gm = reinterpret_cast<float*>(smem);  // (NG, R); then the weights
+  float* gl = gm + NG * R;                             // (NG, R)
+  float* go = gl + NG * R;                             // (NG, R, OS)
+  float* cm = go + NG * R * OS;                        // (R,) CTA partial
+  float* cl = cm + R;
+  float* co = cl + R;                                  // (R, DP)
+  float* am = co + R * DP;                 // (n_split, R): every rank's m
+  float* al = am + kMaxSplit * R;          // and l, for the cluster merge
+  float* aw = al + kMaxSplit * R;          // (n_split, R): rank weights
+  float* aM = aw + kMaxSplit * R;          // (R,): the merged m
+  float* aL = aM + R;                      // (R,): and l
 
   // zero the row padding (copies never touch it) and, where the tensor
   // cores read whole 16-token chunks, the rows a short block leaves unset
   if (P.D != DP || (SWZ && P.bs % 16)) {
     uint4* z = reinterpret_cast<uint4*>(smem);
-    const int n = 2 * kStages * TT * DP * (int)sizeof(T) / 16;
+    const int n = kRing / 16;
     for (int e = tid; e < n; e += kThreads) z[e] = make_uint4(0, 0, 0, 0);
     __syncthreads();
   }
 
-  const long long row = (long long)b * P.Q + qi;
-  const int extent = P.ctx[P.ctx_per_query ? row : (long long)b];
+  QTile qt;
+  qt.nq = min(QT, P.Q - qt0);
+  qt.g = g;
+  qt.cstep = P.ctx_per_query;
+  qt.ctx = P.ctx + (P.ctx_per_query ? (long long)b * P.Q + qt0 : (long long)b);
+  qt.head0 = ((long long)b * P.Q + qt0) * P.H + (long long)kvh * g;
+  // a tile is loaded when it reaches into the extent of any of the queries
+  int extent = qt.ctx[0];
+  for (int j = 1; j < qt.nq; ++j) extent = max(extent, qt.ctx[j * qt.cstep]);
   const int* row_slots = P.slots + (long long)b * P.nblk;
   const int j0 = split * P.per_split;
   const int nb = min(P.nblk - j0, P.per_split);
@@ -545,9 +718,10 @@ __global__ void __launch_bounds__(kThreads)
   }
   cp_async_commit();
 
-  const long long head0 = row * P.H + (long long)kvh * g;
+  // a query tile's CTA that loads no tile has nothing to merge (below)
+  const bool idle = QT > 1 && k_cur < 0;
   Math math;
-  math.init(P, head0, g, tid);
+  if (!idle) math.init(P, qt, tid, smem + kRing);
 
   int stage = 0;
   while (k_cur >= 0) {
@@ -556,7 +730,7 @@ __global__ void __launch_bounds__(kThreads)
     const int j = j0 + k_cur / tpb, t0 = (k_cur % tpb) * tt;
     const int p0 = j * P.block_tokens + P.tok_offset + t0 * P.tok_stride;
     math.tile(P, sK + stage * TT * DP, sV + stage * TT * DP,
-              min(tt, P.bs - t0), p0, extent);
+              min(tt, P.bs - t0), p0);
     __syncthreads();   // every thread is done with this stage
     int k_new = -1;
     if (k_nxt >= 0) {
@@ -578,72 +752,112 @@ __global__ void __launch_bounds__(kThreads)
   cp_async_wait<0>();
   __syncthreads();
 
-  // merge the partials of this CTA (fixed order)
-  math.store(gm, gl, go);
-  __syncthreads();
-  for (int e = tid; e < G * DP; e += kThreads) {
-    const int i = e / DP, d = e - i * DP;
+  // merge the partials of this CTA (fixed order), over the rows of the
+  // tile's queries.  A row no token reached comes out with m == -1e30, l ==
+  // 0 and o == 0, so the cluster merge reads no o of such a row; an idle
+  // CTA's rows are all such rows
+  if (idle) {
+    for (int e = tid; e < R; e += kThreads) {
+      cm[e] = kNegInf;
+      cl[e] = 0.f;
+    }
+  } else {
+    math.store(gm, gl, go);
+    __syncthreads();
+  }
+  // each row's max over the groups, their weights (in place of their m)
+  // and l, once a row; then o, d by d, in group order
+  const int live = idle ? 0 : qt.nq * G;
+  for (int i = tid; i < live; i += kThreads) {
     float M = kNegInf;
 #pragma unroll
-    for (int q = 0; q < NG; ++q) M = fmaxf(M, gm[q * G + i]);
-    float O = 0.f, L = 0.f;
+    for (int q = 0; q < NG; ++q) M = fmaxf(M, gm[q * R + i]);
+    float L = 0.f;
 #pragma unroll
     for (int q = 0; q < NG; ++q) {
-      const float w = exp2f((gm[q * G + i] - M) * kLog2e);
-      O = fmaf(go[(q * G + i) * DP + d], w, O);
-      L = fmaf(gl[q * G + i], w, L);
+      const float w = exp2f((gm[q * R + i] - M) * kLog2e);
+      gm[q * R + i] = w;
+      L = fmaf(gl[q * R + i], w, L);
     }
-    co[e] = O;
-    if (d == 0) {
-      cm[i] = M;
-      cl[i] = L;
-    }
-  }
-
-  // merge the CTAs of the cluster: each rank takes a slice of the g * D
-  // outputs and reads every rank's partial for it, in rank order
-  cluster.sync();
-  const int n = P.n_split;
-  for (int e = tid; e < n * G; e += kThreads) {
-    am[e] = *cluster.map_shared_rank(cm + e % G, e / G);
-    al[e] = *cluster.map_shared_rank(cl + e % G, e / G);
+    cm[i] = M;
+    cl[i] = L;
   }
   __syncthreads();
-  for (int e = (int)cluster.block_rank() * kThreads + tid; e < g * P.D;
-       e += n * kThreads) {
-    const int i = e / P.D, d = e - i * P.D;
+  for (int e = tid; e < live * DP; e += kThreads) {
+    const int i = e / DP, d = e - i * DP;
+    float O = 0.f;
+#pragma unroll
+    for (int q = 0; q < NG; ++q)
+      O = fmaf(go[(q * R + i) * OS + d], gm[q * R + i], O);
+    co[e] = O;
+  }
+
+  // merge the CTAs of the cluster: every rank's m and l, each row's max
+  // and the ranks' weights and l, once a row; then each rank takes a slice
+  // of the nq * g * D outputs and reads every rank's o for it, in rank
+  // order (a row no token of a rank reached has nothing to read there)
+  cluster.sync();
+  const int n = P.n_split;
+  for (int e = tid; e < n * R; e += kThreads) {
+    am[e] = *cluster.map_shared_rank(cm + e % R, e / R);
+    al[e] = *cluster.map_shared_rank(cl + e % R, e / R);
+  }
+  __syncthreads();
+  for (int i = tid; i < R; i += kThreads) {
     float M = kNegInf;
-    for (int r = 0; r < n; ++r) M = fmaxf(M, am[r * G + i]);
+    for (int r = 0; r < n; ++r) M = fmaxf(M, am[r * R + i]);
+    float L = 0.f;
+    for (int r = 0; r < n; ++r) {
+      const float w = exp2f((am[r * R + i] - M) * kLog2e);
+      aw[r * R + i] = w;
+      L = fmaf(al[r * R + i], w, L);
+    }
+    aM[i] = M;
+    aL[i] = L;
+  }
+  __syncthreads();
+  const int per_q = g * P.D;
+  for (int e = (int)cluster.block_rank() * kThreads + tid; e < qt.nq * per_q;
+       e += n * kThreads) {
+    const int jq = e / per_q, hd = e - jq * per_q;
+    const int i = hd / P.D, d = hd - i * P.D;
+    const int row = jq * G + i;
     float part[kMaxSplit];
 #pragma unroll
     for (int r = 0; r < kMaxSplit; ++r)
-      part[r] = r < n ? *cluster.map_shared_rank(co + i * DP + d, r) : 0.f;
-    float O = 0.f, L = 0.f;
+      part[r] = r < n && am[r * R + row] != kNegInf
+                    ? *cluster.map_shared_rank(co + row * DP + d, r)
+                    : 0.f;
+    float O = 0.f;
 #pragma unroll
     for (int r = 0; r < kMaxSplit; ++r) {
       if (r >= n) break;
-      const float w = exp2f((am[r * G + i] - M) * kLog2e);
-      O = fmaf(part[r], w, O);
-      L = fmaf(al[r * G + i], w, L);
+      O = fmaf(part[r], aw[r * R + row], O);
     }
-    P.o[(head0 + i) * P.D + d] = O;
+    const long long head = qt.head0 + (long long)jq * P.H + i;
+    P.o[head * P.D + d] = O;
     if (d == 0) {
-      P.m[head0 + i] = M;
-      P.l[head0 + i] = L;
+      P.m[head] = aM[row];
+      P.l[head] = aL[row];
     }
   }
   cluster.sync();   // keep every rank's shared memory alive until read
 }
 
-template <typename T, int DP, int G, typename Math>
+template <typename T, int DP, int G, int QT, typename Math>
 int launch_kernel(const Params& P, cudaStream_t stream) {
-  const size_t ring =
+  constexpr int R = QT * G;
+  constexpr size_t ring =
       2 * (size_t)kStages * Geo<T, DP>::TT * DP * sizeof(T);
-  const size_t merge =
-      sizeof(float) * ((size_t)Math::kGroups * G * (DP + 2) +
-                       G * (DP + 2) + 2 * kMaxSplit * G);
-  const size_t smem = ring > merge ? ring : merge;
-  auto kern = paged_attn_kernel<T, DP, G, Math>;
+  constexpr size_t parts =
+      sizeof(float) * (size_t)Math::kGroups * R * (kOStride<DP> + 2);
+  constexpr size_t cta =
+      sizeof(float) * ((size_t)R * (DP + 4) + 3 * kMaxSplit * R);
+  constexpr size_t smem = ring + Math::kQBytes > parts + cta
+                              ? ring + Math::kQBytes
+                              : parts + cta;
+  static_assert(smem <= 232448, "more shared memory than a CTA can have");
+  auto kern = paged_attn_kernel<T, DP, G, QT, Math>;
   static bool sized = false;   // the attribute is set once per kernel
   cudaError_t e;
   if (!sized) {
@@ -653,7 +867,7 @@ int launch_kernel(const Params& P, cudaStream_t stream) {
     sized = true;
   }
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(P.KV * P.n_split, P.Q, P.B);
+  cfg.gridDim = dim3(P.KV * P.n_split, (P.Q + QT - 1) / QT, P.B);
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
@@ -669,46 +883,60 @@ int launch_kernel(const Params& P, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// qt: queries a CTA, 1 or the query tile of `query_tile` in ops.py: on
+// the tensor cores 32 (query, head) rows at D <= 128 and 16 above, on the
+// CUDA cores 8, with g padded to G
 template <typename T, int DP, int G>
-int launch_math(const Params& P, cudaStream_t s) {
+int launch_math(const Params& P, int qt, cudaStream_t s) {
   if constexpr (sizeof(T) == 2 && DP >= 16) {
     // the tensor cores when q is bf16 too and every row is whole 16-value
     // chunks (q rounded to bf16 would not hold float32 q's precision)
-    if (P.q_bf16 && P.vec16 && P.D % 16 == 0)
-      return launch_kernel<T, DP, G, TensorMath<DP, G>>(P, s);
+    if (P.q_bf16 && P.vec16 && P.D % 16 == 0) {
+      constexpr int QM = (DP <= 128 ? 32 : 16) / G;
+      if (qt == 1)
+        return launch_kernel<T, DP, G, 1, TensorMath<DP, G, 1>>(P, s);
+      if (qt == QM)
+        return launch_kernel<T, DP, G, QM, TensorMath<DP, G, QM>>(P, s);
+      return (int)cudaErrorInvalidValue;
+    }
   }
-  return launch_kernel<T, DP, G, CoreMath<T, DP, G>>(P, s);
+  constexpr int QM = 8 / G;
+  if (qt == 1) return launch_kernel<T, DP, G, 1, CoreMath<T, DP, G, 1>>(P, s);
+  if (qt == QM)
+    return launch_kernel<T, DP, G, QM, CoreMath<T, DP, G, QM>>(P, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 template <typename T, int DP>
-int launch_g(const Params& P, cudaStream_t s) {
+int launch_g(const Params& P, int qt, cudaStream_t s) {
   const int g = P.H / P.KV;
-  if (g <= 1) return launch_math<T, DP, 1>(P, s);
-  if (g <= 2) return launch_math<T, DP, 2>(P, s);
-  if (g <= 4) return launch_math<T, DP, 4>(P, s);
-  return launch_math<T, DP, 8>(P, s);
+  if (g <= 1) return launch_math<T, DP, 1>(P, qt, s);
+  if (g <= 2) return launch_math<T, DP, 2>(P, qt, s);
+  if (g <= 4) return launch_math<T, DP, 4>(P, qt, s);
+  return launch_math<T, DP, 8>(P, qt, s);
 }
 
 template <typename T>
-int launch_d(const Params& P, cudaStream_t s) {
-  if (P.D <= 16) return launch_g<T, 16>(P, s);
-  if (P.D <= 32) return launch_g<T, 32>(P, s);
-  if (P.D <= 64) return launch_g<T, 64>(P, s);
-  if (P.D <= 128) return launch_g<T, 128>(P, s);
-  return launch_g<T, 256>(P, s);
+int launch_d(const Params& P, int qt, cudaStream_t s) {
+  if (P.D <= 16) return launch_g<T, 16>(P, qt, s);
+  if (P.D <= 32) return launch_g<T, 32>(P, qt, s);
+  if (P.D <= 64) return launch_g<T, 64>(P, qt, s);
+  if (P.D <= 128) return launch_g<T, 128>(P, qt, s);
+  return launch_g<T, 256>(P, qt, s);
 }
 
 }  // namespace
 
 // dtype: 0 = float32 pools, 1 = bfloat16 pools; q_bf16: q's dtype.  The
-// split plan (n_split <= 8 chunks of per_split blocks) comes from the
-// caller; vec16 says every K/V row starts on a 16-byte boundary.
+// split plan (n_split <= 8 chunks of per_split blocks) and the query tile
+// qt come from the caller; vec16 says every K/V row starts on a 16-byte
+// boundary.
 extern "C" int paged_attention_launch(
     int dtype, int q_bf16, const void* q, const void* kp, const void* vp,
     const void* slots, const void* ctx, void* o, void* m, void* l, int B,
     int Q, int H, int KV, int D, int bs, int nblk, int n_split,
     int per_split, int block_tokens, int tok_offset, int tok_stride,
-    int ctx_per_query, int vec16, void* stream) {
+    int ctx_per_query, int vec16, int qt, void* stream) {
   if (KV <= 0 || H % KV != 0 || H / KV > 8 || D <= 0 || D > 256 ||
       n_split < 1 || n_split > kMaxSplit || per_split < 1 ||
       (long long)n_split * per_split < nblk)
@@ -719,7 +947,7 @@ extern "C" int paged_attention_launch(
               ctx_per_query, q_bf16, vec16,
               (float)(1.0 / sqrt((double)D))};
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0) return launch_d<float>(P, s);
-  if (dtype == 1) return launch_d<__nv_bfloat16>(P, s);
+  if (dtype == 0) return launch_d<float>(P, qt, s);
+  if (dtype == 1) return launch_d<__nv_bfloat16>(P, qt, s);
   return (int)cudaErrorInvalidValue;
 }

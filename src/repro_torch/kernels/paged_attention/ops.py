@@ -17,7 +17,7 @@ from .. import _build
 from .ref import paged_attention_ref
 
 _POOL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_SPLIT = 8       # CTAs that merge one (row, query, KV head): a cluster
+MAX_SPLIT = 8       # CTAs that merge one (row, query tile, KV head)
 
 
 def split_plan(nblk: int):
@@ -32,6 +32,33 @@ def split_plan(nblk: int):
     return -(-nblk // per), per
 
 
+def query_tile(Q: int, g: int, D: int, tensor_cores: bool = True) -> int:
+    """How many consecutive queries of a row one CTA takes (the kernel's
+    QT): 1 at Q = 1 (the decode read), else as many as fill, with the g
+    heads of a KV head padded to G = 1, 2, 4 or 8 as the kernel pads them,
+    32 (query, head) rows at D <= 128 and 16 above on the tensor cores (two
+    m16 MMA tiles a warp, or one: an m16 tile's P V accumulators take 64
+    registers a lane at D = 128), or 8 rows on the CUDA cores (whose state
+    then takes the registers of 8 heads).  A function of (Q, g, D) and the
+    cores alone, so which tile a query falls in never depends on the
+    extents or on the row's batch neighbours."""
+    if Q <= 1:
+        return 1
+    G = 1 << max(0, int(g) - 1).bit_length()
+    if not tensor_cores:
+        return 8 // G
+    return (32 if D <= 128 else 16) // G
+
+
+def cta_grid(B: int, Q: int, H: int, KV: int, D: int, nblk: int,
+             tensor_cores: bool = True):
+    """The launch grid ``(KV * n_split, ceil(Q / QT), B)``: one CTA per
+    (row, query tile, KV head, split chunk), the chunks of one (row, query
+    tile, KV head) a cluster."""
+    qt = query_tile(Q, H // KV, D, tensor_cores)
+    return KV * split_plan(nblk)[0], -(-Q // qt), B
+
+
 _launch = []        # the bound C entry point, once loaded
 
 
@@ -39,7 +66,7 @@ def _lib():
     if not _launch:
         fn = _build.load("paged_attention").paged_attention_launch
         p, i = ctypes.c_void_p, ctypes.c_int   # bare ints would be 32-bit
-        fn.argtypes = [i, i] + [p] * 8 + [i] * 14 + [p]
+        fn.argtypes = [i, i] + [p] * 8 + [i] * 15 + [p]
         fn.restype = ctypes.c_int
         _launch.append(fn)
     return _launch[0]
@@ -106,14 +133,18 @@ def paged_attention(q, k_pool, v_pool, slots, ctx_len, *,
         raise ValueError(f"paged_attention: at most 8 query heads per KV "
                          f"head, got {H // KV}")
     nblk = slots.shape[1]
+    kptr, vptr = k_pool.data_ptr(), v_pool.data_ptr()
+    vec16 = (D * k_pool.element_size()) % 16 == 0 and not (
+        kptr % 16 or vptr % 16)
+    # the kernel's tensor cores take bf16 q and pool in whole 16-value rows
+    tensor = (q.dtype == k_pool.dtype == torch.bfloat16 and vec16
+              and D % 16 == 0)
+    qt = query_tile(Q, H // KV, D, tensor)
     o = torch.empty(q.shape, dtype=torch.float32, device=dev)
     m, l = torch.empty((2,) + q.shape[:-1], dtype=torch.float32,
                        device=dev).unbind(0)
     if B and Q and nblk:
         n_split, per_split = split_plan(nblk)
-        kptr, vptr = k_pool.data_ptr(), v_pool.data_ptr()
-        vec16 = (D * k_pool.element_size()) % 16 == 0 and not (
-            kptr % 16 or vptr % 16)
         rc = _lib()(_POOL_DTYPES[k_pool.dtype],
                     int(q.dtype == torch.bfloat16), q.data_ptr(), kptr, vptr,
                     slots.data_ptr(), ctx_len.data_ptr(), o.data_ptr(),
@@ -121,7 +152,7 @@ def paged_attention(q, k_pool, v_pool, slots, ctx_len, *,
                     n_split, per_split,
                     bs if block_tokens is None else block_tokens,
                     tok_offset, tok_stride, int(ctx_len.dim() == 2),
-                    int(vec16), _build.stream_handle(q))
+                    int(vec16), qt, _build.stream_handle(q))
         _build.check_launch("paged_attention", rc)
         paged_attention.launches += 1
         if Q > 1:

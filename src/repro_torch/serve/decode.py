@@ -160,17 +160,45 @@ def _paged_attn_local(q, k_new, v_new, kp_l, vp_l, slots, w_row, extent):
 
 
 # ------------------------------------------------ shared decode sublayers
+#
+# A verify step's (B, Q, ...) activations hold the rows that Q decode steps
+# would compute B at a time.  A GEMM or a reduction may round a row
+# otherwise at B * Q rows than at B, so the ops found to do so on the card
+# (the K/V projections, whose rows enter the pool, and the RMS norms' mean
+# square) run at the decode step's shape, one window position at a time.
+
+def _per_position(fn, x: torch.Tensor) -> torch.Tensor:
+    """``fn`` of a decode step's ``(B, ...)`` ``x``; a verify step's
+    ``(B, Q, ...)`` ``x`` goes through ``fn`` one window position at a
+    time, each a contiguous ``(B, ...)`` tensor (one copy makes them all),
+    and is stacked back."""
+    if x.dim() == 2:
+        return fn(x)
+    xt = x.transpose(0, 1).contiguous()
+    return torch.stack([fn(xt[i]) for i in range(xt.shape[0])], 1)
+
+
+def _rms_norm(x: torch.Tensor, scale: torch.Tensor,
+              eps: float) -> torch.Tensor:
+    """``Lmod.rms_norm`` with the mean square taken per position (the
+    square itself is elementwise)."""
+    if x.dim() == 2:
+        return Lmod.rms_norm(x, scale, eps)
+    x32 = x.float()
+    var = _per_position(lambda t: t.mean(dim=-1, keepdim=True), x32.square())
+    return (x32 * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
+
 
 def decode_ffn(blk, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     """Post-attention FFN sublayer (dense MLP)."""
-    h = Lmod.rms_norm(x, blk["norm2"], cfg.norm_eps)
+    h = _rms_norm(x, blk["norm2"], cfg.norm_eps)
     return x + Lmod.mlp(blk["mlp"], h)
 
 
 def project_logits(params, x: torch.Tensor, cfg: ArchConfig,
                    dims: ModelDims) -> torch.Tensor:
     """Final norm -> (tied) head matmul -> vocab-pad mask."""
-    x = Lmod.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    x = _rms_norm(x, params["final_norm"], cfg.norm_eps)
     head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
     return Lmod.unembed(head, x, dims.logical_vocab)
 
@@ -184,14 +212,21 @@ def decode_attn(blk, x: torch.Tensor, kp_l: torch.Tensor,
     K/V and read the pool through the paged-attention kernel.  ``kv_at``
     is the step translation's ``(slots, w_row, extent)``, shaped like
     ``positions`` past the slots; the verify's per-query extents are the
-    sequential decode's causal mask inside one pool read."""
+    sequential decode's causal mask inside one pool read.
+
+    The verify step projects K and V (and takes the norm's mean square) one
+    window position at a time, at the decode step's shape, so the rows it
+    writes to the pool are bitwise the decode step's and spec-on streams
+    stay spec-off's; q and o stay at B * Q rows."""
     lead = x.shape[:-1]
     B = lead[0]
     H, KV, hd = dims.n_heads, dims.n_kv, dims.head_dim
-    h = Lmod.rms_norm(x, blk["norm1"], cfg.norm_eps)
+    h = _rms_norm(x, blk["norm1"], cfg.norm_eps)
     q = Lmod.linear(blk["attn"]["q"], h).reshape(*lead, H, hd)
-    k = Lmod.linear(blk["attn"]["k"], h).reshape(*lead, KV, hd)
-    v = Lmod.linear(blk["attn"]["v"], h).reshape(*lead, KV, hd)
+    k = _per_position(lambda t: Lmod.linear(blk["attn"]["k"], t),
+                      h).reshape(*lead, KV, hd)
+    v = _per_position(lambda t: Lmod.linear(blk["attn"]["v"], t),
+                      h).reshape(*lead, KV, hd)
     if cfg.rope_theta > 0:
         pos = positions.reshape(B, -1)
         q = Lmod.apply_rope(q.reshape(B, -1, H, hd), pos,

@@ -34,9 +34,9 @@ except ImportError:         # a card machine without JAX: gpu tests only
     jnp = None
 from repro_torch.core import HybridConfig, HybridKVManager
 from repro_torch.kernels.flash_attention.ops import flash_attention
-from repro_torch.kernels.paged_attention.ops import (MAX_SPLIT,
+from repro_torch.kernels.paged_attention.ops import (MAX_SPLIT, cta_grid,
                                                      paged_attention,
-                                                     split_plan)
+                                                     query_tile, split_plan)
 from repro_torch.kernels.paged_attention.ref import (normalize,
                                                      paged_attention_ref)
 from repro_torch.kernels.utopia_rsw.ops import (utopia_rsw,
@@ -471,6 +471,52 @@ def test_paged_split_plan_depends_on_nblk_only():
     assert plans == [split_plan(n) for n in range(1, 200)]
 
 
+@pytest.mark.parametrize("Q", [1, 2, 3, 4, 5, 8, 9, 17, 64, 256])
+@pytest.mark.parametrize("g", [1, 2, 3, 4, 6, 8])
+def test_paged_query_tiles_cover_each_query_once(Q, g):
+    """The grid that ``query_tile`` gives: ceil(Q / QT) query tiles a row,
+    none idle, every query in exactly one.  At Q > 1 on the tensor cores
+    the QT * G (query, head) rows (g padded to G = 1, 2, 4, 8) are whole
+    m16 MMA tiles, two a warp at D <= 128 and one above, so the P V
+    accumulators stay at 128 floats a lane; on the CUDA cores QT * G <= 8
+    rows keep their state in the registers of 8 heads; at Q = 1 the G <= 8
+    heads are rows 0..7 of one MMA."""
+    G = 1 << (g - 1).bit_length()
+    for D in (16, 64, 80, 128, 200, 256):
+        DP = next(p for p in (16, 32, 64, 128, 256) if D <= p)
+        for tensor in (True, False):
+            qt = query_tile(Q, g, D, tensor)
+            rows = qt * G
+            if Q == 1:
+                assert qt == 1 and rows <= 8
+            elif tensor:
+                assert rows % 16 == 0 and rows == (32 if D <= 128 else 16)
+                assert rows // 16 * (DP // 8) * 4 <= 128
+            else:
+                assert rows == 8
+            B, KV, nblk = 3, 2, 9
+            x, y, z = cta_grid(B, Q, g * KV, KV, D, nblk,
+                               tensor_cores=tensor)
+            assert (x, z) == (KV * split_plan(nblk)[0], B)
+            tiles = [range(t * qt, min(Q, (t + 1) * qt)) for t in range(y)]
+            assert all(len(t) > 0 for t in tiles)          # no idle tile
+            assert [i for t in tiles for i in t] == list(range(Q))
+
+
+def test_paged_query_tile_depends_on_shape_only():
+    """A query's tile follows from (Q, g, D) and the cores alone, never
+    from the extents or the batch, and the split from nblk alone: no row's
+    plan depends on its neighbours."""
+    assert list(inspect.signature(query_tile).parameters) == [
+        "Q", "g", "D", "tensor_cores"]
+    for B in (1, 4, 64):
+        assert cta_grid(B, 256, 32, 8, 128, 16) == (64, 32, B)
+        assert cta_grid(B, 5, 32, 8, 128, 16) == (64, 1, B)
+        assert cta_grid(B, 1, 32, 8, 128, 16) == (64, 1, B)
+        assert cta_grid(B, 5, 32, 8, 128, 16, tensor_cores=False) == (
+            64, 3, B)
+
+
 def test_paged_q1_query_rank_round_trip():
     q, kp, vp, slots, ctx = _paged_inputs(2, None, 4, 2, 16, 8, 4, 32, 5)
     a = paged_attention(_t(q), _t(kp), _t(vp), _t(slots), _t(ctx))
@@ -724,6 +770,97 @@ def test_gpu_window_translate_kernel_matches_plain(cuda, hash_name, window):
         torch.cuda.synchronize()
         assert utopia_translate_step.launches == n0 + 1
         assert torch.equal(got.out.cpu(), want.out)
+
+
+def _gpu_tiled_case(cuda, Q, dtype, per_query, H=32, KV=8, D=128, bs=64,
+                    nblk=16, seed=0):
+    """Three rows with holes; (B,) extents with a zero row, or (B, Q)
+    extents pos+1 .. pos+Q (the verify read's) with a zero column."""
+    B = 3
+    rng = np.random.RandomState(seed + Q)
+    tdt = getattr(torch, dtype)
+    q = _t(rng.randn(B, Q, H, D).astype(np.float32)).to(cuda, tdt)
+    kp = _t(rng.randn(81, bs, KV, D).astype(np.float32)).to(cuda, tdt)
+    vp = _t(rng.randn(81, bs, KV, D).astype(np.float32)).to(cuda, tdt)
+    slots = rng.permutation(80)[:B * nblk].reshape(B, nblk).astype(np.int32)
+    slots[0, 3] = slots[1, 1] = -1
+    cap = bs * nblk
+    if per_query:
+        pos = np.asarray([cap - Q, min(130, cap - Q), 0])
+        ext = pos[:, None] + 1 + np.arange(Q)[None, :]
+        ext[2, 0] = 0
+    else:
+        ext = np.asarray([cap - 24, 0, 301])
+    return (q, kp, vp, _t(slots).to(cuda),
+            _t(ext.astype(np.int32)).to(cuda))
+
+
+def _assert_queries_are_single_launches(q, kp, vp, slots, ext, **kw):
+    n0 = paged_attention.launches
+    wide = paged_attention(q, kp, vp, slots, ext, **kw)
+    torch.cuda.synchronize()
+    assert paged_attention.launches == n0 + 1
+    for i in range(q.shape[1]):
+        e = ext[:, i].contiguous() if ext.dim() == 2 else ext
+        one = paged_attention(q[:, i].contiguous(), kp, vp, slots, e, **kw)
+        for x, y in zip(one, wide):
+            assert torch.equal(x, y[:, i]), f"query {i}"
+    return wide
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Q", [2, 3, 4, 5, 8, 9, 17, 64, 256])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("per_query", [False, True])
+def test_gpu_paged_query_tiles_equal_single_query(cuda, Q, dtype, per_query):
+    """The query-tiled read: query i of a Q-query launch is bitwise a
+    Q = 1 launch at its extent (granite-8b's H=32, KV=8, D=128; f32 on the
+    CUDA cores, bf16 on the tensor cores), with holes and a zero extent
+    (l == 0, m == -1e30); one launch a call."""
+    case = _gpu_tiled_case(cuda, Q, dtype, per_query)
+    o, m, l = _assert_queries_are_single_launches(*case)
+    zero = (2, 0) if per_query else (1,)
+    assert float(l[zero].abs().max()) == 0.0
+    assert bool((m[zero] == -1e30).all())
+    want = paged_attention_ref(*case)
+    tol = 3e-2 if dtype == "bfloat16" else 1e-4
+    for g, w in zip((o, m, l), want):
+        npt.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), rtol=tol,
+                            atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("heads", [(8, 8, 64), (16, 2, 256), (12, 4, 80),
+                                   (4, 2, 16)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gpu_paged_query_tiles_other_shapes(cuda, heads, dtype):
+    """Query tiles at g = 1, 8, 3 (padded to 4) and 2 and D = 64, 256, 80
+    and 16 (bf16: QT = 32, 2, 8 and 16): query i bitwise a Q = 1
+    launch."""
+    H, KV, D = heads
+    for Q, per_query in ((5, True), (33, False)):
+        _assert_queries_are_single_launches(*_gpu_tiled_case(
+            cuda, Q, dtype, per_query, H=H, KV=KV, D=D, bs=16, nblk=12))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gpu_paged_query_tiles_token_striped(cuda, dtype):
+    """Token-striped shards (4 shards of bs/4 tokens a block) with query
+    tiles: query i bitwise a Q = 1 launch, and the plain version's within
+    tolerance."""
+    q, kp, vp, slots, ext = _gpu_tiled_case(cuda, 9, dtype, True)
+    bs = kp.shape[1]
+    tol = 3e-2 if dtype == "bfloat16" else 1e-4
+    for off in range(0, bs, bs // 4):
+        ks = kp[:, off:off + bs // 4].contiguous()
+        vs = vp[:, off:off + bs // 4].contiguous()
+        kw = dict(tok_offset=off, block_tokens=bs)
+        got = _assert_queries_are_single_launches(q, ks, vs, slots, ext, **kw)
+        want = paged_attention_ref(q, ks, vs, slots, ext, **kw)
+        for g, w in zip(got, want):
+            npt.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), rtol=tol,
+                                atol=tol)
 
 
 @pytest.mark.gpu

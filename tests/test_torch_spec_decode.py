@@ -534,6 +534,46 @@ def test_spec_step_translates_once_and_copies_once(weights, monkeypatch):
         assert counts == {"lookup": n, "cpu": n}
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("batch", [1, 3])
+def test_verify_kv_rows_equal_decode_steps(weights, dtype, batch):
+    """The layer-0 K/V rows one verify step writes to the pool equal,
+    bitwise, the rows K+1 decode steps write for the same tokens: the
+    verify's K/V projections run at the decode step's shape, B rows a
+    product (layer 0's input passes through no GEMM before them, so the
+    equality is exact).  At B = 1 the decode step's product is a
+    matrix-vector one, which rounds otherwise than a product of K+1 rows
+    on the CPU."""
+    cfg = weights["port"][0]
+    K = 4
+    eng = _engine(weights, PORT, max_batch=batch, max_seq_len=64,
+                  spec_decode="ngram", num_draft_tokens=K,
+                  dtype=getattr(torch, dtype))
+    for r in _port_requests(cfg)[-batch:]:
+        eng.submit(r)
+    eng.step()                                  # admission
+    seen = {}
+    step = eng._spec_step
+
+    def rec(params, dstate, tokens, active=None, **kw):
+        seen["before"] = {k: v.clone() for k, v in dstate.items()}
+        out = step(params, dstate, tokens, active, **kw)
+        seen["tokens"] = torch.cat([tokens[:, None].to(torch.int32),
+                                    out[2]["draft_tokens"]], dim=1)
+        seen["active"] = active
+        return out
+
+    eng._spec_step = rec
+    eng.step()                                  # one verify step
+    ds = seen["before"]
+    for i in range(K + 1):
+        _, ds, _ = eng._serve_step(eng.params, ds, seen["tokens"][:, i],
+                                   seen["active"])
+    assert bool(seen["active"].all())           # no write to the sink row
+    for pool in ("k_pool", "v_pool"):
+        assert torch.equal(ds[pool][0], eng.dstate[pool][0]), pool
+
+
 def test_spec_under_preemption(weights):
     """A pool of about two sequences for six requests, plus forced "pre"
     and "post" preemptions (the latter between a window's commit and the
