@@ -8,12 +8,13 @@ JAX):
     python3 chip_smoke.py
     python3 chip_smoke.py --decode-profile [--src OTHER_CHECKOUT/src]
     python3 chip_smoke.py --paged-reads [--src OTHER_CHECKOUT/src]
+    python3 chip_smoke.py --moe [--src OTHER_CHECKOUT/src]
 
 The second form builds the kernels and runs only phase 4's decode-step
 profile, the third only phase 2's paged-attention checks and timings (the
-decode, verify and prefix reads), of this checkout's port or of another
-commit's (a parent unpacked with ``git archive``), so that two commits
-compare in one call.
+decode, verify and prefix reads), the fourth only phase 8, of this
+checkout's port or of another commit's (a parent unpacked with ``git
+archive``), so that two commits compare in one call.
 Phase 3's first two runs, phase 4 and the profile pass their engine
 configuration explicitly (flash attention, recompute prefill, no prefix
 cache, ``overload_policy="fail"``), so that their numbers compare with
@@ -123,20 +124,43 @@ Phases, each failing loudly:
    spec-off the token, its step and both top-2 margins, and, on one
    verify step's recorded activations, which ops of a layer round a row
    otherwise at the verify's (B, K + 1) shape than at the decode's (B,).
+8. free granite-8b's weights and serve the moe family: (a)
+   qwen3-moe-30b-a3b at its published width and depth (48 layers, 32/4
+   heads of 128, 128 experts of d_ff 768, top-8, vocab 151936; ~61 GB of
+   random bf16 weights, the router float32) on phase 5's engine and
+   requests, spec-off and then spec-on (K = 4), ``check_invariants``
+   after every step: every stream must hold 32 in-vocab tokens, the
+   translation, the decode read, the Q > 1 prefix read and the verify
+   read must launch, every spec-on stream must equal its spec-off
+   stream, and a steady decode step must copy no weight (its copy ops,
+   by recorded input shape).  It prints the decode and verify steps'
+   wall and device ms, idle share, kernels and largest kernels, a
+   prefix-KV admission step's device ms by kernel, tokens/s, peak
+   memory, launches, the MoE's ``fraction_dropped`` over the admission
+   steps and the verify's MoE rows against the decode shape's; (b) the
+   same model cut to 2 layers in float32, card against CPU (4 greedy
+   requests of 64-256 tokens, 8 new each): streams, admission logs and
+   translation stats identical; (c) qwen2.5-14b at full width cut to 8
+   layers (of 48), bf16, nonzero qkv biases, through flash attention and
+   recompute prefill (H = 40, KV = 8) and then phase 5's engine (the
+   paged reads at g = 5), and the paged reads (decode, verify, prefix)
+   and flash attention timed at g = 5 and g = 8 beside their bounds.
 
 Each serving phase prints a digest of its streams (``streams_sha256``), so
 that two commits' runs compare token for token.
 
 It prints the build times, the kernel checks, the serving numbers, one
-JSON line of kernel measurements (launches counted on phases 4, 5, 6 and
-7, each from 0), the card's name and power limit, and
+JSON line of kernel measurements (launches counted on phases 4, 5, 6, 7
+and 8 (a) and (c), each from 0), the card's name and power limit, and
 as its last line ``{"ok": true, "device": {...}}``.  Without a CUDA card,
 or without the rest of the repository beside it, it exits non-zero and
 prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import gc
 import json
 import statistics
 import subprocess
@@ -209,13 +233,19 @@ def profile_cold(torch, fn, iters: int = 1, tries: int = 3):
 
 
 def device_ms(torch, fn, iters, symbols=None):
-    """Summed device ms per call of the kernels whose names hold one of
-    ``symbols``, or of every kernel when ``symbols`` is None (None when
-    the profiler saw none)."""
+    """Device ms of the kernel whose name holds one of ``symbols`` (one
+    launch a call of ``fn``), per launch the profiler captured: on the
+    card's machine it now and then records only some of a profile's
+    launches, and a sum per call would then read low.  With ``symbols``
+    None, the device ms per call of every kernel ``fn`` launches.  None
+    when the profiler saw none."""
     rows = profile_device(torch, fn, iters)
-    hits = [ms for name, ms, _ in rows
-            if symbols is None or any(x in name for x in symbols)]
-    return sum(hits) if hits else None
+    if symbols is None:
+        return sum(ms for _, ms, _ in rows) if rows else None
+    hits = [(ms, n) for name, ms, n in rows
+            if any(x in name for x in symbols)]
+    n = sum(n for _, n in hits)
+    return sum(ms for ms, _ in hits) / n if n else None
 
 
 def launches_per_call(torch, fn, iters=5):
@@ -1255,7 +1285,8 @@ def card_vs_cpu(torch, dev, params, prompts, new_tokens, label,
                     f"{label}: the card's rerun with {rerun} diverges from "
                     f"its first run for request {sid} at token {i}")
     stats = dict(ceng.manager.stats)
-    log(f"card vs CPU ({label}; granite-8b width, 2 layers, f32, "
+    log(f"card vs CPU ({label}; {cfg.name} width, {cfg.num_layers} "
+        "layers, f32, "
         f"{len(prompts)} requests, {len(sampled)} sampled, {engine_kw}"
         + (f", injector {schedule}" if schedule else "") + "): "
         f"{same} of {len(cs)} token streams identical"
@@ -1479,26 +1510,6 @@ def overload_card_vs_cpu(torch, dev, params, prompts):
         f"(snapshot every {o['snapshot_every']} steps, "
         f"{sup.replayed_steps} steps replayed) delivered every stream "
         f"bitwise equal to the uncrashed run's")
-
-
-def granite(torch, dev):
-    """granite-8b at its published width and depth with random bf16
-    weights from a seeded generator: (cfg, dims, params)."""
-    from repro_torch.configs import get_config
-    from repro_torch.models import model_dims
-    from repro_torch.params import init_params
-    cfg = get_config("granite-8b")
-    dims = model_dims(cfg)
-    t0 = time.perf_counter()
-    params = init_params(torch.Generator(device=dev).manual_seed(SEED), cfg,
-                         dims, torch.bfloat16, dev)
-    torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in _leaves(params))
-    log(f"granite-8b: {cfg.num_layers} layers, d_model {cfg.d_model}, "
-        f"{dims.n_heads}/{dims.n_kv} heads, d_ff {dims.d_ff}, vocab "
-        f"{dims.vocab}: {n_params / 1e9:.2f} B bf16 parameters drawn in "
-        f"{time.perf_counter() - t0:.1f} s")
-    return cfg, dims, params
 
 
 def _kernel_counts(reset=False):
@@ -2111,12 +2122,14 @@ def phase7_requests(cfg):
     return reqs
 
 
-def steady_step(torch, eng, cfg, probe=None):
+def steady_step(torch, eng, cfg, probe=None, top=0, copies_of=None):
     """Four requests of 512 random tokens admitted, then steady steps at
     B=4: the median wall ms of three, and one step's device ms under the
-    profiler (busy ms, kernels, the paged read's ms, the idle share);
-    then ``probe(eng)``, if given, under ``probe``.  The requests are
-    cancelled afterwards."""
+    profiler (busy ms, kernels, the paged read's ms, the idle share, and
+    with ``top`` the largest kernels); with ``copies_of`` (the model's
+    parameters) one more step's copy ops that read a tensor of a weight's
+    shape (``weight_copies``); then ``probe(eng)``, if given, under
+    ``probe``.  The requests are cancelled afterwards."""
     import numpy as np
     from repro_torch.serve import Request
     rng = np.random.RandomState(SEED + 7)
@@ -2133,17 +2146,135 @@ def steady_step(torch, eng, cfg, probe=None):
         eng.step()
         walls.append((time.perf_counter() - t0) * 1e3)
     rows = profile_device(torch, eng.step, 1)
-    probed = {} if probe is None else {"probe": probe(eng)}
+    extra = {} if probe is None else {"probe": probe(eng)}
+    if top:
+        extra["top"] = [dict(kernel=name[:90], ms=round(ms, 4), launches=n)
+                        for name, ms, n in rows[:top]]
+    if copies_of is not None:
+        extra["weight_copies"] = weight_copies(torch, eng.step, copies_of)
     for sid in sids:
         eng.cancel(sid)
     wall = statistics.median(walls)
     busy = sum(ms for _, ms, _ in rows)
-    return dict(**probed,
+    return dict(**extra,
         wall_ms=round(wall, 3), device_busy_ms=round(busy, 3),
         idle_share=round(1 - busy / wall, 4) if rows else None,
         device_kernels=int(round(sum(n for _, _, n in rows))),
         paged_attention_ms=round(sum(ms for name, ms, _ in rows
                                      if "paged_attn_kernel" in name), 4))
+
+
+def weight_copies(torch, fn, params):
+    """The copy ops of one call of ``fn`` (``aten::copy_``, ``_to_copy``,
+    ``clone``, ``contiguous``, from the profiler's recorded input shapes)
+    that read a tensor shaped like one of ``params``' weights, in any
+    order of its dims (a layer's slice of a stacked weight, or a whole
+    one; tensors under 65,536 elements, the norms, left out).  Copying a
+    weight, e.g. an einsum that permutes the (E, d, F) experts, would show
+    here.  Returns [(op, shape, calls)]."""
+    import itertools
+    from torch.profiler import ProfilerActivity, profile
+    shapes = set()
+    for t in _leaves(params):
+        for shp in (tuple(t.shape), tuple(t.shape[1:])):
+            if len(shp) and int(torch.tensor(shp).prod()) >= 1 << 16:
+                shapes.update(itertools.permutations(shp))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU],
+                 record_shapes=True) as prof:
+        fn()
+        torch.cuda.synchronize()
+    hits = {}
+    for e in prof.events():
+        if e.name not in ("aten::copy_", "aten::_to_copy", "aten::clone",
+                          "aten::contiguous"):
+            continue
+        for shp in e.input_shapes:
+            if tuple(shp) in shapes:
+                key = (e.name, tuple(shp))
+                hits[key] = hits.get(key, 0) + 1
+    return [(name, list(shp), n) for (name, shp), n in sorted(hits.items())]
+
+
+def spec_pair(torch, dev, cfg, params, make_requests, engine_kw, label,
+              after=None, wrap=None):
+    """The same requests spec-off, then spec-on (``PHASE7_K`` drafts),
+    each step held by ``check_invariants``, each kernel's launch count
+    set to 0 just before each run and read just after.  Fails unless
+    every stream holds its tokens in the vocab and each step that decoded
+    launched the translation exactly once.  ``wrap(name)`` (a context
+    manager) surrounds each run; ``after(name, eng)`` runs after it and
+    its result is kept.  Returns {"off": run, "on": run}: streams, steps,
+    margins, stats, launches, wall s, peak GiB, after."""
+    from repro_torch.kernels.utopia_rsw.ops import utopia_translate_step
+    from repro_torch.serve import Engine, EngineConfig
+    runs = {}
+    for name, spec in (("off", None), ("on", "ngram")):
+        eng = Engine(cfg, params, EngineConfig(
+            dtype=torch.bfloat16, spec_decode=spec,
+            num_draft_tokens=PHASE7_K, **engine_kw), device=dev)
+        margins = {}
+        record_margins(eng, margins)
+        trans = {"last": utopia_translate_step.launches, "per_step": []}
+
+        def each(e, trans=trans):
+            n = utopia_translate_step.launches
+            trans["per_step"].append(n - trans["last"])
+            trans["last"] = n
+            e.check_invariants()
+
+        reqs = make_requests()
+        torch.cuda.reset_peak_memory_stats()
+        _kernel_counts(reset=True)
+        trans["last"] = utopia_translate_step.launches
+        t0 = time.perf_counter()
+        with (wrap(name) if wrap else contextlib.nullcontext()):
+            streams, steps = serve(eng, reqs, each_step=each)
+        wall = time.perf_counter() - t0
+        launches = _kernel_counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        check_streams(reqs, streams, cfg.vocab_size)
+        want = [1 if live else 0 for _, _, live, _, _ in steps]
+        if trans["per_step"] != want:
+            raise AssertionError(f"{label} ({name}): translation launches "
+                                 f"per step {trans['per_step']}, expected "
+                                 f"{want}")
+        runs[name] = dict(streams=streams, steps=steps, margins=margins,
+                          stats=eng.stats(), launches=launches, wall=wall,
+                          peak_gib=peak,
+                          after=after(name, eng) if after else None)
+        del eng
+        torch.cuda.empty_cache()
+    return runs
+
+
+def spec_divergence(on, off):
+    """For each request whose spec-on stream differs from its spec-off
+    stream: the first differing token, the step of each run and both
+    runs' top-2 logit margins there."""
+    diverged = []
+    for sid in sorted(on["streams"]):
+        diff = near_tie(on["margins"], on["steps"], on["streams"][sid],
+                        off["streams"][sid], sid)
+        if diff is not None:
+            i, step, m = diff
+            step_off, m_off = margin_of(off["margins"], off["steps"], sid, i)
+            diverged.append(dict(request=sid, token=i, step_on=step,
+                                 top2_margin_on=m, step_off=step_off,
+                                 top2_margin_off=m_off))
+    return diverged
+
+
+def tokens_per_s(run):
+    return sum(len(t) for t in run["streams"].values()) / sum(
+        w for w, *_ in run["steps"])
+
+
+def decode_step_ms(run):
+    """Median wall ms of the run's steps that decoded and admitted
+    nothing."""
+    ws = [w for w, recs, live, _, _ in run["steps"] if live and not recs]
+    return round(statistics.median(ws) * 1e3, 3)
 
 
 def full_width_spec(torch, dev, cfg, dims, params):
@@ -2159,41 +2290,13 @@ def full_width_spec(torch, dev, cfg, dims, params):
     differing token, its step and both runs' top-2 margins (before
     failing), and each op's row dependence on a verify step's own
     activations (``decode_row_dependence``)."""
-    from repro_torch.kernels.utopia_rsw.ops import utopia_translate_step
-    from repro_torch.serve import Engine, EngineConfig
-    runs = {}
-    for name, spec in (("off", None), ("on", "ngram")):
-        eng = Engine(cfg, params, EngineConfig(
-            dtype=torch.bfloat16, spec_decode=spec,
-            num_draft_tokens=PHASE7_K, **PHASE7), device=dev)
-        margins = {}
-        record_margins(eng, margins)
-        if spec:
-            _kernel_counts(reset=True)
-        trans = {"last": utopia_translate_step.launches, "per_step": []}
+    def after(name, eng):
+        probe = name == "on" and (
+            lambda e: decode_row_dependence(torch, e, cfg))
+        return steady_step(torch, eng, cfg, probe or None)
 
-        def each(e, trans=trans):
-            n = utopia_translate_step.launches
-            trans["per_step"].append(n - trans["last"])
-            trans["last"] = n
-            e.check_invariants()
-
-        reqs = phase7_requests(cfg)
-        streams, steps = serve(eng, reqs, each_step=each)
-        launches = _kernel_counts() if spec else None
-        check_streams(reqs, streams, cfg.vocab_size)
-        want = [1 if live else 0 for _, _, live, _, _ in steps]
-        if trans["per_step"] != want:
-            raise AssertionError(f"phase 7 ({name}): translation launches "
-                                 f"per step {trans['per_step']}, expected "
-                                 f"{want}")
-        st = eng.stats()
-        probe = spec and (lambda e: decode_row_dependence(torch, e, cfg))
-        runs[name] = dict(streams=streams, steps=steps, margins=margins,
-                          stats=st, launches=launches,
-                          steady=steady_step(torch, eng, cfg, probe or None))
-        del eng
-        torch.cuda.empty_cache()
+    runs = spec_pair(torch, dev, cfg, params, lambda: phase7_requests(cfg),
+                     PHASE7, "phase 7", after=after)
     on, off = runs["on"], runs["off"]
     st = on["stats"]
     rep = {sid: st["per_request"][sid]["accepted"] for sid in (8, 9)}
@@ -2204,35 +2307,18 @@ def full_width_spec(torch, dev, cfg, dims, params):
     if launches["paged_attention_q_per_query"] <= 0:
         raise AssertionError("phase 7: the per-query paged read was never "
                              "launched")
-
-    def tokens_per_s(r):
-        return sum(len(t) for t in r["streams"].values()) / sum(
-            w for w, *_ in r["steps"])
-
-    def step_ms(r):
-        ws = [w for w, recs, live, _, _ in r["steps"] if live and not recs]
-        return round(statistics.median(ws) * 1e3, 3)
-
     n_req = len(on["streams"])
     row_steps = sum(live for _, _, live, _, _ in on["steps"])
     decoded = sum(len(t) for t in on["streams"].values()) - n_req
-    diverged = []
-    for sid in sorted(on["streams"]):
-        diff = near_tie(on["margins"], on["steps"], on["streams"][sid],
-                        off["streams"][sid], sid)
-        if diff is not None:
-            i, step, m = diff
-            step_off, m_off = margin_of(off["margins"], off["steps"], sid, i)
-            diverged.append(dict(request=sid, token=i, step_on=step,
-                                 top2_margin_on=m, step_off=step_off,
-                                 top2_margin_off=m_off))
+    diverged = spec_divergence(on, off)
     summary = dict(
         requests=n_req, new_tokens_each=32, repetitive_requests=[8, 9],
         num_draft_tokens=PHASE7_K,
         steps={"on": len(on["steps"]), "off": len(off["steps"])},
         tokens_per_s={k: round(tokens_per_s(r), 2) for k, r in runs.items()},
-        step_ms_median={"verify": step_ms(on), "decode": step_ms(off)},
-        steady_b4={"verify": on["steady"], "decode": off["steady"]},
+        step_ms_median={"verify": decode_step_ms(on),
+                        "decode": decode_step_ms(off)},
+        steady_b4={"verify": on["after"], "decode": off["after"]},
         emitted_per_row_step=round(decoded / max(row_steps, 1), 4),
         spec_drafted=st["spec_drafted"], spec_accepted=st["spec_accepted"],
         acceptance_rate=round(st["spec_accepted"]
@@ -2242,7 +2328,7 @@ def full_width_spec(torch, dev, cfg, dims, params):
         streams_sha256={k: stream_digest(r["streams"])
                         for k, r in runs.items()},
         streams_on_equal_off=n_req - len(diverged), diverged=diverged,
-        decode_rows=on["steady"].pop("probe"), launches=launches)
+        decode_rows=on["after"].pop("probe"), launches=launches)
     log("phase 7: granite-8b full width, 36 layers, bf16, Engine("
         + ", ".join(f"{k}={v!r}" for k, v in PHASE7.items())
         + f", spec_decode='ngram', num_draft_tokens={PHASE7_K}) against "
@@ -2250,6 +2336,381 @@ def full_width_spec(torch, dev, cfg, dims, params):
     if diverged:
         raise AssertionError(f"phase 7: {len(diverged)} of {n_req} bf16 "
                              "spec-on streams differ from spec-off")
+    return launches
+
+
+# phase 8: the moe family at full width and depth (qwen3-moe-30b-a3b: 48
+# layers, 32/4 heads of 128, 128 experts of d_ff 768, top-8, vocab
+# 151936), on phase 5's engine and requests, spec-off and spec-on; then
+# (b) card against CPU at 2 layers in float32 and (c) qwen2.5-14b (40/8
+# heads: g = 5) cut to 8 layers, with nonzero qkv biases
+PHASE8_ARCH = "qwen3-moe-30b-a3b"
+PHASE8C = dict(arch="qwen2.5-14b", layers=8, lens=(512, 320, 448, 192),
+               new_tokens=16)
+
+
+def served_model(torch, dev, name, dtype, layers=None, device=None,
+                 seed=SEED + 8):
+    """``name`` at its published width (``layers`` cuts the depth) with
+    random weights from a generator seeded with ``seed`` on ``device``
+    (default the card); qkv biases, which ``init_params`` leaves at zero
+    as the JAX package does, are drawn nonzero.  Returns (cfg, dims,
+    params)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model_dims
+    from repro_torch.params import init_params
+    cfg = get_config(name)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    dims = model_dims(cfg)
+    device = dev if device is None else device
+    gen = torch.Generator(device=device).manual_seed(seed)
+    t0 = time.perf_counter()
+    params = init_params(gen, cfg, dims, dtype, device)
+    if cfg.qkv_bias:
+        for t in (params["layers"]["attn"][k]["b"] for k in "qkv"):
+            t.copy_(0.5 * torch.randn(t.shape, generator=gen, device=device))
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    n = sum(t.numel() for t in _leaves(params))
+    log(f"{name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"{dims.n_heads}/{dims.n_kv} heads of {dims.head_dim}, d_ff "
+        f"{dims.d_ff}"
+        + (f", {cfg.moe_num_experts} experts top-{cfg.moe_top_k}"
+           if cfg.moe_num_experts else "")
+        + f", vocab {dims.vocab}: {n / 1e9:.2f} B {str(dtype)[6:]} "
+        f"parameters drawn in {time.perf_counter() - t0:.1f} s on {device}")
+    return cfg, dims, params
+
+
+@contextlib.contextmanager
+def moe_drops(torch, rec):
+    """Record every ``moe_layer`` call's (tokens, ``fraction_dropped``)
+    (a device scalar) into ``rec`` while the block runs: the admission
+    steps' MoE layers."""
+    import repro_torch.models.transformer as tmod
+    orig = tmod.moe_layer
+
+    def moe_layer(p, x, **kw):
+        out, aux = orig(p, x, **kw)
+        rec.append((x.shape[0] * x.shape[1], aux["fraction_dropped"]))
+        return out, aux
+
+    tmod.moe_layer = moe_layer
+    try:
+        yield rec
+    finally:
+        tmod.moe_layer = orig
+
+
+def moe_row_dependence(torch, eng, cfg):
+    """The verify step's MoE at the decode step's shape: one step of the
+    spec-on engine ``eng`` runs with every ``moe_decode`` input recorded
+    (a (B (K + 1), d) window of rows and their router logits, taken one
+    window position at a time); each is then run again on every window
+    position's contiguous (B, d) slice and compared bitwise, for the
+    router's float32 logits (as one (B (K + 1), d) product against the
+    per-position products) and for the MoE's output (the experts and the
+    combine).  Reported; the verify step runs the router per position
+    (``serve/decode.py decode_ffn``) and the experts over the window."""
+    import repro_torch.serve.decode as dmod
+    from repro_torch.models.moe import moe_decode
+    rec = []
+    orig = dmod.moe_decode
+
+    def recording(p, x, *, top_k, logits=None):
+        rec.append((p, x, logits))
+        return orig(p, x, top_k=top_k, logits=logits)
+
+    dmod.moe_decode = recording
+    try:
+        eng.step()
+    finally:
+        dmod.moe_decode = orig
+    Q = eng.spec_K + 1
+    out = dict(layers=0, rows=0, router_rows_differ=0, moe_rows_differ=0,
+               moe_max_abs_diff=0.0)
+    for p, x, lg in rec:
+        M, d = x.shape
+        if M % Q:
+            continue
+        B = M // Q
+        out["layers"] += 1
+        out["rows"] += M
+        whole = x.float() @ p["router"]["w"]
+        out["router_rows_differ"] += int((whole != lg).any(-1).sum())
+        y = moe_decode(p, x, top_k=cfg.moe_top_k, logits=lg).reshape(
+            B, Q, d)
+        x3, l3 = x.reshape(B, Q, d), lg.reshape(B, Q, -1)
+        for c in range(Q):
+            yc = moe_decode(p, x3[:, c].contiguous(), top_k=cfg.moe_top_k,
+                            logits=l3[:, c].contiguous())
+            out["moe_rows_differ"] += int((yc != y[:, c]).any(-1).sum())
+            out["moe_max_abs_diff"] = max(out["moe_max_abs_diff"], float(
+                (yc.float() - y[:, c].float()).abs().max()))
+    return out
+
+
+def full_width_moe(torch, dev):
+    """Phase 8 (a): qwen3-moe-30b-a3b at full width and depth, bf16,
+    seeded random weights, on phase 5's engine configuration and
+    requests, spec-off then spec-on (K = 4); each run's launch counts
+    from 0.  Fails unless every stream holds 32 in-vocab tokens, each
+    decoding step launched the translation once, the translation, the
+    decode read, the Q > 1 prefix read and the per-query verify read all
+    launched, every spec-on stream equals its spec-off stream, and a
+    steady decode step copies no weight.  Prints the median decode-step
+    wall ms, a steady decode and verify step's device ms (idle share,
+    kernels, the largest kernels), a prefix-KV admission step's device ms
+    by kernel, tokens/s, peak memory, launches, the MoE's
+    ``fraction_dropped`` over the admission steps, the verify's MoE rows
+    against the decode shape's, and both runs' ``streams_sha256``."""
+    import numpy as np
+    cfg, dims, params = served_model(torch, dev, PHASE8_ARCH, torch.bfloat16)
+    weights_gib = torch.cuda.memory_allocated() / 2 ** 30
+    drops = {"off": [], "on": []}
+
+    def after(name, eng):
+        probe = name == "on" and (
+            lambda e: moe_row_dependence(torch, e, cfg))
+        r = {"steady": steady_step(torch, eng, cfg, probe or None, top=10,
+                                   copies_of=params if name == "off"
+                                   else None)}
+        if name == "off":
+            profile_prefix_step(torch, eng, np.random.RandomState(SEED + 8),
+                                cfg)
+        return r
+
+    def requests():
+        return phase5_requests(cfg, np.random.RandomState(SEED + 5))[0]
+
+    runs = spec_pair(torch, dev, cfg, params, requests, PHASE5, "phase 8",
+                     after=after,
+                     wrap=lambda name: moe_drops(torch, drops[name]))
+    on, off = runs["on"], runs["off"]
+    launches = {k: off["launches"][k] + on["launches"][k]
+                for k in off["launches"]}
+    for name in ("utopia_translate_step", "paged_attention",
+                 "paged_attention_q_gt1", "paged_attention_q_per_query"):
+        if launches[name] <= 0:
+            raise AssertionError(f"phase 8: {name} was never launched")
+    copies = off["after"]["steady"]["weight_copies"]
+    if copies:
+        raise AssertionError(f"phase 8: a decode step copies weights: "
+                             f"{copies}")
+
+    def dropped(rec):
+        """Token-weighted mean share of (token, k) entries dropped, over
+        all MoE layers and at the first and the last (the calls come
+        layer by layer, each dispatch's in order), and the worst call."""
+        L = cfg.num_layers
+
+        def mean(sel):
+            n = sum(t for t, _ in sel)
+            return round(sum(t * float(f) for t, f in sel) / max(n, 1), 5)
+
+        return dict(layer_calls=len(rec), tokens=sum(t for t, _ in rec),
+                    mean=mean(rec), first_layer=mean(rec[0::L]),
+                    last_layer=mean(rec[L - 1::L]),
+                    max=round(max((float(f) for _, f in rec), default=0.0),
+                              5))
+
+    diverged = spec_divergence(on, off)
+    n_req = len(on["streams"])
+    st = on["stats"]
+    summary = dict(
+        requests=n_req, new_tokens_each=32, num_draft_tokens=PHASE7_K,
+        weights_gib=round(weights_gib, 3),
+        steps={"on": len(on["steps"]), "off": len(off["steps"])},
+        decode_step_ms_median={"verify": decode_step_ms(on),
+                               "decode": decode_step_ms(off)},
+        tokens_per_s={k: round(tokens_per_s(r), 2) for k, r in runs.items()},
+        wall_s={k: round(r["wall"], 3) for k, r in runs.items()},
+        gpu_mem_peak_gib={k: round(r["peak_gib"], 3)
+                          for k, r in runs.items()},
+        steady_b4={"decode": off["after"]["steady"],
+                   "verify": on["after"]["steady"]},
+        moe_fraction_dropped={k: dropped(v) for k, v in drops.items()},
+        spec_drafted=st["spec_drafted"], spec_accepted=st["spec_accepted"],
+        prefix_cache=off["stats"]["prefix_cache"],
+        streams_sha256={k: stream_digest(r["streams"])
+                        for k, r in runs.items()},
+        streams_on_equal_off=n_req - len(diverged), diverged=diverged,
+        moe_rows=on["after"]["steady"].pop("probe"),
+        launches={"off": off["launches"], "on": on["launches"]})
+    log(f"phase 8 (a): {PHASE8_ARCH} full width, {cfg.num_layers} layers, "
+        "bf16, Engine(" + ", ".join(f"{k}={v!r}" for k, v in PHASE5.items())
+        + f"), spec_decode=None then 'ngram' (K={PHASE7_K}): "
+        + json.dumps({"moe": summary}))
+    if diverged:
+        raise AssertionError(f"phase 8: {len(diverged)} of {n_req} bf16 "
+                             "spec-on streams differ from spec-off")
+    del params
+    return launches
+
+
+def moe_card_vs_cpu(torch, dev):
+    """Phase 8 (b): qwen3-moe-30b-a3b at full width cut to 2 layers, in
+    float32, on the card and on the CPU with the same weights: 4 greedy
+    requests of 64-256 tokens, 8 new tokens each, on the default
+    admission path with the paged prefix read; streams, admission logs,
+    translation and cache stats identical."""
+    import numpy as np
+    cfg, _, params = served_model(torch, dev, PHASE8_ARCH, torch.float32,
+                               layers=2, device="cpu")
+    rng = np.random.RandomState(SEED + 8)
+    prompts = [rng.randint(0, cfg.vocab_size, n) for n in (64, 256, 128,
+                                                           192)]
+    card_vs_cpu(torch, dev, (cfg, params), prompts, 8, "moe", strict=True,
+                max_batch=4, max_seq_len=512, prefill_budget=256,
+                prefill_mode="prefix_kv", prefix_gather="paged",
+                prefix_cache="auto")
+
+
+def kernel_times(torch, fns, symbols, iters=20):
+    """(CUDA-event ms a call, cycling over ``fns``, whose inputs together
+    outgrow the L2; ``device_ms`` of the kernel named by ``symbols``, one
+    launch a call of ``fns[0]``)."""
+    return (time_ms(torch, fns, 4 * iters),
+            device_ms(torch, fns[0], iters, symbols))
+
+
+def geometry_reads(torch, dev):
+    """The kernels at phase 8's head geometries (bf16, D = 128, bs = 64):
+    the paged decode read (B=4, Q=1), the verify read (Q=5, per-query
+    extents) and a prefix read (Q=256) at qwen2.5-14b's 40/8 heads (g =
+    5) and qwen3-moe-30b-a3b's 32/4 (g = 8), and flash attention at
+    (B, S, H, KV) = (2, 512, 40, 8), causal: each held to its plain
+    version (3e-2) and timed (CUDA events over four input sets, which
+    for the small reads is mostly the wrapper's host time, and profiler
+    device ms a launch) beside its bound, each row's K/V read once; flash
+    also beside SDPA's."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.paged_attention.ops import paged_attention
+    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+    from repro_torch.models.attention import dense_attention
+    gen = torch.Generator().manual_seed(SEED + 8)
+    out = {}
+    for H, KV in ((40, 8), (32, 4)):
+        for kind, Q, per_query in (("decode", None, False),
+                                   ("verify", WINDOW, True),
+                                   ("prefix", 256, False)):
+            sets = []
+            for _ in range(4):
+                q, kp, vp, slots, ext = _paged_case(
+                    torch, dev, torch.bfloat16, H=H, KV=KV, Q=Q,
+                    per_query=per_query, gen=gen)
+                sets.append((q.to(torch.bfloat16), kp[0], vp[0], slots,
+                             ext))
+            q, kp, _, slots, ext = args = sets[0]
+            err = max(check_close(f"paged_attention[{kind}, H={H}]", g, w,
+                                  3e-2)
+                      for g, w in zip(paged_attention(*args),
+                                      paged_attention_ref(*args)))
+            bs, D = kp.shape[1], q.shape[-1]
+            nq = 1 if Q is None else Q
+            last = ext[:, -1] if per_query else ext
+            n_tok = sum(-(-int(e) // bs) * bs for e in last.tolist()) - bs
+            nbytes = (q.numel() * 2 + 2 * n_tok * KV * D * 2
+                      + slots.numel() * 4 + ext.numel() * 4
+                      + q.numel() * 4 + 2 * q.numel() // D * 4)
+            flops = 4 * D * H * int(ext.sum()) * (1 if per_query else nq)
+            bound = max(nbytes / HBM_BYTES_PER_S,
+                        flops / PEAK_FLOPS["bfloat16"]) * 1e3
+            ms, dms = kernel_times(
+                torch, [lambda s=s: paged_attention(*s) for s in sets],
+                ("paged_attn_kernel",))
+            out[f"paged_{kind}_H{H}_KV{KV}"] = dict(
+                g=H // KV, Q=nq, max_abs_err=err, ms=ms, device_ms=dms,
+                bound_ms=bound, plain_ms=time_ms(
+                    torch, [lambda s=s: paged_attention_ref(*s)
+                            for s in sets], 8),
+                ctas=_grid_ctas(q.shape[0], nq, H, KV, D, slots.shape[1]))
+    B, S, H, KV, D = 2, 512, 40, 8, 128
+    g2 = torch.Generator(device=dev).manual_seed(SEED + 8)
+    sets = [[torch.randn((B, S, n, D), generator=g2, device=dev).to(
+        torch.bfloat16) for n in (H, KV, KV)] for _ in range(4)]
+    q, k, v = sets[0]
+    err = check_close("flash_attention[H=40, KV=8]",
+                      flash_attention(q, k, v, causal=True),
+                      dense_attention(q, k, v, causal=True), 3e-2)
+    heads_first = [(
+        q.transpose(1, 2).contiguous(),
+        k.repeat_interleave(H // KV, dim=2).transpose(1, 2).contiguous(),
+        v.repeat_interleave(H // KV, dim=2).transpose(1, 2).contiguous())
+        for q, k, v in sets]
+    lib = [lambda s=s: F.scaled_dot_product_attention(*s, is_causal=True)
+           for s in heads_first]
+    flops = 4 * B * H * D * (S * (S + 1) // 2)
+    nbytes = 2 * (2 * B * S * H * D + 2 * B * S * KV * D)
+    ms, dms = kernel_times(
+        torch, [lambda s=s: flash_attention(*s, causal=True) for s in sets],
+        ("flash_wgmma_kernel", "flash_kernel"), iters=5)
+    out["flash_B2_S512_H40_KV8"] = dict(
+        g=H // KV, max_abs_err=err, ms=ms, device_ms=dms,
+        bound_ms=max(nbytes / HBM_BYTES_PER_S,
+                     flops / PEAK_FLOPS["bfloat16"]) * 1e3,
+        sdpa_ms=time_ms(torch, lib, 20),
+        sdpa_device_ms=device_ms(torch, lib[0], 5),
+        plain_ms=time_ms(torch, [lambda s=s: dense_attention(*s, causal=True)
+                                 for s in sets], 8))
+    log("phase 8 (c) kernels at the serving geometries (bf16, D=128): "
+        + json.dumps({k: {f: (round(x, 6) if isinstance(x, float) else x)
+                          for f, x in r.items()} for k, r in out.items()}))
+    return out
+
+
+def dense_geometry(torch, dev):
+    """Phase 8 (c): qwen2.5-14b at full width cut to 8 layers, bf16, with
+    nonzero qkv biases: 4 requests (192-512 tokens, 16 new tokens each)
+    through flash attention and recompute prefill (H = 40, KV = 8), then
+    the same on phase 5's engine (the paged decode and prefix reads at g
+    = 5); launch counts from 0 before the first and read after the
+    second.  Fails unless flash attention, the translation and both paged
+    reads launched and every stream holds its tokens in the vocab.  Then
+    the kernels at the serving geometries (``geometry_reads``)."""
+    import numpy as np
+    from repro_torch.serve import Engine, EngineConfig
+    c = PHASE8C
+    cfg, dims, params = served_model(torch, dev, c["arch"], torch.bfloat16,
+                                  layers=c["layers"])
+    rng = np.random.RandomState(SEED + 9)
+    prompts = [rng.randint(0, cfg.vocab_size, n) for n in c["lens"]]
+    _kernel_counts(reset=True)
+    out = {}
+    for name, kw in (("flash_recompute", dict(max_batch=4,
+                                              max_seq_len=1024,
+                                              auto_release=True,
+                                              **EARLIER_PATH)),
+                     ("defaults_paged", PHASE5)):
+        eng = Engine(cfg, params, EngineConfig(dtype=torch.bfloat16, **kw),
+                     device=dev)
+        reqs = smoke_requests(prompts, c["new_tokens"])
+        t0 = time.perf_counter()
+        streams, steps = serve(eng, reqs)
+        wall = time.perf_counter() - t0
+        check_streams(reqs, streams, cfg.vocab_size)
+        eng.check_invariants()
+        out[name] = dict(steps=len(steps), tokens_per_s=round(sum(
+            len(t) for t in streams.values()) / wall, 2),
+            decode_step_ms_median=round(statistics.median(
+                [w for w, recs, live, _, _ in steps if live and not recs])
+                * 1e3, 3),
+            streams_sha256=stream_digest(streams))
+        del eng
+    launches = _kernel_counts()
+    for name in ("flash_attention", "utopia_translate_step",
+                 "paged_attention", "paged_attention_q_gt1"):
+        if launches[name] <= 0:
+            raise AssertionError(f"phase 8 (c): {name} was never launched")
+    log(f"phase 8 (c): {c['arch']} full width cut to {cfg.num_layers} "
+        f"layers (of 48), bf16, nonzero qkv biases, {len(prompts)} requests "
+        f"of {list(c['lens'])} tokens, {c['new_tokens']} new each: "
+        + json.dumps({"dense": dict(runs=out, launches=launches)}))
+    del params
+    torch.cuda.empty_cache()
+    geometry_reads(torch, dev)
     return launches
 
 
@@ -2310,13 +2771,9 @@ def decode_profile(torch, dev):
     engine and weights, so that another commit's port (``--src``) can be
     profiled in the same call."""
     import numpy as np
-    from repro_torch.configs import get_config
-    from repro_torch.models import model_dims
-    from repro_torch.params import init_params
     from repro_torch.serve import Engine, EngineConfig
-    cfg = get_config("granite-8b")
-    params = init_params(torch.Generator(device=dev).manual_seed(SEED), cfg,
-                         model_dims(cfg), torch.bfloat16, dev)
+    cfg, _, params = served_model(torch, dev, "granite-8b", torch.bfloat16,
+                                  seed=SEED)
     eng = Engine(cfg, params, EngineConfig(
         max_batch=4, max_seq_len=1024, auto_release=True,
         dtype=torch.bfloat16, **EARLIER_PATH), device=dev)
@@ -2366,6 +2823,9 @@ def main() -> int:
                     help="build the kernels and run only phase 2's paged "
                          "attention checks and timings (the decode, verify "
                          "and prefix reads)")
+    ap.add_argument("--moe", action="store_true",
+                    help="build the kernels and run only phase 8 (the moe "
+                         "family and the dense geometries)")
     ap.add_argument("--src", type=Path, default=None,
                     help="import repro_torch from this source tree instead "
                          "of the checkout's src/ (e.g. a parent commit's, "
@@ -2404,6 +2864,16 @@ def main() -> int:
         decode_profile(torch, dev)
         card_line(torch)
         return 0
+    if args.moe:
+        full_width_moe(torch, dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+        moe_card_vs_cpu(torch, dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+        dense_geometry(torch, dev)
+        card_line(torch)
+        return 0
     results = {}
     if args.paged_reads:
         check_paged(torch, dev, results)
@@ -2426,7 +2896,8 @@ def main() -> int:
     torch.cuda.synchronize()
     card_vs_cpu_runs(torch, dev)
     torch.cuda.empty_cache()
-    cfg, dims, params = granite(torch, dev)
+    cfg, dims, params = served_model(torch, dev, "granite-8b",
+                                     torch.bfloat16, seed=SEED)
     paths = {"phase4": full_width(torch, dev, cfg, dims, params)}
     torch.cuda.empty_cache()
     paths["phase5"] = full_width_prefix(torch, dev, cfg, dims, params)
@@ -2434,6 +2905,17 @@ def main() -> int:
     paths["phase6"] = full_width_overload(torch, dev, cfg, dims, params)
     torch.cuda.empty_cache()
     paths["phase7"] = full_width_spec(torch, dev, cfg, dims, params)
+    # phase 8 draws ~61 GB of MoE weights: granite-8b's go first
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths["phase8a"] = full_width_moe(torch, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_card_vs_cpu(torch, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths["phase8c"] = dense_geometry(torch, dev)
 
     # launches: each path's count was set to 0 just before it and read
     # just after; the line gives their sum and each path's

@@ -1,14 +1,23 @@
 """Architecture registry of the port: ``get_config(name)`` resolves here.
 
-The port carries the architectures it can serve; the JAX package's
-registry (``repro.configs``) lists the rest, which arrive with their
-families (ROADMAP P10).
+The port carries the architectures of the families it serves, dense
+and moe; the JAX package's registry (``repro.configs``) lists the rest
+(ssm, hybrid, vlm, audio), which arrive with their families (ROADMAP
+P10).
 """
 from .base import (ArchConfig, ResolvedDims, ShapeCell, SHAPES, shape_cell,
                    resolve, reduced, cell_applicable)
+from .qwen3_moe_30b_a3b import CONFIG as _qwen3_moe
+from .llama4_scout_17b_a16e import CONFIG as _llama4_scout
+from .granite_3_8b import CONFIG as _granite3
+from .qwen2_5_14b import CONFIG as _qwen25_14b
+from .qwen2_72b import CONFIG as _qwen2_72b
 from .granite_8b import CONFIG as _granite8b
 
-ARCHS = {c.name: c for c in (_granite8b,)}
+ARCHS = {c.name: c for c in (
+    _qwen3_moe, _llama4_scout, _granite3, _qwen25_14b, _qwen2_72b,
+    _granite8b,
+)}
 
 
 def get_config(name: str) -> ArchConfig:

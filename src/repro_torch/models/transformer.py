@@ -1,13 +1,15 @@
-"""The dense decoder-only LM (granite-8b's family) in torch.
+"""The decoder-only LMs of the dense and moe families in torch.
 
-``forward`` mirrors ``repro.models.transformer.forward`` for the dense
-family: a loop over the stacked layers (leading layer axis, as
+``forward`` mirrors ``repro.models.transformer.forward`` for both
+families: a loop over the stacked layers (leading layer axis, as
 ``params.init_params`` lays them out), returning ``(logits, aux,
 caches)``; ``opt.collect_cache`` additionally returns the per-layer K/V
 the serving engine installs into the hybrid-translated KV pool.  Causal
-self-attention goes through ``attention(impl=opt.attn_impl)``: with the
-default ``"flash"`` a CUDA tensor runs the flash kernel and a CPU tensor
-its plain version.
+self-attention goes through ``attention(impl=opt.attn_impl)``: with
+``"pallas"`` (alias ``"flash"``) a CUDA tensor runs the flash kernel and
+a CPU tensor its plain version.  A layer whose parameters hold ``"moe"``
+runs the MoE FFN (``models/moe.py``) in place of the MLP, and ``aux``
+sums its losses over the layers.
 """
 from __future__ import annotations
 
@@ -19,6 +21,9 @@ import torch
 from repro_torch.configs.base import ArchConfig, resolve
 from . import layers as L
 from .attention import attention
+from .moe import moe_layer
+
+FAMILIES = ("dense", "moe")         # the families the port runs
 
 
 class ModelDims(NamedTuple):
@@ -43,6 +48,7 @@ class FwdOptions:
     attn_impl: str = "dense"           # dense | pallas (alias flash)
     dtype: Any = torch.float32
     collect_cache: bool = False        # prefill: emit per-layer K/V
+    moe_groups: int = 1                # MoE dispatch groups (1 only)
 
 
 def layer_params(params, i: int) -> Dict[str, Any]:
@@ -64,26 +70,47 @@ def _self_attn(blk, x, cfg: ArchConfig, dims: ModelDims, opt: FwdOptions):
     return x + o, (k, v)
 
 
-def _ffn(blk, x, cfg: ArchConfig):
+def check_family(cfg: ArchConfig) -> None:
+    """Raise for a family the port does not run yet."""
+    if cfg.family not in FAMILIES:
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported yet (ROADMAP P10)")
+
+
+def _ffn(blk, x, cfg: ArchConfig, opt: FwdOptions = FwdOptions()):
+    """The FFN sublayer: ``(x + ffn(norm(x)), aux)``; aux is None for the
+    MLP, the MoE's losses otherwise."""
     h = L.rms_norm(x, blk["norm2"], cfg.norm_eps)
-    return x + L.mlp(blk["mlp"], h)
+    if "moe" in blk:
+        out, aux = moe_layer(blk["moe"], h, top_k=cfg.moe_top_k,
+                             capacity_factor=cfg.moe_capacity_factor,
+                             n_groups=opt.moe_groups)
+        return x + out, aux
+    return x + L.mlp(blk["mlp"], h), None
+
+
+def _zero_aux(device) -> Dict[str, torch.Tensor]:
+    return {k: torch.zeros((), dtype=torch.float32, device=device)
+            for k in ("lb_loss", "z_loss", "fraction_dropped")}
 
 
 def forward(params, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
             dims: ModelDims, opt: FwdOptions = FwdOptions()):
     """batch: tokens (B, S).  Returns (logits (B, S, vocab_pad), aux,
-    caches): aux is empty for the dense family; caches is None unless
-    ``opt.collect_cache``, else ``{"k", "v"}`` of shape
-    (L, B, S, KV, hd)."""
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ROADMAP P10)")
+    caches): aux sums the MoE layers' ``lb_loss``, ``z_loss`` and
+    ``fraction_dropped`` (float32 scalars, zero without MoE layers);
+    caches is None unless ``opt.collect_cache``, else ``{"k", "v"}`` of
+    shape (L, B, S, KV, hd)."""
+    check_family(cfg)
     x = L.embed(params["embed"], batch["tokens"]).to(opt.dtype)
+    aux = _zero_aux(x.device)
     ks, vs = [], []
     for i in range(cfg.num_layers):
         blk = layer_params(params, i)
         x, (k, v) = _self_attn(blk, x, cfg, dims, opt)
-        x = _ffn(blk, x, cfg)
+        x, a = _ffn(blk, x, cfg, opt)
+        if a is not None:
+            aux = {key: aux[key] + a[key] for key in aux}
         if opt.collect_cache:
             ks.append(k)
             vs.append(v)
@@ -92,4 +119,4 @@ def forward(params, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
     logits = L.unembed(head, x, dims.logical_vocab)
     caches = ({"k": torch.stack(ks), "v": torch.stack(vs)}
               if opt.collect_cache else None)
-    return logits, {}, caches
+    return logits, aux, caches

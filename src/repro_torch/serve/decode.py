@@ -31,7 +31,9 @@ from repro_torch.kernels.paged_attention.ref import normalize
 from repro_torch.kernels.utopia_rsw.ops import translate_step_translator
 from repro_torch.kernels.utopia_rsw.ref import StepTranslation
 from repro_torch.models import layers as Lmod
-from repro_torch.models.transformer import ModelDims, layer_params
+from repro_torch.models.moe import moe_decode
+from repro_torch.models.transformer import (ModelDims, check_family,
+                                            layer_params)
 from .sampling import sample_tokens
 
 
@@ -66,9 +68,7 @@ def init_decode_state(cfg: ArchConfig, dims: ModelDims, spec: DecodeSpec,
     if data_size != 1 or spec.mode != "batch":
         raise NotImplementedError("only the single-device batch layout is "
                                   "ported (sharded serving: ROADMAP P15)")
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ROADMAP P10)")
+    check_family(cfg)
     pool = (cfg.num_layers, spec.slots_per_group + 1, spec.block_size,
             dims.n_kv, dims.head_dim)
     i32 = dict(dtype=torch.int32, device=device)
@@ -190,9 +190,22 @@ def _rms_norm(x: torch.Tensor, scale: torch.Tensor,
 
 
 def decode_ffn(blk, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    """Post-attention FFN sublayer (dense MLP)."""
+    """Post-attention FFN sublayer: the dense MLP, or the decode-time MoE
+    over every row of ``x`` (B, d) or (B, Q, d).  The MoE's float32
+    router runs one window position at a time, at the decode step's
+    shape: a flipped near-tie there would pick another expert; its
+    experts read every row at once (their rows round alike at both
+    shapes, ``chip_smoke.py`` phase 8)."""
     h = _rms_norm(x, blk["norm2"], cfg.norm_eps)
-    return x + Lmod.mlp(blk["mlp"], h)
+    if "moe" not in blk:
+        return x + Lmod.mlp(blk["mlp"], h)
+    p = blk["moe"]
+    w = p["router"]["w"]
+    logits = _per_position(lambda t: t.float() @ w, h)
+    d = h.shape[-1]
+    out = moe_decode(p, h.reshape(-1, d), top_k=cfg.moe_top_k,
+                     logits=logits.reshape(-1, logits.shape[-1]))
+    return x + out.reshape(h.shape)
 
 
 def project_logits(params, x: torch.Tensor, cfg: ArchConfig,
@@ -256,8 +269,7 @@ def make_serve_step(cfg: ArchConfig, dims: ModelDims, spec: DecodeSpec,
     their current KV block nor advance ``ctx_len`` (None = all
     active).  ``bound`` is a dict of translation bindings to share with a
     speculative verify step (``serve/spec_decode.py``)."""
-    if cfg.family != "dense":
-        raise not_ported(f"family {cfg.family!r}", "P10")
+    check_family(cfg)
     bound = {} if bound is None else bound   # the translation's bindings
 
     def serve_step(params, dstate, tokens, active=None, *, sample=False):

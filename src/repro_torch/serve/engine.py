@@ -1,7 +1,7 @@
 """Request-centric continuous-batching engine over the hybrid KV pool.
 
-The port of ``repro.serve.engine`` for the single-device, dense path.  A
-request runs like this:
+The port of ``repro.serve.engine`` for the single-device path of the
+dense and moe families.  A request runs like this:
 
 * ``submit`` queues it; the configured :class:`~.scheduler.Scheduler`
   orders the waiting requests;
@@ -92,6 +92,7 @@ from repro_torch.core import (CHAIN_SEED, HybridConfig, HybridKVManager,
                               PoolExhausted, PrefixCache, SWAP,
                               block_hash_chain)
 from repro_torch.models import FwdOptions, model_dims
+from repro_torch.models.transformer import check_family
 from .decode import DecodeSpec, init_decode_state, make_serve_step
 from .decode import not_ported as _not_ported
 from .prefill import make_prefill_step, make_prefix_prefill_step
@@ -444,8 +445,7 @@ class Engine:
             config = EngineConfig(**legacy)
         config = config if config is not None else EngineConfig()
         config.check_ported()
-        if cfg.family != "dense":
-            raise _not_ported(f"family {cfg.family!r}", "P10")
+        check_family(cfg)
         self.config = config
         self.cfg = cfg
         self.device = torch.device(device)

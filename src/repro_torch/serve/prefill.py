@@ -1,7 +1,9 @@
 """Prefill steps: install prompt K/V into the hybrid KV pool.
 
-The port of ``repro.serve.prefill`` for the dense family.  Two ways to
-admit a prompt chunk, sharing the install and ``ctx_len`` scatter:
+The port of ``repro.serve.prefill`` for the dense and moe families (a
+MoE layer's FFN is ``moe_layer`` over the whole padded batch, pad rows
+included, as in the JAX package).  Two ways to admit a prompt chunk,
+sharing the install and ``ctx_len`` scatter:
 
 * ``make_prefill_step`` — the full-(re)compute forward: the batch rows
   hold the WHOLE prefix up to the chunk end, the forward recomputes every
@@ -48,7 +50,8 @@ from repro_torch.models.attention import (causal_attention_parts,
                                           dense_attention,
                                           merge_attention_parts)
 from repro_torch.models.transformer import (FwdOptions, ModelDims, _ffn,
-                                            forward, layer_params)
+                                            check_family, forward,
+                                            layer_params)
 from .decode import DecodeSpec
 from .sampling import sample_tokens
 
@@ -102,6 +105,7 @@ def make_prefill_step(cfg: ArchConfig, dims: ModelDims, spec: DecodeSpec,
     """Returns prefill_step(params, dstate, batch, slots, slot_ids, ctx,
     last_pos, *, sample=False) -> (last_logits (B, V), dstate, stats);
     ``stats["next_token"]`` is the first generated token per row."""
+    check_family(cfg)
     fwd_collect = dataclasses.replace(fwd, collect_cache=True)
 
     def prefill_step(params, dstate, batch, slots, slot_ids, ctx, last_pos,
@@ -147,9 +151,7 @@ def make_prefix_prefill_step(cfg: ArchConfig, dims: ModelDims,
     that partial with ``causal_attention_parts`` over the chunk's own K/V,
     equal to "exact" up to float associativity.
     """
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ROADMAP P10)")
+    check_family(cfg)
     paged = spec.prefix_gather == "paged"
     bs = spec.block_size
     H, KV, hd = dims.n_heads, dims.n_kv, dims.head_dim
@@ -203,7 +205,7 @@ def make_prefix_prefill_step(cfg: ArchConfig, dims: ModelDims,
             o = attn_read(q, k, v, dstate["k_pool"][i], dstate["v_pool"][i],
                           prefix_slots, prefix_ctx)
             x = x + Lmod.linear(blk["attn"]["o"], o.reshape(B, S, -1))
-            x = _ffn(blk, x, cfg)
+            x, _ = _ffn(blk, x, cfg, fwd)
             ks.append(k)
             vs.append(v)
         row_ok = slot_ids >= 0

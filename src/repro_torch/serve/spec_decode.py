@@ -31,7 +31,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.transformer import ModelDims, layer_params
+from repro_torch.models.transformer import (ModelDims, check_family,
+                                            layer_params)
 from .decode import (DecodeSpec, decode_attn, decode_ffn, not_ported,
                      project_logits, translate_step)
 from .sampling import sample_tokens_q, verify_draft_tokens
@@ -101,8 +102,7 @@ def make_spec_decode_step(cfg: ArchConfig, dims: ModelDims,
         raise ValueError(
             f"speculative decode does not support family {cfg.family!r} "
             "(recurrent state rollback)")
-    if cfg.family != "dense":
-        raise not_ported(f"family {cfg.family!r}", "P10")
+    check_family(cfg)
     K = int(num_draft_tokens)
     if K < 1:
         raise ValueError(f"num_draft_tokens must be >= 1, got {K}")

@@ -399,6 +399,11 @@ PAGED_CASES = [
     (2, 5, 4, 2, 16, 8, 6, 64, True),
     (2, None, 8, 2, 80, 16, 5, 32, False),
     (2, 3, 4, 1, 256, 16, 4, 32, True),
+    # serving geometries: g = 5 (qwen2.5-14b's 40 / 8 heads), g = 8 at
+    # D = 128 (qwen3-moe-30b-a3b's 32 / 4)
+    (2, None, 10, 2, 32, 16, 4, 32, False),
+    (2, 3, 10, 2, 32, 16, 4, 32, True),
+    (2, 4, 8, 1, 128, 16, 4, 32, False),
 ]
 
 
@@ -528,7 +533,8 @@ def test_paged_q1_query_rank_round_trip():
 # --------------------------------------------------------- flash attention
 
 FLASH_SHAPES = [(2, 128, 4, 2, 32), (1, 256, 8, 8, 16), (2, 64, 4, 1, 64),
-                (1, 128, 6, 3, 32), (2, 8, 4, 2, 16)]
+                (1, 128, 6, 3, 32), (2, 8, 4, 2, 16),
+                (1, 64, 10, 2, 32), (1, 64, 8, 1, 128)]   # g = 5; g = 8
 
 
 @pytest.mark.parametrize("shape", FLASH_SHAPES)
@@ -672,7 +678,8 @@ def test_gpu_paged_kernel_token_striped_shards(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", FLASH_SHAPES + [(2, 1000, 32, 8, 128)])
+@pytest.mark.parametrize("shape", FLASH_SHAPES + [(2, 1000, 32, 8, 128),
+                                                  (2, 512, 40, 8, 128)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("causal", [True, False])
 def test_gpu_flash_kernel_matches_plain(cuda, shape, dtype, causal):
@@ -841,6 +848,31 @@ def test_gpu_paged_query_tiles_other_shapes(cuda, heads, dtype):
     for Q, per_query in ((5, True), (33, False)):
         _assert_queries_are_single_launches(*_gpu_tiled_case(
             cuda, Q, dtype, per_query, H=H, KV=KV, D=D, bs=16, nblk=12))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("heads", [(40, 8, 128), (32, 4, 128)])
+def test_gpu_paged_reads_at_serving_geometries(cuda, heads):
+    """qwen2.5-14b's g = 5 (query tiles padded to 8 head rows) and
+    qwen3-moe-30b-a3b's g = 8 at D = 128, bf16 on the tensor cores: the
+    decode read (Q = 1), the prefix read (Q = 33) and the verify read
+    (Q = 5, per-query extents) within tolerance of the plain version, and
+    query i of each Q > 1 launch bitwise a Q = 1 launch."""
+    H, KV, D = heads
+    for Q, per_query in ((1, False), (33, False), (5, True)):
+        case = _gpu_tiled_case(cuda, Q, "bfloat16", per_query, H=H, KV=KV,
+                               D=D)
+        if Q == 1:
+            case = (case[0][:, 0].contiguous(),) + case[1:]
+            n0 = paged_attention.launches
+            got = paged_attention(*case)
+            torch.cuda.synchronize()
+            assert paged_attention.launches == n0 + 1
+        else:
+            got = _assert_queries_are_single_launches(*case)
+        for g, w in zip(got, paged_attention_ref(*case)):
+            npt.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), rtol=3e-2,
+                                atol=3e-2)
 
 
 @pytest.mark.gpu
