@@ -1,9 +1,9 @@
 """Architecture registry of the port: ``get_config(name)`` resolves here.
 
-The port carries the architectures of the families it serves, dense
-and moe; the JAX package's registry (``repro.configs``) lists the rest
-(ssm, hybrid, vlm, audio), which arrive with their families (ROADMAP
-P10).
+The port carries the architectures of the families it serves: dense,
+moe, ssm (mamba2-130m) and hybrid (jamba-1.5-large-398b); the JAX
+package's registry (``repro.configs``) lists the rest (vlm, audio),
+which arrive with their families (ROADMAP P10).
 """
 from .base import (ArchConfig, ResolvedDims, ShapeCell, SHAPES, shape_cell,
                    resolve, reduced, cell_applicable)
@@ -13,10 +13,12 @@ from .granite_3_8b import CONFIG as _granite3
 from .qwen2_5_14b import CONFIG as _qwen25_14b
 from .qwen2_72b import CONFIG as _qwen2_72b
 from .granite_8b import CONFIG as _granite8b
+from .mamba2_130m import CONFIG as _mamba2
+from .jamba_1_5_large_398b import CONFIG as _jamba
 
 ARCHS = {c.name: c for c in (
     _qwen3_moe, _llama4_scout, _granite3, _qwen25_14b, _qwen2_72b,
-    _granite8b,
+    _granite8b, _mamba2, _jamba,
 )}
 
 

@@ -1,4 +1,5 @@
-"""Dense building blocks: norms, RoPE, projections, SwiGLU MLP.
+"""Dense building blocks: norms (Mamba2's gated one too), RoPE,
+projections, SwiGLU MLP.
 
 Conventions (as in ``repro.models.layers``):
 * params are nested dicts of tensors; per-layer stacks carry a leading
@@ -18,6 +19,22 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
     x32 = x.float()
     var = x32.square().mean(dim=-1, keepdim=True)
     return (x32 * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``x * sigmoid(x)`` with the sigmoid as ``1 / (1 + exp(-x))``, each
+    op in x's dtype: how XLA evaluates ``jax.nn.silu``.  In bfloat16 this
+    rounds otherwise than ``F.silu`` (one rounding from float32) in about
+    a third of the elements; the recurrent families' state carries such
+    one-ulp differences into every later token, so their layers take this
+    form (``transformer.ffn_act``)."""
+    return x * (1 / (1 + torch.exp(-x)))
+
+
+def gated_rms_norm(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
+                   eps: float = 1e-5) -> torch.Tensor:
+    """Mamba2's RMSNormGated: ``rms_norm(y) * silu(z)``, in y's dtype."""
+    return (rms_norm(y, scale, eps) * silu(z).to(y.dtype)).to(y.dtype)
 
 
 def rope_frequencies(head_dim: int, theta: float, device=None):
@@ -46,8 +63,8 @@ def linear(p: dict, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
-def mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
-    h = F.silu(linear(p["gate"], x)) * linear(p["up"], x)
+def mlp(p: dict, x: torch.Tensor, act=F.silu) -> torch.Tensor:
+    h = act(linear(p["gate"], x)) * linear(p["up"], x)
     return linear(p["down"], h)
 
 

@@ -76,18 +76,19 @@ def _combine(out_tok: torch.Tensor, gates: torch.Tensor,
     return acc.to(dtype)
 
 
-def _experts(p: dict, xin: torch.Tensor) -> torch.Tensor:
+def _experts(p: dict, xin: torch.Tensor, act=F.silu) -> torch.Tensor:
     """SwiGLU of every expert over its own rows: ``xin`` (E, R, d) ->
-    (E, R, d); batched matmuls over the weights as they lie."""
+    (E, R, d); batched matmuls over the weights as they lie.  ``act`` is
+    the gate's activation."""
     dt = xin.dtype
-    h = F.silu(torch.bmm(xin, p["gate"].to(dt)))
+    h = act(torch.bmm(xin, p["gate"].to(dt)))
     h = h * torch.bmm(xin, p["up"].to(dt))
     return torch.bmm(h, p["down"].to(dt))
 
 
 def moe_layer(p: dict, x: torch.Tensor, *, top_k: int,
               capacity_factor: float = 1.25, n_groups: int = 1,
-              trace: Optional[dict] = None
+              trace: Optional[dict] = None, act=F.silu
               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """x: (B, S, d) -> (out (B, S, d) in x's dtype, aux).
 
@@ -138,7 +139,7 @@ def moe_layer(p: dict, x: torch.Tensor, *, top_k: int,
     xin = xt[(table - 1).clamp(min=0).long()]                    # (E,C,D)
     xin = torch.where(occupied[..., None], xin,
                       torch.zeros((), dtype=x.dtype, device=dev))
-    out_e = _experts(p, xin)                                     # (E,C,D)
+    out_e = _experts(p, xin, act)                                # (E,C,D)
 
     # combine: each token's k expert outputs back, weighted by its gates
     out_tok = out_e[expert_idx, pos_c.clamp(max=C - 1)]
@@ -155,7 +156,8 @@ def moe_layer(p: dict, x: torch.Tensor, *, top_k: int,
 
 
 def moe_decode(p: dict, x: torch.Tensor, *, top_k: int,
-               logits: Optional[torch.Tensor] = None) -> torch.Tensor:
+               logits: Optional[torch.Tensor] = None,
+               act=F.silu) -> torch.Tensor:
     """Decode-time MoE for a few rows: x (M, d) -> (M, d) in x's dtype.
     Every expert computes all M rows (no capacity); the gates select.
 
@@ -167,6 +169,6 @@ def moe_decode(p: dict, x: torch.Tensor, *, top_k: int,
     if logits is None:
         logits = x.float() @ p["router"]["w"].float()
     _, gate_vals, expert_idx = route(logits, top_k)
-    out_e = _experts(p, x.expand(E, M, D))                       # (E,M,D)
+    out_e = _experts(p, x.expand(E, M, D), act)                  # (E,M,D)
     rows = torch.arange(M, device=x.device)[:, None]
     return _combine(out_e[expert_idx, rows], gate_vals.to(x.dtype), x.dtype)

@@ -1,29 +1,41 @@
-"""The decoder-only LMs of the dense and moe families in torch.
+"""The decoder-only LMs of the dense, moe, ssm and hybrid families in
+torch.
 
-``forward`` mirrors ``repro.models.transformer.forward`` for both
+``forward`` mirrors ``repro.models.transformer.forward`` for the four
 families: a loop over the stacked layers (leading layer axis, as
 ``params.init_params`` lays them out), returning ``(logits, aux,
-caches)``; ``opt.collect_cache`` additionally returns the per-layer K/V
-the serving engine installs into the hybrid-translated KV pool.  Causal
+caches)``; ``opt.collect_cache`` additionally returns what the serving
+engine installs — the per-layer K/V for the hybrid-translated KV pool,
+and each mamba sublayer's SSM state and conv tail.  Causal
 self-attention goes through ``attention(impl=opt.attn_impl)``: with
 ``"pallas"`` (alias ``"flash"``) a CUDA tensor runs the flash kernel and
 a CPU tensor its plain version.  A layer whose parameters hold ``"moe"``
 runs the MoE FFN (``models/moe.py``) in place of the MLP, and ``aux``
 sums its losses over the layers.
+
+* ssm (mamba2): every layer is ``x + mamba(norm1(x))``, no FFN.
+* hybrid (jamba): the layers form groups of ``cfg.attn_every``
+  sublayers, ``attn_every - 1`` mamba sublayers then one attention
+  sublayer, each followed by an FFN (the MoE on ``cfg.moe_on_layer(i)``
+  of the group-local index ``i``, else the MLP; ``hybrid_ffn_select``).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, NamedTuple
+from typing import Any, Dict, NamedTuple, Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig, resolve
 from . import layers as L
 from .attention import attention
 from .moe import moe_layer
+from .ssm import MambaCache, MambaDims, mamba_dims, mamba_forward
 
-FAMILIES = ("dense", "moe")         # the families the port runs
+# the families the port runs
+FAMILIES = ("dense", "moe", "ssm", "hybrid")
+RECURRENT_FAMILIES = ("ssm", "hybrid")
 
 
 class ModelDims(NamedTuple):
@@ -33,30 +45,46 @@ class ModelDims(NamedTuple):
     vocab: int            # padded
     logical_vocab: int
     d_ff: int
+    mamba: Optional[MambaDims]
     tp: int
 
 
 def model_dims(cfg: ArchConfig, tp: int = 1) -> ModelDims:
     r = resolve(cfg, tp)
+    md = None
+    if cfg.family in RECURRENT_FAMILIES:
+        md = mamba_dims(cfg.d_model, cfg.ssm_state, cfg.ssm_head_dim,
+                        cfg.ssm_expand, cfg.ssm_conv_width, tp=tp)
     return ModelDims(n_heads=r.num_heads, n_kv=r.num_kv_heads,
                      head_dim=cfg.resolved_head_dim, vocab=r.vocab_size,
-                     logical_vocab=cfg.vocab_size, d_ff=r.d_ff, tp=tp)
+                     logical_vocab=cfg.vocab_size, d_ff=r.d_ff, mamba=md,
+                     tp=tp)
+
+
+def n_attn_layers(cfg: ArchConfig) -> int:
+    """Attention layers of the model: the KV pool's layer count."""
+    return sum(cfg.attn_on_layer(i) for i in range(cfg.num_layers))
 
 
 @dataclasses.dataclass(frozen=True)
 class FwdOptions:
     attn_impl: str = "dense"           # dense | pallas (alias flash)
     dtype: Any = torch.float32
-    collect_cache: bool = False        # prefill: emit per-layer K/V
+    collect_cache: bool = False        # prefill: emit per-layer caches
     moe_groups: int = 1                # MoE dispatch groups (1 only)
 
 
+def take(tree, i: int):
+    """Entry ``i`` of every leaf of a stacked tree (views)."""
+    if isinstance(tree, dict):
+        return {k: take(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
 def layer_params(params, i: int) -> Dict[str, Any]:
-    """Layer ``i``'s parameters: views into the stacked layer tensors."""
-    def take(t):
-        return {k: take(v) for k, v in t.items()} if isinstance(t, dict) \
-            else t[i]
-    return take(params["layers"])
+    """Layer ``i``'s parameters (group ``i``'s in the hybrid family):
+    views into the stacked layer tensors."""
+    return take(params["layers"], i)
 
 
 def _self_attn(blk, x, cfg: ArchConfig, dims: ModelDims, opt: FwdOptions):
@@ -77,16 +105,60 @@ def check_family(cfg: ArchConfig) -> None:
             f"family {cfg.family!r} is not ported yet (ROADMAP P10)")
 
 
+def ffn_act(cfg: ArchConfig):
+    """The FFN gate's activation: ``F.silu`` for dense and moe, the form
+    XLA evaluates (``layers.silu``) for the recurrent families, whose SSM
+    state would carry the bf16 rounding differences of ``F.silu`` into
+    every later token."""
+    return L.silu if cfg.family in RECURRENT_FAMILIES else F.silu
+
+
 def _ffn(blk, x, cfg: ArchConfig, opt: FwdOptions = FwdOptions()):
     """The FFN sublayer: ``(x + ffn(norm(x)), aux)``; aux is None for the
     MLP, the MoE's losses otherwise."""
     h = L.rms_norm(x, blk["norm2"], cfg.norm_eps)
+    act = ffn_act(cfg)
     if "moe" in blk:
         out, aux = moe_layer(blk["moe"], h, top_k=cfg.moe_top_k,
                              capacity_factor=cfg.moe_capacity_factor,
-                             n_groups=opt.moe_groups)
+                             n_groups=opt.moe_groups, act=act)
         return x + out, aux
-    return x + L.mlp(blk["mlp"], h), None
+    return x + L.mlp(blk["mlp"], h, act), None
+
+
+def hybrid_ffn_select(cfg: ArchConfig, blk, i: int):
+    """The FFN parameters of sublayer ``i`` of a hybrid group ``blk``: the
+    MoE stack's entry when ``cfg.moe_on_layer(i)``, else the MLP stack's,
+    each counted group-locally.  The forward, the decode step and the
+    prefix-KV chunk step all select through here."""
+    n_moe_before = sum(cfg.moe_on_layer(j) for j in range(i))
+    if cfg.moe_on_layer(i):
+        return take(blk["moe"], n_moe_before)
+    return take(blk["mlp"], i - n_moe_before)
+
+
+def mamba_block(blk, x, cfg: ArchConfig, dims: ModelDims, *,
+                collect: bool = False, seq_len=None, initial_state=None,
+                initial_conv=None):
+    """The mamba sublayer: ``(x + mamba(norm1(x)), MambaCache | None)``."""
+    h = L.rms_norm(x, blk["norm1"], cfg.norm_eps)
+    out, state = mamba_forward(blk["mamba"], h, dims.mamba,
+                               chunk=cfg.ssm_chunk,
+                               initial_state=initial_state,
+                               initial_conv=initial_conv, seq_len=seq_len,
+                               return_state=collect)
+    return x + out, state
+
+
+def stack_caches(caches, lead=()) -> MambaCache:
+    """A list of per-sublayer ``MambaCache`` -> one, stacked on a leading
+    axis and reshaped to ``lead`` + its per-row shape."""
+    conv = torch.stack([c.conv for c in caches])
+    state = torch.stack([c.state for c in caches])
+    if lead:
+        conv = conv.reshape(*lead, *conv.shape[1:])
+        state = state.reshape(*lead, *state.shape[1:])
+    return MambaCache(conv=conv, state=state)
 
 
 def _zero_aux(device) -> Dict[str, torch.Tensor]:
@@ -96,27 +168,64 @@ def _zero_aux(device) -> Dict[str, torch.Tensor]:
 
 def forward(params, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
             dims: ModelDims, opt: FwdOptions = FwdOptions()):
-    """batch: tokens (B, S).  Returns (logits (B, S, vocab_pad), aux,
-    caches): aux sums the MoE layers' ``lb_loss``, ``z_loss`` and
-    ``fraction_dropped`` (float32 scalars, zero without MoE layers);
-    caches is None unless ``opt.collect_cache``, else ``{"k", "v"}`` of
-    shape (L, B, S, KV, hd)."""
+    """batch: tokens (B, S) [+ seq_len (B,), each row's real length, which
+    the mamba sublayers mask their pad tail with].  Returns (logits (B, S,
+    vocab_pad), aux, caches): aux sums the MoE layers' ``lb_loss``,
+    ``z_loss`` and ``fraction_dropped`` (float32 scalars, zero without
+    MoE layers); caches is None unless ``opt.collect_cache``, else
+    ``{"k", "v"}`` of shape (L_attn, B, S, KV, hd) for dense and moe,
+    ``{"ssm": MambaCache}`` stacked over the layers for ssm, and for
+    hybrid ``{"k", "v", "ssm"}`` with one K/V a group and the SSM caches
+    stacked (n_groups, attn_every - 1, B, ...)."""
     check_family(cfg)
+    seq_len = batch.get("seq_len")
     x = L.embed(params["embed"], batch["tokens"]).to(opt.dtype)
     aux = _zero_aux(x.device)
-    ks, vs = [], []
-    for i in range(cfg.num_layers):
-        blk = layer_params(params, i)
-        x, (k, v) = _self_attn(blk, x, cfg, dims, opt)
-        x, a = _ffn(blk, x, cfg, opt)
-        if a is not None:
-            aux = {key: aux[key] + a[key] for key in aux}
-        if opt.collect_cache:
+    collect = opt.collect_cache
+    ks, vs, ssm = [], [], []
+
+    def acc(a):
+        return aux if a is None else {key: aux[key] + a[key] for key in aux}
+
+    if cfg.family == "hybrid":
+        g = cfg.attn_every
+        n_groups = cfg.num_layers // g
+        for gi in range(n_groups):
+            blk = layer_params(params, gi)
+            for i in range(g):
+                if i < g - 1:
+                    x, st = mamba_block(take(blk["mamba"], i), x, cfg, dims,
+                                        collect=collect, seq_len=seq_len)
+                    ssm.append(st)
+                else:
+                    x, (k, v) = _self_attn(blk["attn"], x, cfg, dims, opt)
+                    ks.append(k)
+                    vs.append(v)
+                x, a = _ffn(hybrid_ffn_select(cfg, blk, i), x, cfg, opt)
+                aux = acc(a)
+        lead = (n_groups, g - 1)
+    else:
+        for i in range(cfg.num_layers):
+            blk = layer_params(params, i)
+            if cfg.family == "ssm":
+                x, st = mamba_block(blk, x, cfg, dims, collect=collect,
+                                    seq_len=seq_len)
+                ssm.append(st)
+                continue
+            x, (k, v) = _self_attn(blk, x, cfg, dims, opt)
             ks.append(k)
             vs.append(v)
+            x, a = _ffn(blk, x, cfg, opt)
+            aux = acc(a)
+        lead = ()
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
     logits = L.unembed(head, x, dims.logical_vocab)
-    caches = ({"k": torch.stack(ks), "v": torch.stack(vs)}
-              if opt.collect_cache else None)
+    caches = None
+    if collect:
+        caches = {}
+        if ks:
+            caches.update(k=torch.stack(ks), v=torch.stack(vs))
+        if ssm:
+            caches["ssm"] = stack_caches(ssm, lead)
     return logits, aux, caches

@@ -1,15 +1,26 @@
 """Model parameters of the port: carried over from the JAX package, or
 drawn on the device.
 
-The layout is ``repro.models.transformer.init_params``'s for the dense
-and moe families: ``embed.table (V, d)``, ``lm_head.table`` unless tied,
-``final_norm (d,)`` and ``layers`` with a leading layer axis —
-``norm1``/``norm2 (L, d)``, ``attn.{q,k,v,o}.w`` (and ``.b`` of q, k, v
-with ``qkv_bias``), each ``linear`` weight ``(L, d_in, d_out)``, and
-either ``mlp.{gate,up,down}.w`` or, in the moe family,
-``moe.{router.w (L, d, E), gate/up (L, E, d, F), down (L, E, F, d)}``.
-The router stays float32 under any model dtype, as ``init_moe`` makes
-it.
+The layout is ``repro.models.transformer.init_params``'s:
+``embed.table (V, d)``, ``lm_head.table`` unless tied, ``final_norm
+(d,)`` and ``layers`` with a leading layer axis.
+
+* dense and moe: ``norm1``/``norm2 (L, d)``, ``attn.{q,k,v,o}.w`` (and
+  ``.b`` of q, k, v with ``qkv_bias``), each ``linear`` weight ``(L,
+  d_in, d_out)``, and either ``mlp.{gate,up,down}.w`` or, in the moe
+  family, ``moe.{router.w (L, d, E), gate/up (L, E, d, F), down (L, E,
+  F, d)}``;
+* ssm: ``norm1 (L, d)`` and ``mamba`` (``models/ssm.py mamba_shapes``
+  behind the layer axis);
+* hybrid: a leading GROUP axis (``num_layers // attn_every`` groups):
+  ``mamba.{norm1, mamba}`` stacked ``(G, attn_every - 1, ...)``,
+  ``attn.{norm1, attn}`` ``(G, ...)``, and ``mlp.{norm2, mlp}`` /
+  ``moe.{norm2, moe}`` stacked ``(G, n, ...)`` over the group's MLP and
+  MoE sublayers, each present only when the group has that kind.
+
+The MoE router and the mamba blocks' ``A_log``, ``D`` and ``dt_bias``
+stay float32 under any model dtype, as ``init_moe`` and ``init_mamba``
+make them.
 """
 from __future__ import annotations
 
@@ -21,18 +32,23 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.moe import moe_shapes
-from repro_torch.models.transformer import ModelDims, check_family
+from repro_torch.models.ssm import FLOAT32_LEAVES, mamba_shapes
+from repro_torch.models.transformer import (RECURRENT_FAMILIES, ModelDims,
+                                            check_family)
+
+_KEEP_F32 = ("router",) + FLOAT32_LEAVES     # never cast by ``dtype``
 
 
 def params_from_numpy(tree, device="cuda", dtype=None):
     """Nested dicts of numpy arrays (the JAX parameter pytree after
     ``np.asarray`` on each leaf) -> the same nesting of torch tensors on
     ``device``.  ``dtype`` (a torch dtype) casts every leaf but the MoE
-    router's, which stays float32; None keeps each leaf's own.  bfloat16
-    leaves (numpy's extension dtype) convert exactly through float32."""
+    router's and the mamba blocks' ``A_log``, ``D`` and ``dt_bias``,
+    which stay float32; None keeps each leaf's own.  bfloat16 leaves
+    (numpy's extension dtype) convert exactly through float32."""
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device,
-                                     None if k == "router" else dtype)
+                                     None if k in _KEEP_F32 else dtype)
                 for k, v in tree.items()}
     a = np.asarray(tree)
     if a.dtype.name == "bfloat16":
@@ -45,13 +61,17 @@ def params_from_numpy(tree, device="cuda", dtype=None):
 def init_params(generator: torch.Generator, cfg: ArchConfig,
                 dims: ModelDims, dtype=torch.float32,
                 device="cuda") -> Dict[str, Any]:
-    """Draw dense- or moe-family parameters with ``init_params``'s shapes
-    and scales (normal * 1/sqrt(d_in) for projections and experts, 0.02
-    for the embeddings, ones for the norms, zero qkv biases) from
-    ``generator``, which must live on ``device``.  Stacked layer tensors
-    are filled one layer at a time, so the float32 draw never holds more
-    than one layer's matrix (or expert tensor)."""
+    """Draw parameters with ``init_params``'s shapes and scales (normal *
+    1/sqrt(d_in) for projections and experts, 1/sqrt(conv width) for the
+    mamba conv, 0.02 for the embeddings, ones for the norms, zero qkv and
+    conv biases; ``A_log`` = log of 1..16 over the heads, ``D`` ones,
+    ``dt_bias`` zeros) from ``generator``, which must live on ``device``.
+    Dense and moe stacks are filled one layer at a time, so the float32
+    draw never holds more than one layer's matrix (or expert tensor); the
+    ssm and hybrid families' one matrix (or expert) at a time."""
     check_family(cfg)
+    if cfg.family in RECURRENT_FAMILIES:
+        return _init_recurrent(generator, cfg, dims, dtype, device)
     if cfg.family == "moe" and not all(cfg.moe_on_layer(i)
                                        for i in range(cfg.num_layers)):
         raise ValueError(f"{cfg.name}: a moe-family model stacks one MoE "
@@ -102,4 +122,89 @@ def init_params(generator: torch.Generator, cfg: ArchConfig,
             "down": stacked(ff, d, 1.0 / math.sqrt(ff))}
     if not cfg.tie_embeddings:
         params["lm_head"] = {"table": normal((dims.vocab, d), 0.02)}
+    return params
+
+
+def _init_recurrent(generator: torch.Generator, cfg: ArchConfig,
+                    dims: ModelDims, dtype, device) -> Dict[str, Any]:
+    """``init_params`` of the ssm and hybrid families."""
+    d = cfg.d_model
+    md = dims.mamba
+    f32 = torch.float32
+
+    def fill(lead, shape, scale, dt=dtype):
+        """(*lead, *shape) normal * scale, drawn one trailing (rows, cols)
+        matrix at a time."""
+        w = torch.empty((*lead, *shape), dtype=dt, device=device)
+        for m in w.view(-1, *shape[-2:]):
+            m.copy_(torch.randn(m.shape, generator=generator, device=device,
+                                dtype=f32) * scale)
+        return w
+
+    def const(lead, shape, value, dt=dtype):
+        return torch.full((*lead, *shape), value, dtype=dt, device=device)
+
+    def mamba(lead):
+        sh = mamba_shapes(md)
+        s = 1.0 / math.sqrt(d)
+        a_log = torch.log(torch.linspace(1.0, 16.0, md.n_heads, dtype=f32,
+                                         device=device))
+        return {
+            "in_z": fill(lead, sh["in_z"], s),
+            "in_x": fill(lead, sh["in_x"], s),
+            "in_B": fill(lead, sh["in_B"], s),
+            "in_C": fill(lead, sh["in_C"], s),
+            "in_dt": fill(lead, sh["in_dt"], s),
+            "conv_w": fill(lead, sh["conv_w"],
+                           1.0 / math.sqrt(md.conv_width)),
+            "conv_b": const(lead, sh["conv_b"], 0.0),
+            "A_log": a_log.expand(*lead, md.n_heads).clone(),
+            "D": const(lead, sh["D"], 1.0, f32),
+            "dt_bias": const(lead, sh["dt_bias"], 0.0, f32),
+            "norm": const(lead, sh["norm"], 1.0),
+            "out_proj": fill(lead, sh["out_proj"],
+                             1.0 / math.sqrt(md.d_inner))}
+
+    params: Dict[str, Any] = {
+        "embed": {"table": fill((), (dims.vocab, d), 0.02)},
+        "final_norm": const((), (d,), 1.0)}
+    if cfg.family == "ssm":
+        lead = (cfg.num_layers,)
+        params["layers"] = {"norm1": const(lead, (d,), 1.0),
+                            "mamba": mamba(lead)}
+    else:
+        g = cfg.attn_every
+        G = cfg.num_layers // g
+        H, KV, hd, ff = dims.n_heads, dims.n_kv, dims.head_dim, dims.d_ff
+
+        def linear(lead, d_in, d_out):
+            return {"w": fill(lead, (d_in, d_out), 1.0 / math.sqrt(d_in))}
+
+        attn = {"q": linear((G,), d, H * hd), "k": linear((G,), d, KV * hd),
+                "v": linear((G,), d, KV * hd),
+                "o": linear((G,), H * hd, d)}
+        if cfg.qkv_bias:
+            for name, n in (("q", H * hd), ("k", KV * hd), ("v", KV * hd)):
+                attn[name]["b"] = const((G,), (n,), 0.0)
+        layers = {"mamba": {"norm1": const((G, g - 1), (d,), 1.0),
+                            "mamba": mamba((G, g - 1))},
+                  "attn": {"norm1": const((G,), (d,), 1.0), "attn": attn}}
+        n_moe = sum(cfg.moe_on_layer(i) for i in range(g))
+        if g - n_moe:
+            lead = (G, g - n_moe)
+            layers["mlp"] = {"norm2": const(lead, (d,), 1.0), "mlp": {
+                "gate": linear(lead, d, ff), "up": linear(lead, d, ff),
+                "down": linear(lead, ff, d)}}
+        if n_moe:
+            lead = (G, n_moe)
+            shp = moe_shapes(d, ff, cfg.moe_num_experts)
+            layers["moe"] = {"norm2": const(lead, (d,), 1.0), "moe": {
+                "router": {"w": fill(lead, shp["router"],
+                                     1.0 / math.sqrt(d), f32)},
+                "gate": fill(lead, shp["gate"], 1.0 / math.sqrt(d)),
+                "up": fill(lead, shp["up"], 1.0 / math.sqrt(d)),
+                "down": fill(lead, shp["down"], 1.0 / math.sqrt(ff))}}
+        params["layers"] = layers
+    if not cfg.tie_embeddings:
+        params["lm_head"] = {"table": fill((), (dims.vocab, d), 0.02)}
     return params

@@ -11,12 +11,20 @@ token's K/V at that row and runs the paged-attention kernel over the
 pre-resolved slots: no device op of the layer loop prepares either.
 
 The decode state is a dict of device tensors updated IN PLACE (the JAX
-package rebuilt them functionally): the per-layer KV pools
-``(L, slots + 1, bs, KV, hd)``, the TAR/SF/flex translation tables and
-``ctx_len``.  Pool slot ``slots`` (the last one) is a write sink: a write
-the JAX package dropped out of bounds (an inactive row, an unmapped
-block) lands there instead, which keeps the step free of host syncs.  No
-translation ever resolves to it.
+package rebuilt them functionally): the KV pools ``(L_attn, slots + 1,
+bs, KV, hd)`` of the model's attention layers, the TAR/SF/flex
+translation tables and ``ctx_len``.  Pool slot ``slots`` (the last one)
+is a write sink: a write the JAX package dropped out of bounds (an
+inactive row, an unmapped block) lands there instead, which keeps the
+step free of host syncs.  No translation ever resolves to it.
+
+The recurrent families add each mamba sublayer's per-row state: ``ssm``
+``(n_ssm, B, H, P, N)`` float32 and ``conv`` ``(n_ssm, B, W-1, C)`` in the
+model dtype, which every fed token advances (an inactive row keeps its
+rows).  The ssm family (mamba2) has no attention layer, hence no pool, no
+translation tables and no RSW launch; the hybrid family (jamba) has one
+pool layer per group, and the mamba sublayer ``i`` of group ``gi`` owns
+state row ``gi * (attn_every - 1) + i``.
 """
 from __future__ import annotations
 
@@ -32,8 +40,12 @@ from repro_torch.kernels.utopia_rsw.ops import translate_step_translator
 from repro_torch.kernels.utopia_rsw.ref import StepTranslation
 from repro_torch.models import layers as Lmod
 from repro_torch.models.moe import moe_decode
-from repro_torch.models.transformer import (ModelDims, check_family,
-                                            layer_params)
+from repro_torch.models.ssm import MambaCache, mamba_decode_step
+from repro_torch.models.transformer import (RECURRENT_FAMILIES, ModelDims,
+                                            check_family, ffn_act,
+                                            hybrid_ffn_select,
+                                            layer_params, n_attn_layers,
+                                            take)
 from .sampling import sample_tokens
 
 
@@ -64,20 +76,37 @@ class DecodeSpec:
 def init_decode_state(cfg: ArchConfig, dims: ModelDims, spec: DecodeSpec,
                       batch: int, data_size: int = 1, dtype=torch.float32,
                       device="cuda") -> Dict[str, torch.Tensor]:
-    """Zeroed decode state on ``device`` (flex entries -1 = unmapped)."""
+    """Zeroed decode state on ``device`` (flex entries -1 = unmapped): the
+    KV pools and translation tables when the model has attention layers,
+    the ``ssm``/``conv`` rows when it has mamba sublayers."""
     if data_size != 1 or spec.mode != "batch":
         raise NotImplementedError("only the single-device batch layout is "
                                   "ported (sharded serving: ROADMAP P15)")
     check_family(cfg)
-    pool = (cfg.num_layers, spec.slots_per_group + 1, spec.block_size,
-            dims.n_kv, dims.head_dim)
+    n_attn = n_attn_layers(cfg)
     i32 = dict(dtype=torch.int32, device=device)
+    st: Dict[str, torch.Tensor] = {}
+    if n_attn:
+        pool = (n_attn, spec.slots_per_group + 1, spec.block_size,
+                dims.n_kv, dims.head_dim)
+        st.update(
+            k_pool=torch.zeros(pool, dtype=dtype, device=device),
+            v_pool=torch.zeros(pool, dtype=dtype, device=device),
+            tar=torch.zeros((1, spec.n_sets, spec.assoc), **i32),
+            sf=torch.zeros((1, spec.n_sets), **i32),
+            flex=torch.full((1, batch * spec.max_blocks_per_seq), -1,
+                            **i32))
+    if cfg.family in RECURRENT_FAMILIES:
+        md = dims.mamba
+        n_ssm = cfg.num_layers - n_attn
+        st["ssm"] = torch.zeros((n_ssm, batch, md.n_heads, md.head_dim,
+                                 md.d_state), dtype=torch.float32,
+                                device=device)
+        st["conv"] = torch.zeros((n_ssm, batch, md.conv_width - 1,
+                                  md.conv_channels), dtype=dtype,
+                                 device=device)
     return {
-        "k_pool": torch.zeros(pool, dtype=dtype, device=device),
-        "v_pool": torch.zeros(pool, dtype=dtype, device=device),
-        "tar": torch.zeros((1, spec.n_sets, spec.assoc), **i32),
-        "sf": torch.zeros((1, spec.n_sets), **i32),
-        "flex": torch.full((1, batch * spec.max_blocks_per_seq), -1, **i32),
+        **st,
         "ctx_len": torch.zeros((batch,), **i32),
         # per-slot sampling state (serve/sampling.py), scattered at
         # admission; zeros = greedy argmax.  The key data are uint32
@@ -197,15 +226,36 @@ def decode_ffn(blk, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     experts read every row at once (their rows round alike at both
     shapes, ``chip_smoke.py`` phase 8)."""
     h = _rms_norm(x, blk["norm2"], cfg.norm_eps)
+    act = ffn_act(cfg)
     if "moe" not in blk:
-        return x + Lmod.mlp(blk["mlp"], h)
+        return x + Lmod.mlp(blk["mlp"], h, act)
     p = blk["moe"]
     w = p["router"]["w"]
     logits = _per_position(lambda t: t.float() @ w, h)
     d = h.shape[-1]
     out = moe_decode(p, h.reshape(-1, d), top_k=cfg.moe_top_k,
-                     logits=logits.reshape(-1, logits.shape[-1]))
+                     logits=logits.reshape(-1, logits.shape[-1]), act=act)
     return x + out.reshape(h.shape)
+
+
+def decode_mamba(blk, x: torch.Tensor, dstate, j: int, act,
+                 cfg: ArchConfig, dims: ModelDims) -> torch.Tensor:
+    """The mamba sublayer of a decode step: one token a row (``x`` (B,
+    d)) advances state row ``j`` of ``dstate["ssm"]``/``["conv"]`` in
+    place; an inactive row (``act`` (B,) bool, None = all active) keeps
+    its rows."""
+    h = Lmod.rms_norm(x, blk["norm1"], cfg.norm_eps)
+    ssm, conv = dstate["ssm"][j], dstate["conv"][j]
+    out, cache = mamba_decode_step(blk["mamba"], h,
+                                   MambaCache(conv=conv, state=ssm),
+                                   dims.mamba)
+    new_state, new_conv = cache.state, cache.conv
+    if act is not None:
+        new_state = torch.where(act[:, None, None, None], new_state, ssm)
+        new_conv = torch.where(act[:, None, None], new_conv, conv)
+    ssm.copy_(new_state)
+    conv.copy_(new_conv)
+    return x + out
 
 
 def project_logits(params, x: torch.Tensor, cfg: ArchConfig,
@@ -268,25 +318,54 @@ def make_serve_step(cfg: ArchConfig, dims: ModelDims, spec: DecodeSpec,
     bool marks the slots decoding this step: inactive slots neither write
     their current KV block nor advance ``ctx_len`` (None = all
     active).  ``bound`` is a dict of translation bindings to share with a
-    speculative verify step (``serve/spec_decode.py``)."""
+    speculative verify step (``serve/spec_decode.py``).
+
+    A model without attention layers (ssm) translates nothing: ``stats``
+    then holds ``next_token`` only.  The hybrid family runs its groups'
+    sublayers in order, the attention sublayer of group ``gi`` on pool
+    layer ``gi``."""
     check_family(cfg)
     bound = {} if bound is None else bound   # the translation's bindings
+    n_attn = n_attn_layers(cfg)
+    fam = cfg.family
 
     def serve_step(params, dstate, tokens, active=None, *, sample=False):
         positions = dstate["ctx_len"]
         act = None if active is None else active.bool()
         x = params["embed"]["table"][tokens.long()].to(dtype)
-        trans = translate_step(dstate["tar"], dstate["sf"], dstate["flex"],
-                               positions, spec, act, bound)
-        stats = dict(slots=trans.slots, in_rest=trans.in_rest,
-                     mapped=trans.mapped, accesses=trans.accesses,
-                     telemetry=trans.telemetry)
-        kv_at = (trans.slots[0], trans.w_row, trans.extent)
-        for i in range(cfg.num_layers):
-            blk = layer_params(params, i)
-            x = decode_attn(blk, x, dstate["k_pool"][i],
-                            dstate["v_pool"][i], kv_at, positions, cfg, dims)
-            x = decode_ffn(blk, x, cfg)
+        stats = {}
+        if n_attn:
+            trans = translate_step(dstate["tar"], dstate["sf"],
+                                   dstate["flex"], positions, spec, act,
+                                   bound)
+            stats = dict(slots=trans.slots, in_rest=trans.in_rest,
+                         mapped=trans.mapped, accesses=trans.accesses,
+                         telemetry=trans.telemetry)
+            kv_at = (trans.slots[0], trans.w_row, trans.extent)
+        if fam == "ssm":
+            for i in range(cfg.num_layers):
+                x = decode_mamba(layer_params(params, i), x, dstate, i, act,
+                                 cfg, dims)
+        elif fam == "hybrid":
+            g = cfg.attn_every
+            for gi in range(cfg.num_layers // g):
+                blk = layer_params(params, gi)
+                for i in range(g):
+                    if i < g - 1:
+                        x = decode_mamba(take(blk["mamba"], i), x, dstate,
+                                         gi * (g - 1) + i, act, cfg, dims)
+                    else:
+                        x = decode_attn(blk["attn"], x, dstate["k_pool"][gi],
+                                        dstate["v_pool"][gi], kv_at,
+                                        positions, cfg, dims)
+                    x = decode_ffn(hybrid_ffn_select(cfg, blk, i), x, cfg)
+        else:
+            for i in range(cfg.num_layers):
+                blk = layer_params(params, i)
+                x = decode_attn(blk, x, dstate["k_pool"][i],
+                                dstate["v_pool"][i], kv_at, positions, cfg,
+                                dims)
+                x = decode_ffn(blk, x, cfg)
         logits = project_logits(params, x, cfg, dims)
         if sample:
             stats["next_token"] = sample_tokens(

@@ -1,7 +1,7 @@
 """Request-centric continuous-batching engine over the hybrid KV pool.
 
 The port of ``repro.serve.engine`` for the single-device path of the
-dense and moe families.  A request runs like this:
+dense, moe, ssm and hybrid families.  A request runs like this:
 
 * ``submit`` queues it; the configured :class:`~.scheduler.Scheduler`
   orders the waiting requests;
@@ -29,6 +29,16 @@ dense and moe families.  A request runs like this:
 
 Tokens are the argmax, or for a request with sampled ``SamplingParams``
 its seeded draw (``serve/sampling.py``).
+
+Recurrent families (ssm, hybrid): every mamba sublayer keeps per-slot
+``ssm``/``conv`` rows in the decode state; prefill installs them at the
+row's real length (the pow2 buckets' pad tail is masked), prefix-KV
+chunks continue from them, and preemption and snapshots carry them.  An
+attention-free model (ssm) has no KV pool: nothing is allocated or
+translated, and preemption saves the rows only.  Speculative decoding
+falls back to the plain decode step with one warning (rejected drafts
+would need a state rollback), and the prefix cache is off (see
+``_prefix_cache_unsupported``).
 
 Speculative decoding (``spec_decode="ngram"``, ``serve/spec_decode.py``):
 each decode step drafts K tokens a row from the row's own token history,
@@ -92,7 +102,8 @@ from repro_torch.core import (CHAIN_SEED, HybridConfig, HybridKVManager,
                               PoolExhausted, PrefixCache, SWAP,
                               block_hash_chain)
 from repro_torch.models import FwdOptions, model_dims
-from repro_torch.models.transformer import check_family
+from repro_torch.models.transformer import (RECURRENT_FAMILIES, check_family,
+                                            n_attn_layers)
 from .decode import DecodeSpec, init_decode_state, make_serve_step
 from .decode import not_ported as _not_ported
 from .prefill import make_prefill_step, make_prefix_prefill_step
@@ -302,9 +313,10 @@ class _HostTierSeq:
     Everything it needs to continue bit-identically: the pool blocks it
     had mapped (``kv``, a host tensor (2 = k/v, layers, n_blocks, block,
     KV heads, head dim) in the pool dtype, a bitwise copy), under
-    speculative decoding its token-history row (``hist``), the committed
-    context length and, for a mid-prefill victim, how many prompt tokens
-    were installed.  Sampling state needs no save: per-slot keys derive
+    speculative decoding its token-history row (``hist``), for a recurrent
+    family its ``ssm``/``conv`` rows (``rows``), the committed context
+    length and, for a mid-prefill victim, how many prompt tokens were
+    installed.  Sampling state needs no save: per-slot keys derive
     from (seed, seq_id) and fold the absolute position, so they are
     re-scattered on resume."""
     seq_id: int
@@ -314,6 +326,8 @@ class _HostTierSeq:
     kv: Optional[torch.Tensor]
     nbytes: int
     hist: Optional[torch.Tensor] = None
+    # recurrent families: the slot's ``ssm``/``conv`` rows (n_ssm, ...)
+    rows: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -392,6 +406,19 @@ class EngineSnapshot:
 
 _LEGACY_KWARGS_WARNED = False
 _SHARE_KWARG_WARNED = False
+_SPEC_FALLBACK_WARNED = False
+
+
+def _warn_spec_fallback(family: str) -> None:
+    global _SPEC_FALLBACK_WARNED
+    if _SPEC_FALLBACK_WARNED:
+        return
+    _SPEC_FALLBACK_WARNED = True
+    warnings.warn(
+        f"speculative decoding is not supported for recurrent family "
+        f"{family!r} (ssm/conv state rollback for rejected drafts is "
+        "not cheap — ROADMAP item); falling back to non-speculative "
+        "decode", stacklevel=3)
 
 
 def _warn_share_kwarg() -> None:
@@ -537,10 +564,12 @@ class Engine:
         self._serve_step = make_serve_step(cfg, self.dims, self.spec,
                                            dtype=dtype, bound=bound)
         # ---- speculative decoding (serve/spec_decode.py) ----------------
-        # (the JAX engine's fallback for recurrent families comes with
-        # them, ROADMAP P10)
         self.spec_K = 0
-        if config.spec_decode:
+        if config.spec_decode and cfg.family in RECURRENT_FAMILIES:
+            # state rollback for rejected drafts is not cheap: warn once
+            # and keep the non-speculative step
+            _warn_spec_fallback(cfg.family)
+        elif config.spec_decode:
             self.spec_K = int(config.num_draft_tokens)
             self._spec_step = make_spec_decode_step(
                 cfg, self.dims, self.spec, self.spec_K, dtype=dtype,
@@ -572,6 +601,8 @@ class Engine:
         # device tensor
         self._ctx_host = np.zeros(max_batch, np.int64)
         self._synced_full = False
+        self._n_attn_layers = n_attn_layers(cfg)
+        self._has_recurrent = cfg.family in RECURRENT_FAMILIES
         # ---- the content-addressed prefix cache -------------------------
         pc = config.prefix_cache
         reason = self._prefix_cache_unsupported()
@@ -590,8 +621,21 @@ class Engine:
         """Why the prefix cache cannot run on this configuration (None =
         supported).  ``prefix_cache="auto"`` silently disables on these;
         ``prefix_cache=True`` raises with the reason.  (The JAX engine's
-        other reasons, attention-free families and vlm frontend blocks,
-        belong to families the port does not run yet.)"""
+        vlm frontend reason belongs to a family the port does not run
+        yet.)
+
+        One deliberate difference from the JAX engine: a family with
+        recurrent layers is refused too.  A cache hit starts prefill at
+        the prompt's tail, but the mamba sublayers' state at the cached
+        prefix's end is not cached, so they would continue from whatever
+        the slot's rows hold; the JAX engine keeps the cache on for the
+        hybrid family and serves such a hit otherwise than cache-off."""
+        if not self._n_attn_layers:
+            return ("the model family has no attention KV blocks to "
+                    "cache")
+        if self._has_recurrent:
+            return ("the recurrent layers' state at a cached prefix's end "
+                    "is not cached")
         if self.hybrid_cfg.mode == "restrictive_only":
             return ("content sharing needs a flexible segment (a "
                     "restrictive slot is tag-bound to a single vpn)")
@@ -705,7 +749,8 @@ class Engine:
         # blocks are reserved against a dry-run ledger BEFORE the chunk is
         # committed, so the bucket allocations below never exhaust the pool
         reserved: List[int] = []
-        gate_alloc = self.hybrid_cfg.mode != "restrictive_only"
+        gate_alloc = (self._n_attn_layers > 0
+                      and self.hybrid_cfg.mode != "restrictive_only")
         while budget >= bs:
             req = self._current
             if req is None:
@@ -1029,7 +1074,10 @@ class Engine:
                               self.dstate["v_pool"][:, idx]])
         if self.spec_K:
             hist = self.dstate["hist"][slot]
-        kv, hist = self._to_host(kv, hist)
+        names = [k for k in ("ssm", "conv") if k in self.dstate]
+        kv, hist, *rows = self._to_host(
+            kv, hist, *(self.dstate[k][:, slot] for k in names))
+        rows = dict(zip(names, rows))
         saved = m.preempt(seq_id)
         if len(saved) != len(mapped):
             raise RuntimeError("preempt: gathered and released blocks "
@@ -1040,8 +1088,9 @@ class Engine:
         rec = _HostTierSeq(
             seq_id=seq_id, ctx=int(self._ctx_host[slot]),
             prefill_progress=progress, blocks=saved, kv=kv,
-            nbytes=sum(t.nbytes for t in (kv, hist) if t is not None),
-            hist=hist)
+            nbytes=sum(t.nbytes for t in (kv, hist, *rows.values())
+                       if t is not None),
+            hist=hist, rows=rows)
         # engine-side slot teardown (release() minus the finishing)
         del self._slot_of[seq_id]
         self._clear_slot(slot)
@@ -1109,6 +1158,9 @@ class Engine:
         if rec.hist is not None:
             self.dstate["hist"][slot] = rec.hist.to(self.device,
                                                     non_blocking=True)
+        for key, row in rec.rows.items():
+            self.dstate[key][:, slot] = row.to(self.device,
+                                               non_blocking=True)
         self.dstate["ctx_len"][slot] = rec.ctx
         self._ctx_host[slot] = rec.ctx
         self._slot_of[sid] = slot
@@ -1261,7 +1313,10 @@ class Engine:
             ctx[i] = end
             last_pos[i] = end - 1
             # new cache blocks of this chunk; blocks an earlier chunk
-            # mapped install nothing
+            # mapped install nothing, and an attention-free model has
+            # none to allocate
+            if not self._n_attn_layers:
+                continue
             for cb in range(start // bs, end // bs):
                 if m.lookup(req.seq_id, cb)[0] >= 0:
                     continue
@@ -1277,8 +1332,13 @@ class Engine:
         for i, sid, cb in allocated:
             slots[i, cb] = m.lookup(sid, cb)[0]
         dev = self.device
+        batch = {"tokens": _upload(tokens, dev)}
+        if self._has_recurrent:
+            # per-row real lengths: dt is zeroed past them, so the pow2
+            # pad tail is an exact identity transition of the SSM state
+            batch["seq_len"] = _upload(ctx, dev)
         _, self.dstate, pstats = self._prefill_step(
-            self.params, self.dstate, {"tokens": _upload(tokens, dev)},
+            self.params, self.dstate, batch,
             _upload(slots, dev), _upload(slot_ids, dev), _upload(ctx, dev),
             _upload(last_pos, dev), sample=self._any_sampled(grp))
         return self._bucket_firsts(grp, slot_ids, ctx, pstats)
@@ -1320,6 +1380,8 @@ class Engine:
             ctx[i] = end
             pctx[i] = start
             last_pos[i] = end - start - 1
+            if not self._n_attn_layers:
+                continue
             for j, cb in enumerate(range(start // bs, end // bs)):
                 if m.lookup(req.seq_id, cb)[0] >= 0:
                     continue
@@ -1334,6 +1396,8 @@ class Engine:
         for i, j, sid, cb in allocated:
             new_slots[i, j] = m.lookup(sid, cb)[0]
         for i, (req, start, end, final) in enumerate(grp):
+            if not self._n_attn_layers:
+                break
             for cb in range(start // bs):
                 slot, _ = m.lookup(req.seq_id, cb)
                 if slot < 0:
@@ -1388,7 +1452,10 @@ class Engine:
         """Upload TAR/SF/flex changes into the device tables, in place.
 
         The first call (or ``full=True``) uploads everything; afterwards
-        only the entries dirtied since the previous sync are written."""
+        only the entries dirtied since the previous sync are written.  A
+        model without attention layers has no tables."""
+        if not self._n_attn_layers:
+            return
         m = self.manager
         dev = self.device
         flat = m.flex_table.reshape(-1)
@@ -1415,7 +1482,7 @@ class Engine:
         original source, so the batched gather reads pre-copy contents
         with sequential semantics."""
         copies = self.manager.take_pending_copies()
-        if not copies:
+        if not copies or not self._n_attn_layers:
             return
         root: Dict[int, int] = {}
         for src, dst in copies:
@@ -1480,7 +1547,7 @@ class Engine:
         K = self.spec_K
         parts = [tok for _, tok in pending]
         want_stats = False
-        if live:
+        if live and self._n_attn_layers:
             # map the blocks this dispatch will write FIRST: an allocation
             # miss may preempt another live sequence (it then drops out of
             # the batch), so tokens/active are built once residency settles
@@ -1514,7 +1581,7 @@ class Engine:
             else:
                 parts.append(tstats["next_token"])
             parts.append(self.dstate["ctx_len"])
-            want_stats = self.track_stats
+            want_stats = self.track_stats and self._n_attn_layers > 0
             if want_stats:
                 # in_rest, accesses, mapped: one int32 block, as written
                 parts.append(tstats["telemetry"])
@@ -1915,7 +1982,9 @@ class Engine:
     # ---------------------------------------------------------- telemetry
     def _kv_block_bytes(self) -> int:
         """Device bytes one pool block occupies across both KV pools (all
-        layers): the unit behind ``bytes_saved``."""
+        layers): the unit behind ``bytes_saved``; 0 without a pool."""
+        if not self._n_attn_layers:
+            return 0
         k, v = self.dstate["k_pool"], self.dstate["v_pool"]
         return (k.nbytes + v.nbytes) // k.shape[1]
 
@@ -2029,6 +2098,8 @@ class Engine:
         assert int(self._shard_swap_in.sum()) == self._swap_bytes_in, \
             "per-shard swap-in bytes != global"
         m = self.manager
+        if not self._n_attn_layers:
+            return
         tar = self.dstate["tar"][0].cpu().numpy()
         sf = self.dstate["sf"][0].cpu().numpy()
         flex = self.dstate["flex"][0].cpu().numpy()

@@ -1,9 +1,9 @@
 """Prefill steps: install prompt K/V into the hybrid KV pool.
 
-The port of ``repro.serve.prefill`` for the dense and moe families (a
-MoE layer's FFN is ``moe_layer`` over the whole padded batch, pad rows
-included, as in the JAX package).  Two ways to admit a prompt chunk,
-sharing the install and ``ctx_len`` scatter:
+The port of ``repro.serve.prefill`` for the dense, moe, ssm and hybrid
+families (a MoE layer's FFN is ``moe_layer`` over the whole padded batch,
+pad rows included, as in the JAX package).  Two ways to admit a prompt
+chunk, sharing the install and ``ctx_len`` scatter:
 
 * ``make_prefill_step`` — the full-(re)compute forward: the batch rows
   hold the WHOLE prefix up to the chunk end, the forward recomputes every
@@ -13,8 +13,14 @@ sharing the install and ``ctx_len`` scatter:
   k > 0, and the first chunk after a prefix-cache hit): the rows hold
   ONLY the chunk's new tokens, and each attention layer reads the
   prefix's installed pool blocks through the translated ``prefix_slots``
-  besides the chunk's own causal K/V.  Chunk cost is linear in chunk
-  length.
+  besides the chunk's own causal K/V, while each mamba sublayer continues
+  from the slot's saved ``ssm``/``conv`` rows.  Chunk cost is linear in
+  chunk length.
+
+The mamba sublayers mask each row's pad tail (dt = 0 past the row's real
+length: ``batch["seq_len"]`` in the recompute step, ``ctx - prefix_ctx``
+in the prefix step), so the installed SSM state and conv tail are those
+at the row's real end, and both steps install them at the row's slot.
 
 Calling convention (the engine's admission contract):
 
@@ -51,7 +57,8 @@ from repro_torch.models.attention import (causal_attention_parts,
                                           merge_attention_parts)
 from repro_torch.models.transformer import (FwdOptions, ModelDims, _ffn,
                                             check_family, forward,
-                                            layer_params)
+                                            hybrid_ffn_select, layer_params,
+                                            mamba_block, stack_caches, take)
 from .decode import DecodeSpec
 from .sampling import sample_tokens
 
@@ -71,16 +78,34 @@ def _install_kv(spec: DecodeSpec, dstate, caches, eff_slots, B: int) -> None:
         pool[:, idx] = c.reshape(L, B * nblk, bs, KV, hd).to(pool.dtype)
 
 
-def _scatter_ctx(dstate, slot_ids, ctx) -> None:
-    """Set ``ctx_len`` at PARTICIPATING slots only: a one-hot match of the
-    batch slots against the rows (pad rows, -1, never match)."""
-    ctx_len = dstate["ctx_len"]
-    n = ctx_len.shape[0]
-    match = (torch.arange(n, device=ctx_len.device)[:, None]
+def _slot_rows(slot_ids, n: int):
+    """For each of the ``n`` batch slots: the row of ``slot_ids`` (B,)
+    that targets it (0 when none does) and whether one does; pad rows
+    (-1) target nothing."""
+    match = (torch.arange(n, device=slot_ids.device)[:, None]
              == slot_ids[None, :])                               # (n, B)
-    new = (match.to(torch.int64) * ctx[None, :]).sum(dim=1)
-    ctx_len.copy_(torch.where(match.any(dim=1), new.to(ctx_len.dtype),
-                              ctx_len))
+    return match.to(torch.int64).argmax(dim=1), match.any(dim=1)
+
+
+def _install_recurrent(dstate, mc, slot_ids, B: int) -> None:
+    """Write per-row SSM states and conv tails (any leading sublayer axes,
+    then B) into ``dstate["ssm"]``/``["conv"]`` at the rows' slots; pad
+    rows write nothing.  A gather of the new rows and a select, bitwise
+    the rows computed."""
+    row, hit = _slot_rows(slot_ids, dstate["ssm"].shape[1])
+    for name, new in (("ssm", mc.state), ("conv", mc.conv)):
+        dst = dstate[name]
+        new = new.reshape(-1, B, *dst.shape[2:])[:, row].to(dst.dtype)
+        keep = hit.reshape(1, -1, *([1] * (dst.dim() - 2)))
+        dst.copy_(torch.where(keep, new, dst))
+
+
+def _scatter_ctx(dstate, slot_ids, ctx) -> None:
+    """Set ``ctx_len`` at PARTICIPATING slots only (pad rows, -1, target
+    none)."""
+    ctx_len = dstate["ctx_len"]
+    row, hit = _slot_rows(slot_ids, ctx_len.shape[0])
+    ctx_len.copy_(torch.where(hit, ctx[row].to(ctx_len.dtype), ctx_len))
 
 
 def _first_token_stats(dstate, last, slot_ids, ctx, sample: bool):
@@ -113,8 +138,11 @@ def make_prefill_step(cfg: ArchConfig, dims: ModelDims, spec: DecodeSpec,
         logits, _, caches = forward(params, batch, cfg, dims, fwd_collect)
         B = batch["tokens"].shape[0]
         row_ok = slot_ids >= 0
-        _install_kv(spec, dstate, caches,
-                    torch.where(row_ok[:, None], slots, -1), B)
+        if "k" in caches:
+            _install_kv(spec, dstate, caches,
+                        torch.where(row_ok[:, None], slots, -1), B)
+        if "ssm" in caches:
+            _install_recurrent(dstate, caches["ssm"], slot_ids, B)
         _scatter_ctx(dstate, slot_ids, ctx)
         rows = torch.arange(B, device=logits.device)
         last = logits[rows, last_pos.long()]
@@ -150,6 +178,10 @@ def make_prefix_prefill_step(cfg: ArchConfig, dims: ModelDims,
     with Q = S queries per row (its plain version on the CPU) and merges
     that partial with ``causal_attention_parts`` over the chunk's own K/V,
     equal to "exact" up to float associativity.
+
+    Each mamba sublayer starts from the slot's saved ``ssm``/``conv`` rows
+    (pad rows read slot 0's and install nothing) and masks the row's pad
+    tail past ``ctx - prefix_ctx``.
     """
     check_family(cfg)
     paged = spec.prefix_gather == "paged"
@@ -196,21 +228,55 @@ def make_prefix_prefill_step(cfg: ArchConfig, dims: ModelDims,
         positions = (prefix_ctx[:, None]
                      + torch.arange(S, dtype=torch.int32,
                                     device=tokens.device)[None, :])
-        ks, vs = [], []
-        for i in range(cfg.num_layers):
-            blk = layer_params(params, i)
+        ks, vs, ssm = [], [], []
+        if "ssm" in dstate:
+            sid = slot_ids.clamp(0, dstate["ssm"].shape[1] - 1)
+            # per-row real chunk length: the pad tail's identity mask
+            chunk_len = ctx - prefix_ctx
+
+        def mamba_sub(blk, x, j):
+            x, c = mamba_block(blk, x, cfg, dims, collect=True,
+                               seq_len=chunk_len,
+                               initial_state=dstate["ssm"][j][sid],
+                               initial_conv=dstate["conv"][j][sid])
+            ssm.append(c)
+            return x
+
+        def attn_sub(blk, x, j):
+            """The attention sublayer on pool layer ``j``."""
             h = Lmod.rms_norm(x, blk["norm1"], cfg.norm_eps)
             q, k, v = Lmod.qkv_project(blk["attn"], h, h, H, KV, hd,
                                        positions, positions, cfg.rope_theta)
-            o = attn_read(q, k, v, dstate["k_pool"][i], dstate["v_pool"][i],
+            o = attn_read(q, k, v, dstate["k_pool"][j], dstate["v_pool"][j],
                           prefix_slots, prefix_ctx)
-            x = x + Lmod.linear(blk["attn"]["o"], o.reshape(B, S, -1))
-            x, _ = _ffn(blk, x, cfg, fwd)
             ks.append(k)
             vs.append(v)
+            return x + Lmod.linear(blk["attn"]["o"], o.reshape(B, S, -1))
+
+        if cfg.family == "hybrid":
+            g = cfg.attn_every
+            for gi in range(cfg.num_layers // g):
+                blk = layer_params(params, gi)
+                for i in range(g):
+                    x = (mamba_sub(take(blk["mamba"], i), x,
+                                   gi * (g - 1) + i) if i < g - 1
+                         else attn_sub(blk["attn"], x, gi))
+                    x, _ = _ffn(hybrid_ffn_select(cfg, blk, i), x, cfg, fwd)
+        else:
+            for i in range(cfg.num_layers):
+                blk = layer_params(params, i)
+                if cfg.family == "ssm":
+                    x = mamba_sub(blk, x, i)
+                    continue
+                x = attn_sub(blk, x, i)
+                x, _ = _ffn(blk, x, cfg, fwd)
         row_ok = slot_ids >= 0
-        _install_kv(spec, dstate, {"k": torch.stack(ks), "v": torch.stack(vs)},
-                    torch.where(row_ok[:, None], new_slots, -1), B)
+        if ks:
+            _install_kv(spec, dstate,
+                        {"k": torch.stack(ks), "v": torch.stack(vs)},
+                        torch.where(row_ok[:, None], new_slots, -1), B)
+        if ssm:
+            _install_recurrent(dstate, stack_caches(ssm), slot_ids, B)
         _scatter_ctx(dstate, slot_ids, ctx)
         x = Lmod.rms_norm(x, params["final_norm"], cfg.norm_eps)
         head = params["embed"] if cfg.tie_embeddings else params["lm_head"]

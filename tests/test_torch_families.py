@@ -24,8 +24,9 @@
   again at the published capacity factor 1.25, where the padded prefill
   buckets' pad rows take expert capacity; speculative decoding (K = 4)
   against JAX spec-on, and the port's spec-on equal to its spec-off.
-* Refusals: ssm, hybrid, vlm and audio still raise at every entry
-  point, naming ROADMAP P10.
+* Refusals: vlm and audio still raise at every entry point, naming
+  ROADMAP P10 (the ssm and hybrid families run: ``tests/test_torch_ssm.py``
+  and ``tests/test_torch_hybrid.py``).
 """
 import dataclasses
 
@@ -277,7 +278,7 @@ def test_moe_spec_on_equals_spec_off(moe_weights):
 
 # ------------------------------------------------------------ refusals
 
-@pytest.mark.parametrize("family", ["ssm", "hybrid", "vlm", "audio"])
+@pytest.mark.parametrize("family", ["vlm", "audio"])
 def test_other_families_still_raise(family):
     from repro_torch.serve import decode, prefill, spec_decode
     cfg = dataclasses.replace(reduced(ARCHS["granite-8b"]), family=family)
@@ -293,10 +294,8 @@ def test_other_families_still_raise(family):
         lambda: decode.make_serve_step(cfg, dims, spec),
         lambda: prefill.make_prefill_step(cfg, dims, spec),
         lambda: prefill.make_prefix_prefill_step(cfg, dims, spec),
+        lambda: spec_decode.make_spec_decode_step(cfg, dims, spec, 4),
     ]
-    if family in ("vlm", "audio"):
-        calls.append(lambda: spec_decode.make_spec_decode_step(cfg, dims,
-                                                               spec, 4))
     for call in calls:
         with pytest.raises(NotImplementedError, match="ROADMAP P10"):
             call()
