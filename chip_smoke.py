@@ -10,11 +10,13 @@ JAX):
     python3 chip_smoke.py --paged-reads [--src OTHER_CHECKOUT/src]
     python3 chip_smoke.py --moe [--src OTHER_CHECKOUT/src]
     python3 chip_smoke.py --recurrent [--src OTHER_CHECKOUT/src]
+    python3 chip_smoke.py --frontends [--src OTHER_CHECKOUT/src]
 
 The second form builds the kernels and runs only phase 4's decode-step
 profile, the third only phase 2's paged-attention checks and timings (the
 decode, verify and prefix reads), the fourth only phase 8, the fifth only
-phase 9, of this checkout's port or of another commit's (a parent
+phase 9, the sixth only phase 10, of this checkout's port or of another
+commit's (a parent
 unpacked with ``git archive``), so that two commits compare in one call.
 Phase 3's first two runs, phase 4 and the profile pass their engine
 configuration explicitly (flash attention, recompute prefill, no prefix
@@ -167,13 +169,40 @@ Phases, each failing loudly:
    for a recurrent family.  Each prints weights and peak GiB, decode-step
    ms, a steady step's profile, ``fraction_dropped`` and the pad check in
    bf16.
+10. the frontend families: the kernels at paligemma-3b's 8/1 heads of
+   256 and whisper-medium's 16/16 of 64 (the decode, verify and prefix
+   reads, each query of a Q > 1 read held bitwise to a Q = 1 launch;
+   flash causal at (2, 512, 8, 1, 256) and full at (2, 1500, 16, 16,
+   64), whisper's encoder, and (2, 256 vs 1500, 16, 16, 64), its
+   cross-attention, in bf16 against the float32 plain version at limits
+   scaled to the kernel's rounding and in float32 at 1e-4) against their
+   plain versions, bounds and SDPA; (c)
+   float32 card = CPU for both at d 512, cut to 2 layers (4 greedy
+   requests with random frontends); then, in bf16 at full width and
+   depth with seeded random weights and frontends, (a) paligemma-3b (18
+   layers, d 2048, 8/1 heads of 256, d_ff 16384, vocab 257216 tied, 256
+   image embeddings) on phase 5's engine and requests and (b)
+   whisper-medium (24 encoder and 24 decoder layers, d 1024, 16/16
+   heads of 64 with qkv biases, vocab 51865, 1500 frame embeddings) on
+   phase 5's engine with a 448-position context and prompts of 64-384
+   tokens: the defaults with the paged prefix read, spec-on against
+   spec-off (held equal), recompute with ``attn_impl="pallas"`` (flash
+   must run at D = 256, and on whisper's encoder and cross-attention),
+   and for whisper forced preemptions of decode-live rows whose resumes
+   must restore the pool blocks and the ``cross_k``/``cross_v`` rows
+   byte for byte and keep the streams.  Each prints weights and peak
+   GiB, a steady decode and verify step's profile, an admission step's
+   (the encoder's share for whisper), the decode step's cross-attention
+   device ms (whisper), tokens/s, launches and ``streams_sha256``; the
+   prefix cache is off for both, and the phase prints why.
 
 Each serving phase prints a digest of its streams (``streams_sha256``), so
 that two commits' runs compare token for token.
 
 It prints the build times, the kernel checks, the serving numbers, one
 JSON line of kernel measurements (launches counted on phases 4, 5, 6, 7,
-8 (a) and (c) and 9 (a) and (b), each from 0), the card's name and power limit, and
+8 (a) and (c), 9 (a) and (b) and 10 (a) and (b), each from 0), the
+card's name and power limit, and
 as its last line ``{"ok": true, "device": {...}}``.  Without a CUDA card,
 or without the rest of the repository beside it, it exits non-zero and
 prints no result.
@@ -215,6 +244,15 @@ def time_ms(torch, fns, iters: int = 20) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def sync_ms(torch, fn, *args):
+    """(``fn(*args)``, its wall ms between two device synchronisations)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
 
 
 def profile_device(torch, fn, iters: int):
@@ -337,6 +375,34 @@ def check_close(name, got, want, tol) -> float:
                              f"version (max abs err {max_err(got, want)}, "
                              f"tol {tol})")
     return max_err(got, want)
+
+
+def check_flash_bf16(name, got, q, k, v, causal) -> dict:
+    """Hold flash attention's bf16 output ``got`` to the float32 plain
+    version on the same bf16 inputs, at limits scaled to what is compared.
+    The kernel rounds each softmax weight to bf16 (within 2^-9 of itself)
+    before its P V product and the output to bf16 (within 2^-8), so each
+    element lies within 2^-7 (|want| + A) of the float32 value, A being
+    the same weights' average of |v|; rounding keeps the error's norm
+    near 0.29 bf16 ulps of the output's, held within 2^-8 of it.  A kernel
+    that drops keys or lets masked ones in (a ragged tail) breaks one or
+    both.  Returns the max abs error, the limit at that element and both
+    ratios to their limits."""
+    from repro_torch.models.attention import dense_attention
+    q32, k32, v32 = (t.float() for t in (q, k, v))
+    want = dense_attention(q32, k32, v32, causal=causal)
+    lim = 2 ** -7 * (want.abs()
+                     + dense_attention(q32, k32, v32.abs(), causal=causal))
+    err = (got.float() - want).abs()
+    at = int(err.argmax())
+    out = dict(max_abs_err=float(err.max()),
+               tol_at_max=float(lim.flatten()[at]),
+               elem_ratio=float((err / lim.clamp_min(1e-30)).max()),
+               norm_ratio=float(err.norm() / want.norm() / 2 ** -8))
+    if not (out["elem_ratio"] <= 1 and out["norm_ratio"] <= 1):
+        raise AssertionError(f"{name}: kernel disagrees with its float32 "
+                             f"plain version: {out}")
+    return out
 
 
 # ------------------------------------------------------------- phase 2
@@ -1213,11 +1279,12 @@ EARLIER_PATH = dict(attn_impl="flash", prefill_mode="recompute",
 SAMPLED = dict(temperature=0.8, top_k=50, top_p=0.95)
 
 
-def smoke_requests(prompts, new_tokens, sampled=()):
-    """One request per prompt; those whose index is in ``sampled`` sample
-    with fixed seeds."""
+def smoke_requests(prompts, new_tokens, sampled=(), frontends=None):
+    """One request per prompt (with ``frontends[i]`` as its frontend when
+    given); those whose index is in ``sampled`` sample with fixed seeds."""
     from repro_torch.serve import Request, SamplingParams
     return [Request(seq_id=i, prompt=p, max_new_tokens=new_tokens,
+                    frontend=None if frontends is None else frontends[i],
                     sampling=(SamplingParams(seed=SEED + 100 + i, **SAMPLED)
                               if i in sampled else SamplingParams()))
             for i, p in enumerate(prompts)]
@@ -1237,7 +1304,7 @@ def near_tie(margins, steps, a, b, sid):
 
 def card_vs_cpu(torch, dev, params, prompts, new_tokens, label,
                 sampled=(), strict=False, rerun=None, schedule=None,
-                **engine_kw):
+                frontends=None, **engine_kw):
     """Serve the same requests on the card and on the CPU with the same
     weights (a 2-layer full-width granite-8b in float32); requests whose
     index is in ``sampled`` sample with fixed seeds, and ``schedule``
@@ -1247,13 +1314,14 @@ def card_vs_cpu(torch, dev, params, prompts, new_tokens, label,
     only from a near-tie (top-2 logit margin below 1e-3), or not at all
     with ``strict``.  ``rerun`` (engine overrides) serves the requests
     once more on the card, and its streams must equal the first card
-    run's.  Returns the card's ``stats()``, streams, margins and steps."""
+    run's.  ``frontends`` gives each request its frontend.  Returns the
+    card's ``stats()``, streams, margins and steps."""
     from repro_torch.runtime import ServeFaultInjector
     from repro_torch.serve import Engine, EngineConfig
     cfg, params = params
 
     def requests():
-        return smoke_requests(prompts, new_tokens, sampled)
+        return smoke_requests(prompts, new_tokens, sampled, frontends)
 
     ecfg = EngineConfig(auto_release=True, **engine_kw)
     runs, margins, logs = {}, {}, {}
@@ -1725,15 +1793,23 @@ def full_width_prefix(torch, dev, cfg, dims, params):
     return launches
 
 
-def profile_prefix_step(torch, eng, rng, cfg):
-    """A 512-token prompt admits as chunk 0 (recompute) and then one
-    prefix-KV chunk of 256 tokens over a 256-token prefix; that second
-    admission step runs under the profiler (device ms by kernel, and the
-    share of the Q > 1 paged read)."""
+def random_frontend(cfg, rng):
+    """A request's random stub frontend ``(frontend_tokens, d_model)``
+    float32 for a frontend family, else None."""
+    if cfg.frontend == "none":
+        return None
+    return rng.randn(cfg.frontend_tokens, cfg.d_model).astype("float32")
+
+
+def profile_prefix_step(torch, eng, rng, cfg, prompt_len=512):
+    """A ``prompt_len``-token prompt admits as chunk 0 (recompute, 256
+    tokens) and then one prefix-KV chunk of the rest over a 256-token
+    prefix; that second admission step runs under the profiler (device
+    ms by kernel, and the share of the Q > 1 paged read)."""
     from repro_torch.serve import Request
     eng.submit(Request(seq_id=200, prompt=rng.randint(0, cfg.vocab_size,
-                                                      512),
-                       max_new_tokens=4))
+                                                      prompt_len),
+                       max_new_tokens=4, frontend=random_frontend(cfg, rng)))
     eng.step()                                   # chunk 0
     n_log = len(eng.admission_log)
     rows = profile_cold(torch, eng.step, tries=1)  # an admission runs once
@@ -1748,8 +1824,9 @@ def profile_prefix_step(torch, eng, rng, cfg):
     n_paged = sum(n for name, _, n in rows if "paged_attn_kernel" in name)
     top = [dict(kernel=name[:90], ms=round(ms, 4), launches=n)
            for name, ms, n in rows[:8]]
-    log("prefix-KV admission step under the profiler (one chunk of 256 "
-        "tokens over a 256-token prefix): " + json.dumps({"profile": dict(
+    log(f"prefix-KV admission step under the profiler (one chunk of "
+        f"{prompt_len - 256} tokens over the first 256 prompt tokens): "
+        + json.dumps({"profile": dict(
             device_busy_ms=round(busy, 3), paged_q_gt1_ms=round(paged, 4),
             paged_q_gt1_launches=n_paged,
             paged_q_gt1_share=round(paged / busy, 4) if busy else None,
@@ -1802,6 +1879,10 @@ def decode_row_dependence(torch, eng, cfg):
         for grp, keys in (("attn", "qkvo"), ("mlp", ("gate", "up", "down"))):
             for k in keys:
                 names[blk[grp][k]["w"].data_ptr()] = (k, li)
+        if "cross" in blk:                     # the audio decoder's
+            names[blk["norm_x"].data_ptr()] = ("norm_x", li)
+            for k in "qo":
+                names[blk["cross"][k]["w"].data_ptr()] = (f"cross_{k}", li)
     rec = []
     orig = (dmod._rms_norm, L.linear, L.apply_rope, L.unembed,
             dmod.normalize)
@@ -1920,13 +2001,6 @@ def full_width_overload(torch, dev, cfg, dims, params):
             dtype=torch.bfloat16, pool_headroom=headroom,
             fault_injector=injector, **dict(PHASE6, **kw)), device=dev)
 
-    def sync_ms(fn, *args):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn(*args)
-        torch.cuda.synchronize()
-        return out, (time.perf_counter() - t0) * 1e3
-
     def tokens_per_s(streams, steps):
         return sum(len(t) for t in streams.values()) / sum(
             w for w, *_ in steps)
@@ -1955,13 +2029,13 @@ def full_width_overload(torch, dev, cfg, dims, params):
     preempt, resume = eng_b.preempt_request, eng_b._resume_preempted
 
     def timed_preempt(sid):
-        _, ms = sync_ms(preempt, sid)
+        _, ms = sync_ms(torch, preempt, sid)
         swap["preempt_ms"].append(ms)
         rec = eng_b._preempted[sid]
         saved[sid] = (list(rec.blocks), rec.kv)
 
     def timed_resume(req, reserved, busy):
-        ok, ms = sync_ms(resume, req, reserved, busy)
+        ok, ms = sync_ms(torch, resume, req, reserved, busy)
         if ok:
             swap["resume_ms"].append(ms)
             blocks, kv = saved.pop(req.seq_id)
@@ -2008,14 +2082,14 @@ def full_width_overload(torch, dev, cfg, dims, params):
     snapshot, restore = eng_c.snapshot, eng_c.restore
 
     def timed_snapshot():
-        snap, ms = sync_ms(snapshot)
+        snap, ms = sync_ms(torch, snapshot)
         rec["snapshot_ms"].append(ms)
         rec["snapshot_bytes"].append(len(snap.host_blob) + sum(
             t.nbytes for t in snap.dstate.values()))
         return snap
 
     def timed_restore(snap):
-        _, ms = sync_ms(restore, snap)
+        _, ms = sync_ms(torch, restore, snap)
         rec["restore_ms"].append(ms)
 
     eng_c.snapshot, eng_c.restore = timed_snapshot, timed_restore
@@ -2151,8 +2225,10 @@ def phase7_requests(cfg):
     return reqs
 
 
-def steady_step(torch, eng, cfg, probe=None, top=0, copies_of=None):
-    """Four requests of 512 random tokens admitted, then steady steps at
+def steady_step(torch, eng, cfg, probe=None, top=0, copies_of=None,
+                prompt_len=512):
+    """Four requests of ``prompt_len`` random tokens (and random frontends
+    for a frontend family) admitted, then steady steps at
     B=4: the median wall ms of three, and one step's device ms under the
     profiler (busy ms, kernels, the paged read's ms, the idle share, and
     with ``top`` the largest kernels); with ``copies_of`` (the model's
@@ -2165,7 +2241,8 @@ def steady_step(torch, eng, cfg, probe=None, top=0, copies_of=None):
     sids = [300 + i for i in range(4)]
     for sid in sids:
         eng.submit(Request(seq_id=sid, prompt=rng.randint(
-            0, cfg.vocab_size, 512), max_new_tokens=64))
+            0, cfg.vocab_size, prompt_len), max_new_tokens=64,
+            frontend=random_frontend(cfg, rng)))
     while eng._prefilling or eng.waiting:
         eng.step()
     walls = []
@@ -2399,7 +2476,11 @@ def served_model(torch, dev, name, dtype, layers=None, device=None,
     t0 = time.perf_counter()
     params = init_params(gen, cfg, dims, dtype, device)
     if cfg.qkv_bias:
-        for t in (params["layers"]["attn"][k]["b"] for k in "qkv"):
+        trees = [params["layers"]["attn"]]
+        if cfg.is_encoder_decoder:
+            trees += [params["layers"]["cross"],
+                      params["encoder"]["layers"]["attn"]]
+        for t in (tree[k]["b"] for tree in trees for k in "qkv"):
             t.copy_(0.5 * torch.randn(t.shape, generator=gen, device=device))
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize()
@@ -2410,6 +2491,10 @@ def served_model(torch, dev, name, dtype, layers=None, device=None,
            f"{dims.d_ff}" if dims.n_heads else "attention-free")
         + (f", {cfg.moe_num_experts} experts top-{cfg.moe_top_k}"
            if cfg.moe_num_experts else "")
+        + (f", {cfg.encoder_layers} encoder layers" if cfg.encoder_layers
+           else "")
+        + (f", {cfg.frontend} frontend of {cfg.frontend_tokens} embeddings"
+           if cfg.frontend != "none" else "")
         + (f", mamba d_inner {md.d_inner} ({md.n_heads} heads of "
            f"{md.head_dim}), d_state {md.d_state}"
            + (f", groups of {cfg.attn_every}" if cfg.attn_every else "")
@@ -2618,18 +2703,24 @@ def kernel_times(torch, fns, symbols, iters=20):
 
 
 def geometry_reads(torch, dev, heads=((40, 8), (32, 4)),
-                   kinds=("decode", "verify", "prefix"), flash=(40, 8),
+                   kinds=("decode", "verify", "prefix"),
+                   flash=((2, 512, 512, 40, 8, 128, True),),
                    label="phase 8 (c)"):
-    """The kernels at a phase's head geometries (bf16, D = 128, bs = 64):
-    by default phase 8's, the paged decode read (B=4, Q=1), the verify
-    read (Q=5, per-query extents) and a prefix read (Q=256) at
-    qwen2.5-14b's 40/8 heads (g = 5) and qwen3-moe-30b-a3b's 32/4 (g =
-    8), and flash attention at (B, S, H, KV) = (2, 512, 40, 8), causal:
-    each held to its plain version (3e-2) and timed (CUDA events over
-    four input sets, which for the small reads is mostly the wrapper's
-    host time, and profiler device ms a launch) beside its bound, each
-    row's K/V read once; flash also beside SDPA's.  ``heads``, ``kinds``
-    and ``flash`` (H, KV) pick another phase's geometries."""
+    """The kernels at a phase's head geometries (bf16, bs = 64): by
+    default phase 8's, the paged decode read (B=4, Q=1), the verify read
+    (Q=5, per-query extents) and a prefix read (Q=256) at qwen2.5-14b's
+    40/8 heads (g = 5) and qwen3-moe-30b-a3b's 32/4 (g = 8) of D = 128,
+    and flash attention at (B, Sq, Skv, H, KV, D) = (2, 512, 512, 40, 8,
+    128), causal: each held to its plain version and timed (CUDA events
+    over four input sets, which for the small reads is mostly the
+    wrapper's host time, and profiler device ms a launch) beside its
+    bound, each row's K/V read once; flash also beside SDPA's.  The paged
+    reads are held at 3e-2, and every query of a verify read and queries
+    ``PREFIX_QUERIES`` of a prefix read must equal Q = 1 launches at their
+    extents bitwise; flash is held in bf16 by ``check_flash_bf16`` and in
+    float32 at 1e-4 on the same inputs.  ``heads`` ((H, KV) or (H, KV,
+    D)), ``kinds`` and ``flash`` ((B, Sq, Skv, H, KV, D, causal) each)
+    pick another phase's geometries."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.paged_attention.ops import paged_attention
@@ -2639,22 +2730,34 @@ def geometry_reads(torch, dev, heads=((40, 8), (32, 4)),
     out = {}
     shapes = {"decode": (None, False), "verify": (WINDOW, True),
               "prefix": (256, False)}
-    for H, KV in heads:
+    for H, KV, *Dh in heads:
+        D = Dh[0] if Dh else 128
+        tag = f"H{H}_KV{KV}" + ("" if D == 128 else f"_D{D}")
         for kind in kinds:
             Q, per_query = shapes[kind]
             sets = []
             for _ in range(4):
                 q, kp, vp, slots, ext = _paged_case(
-                    torch, dev, torch.bfloat16, H=H, KV=KV, Q=Q,
+                    torch, dev, torch.bfloat16, H=H, KV=KV, D=D, Q=Q,
                     per_query=per_query, gen=gen)
                 sets.append((q.to(torch.bfloat16), kp[0], vp[0], slots,
                              ext))
             q, kp, _, slots, ext = args = sets[0]
-            err = max(check_close(f"paged_attention[{kind}, H={H}]", g, w,
+            got = paged_attention(*args)
+            err = max(check_close(f"paged_attention[{kind}, {tag}]", g, w,
                                   3e-2)
-                      for g, w in zip(paged_attention(*args),
-                                      paged_attention_ref(*args)))
-            bs, D = kp.shape[1], q.shape[-1]
+                      for g, w in zip(got, paged_attention_ref(*args)))
+            if Q is not None:
+                for i in (range(Q) if per_query else PREFIX_QUERIES):
+                    e = ext[:, i].contiguous() if per_query else ext
+                    one = paged_attention(q[:, i].contiguous(), *args[1:4],
+                                          e)
+                    if not all(torch.equal(x, y[:, i])
+                               for x, y in zip(one, got)):
+                        raise AssertionError(
+                            f"paged_attention[{kind}, {tag}]: query {i} "
+                            "differs from a Q=1 launch at its extent")
+            bs = kp.shape[1]
             nq = 1 if Q is None else Q
             last = ext[:, -1] if per_query else ext
             n_tok = sum(-(-int(e) // bs) * bs for e in last.tolist()) - bs
@@ -2667,43 +2770,59 @@ def geometry_reads(torch, dev, heads=((40, 8), (32, 4)),
             ms, dms = kernel_times(
                 torch, [lambda s=s: paged_attention(*s) for s in sets],
                 ("paged_attn_kernel",))
-            out[f"paged_{kind}_H{H}_KV{KV}"] = dict(
-                g=H // KV, Q=nq, max_abs_err=err, ms=ms, device_ms=dms,
+            out[f"paged_{kind}_{tag}"] = dict(
+                g=H // KV, D=D, Q=nq, max_abs_err=err, ms=ms, device_ms=dms,
                 bound_ms=bound, bound_by=_bound_by(nbytes, flops),
                 plain_ms=time_ms(
                     torch, [lambda s=s: paged_attention_ref(*s)
                             for s in sets], 8),
-                ctas=_grid_ctas(q.shape[0], nq, H, KV, D, slots.shape[1]))
-    B, S, (H, KV), D = 2, 512, flash, 128
+                ctas=_grid_ctas(q.shape[0], nq, H, KV, D, slots.shape[1]),
+                **({"queries_bitwise_q1": True} if Q is not None else {}))
     g2 = torch.Generator(device=dev).manual_seed(SEED + 8)
-    sets = [[torch.randn((B, S, n, D), generator=g2, device=dev).to(
-        torch.bfloat16) for n in (H, KV, KV)] for _ in range(4)]
-    q, k, v = sets[0]
-    err = check_close(f"flash_attention[H={H}, KV={KV}]",
-                      flash_attention(q, k, v, causal=True),
-                      dense_attention(q, k, v, causal=True), 3e-2)
-    heads_first = [(
-        q.transpose(1, 2).contiguous(),
-        k.repeat_interleave(H // KV, dim=2).transpose(1, 2).contiguous(),
-        v.repeat_interleave(H // KV, dim=2).transpose(1, 2).contiguous())
-        for q, k, v in sets]
-    lib = [lambda s=s: F.scaled_dot_product_attention(*s, is_causal=True)
-           for s in heads_first]
-    flops = 4 * B * H * D * (S * (S + 1) // 2)
-    nbytes = 2 * (2 * B * S * H * D + 2 * B * S * KV * D)
-    ms, dms = kernel_times(
-        torch, [lambda s=s: flash_attention(*s, causal=True) for s in sets],
-        ("flash_wgmma_kernel", "flash_kernel"), iters=5)
-    out[f"flash_B2_S512_H{H}_KV{KV}"] = dict(
-        g=H // KV, max_abs_err=err, ms=ms, device_ms=dms,
-        bound_ms=max(nbytes / HBM_BYTES_PER_S,
-                     flops / PEAK_FLOPS["bfloat16"]) * 1e3,
-        bound_by=_bound_by(nbytes, flops),
-        sdpa_ms=time_ms(torch, lib, 20),
-        sdpa_device_ms=device_ms(torch, lib[0], 5),
-        plain_ms=time_ms(torch, [lambda s=s: dense_attention(*s, causal=True)
-                                 for s in sets], 8))
-    log(f"{label} kernels at the serving geometries (bf16, D=128): "
+    for B, S, Skv, H, KV, D, causal in flash:
+        sets = [[torch.randn((B, n, h, D), generator=g2, device=dev).to(
+            torch.bfloat16) for n, h in ((S, H), (Skv, KV), (Skv, KV))]
+            for _ in range(4)]
+        q, k, v = sets[0]
+        tag = (f"flash_B{B}_S{S}_H{H}_KV{KV}"
+               + ("" if Skv == S else f"_Skv{Skv}")
+               + ("" if D == 128 else f"_D{D}")
+               + ("" if causal else "_full"))
+        held = check_flash_bf16(tag, flash_attention(q, k, v, causal=causal),
+                                q, k, v, causal)
+        q32, k32, v32 = (t.float() for t in (q, k, v))
+        err32 = check_close(f"{tag} (float32)",
+                            flash_attention(q32, k32, v32, causal=causal),
+                            dense_attention(q32, k32, v32, causal=causal),
+                            1e-4)
+        del q32, k32, v32
+        heads_first = [(
+            q.transpose(1, 2).contiguous(),
+            k.repeat_interleave(H // KV, dim=2).transpose(1, 2).contiguous(),
+            v.repeat_interleave(H // KV, dim=2).transpose(1, 2).contiguous())
+            for q, k, v in sets]
+        lib = [lambda s=s: F.scaled_dot_product_attention(*s,
+                                                          is_causal=causal)
+               for s in heads_first]
+        pairs = (S * (S + 1) // 2) if causal else S * Skv
+        flops = 4 * B * H * D * pairs
+        nbytes = 2 * (2 * B * S * H * D + 2 * B * Skv * KV * D)
+        ms, dms = kernel_times(
+            torch, [lambda s=s: flash_attention(*s, causal=causal)
+                    for s in sets],
+            ("flash_wgmma_kernel", "flash_kernel"), iters=5)
+        out[tag] = dict(
+            g=H // KV, D=D, Sq=S, Skv=Skv, causal=causal, **held,
+            max_abs_err_f32=err32, tol_f32=1e-4,
+            ms=ms, device_ms=dms,
+            bound_ms=max(nbytes / HBM_BYTES_PER_S,
+                         flops / PEAK_FLOPS["bfloat16"]) * 1e3,
+            bound_by=_bound_by(nbytes, flops),
+            sdpa_ms=time_ms(torch, lib, 20),
+            sdpa_device_ms=device_ms(torch, lib[0], 5),
+            plain_ms=time_ms(torch, [lambda s=s: dense_attention(
+                *s, causal=causal) for s in sets], 8))
+    log(f"{label} kernels at the serving geometries (bf16): "
         + json.dumps({k: {f: (round(x, 6) if isinstance(x, float) else x)
                           for f, x in r.items()} for k, r in out.items()}))
     return out
@@ -2824,7 +2943,7 @@ def pad_invariance(torch, cfg, params, dtype, device):
     return out
 
 
-def recurrent_runs(torch, dev, cfg, params, runs, make_requests, label,
+def engine_runs(torch, dev, cfg, params, runs, make_requests, label,
                    wrap=None):
     """Serve ``make_requests()`` once per ``runs`` entry (name ->
     (EngineConfig fields, ServeFaultInjector arguments or None)) in bf16,
@@ -2897,7 +3016,7 @@ def full_width_ssm(torch, dev):
     engine_mod._SPEC_FALLBACK_WARNED = False
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
-        runs = recurrent_runs(torch, dev, cfg, params, {
+        runs = engine_runs(torch, dev, cfg, params, {
             "defaults": (PHASE5, None),
             "spec_ngram": (dict(PHASE5, spec_decode="ngram"), None),
             "preempt": (PHASE5, PHASE9_OVERLOAD)}, requests, "phase 9 (a)")
@@ -2968,7 +3087,7 @@ def full_width_hybrid(torch, dev):
     def requests():
         return phase5_requests(cfg, np.random.RandomState(SEED + 5))[0]
 
-    runs = recurrent_runs(torch, dev, cfg, params, {
+    runs = engine_runs(torch, dev, cfg, params, {
         "paged": (PHASE5, None), "flash_recompute": (PHASE9_FLASH, None)},
         requests, "phase 9 (b)",
         wrap=lambda name: moe_drops(torch, drops[name]))
@@ -3070,7 +3189,8 @@ def recurrent(torch, dev, results):
     gc.collect()
     torch.cuda.empty_cache()
     geo = geometry_reads(torch, dev, heads=((64, 8),),
-                         kinds=("decode", "prefix"), flash=(64, 8),
+                         kinds=("decode", "prefix"),
+                         flash=((2, 512, 512, 64, 8, 128, True),),
                          label="phase 9")
     results.setdefault("paged_attention", {})["jamba_H64_KV8"] = {
         k: geo[f"paged_{k}_H64_KV8"] for k in ("decode", "prefix")}
@@ -3079,6 +3199,398 @@ def recurrent(torch, dev, results):
     gc.collect()
     torch.cuda.empty_cache()
     paths["phase9b"] = full_width_hybrid(torch, dev)
+    return paths
+
+
+# phase 10: the frontend families at their published width and depth, in
+# bf16 on phase 5's engine.  (a) paligemma-3b (2.51 B parameters) with
+# 256-token random image embeddings ahead of phase 5's requests; (b)
+# whisper-medium (1.01 B) with 1500-frame random audio embeddings and
+# prompts of 64-384 tokens (its decoder's context is 448 positions);
+# (c) float32 card = CPU for reduced-width copies of both, cut to 2
+# layers (a float32 full-width forward of 1500 frames is slow on the CPU).
+PHASE10_VLM = "paligemma-3b"
+PHASE10_AUDIO = "whisper-medium"
+PHASE10_AUDIO_CTX = 448
+PHASE10_AUDIO_BLOCKS = (1, 6, 2, 5, 3, 4, 2, 6)      # prompt blocks of 64
+PHASE10_CPU = {PHASE10_VLM: dict(d_model=512, d_ff=2048, num_layers=2),
+               PHASE10_AUDIO: dict(d_model=512, head_dim=64, d_ff=2048,
+                                   num_layers=2, encoder_layers=2)}
+
+
+@contextlib.contextmanager
+def attention_calls(rec):
+    """Record every ``attention`` call of the model's forward while the
+    block runs: (Sq, Skv, H, KV, D, causal, impl)."""
+    import repro_torch.models.transformer as tmod
+    orig = tmod.attention
+
+    def attention(q, k, v, **kw):
+        rec.append((q.shape[1], k.shape[1], q.shape[2], k.shape[2],
+                    q.shape[3], kw.get("causal", True), kw.get("impl")))
+        return orig(q, k, v, **kw)
+
+    tmod.attention = attention
+    try:
+        yield
+    finally:
+        tmod.attention = orig
+
+
+def phase10_requests(cfg, fronts):
+    """Phase 10's 8 requests, 32 new tokens each, ``fronts[i]`` the
+    frontend of request i: for vlm phase 5's requests (64-704 tokens),
+    for audio prompts of ``PHASE10_AUDIO_BLOCKS`` blocks (64-384 tokens);
+    requests 0, 3, 4 and 7 sample (fixed seeds)."""
+    import numpy as np
+    from repro_torch.serve import Request, SamplingParams
+    if cfg.family == "vlm":
+        reqs = phase5_requests(cfg, np.random.RandomState(SEED + 5))[0]
+        return [dataclasses.replace(r, frontend=f)
+                for r, f in zip(reqs, fronts)]
+    rng = np.random.RandomState(SEED + 10)
+    bs = cfg.kv_block_size
+    return [Request(seq_id=i, prompt=rng.randint(0, cfg.vocab_size, n * bs),
+                    frontend=fronts[i], max_new_tokens=32,
+                    sampling=(SamplingParams(seed=SEED + 100 + i, **SAMPLED)
+                              if i in (0, 3, 4, 7) else SamplingParams()))
+            for i, n in enumerate(PHASE10_AUDIO_BLOCKS)]
+
+
+def admission_profile(torch, eng, cfg, dims, rng):
+    """One 256-token request's chunk 0 (the recompute prefill, with its
+    frontend) under the profiler: device ms by kernel; for audio also the
+    encoder alone on the same frames (its device ms and share of the
+    step's)."""
+    from repro_torch.models import FwdOptions
+    from repro_torch.models.transformer import encoder
+    from repro_torch.serve import Request
+    front = random_frontend(cfg, rng)
+    eng.submit(Request(seq_id=210, prompt=rng.randint(0, cfg.vocab_size,
+                                                      256),
+                       max_new_tokens=2, frontend=front))
+    n_log = len(eng.admission_log)
+    rows = profile_cold(torch, eng.step, tries=1)  # an admission runs once
+    recs = eng.admission_log[n_log:]
+    if [r.path for r in recs] != ["recompute"]:
+        raise AssertionError(f"the profiled step admitted {recs}")
+    while eng.has_unfinished():
+        eng.step()
+    busy = sum(ms for _, ms, _ in rows)
+    out = dict(device_busy_ms=round(busy, 3), kernels=len(rows),
+               top=[dict(kernel=name[:90], ms=round(ms, 4), launches=n)
+                    for name, ms, n in rows[:6]])
+    if cfg.family == "audio":
+        frames = torch.from_numpy(front)[None].to(eng.device)
+        opt = FwdOptions(attn_impl=eng.config.attn_impl, dtype=torch.bfloat16)
+        enc = sum(ms for _, ms, _ in profile_device(
+            torch, lambda: encoder(eng.params, frames, cfg, dims, opt), 1))
+        out.update(encoder_device_ms=round(enc, 3),
+                   encoder_share=round(enc / busy, 4) if busy else None)
+    return out
+
+
+def cross_decode_ms(torch, eng, cfg, dims):
+    """Device ms of a decode step's cross-attention sublayers (every
+    layer, B = max_batch rows) over the engine's installed cross rows,
+    beside the bound of reading the rows once."""
+    from repro_torch.models.transformer import layer_params
+    from repro_torch.serve.decode import decode_cross
+    gen = torch.Generator(device=eng.device).manual_seed(SEED + 10)
+    x = torch.randn((eng.max_batch, cfg.d_model), generator=gen,
+                    device=eng.device).to(torch.bfloat16)
+    ck, cv = eng.dstate["cross_k"], eng.dstate["cross_v"]
+
+    def run():
+        for i in range(cfg.num_layers):
+            decode_cross(layer_params(eng.params, i), x, ck[i], cv[i], cfg,
+                         dims)
+
+    rows = profile_device(torch, run, 3)
+    return dict(device_ms=round(sum(ms for _, ms, _ in rows), 4),
+                kernels=int(round(sum(n for _, _, n in rows))),
+                bound_ms=round((ck.nbytes + cv.nbytes) / HBM_BYTES_PER_S
+                               * 1e3, 4),
+                cross_rows_mb=round((ck.nbytes + cv.nbytes) / 1e6, 1))
+
+
+def audio_preempts(torch, dev, cfg, params, requests, engine_kw, clean,
+                   label):
+    """Phase 10 (b)'s forced preemptions of decode-live rows, after the
+    clean run's last admission step (so that every prompt meets the
+    clean run's prefill buckets): each resume must put back, byte for
+    byte, the pool blocks and the ``cross_k``/``cross_v`` rows its
+    preemption saved, and the streams must be the clean run's."""
+    from repro_torch.runtime import ServeFaultInjector
+    from repro_torch.serve import Engine, EngineConfig
+    last = max(i + 1 for i, st in enumerate(clean["steps"]) if st[1])
+    schedule = dict(preempt_at=[(last + 2, "post", "auto"),
+                                (last + 5, "pre", "auto"),
+                                (last + 9, "post", "auto")])
+    inj = ServeFaultInjector(**schedule)
+    eng = Engine(cfg, params, EngineConfig(
+        dtype=torch.bfloat16, fault_injector=inj, **engine_kw), device=dev)
+    preempt, resume = eng.preempt_request, eng._resume_preempted
+    saved, swap = {}, {"preempt_ms": [], "resume_ms": [], "round_trips": 0}
+
+    def bits(t):
+        return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+
+    def timed_preempt(sid):
+        _, ms = sync_ms(torch, preempt, sid)
+        swap["preempt_ms"].append(round(ms, 3))
+        rec = eng._preempted[sid]
+        if sorted(rec.rows) != ["cross_k", "cross_v"]:
+            raise AssertionError(f"{label}: the host tier holds "
+                                 f"{sorted(rec.rows)}")
+        saved[sid] = (list(rec.blocks), rec.kv, dict(rec.rows))
+
+    def timed_resume(req, reserved, busy):
+        ok, ms = sync_ms(torch, resume, req, reserved, busy)
+        if ok:
+            swap["resume_ms"].append(round(ms, 3))
+            blocks, kv, rows = saved.pop(req.seq_id)
+            idx = torch.tensor([eng.manager.lookup(req.seq_id, b)[0]
+                                for b, _ in blocks], device=dev)
+            back = torch.stack([eng.dstate["k_pool"][:, idx],
+                                eng.dstate["v_pool"][:, idx]]).cpu()
+            slot = eng._slot_of[req.seq_id]
+            if not torch.equal(bits(back), bits(kv)) or not all(
+                    torch.equal(bits(eng.dstate[k][:, slot].cpu()),
+                                bits(row)) for k, row in rows.items()):
+                raise AssertionError(
+                    f"{label}: request {req.seq_id}'s resumed blocks or "
+                    "cross rows differ from the bytes its preemption saved")
+            swap["round_trips"] += 1
+        return ok
+
+    eng.preempt_request, eng._resume_preempted = timed_preempt, timed_resume
+    _kernel_counts(reset=True)
+    streams, steps = serve(eng, requests(),
+                           each_step=lambda e: e.check_invariants())
+    launches = _kernel_counts()
+    ov = eng.stats()["overload"]
+    if (ov["request_preempts"] <= 0 or swap["round_trips"]
+            != ov["request_preempts"] or saved
+            or ov["swap_bytes_in"] != ov["swap_bytes_out"]):
+        raise AssertionError(f"{label}: preemptions {ov}, round trips "
+                             f"{swap['round_trips']}")
+    if streams != clean["streams"]:
+        raise AssertionError(f"{label}: the preempted run's streams "
+                             "differ from the clean run's")
+    return dict(schedule=schedule, overload=ov, injector_log=inj.log,
+                steps=len(steps), streams_sha256=stream_digest(streams),
+                **swap), launches
+
+
+def full_width_frontend(torch, dev, name, label):
+    """Phase 10 (a) or (b): ``name`` at its published width and depth,
+    bf16, seeded random weights (nonzero qkv biases for whisper) and
+    frontends, on phase 5's engine (whisper's context 448): the defaults
+    with the paged prefix read, then ``spec_decode="ngram"`` (K = 4),
+    then recompute prefill with ``attn_impl="pallas"``, and for whisper
+    forced preemptions (``audio_preempts``); each run's launches from 0.
+    Fails unless the translation, the decode read and the Q > 1 prefix
+    read launch in the first run, the per-query verify read in the
+    second, flash attention in the third (at D = 256 for paligemma; on
+    the 1500 x 1500 non-causal encoder and the S x 1500 cross-attention
+    for whisper), every stream holds 32 in-vocab tokens, every spec-on
+    stream equals its spec-off stream (a request admitted in other
+    prefill buckets is reported too), and the prefix cache is off.
+    Prints weights and peak GiB, a steady decode and verify step's wall
+    and device ms, kernels, idle share and top kernels, a prefix-KV and a
+    recompute admission step's profile (the encoder's share for
+    whisper), the decode step's cross-attention device ms (whisper),
+    tokens/s, launches and ``streams_sha256``.  Returns the launches of
+    all runs summed."""
+    import numpy as np
+    import repro_torch.serve.decode as dmod
+    audio = name == PHASE10_AUDIO
+    probed = set(dmod.verify_gemm_probes())
+    cfg, dims, params = served_model(torch, dev, name, torch.bfloat16,
+                                     seed=SEED + 10)
+    weights_gib = torch.cuda.memory_allocated() / 2 ** 30
+    kw = dict(PHASE5, max_seq_len=PHASE10_AUDIO_CTX) if audio else PHASE5
+    frng = np.random.RandomState(SEED + 10)
+    fronts = [random_frontend(cfg, frng) for _ in range(8)]
+
+    def requests():
+        return phase10_requests(cfg, fronts)
+
+    def after(run, eng):
+        probe = run == "on" and (
+            lambda e: decode_row_dependence(torch, e, cfg))
+        r = {"steady": steady_step(torch, eng, cfg, probe or None, top=10,
+                                   prompt_len=320 if audio else 512)}
+        if run == "off":
+            rng = np.random.RandomState(SEED + 10)
+            profile_prefix_step(torch, eng, rng, cfg,
+                                prompt_len=384 if audio else 512)
+            r["admission"] = admission_profile(torch, eng, cfg, dims, rng)
+            if audio:
+                r["cross_decode"] = cross_decode_ms(torch, eng, cfg, dims)
+            pc = eng.stats()["prefix_cache"]
+            r["prefix_cache"] = dict(enabled=pc["enabled"],
+                                     reason=eng._prefix_cache_unsupported())
+        return r
+
+    runs = spec_pair(torch, dev, cfg, params, requests, kw, label,
+                     after=after)
+    on, off = runs["on"], runs["off"]
+    calls = []
+    flash = engine_runs(
+        torch, dev, cfg, params, {"flash_recompute": (dict(
+            kw, attn_impl="pallas", prefill_mode="recompute"), None)},
+        requests, label, wrap=lambda _: attention_calls(calls))[
+        "flash_recompute"]
+    flash["engine"] = None
+    need = {"off": ("utopia_translate_step", "paged_attention",
+                    "paged_attention_q_gt1"),
+            "on": ("paged_attention_q_per_query",),
+            "flash_recompute": ("flash_attention",)}
+    for run, r in (("off", off), ("on", on), ("flash_recompute", flash)):
+        for k in need[run]:
+            if r["launches"][k] <= 0:
+                raise AssertionError(f"{label}: {k} was never launched in "
+                                     f"the {run} run")
+    flashed = [c for c in calls if c[6] in ("pallas", "flash")]
+    want = ([lambda c: c[4] == 256 and c[5]] if not audio else
+            [lambda c: c[0] == c[1] == cfg.frontend_tokens and not c[5],
+             lambda c: c[1] == cfg.frontend_tokens != c[0] and not c[5]])
+    for w in want:
+        if not any(w(c) for c in flashed):
+            raise AssertionError(f"{label}: flash attention missed a "
+                                 f"shape; it ran {sorted(set(flashed))}")
+    pc = off["after"]["prefix_cache"]
+    if pc["enabled"]:
+        raise AssertionError(f"{label}: the prefix cache is on")
+    launches = {k: off["launches"][k] + on["launches"][k]
+                + flash["launches"][k] for k in off["launches"]}
+    preempt = None
+    if audio:
+        preempt, pl = audio_preempts(torch, dev, cfg, params, requests, kw,
+                                     off, label)
+        launches = {k: launches[k] + pl[k] for k in launches}
+    # spec-on = spec-off is the verify step's contract, held on every
+    # request.  A request the two runs admitted in other prefill buckets
+    # is reported (a bf16 chunk forward rounds otherwise at another
+    # bucket shape, ROADMAP Queue 3) and held all the same
+    def buckets(run, sid):
+        return [b[1:] for b in buckets_of(run["margins"], run["steps"], sid)]
+
+    other = {sid: dict(off=buckets(off, sid), on=buckets(on, sid),
+                       stream_equal=on["streams"][sid] == off["streams"][sid])
+             for sid in sorted(off["streams"])
+             if buckets(on, sid) != buckets(off, sid)}
+    diverged = spec_divergence(on, off)
+    # the weights (shape, strides) whose verify GEMM runs per position
+    per_position = sorted({str(k[:2]) for k, v in
+                           dmod.verify_gemm_probes().items()
+                           if not v and k not in probed})
+    summary = dict(
+        weights_gib=round(weights_gib, 3),
+        steps={"off": len(off["steps"]), "on": len(on["steps"]),
+               "flash_recompute": len(flash["steps"])},
+        decode_step_ms_median={"decode": decode_step_ms(off),
+                               "verify": decode_step_ms(on)},
+        tokens_per_s={"off": round(tokens_per_s(off), 2),
+                      "on": round(tokens_per_s(on), 2),
+                      "flash_recompute": round(tokens_per_s(flash), 2)},
+        gpu_mem_peak_gib={"off": round(off["peak_gib"], 3),
+                          "on": round(on["peak_gib"], 3),
+                          "flash_recompute": round(flash["peak_gib"], 3)},
+        steady_b4={"decode": off["after"]["steady"],
+                   "verify": on["after"]["steady"]},
+        admission=off["after"]["admission"],
+        spec_drafted=on["stats"]["spec_drafted"],
+        spec_accepted=on["stats"]["spec_accepted"],
+        prefix_cache=pc,
+        rsw_hits=int(off["stats"].get("rsw_hits", 0)),
+        flex_walks=int(off["stats"].get("flex_walks", 0)),
+        flash_shapes=sorted(set(flashed)),
+        streams_flash_equal_paged=sum(
+            flash["streams"][sid] == off["streams"][sid]
+            for sid in off["streams"]),
+        streams_sha256={"off": stream_digest(off["streams"]),
+                        "on": stream_digest(on["streams"]),
+                        "flash_recompute": stream_digest(flash["streams"])},
+        streams_on_equal_off=len(off["streams"]) - len(diverged),
+        diverged=diverged, admitted_otherwise=other,
+        verify_gemms_per_position=per_position,
+        decode_rows=on["after"]["steady"].pop("probe"),
+        launches={"off": off["launches"], "on": on["launches"],
+                  "flash_recompute": flash["launches"]})
+    if audio:
+        summary.update(cross_decode=off["after"]["cross_decode"],
+                       preempt=preempt)
+    log(f"{label}: {name} full width and depth, bf16, Engine("
+        + ", ".join(f"{k}={v!r}" for k, v in kw.items())
+        + f"), spec_decode=None then 'ngram' (K={PHASE7_K}), then "
+        "attn_impl='pallas', prefill_mode='recompute'"
+        + (", then forced preemptions" if audio else "") + ": "
+        + json.dumps({cfg.family: summary}))
+    if diverged:
+        raise AssertionError(f"{label}: {len(diverged)} of "
+                             f"{len(off['streams'])} bf16 spec-on streams "
+                             "differ from spec-off")
+    del runs, on, off, flash, params
+    return launches
+
+
+def frontend_card_vs_cpu(torch, dev):
+    """Phase 10 (c): float32, card = CPU, on the default admission path
+    with the paged prefix read, for paligemma-3b and whisper-medium at a
+    reduced width (``PHASE10_CPU``: d 512, d_ff 2048, 2 layers; the
+    configs' heads, head dims, vocabularies and frontends): 4 greedy
+    requests of 64-256 tokens with random frontends, 8 new each; streams,
+    admission logs and translation stats identical."""
+    import numpy as np
+    for name, over in PHASE10_CPU.items():
+        cfg, _, params = served_model(torch, dev, name, torch.float32,
+                                      device="cpu", seed=SEED + 10,
+                                      overrides=over)
+        rng = np.random.RandomState(SEED + 10)
+        prompts = [rng.randint(0, cfg.vocab_size, n)
+                   for n in (64, 256, 128, 192)]
+        fronts = [random_frontend(cfg, rng) for _ in prompts]
+        card_vs_cpu(torch, dev, (cfg, params), prompts, 8, name,
+                    strict=True, frontends=fronts, max_batch=4,
+                    max_seq_len=(PHASE10_AUDIO_CTX if cfg.family == "audio"
+                                 else 640),
+                    prefill_budget=256, prefill_mode="prefix_kv",
+                    prefix_gather="paged", prefix_cache="auto")
+
+
+def frontends(torch, dev, results):
+    """Phase 10: the kernels at both models' geometries (into
+    ``results``), (c), then (a) and (b).  Returns {path: launches}."""
+    geo = geometry_reads(
+        torch, dev, heads=((8, 1, 256), (16, 16, 64)),
+        flash=((2, 512, 512, 8, 1, 256, True),
+               (2, 1500, 1500, 16, 16, 64, False),
+               (2, 256, 1500, 16, 16, 64, False)),
+        label="phase 10")
+    for model, tag in (("paligemma", "H8_KV1_D256"),
+                       ("whisper", "H16_KV16_D64")):
+        results.setdefault("paged_attention", {})[f"{model}_{tag}"] = {
+            k: geo[f"paged_{k}_{tag}"] for k in ("decode", "verify",
+                                                   "prefix")}
+    fl = results.setdefault("flash_attention", {})
+    fl["paligemma_B2_S512_H8_KV1_D256"] = geo["flash_B2_S512_H8_KV1_D256"]
+    fl["whisper_encoder_B2_S1500_H16_KV16_D64"] = geo[
+        "flash_B2_S1500_H16_KV16_D64_full"]
+    fl["whisper_cross_B2_S256_Skv1500_H16_KV16_D64"] = geo[
+        "flash_B2_S256_H16_KV16_Skv1500_D64_full"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    frontend_card_vs_cpu(torch, dev)
+    paths = {}
+    for path, name in (("phase10a", PHASE10_VLM),
+                       ("phase10b", PHASE10_AUDIO)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        paths[path] = full_width_frontend(
+            torch, dev, name, f"phase 10 ({path[-1]})")
     return paths
 
 
@@ -3198,6 +3710,10 @@ def main() -> int:
                     help="build the kernels and run only phase 9 (the ssm "
                          "and hybrid families and the kernels at jamba's "
                          "geometry)")
+    ap.add_argument("--frontends", action="store_true",
+                    help="build the kernels and run only phase 10 (the vlm "
+                         "and audio families and the kernels at their "
+                         "geometries)")
     ap.add_argument("--src", type=Path, default=None,
                     help="import repro_torch from this source tree instead "
                          "of the checkout's src/ (e.g. a parent commit's, "
@@ -3251,6 +3767,10 @@ def main() -> int:
         recurrent(torch, dev, results)
         card_line(torch)
         return 0
+    if args.frontends:
+        frontends(torch, dev, results)
+        card_line(torch)
+        return 0
     if args.paged_reads:
         check_paged(torch, dev, results)
         check_paged_verify(torch, dev, results)
@@ -3296,6 +3816,10 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     paths.update(recurrent(torch, dev, results))
+    # phase 10 after jamba's weights are freed
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths.update(frontends(torch, dev, results))
 
     # launches: each path's count was set to 0 just before it and read
     # just after; the line gives their sum and each path's

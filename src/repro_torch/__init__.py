@@ -3,9 +3,9 @@
 Imports ``torch`` and never ``jax`` nor ``repro``.  Layout mirrors
 ``src/repro/``: ``configs``, ``core``, ``models``, ``kernels/<name>/``
 (``ops.py`` wrapper, ``ref.py`` plain torch version, ``csrc/*.cu`` the
-hand-written Hopper kernel) and ``serve``.  It runs the dense and moe
-families (``configs.ARCHS``; ssm, hybrid, vlm and audio raise, naming
-ROADMAP P10).  Entry points take an explicit ``device`` (default
+hand-written Hopper kernel) and ``serve``.  It runs all six model
+families of the JAX package (dense, moe, vlm, audio, ssm, hybrid;
+``configs.ARCHS``).  Entry points take an explicit ``device`` (default
 ``"cuda"``); the tests pass ``"cpu"``.
 
 float32 stays float32: TF32 is switched off for matmuls and cuDNN when the

@@ -1,9 +1,10 @@
 """Architecture registry of the port: ``get_config(name)`` resolves here.
 
-The port carries the architectures of the families it serves: dense,
-moe, ssm (mamba2-130m) and hybrid (jamba-1.5-large-398b); the JAX
-package's registry (``repro.configs``) lists the rest (vlm, audio),
-which arrive with their families (ROADMAP P10).
+The port carries every architecture of the JAX package's registry
+(``repro.configs``), in six families: dense (granite-8b, granite-3-8b,
+qwen2.5-14b, qwen2-72b), moe (qwen3-moe-30b-a3b, llama4-scout-17b-a16e),
+ssm (mamba2-130m), hybrid (jamba-1.5-large-398b), vlm (paligemma-3b) and
+audio (whisper-medium).
 """
 from .base import (ArchConfig, ResolvedDims, ShapeCell, SHAPES, shape_cell,
                    resolve, reduced, cell_applicable)
@@ -15,10 +16,12 @@ from .qwen2_72b import CONFIG as _qwen2_72b
 from .granite_8b import CONFIG as _granite8b
 from .mamba2_130m import CONFIG as _mamba2
 from .jamba_1_5_large_398b import CONFIG as _jamba
+from .paligemma_3b import CONFIG as _paligemma
+from .whisper_medium import CONFIG as _whisper
 
 ARCHS = {c.name: c for c in (
     _qwen3_moe, _llama4_scout, _granite3, _qwen25_14b, _qwen2_72b,
-    _granite8b, _mamba2, _jamba,
+    _granite8b, _mamba2, _jamba, _paligemma, _whisper,
 )}
 
 

@@ -1,4 +1,5 @@
-"""Model zoo of the port: the dense, moe, ssm and hybrid families."""
+"""Model zoo of the port: the dense, moe, vlm, audio, ssm and hybrid
+families."""
 from .transformer import (FAMILIES, RECURRENT_FAMILIES, ModelDims,
                           FwdOptions, model_dims, forward, layer_params,
                           hybrid_ffn_select, n_attn_layers)

@@ -1,18 +1,26 @@
-"""The decoder-only LMs of the dense, moe, ssm and hybrid families in
-torch.
+"""The models of the port's six families in torch.
 
-``forward`` mirrors ``repro.models.transformer.forward`` for the four
-families: a loop over the stacked layers (leading layer axis, as
-``params.init_params`` lays them out), returning ``(logits, aux,
-caches)``; ``opt.collect_cache`` additionally returns what the serving
-engine installs — the per-layer K/V for the hybrid-translated KV pool,
-and each mamba sublayer's SSM state and conv tail.  Causal
-self-attention goes through ``attention(impl=opt.attn_impl)``: with
-``"pallas"`` (alias ``"flash"``) a CUDA tensor runs the flash kernel and
-a CPU tensor its plain version.  A layer whose parameters hold ``"moe"``
-runs the MoE FFN (``models/moe.py``) in place of the MLP, and ``aux``
-sums its losses over the layers.
+``forward`` mirrors ``repro.models.transformer.forward``: a loop over the
+stacked layers (leading layer axis, as ``params.init_params`` lays them
+out), returning ``(logits, aux, caches)``; ``opt.collect_cache``
+additionally returns what the serving engine installs — the per-layer
+K/V for the hybrid-translated KV pool, each mamba sublayer's SSM state
+and conv tail, and the audio decoder's cross-attention K/V.  Attention
+goes through ``attention(impl=opt.attn_impl)``: with ``"pallas"`` (alias
+``"flash"``) a CUDA tensor runs the flash kernel and a CPU tensor its
+plain version.  A layer whose parameters hold ``"moe"`` runs the MoE FFN
+(``models/moe.py``) in place of the MLP, and ``aux`` sums its losses over
+the layers.
 
+* dense / moe: every layer is causal self-attention then the FFN.
+* vlm (paligemma): the dense body over ``frontend_proj(frontend)``
+  prepended to the token embeddings (causally masked, as the JAX package
+  masks it); the frontend positions are sliced off before the head.
+* audio (whisper): an encoder (non-causal self-attention without RoPE,
+  then the FFN, a final norm) over ``frontend_proj(frontend)``, and a
+  decoder whose layers add, between self-attention and the FFN, a
+  cross-attention sublayer (``norm_x``, ``cross``) over the encoder
+  output.
 * ssm (mamba2): every layer is ``x + mamba(norm1(x))``, no FFN.
 * hybrid (jamba): the layers form groups of ``cfg.attn_every``
   sublayers, ``attn_every - 1`` mamba sublayers then one attention
@@ -34,7 +42,7 @@ from .moe import moe_layer
 from .ssm import MambaCache, MambaDims, mamba_dims, mamba_forward
 
 # the families the port runs
-FAMILIES = ("dense", "moe", "ssm", "hybrid")
+FAMILIES = ("dense", "moe", "vlm", "audio", "ssm", "hybrid")
 RECURRENT_FAMILIES = ("ssm", "hybrid")
 
 
@@ -87,22 +95,52 @@ def layer_params(params, i: int) -> Dict[str, Any]:
     return take(params["layers"], i)
 
 
-def _self_attn(blk, x, cfg: ArchConfig, dims: ModelDims, opt: FwdOptions):
+def _self_attn(blk, x, cfg: ArchConfig, dims: ModelDims, opt: FwdOptions,
+               causal: bool = True):
+    """Self-attention sublayer; ``causal=False`` is the audio encoder's
+    (full mask, no RoPE)."""
     B, S, _ = x.shape
     pos = torch.arange(S, device=x.device)[None, :]
     h = L.rms_norm(x, blk["norm1"], cfg.norm_eps)
+    theta = cfg.rope_theta if causal else 0.0
     q, k, v = L.qkv_project(blk["attn"], h, h, dims.n_heads, dims.n_kv,
-                            dims.head_dim, pos, pos, cfg.rope_theta)
-    o = attention(q, k, v, impl=opt.attn_impl, causal=True)
+                            dims.head_dim, pos, pos, theta)
+    o = attention(q, k, v, impl=opt.attn_impl, causal=causal)
     o = L.linear(blk["attn"]["o"], o.reshape(B, S, -1))
     return x + o, (k, v)
 
 
+def _cross_attn(blk, x, enc_out, cfg: ArchConfig, dims: ModelDims,
+                opt: FwdOptions):
+    """The audio decoder's cross-attention sublayer over the encoder
+    output (no RoPE, full mask): ``(x + o, (ck, cv))``."""
+    B, S, _ = x.shape
+    h = L.rms_norm(x, blk["norm_x"], cfg.norm_eps)
+    q, ck, cv = L.qkv_project(blk["cross"], h, enc_out, dims.n_heads,
+                              dims.n_kv, dims.head_dim, None, None, 0.0)
+    o = attention(q, ck, cv, impl=opt.attn_impl, causal=False)
+    return x + L.linear(blk["cross"]["o"], o.reshape(B, S, -1)), (ck, cv)
+
+
+def encoder(params, frames: torch.Tensor, cfg: ArchConfig, dims: ModelDims,
+            opt: FwdOptions):
+    """The audio encoder: ``frontend_proj`` of the frame embeddings ``(B,
+    F, d)``, then per layer non-causal self-attention and the FFN, then
+    the encoder's final norm.  Returns ``(B, F, d)`` in ``opt.dtype``."""
+    x = L.linear(params["frontend_proj"], frames.to(opt.dtype))
+    enc = params["encoder"]
+    for i in range(cfg.encoder_layers):
+        blk = layer_params(enc, i)
+        x, _ = _self_attn(blk, x, cfg, dims, opt, causal=False)
+        x, _ = _ffn(blk, x, cfg, opt)
+    return L.rms_norm(x, enc["final_norm"], cfg.norm_eps)
+
+
 def check_family(cfg: ArchConfig) -> None:
-    """Raise for a family the port does not run yet."""
+    """Raise for a family neither package knows."""
     if cfg.family not in FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ROADMAP P10)")
+        raise ValueError(f"unknown model family {cfg.family!r} (expected "
+                         f"one of {', '.join(FAMILIES)})")
 
 
 def ffn_act(cfg: ArchConfig):
@@ -169,11 +207,14 @@ def _zero_aux(device) -> Dict[str, torch.Tensor]:
 def forward(params, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
             dims: ModelDims, opt: FwdOptions = FwdOptions()):
     """batch: tokens (B, S) [+ seq_len (B,), each row's real length, which
-    the mamba sublayers mask their pad tail with].  Returns (logits (B, S,
+    the mamba sublayers mask their pad tail with] [+ frontend (B, F, d),
+    the vlm and audio families' stub embeddings].  Returns (logits (B, S,
     vocab_pad), aux, caches): aux sums the MoE layers' ``lb_loss``,
     ``z_loss`` and ``fraction_dropped`` (float32 scalars, zero without
     MoE layers); caches is None unless ``opt.collect_cache``, else
-    ``{"k", "v"}`` of shape (L_attn, B, S, KV, hd) for dense and moe,
+    ``{"k", "v"}`` of shape (L_attn, B, S, KV, hd) for dense and moe (F +
+    S positions for vlm), ``{"k", "v", "ck", "cv", "enc_out"}`` for audio
+    (the cross K/V (L, B, F, KV, hd) and the encoder output (B, F, d)),
     ``{"ssm": MambaCache}`` stacked over the layers for ssm, and for
     hybrid ``{"k", "v", "ssm"}`` with one K/V a group and the SSM caches
     stacked (n_groups, attn_every - 1, B, ...)."""
@@ -182,7 +223,16 @@ def forward(params, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
     x = L.embed(params["embed"], batch["tokens"]).to(opt.dtype)
     aux = _zero_aux(x.device)
     collect = opt.collect_cache
-    ks, vs, ssm = [], [], []
+    ks, vs, ssm, cks, cvs = [], [], [], [], []
+    n_front = 0
+    enc_out = None
+    if cfg.family == "vlm":
+        front = L.linear(params["frontend_proj"],
+                         batch["frontend"].to(opt.dtype))
+        x = torch.cat([front, x], dim=1)
+        n_front = front.shape[1]
+    elif cfg.family == "audio":
+        enc_out = encoder(params, batch["frontend"], cfg, dims, opt)
 
     def acc(a):
         return aux if a is None else {key: aux[key] + a[key] for key in aux}
@@ -215,10 +265,16 @@ def forward(params, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
             x, (k, v) = _self_attn(blk, x, cfg, dims, opt)
             ks.append(k)
             vs.append(v)
+            if enc_out is not None:
+                x, (ck, cv) = _cross_attn(blk, x, enc_out, cfg, dims, opt)
+                cks.append(ck)
+                cvs.append(cv)
             x, a = _ffn(blk, x, cfg, opt)
             aux = acc(a)
         lead = ()
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    if n_front:
+        x = x[:, n_front:]
     head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
     logits = L.unembed(head, x, dims.logical_vocab)
     caches = None
@@ -226,6 +282,9 @@ def forward(params, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
         caches = {}
         if ks:
             caches.update(k=torch.stack(ks), v=torch.stack(vs))
+        if cks:
+            caches.update(ck=torch.stack(cks), cv=torch.stack(cvs),
+                          enc_out=enc_out)
         if ssm:
             caches["ssm"] = stack_caches(ssm, lead)
     return logits, aux, caches

@@ -5,11 +5,15 @@ The layout is ``repro.models.transformer.init_params``'s:
 ``embed.table (V, d)``, ``lm_head.table`` unless tied, ``final_norm
 (d,)`` and ``layers`` with a leading layer axis.
 
-* dense and moe: ``norm1``/``norm2 (L, d)``, ``attn.{q,k,v,o}.w`` (and
-  ``.b`` of q, k, v with ``qkv_bias``), each ``linear`` weight ``(L,
-  d_in, d_out)``, and either ``mlp.{gate,up,down}.w`` or, in the moe
-  family, ``moe.{router.w (L, d, E), gate/up (L, E, d, F), down (L, E,
-  F, d)}``;
+* dense, moe and vlm: ``norm1``/``norm2 (L, d)``, ``attn.{q,k,v,o}.w``
+  (and ``.b`` of q, k, v with ``qkv_bias``), each ``linear`` weight
+  ``(L, d_in, d_out)``, and either ``mlp.{gate,up,down}.w`` or, in the
+  moe family, ``moe.{router.w (L, d, E), gate/up (L, E, d, F), down (L,
+  E, F, d)}``; vlm adds ``frontend_proj.w (d, d)``;
+* audio: ``frontend_proj.w (d, d)``, ``encoder.{layers, final_norm}``
+  (the encoder's layers as the dense family's, ``encoder_layers`` deep)
+  and decoder layers that hold, besides the dense family's, ``norm_x (L,
+  d)`` and the cross-attention ``cross.{q,k,v,o}`` (biases as ``attn``);
 * ssm: ``norm1 (L, d)`` and ``mamba`` (``models/ssm.py mamba_shapes``
   behind the layer axis);
 * hybrid: a leading GROUP axis (``num_layers // attn_every`` groups):
@@ -66,9 +70,8 @@ def init_params(generator: torch.Generator, cfg: ArchConfig,
     mamba conv, 0.02 for the embeddings, ones for the norms, zero qkv and
     conv biases; ``A_log`` = log of 1..16 over the heads, ``D`` ones,
     ``dt_bias`` zeros) from ``generator``, which must live on ``device``.
-    Dense and moe stacks are filled one layer at a time, so the float32
-    draw never holds more than one layer's matrix (or expert tensor); the
-    ssm and hybrid families' one matrix (or expert) at a time."""
+    Every stack is filled one layer's matrix (or expert tensor) at a
+    time, so the float32 draw never holds more than one of them."""
     check_family(cfg)
     if cfg.family in RECURRENT_FAMILIES:
         return _init_recurrent(generator, cfg, dims, dtype, device)
@@ -76,52 +79,72 @@ def init_params(generator: torch.Generator, cfg: ArchConfig,
                                        for i in range(cfg.num_layers)):
         raise ValueError(f"{cfg.name}: a moe-family model stacks one MoE "
                          "FFN a layer (moe_every=1, moe_offset=0)")
-    d, nl = cfg.d_model, cfg.num_layers
+    d = cfg.d_model
     hd, H, KV, ff = dims.head_dim, dims.n_heads, dims.n_kv, dims.d_ff
 
     def normal(shape, scale, dt=dtype):
         return (torch.randn(shape, generator=generator, device=device,
                             dtype=torch.float32) * scale).to(dt)
 
-    def stack(shape, scale, dt=dtype):
+    def stack(nl, shape, scale, dt=dtype):
         w = torch.empty((nl, *shape), dtype=dt, device=device)
         for i in range(nl):
             w[i] = normal(shape, scale, dt)
         return w
 
-    def stacked(d_in, d_out, scale=None):
-        return {"w": stack((d_in, d_out), 1.0 / math.sqrt(d_in)
+    def stacked(nl, d_in, d_out, scale=None):
+        return {"w": stack(nl, (d_in, d_out), 1.0 / math.sqrt(d_in)
                            if scale is None else scale)}
 
-    def bias(n):
-        return torch.zeros((nl, n), dtype=dtype, device=device)
+    def ones(nl):
+        return torch.ones((nl, d), dtype=dtype, device=device)
 
-    attn = {"q": stacked(d, H * hd), "k": stacked(d, KV * hd),
-            "v": stacked(d, KV * hd),
-            "o": stacked(H * hd, d, 1.0 / math.sqrt(H * hd))}
-    if cfg.qkv_bias:
-        for name, n in (("q", H * hd), ("k", KV * hd), ("v", KV * hd)):
-            attn[name]["b"] = bias(n)
-    ones = torch.ones((nl, d), dtype=dtype, device=device)
+    def attention(nl):
+        attn = {"q": stacked(nl, d, H * hd), "k": stacked(nl, d, KV * hd),
+                "v": stacked(nl, d, KV * hd),
+                "o": stacked(nl, H * hd, d, 1.0 / math.sqrt(H * hd))}
+        if cfg.qkv_bias:
+            for name, n in (("q", H * hd), ("k", KV * hd), ("v", KV * hd)):
+                attn[name]["b"] = torch.zeros((nl, n), dtype=dtype,
+                                              device=device)
+        return attn
+
+    def mlp(nl):
+        return {"gate": stacked(nl, d, ff), "up": stacked(nl, d, ff),
+                "down": stacked(nl, ff, d, 1.0 / math.sqrt(ff))}
+
+    # the draw order (attention, embedding, FFN, head) is fixed: a seed
+    # gives the weights it gave before the audio and vlm trees came in
+    nl = cfg.num_layers
+    layers: Dict[str, Any] = {"norm1": ones(nl), "attn": attention(nl)}
+    if cfg.family == "audio":
+        layers.update(norm_x=ones(nl), cross=attention(nl))
     params: Dict[str, Any] = {
         "embed": {"table": normal((dims.vocab, d), 0.02)},
         "final_norm": torch.ones((d,), dtype=dtype, device=device),
-        "layers": {"norm1": ones, "attn": attn, "norm2": ones.clone()},
+        "layers": layers,
     }
+    layers["norm2"] = ones(nl)
     if cfg.family == "moe":
         shp = moe_shapes(d, ff, cfg.moe_num_experts)
-        params["layers"]["moe"] = {
-            "router": {"w": stack(shp["router"], 1.0 / math.sqrt(d),
+        layers["moe"] = {
+            "router": {"w": stack(nl, shp["router"], 1.0 / math.sqrt(d),
                                   torch.float32)},
-            "gate": stack(shp["gate"], 1.0 / math.sqrt(d)),
-            "up": stack(shp["up"], 1.0 / math.sqrt(d)),
-            "down": stack(shp["down"], 1.0 / math.sqrt(ff))}
+            "gate": stack(nl, shp["gate"], 1.0 / math.sqrt(d)),
+            "up": stack(nl, shp["up"], 1.0 / math.sqrt(d)),
+            "down": stack(nl, shp["down"], 1.0 / math.sqrt(ff))}
     else:
-        params["layers"]["mlp"] = {
-            "gate": stacked(d, ff), "up": stacked(d, ff),
-            "down": stacked(ff, d, 1.0 / math.sqrt(ff))}
+        layers["mlp"] = mlp(nl)
     if not cfg.tie_embeddings:
         params["lm_head"] = {"table": normal((dims.vocab, d), 0.02)}
+    if cfg.frontend != "none":
+        params["frontend_proj"] = {"w": normal((d, d), 1.0 / math.sqrt(d))}
+    if cfg.family == "audio":
+        ne = cfg.encoder_layers
+        params["encoder"] = {
+            "layers": {"norm1": ones(ne), "attn": attention(ne),
+                       "norm2": ones(ne), "mlp": mlp(ne)},
+            "final_norm": torch.ones((d,), dtype=dtype, device=device)}
     return params
 
 

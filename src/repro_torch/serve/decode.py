@@ -29,6 +29,7 @@ state row ``gi * (attn_every - 1) + i``.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable, Dict
 
 import torch
@@ -78,7 +79,8 @@ def init_decode_state(cfg: ArchConfig, dims: ModelDims, spec: DecodeSpec,
                       device="cuda") -> Dict[str, torch.Tensor]:
     """Zeroed decode state on ``device`` (flex entries -1 = unmapped): the
     KV pools and translation tables when the model has attention layers,
-    the ``ssm``/``conv`` rows when it has mamba sublayers."""
+    the ``ssm``/``conv`` rows when it has mamba sublayers, the
+    ``cross_k``/``cross_v`` rows when it is an encoder-decoder."""
     if data_size != 1 or spec.mode != "batch":
         raise NotImplementedError("only the single-device batch layout is "
                                   "ported (sharded serving: ROADMAP P15)")
@@ -105,6 +107,11 @@ def init_decode_state(cfg: ArchConfig, dims: ModelDims, spec: DecodeSpec,
         st["conv"] = torch.zeros((n_ssm, batch, md.conv_width - 1,
                                   md.conv_channels), dtype=dtype,
                                  device=device)
+    if cfg.is_encoder_decoder:
+        cross = (cfg.num_layers, batch, cfg.frontend_tokens, dims.n_kv,
+                 dims.head_dim)
+        st["cross_k"] = torch.zeros(cross, dtype=dtype, device=device)
+        st["cross_v"] = torch.zeros(cross, dtype=dtype, device=device)
     return {
         **st,
         "ctx_len": torch.zeros((batch,), **i32),
@@ -194,7 +201,9 @@ def _paged_attn_local(q, k_new, v_new, kp_l, vp_l, slots, w_row, extent):
 # would compute B at a time.  A GEMM or a reduction may round a row
 # otherwise at B * Q rows than at B, so the ops found to do so on the card
 # (the K/V projections, whose rows enter the pool, and the RMS norms' mean
-# square) run at the decode step's shape, one window position at a time.
+# square) run at the decode step's shape, one window position at a time,
+# and every other projection does so where its GEMM rounds a row otherwise
+# at B * Q rows (``decode_linear``).
 
 def _per_position(fn, x: torch.Tensor) -> torch.Tensor:
     """``fn`` of a decode step's ``(B, ...)`` ``x``; a verify step's
@@ -205,6 +214,66 @@ def _per_position(fn, x: torch.Tensor) -> torch.Tensor:
         return fn(x)
     xt = x.transpose(0, 1).contiguous()
     return torch.stack([fn(xt[i]) for i in range(xt.shape[0])], 1)
+
+
+# (weight shape, strides, dtype, device, B, Q) -> whether the GEMM rounds
+# each row at B * Q rows as at B rows (``_rows_invariant``)
+_ROWS_INVARIANT: Dict[tuple, bool] = {}
+
+
+def _rows_invariant(w: torch.Tensor, B: int, Q: int) -> bool:
+    """Whether ``x @ w`` at B * Q rows gives each row the bits it gets at
+    B rows.  The BLAS library picks its kernel by shape, and one that
+    splits the reduction at one row count and not at the other (as
+    cuBLAS does for paligemma-3b's MLP at 4 rows) rounds every row
+    otherwise.  Probed once per weight layout and (B, Q), on seeded
+    random rows."""
+    key = (tuple(w.shape), w.stride(), w.dtype, w.device, B, Q)
+    hit = _ROWS_INVARIANT.get(key)
+    if hit is None:
+        gen = torch.Generator(device=w.device).manual_seed(0)
+        x = torch.randn((B * Q, w.shape[0]), generator=gen, device=w.device,
+                        dtype=torch.float32).to(w.dtype)
+        wide = x @ w
+        hit = all(torch.equal(x[i * B:(i + 1) * B] @ w,
+                              wide[i * B:(i + 1) * B]) for i in range(Q))
+        _ROWS_INVARIANT[key] = hit
+    return hit
+
+
+def probe_verify_gemms(params, cfg: ArchConfig, B: int, Q: int,
+                       dtype) -> None:
+    """Probe (``_rows_invariant``) each GEMM that a verify step at (B, Q)
+    in ``dtype`` sends through ``decode_linear`` or the head, so that the
+    step finds every outcome cached and probes nothing itself (no host
+    sync).  Every layer's weights are views of one stacked tensor, so
+    layer 0's layouts stand for all.  ``Engine`` calls it when it sets up
+    speculative decoding."""
+    blk = layer_params(params, 0)
+    ps = [blk["attn"]["q"], blk["attn"]["o"]]
+    ps += [blk["mlp"][k] for k in ("gate", "up", "down") if "mlp" in blk]
+    ps += [blk["cross"][k] for k in ("q", "o") if "cross" in blk]
+    for p in ps:
+        _rows_invariant(p["w"].to(dtype), B, Q)
+    head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+    _rows_invariant(head["table"].T.to(dtype), B, Q)
+
+
+def verify_gemm_probes() -> Dict[tuple, bool]:
+    """Every GEMM layout probed so far, ``(weight shape, strides, dtype,
+    device, B, Q)``, and whether it rounds each row at B * Q rows as at B
+    rows (False: the verify step runs it one window position at a
+    time)."""
+    return dict(_ROWS_INVARIANT)
+
+
+def decode_linear(p, x: torch.Tensor) -> torch.Tensor:
+    """``Lmod.linear`` of a decode step's (B, d) ``x``, or of a verify
+    step's (B, Q, d) ``x``: at B * Q rows where that GEMM rounds a row as
+    it does at B rows, else one window position at a time."""
+    if x.dim() == 2 or _rows_invariant(p["w"].to(x.dtype), *x.shape[:2]):
+        return Lmod.linear(p, x)
+    return _per_position(lambda t: Lmod.linear(p, t), x)
 
 
 def _rms_norm(x: torch.Tensor, scale: torch.Tensor,
@@ -219,8 +288,9 @@ def _rms_norm(x: torch.Tensor, scale: torch.Tensor,
 
 
 def decode_ffn(blk, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    """Post-attention FFN sublayer: the dense MLP, or the decode-time MoE
-    over every row of ``x`` (B, d) or (B, Q, d).  The MoE's float32
+    """Post-attention FFN sublayer: the dense MLP (its projections through
+    ``decode_linear``), or the decode-time MoE over every row of ``x`` (B,
+    d) or (B, Q, d).  The MoE's float32
     router runs one window position at a time, at the decode step's
     shape: a flipped near-tie there would pick another expert; its
     experts read every row at once (their rows round alike at both
@@ -228,7 +298,9 @@ def decode_ffn(blk, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     h = _rms_norm(x, blk["norm2"], cfg.norm_eps)
     act = ffn_act(cfg)
     if "moe" not in blk:
-        return x + Lmod.mlp(blk["mlp"], h, act)
+        p = blk["mlp"]
+        g = act(decode_linear(p["gate"], h)) * decode_linear(p["up"], h)
+        return x + decode_linear(p["down"], g)
     p = blk["moe"]
     w = p["router"]["w"]
     logits = _per_position(lambda t: t.float() @ w, h)
@@ -258,11 +330,44 @@ def decode_mamba(blk, x: torch.Tensor, dstate, j: int, act,
     return x + out
 
 
+def _cross_core(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
+                dims: ModelDims) -> torch.Tensor:
+    """Attention of ``q (B, H * hd)`` over a row's cross K/V ``(B, F, KV,
+    hd)``: scores, softmax and products in float32; returns ``(B, H *
+    hd)`` float32."""
+    B = q.shape[0]
+    g = dims.n_heads // dims.n_kv
+    qf = q.reshape(B, dims.n_kv, g, dims.head_dim).float()
+    s = torch.einsum("bkgd,bfkd->bkgf", qf, ck.float())
+    p = torch.softmax(s / math.sqrt(dims.head_dim), dim=-1)
+    return torch.einsum("bkgf,bfkd->bkgd", p, cv.float()).reshape(B, -1)
+
+
+def decode_cross(blk, x: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
+                 cfg: ArchConfig, dims: ModelDims) -> torch.Tensor:
+    """The audio decoder's cross-attention sublayer over the slots'
+    installed cross K/V ``(B, F, KV, hd)``, for ``x`` (B, d) of a decode
+    step or (B, Q, d) of a verify step.  The verify step takes the norm's
+    mean square and the attention itself one window position at a time,
+    at the decode step's shape, so its rows are bitwise the decode
+    step's; the q and o projections go through ``decode_linear``."""
+    lead = x.shape[:-1]
+    h = _rms_norm(x, blk["norm_x"], cfg.norm_eps)
+    q = decode_linear(blk["cross"]["q"], h)
+    o = _per_position(lambda t: _cross_core(t, ck, cv, dims), q)
+    o = o.reshape(*lead, -1).to(x.dtype)
+    return x + decode_linear(blk["cross"]["o"], o)
+
+
 def project_logits(params, x: torch.Tensor, cfg: ArchConfig,
                    dims: ModelDims) -> torch.Tensor:
     """Final norm -> (tied) head matmul -> vocab-pad mask."""
     x = _rms_norm(x, params["final_norm"], cfg.norm_eps)
     head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+    if x.dim() == 3 and not _rows_invariant(
+            head["table"].T.to(x.dtype), *x.shape[:2]):
+        return _per_position(
+            lambda t: Lmod.unembed(head, t, dims.logical_vocab), x)
     return Lmod.unembed(head, x, dims.logical_vocab)
 
 
@@ -280,12 +385,12 @@ def decode_attn(blk, x: torch.Tensor, kp_l: torch.Tensor,
     The verify step projects K and V (and takes the norm's mean square) one
     window position at a time, at the decode step's shape, so the rows it
     writes to the pool are bitwise the decode step's and spec-on streams
-    stay spec-off's; q and o stay at B * Q rows."""
+    stay spec-off's; q and o go through ``decode_linear``."""
     lead = x.shape[:-1]
     B = lead[0]
     H, KV, hd = dims.n_heads, dims.n_kv, dims.head_dim
     h = _rms_norm(x, blk["norm1"], cfg.norm_eps)
-    q = Lmod.linear(blk["attn"]["q"], h).reshape(*lead, H, hd)
+    q = decode_linear(blk["attn"]["q"], h).reshape(*lead, H, hd)
     k = _per_position(lambda t: Lmod.linear(blk["attn"]["k"], t),
                       h).reshape(*lead, KV, hd)
     v = _per_position(lambda t: Lmod.linear(blk["attn"]["v"], t),
@@ -297,8 +402,28 @@ def decode_attn(blk, x: torch.Tensor, kp_l: torch.Tensor,
         k = Lmod.apply_rope(k.reshape(B, -1, KV, hd), pos,
                             cfg.rope_theta).reshape(k.shape)
     out = _paged_attn_local(q, k, v, kp_l, vp_l, *kv_at)
-    o = Lmod.linear(blk["attn"]["o"], out.reshape(*lead, -1).to(x.dtype))
+    o = decode_linear(blk["attn"]["o"], out.reshape(*lead, -1).to(x.dtype))
     return x + o
+
+
+def decode_layers(params, x: torch.Tensor, dstate, kv_at,
+                  positions: torch.Tensor, cfg: ArchConfig,
+                  dims: ModelDims) -> torch.Tensor:
+    """The layer loop of the dense, moe, vlm and audio families, shared
+    by the decode step (``x`` (B, d)) and the verify step (``x`` (B, Q,
+    d)): per layer the attention sublayer on pool layer ``i``, the audio
+    decoder's cross sublayer over ``dstate["cross_k"/"cross_v"][i]``, and
+    the FFN."""
+    cross = cfg.family == "audio"
+    for i in range(cfg.num_layers):
+        blk = layer_params(params, i)
+        x = decode_attn(blk, x, dstate["k_pool"][i], dstate["v_pool"][i],
+                        kv_at, positions, cfg, dims)
+        if cross:
+            x = decode_cross(blk, x, dstate["cross_k"][i],
+                             dstate["cross_v"][i], cfg, dims)
+        x = decode_ffn(blk, x, cfg)
+    return x
 
 
 # --------------------------------------------------------- full serve step
@@ -360,12 +485,8 @@ def make_serve_step(cfg: ArchConfig, dims: ModelDims, spec: DecodeSpec,
                                         positions, cfg, dims)
                     x = decode_ffn(hybrid_ffn_select(cfg, blk, i), x, cfg)
         else:
-            for i in range(cfg.num_layers):
-                blk = layer_params(params, i)
-                x = decode_attn(blk, x, dstate["k_pool"][i],
-                                dstate["v_pool"][i], kv_at, positions, cfg,
-                                dims)
-                x = decode_ffn(blk, x, cfg)
+            x = decode_layers(params, x, dstate, kv_at, positions, cfg,
+                              dims)
         logits = project_logits(params, x, cfg, dims)
         if sample:
             stats["next_token"] = sample_tokens(

@@ -1,7 +1,7 @@
 """Request-centric continuous-batching engine over the hybrid KV pool.
 
-The port of ``repro.serve.engine`` for the single-device path of the
-dense, moe, ssm and hybrid families.  A request runs like this:
+The port of ``repro.serve.engine`` for the single-device path of its six
+families.  A request runs like this:
 
 * ``submit`` queues it; the configured :class:`~.scheduler.Scheduler`
   orders the waiting requests;
@@ -29,6 +29,14 @@ dense, moe, ssm and hybrid families.  A request runs like this:
 
 Tokens are the argmax, or for a request with sampled ``SamplingParams``
 its seeded draw (``serve/sampling.py``).
+
+Frontend families: a vlm request's ``frontend`` (its image embeddings)
+occupies the first ``frontend_tokens`` positions of the sequence, so
+context lengths, KV block indices, the footprint and the drafter's
+history all count it (``_front_tokens``); an audio request's frames feed
+the encoder in its recompute chunk 0, which installs the slot's
+``cross_k``/``cross_v`` rows, and preemption and snapshots carry those
+rows.  The prefix cache is off for both (``_prefix_cache_unsupported``).
 
 Recurrent families (ssm, hybrid): every mamba sublayer keeps per-slot
 ``ssm``/``conv`` rows in the decode state; prefill installs them at the
@@ -104,7 +112,8 @@ from repro_torch.core import (CHAIN_SEED, HybridConfig, HybridKVManager,
 from repro_torch.models import FwdOptions, model_dims
 from repro_torch.models.transformer import (RECURRENT_FAMILIES, check_family,
                                             n_attn_layers)
-from .decode import DecodeSpec, init_decode_state, make_serve_step
+from .decode import (DecodeSpec, init_decode_state, make_serve_step,
+                     probe_verify_gemms)
 from .decode import not_ported as _not_ported
 from .prefill import make_prefill_step, make_prefix_prefill_step
 from .sampling import GREEDY, SamplingParams, prng_key_data
@@ -238,8 +247,10 @@ class ChunkRecord(NamedTuple):
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class Request:
-    """Immutable request submission.  The prompt array is copied and
-    marked read-only; runtime state lives in the engine's
+    """Immutable request submission.  The prompt (and frontend) arrays are
+    copied and marked read-only; ``frontend`` holds a vlm or audio
+    request's stub embeddings ``(frontend_tokens, d_model)``.  Runtime
+    state lives in the engine's
     ``RequestState`` and surfaces through ``RequestOutput`` snapshots.
 
     ``deadline_ms`` is a wall-clock budget from submission (None = no
@@ -261,6 +272,10 @@ class Request:
         p = np.array(self.prompt, copy=True)
         p.setflags(write=False)
         object.__setattr__(self, "prompt", p)
+        if self.frontend is not None:
+            f = np.array(self.frontend, copy=True)
+            f.setflags(write=False)
+            object.__setattr__(self, "frontend", f)
 
     @property
     def generated(self) -> List[int]:
@@ -314,7 +329,8 @@ class _HostTierSeq:
     had mapped (``kv``, a host tensor (2 = k/v, layers, n_blocks, block,
     KV heads, head dim) in the pool dtype, a bitwise copy), under
     speculative decoding its token-history row (``hist``), for a recurrent
-    family its ``ssm``/``conv`` rows (``rows``), the committed context
+    family its ``ssm``/``conv`` rows and for the audio family its
+    ``cross_k``/``cross_v`` rows (``rows``), the committed context
     length and, for a mid-prefill victim, how many prompt tokens were
     installed.  Sampling state needs no save: per-slot keys derive
     from (seed, seq_id) and fold the absolute position, so they are
@@ -326,7 +342,8 @@ class _HostTierSeq:
     kv: Optional[torch.Tensor]
     nbytes: int
     hist: Optional[torch.Tensor] = None
-    # recurrent families: the slot's ``ssm``/``conv`` rows (n_ssm, ...)
+    # the slot's ``ssm``/``conv`` rows (n_ssm, ...) of a recurrent family,
+    # its ``cross_k``/``cross_v`` rows (L, F, KV, hd) of the audio family
     rows: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
 
 
@@ -574,6 +591,8 @@ class Engine:
             self._spec_step = make_spec_decode_step(
                 cfg, self.dims, self.spec, self.spec_K, dtype=dtype,
                 ngram=config.spec_ngram, bound=bound)
+            probe_verify_gemms(params, cfg, max_batch, self.spec_K + 1,
+                               dtype)
             # each slot's token history for the drafter (prompt scattered
             # at admission, accepted tokens appended by the step; -1 =
             # unknown)
@@ -620,16 +639,17 @@ class Engine:
     def _prefix_cache_unsupported(self) -> Optional[str]:
         """Why the prefix cache cannot run on this configuration (None =
         supported).  ``prefix_cache="auto"`` silently disables on these;
-        ``prefix_cache=True`` raises with the reason.  (The JAX engine's
-        vlm frontend reason belongs to a family the port does not run
-        yet.)
+        ``prefix_cache=True`` raises with the reason.
 
-        One deliberate difference from the JAX engine: a family with
-        recurrent layers is refused too.  A cache hit starts prefill at
+        Two deliberate differences from the JAX engine, which keeps the
+        cache on for both and serves such a hit otherwise than cache-off:
+        a family with recurrent layers is refused (a hit starts prefill at
         the prompt's tail, but the mamba sublayers' state at the cached
         prefix's end is not cached, so they would continue from whatever
-        the slot's rows hold; the JAX engine keeps the cache on for the
-        hybrid family and serves such a hit otherwise than cache-off."""
+        the slot's rows hold), and so is the audio family (the block hash
+        covers the prompt tokens only, while the decoder's K/V depend on
+        the request's encoder input too; and a hit's prefix-KV chunk reads
+        ``cross_k``/``cross_v`` rows that no chunk installed for it)."""
         if not self._n_attn_layers:
             return ("the model family has no attention KV blocks to "
                     "cache")
@@ -639,7 +659,18 @@ class Engine:
         if self.hybrid_cfg.mode == "restrictive_only":
             return ("content sharing needs a flexible segment (a "
                     "restrictive slot is tag-bound to a single vpn)")
+        if self._front_tokens():
+            return ("vlm frontend KV blocks precede the prompt blocks, "
+                    "so prompt-block indices are not content-pure")
+        if self.cfg.is_encoder_decoder:
+            return ("the decoder's K/V depend on the request's encoder "
+                    "input, which the block hash does not cover")
         return None
+
+    def _front_tokens(self) -> int:
+        """Frontend tokens that occupy KV blocks (the vlm image prefix; the
+        audio frontend lives in the encoder, not the decoder cache)."""
+        return self.cfg.frontend_tokens if self.cfg.family == "vlm" else 0
 
     # ------------------------------------------------------------ admission
     @property
@@ -672,8 +703,16 @@ class Engine:
         if S % bs:
             raise ValueError(f"prompt length {S} must be a multiple of the "
                              f"KV block size {bs} (pad upstream)")
-        if req.frontend is not None:
-            raise _not_ported("frontend (vlm/audio) inputs", "P10")
+        front = self._front_tokens()
+        if front % bs:
+            raise ValueError(f"frontend length {front} must be a multiple "
+                             f"of the KV block size {bs}")
+        want = ((self.cfg.frontend_tokens, self.cfg.d_model)
+                if self.cfg.frontend != "none" else None)
+        got = None if req.frontend is None else req.frontend.shape
+        if got != want:
+            raise ValueError(f"request frontend of shape {got}, the model "
+                             f"takes {want}")
         old = self._states.get(req.seq_id)
         if old is not None and not old.done:
             raise ValueError(f"seq_id {req.seq_id} is already queued or "
@@ -739,6 +778,7 @@ class Engine:
             return []
         m = self.manager
         bs = self.cfg.kv_block_size
+        front = self._front_tokens()
         if budget is None:
             budget = sum(len(np.asarray(r.prompt)) for r in self.waiting)
         chunks: List[Tuple[Request, int, int, bool]] = []
@@ -787,7 +827,7 @@ class Engine:
                 break
             end = start + take
             if gate_alloc:
-                need = self._chunk_vpns(req, start, end)
+                need = self._chunk_vpns(req, start, end, front)
                 if (need and self._injector is not None
                         and self._injector.alloc_unavailable(
                             self._step_count, "admit")):
@@ -824,7 +864,7 @@ class Engine:
             self.admission_log.append(ChunkRecord(
                 req.seq_id, start, end,
                 "prefix_kv" if use_prefix else "recompute",
-                (end - start) if use_prefix else end))
+                (end - start) if use_prefix else front + end))
             if final:
                 self._current = None
 
@@ -849,15 +889,15 @@ class Engine:
                 # reductions nest bitwise across pow2 tails, not across
                 # arbitrary length pairs): part of the bucket key, not a
                 # bucket maximum
-                nblk_buf = _next_pow2(end // bs)
+                nblk_buf = front // bs + _next_pow2(end // bs)
                 pbuckets[(s_pad, nblk_buf)].append((req, start, end, final))
             else:
                 buckets[bs * _next_pow2(end // bs)].append(
                     (req, start, end, final))
         for s_pad, grp in sorted(buckets.items()):
-            pending.extend(self._prefill_bucket(grp, s_pad))
+            pending.extend(self._prefill_bucket(grp, s_pad, front))
         for (s_pad, nblk_buf), grp in sorted(pbuckets.items()):
-            pending.extend(self._prefix_bucket(grp, s_pad, nblk_buf))
+            pending.extend(self._prefix_bucket(grp, s_pad, nblk_buf, front))
         # ---- publish installed chunks to the prefix cache ---------------
         # after the dispatch: entries become matchable from the next
         # admission round, so a same-round duplicate never attaches a
@@ -868,14 +908,16 @@ class Engine:
                 self._cache_insert_chunk(req, start, end)
         return pending
 
-    def _chunk_vpns(self, req, start: int, end: int) -> List[int]:
+    def _chunk_vpns(self, req, start: int, end: int,
+                    front: int) -> List[int]:
         """Vpns a prompt chunk's bucket allocation will fault in (its
-        unmapped covering blocks)."""
+        unmapped covering blocks, the frontend's on chunk 0)."""
         m = self.manager
         bs = self.cfg.kv_block_size
         s = m.seq_slot(req.seq_id)
-        cb0 = start // bs
-        return [self.hybrid_cfg.vpn(s, cb) for cb in range(cb0, end // bs)
+        cb0 = (front + start) // bs if start else 0
+        return [self.hybrid_cfg.vpn(s, cb)
+                for cb in range(cb0, (front + end) // bs)
                 if m.lookup(req.seq_id, cb)[0] < 0]
 
     # --------------------------------------------- prefix cache plumbing
@@ -986,11 +1028,12 @@ class Engine:
         return True
 
     def _footprint_blocks(self, req) -> int:
-        """Whole-request KV footprint in blocks (prompt + all of
+        """Whole-request KV footprint in blocks (frontend + prompt + all of
         max_new_tokens, plus one spare block for a speculative window's
         overshoot), clamped to the per-sequence maximum."""
         bs = self.cfg.kv_block_size
-        total = len(np.asarray(req.prompt)) + req.max_new_tokens
+        total = (self._front_tokens() + len(np.asarray(req.prompt))
+                 + req.max_new_tokens)
         need = (total + bs - 1) // bs + (1 if self.spec_K else 0)
         return min(need, self.spec.max_blocks_per_seq)
 
@@ -1045,8 +1088,9 @@ class Engine:
         phases), or at an allocation miss after the step's prefill
         dispatches.  Pending slot migrations land first; then ONE gather
         of the sequence's mapped ``k_pool``/``v_pool`` rows and ONE
-        device-to-host batch save its KV (and, under speculative decoding,
-        its token-history row).  Sampling keys need no save.
+        device-to-host batch save its KV, its recurrent or cross-attention
+        rows and, under speculative decoding, its token-history row.
+        Sampling keys need no save.
         The request re-enters the scheduler queue with its ORIGINAL
         arrival step, so aging policies keep its seniority.
 
@@ -1074,7 +1118,8 @@ class Engine:
                               self.dstate["v_pool"][:, idx]])
         if self.spec_K:
             hist = self.dstate["hist"][slot]
-        names = [k for k in ("ssm", "conv") if k in self.dstate]
+        names = [k for k in ("ssm", "conv", "cross_k", "cross_v")
+                 if k in self.dstate]
         kv, hist, *rows = self._to_host(
             kv, hist, *(self.dstate[k][:, slot] for k in names))
         rows = dict(zip(names, rows))
@@ -1279,13 +1324,16 @@ class Engine:
         """Scatter admitted prompt spans into the drafter's token history
         (one scatter an admission call; decode steps append accepted
         tokens themselves).  ``chunks`` holds (request, start, end, ...)
-        records; positions past the history drop."""
+        records; positions past the history drop.  The vlm frontend's
+        positions stay -1: no token matches them."""
         if not self.spec_K or not chunks:
             return
         H = self.dstate["hist"].shape[1]
+        front = self._front_tokens()
         idxs, vals = [], []
         for req, start, end, *_ in chunks:
-            pos = np.arange(start, min(end, H), dtype=np.int64)
+            pos = np.arange(front + start, min(front + end, H),
+                            dtype=np.int64)
             idxs.append(self._slot_of[req.seq_id] * H + pos)
             vals.append(np.asarray(req.prompt[start:start + pos.size],
                                    np.int32))
@@ -1293,31 +1341,39 @@ class Engine:
         self.dstate["hist"].view(-1)[_upload(np.concatenate(idxs), dev)] = (
             _upload(np.concatenate(vals), dev))
 
-    def _prefill_bucket(self, grp, s_pad: int):
+    def _prefill_bucket(self, grp, s_pad: int, front: int):
         """Allocate blocks and run ONE batched prefill dispatch for a
-        bucket of same-padded-length chunks."""
+        bucket of same-padded-length chunks (the frontend's ``front``
+        positions ahead of each row's prompt)."""
         m = self.manager
         bs = self.cfg.kv_block_size
         B_pad = _next_pow2(len(grp))
-        nblk_cache = s_pad // bs
+        nblk_cache = (front + s_pad) // bs
         tokens = np.zeros((B_pad, s_pad), np.int64)
         slots = -np.ones((B_pad, nblk_cache), np.int32)
         slot_ids = np.full(B_pad, -1, np.int32)
         ctx = np.zeros(B_pad, np.int32)
         last_pos = np.zeros(B_pad, np.int32)
         allocated: List[Tuple[int, int, int]] = []
+        frontend = None
+        if self.cfg.frontend != "none":
+            frontend = np.zeros((B_pad, self.cfg.frontend_tokens,
+                                 self.cfg.d_model), np.float32)
         for i, (req, start, end, final) in enumerate(grp):
             prompt = np.asarray(req.prompt)
             tokens[i, :end] = prompt[:end]
             slot_ids[i] = self._slot_of[req.seq_id]
-            ctx[i] = end
+            ctx[i] = end + front
             last_pos[i] = end - 1
-            # new cache blocks of this chunk; blocks an earlier chunk
-            # mapped install nothing, and an attention-free model has
-            # none to allocate
+            if frontend is not None:
+                frontend[i] = req.frontend
+            # new cache blocks of this chunk (chunk 0 also covers the
+            # frontend's); blocks an earlier chunk mapped install nothing,
+            # and an attention-free model has none to allocate
             if not self._n_attn_layers:
                 continue
-            for cb in range(start // bs, end // bs):
+            cb0 = (front + start) // bs if start else 0
+            for cb in range(cb0, (front + end) // bs):
                 if m.lookup(req.seq_id, cb)[0] >= 0:
                     continue
                 info = m.allocate_block(req.seq_id, cb)
@@ -1336,7 +1392,9 @@ class Engine:
         if self._has_recurrent:
             # per-row real lengths: dt is zeroed past them, so the pow2
             # pad tail is an exact identity transition of the SSM state
-            batch["seq_len"] = _upload(ctx, dev)
+            batch["seq_len"] = _upload(ctx - front, dev)
+        if frontend is not None:
+            batch["frontend"] = _upload(frontend, dev)
         _, self.dstate, pstats = self._prefill_step(
             self.params, self.dstate, batch,
             _upload(slots, dev), _upload(slot_ids, dev), _upload(ctx, dev),
@@ -1357,7 +1415,7 @@ class Engine:
                 out.append((req, pstats["next_token"][i:i + 1]))
         return out
 
-    def _prefix_bucket(self, grp, s_pad: int, nblk_buf: int):
+    def _prefix_bucket(self, grp, s_pad: int, nblk_buf: int, front: int):
         """ONE batched prefix-KV dispatch for a bucket of same-shaped
         chunks: allocate the chunks' new blocks, then forward ONLY the
         chunk tokens, reading the prefix's installed pool blocks through
@@ -1377,12 +1435,13 @@ class Engine:
             prompt = np.asarray(req.prompt)
             tokens[i, :end - start] = prompt[start:end]
             slot_ids[i] = self._slot_of[req.seq_id]
-            ctx[i] = end
-            pctx[i] = start
+            ctx[i] = end + front
+            pctx[i] = start + front
             last_pos[i] = end - start - 1
             if not self._n_attn_layers:
                 continue
-            for j, cb in enumerate(range(start // bs, end // bs)):
+            start_blk = (front + start) // bs
+            for j, cb in enumerate(range(start_blk, (front + end) // bs)):
                 if m.lookup(req.seq_id, cb)[0] >= 0:
                     continue
                 info = m.allocate_block(req.seq_id, cb)
@@ -1398,7 +1457,7 @@ class Engine:
         for i, (req, start, end, final) in enumerate(grp):
             if not self._n_attn_layers:
                 break
-            for cb in range(start // bs):
+            for cb in range((front + start) // bs):
                 slot, _ = m.lookup(req.seq_id, cb)
                 if slot < 0:
                     # a prefix block was evicted to swap: its data is gone

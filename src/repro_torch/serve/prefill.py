@@ -1,8 +1,8 @@
 """Prefill steps: install prompt K/V into the hybrid KV pool.
 
-The port of ``repro.serve.prefill`` for the dense, moe, ssm and hybrid
-families (a MoE layer's FFN is ``moe_layer`` over the whole padded batch,
-pad rows included, as in the JAX package).  Two ways to admit a prompt
+The port of ``repro.serve.prefill`` for the six families (a MoE layer's
+FFN is ``moe_layer`` over the whole padded batch, pad rows included, as
+in the JAX package).  Two ways to admit a prompt
 chunk, sharing the install and ``ctx_len`` scatter:
 
 * ``make_prefill_step`` — the full-(re)compute forward: the batch rows
@@ -21,6 +21,14 @@ The mamba sublayers mask each row's pad tail (dt = 0 past the row's real
 length: ``batch["seq_len"]`` in the recompute step, ``ctx - prefix_ctx``
 in the prefix step), so the installed SSM state and conv tail are those
 at the row's real end, and both steps install them at the row's slot.
+
+The frontend families: ``batch["frontend"]`` (B, F, d) goes into the
+recompute forward.  For vlm its F positions precede the prompt in the
+installed K/V (``ctx``, ``prefix_ctx`` and the block indices count them);
+for audio the recompute step installs each layer's cross-attention K/V
+of the encoder output at the row's slot (``cross_k``/``cross_v``), and
+the prefix step's cross sublayer reads the slot's installed rows instead
+of running the encoder again.
 
 Calling convention (the engine's admission contract):
 
@@ -87,13 +95,14 @@ def _slot_rows(slot_ids, n: int):
     return match.to(torch.int64).argmax(dim=1), match.any(dim=1)
 
 
-def _install_recurrent(dstate, mc, slot_ids, B: int) -> None:
-    """Write per-row SSM states and conv tails (any leading sublayer axes,
-    then B) into ``dstate["ssm"]``/``["conv"]`` at the rows' slots; pad
-    rows write nothing.  A gather of the new rows and a select, bitwise
-    the rows computed."""
-    row, hit = _slot_rows(slot_ids, dstate["ssm"].shape[1])
-    for name, new in (("ssm", mc.state), ("conv", mc.conv)):
+def _install_rows(dstate, rows, slot_ids, B: int) -> None:
+    """Write per-row state ``rows`` ({name: tensor with any leading
+    sublayer axes, then B}) into ``dstate[name]`` (L, slots, ...) at the
+    rows' slots; pad rows write nothing.  A gather of the new rows and a
+    select, bitwise the rows computed, with no host sync."""
+    name0 = next(iter(rows))
+    row, hit = _slot_rows(slot_ids, dstate[name0].shape[1])
+    for name, new in rows.items():
         dst = dstate[name]
         new = new.reshape(-1, B, *dst.shape[2:])[:, row].to(dst.dtype)
         keep = hit.reshape(1, -1, *([1] * (dst.dim() - 2)))
@@ -142,7 +151,12 @@ def make_prefill_step(cfg: ArchConfig, dims: ModelDims, spec: DecodeSpec,
             _install_kv(spec, dstate, caches,
                         torch.where(row_ok[:, None], slots, -1), B)
         if "ssm" in caches:
-            _install_recurrent(dstate, caches["ssm"], slot_ids, B)
+            mc = caches["ssm"]
+            _install_rows(dstate, {"ssm": mc.state, "conv": mc.conv},
+                          slot_ids, B)
+        if "ck" in caches:
+            _install_rows(dstate, {"cross_k": caches["ck"],
+                                   "cross_v": caches["cv"]}, slot_ids, B)
         _scatter_ctx(dstate, slot_ids, ctx)
         rows = torch.arange(B, device=logits.device)
         last = logits[rows, last_pos.long()]
@@ -181,7 +195,9 @@ def make_prefix_prefill_step(cfg: ArchConfig, dims: ModelDims,
 
     Each mamba sublayer starts from the slot's saved ``ssm``/``conv`` rows
     (pad rows read slot 0's and install nothing) and masks the row's pad
-    tail past ``ctx - prefix_ctx``.
+    tail past ``ctx - prefix_ctx``.  The audio decoder's cross sublayer
+    reads the slot's installed ``cross_k``/``cross_v`` rows; nothing is
+    installed there (the recompute chunk 0 did).
     """
     check_family(cfg)
     paged = spec.prefix_gather == "paged"
@@ -229,10 +245,10 @@ def make_prefix_prefill_step(cfg: ArchConfig, dims: ModelDims,
                      + torch.arange(S, dtype=torch.int32,
                                     device=tokens.device)[None, :])
         ks, vs, ssm = [], [], []
-        if "ssm" in dstate:
-            sid = slot_ids.clamp(0, dstate["ssm"].shape[1] - 1)
-            # per-row real chunk length: the pad tail's identity mask
-            chunk_len = ctx - prefix_ctx
+        # pad rows (-1) read slot 0's rows and install nothing
+        sid = slot_ids.clamp(0, dstate["ctx_len"].shape[0] - 1).long()
+        # per-row real chunk length: the pad tail's identity mask
+        chunk_len = ctx - prefix_ctx
 
         def mamba_sub(blk, x, j):
             x, c = mamba_block(blk, x, cfg, dims, collect=True,
@@ -253,6 +269,16 @@ def make_prefix_prefill_step(cfg: ArchConfig, dims: ModelDims,
             vs.append(v)
             return x + Lmod.linear(blk["attn"]["o"], o.reshape(B, S, -1))
 
+        def cross_sub(blk, x, j):
+            """The audio decoder's cross sublayer of layer ``j`` over the
+            slots' installed cross K/V, through the plain dense softmax
+            (as the JAX step reads them)."""
+            h = Lmod.rms_norm(x, blk["norm_x"], cfg.norm_eps)
+            q = Lmod.linear(blk["cross"]["q"], h).reshape(B, S, H, hd)
+            o = dense_attention(q, dstate["cross_k"][j][sid],
+                                dstate["cross_v"][j][sid], causal=False)
+            return x + Lmod.linear(blk["cross"]["o"], o.reshape(B, S, -1))
+
         if cfg.family == "hybrid":
             g = cfg.attn_every
             for gi in range(cfg.num_layers // g):
@@ -269,6 +295,8 @@ def make_prefix_prefill_step(cfg: ArchConfig, dims: ModelDims,
                     x = mamba_sub(blk, x, i)
                     continue
                 x = attn_sub(blk, x, i)
+                if cfg.family == "audio":
+                    x = cross_sub(blk, x, i)
                 x, _ = _ffn(blk, x, cfg, fwd)
         row_ok = slot_ids >= 0
         if ks:
@@ -276,7 +304,9 @@ def make_prefix_prefill_step(cfg: ArchConfig, dims: ModelDims,
                         {"k": torch.stack(ks), "v": torch.stack(vs)},
                         torch.where(row_ok[:, None], new_slots, -1), B)
         if ssm:
-            _install_recurrent(dstate, stack_caches(ssm), slot_ids, B)
+            mc = stack_caches(ssm)
+            _install_rows(dstate, {"ssm": mc.state, "conv": mc.conv},
+                          slot_ids, B)
         _scatter_ctx(dstate, slot_ids, ctx)
         x = Lmod.rms_norm(x, params["final_norm"], cfg.norm_eps)
         head = params["embed"] if cfg.tie_embeddings else params["lm_head"]

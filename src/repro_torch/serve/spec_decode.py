@@ -31,10 +31,9 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.transformer import (ModelDims, check_family,
-                                            layer_params)
-from .decode import (DecodeSpec, decode_attn, decode_ffn, not_ported,
-                     project_logits, translate_step)
+from repro_torch.models.transformer import ModelDims, check_family
+from .decode import (DecodeSpec, decode_layers, not_ported, project_logits,
+                     translate_step)
 from .sampling import sample_tokens_q, verify_draft_tokens
 
 # families whose decode state is position-indexed only: a rejected tail
@@ -138,11 +137,7 @@ def make_spec_decode_step(cfg: ArchConfig, dims: ModelDims,
                      mapped=trans.mapped, accesses=trans.accesses,
                      telemetry=trans.telemetry)
         kv_at = (trans.slots[0], trans.w_row, trans.extent)
-        for i in range(cfg.num_layers):
-            blk = layer_params(params, i)
-            x = decode_attn(blk, x, dstate["k_pool"][i],
-                            dstate["v_pool"][i], kv_at, positions, cfg, dims)
-            x = decode_ffn(blk, x, cfg)
+        x = decode_layers(params, x, dstate, kv_at, positions, cfg, dims)
         logits = project_logits(params, x, cfg, dims)            # (B,Qw,V)
 
         # accept: every target draw folds its absolute position, the key

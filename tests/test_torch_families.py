@@ -24,9 +24,11 @@
   again at the published capacity factor 1.25, where the padded prefill
   buckets' pad rows take expert capacity; speculative decoding (K = 4)
   against JAX spec-on, and the port's spec-on equal to its spec-off.
-* Refusals: vlm and audio still raise at every entry point, naming
-  ROADMAP P10 (the ssm and hybrid families run: ``tests/test_torch_ssm.py``
-  and ``tests/test_torch_hybrid.py``).
+* Refusals: the verify step of the recurrent families, meshes (ROADMAP
+  P15) and unknown families.  Every family of the JAX package runs (ssm,
+  hybrid, vlm and audio: ``tests/test_torch_ssm.py``,
+  ``tests/test_torch_hybrid.py``, ``tests/test_torch_vlm.py`` and
+  ``tests/test_torch_audio.py``).
 """
 import dataclasses
 
@@ -278,24 +280,31 @@ def test_moe_spec_on_equals_spec_off(moe_weights):
 
 # ------------------------------------------------------------ refusals
 
-@pytest.mark.parametrize("family", ["vlm", "audio"])
-def test_other_families_still_raise(family):
-    from repro_torch.serve import decode, prefill, spec_decode
-    cfg = dataclasses.replace(reduced(ARCHS["granite-8b"]), family=family)
+@pytest.mark.parametrize("arch", ["mamba2-130m", "jamba-1.5-large-398b"])
+def test_what_still_raises(arch):
+    """Every family runs; what is refused: the verify step for the
+    recurrent families (a rejected draft would need a state rollback),
+    meshes (ROADMAP P15) at every entry point that takes one, and an
+    unknown family."""
+    import types
+    from repro_torch.serve import decode, spec_decode
+    cfg = reduced(ARCHS[arch])
     dims = model_dims(cfg)
     spec = decode.DecodeSpec(block_size=8, max_blocks_per_seq=4,
-                             slots_per_group=16, n_sets=2, assoc=4)
-    calls = [
-        lambda: Engine(cfg, {}, EngineConfig(), device="cpu"),
-        lambda: forward({}, {"tokens": torch.zeros((1, 8), dtype=torch.long)},
-                        cfg, dims),
-        lambda: init_params(torch.Generator(), cfg, dims, device="cpu"),
-        lambda: decode.init_decode_state(cfg, dims, spec, 2, device="cpu"),
-        lambda: decode.make_serve_step(cfg, dims, spec),
-        lambda: prefill.make_prefill_step(cfg, dims, spec),
-        lambda: prefill.make_prefix_prefill_step(cfg, dims, spec),
-        lambda: spec_decode.make_spec_decode_step(cfg, dims, spec, 4),
-    ]
-    for call in calls:
-        with pytest.raises(NotImplementedError, match="ROADMAP P10"):
+                             slots_per_group=16, n_sets=2, assoc=8)
+    with pytest.raises(ValueError, match="recurrent state rollback"):
+        spec_decode.make_spec_decode_step(cfg, dims, spec, 4)
+    dense = reduced(ARCHS["granite-8b"])
+    ddims = model_dims(dense)
+    for call in (lambda: EngineConfig(mesh_shape=(1, 2)).check_ported(),
+                 lambda: spec_decode.make_spec_decode_step(
+                     dense, ddims, spec, 4, mesh=object()),
+                 lambda: decode.init_decode_state(dense, ddims, spec, 2,
+                                                  data_size=2,
+                                                  device="cpu")):
+        with pytest.raises(NotImplementedError, match="ROADMAP P15"):
             call()
+    odd = types.SimpleNamespace(family="retrieval")
+    with pytest.raises(ValueError, match="unknown model family"):
+        forward({}, {"tokens": torch.zeros((1, 8), dtype=torch.long)}, odd,
+                dims)

@@ -404,6 +404,11 @@ PAGED_CASES = [
     (2, None, 10, 2, 32, 16, 4, 32, False),
     (2, 3, 10, 2, 32, 16, 4, 32, True),
     (2, 4, 8, 1, 128, 16, 4, 32, False),
+    # paligemma-3b's 8 / 1 heads of 256 and whisper-medium's 16 / 16 of 64
+    (2, None, 8, 1, 256, 16, 4, 32, False),
+    (2, 3, 8, 1, 256, 16, 4, 32, True),
+    (2, None, 16, 16, 64, 16, 4, 32, False),
+    (2, 4, 16, 16, 64, 16, 4, 32, False),
 ]
 
 
@@ -532,19 +537,30 @@ def test_paged_q1_query_rank_round_trip():
 
 # --------------------------------------------------------- flash attention
 
+# (B, S, H, KV, D[, Skv]): Skv defaults to S
 FLASH_SHAPES = [(2, 128, 4, 2, 32), (1, 256, 8, 8, 16), (2, 64, 4, 1, 64),
                 (1, 128, 6, 3, 32), (2, 8, 4, 2, 16),
-                (1, 64, 10, 2, 32), (1, 64, 8, 1, 128)]   # g = 5; g = 8
+                (1, 64, 10, 2, 32), (1, 64, 8, 1, 128),   # g = 5; g = 8
+                # paligemma-3b's MQA at D = 256; whisper-medium's
+                # cross-attention shape: Sq != Skv, Skv no multiple of 64
+                (1, 64, 8, 1, 256), (1, 32, 4, 4, 16, 100)]
+
+
+def _flash_qkv(shape, rng):
+    B, S, H, KV, D, *skv = shape
+    Skv = skv[0] if skv else S
+    return (rng.randn(B, S, H, D).astype(np.float32),
+            rng.randn(B, Skv, KV, D).astype(np.float32),
+            rng.randn(B, Skv, KV, D).astype(np.float32))
 
 
 @pytest.mark.parametrize("shape", FLASH_SHAPES)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_plain_matches_pallas_and_dense(shape, dtype, causal, jax_ref):
-    B, S, H, KV, D = shape
-    rng = np.random.RandomState(S + H)
-    q, k, v = (rng.randn(B, S, n, D).astype(np.float32)
-               for n in (H, KV, KV))
+    B, S, H, KV, D = shape[:5]
+    q, k, v = _flash_qkv(shape, np.random.RandomState(S + H))
+    Skv = k.shape[1]
     jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
     jq, jk, jv = (jnp.asarray(x, jdt) for x in (q, k, v))
     got = flash_attention(_t(q, tdt), _t(k, tdt), _t(v, tdt), causal=causal)
@@ -552,7 +568,9 @@ def test_flash_plain_matches_pallas_and_dense(shape, dtype, causal, jax_ref):
     tol = 3e-2 if dtype == "bfloat16" else 2e-5
     want_dense = np.asarray(j_dense(jq, jk, jv, causal=causal), np.float32)
     npt.assert_allclose(got.float().numpy(), want_dense, rtol=tol, atol=tol)
-    if dtype == "bfloat16":     # interpret mode is slow: one dtype suffices
+    # interpret mode is slow: one dtype suffices; and the Pallas kernel
+    # asserts that its 64-row tiles divide both lengths
+    if dtype == "bfloat16" or S % min(64, S) or Skv % min(64, Skv):
         return
     want_pallas = np.asarray(flash_attention_pallas(
         jq, jk, jv, causal=causal, q_tile=64, kv_tile=64, interpret=True),
@@ -678,16 +696,20 @@ def test_gpu_paged_kernel_token_striped_shards(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", FLASH_SHAPES + [(2, 1000, 32, 8, 128),
-                                                  (2, 512, 40, 8, 128)])
+@pytest.mark.parametrize("shape", FLASH_SHAPES + [
+    (2, 1000, 32, 8, 128), (2, 512, 40, 8, 128),
+    # paligemma-3b's prefill; whisper-medium's encoder and cross-attention
+    (2, 512, 8, 1, 256), (2, 1500, 16, 16, 64), (2, 256, 16, 16, 64, 1500)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("causal", [True, False])
 def test_gpu_flash_kernel_matches_plain(cuda, shape, dtype, causal):
-    B, S, H, KV, D = shape
+    B, S, H, KV, D = shape[:5]
+    Skv = shape[5] if len(shape) > 5 else S
     g = torch.Generator(device=cuda).manual_seed(S)
     tdt = getattr(torch, dtype)
-    q, k, v = (torch.randn(B, S, n, D, generator=g, device=cuda).to(tdt)
-               for n in (H, KV, KV))
+    q = torch.randn(B, S, H, D, generator=g, device=cuda).to(tdt)
+    k, v = (torch.randn(B, Skv, KV, D, generator=g, device=cuda).to(tdt)
+            for _ in range(2))
     want = dense_attention(q, k, v, causal=causal)
     n0 = flash_attention.launches
     got = flash_attention(q, k, v, causal=causal)
@@ -851,10 +873,12 @@ def test_gpu_paged_query_tiles_other_shapes(cuda, heads, dtype):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("heads", [(40, 8, 128), (32, 4, 128)])
+@pytest.mark.parametrize("heads", [(40, 8, 128), (32, 4, 128), (8, 1, 256),
+                                   (16, 16, 64)])
 def test_gpu_paged_reads_at_serving_geometries(cuda, heads):
     """qwen2.5-14b's g = 5 (query tiles padded to 8 head rows) and
-    qwen3-moe-30b-a3b's g = 8 at D = 128, bf16 on the tensor cores: the
+    qwen3-moe-30b-a3b's g = 8 at D = 128, paligemma-3b's g = 8 at D = 256
+    and whisper-medium's g = 1 at D = 64, bf16 on the tensor cores: the
     decode read (Q = 1), the prefix read (Q = 33) and the verify read
     (Q = 5, per-query extents) within tolerance of the plain version, and
     query i of each Q > 1 launch bitwise a Q = 1 launch."""

@@ -534,6 +534,28 @@ def test_spec_step_translates_once_and_copies_once(weights, monkeypatch):
         assert counts == {"lookup": n, "cpu": n}
 
 
+def test_engine_probes_verify_gemms_at_setup(weights, monkeypatch):
+    """Setting up speculative decoding probes, at (max_batch, K+1), each
+    GEMM layout that the verify step sends through ``decode_linear`` or
+    the head; serving then probes nothing more."""
+    monkeypatch.setattr(tdecode, "_ROWS_INVARIANT", {})
+    cfg, params = weights["port"]
+    eng = _engine(weights, PORT, max_batch=3, max_seq_len=64,
+                  spec_decode="ngram", num_draft_tokens=4)
+    probed = tdecode.verify_gemm_probes()
+    assert probed and {k[-2:] for k in probed} == {(3, 5)}
+    blk = tdecode.layer_params(params, 0)
+    head = params["embed" if cfg.tie_embeddings else "lm_head"]["table"].T
+    for w in [blk["attn"][k]["w"] for k in ("q", "o")] + [
+            blk["mlp"][k]["w"] for k in ("gate", "up", "down")] + [head]:
+        key = (tuple(w.shape), w.stride(), w.dtype, w.device, 3, 5)
+        assert key in probed
+    for r in _port_requests(cfg, sampled=True):
+        eng.submit(r)
+    _drain(eng)
+    assert tdecode.verify_gemm_probes() == probed
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("batch", [1, 3])
 def test_verify_kv_rows_equal_decode_steps(weights, dtype, batch):
