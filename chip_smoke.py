@@ -11,13 +11,14 @@ JAX):
     python3 chip_smoke.py --moe [--src OTHER_CHECKOUT/src]
     python3 chip_smoke.py --recurrent [--src OTHER_CHECKOUT/src]
     python3 chip_smoke.py --frontends [--src OTHER_CHECKOUT/src]
+    python3 chip_smoke.py --translation [--src OTHER_CHECKOUT/src]
 
 The second form builds the kernels and runs only phase 4's decode-step
 profile, the third only phase 2's paged-attention checks and timings (the
 decode, verify and prefix reads), the fourth only phase 8, the fifth only
-phase 9, the sixth only phase 10, of this checkout's port or of another
-commit's (a parent
-unpacked with ``git archive``), so that two commits compare in one call.
+phase 9, the sixth only phase 10, the seventh only phase 11, of this
+checkout's port or of another commit's (a parent unpacked with ``git
+archive``), so that two commits compare in one call.
 Phase 3's first two runs, phase 4 and the profile pass their engine
 configuration explicitly (flash attention, recompute prefill, no prefix
 cache, ``overload_policy="fail"``), so that their numbers compare with
@@ -89,7 +90,14 @@ Phases, each failing loudly:
    with flash attention and recompute prefill: 8 requests, 32 new tokens
    each; every kernel's launch count must grow.  Then profile one
    admission step and one steady decode step (device time by kernel,
-   device kernels per step, idle share);
+   device kernels per step, idle share).  (b), after phase 7: the same
+   requests with ``attn_impl="flash_jax"`` (the JAX package's chunked
+   eager attention) and recompute prefill: 32 in-vocab tokens a stream,
+   no flash kernel launched, the translation and the paged decode read
+   launched; it prints where a stream differs from (a)'s with the top-2
+   margin there and the admission step's device ms beside (a)'s, then
+   holds a 2-layer float32 copy card against CPU (admission logs
+   identical, streams under the near-tie rule);
 5. serve granite-8b at full width and depth again, with phase 4's
    weights, on the engine's default admission path (dense attention,
    prefix-KV prefill with the paged prefix read, the prefix cache;
@@ -108,7 +116,14 @@ Phases, each failing loudly:
    gathered; (c) run (b) under ``ResilientServe(snapshot_every=8)`` with
    two crashes, whose delivered streams must equal (b)'s bitwise; then
    (d) and (e), runs (a) and (b) on the engine's default
-   ``prefix_gather="exact"``, whose tight-vs-roomy streams it reports.  It
+   ``prefix_gather="exact"``, whose tight-vs-roomy streams it reports;
+   (f), after phase 7: (c) with its snapshots persisted
+   (``CheckpointManager``, ``keep_last=3``), stopped after its second
+   crash, the newest committed shard truncated, then resumed in a fresh
+   process on the card (``--resume-child``: the same seeded weights,
+   ``ResilientServe.from_checkpoint``, which must warn and fall back),
+   whose delivered streams with the first process's must equal (b)'s
+   bitwise; it prints each save's ms and MB and the restore's ms.  It
    prints the preempt and resume ms, swap bytes, tokens/s of (a) and
    (b), snapshot and restore ms, and where a stream of (b) differs from
    (a)'s, the token, its step, the top-2 margin and both runs' prefill
@@ -195,15 +210,31 @@ Phases, each failing loudly:
    (the encoder's share for whisper), the decode step's cross-attention
    device ms (whisper), tokens/s, launches and ``streams_sha256``; the
    prefix cache is off for both, and the phase prints why.
+11. the paper's translation comparison (Figs. 18-20) at the translation
+   tables of a full granite-8b KV pool on one H100 (``PHASE11``: 6,144
+   slots, 576 sets of 8 ways and 1,536 flexible slots; 64 sequences of
+   72 blocks mapped in the manager, a 4-level radix tree of fanout 16
+   and an elastic cuckoo table; a 2,048-entry POM-TLB filled with the
+   stream's first half): a Zipf (a = 1.2) stream of 2^20 accesses in
+   batches of 8,192 vpns through Utopia's ``translate`` (one launch of
+   the RSW kernel's vpn-list entry a call), the flat table, the radix
+   walk, the RSW before the radix walk, ECH and the POM-TLB, every
+   integer output equal to the CPU plain run's on every batch;
+   ``translate`` on out-of-range vpns at every hash (the JAX package's
+   2-D flex read) and against the decode step's translation telemetry.
+   It prints accesses and bytes a translation, device and wall µs and
+   kernels a batch, the RSW hit share, the table sizes, and the vpn-list
+   entry's time at 8,192 vpns beside its plain version and bound.
 
 Each serving phase prints a digest of its streams (``streams_sha256``), so
 that two commits' runs compare token for token.
 
 It prints the build times, the kernel checks, the serving numbers, one
 JSON line of kernel measurements (launches counted on phases 4, 5, 6, 7,
-8 (a) and (c), 9 (a) and (b) and 10 (a) and (b), each from 0), the
-card's name and power limit, and
-as its last line ``{"ok": true, "device": {...}}``.  Without a CUDA card,
+4 (b), 6 (f), 8 (a) and (c), 9 (a) and (b), 10 (a) and (b) and 11, each
+from 0; the RSW's ``launches`` are its step entry's, and
+``launches_vpn_list`` its vpn-list entry's), the card's name and power
+limit, and as its last line ``{"ok": true, "device": {...}}``.  Without a CUDA card,
 or without the rest of the repository beside it, it exits non-zero and
 prints no result.
 """
@@ -580,22 +611,34 @@ def pr12_translation(torch, tar, sf, flex, positions, act, nblk, bs, sink,
     return slot, ws, t, extent, tele
 
 
-def _step_bytes(torch, tables, nblk, hash_name, n_sets, assoc):
-    """Bytes the step's translation must move for THIS data: the SF word
-    of every distinct set probed, the TAR row of every distinct probed set
-    whose SF is non-zero, the flex entry of every distinct vpn that
-    missed, ctx_len and the active mask, each once; the output once."""
+def _rsw_table_bytes(torch, q, tar, sf, flex, hash_name, mbps=0):
+    """Table bytes the RSW must read for the vpns ``q`` on THIS data: the
+    SF word of every distinct set probed, the TAR row of every distinct
+    probed set whose SF is non-zero and the flex entry of every distinct
+    vpn that missed, each once.  ``tar`` (n_sets, assoc), ``sf`` and
+    ``flex`` as the vpn-list entry takes them, on the CPU."""
     from repro_torch.core.hashes import get_hash
-    from repro_torch.kernels.utopia_rsw.ref import rsw_ref, step_words
+    from repro_torch.kernels.utopia_rsw.ref import rsw_ref
+    n_sets, assoc = tar.shape
+    _, hit, _, _ = rsw_ref(q, tar, sf, flex, hash_name=hash_name,
+                           max_blocks_per_seq=mbps)
+    sets = torch.unique(get_hash(hash_name)(q, n_sets).long())
+    live = sets[sf[sets] > 0]
+    misses = torch.unique(q[hit == 0])
+    return (4 * sets.numel() + 4 * assoc * live.numel()
+            + 4 * misses.numel())
+
+
+def _step_bytes(torch, tables, nblk, hash_name):
+    """Bytes the step's translation must move for THIS data: the RSW's
+    tables (``_rsw_table_bytes``), ctx_len and the active mask, each
+    once; the output once."""
+    from repro_torch.kernels.utopia_rsw.ref import step_words
     tar, sf, flex, ctx, _ = (t.cpu() for t in tables)
     B = ctx.shape[0]
     q = torch.arange(B * nblk, dtype=torch.int32)   # the write blocks too
-    _, hit, _, _ = rsw_ref(q, tar[0], sf[0], flex[0], hash_name=hash_name)
-    sets = torch.unique(get_hash(hash_name)(q, n_sets).long())
-    live = sets[sf[0][sets] > 0]
-    misses = torch.unique(q[hit == 0])
-    read = (4 * sets.numel() + 4 * assoc * live.numel()
-            + 4 * misses.numel() + 4 * B + B)
+    read = (_rsw_table_bytes(torch, q, tar[0], sf[0], flex[0], hash_name)
+            + 4 * B + B)
     return read + 4 * step_words(B, nblk)
 
 
@@ -645,7 +688,7 @@ def check_translate_step(torch, dev, results):
         trans = new[0]()
         hits = int(trans.in_rest.sum())
         walks = int(((trans.mapped == 1) & (trans.in_rest == 0)).sum())
-        nbytes = _step_bytes(torch, tables, nblk, "modulo", n_sets, 8)
+        nbytes = _step_bytes(torch, tables, nblk, "modulo")
         wall = [time_ms(torch, new, 400)]
         wall_old = [time_ms(torch, old, 400), time_ms(torch, old, 400)]
         wall.append(time_ms(torch, new, 400))
@@ -1614,8 +1657,10 @@ def _kernel_counts(reset=False):
     ``reset``)."""
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.paged_attention.ops import paged_attention
-    from repro_torch.kernels.utopia_rsw.ops import utopia_translate_step
+    from repro_torch.kernels.utopia_rsw.ops import (utopia_rsw,
+                                                    utopia_translate_step)
     fns = {"utopia_translate_step": (utopia_translate_step, "launches"),
+           "utopia_rsw": (utopia_rsw, "launches"),
            "paged_attention": (paged_attention, "launches"),
            "paged_attention_q_gt1": (paged_attention,
                                      "launches_multi_query"),
@@ -1646,17 +1691,25 @@ def check_streams(reqs, streams, vocab):
             raise AssertionError(f"request {r.seq_id} produced {toks}")
 
 
+def phase4_requests(cfg, rng):
+    """Phase 4's 8 greedy requests of 64-704 tokens, 32 new tokens each."""
+    from repro_torch.serve import Request
+    bs = cfg.kv_block_size
+    lens = [bs * n for n in (1, 11, 2, 7, 3, 9, 5, 4)]   # 64 .. 704 tokens
+    return lens, [Request(seq_id=i, prompt=rng.randint(0, cfg.vocab_size, n),
+                          max_new_tokens=32) for i, n in enumerate(lens)]
+
+
 def full_width(torch, dev, cfg, dims, params):
+    """Phase 4 (a).  Returns (launches, streams, the admission step's
+    device ms)."""
     import numpy as np
-    from repro_torch.serve import Engine, EngineConfig, Request
+    from repro_torch.serve import Engine, EngineConfig
     eng = Engine(cfg, params, EngineConfig(
         max_batch=4, max_seq_len=1024, auto_release=True,
         dtype=torch.bfloat16, **EARLIER_PATH), device=dev)
-    bs = cfg.kv_block_size
     rng = np.random.RandomState(SEED)
-    lens = [bs * n for n in (1, 11, 2, 7, 3, 9, 5, 4)]   # 64 .. 704 tokens
-    reqs = [Request(seq_id=i, prompt=rng.randint(0, cfg.vocab_size, n),
-                    max_new_tokens=32) for i, n in enumerate(lens)]
+    lens, reqs = phase4_requests(cfg, rng)
     first = {}
 
     serve_step = eng._serve_step
@@ -1705,8 +1758,7 @@ def full_width(torch, dev, cfg, dims, params):
     log("granite-8b full width, 36 layers, bf16, Engine(max_batch=4, "
         "max_seq_len=1024, attn_impl='flash', prefill_mode='recompute', "
         "prefix_cache=None): " + json.dumps({"serving": summary}))
-    profile_decode_step(torch, eng, rng, cfg)
-    return launches
+    return launches, streams, profile_decode_step(torch, eng, rng, cfg)
 
 
 # phase 5: the engine's default admission path at full width
@@ -1986,20 +2038,15 @@ def full_width_overload(torch, dev, cfg, dims, params):
     Reads the launch counts of the three runs together.  (d) and (e)
     rerun (a) and (b) with ``prefix_gather="exact"``; their tight-vs-
     roomy streams are reported, not held."""
-    import numpy as np
     from repro_torch.runtime import ResilientServe, ServeFaultInjector
-    from repro_torch.serve import Engine, EngineConfig
     o = PHASE6_RUN
-    rng = np.random.RandomState(SEED + 6)
-    prompts = [rng.randint(0, cfg.vocab_size, n) for n in o["lens"]]
 
     def requests():
-        return smoke_requests(prompts, 32, o["sampled"])
+        return phase6_requests(cfg)
 
     def engine(headroom, injector=None, **kw):
-        return Engine(cfg, params, EngineConfig(
-            dtype=torch.bfloat16, pool_headroom=headroom,
-            fault_injector=injector, **dict(PHASE6, **kw)), device=dev)
+        return phase6_engine(torch, dev, cfg, params, headroom, injector,
+                             **kw)
 
     def tokens_per_s(streams, steps):
         return sum(len(t) for t in streams.values()) / sum(
@@ -2163,7 +2210,7 @@ def full_width_overload(torch, dev, cfg, dims, params):
                 if xs else None)
 
     summary = dict(
-        requests=len(prompts), prompt_tokens=list(o["lens"]),
+        requests=len(o["lens"]), prompt_tokens=list(o["lens"]),
         new_tokens_each=32, sampled_requests=list(o["sampled"]),
         pool_slots={"a": pool_a, "b": pool_b},
         schedule=o["schedule"], injector_log_b=inj_b.log,
@@ -2201,6 +2248,260 @@ def full_width_overload(torch, dev, cfg, dims, params):
         + f", pool_headroom {o['roomy']} (a, d) / {o['tight']} (b, c, e); "
         "d and e with prefix_gather='exact'): "
         + json.dumps({"overload": summary}))
+    return launches, streams_b
+
+
+def phase6_engine(torch, dev, cfg, params, headroom, injector=None, **kw):
+    """Phase 6's engine (``PHASE6``) on a pool of ``headroom``."""
+    from repro_torch.serve import Engine, EngineConfig
+    return Engine(cfg, params, EngineConfig(
+        dtype=torch.bfloat16, pool_headroom=headroom,
+        fault_injector=injector, **dict(PHASE6, **kw)), device=dev)
+
+
+def phase6_requests(cfg):
+    """Phase 6's 12 requests (``PHASE6_RUN``)."""
+    import numpy as np
+    o = PHASE6_RUN
+    rng = np.random.RandomState(SEED + 6)
+    prompts = [rng.randint(0, cfg.vocab_size, n) for n in o["lens"]]
+    return smoke_requests(prompts, 32, o["sampled"])
+
+
+CHILD_TAG = "phase 6 (f) resumed process: "
+
+
+def persisted_recovery(torch, dev, cfg, params, streams_b, src):
+    """Phase 6 (f): run (c) again with its snapshots persisted
+    (``ResilientServe(engine, CheckpointManager(tmp, keep_last=3),
+    snapshot_every=8)``) and its two crashes; after the second crash the
+    process stops, the newest committed shard is truncated, and a FRESH
+    process on the card (this script with ``--resume-child``, drawing the
+    same seeded weights) resumes with ``ResilientServe.from_checkpoint``,
+    which must warn and fall back to the previous snapshot, hold
+    ``check_invariants`` after every step and finish the requests.  What
+    the two processes delivered must be (b)'s streams bitwise.  Prints
+    each save's ms and MB, the restore's ms and the child's total time.
+    Returns the path's launch counts (both processes')."""
+    import os
+    import shutil
+    import tempfile
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.runtime import ResilientServe, ServeFaultInjector
+    o = PHASE6_RUN
+    requests = phase6_requests(cfg)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_phase6f_")
+    try:
+        ck = CheckpointManager(tmp, keep_last=3)
+        saves = []
+        write = ck._write_step
+
+        def timed_write(step, named, extra):
+            t0 = time.perf_counter()
+            write(step, named, extra)
+            saves.append([step, round((time.perf_counter() - t0) * 1e3, 1),
+                          round(sum(a.nbytes for a in named.values())
+                                / 1e6, 1)])
+
+        ck._write_step = timed_write
+        eng = phase6_engine(torch, dev, cfg, params, o["tight"],
+                            ServeFaultInjector(crash_at=o["crash_at"],
+                                               **o["schedule"]))
+        _kernel_counts(reset=True)
+        t0 = time.perf_counter()
+        sup = ResilientServe(eng, ck, snapshot_every=o["snapshot_every"])
+        delivered = {r.seq_id: [] for r in requests}
+        for r in requests:
+            sup.submit(r)
+        while sup.restarts < len(o["crash_at"]):
+            if not sup.has_unfinished():
+                raise AssertionError("phase 6 (f): the run finished before "
+                                     "its second crash")
+            for ro in sup.poll():
+                delivered[ro.seq_id].extend(ro.new_token_ids)
+            eng.check_invariants()
+        ck.wait()
+        parent_s = time.perf_counter() - t0
+        stopped_at = eng._step_count
+        counts = _kernel_counts()
+        committed = ck.all_steps()
+        if len(committed) < 2 or not sup.has_unfinished():
+            raise AssertionError(f"phase 6 (f): committed steps {committed}"
+                                 ", or nothing left to resume")
+        shard = Path(tmp) / f"step_{committed[-1]}" / "shard_0.npz"
+        with open(shard, "r+b") as f:
+            f.truncate(shard.stat().st_size // 2)
+        del sup, eng
+        gc.collect()
+        torch.cuda.empty_cache()
+        env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+        t1 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, str(Path(__file__).resolve()), "--resume-child",
+             tmp, "--src", str(src)], capture_output=True, text=True,
+            timeout=900, env=env)
+        child_s = time.perf_counter() - t1
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    lines = [x for x in proc.stdout.splitlines() if x.startswith(CHILD_TAG)]
+    if proc.returncode != 0 or not lines:
+        raise AssertionError(
+            f"phase 6 (f): the resumed process failed (exit "
+            f"{proc.returncode}):\n{proc.stdout[-4000:]}\n"
+            f"{proc.stderr[-4000:]}")
+    child = json.loads(lines[-1][len(CHILD_TAG):])
+    if child["restored_step"] != committed[-2]:
+        raise AssertionError(f"phase 6 (f): the resumed process restored "
+                             f"step {child['restored_step']}, not the "
+                             f"previous committed {committed[-2]}")
+    resumed = {int(k): v for k, v in child.pop("delivered").items()}
+    for sid, want in streams_b.items():
+        got, more = delivered[sid], resumed.get(sid, [])
+        # the new process delivers a live stream again from its start
+        if more[:len(got)] != got[:len(more)]:
+            raise AssertionError(f"phase 6 (f): request {sid}: the resumed "
+                                 "process re-delivered other tokens")
+        if (more if len(more) > len(got) else got) != want:
+            raise AssertionError(f"phase 6 (f): request {sid}'s delivered "
+                                 "stream differs from (b)'s")
+    for k, n in child.pop("launches").items():
+        counts[k] += n
+    for name in ("utopia_translate_step", "paged_attention"):
+        if counts[name] <= 0:
+            raise AssertionError(f"phase 6 (f): {name} was never launched")
+    log("phase 6 (f): run (c) with its snapshots persisted (keep_last=3), "
+        "the newest shard truncated after the second crash, resumed in a "
+        "fresh process; the delivered streams equal (b)'s bitwise: "
+        + json.dumps({"persisted": dict(
+            crash_at=o["crash_at"], stopped_at_step=stopped_at,
+            committed_steps=committed, truncated_step=committed[-1],
+            saves_step_ms_mb=saves, parent_s=round(parent_s, 2),
+            child_s=round(child_s, 2), child=child,
+            requests_resumed=len(resumed),
+            streams_sha256=stream_digest(streams_b), launches=counts)}))
+    return counts
+
+
+def resume_child(torch, dev, directory):
+    """Phase 6 (f)'s fresh process (``--resume-child DIR``): draw phase 6's
+    seeded weights, build its tight-pool engine, resume it from the
+    checkpoints in ``DIR`` with ``ResilientServe.from_checkpoint`` (which
+    must warn that the newest is corrupt), hold ``check_invariants``
+    after every step, serve to the end, and print what it delivered."""
+    import warnings
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.runtime import ResilientServe
+    t0 = time.perf_counter()
+    cfg, _, params = served_model(torch, dev, "granite-8b", torch.bfloat16,
+                                  seed=SEED)
+    eng = phase6_engine(torch, dev, cfg, params, PHASE6_RUN["tight"])
+    ck = CheckpointManager(directory, keep_last=3)
+    timing = {}
+    read, restore = ck.restore_named, eng.restore
+
+    def timed_read(step=None):
+        t = time.perf_counter()
+        out = read(step)
+        timing["read_ms"] = round((time.perf_counter() - t) * 1e3, 1)
+        return out
+
+    def timed_restore(snap):
+        _, ms = sync_ms(torch, restore, snap)
+        timing["restore_ms"] = round(ms, 1)
+
+    ck.restore_named, eng.restore = timed_read, timed_restore
+    _kernel_counts(reset=True)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        sup = ResilientServe.from_checkpoint(
+            eng, ck, snapshot_every=PHASE6_RUN["snapshot_every"])
+    warned = [str(w.message) for w in caught
+              if "corrupt or truncated" in str(w.message)]
+    if not warned:
+        raise AssertionError("phase 6 (f): from_checkpoint did not warn "
+                             "about the truncated shard")
+    restored = eng._step_count
+    eng.check_invariants()
+    delivered = {}
+    while sup.has_unfinished():
+        for ro in sup.poll():
+            delivered.setdefault(ro.seq_id, []).extend(ro.new_token_ids)
+        eng.check_invariants()
+    ck.wait()
+    print(CHILD_TAG + json.dumps(dict(
+        restored_step=restored, steps=eng._step_count - restored,
+        warning=warned[0][:160], **timing, delivered=delivered,
+        launches=_kernel_counts(),
+        total_s=round(time.perf_counter() - t0, 2))), flush=True)
+
+
+def full_width_flash_jax(torch, dev, cfg, params, phase4):
+    """Phase 4 (b): phase 4's requests at full width and depth in bf16
+    with ``attn_impl="flash_jax"`` (the chunked eager attention) and
+    recompute prefill: every stream must hold 32 in-vocab tokens, no
+    flash kernel may launch, the translation and the paged decode read
+    must.  Prints where a stream differs from phase 4's flash-kernel run
+    (with this run's top-2 margin there) and the admission step's device
+    ms beside phase 4's.  Then a 2-layer float32 copy, card against CPU:
+    admission logs identical, streams under the near-tie rule.  Returns
+    the path's launch counts."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import model_dims
+    from repro_torch.params import init_params
+    from repro_torch.serve import Engine, EngineConfig
+    streams4, admission4_ms = phase4
+    path = dict(EARLIER_PATH, attn_impl="flash_jax")
+    eng = Engine(cfg, params, EngineConfig(
+        max_batch=4, max_seq_len=1024, auto_release=True,
+        dtype=torch.bfloat16, **path), device=dev)
+    rng = np.random.RandomState(SEED)
+    _, reqs = phase4_requests(cfg, rng)
+    margins = {}
+    record_margins(eng, margins)
+    _kernel_counts(reset=True)
+    t0 = time.perf_counter()
+    streams, steps = serve(eng, reqs)
+    wall = time.perf_counter() - t0
+    launches = _kernel_counts()
+    if launches["flash_attention"] or launches["utopia_rsw"]:
+        raise AssertionError(f"phase 4 (b): a kernel launched that the "
+                             f"flash_jax path does not run ({launches})")
+    for name in ("utopia_translate_step", "paged_attention"):
+        if launches[name] <= 0:
+            raise AssertionError(f"phase 4 (b): {name} was never launched")
+    check_streams(reqs, streams, cfg.vocab_size)
+    eng.check_invariants()
+    differ = []
+    for sid in sorted(streams):
+        d = near_tie(margins, steps, streams[sid], streams4[sid], sid)
+        if d is not None:
+            differ.append(dict(request=sid, token=d[0], step=d[1],
+                               top2_margin=d[2]))
+    log("phase 4 (b): the same engine with attn_impl='flash_jax', its "
+        "admission and decode steps under the profiler:")
+    admission_ms = profile_decode_step(torch, eng, rng, cfg)
+    log("phase 4 (b): granite-8b full width, 36 layers, bf16, Engine("
+        "max_batch=4, max_seq_len=1024, " + ", ".join(
+            f"{k}={v!r}" for k, v in path.items()) + "): " + json.dumps(
+        {"flash_jax": dict(
+            steps=len(steps), wall_s=round(wall, 3),
+            tokens_per_s=round(sum(len(t) for t in streams.values())
+                               / wall, 2),
+            streams_equal_phase4=len(streams) - len(differ),
+            differ_from_phase4=differ,
+            admission_device_ms=admission_ms,
+            admission_device_ms_phase4=admission4_ms,
+            streams_sha256=stream_digest(streams), launches=launches)}))
+    small = dataclasses.replace(get_config("granite-8b"), num_layers=2)
+    small_params = (small, init_params(torch.Generator().manual_seed(SEED),
+                                       small, model_dims(small),
+                                       torch.float32, "cpu"))
+    prng = np.random.RandomState(SEED)
+    card_vs_cpu(torch, dev, small_params,
+                [prng.randint(0, small.vocab_size, n) for n in (64, 128,
+                                                                192)],
+                6, "flash_jax", max_batch=4, max_seq_len=256, **path)
     return launches
 
 
@@ -3607,7 +3908,7 @@ def profile_decode_step(torch, eng, rng, cfg):
                            max_new_tokens=8))
     # the first admission step (prefill dispatch) under the profiler
     rows = profile_cold(torch, eng.step, tries=1)  # an admission runs once
-    busy = sum(ms for _, ms, _ in rows)
+    busy = admission_ms = sum(ms for _, ms, _ in rows)
     flash = sum(ms for name, ms, _ in rows if "flash_" in name)
     top = [dict(kernel=name[:90], ms=round(ms, 4), launches=n)
            for name, ms, n in rows[:6]]
@@ -3644,6 +3945,7 @@ def profile_decode_step(torch, eng, rng, cfg):
                          if busy else None,
                          kernels=len(rows), device_kernels=n_kernels,
                          top=top)}))
+    return admission_ms
 
 
 def decode_profile(torch, dev):
@@ -3658,6 +3960,274 @@ def decode_profile(torch, dev):
         max_batch=4, max_seq_len=1024, auto_release=True,
         dtype=torch.bfloat16, **EARLIER_PATH), device=dev)
     profile_decode_step(torch, eng, np.random.RandomState(SEED), cfg)
+
+
+# phase 11: the paper's translation comparison (Figs. 18-20) on the
+# translation tables of a full granite-8b KV pool on one H100: a 64-token
+# block holds 36 layers x 2 x 8 KV heads x 128 x 2 B x 64 = 9.44 MB, so
+# ~58 GB of KV holds 6,144 slots (576 sets of 8 ways and 1,536 flexible)
+PHASE11 = dict(
+    hybrid=dict(total_slots=6144, restseg_fraction=0.75, assoc=8,
+                max_seqs=64, max_blocks_per_seq=128),
+    seqs=64, blocks=72, accesses=1 << 20, zipf_a=1.2, batch=8192,
+    radix=dict(num_levels=4, fanout=16), ech=dict(capacity=256, n_tables=4),
+    pom=dict(entries=2048, ways=16))
+RSW_BACKENDS = ("utopia", "utopia_radix")    # backends that walk the RSW
+
+
+def zipf_block_stream(n_seqs, blocks_per_seq, n_accesses, a=1.2, seed=0):
+    """(seq, block) access stream with zipfian block popularity (the
+    recipe of ``benchmarks/common.py``)."""
+    import numpy as np
+    rng = np.random.Generator(np.random.Philox(seed))
+    seqs = rng.integers(0, n_seqs, n_accesses)
+    blocks = (rng.zipf(a, n_accesses) - 1) % blocks_per_seq
+    return np.stack([seqs, blocks], axis=1)
+
+
+def translation_setup(hash_name="modulo"):
+    """Phase 11's mapping, as ``benchmarks/bench_translation.py:_setup``
+    builds it: each sequence's blocks allocated in the manager and mapped,
+    at the slot the manager gave them, in a radix tree and an elastic
+    cuckoo table; a Zipf stream of (seq, block) accesses; a POM-TLB
+    smaller than the mapping, filled with the stream's first half.
+    Returns (manager, radix builder, ECH table, POM-TLB, vpns int32)."""
+    import numpy as np
+    from repro_torch.core import (POMTLB, ElasticCuckooTable, HybridConfig,
+                                  HybridKVManager, RadixBuilder)
+    o = PHASE11
+    cfg = HybridConfig(hash_name=hash_name, **o["hybrid"])
+    m = HybridKVManager(cfg)
+    radix = RadixBuilder(**o["radix"])
+    ech = ElasticCuckooTable(**o["ech"])
+    pom = POMTLB(**o["pom"])
+    for s in range(o["seqs"]):
+        m.register_sequence(s)
+        for b in range(o["blocks"]):
+            info = m.allocate_block(s, b)
+            vpn = cfg.vpn(m.seq_slot(s), b)
+            radix.map(vpn, info.slot)
+            ech.insert(vpn, info.slot)
+    stream = zipf_block_stream(o["seqs"], o["blocks"], o["accesses"],
+                               a=o["zipf_a"], seed=SEED)
+    vpns = (stream[:, 0] * cfg.max_blocks_per_seq
+            + stream[:, 1]).astype(np.int32)
+    slots = {v: info.slot for v, info in m.blocks.items()}
+    for v in vpns[:len(vpns) // 2].tolist():
+        pom.lookup_fill(v, slots.get(v, -1))
+    return m, radix, ech, pom, vpns
+
+
+def translation_backends(m, radix, ech, pom, device):
+    """The five backends of the comparison, and Utopia's RSW in front of
+    the radix walk, each as ``fn(vpns)`` over tables on ``device``."""
+    from repro_torch.core import (translate, translate_ech, translate_pom,
+                                  translate_radix)
+    ts, rtab = m.device_state(device), radix.device_table(device)
+    est, pst = ech.device_state(device), pom.device_state(device)
+    mbps = m.cfg.max_blocks_per_seq
+    return {"utopia": lambda v: translate(ts, v),
+            "flat": lambda v: ts.flex.lookup_vpn(v, mbps),
+            "radix": lambda v: translate_radix(None, rtab, v),
+            "utopia_radix": lambda v: translate_radix(ts.rest, rtab, v,
+                                                      ts.hash_name),
+            "ech": lambda v: translate_ech(est, v),
+            "pom_tlb": lambda v: translate_pom(pst, rtab, v)}
+
+
+def translation_out_of_range(torch, dev):
+    """``translate`` on the card gives the CPU plain run's (the JAX
+    package's 2-D flex read) on ``_rsw_out_of_range``'s vpns at every
+    hash, one kernel launch a call.  Returns how many of those vpns the
+    decode step's flat read would resolve otherwise."""
+    from repro_torch.core import (FlexTable, RestSegState, TranslationState,
+                                  translate)
+    from repro_torch.kernels.utopia_rsw.ops import utopia_rsw
+    from repro_torch.kernels.utopia_rsw.ref import rsw_ref
+    differ = {}
+    for h in HASHES:
+        q, tar, sf, flex = (torch.from_numpy(a) for a in _rsw_out_of_range(h))
+        mbps = 32                       # _rsw_out_of_range's geometry
+
+        def state(d):
+            t = tar.to(d)
+            return TranslationState(
+                rest=RestSegState(tar=t, sf=sf.to(d),
+                                  meta=torch.zeros_like(t)),
+                flex=FlexTable(table=flex.view(-1, mbps).to(d)),
+                rest_base=torch.zeros((), dtype=torch.int32, device=d),
+                max_blocks_per_seq=mbps, hash_name=h)
+
+        want = translate(state("cpu"), q)
+        before = utopia_rsw.launches
+        got = translate(state(dev), q.to(dev))
+        if utopia_rsw.launches - before != 1:
+            raise AssertionError(f"phase 11: translate[{h}] launched "
+                                 f"{utopia_rsw.launches - before} kernels")
+        for f, g, w in zip(want._fields, got, want):
+            if not torch.equal(g.cpu(), w):
+                raise AssertionError(f"phase 11: translate[{h}] {f} differs "
+                                     "card vs CPU on out-of-range vpns")
+        flat = rsw_ref(q, tar, sf, flex, hash_name=h)[0]
+        differ[h] = int((flat != want.slot).sum())
+    return differ
+
+
+def translation(torch, dev, results):
+    """Phase 11 (``--translation``): the paper's comparison of Utopia's
+    hybrid translation with a flat block table, a 4-level radix walk,
+    elastic cuckoo hashing and a POM-TLB, on ``PHASE11``'s mapping and its
+    2^20-access Zipf stream in batches of 8,192 vpns.  On the card every
+    backend's integer outputs must equal the CPU plain run's on every
+    batch, ``translate`` must launch the RSW kernel's vpn-list entry once
+    a call (the baselines none), give the CPU's answer on out-of-range
+    vpns at every hash, and agree with the decode step's translation
+    telemetry.  Prints accesses and bytes a translation, device and wall
+    µs a batch, the RSW hit share, table sizes, and times the vpn-list
+    entry at 8,192 vpns.  Returns the path's launch counts."""
+    from repro_torch.core import SWAP, structure_bytes, translate
+    from repro_torch.kernels.utopia_rsw.ops import (utopia_rsw,
+                                                    utopia_translate_step)
+    from repro_torch.kernels.utopia_rsw.ref import rsw_ref
+    o = PHASE11
+    t_phase = time.perf_counter()
+    m, radix, ech, pom, vpns = translation_setup()
+    cfg = m.cfg
+    setup_s = time.perf_counter() - t_phase
+    swapped = sum(1 for i in m.blocks.values() if i.seg == SWAP)
+    geometry = ", ".join(f"{k}={v}" for k, v in o["hybrid"].items())
+    log(f"phase 11 mapping: HybridConfig({geometry}) ({cfg.num_sets} sets "
+        f"of {cfg.assoc} ways, {cfg.flex_slots} flexible slots), "
+        f"{o['seqs']} sequences of {o['blocks']} blocks: "
+        f"{len(m.blocks)} mapped, {swapped} swapped, manager stats "
+        f"{json.dumps(dict(m.stats))}; radix {o['radix']} nodes a level "
+        f"{[a.shape[0] for a in radix.levels]}; ECH {o['ech']} resized "
+        f"{ech.resizes} times to capacity {ech.capacity}; POM-TLB "
+        f"{o['pom']} filled with {len(vpns) // 2} accesses: {pom.hits} hits,"
+        f" {pom.misses} misses; set up in {setup_s:.1f} s on the host")
+    card = translation_backends(m, radix, ech, pom, dev)
+    cpu = translation_backends(m, radix, ech, pom, "cpu")
+    batches = torch.from_numpy(vpns).split(o["batch"])
+    card_batches = torch.from_numpy(vpns).to(dev).split(o["batch"])
+
+    for fn in card.values():               # first calls load and cache
+        fn(card_batches[0])
+    # the main path: every backend over the whole stream, counted
+    _kernel_counts(reset=True)
+    outs, walls = {}, {}
+    for name, fn in card.items():
+        before = utopia_rsw.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs[name] = [fn(b) for b in card_batches]
+        torch.cuda.synchronize()
+        walls[name] = (time.perf_counter() - t0) / len(batches) * 1e6
+        launched = utopia_rsw.launches - before
+        want = len(batches) if name in RSW_BACKENDS else 0
+        if launched != want:
+            raise AssertionError(f"phase 11: {name} launched the RSW kernel "
+                                 f"{launched} times over {len(batches)} "
+                                 f"calls (expected {want})")
+    counts = _kernel_counts()
+
+    # card = CPU plain run, every integer output on every batch
+    summary = {}
+    for name, fn in cpu.items():
+        for i, (b, got) in enumerate(zip(batches, outs[name])):
+            for k, (g, w) in enumerate(zip(got, fn(b))):
+                if not torch.equal(g.cpu(), w):
+                    raise AssertionError(f"phase 11: {name} output {k} "
+                                         f"differs card vs CPU on batch {i}")
+        rows = profile_device(torch, lambda fn=card[name]: fn(
+            card_batches[0]), 5)
+        res = outs[name]
+        rec = dict(wall_us_per_batch=round(walls[name], 2),
+                   device_us_per_batch=round(sum(
+                       ms for _, ms, _ in rows) * 1e3, 3) if rows else None,
+                   kernels_per_batch=round(sum(n for *_, n in rows), 2))
+        if hasattr(res[0], "accesses"):
+            acc = torch.cat([r.accesses for r in res]).double()
+            byt = torch.cat([r.bytes_touched for r in res]).double()
+            rec.update(accesses_per_translation=float(acc.mean()),
+                       bytes_per_translation=float(byt.mean()))
+        mapped = torch.cat([r[1] for r in res])
+        rec["mapped_share"] = float(mapped.double().mean())
+        summary[name] = rec
+    summary["flat"].update(accesses_per_translation=1,
+                           bytes_per_translation=8)
+    uto = outs["utopia"]
+    hit = float(torch.cat([r.in_rest for r in uto]).double().mean())
+    u_slot = torch.cat([r.slot for r in uto])
+    agree = {n: float((torch.cat([r[0] for r in outs[n]]) == u_slot)
+                      .double().mean()) for n in ("radix", "ech", "pom_tlb")}
+    reduction = 1 - (summary["utopia"]["accesses_per_translation"]
+                     / summary["radix"]["accesses_per_translation"])
+
+    # translate = the decode step's telemetry on the same vpns
+    ts = m.device_state(dev)
+    B, nblk = cfg.max_seqs, cfg.max_blocks_per_seq
+    ctx = torch.full((B,), o["blocks"] * cfg.block_size - 1,
+                     dtype=torch.int32, device=dev)
+    step = utopia_translate_step(
+        ts.rest.tar[None], ts.rest.sf[None], ts.flex.table.reshape(1, -1),
+        ctx, block_size=cfg.block_size, nblk=nblk, hash_name=cfg.hash_name,
+        sink=cfg.total_slots)
+    tr = translate(ts, step.vpns.reshape(-1))
+    for f, got, want in (("slots", step.slots, tr.slot),
+                         ("in_rest", step.in_rest, tr.in_rest),
+                         ("mapped", step.mapped, tr.mapped),
+                         ("accesses", step.accesses, tr.accesses)):
+        if not torch.equal(got[0].reshape(-1), want.to(got.dtype)):
+            raise AssertionError(f"phase 11: translate's {f} differs from "
+                                 "the decode step's telemetry")
+    differ = translation_out_of_range(torch, dev)
+
+    # the vpn-list entry at 8,192 vpns: kernel, plain version, bound
+    tar, sf, flex = ts.rest.tar, ts.rest.sf, ts.flex.table.reshape(-1)
+    kw = dict(hash_name=cfg.hash_name, max_blocks_per_seq=nblk)
+    n = o["batch"]
+    ins = card_batches[:8]
+    err = max(int((g - w).abs().max()) for g, w in zip(
+        utopia_rsw(ins[0], tar, sf, flex, **kw),
+        rsw_ref(ins[0], tar, sf, flex, **kw)))
+    # each call's vpns read and 16 B a vpn written, and the tables as
+    # this batch's data needs them; averaged over the timed batches
+    cpu_tables = [t.cpu() for t in (tar, sf, flex)]
+    nbytes = sum(20 * b.numel() + _rsw_table_bytes(
+        torch, b.cpu(), *cpu_tables, cfg.hash_name, nblk)
+        for b in ins) / len(ins)
+    results["utopia_rsw_vpn_list"] = dict(
+        vpns=n, max_abs_err=err,
+        ms=round(time_ms(torch, [lambda b=b: utopia_rsw(b, tar, sf, flex,
+                                                        **kw)
+                                 for b in ins]), 5),
+        device_ms=device_ms(torch, lambda: utopia_rsw(ins[0], tar, sf, flex,
+                                                      **kw), 20,
+                            symbols=("rsw_kernel",)),
+        plain_ms=round(time_ms(torch, [lambda b=b: rsw_ref(b, tar, sf, flex,
+                                                           **kw)
+                                       for b in ins]), 5),
+        bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+        library_ms=None)
+    sizes = dict(utopia_tar_sf=structure_bytes(ts.rest),
+                 flat_table=cfg.max_seqs * nblk * 4,
+                 radix=radix.table_bytes(), ech=ech.table_bytes(),
+                 pom_tlb=pom.table_bytes())
+    log("phase 11: the paper's translation comparison, "
+        f"{len(vpns)} Zipf (a = {o['zipf_a']}) accesses in batches of "
+        f"{o['batch']}; card = CPU on every batch for every backend; "
+        "translate launched the RSW kernel once a call; device us and "
+        "kernels a batch from the profiler (the baselines are eager torch, "
+        "so their wall time counts launches): "
+        + json.dumps({"translation": dict(
+            backends=summary, utopia_rsw_hit_share=hit,
+            utopia_access_reduction_vs_radix=reduction,
+            slots_equal_to_utopia=agree, table_bytes=sizes,
+            out_of_range_vpns_the_flat_read_resolves_otherwise=differ,
+            vpn_list_entry=results["utopia_rsw_vpn_list"],
+            launches=counts,
+            phase_s=round(time.perf_counter() - t_phase, 1))}))
+    return counts
 
 
 def _leaves(tree):
@@ -3714,6 +4284,11 @@ def main() -> int:
                     help="build the kernels and run only phase 10 (the vlm "
                          "and audio families and the kernels at their "
                          "geometries)")
+    ap.add_argument("--translation", action="store_true",
+                    help="build the kernels and run only phase 11 (the "
+                         "paper's translation comparison)")
+    ap.add_argument("--resume-child", metavar="DIR", default=None,
+                    help=argparse.SUPPRESS)  # phase 6 (f)'s fresh process
     ap.add_argument("--src", type=Path, default=None,
                     help="import repro_torch from this source tree instead "
                          "of the checkout's src/ (e.g. a parent commit's, "
@@ -3729,6 +4304,9 @@ def main() -> int:
     sys.path.insert(0, str(src))
     from repro_torch.kernels import _build   # fails outside a checkout
     dev = torch.device("cuda")
+    if args.resume_child:
+        resume_child(torch, dev, args.resume_child)
+        return 0
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, card "
         f"{torch.cuda.get_device_name(0)}")
 
@@ -3763,6 +4341,10 @@ def main() -> int:
         card_line(torch)
         return 0
     results = {}
+    if args.translation:
+        translation(torch, dev, results)
+        card_line(torch)
+        return 0
     if args.recurrent:
         recurrent(torch, dev, results)
         card_line(torch)
@@ -3794,13 +4376,23 @@ def main() -> int:
     torch.cuda.empty_cache()
     cfg, dims, params = served_model(torch, dev, "granite-8b",
                                      torch.bfloat16, seed=SEED)
-    paths = {"phase4": full_width(torch, dev, cfg, dims, params)}
+    paths = {}
+    paths["phase4"], *phase4 = full_width(torch, dev, cfg, dims, params)
     torch.cuda.empty_cache()
     paths["phase5"] = full_width_prefix(torch, dev, cfg, dims, params)
     torch.cuda.empty_cache()
-    paths["phase6"] = full_width_overload(torch, dev, cfg, dims, params)
+    paths["phase6"], streams_6b = full_width_overload(torch, dev, cfg, dims,
+                                                      params)
     torch.cuda.empty_cache()
     paths["phase7"] = full_width_spec(torch, dev, cfg, dims, params)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    paths["phase4b"] = full_width_flash_jax(torch, dev, cfg, params, phase4)
+    t4b = time.perf_counter()
+    torch.cuda.empty_cache()
+    paths["phase6f"] = persisted_recovery(torch, dev, cfg, params,
+                                          streams_6b, src)
+    t6f = time.perf_counter()
     # phase 8 draws ~61 GB of MoE weights: granite-8b's go first
     del params
     gc.collect()
@@ -3820,6 +4412,10 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     paths.update(frontends(torch, dev, results))
+    t11 = time.perf_counter()
+    paths["phase11"] = translation(torch, dev, results)
+    log(f"new sub-runs: phase 4 (b) {t4b - t0:.1f} s, phase 6 (f) "
+        f"{t6f - t4b:.1f} s, phase 11 {time.perf_counter() - t11:.1f} s")
 
     # launches: each path's count was set to 0 just before it and read
     # just after; the line gives their sum and each path's
@@ -3833,6 +4429,13 @@ def main() -> int:
         r = dict(results[name])
         source, replaces = KERNEL_META[name]
         extra = {}
+        if name == "utopia_translate_step":
+            extra["launches_vpn_list"] = sum(
+                c.get("utopia_rsw", 0) for c in paths.values())
+            extra["launches_vpn_list_by_path"] = {
+                k: c["utopia_rsw"] for k, c in paths.items()
+                if c.get("utopia_rsw")}
+            extra["vpn_list"] = results.pop("utopia_rsw_vpn_list")
         if name == "paged_attention":
             extra["launches_q_gt1"] = sum(
                 c["paged_attention_q_gt1"] for c in paths.values())

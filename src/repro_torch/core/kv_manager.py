@@ -705,13 +705,17 @@ class HybridKVManager:
         tensors on ``device``; fresh copies, never views of the host
         tables)."""
         import torch
-        from .tar_sf import RestSegState, TranslationState
+        from .flex_table import FlexTable
+        from .tar_sf import RestSegState
+        from .translate import TranslationState
         tar = torch.tensor(self.tar, device=device)
         return TranslationState(
             rest=RestSegState(tar=tar,
                               sf=torch.tensor(self.sf, device=device),
                               meta=torch.zeros_like(tar)),
-            flex_table=torch.tensor(self.flex_table, device=device),
+            flex=FlexTable(table=torch.tensor(self.flex_table,
+                                              device=device)),
+            rest_base=torch.zeros((), dtype=torch.int32, device=device),
             max_blocks_per_seq=self.cfg.max_blocks_per_seq,
             hash_name=self.cfg.hash_name,
         )

@@ -14,8 +14,11 @@ Paper §5.2 (RestSeg Walk):
   else          -> compare vpn+1 against the M way tags (tag matching)
   slot  = set * assoc + way                     (restrictive mapping)
 
-``rsw`` here is the plain torch version; the decode step runs the CUDA
-kernel in ``kernels/utopia_rsw`` on the card, held to this function.
+``rsw`` here is the plain torch version; the decode step and
+``core.translate`` run the CUDA kernel in ``kernels/utopia_rsw`` on the
+card, held to this function.  ``insert``/``remove`` are the functional
+device mirror of the host allocator's single-entry updates (allocation is
+decided host-side), used by the tests.
 """
 from __future__ import annotations
 
@@ -42,14 +45,12 @@ class RestSegState(NamedTuple):
         return self.tar.shape[1]
 
 
-class TranslationState(NamedTuple):
-    """Everything the device needs to translate vpn -> global pool slot
-    (``HybridKVManager.device_state``)."""
-
-    rest: RestSegState
-    flex_table: torch.Tensor    # (max_seqs, max_blocks_per_seq) int32, -1
-    max_blocks_per_seq: int
-    hash_name: str = "modulo"
+def init_restseg(n_sets: int, assoc: int, device="cuda") -> RestSegState:
+    return RestSegState(
+        tar=torch.zeros((n_sets, assoc), dtype=torch.int32, device=device),
+        sf=torch.zeros((n_sets,), dtype=torch.int32, device=device),
+        meta=torch.zeros((n_sets, assoc), dtype=torch.int32, device=device),
+    )
 
 
 class RSWResult(NamedTuple):
@@ -93,3 +94,49 @@ def rsw(state: RestSegState, vpn: torch.Tensor,
     tar_touched = torch.where(sf_skipped, 0, state.assoc).to(torch.int32)
     return RSWResult(hit=hit, slot=slot.to(torch.int32), way=way,
                      sf_skipped=sf_skipped, tar_touched=tar_touched)
+
+
+def _scalar(x, state: RestSegState) -> torch.Tensor:
+    return torch.as_tensor(x, dtype=torch.int32, device=state.tar.device)
+
+
+def insert(state: RestSegState, vpn, way, hash_name: str = "modulo",
+           meta_bits: int = 1) -> RestSegState:
+    """Functional single-entry insert at a chosen way: a new state, the
+    given one unchanged."""
+    vpn, way = _scalar(vpn, state), _scalar(way, state).long()
+    set_idx = get_hash(hash_name)(vpn, state.n_sets).long()
+    was_empty = state.tar[set_idx, way] == 0
+    tar, meta, sf = state.tar.clone(), state.meta.clone(), state.sf.clone()
+    tar[set_idx, way] = vpn + 1
+    meta[set_idx, way] = meta_bits
+    sf[set_idx] += was_empty.to(torch.int32)
+    return RestSegState(tar=tar, sf=sf, meta=meta)
+
+
+def remove(state: RestSegState, vpn,
+           hash_name: str = "modulo") -> RestSegState:
+    """Functional removal of ``vpn``'s way (a new state; unchanged values
+    when the RSW misses it)."""
+    vpn = _scalar(vpn, state)
+    res = rsw(state, vpn[None], hash_name)
+    hit = res.hit[0]
+    set_idx = get_hash(hash_name)(vpn, state.n_sets).long()
+    way = res.way[0].clamp(min=0).long()
+    tar, meta, sf = state.tar.clone(), state.meta.clone(), state.sf.clone()
+    tar[set_idx, way] = torch.where(hit, 0, state.tar[set_idx, way])
+    meta[set_idx, way] = torch.where(hit, 0, state.meta[set_idx, way])
+    sf[set_idx] -= hit.to(torch.int32)
+    return RestSegState(tar=tar, sf=sf, meta=meta)
+
+
+def structure_bytes(state: RestSegState, vpn_space_bits: int = 32) -> dict:
+    """Actual byte footprint of the packed structures (Fig. 13 accounting)."""
+    n_sets, assoc = state.tar.shape
+    set_bits = max(1, (n_sets - 1).bit_length())
+    tag_bits = max(1, vpn_space_bits - set_bits) + 10
+    counter_bits = max(1, (assoc).bit_length())
+    return {
+        "tar_bytes": (n_sets * assoc * tag_bits + 7) // 8,
+        "sf_bytes": (n_sets * counter_bits + 7) // 8,
+    }

@@ -48,7 +48,9 @@ __device__ __forceinline__ int floor_mod(int x, int n) {
 }
 
 __device__ __forceinline__ int floor_div(int x, int n) {
-  return (x - floor_mod(x, n)) / n;
+  // n > 0; no intermediate leaves the int32 range
+  int q = x / n;
+  return (x % n != 0 && x < 0) ? q - 1 : q;
 }
 
 __device__ __forceinline__ int shr(int x, int s) {
@@ -95,9 +97,28 @@ __device__ __forceinline__ int set_index(int v, int n_sets, int hash_id,
 struct Tables {
   const int* tar;   // (n_sets, assoc)
   const int* sf;    // (n_sets,)
-  const int* flex;  // (flex_len,)
+  const int* flex;  // (flex_len,), or (flex_len / flex_cols, flex_cols)
   int n_sets, assoc, flex_len, hash_id, p;
+  int flex_cols;    // 0: a flat table; else its row length (2-D reads)
 };
+
+// The flex entry a miss reads, as JAX indexes the table.  Flat: a negative
+// vpn counts from the end once, then the index clamps into the table.
+// 2-D (core/translate.py's FlexTable read, table[vpn // cols, vpn % cols]):
+// the column is in range by the floor mod; the row counts from the end
+// once when negative, then clamps into the rows.  Both agree for vpns
+// inside the table.
+__device__ __forceinline__ int flex_index(int v, const Tables& T) {
+  if (T.flex_cols > 0) {
+    const int rows = T.flex_len / T.flex_cols;
+    int row = floor_div(v, T.flex_cols);
+    row = row < 0 ? row + rows : row;
+    row = min(max(row, 0), rows - 1);
+    return row * T.flex_cols + floor_mod(v, T.flex_cols);
+  }
+  int fi = v < 0 ? v + T.flex_len : v;
+  return min(max(fi, 0), T.flex_len - 1);
+}
 
 struct Walk {
   int slot;      // resolved pool slot, -1 when unmapped
@@ -115,10 +136,7 @@ __device__ __forceinline__ Walk rsw_walk(int v, const Tables& T) {
   int s = set_index(v, T.n_sets, T.hash_id, T.p);
   // tags store vpn + 1 (0 marks an empty way); wrap as int32 does
   int tag = (int)((uint32_t)v + 1u);
-  // A miss reads the flat flex table as JAX indexes it: a negative vpn
-  // counts from the end once, then the index clamps into the table.
-  int fi = v < 0 ? v + T.flex_len : v;
-  fi = min(max(fi, 0), T.flex_len - 1);
+  const int fi = flex_index(v, T);
   // The SF word, the set's TAR row and the flex entry are issued together:
   // no address depends on another load's value, so the walk costs one
   // memory round trip instead of three.  The SF still decides whether the
@@ -248,7 +266,7 @@ int utopia_translate_step_launch(const void* tar, const void* sf,
                                  const void* active, void* out,
                                  const StepParams* prm, void* stream) {
   Tables T{(const int*)tar, (const int*)sf, (const int*)flex, prm->n_sets,
-           prm->assoc, prm->flex_len, prm->hash_id, prm->p};
+           prm->assoc, prm->flex_len, prm->hash_id, prm->p, 0};
   Step S{prm->batch, prm->nblk, prm->block_size, prm->sink, prm->window};
   int total = prm->batch * prm->nblk;
   int blocks = (total + kThreads - 1) / kThreads;
@@ -260,11 +278,11 @@ int utopia_translate_step_launch(const void* tar, const void* sf,
 
 int utopia_rsw_launch(const void* vpns, const void* tar, const void* sf,
                       const void* flex, int n, int n_sets, int assoc,
-                      int flex_len, int hash_id, int p, void* slot,
-                      void* in_rest, void* mapped, void* accesses,
-                      void* stream) {
+                      int flex_len, int hash_id, int p, int flex_cols,
+                      void* slot, void* in_rest, void* mapped,
+                      void* accesses, void* stream) {
   Tables T{(const int*)tar, (const int*)sf, (const int*)flex, n_sets, assoc,
-           flex_len, hash_id, p};
+           flex_len, hash_id, p, flex_cols};
   int blocks = (n + kThreads - 1) / kThreads;
   rsw_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
       (const int*)vpns, T, n, (int*)slot, (int*)in_rest, (int*)mapped,

@@ -125,17 +125,22 @@ utopia_translate_step.launches = 0
 
 
 def utopia_rsw(vpns: torch.Tensor, tar: torch.Tensor, sf: torch.Tensor,
-               flex_flat: torch.Tensor, *, hash_name: str = "modulo"):
+               flex_flat: torch.Tensor, *, hash_name: str = "modulo",
+               max_blocks_per_seq: int = 0):
     """Hybrid translate vpns (N,) int32 against the TAR (n_sets, assoc),
     SF (n_sets,) and flat flex table (V,), all int32.
 
     Returns ``(slot, in_rest, mapped, accesses)``, int32 (N,) each, with
     ``slot == -1`` for an unmapped vpn.  A miss reads the flex table as
-    JAX indexes it: a negative vpn counts from the end once, then the index
-    clamps into ``[0, V)``."""
+    JAX indexes it: with ``max_blocks_per_seq`` 0 as a flat table (a
+    negative vpn counts from the end once, then the index clamps into
+    ``[0, V)``), else as the ``(V / max_blocks_per_seq,
+    max_blocks_per_seq)`` table that ``core.translate`` reads
+    (``FlexTable.lookup_vpn``)."""
     tensors = (vpns, tar, sf, flex_flat)
     if all(t.device.type == "cpu" for t in tensors):
-        return rsw_ref(vpns, tar, sf, flex_flat, hash_name=hash_name)
+        return rsw_ref(vpns, tar, sf, flex_flat, hash_name=hash_name,
+                       max_blocks_per_seq=max_blocks_per_seq)
     dev = vpns.device
     if dev.type != "cuda" or any(t.device != dev for t in tensors):
         raise ValueError("utopia_rsw: all inputs must be on one CUDA device "
@@ -152,13 +157,19 @@ def utopia_rsw(vpns: torch.Tensor, tar: torch.Tensor, sf: torch.Tensor,
                          f"({n_sets},)")
     if hash_name not in HASH_IDS:
         raise KeyError(f"unknown hash {hash_name!r}")
+    if max_blocks_per_seq < 0 or (
+            max_blocks_per_seq and flex_flat.numel() % max_blocks_per_seq):
+        raise ValueError(f"utopia_rsw: max_blocks_per_seq "
+                         f"{max_blocks_per_seq} does not divide the flex "
+                         f"table's {flex_flat.numel()} entries")
     n = vpns.numel()
     out = torch.empty((4, n), dtype=torch.int32, device=dev)
     if n:
-        fn = _entry("utopia_rsw_launch", [_P] * 4 + [_I] * 6 + [_P] * 5)
+        fn = _entry("utopia_rsw_launch", [_P] * 4 + [_I] * 7 + [_P] * 5)
         rc = fn(vpns.data_ptr(), tar.data_ptr(), sf.data_ptr(),
                 flex_flat.data_ptr(), n, n_sets, assoc, flex_flat.numel(),
-                HASH_IDS[hash_name], hash_param(hash_name, n_sets), *(
+                HASH_IDS[hash_name], hash_param(hash_name, n_sets),
+                max_blocks_per_seq, *(
                     out.data_ptr() + 4 * n * k for k in range(4)),
                 _build.stream_handle(vpns))
         _build.check_launch("utopia_rsw", rc)

@@ -6,6 +6,7 @@ import functools
 
 import torch
 
+from repro_torch.core.flex_table import FlexTable
 from repro_torch.core.tar_sf import RestSegState, rsw
 
 HASH_IDS = {"modulo": 0, "xor_fold": 1, "prime_displacement": 2,
@@ -24,19 +25,26 @@ def hash_param(hash_name: str, n_sets: int) -> int:
 
 
 def rsw_ref(vpns: torch.Tensor, tar: torch.Tensor, sf: torch.Tensor,
-            flex_flat: torch.Tensor, *, hash_name: str = "modulo"):
+            flex_flat: torch.Tensor, *, hash_name: str = "modulo",
+            max_blocks_per_seq: int = 0):
     """vpns (N,) int32 -> (slot, in_rest, mapped, accesses), int32 (N,).
 
     ``slot`` is -1 when unmapped; ``accesses`` counts the SF probe, the
     TAR set read unless the SF filtered it, and the flex walk on a miss
-    (the decode step's telemetry)."""
+    (the decode step's telemetry).  A miss reads the flex table as JAX
+    indexes it: with ``max_blocks_per_seq`` 0 a flat table (a negative
+    vpn counts from the end once, then the index clamps into the table),
+    else a ``(V / max_blocks_per_seq, max_blocks_per_seq)`` table as
+    ``FlexTable.lookup_vpn`` reads it."""
     r = rsw(RestSegState(tar=tar, sf=sf, meta=torch.zeros_like(tar)),
             vpns, hash_name)
-    # JAX's gather: a negative vpn counts from the end once, then the
-    # index clamps into the table
-    n = flex_flat.numel()
-    v = vpns.long()
-    flex_slot = flex_flat[torch.where(v < 0, v + n, v).clamp(0, n - 1)]
+    if max_blocks_per_seq:
+        flex_slot, _ = FlexTable(flex_flat.view(-1, max_blocks_per_seq)
+                                 ).lookup_vpn(vpns, max_blocks_per_seq)
+    else:
+        n = flex_flat.numel()
+        v = vpns.long()
+        flex_slot = flex_flat[torch.where(v < 0, v + n, v).clamp(0, n - 1)]
     slot = torch.where(r.hit, r.slot, flex_slot)
     mapped = r.hit | (flex_slot >= 0)
     accesses = 1 + (~r.sf_skipped).to(torch.int32) + (~r.hit).to(torch.int32)

@@ -8,9 +8,9 @@ K/V for the hybrid-translated KV pool, each mamba sublayer's SSM state
 and conv tail, and the audio decoder's cross-attention K/V.  Attention
 goes through ``attention(impl=opt.attn_impl)``: with ``"pallas"`` (alias
 ``"flash"``) a CUDA tensor runs the flash kernel and a CPU tensor its
-plain version.  A layer whose parameters hold ``"moe"`` runs the MoE FFN
-(``models/moe.py``) in place of the MLP, and ``aux`` sums its losses over
-the layers.
+plain version; ``"flash_jax"`` runs the chunked eager attention.  A
+layer whose parameters hold ``"moe"`` runs the MoE FFN (``models/moe.py``)
+in place of the MLP, and ``aux`` sums its losses over the layers.
 
 * dense / moe: every layer is causal self-attention then the FFN.
 * vlm (paligemma): the dense body over ``frontend_proj(frontend)``
@@ -76,8 +76,11 @@ def n_attn_layers(cfg: ArchConfig) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class FwdOptions:
-    attn_impl: str = "dense"           # dense | pallas (alias flash)
+    attn_impl: str = "dense"           # dense | flash_jax | pallas (flash)
     dtype: Any = torch.float32
+    q_chunk: int = 512                 # flash_jax's chunks
+    kv_chunk: int = 512
+    triangular_schedule: bool = False
     collect_cache: bool = False        # prefill: emit per-layer caches
     moe_groups: int = 1                # MoE dispatch groups (1 only)
 
@@ -105,7 +108,9 @@ def _self_attn(blk, x, cfg: ArchConfig, dims: ModelDims, opt: FwdOptions,
     theta = cfg.rope_theta if causal else 0.0
     q, k, v = L.qkv_project(blk["attn"], h, h, dims.n_heads, dims.n_kv,
                             dims.head_dim, pos, pos, theta)
-    o = attention(q, k, v, impl=opt.attn_impl, causal=causal)
+    o = attention(q, k, v, impl=opt.attn_impl, causal=causal,
+                  q_chunk=opt.q_chunk, kv_chunk=opt.kv_chunk,
+                  triangular_schedule=opt.triangular_schedule)
     o = L.linear(blk["attn"]["o"], o.reshape(B, S, -1))
     return x + o, (k, v)
 
@@ -118,7 +123,8 @@ def _cross_attn(blk, x, enc_out, cfg: ArchConfig, dims: ModelDims,
     h = L.rms_norm(x, blk["norm_x"], cfg.norm_eps)
     q, ck, cv = L.qkv_project(blk["cross"], h, enc_out, dims.n_heads,
                               dims.n_kv, dims.head_dim, None, None, 0.0)
-    o = attention(q, ck, cv, impl=opt.attn_impl, causal=False)
+    o = attention(q, ck, cv, impl=opt.attn_impl, causal=False,
+                  q_chunk=opt.q_chunk, kv_chunk=opt.kv_chunk)
     return x + L.linear(blk["cross"]["o"], o.reshape(B, S, -1)), (ck, cv)
 
 

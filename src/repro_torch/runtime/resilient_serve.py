@@ -7,7 +7,10 @@ prefill progress, the host KV tier, sampling state, monotone counters) as
 one value.  ``ResilientServe`` wraps ``Engine.poll()``/``stream()``:
 
 * **Snapshot cadence**: every ``snapshot_every`` engine steps it calls
-  ``Engine.snapshot()`` and keeps the newest one (one live snapshot).
+  ``Engine.snapshot()`` and keeps the newest one (one live snapshot);
+  with a ``ckpt.CheckpointManager`` attached it also persists the
+  snapshot through ``save_named`` (the atomic-commit, corrupt-shard-
+  tolerant path), so a NEW process can resume with ``from_checkpoint``.
 * **Recovery**: a caught fault (``InjectedStepFault`` by default; the
   ``catch`` tuple is the extension point for real device failures)
   restores the latest snapshot, resubmits every request the journal saw
@@ -23,10 +26,6 @@ one value.  ``ResilientServe`` wraps ``Engine.poll()``/``stream()``:
 * **Watchdog**: poll wall times feed a :class:`runtime.fault.StepWatchdog`
   (EMA-relative, built on ``StragglerMonitor``), so hung steps surface in
   ``stats()["recovery"]`` instead of in a silent stall.
-
-Persisting snapshots to disk (the ``ckpt_manager`` argument and
-``from_checkpoint``) needs the checkpoint manager, which is not ported
-yet (ROADMAP P16).
 
 The supervisor journals submissions, so requests MUST go through
 ``ResilientServe.submit`` (the constructor's initial snapshot covers
@@ -44,12 +43,6 @@ from .fault import InjectedStepFault, StepWatchdog
 __all__ = ["ResilientServe", "ReplayDivergence"]
 
 
-def _no_checkpoints() -> NotImplementedError:
-    return NotImplementedError(
-        "persisting serving snapshots needs ckpt/checkpoint.py, which is "
-        "not ported yet (ROADMAP P16)")
-
-
 class ReplayDivergence(AssertionError):
     """A restored replay re-emitted tokens that DIFFER from what was
     already delivered for the same sequence: the snapshot/restore
@@ -64,8 +57,10 @@ class ResilientServe:
     ----------
     engine:          the engine to supervise (its state at construction
                      is the first snapshot — nothing before is lost).
-    ckpt_manager:    must be None: persisting snapshots needs the
-                     checkpoint manager (ROADMAP P16).
+    ckpt_manager:    optional ``ckpt.CheckpointManager``; when given,
+                     every snapshot is also persisted via ``save_named``
+                     so a NEW process can resume with
+                     :meth:`from_checkpoint`.
     snapshot_every:  engine steps between snapshots (a longer cadence
                      snapshots less often and replays more steps after a
                      crash).
@@ -84,9 +79,8 @@ class ResilientServe:
         if max_restarts < 0:
             raise ValueError(f"max_restarts must be >= 0, got "
                              f"{max_restarts}")
-        if ckpt_manager is not None:
-            raise _no_checkpoints()
         self.engine = engine
+        self.ckpt = ckpt_manager
         self.snapshot_every = snapshot_every
         self.max_restarts = max_restarts
         self.catch = tuple(catch)
@@ -155,6 +149,8 @@ class ResilientServe:
     # ---------------------------------------------------------- recovery
     def _take_snapshot(self) -> EngineSnapshot:
         snap = self.engine.snapshot()
+        if self.ckpt is not None:
+            self.ckpt.save_named(snap.step, snap.to_arrays())
         self.snapshots += 1
         return snap
 
@@ -220,13 +216,16 @@ class ResilientServe:
             "resubmitted_requests": self.resubmitted,
             "dedup_tokens": self.dedup_tokens,
             "watchdog_flags": len(self.watchdog.flags),
-            "persisted": False,
+            "persisted": self.ckpt is not None,
         }
         return s
 
     # -------------------------------------------------- cross-process resume
     @classmethod
     def from_checkpoint(cls, engine, ckpt_manager, **kw) -> "ResilientServe":
-        """Resume serving in a new process from a persisted snapshot:
-        needs the checkpoint manager, not ported yet."""
-        raise _no_checkpoints()
+        """Resume serving in a NEW process: load the latest persisted
+        snapshot (corrupt shards skip-and-warn to the previous step),
+        restore it onto ``engine``, and supervise from there."""
+        arrays, _step = ckpt_manager.restore_named()
+        engine.restore(EngineSnapshot.from_arrays(arrays))
+        return cls(engine, ckpt_manager, **kw)

@@ -148,8 +148,9 @@ class EngineConfig:
     prefill's causal attention: ``"dense"`` (the plain version, the JAX
     default) or ``"pallas"`` (the JAX name of the flash kernel: the port's
     CUDA flash kernel on the card, its plain version on the CPU), also
-    called ``"flash"``; JAX's ``"flash_jax"`` comes with the training
-    stack (P16).  ``dtype`` is the activation and KV-pool dtype.
+    called ``"flash"``, or ``"flash_jax"`` (the JAX package's chunked
+    eager attention, ``models.attention.flash_attention_jax``).  ``dtype``
+    is the activation and KV-pool dtype.
 
     ``prefill_mode``: ``"prefix_kv"`` (chunks k > 0 forward only their
     own tokens and read the installed prefix from the pool) or
@@ -204,12 +205,9 @@ class EngineConfig:
         and for the values the JAX engine refuses."""
         if self.mesh_shape is not None:
             raise _not_ported("sharded serving (mesh_shape)", "P15")
-        if self.attn_impl == "flash_jax":
-            raise _not_ported("attn_impl='flash_jax' (the JAX training "
-                              "attention)", "P16")
-        if self.attn_impl not in ("dense", "pallas", "flash"):
+        if self.attn_impl not in ("dense", "flash_jax", "pallas", "flash"):
             raise ValueError(f"unknown attn_impl {self.attn_impl!r} "
-                             "(expected 'dense' or 'pallas')")
+                             "(expected 'dense', 'flash_jax' or 'pallas')")
         if self.spec_decode not in (None, False, True, "ngram"):
             raise ValueError(f"unknown spec_decode drafter "
                              f"{self.spec_decode!r} (expected None/False "

@@ -185,12 +185,29 @@ def test_replay_divergence_is_loud(model):
         _drain(sup.poll, sup.has_unfinished)
 
 
-def test_checkpoint_persistence_not_ported(model):
-    eng = _mkeng(model)
-    with pytest.raises(NotImplementedError, match="P16"):
-        ResilientServe(eng, object())
-    with pytest.raises(NotImplementedError, match="P16"):
-        ResilientServe.from_checkpoint(eng, object())
+def test_checkpoint_persistence(model, tmp_path):
+    """With a ``CheckpointManager`` the supervisor persists every snapshot
+    (the constructor's included), and ``from_checkpoint`` restores the
+    newest onto a fresh engine, whose streams finish as the uncrashed
+    run's."""
+    from repro_torch.ckpt import CheckpointManager
+    ref, _ = _reference(model, SamplingParams(), {})
+    ck = CheckpointManager(str(tmp_path), keep_last=2)
+    sup = ResilientServe(_mkeng(model), ck, snapshot_every=3)
+    for r in _reqs(model[0], SamplingParams()):
+        sup.submit(r)
+    for _ in range(7):
+        sup.poll()
+    ck.wait()
+    assert sup.snapshots == 3 and ck.save_count == 3
+    assert ck.all_steps() == [3, 6]
+    assert sup.stats()["recovery"]["persisted"] is True
+    fresh = _mkeng(model)
+    sup2 = ResilientServe.from_checkpoint(fresh, ck)
+    assert fresh._step_count == 6
+    fresh.check_invariants()
+    tail = _drain(sup2.poll, sup2.has_unfinished)
+    assert tail and all(ref[sid][-len(t):] == t for sid, t in tail.items())
 
 
 # ----------------------------------------------------- snapshot round trip

@@ -10,9 +10,8 @@ package's.
   ``tests/test_admission.py`` give identical streams and admission logs,
   it raises ``PoolExhausted`` without a free slot, and makes one
   ``.cpu()``;
-* ``attn_impl``: ``"dense"`` and ``"pallas"`` give the port the JAX
-  engine's ``prefill_mode`` and fallback warning; ``"flash_jax"``, which
-  the JAX engine takes, the port refuses until ROADMAP P16.
+* ``attn_impl``: ``"dense"``, ``"pallas"`` and ``"flash_jax"`` give the
+  port the JAX engine's ``prefill_mode`` and fallback warning.
 
 On ``reduced(granite-8b)`` with float32 weights from the JAX
 ``init_params``, on the CPU.
@@ -262,7 +261,7 @@ def test_add_request_makes_one_copy(weights, monkeypatch):
 
 # -------------------------------------------------------- attn_impl
 
-@pytest.mark.parametrize("impl", ["dense", "pallas"])
+@pytest.mark.parametrize("impl", ["dense", "pallas", "flash_jax"])
 def test_attn_impl_config_parity(weights, impl):
     """The port takes JAX's attention names with JAX's consequences: the
     resulting ``prefill_mode`` and the prefix-KV fallback warning."""
@@ -280,18 +279,19 @@ def test_attn_impl_config_parity(weights, impl):
     assert FwdOptions().attn_impl == JFwd().attn_impl == "dense"
 
 
-def test_attn_impl_flash_jax_waits_for_the_training_stack(weights):
-    """JAX's ``"flash_jax"`` constructs there; the port refuses it, naming
-    ROADMAP P16, and still takes its own name ``"flash"`` as ``"pallas"``;
-    an unknown name is a ValueError."""
+def test_attn_impl_flash_jax_falls_back_to_recompute(weights):
+    """JAX's ``"flash_jax"`` constructs in both packages, with recompute
+    prefill and the same one warning; the port still takes its own name
+    ``"flash"`` as ``"pallas"``; an unknown name is a ValueError."""
     jcfg, jp = weights["jax"]
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore")
-        assert JEngine(jcfg, jp, JConfig(
-            attn_impl="flash_jax")).prefill_mode == "recompute"
     cfg, tp = weights["port"]
-    with pytest.raises(NotImplementedError, match="ROADMAP P16"):
-        Engine(cfg, tp, EngineConfig(attn_impl="flash_jax"), device="cpu")
+    (jeng, teng), w = _caught(lambda: (
+        JEngine(jcfg, jp, JConfig(attn_impl="flash_jax")),
+        Engine(cfg, tp, EngineConfig(attn_impl="flash_jax"), device="cpu")))
+    assert jeng.prefill_mode == teng.prefill_mode == "recompute"
+    msgs = [m for _, m in w if "prefix-KV" in m]
+    assert len(msgs) == 2 and msgs[0] == msgs[1]
+    assert teng.fwd.attn_impl == "flash_jax"
     with pytest.raises(ValueError, match="attn_impl"):
         Engine(cfg, tp, EngineConfig(attn_impl="sdpa"), device="cpu")
     with warnings.catch_warnings():
