@@ -12,11 +12,13 @@ JAX):
     python3 chip_smoke.py --recurrent [--src OTHER_CHECKOUT/src]
     python3 chip_smoke.py --frontends [--src OTHER_CHECKOUT/src]
     python3 chip_smoke.py --translation [--src OTHER_CHECKOUT/src]
+    python3 chip_smoke.py --mesh [--src OTHER_CHECKOUT/src]
 
 The second form builds the kernels and runs only phase 4's decode-step
 profile, the third only phase 2's paged-attention checks and timings (the
 decode, verify and prefix reads), the fourth only phase 8, the fifth only
-phase 9, the sixth only phase 10, the seventh only phase 11, of this
+phase 9, the sixth only phase 10, the seventh only phase 11, the eighth
+only the sharded step's check, phase 5 and phase 12, of this
 checkout's port or of another commit's (a parent unpacked with ``git
 archive``), so that two commits compare in one call.
 Phase 3's first two runs, phase 4 and the profile pass their engine
@@ -225,18 +227,36 @@ Phases, each failing loudly:
    It prints accesses and bytes a translation, device and wall µs and
    kernels a batch, the RSW hit share, the table sizes, and the vpn-list
    entry's time at 8,192 vpns beside its plain version and bound.
+12. sharded serving (after phase 6 (f), with granite-8b's weights):
+   phase 2 first holds the RSW kernel's sharded step (``check_translate_
+   shard``: each rank's shard entry, the sum of the contributions, the
+   combine) against its plain version and the unsharded step at M = 1, 2
+   and 4 ranks, windows 1 and 5, and times its two entries beside an
+   empty kernel; then (a) ``mesh_shape=(1, 1)`` over NCCL (world size 1,
+   this process) on phase 5's engine and requests, whose digest must be
+   phase 5's, and (b) ``mesh_shape=(1, 2)`` as two processes on the card
+   over gloo with CUDA tensors (``--mesh-child``; NCCL refuses two ranks
+   on one device), granite-8b at full width, ``PHASE12_LAYERS`` deep,
+   spec decoding on and a forced preemption (``PHASE12_PREEMPT``): each
+   rank's streams, overload stats and per-shard sums must equal a
+   ``mesh_shape=None`` run of the same configuration run here.  Every
+   step that decodes must launch the shard entry and the combine once on
+   each rank, and the unsharded step entry never.  It prints per-step
+   wall and device ms at (1, 1) and (1, 2) and the bytes each step's
+   exact gathers move.
 
 Each serving phase prints a digest of its streams (``streams_sha256``), so
 that two commits' runs compare token for token.
 
 It prints the build times, the kernel checks, the serving numbers, one
 JSON line of kernel measurements (launches counted on phases 4, 5, 6, 7,
-4 (b), 6 (f), 8 (a) and (c), 9 (a) and (b), 10 (a) and (b) and 11, each
-from 0; the RSW's ``launches`` are its step entry's, and
-``launches_vpn_list`` its vpn-list entry's), the card's name and power
-limit, and as its last line ``{"ok": true, "device": {...}}``.  Without a CUDA card,
-or without the rest of the repository beside it, it exits non-zero and
-prints no result.
+4 (b), 6 (f), 8 (a) and (c), 9 (a) and (b), 10 (a) and (b), 11 and 12,
+each from 0; the RSW's ``launches`` are its step entry's,
+``launches_vpn_list`` its vpn-list entry's and ``launches_shard`` /
+``launches_combine`` its sharded step's two entries'), the card's name
+and power limit, and as its last line ``{"ok": true, "device":
+{...}}``.  Without a CUDA card, or without the rest of the repository
+beside it, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
@@ -1658,6 +1678,7 @@ def _kernel_counts(reset=False):
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.paged_attention.ops import paged_attention
     from repro_torch.kernels.utopia_rsw.ops import (utopia_rsw,
+                                                    utopia_translate_shard,
                                                     utopia_translate_step)
     fns = {"utopia_translate_step": (utopia_translate_step, "launches"),
            "utopia_rsw": (utopia_rsw, "launches"),
@@ -1666,6 +1687,9 @@ def _kernel_counts(reset=False):
                                      "launches_multi_query"),
            "paged_attention_q_per_query": (paged_attention,
                                            "launches_q_per_query"),
+           "utopia_translate_shard": (utopia_translate_shard, "launches"),
+           "utopia_combine_shard": (utopia_translate_shard,
+                                    "launches_combine"),
            "flash_attention": (flash_attention, "launches")}
     if reset:
         for fn, attr in fns.values():
@@ -1793,7 +1817,8 @@ def full_width_prefix(torch, dev, cfg, dims, params):
     """Phase 5: 8 requests of 64-704 tokens, 32 new tokens each; requests
     1, 3, 5 and 7 open with one 384-token system prompt; requests 0, 3, 4
     and 7 sample (fixed seeds).  Reads the launch counts of this run
-    alone; then profiles one prefix-KV admission step."""
+    alone; then profiles one prefix-KV admission step.  Returns (launches,
+    the streams' digest)."""
     import numpy as np
     from repro_torch.serve import Engine, EngineConfig
     eng = Engine(cfg, params, EngineConfig(dtype=torch.bfloat16, **PHASE5),
@@ -1842,7 +1867,7 @@ def full_width_prefix(torch, dev, cfg, dims, params):
         + ", ".join(f"{k}={v!r}" for k, v in PHASE5.items()) + "): "
         + json.dumps({"serving": summary}))
     profile_prefix_step(torch, eng, rng, cfg)
-    return launches
+    return launches, summary["streams_sha256"]
 
 
 def random_frontend(cfg, rng):
@@ -4230,6 +4255,376 @@ def translation(torch, dev, results):
     return counts
 
 
+# ---------------------------------------------------------------- phase 12
+#
+# Sharded serving (DESIGN.md §sharded-serving): (a) a (1, 1) mesh over NCCL
+# in this process on phase 5's engine and requests, (b) a (1, 2) mesh as
+# two processes on the one card over gloo (NCCL refuses two ranks on one
+# device), held bitwise to a mesh_shape=None run of the same configuration
+
+PHASE12_B = dict(PHASE5, spec_decode="ngram", num_draft_tokens=PHASE7_K)
+PHASE12_PREEMPT = [(14, "post", "auto")]   # a forced preemption in (b)
+# (b)'s depth, cut from granite-8b's 36: at full depth each rank stages
+# 604 MB of gathers a decode step through gloo (0.79 s a step on an H100
+# at 700 W), and the phase took 119 s, over its 90 s
+PHASE12_LAYERS = 12
+PHASE12_TIMEOUT_S = 300                    # a collective never joined fails
+MESH_CHILD_TAG = "phase 12 (b) rank: "
+
+
+def _shard_case(torch, dev, M):
+    """Phase 2's engine-geometry tables (``_step_case``, the modulo hash)
+    as M ranks hold them: each rank's slices of the padded mirrors, and
+    the partition.  Returns (slices, ctx, active, part, tables)."""
+    from repro_torch.core.partition import Partition
+    B, nblk, bs, slots, frac = STEP_GEOMETRIES["engine"]
+    tables, n_sets = _step_case(torch, dev, "modulo", B, nblk, bs, slots,
+                                frac)
+    tar, sf, flex, ctx, active = tables
+    part = Partition(n_shards=M, n_sets=n_sets, assoc=8,
+                     rest_slots=n_sets * 8, flex_slots=slots - n_sets * 8,
+                     vpn_space=B * nblk)
+    spm, vpm = part.sets_per_shard, part.vpns_per_shard
+    pad = dict(device=dev, dtype=torch.int32)
+    tar_p = torch.zeros((1, part.n_sets_padded, 8), **pad)
+    sf_p = torch.zeros((1, part.n_sets_padded), **pad)
+    flex_p = torch.full((1, part.vpn_padded), -1, **pad)
+    tar_p[:, :n_sets], sf_p[:, :n_sets] = tar, sf
+    flex_p[:, :flex.shape[1]] = flex
+    slices = [(tar_p[:, m * spm:(m + 1) * spm].contiguous(),
+               sf_p[:, m * spm:(m + 1) * spm].contiguous(),
+               flex_p[:, m * vpm:(m + 1) * vpm].contiguous())
+              for m in range(M)]
+    return slices, ctx, active, part, tables
+
+
+def check_translate_shard(torch, dev, results):
+    """The RSW kernel's sharded step at the engine's geometry (B = 4, nblk
+    = 16, 80 slots, the modulo hash), as M = 1, 2 and 4 ranks hold the
+    tables: each rank's shard entry (``utopia_translate_shard``) equal to
+    its plain version, and the bound translation (``shard_translator``:
+    the shard entry, the sum over the ranks, the combine) equal to
+    ``combine_shard_ref`` in every field and to the unsharded step's in
+    every field but the write rows, at windows 1 and 5 (the verify's),
+    with and without the active mask.  Then, at M = 2, the two entries'
+    device time beside an empty kernel's and their bytes bound."""
+    from repro_torch.kernels.utopia_rsw.ops import (empty_launch,
+                                                    shard_translator,
+                                                    utopia_translate_shard)
+    from repro_torch.kernels.utopia_rsw.ref import (StepTranslation,
+                                                    combine_shard_ref,
+                                                    translate_shard_ref,
+                                                    translate_step_ref)
+    B, nblk, bs, slots, _ = STEP_GEOMETRIES["engine"]
+    n = B * nblk
+    timed = None
+    for M in (1, 2, 4):
+        slices, ctx, active, part, (tar, sf, flex, _, _) = _shard_case(
+            torch, dev, M)
+        geom = dict(batch=B, nblk=nblk, hash_name="modulo", part=part)
+        contribs = []
+        for m, sl in enumerate(slices):
+            got = utopia_translate_shard(*sl, m=m, **geom)
+            want = translate_shard_ref(*(t.cpu() for t in sl), m=m, **geom)
+            if not torch.equal(got.cpu(), want):
+                raise AssertionError(f"translate_shard[M={M}, m={m}]: "
+                                     "differs from the plain version")
+            contribs.append(got)
+        total = sum(contribs)
+        for window in (1, 5):
+            for act in (None, active):
+                ref = translate_step_ref(tar, sf, flex, ctx, act,
+                                         block_size=bs, nblk=nblk,
+                                         hash_name="modulo", sink=slots,
+                                         window=window)
+                for m, sl in enumerate(slices):
+                    fn = shard_translator(
+                        *sl, ctx, part=part, m=m,
+                        reduce=lambda c: c.copy_(total), block_size=bs,
+                        nblk=nblk, hash_name="modulo", window=window)
+                    got = fn(*sl, ctx, act)
+                    want = combine_shard_ref(
+                        total.cpu(), ctx.cpu(),
+                        None if act is None else act.cpu(), block_size=bs,
+                        nblk=nblk, hash_name="modulo", part=part, m=m,
+                        window=window)
+                    for f in StepTranslation._fields:
+                        a = getattr(got, f).cpu()
+                        if not torch.equal(a, getattr(want, f)):
+                            raise AssertionError(
+                                f"shard_translator[M={M}, m={m}, W="
+                                f"{window}]: {f} differs from the plain "
+                                "version")
+                        if f != "w_row" and not torch.equal(
+                                a, getattr(ref, f).cpu()):
+                            raise AssertionError(
+                                f"shard_translator[M={M}, m={m}, W="
+                                f"{window}]: {f} differs from the "
+                                "unsharded step's")
+                    if M == 2 and window == 1 and act is not None and m == 0:
+                        timed = (fn, sl, ctx, act, part)
+    fn, sl, ctx, act, part = timed
+    n_sets_l = part.sets_per_shard
+    # bytes of the two entries for this data: the rank's SF words, TAR rows
+    # and flex entries of its slices (each once), the contributions written
+    # and read back, ctx_len, the mask and the step's output
+    from repro_torch.kernels.utopia_rsw.ref import step_words
+    nbytes = (4 * n_sets_l + 4 * 8 * n_sets_l + 4 * part.vpns_per_shard
+              + 2 * 16 * n + 4 * B + B + 4 * step_words(B, nblk))
+    dev_us = {}
+    for _ in range(3):               # the profiler can miss a tiny kernel
+        rows = profile_device(torch, lambda: (fn(*sl, ctx, act),
+                                              empty_launch(ctx)), 100)
+        for key, sym in (("shard", "translate_shard_kernel"),
+                         ("combine", "combine_shard_kernel"),
+                         ("empty", "empty_kernel")):
+            ms = [r[1] for r in rows if sym in r[0]]
+            if ms:
+                dev_us.setdefault(key, 1e3 * ms[0])
+        if len(dev_us) == 3:
+            break
+    wall_ms = time_ms(torch, [lambda: fn(*sl, ctx, act)], 400)
+    plain_ms = time_ms(torch, [lambda: combine_shard_ref(
+        translate_shard_ref(*sl, m=0, batch=B, nblk=nblk, hash_name="modulo",
+                            part=part) * 2, ctx, act, block_size=bs,
+        nblk=nblk, hash_name="modulo", part=part, m=0)], 50)
+    r = dict(device_us=dev_us.get("shard"),
+             combine_device_us=dev_us.get("combine"),
+             empty_device_us=dev_us.get("empty"), bytes=nbytes,
+             bound_us=nbytes / HBM_BYTES_PER_S * 1e6, wall_us=1e3 * wall_ms,
+             plain_us=1e3 * plain_ms)
+    log("check translate_shard [B=4, nblk=16, 80 slots at M = 1, 2, 4; "
+        "windows 1 and 5]: the shard entry exact against its plain version "
+        "on every rank, the bound translation against combine_shard_ref "
+        "and the unsharded step; at M = 2 (one rank's two launches, the "
+        "sum in place): " + json.dumps(
+            {k: (round(v, 4) if isinstance(v, float) else v)
+             for k, v in r.items()}))
+    results["utopia_translate_shard"] = r
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _gather_bytes(cfg, dims, engine_kw, dtype_bytes=2):
+    """Bytes the exact gathers of one decode step move on a rank: every
+    attention layer assembles the B x nblk blocks of K and of V."""
+    B = engine_kw["max_batch"]
+    nblk = engine_kw["max_seq_len"] // cfg.kv_block_size
+    per = B * nblk * cfg.kv_block_size * dims.n_kv * dims.head_dim
+    return dict(k_per_layer=per * dtype_bytes, v_per_layer=per * dtype_bytes,
+                per_step=2 * per * dtype_bytes * cfg.num_layers)
+
+
+def _mesh_run(torch, eng, reqs, label):
+    """Serve ``reqs`` on ``eng`` with ``check_invariants`` after each
+    step, holding one shard-entry and one combine launch to every step
+    that decoded (none to the others) on a mesh engine.  Returns (streams,
+    steps, launches, wall s)."""
+    from repro_torch.kernels.utopia_rsw.ops import utopia_translate_shard
+    per_step = []
+    last = [0, 0]
+
+    def each(e):
+        now = [utopia_translate_shard.launches,
+               utopia_translate_shard.launches_combine]
+        per_step.append((now[0] - last[0], now[1] - last[1]))
+        last[:] = now
+        e.check_invariants()
+
+    _kernel_counts(reset=True)
+    t0 = time.perf_counter()
+    streams, steps = serve(eng, reqs, each_step=each)
+    wall = time.perf_counter() - t0
+    launches = _kernel_counts()
+    if eng.mesh is not None:
+        want = [(1, 1) if live else (0, 0) for _, _, live, _, _ in steps]
+        if per_step != want:
+            raise AssertionError(f"{label}: (shard, combine) launches per "
+                                 f"step {per_step}, expected {want}")
+        if launches["utopia_translate_step"]:
+            raise AssertionError(f"{label}: the unsharded step entry "
+                                 "launched on a mesh")
+    return streams, steps, launches, wall
+
+
+def mesh_child(torch, dev, rank, directory):
+    """Phase 12 (b)'s rank (``--mesh-child RANK DIR``): join the gloo group
+    of two (file rendezvous in DIR), draw (b)'s seeded weights, serve (b)'s
+    requests on the (1, 2) mesh, profile a steady step, and print what it
+    served."""
+    import datetime
+    import torch.distributed as dist
+    from repro_torch.runtime import ServeFaultInjector
+    from repro_torch.serve import Engine, EngineConfig
+    t0 = time.perf_counter()
+    dist.init_process_group(
+        "gloo", init_method=f"file://{Path(directory) / 'rendezvous'}",
+        world_size=2, rank=rank,
+        timeout=datetime.timedelta(seconds=PHASE12_TIMEOUT_S))
+    try:
+        cfg, dims, params = served_model(torch, dev, "granite-8b",
+                                         torch.bfloat16, seed=SEED,
+                                         layers=PHASE12_LAYERS)
+        eng = Engine(cfg, params, EngineConfig(
+            dtype=torch.bfloat16, mesh_shape=(1, 2),
+            fault_injector=ServeFaultInjector(preempt_at=PHASE12_PREEMPT),
+            **PHASE12_B), device=dev)
+        reqs = phase7_requests(cfg)
+        streams, steps, launches, wall = _mesh_run(torch, eng, reqs,
+                                                   f"phase 12 (b) rank {rank}")
+        check_streams(reqs, streams, cfg.vocab_size)
+        st = eng.stats()
+        decode = [w for w, recs, live, _, _ in steps if live and not recs]
+        steady = steady_step(torch, eng, cfg)
+        print(MESH_CHILD_TAG + json.dumps(dict(
+            rank=rank, streams=streams, launches=launches,
+            steps=len(steps), wall_s=round(wall, 2),
+            decode_step_ms_median=round(statistics.median(decode) * 1e3, 3),
+            steady=steady, shards=st["shards"], overload=st["overload"],
+            spec=[st["spec_drafted"], st["spec_accepted"]],
+            total_s=round(time.perf_counter() - t0, 2))), flush=True)
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_phase(torch, dev, cfg, dims, params, phase5_digest, src):
+    """Phase 12: sharded serving.  (a) ``mesh_shape=(1, 1)`` over NCCL
+    (world size 1, this process) on phase 5's engine and requests: the
+    streams' digest must equal phase 5's.  (b) ``mesh_shape=(1, 2)`` as
+    two processes on this card over gloo with CUDA tensors, granite-8b at
+    full width (``PHASE12_LAYERS`` deep) with spec decoding and a forced
+    preemption (``PHASE12_PREEMPT``): each rank's streams must be bitwise
+    a ``mesh_shape=None`` run of the same configuration, run here.  Each
+    decoding step must launch the shard entry and the combine once on
+    each rank.  Prints per-step wall and device ms at (1, 1) and (1, 2)
+    and the bytes each step's exact gathers move.  Returns the path's
+    launch counts (both ranks' of (b) added)."""
+    import datetime
+    import os
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch.distributed as dist
+    from repro_torch.runtime import ServeFaultInjector
+    from repro_torch.serve import Engine, EngineConfig
+    t_phase = time.perf_counter()
+    # (a): (1, 1) over NCCL
+    dist.init_process_group(
+        "nccl", init_method=f"tcp://localhost:{_free_port()}", world_size=1,
+        rank=0, timeout=datetime.timedelta(seconds=PHASE12_TIMEOUT_S))
+    try:
+        eng = Engine(cfg, params, EngineConfig(
+            dtype=torch.bfloat16, mesh_shape=(1, 1), **PHASE5), device=dev)
+        reqs, *_ = phase5_requests(cfg, np.random.RandomState(SEED + 5))
+        streams, steps, counts, wall = _mesh_run(torch, eng, reqs,
+                                                 "phase 12 (a)")
+        check_streams(reqs, streams, cfg.vocab_size)
+        digest = stream_digest(streams)
+        if digest != phase5_digest:
+            raise AssertionError(f"phase 12 (a): streams {digest} differ "
+                                 f"from phase 5's {phase5_digest}")
+        decode = [w for w, recs, live, _, _ in steps if live and not recs]
+        steady_a = steady_step(torch, eng, cfg)
+        a = dict(steps=len(steps), wall_s=round(wall, 2),
+                 decode_step_ms_median=round(statistics.median(decode) * 1e3,
+                                             3),
+                 steady=steady_a, streams_sha256=digest,
+                 gather_bytes=_gather_bytes(cfg, dims, PHASE5),
+                 launches=counts)
+        del eng
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    log(f"phase 12 (a): granite-8b full width, {cfg.num_layers} layers, "
+        "bf16, mesh_shape="
+        "(1, 1) over NCCL on phase 5's engine and requests; streams equal "
+        "phase 5's: " + json.dumps({"mesh_1x1": a}))
+    # (b): (1, 2) in two processes, and its mesh_shape=None reference here
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_phase12_")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    procs = []
+    try:
+        for r in range(2):
+            procs.append(subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()),
+                 "--mesh-child", str(r), tmp, "--src", str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                env=env))
+        # the ranks' weights: the same seeded draw at (b)'s depth
+        rcfg, rparams = cfg, params
+        if PHASE12_LAYERS != cfg.num_layers:
+            rcfg, _, rparams = served_model(torch, dev, "granite-8b",
+                                            torch.bfloat16, seed=SEED,
+                                            layers=PHASE12_LAYERS)
+        ref_eng = Engine(rcfg, rparams, EngineConfig(
+            dtype=torch.bfloat16,
+            fault_injector=ServeFaultInjector(preempt_at=PHASE12_PREEMPT),
+            **PHASE12_B), device=dev)
+        ref, ref_steps, _, ref_wall = _mesh_run(torch, ref_eng,
+                                                phase7_requests(rcfg),
+                                                "phase 12 (b) reference")
+        ref_st = ref_eng.stats()
+        ref_ov = ref_st["overload"]
+        del ref_eng, rparams
+        torch.cuda.empty_cache()
+        outs = [p.communicate(timeout=900) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    ranks = []
+    for r, (p, (out, err)) in enumerate(zip(procs, outs)):
+        lines = [x for x in out.splitlines() if x.startswith(MESH_CHILD_TAG)]
+        if p.returncode != 0 or not lines:
+            raise AssertionError(f"phase 12 (b): rank {r} failed (exit "
+                                 f"{p.returncode}):\n{out[-3000:]}\n"
+                                 f"{err[-4000:]}")
+        ranks.append(json.loads(lines[-1][len(MESH_CHILD_TAG):]))
+    if ref_ov["preempted_seqs"] <= 0:
+        raise AssertionError("phase 12 (b): the forced preemption did not "
+                             "preempt")
+    for r, got in enumerate(ranks):
+        got_streams = {int(k): v for k, v in got["streams"].items()}
+        if got_streams != ref:
+            bad = sorted(k for k in ref if got_streams.get(k) != ref[k])
+            raise AssertionError(f"phase 12 (b): rank {r}'s streams differ "
+                                 f"from mesh_shape=None's on {bad}")
+        if got["overload"] != ref_ov:
+            raise AssertionError(f"phase 12 (b): rank {r}'s overload stats "
+                                 f"{got['overload']} != {ref_ov}")
+        for k in ("rsw_hits", "flex_walks"):
+            if sum(sh[k] for sh in got["shards"]) != ref_st[k]:
+                raise AssertionError(f"phase 12 (b): rank {r}'s per-shard "
+                                     f"{k} do not sum to the global")
+    for k, n in ranks[0]["launches"].items():
+        counts[k] += n + ranks[1]["launches"][k]
+    b = dict(layers=PHASE12_LAYERS, layers_cut=PHASE12_LAYERS != 36,
+             reference_wall_s=round(ref_wall, 2),
+             reference_steps=len(ref_steps),
+             streams_sha256=stream_digest(ref),
+             gather_bytes=_gather_bytes(rcfg, dims, PHASE12_B),
+             ranks=[{k: v for k, v in g.items() if k != "streams"}
+                    for g in ranks],
+             phase_s=round(time.perf_counter() - t_phase, 2))
+    log(f"phase 12 (b): granite-8b full width, {PHASE12_LAYERS} of 36 "
+        f"layers (depth cut: {PHASE12_LAYERS != 36}), bf16, "
+        "mesh_shape=(1, 2) as two processes on one card over "
+        "gloo, spec on (K = 4), a forced preemption; each rank's streams "
+        "equal mesh_shape=None's: " + json.dumps({"mesh_1x2": b}))
+    for name in ("utopia_translate_shard", "utopia_combine_shard",
+                 "paged_attention"):
+        if counts[name] <= 0:
+            raise AssertionError(f"phase 12: {name} was never launched")
+    return counts
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -4287,8 +4682,13 @@ def main() -> int:
     ap.add_argument("--translation", action="store_true",
                     help="build the kernels and run only phase 11 (the "
                          "paper's translation comparison)")
+    ap.add_argument("--mesh", action="store_true",
+                    help="build the kernels and run only the sharded step's "
+                         "check, phase 5 and phase 12 (sharded serving)")
     ap.add_argument("--resume-child", metavar="DIR", default=None,
                     help=argparse.SUPPRESS)  # phase 6 (f)'s fresh process
+    ap.add_argument("--mesh-child", nargs=2, metavar=("RANK", "DIR"),
+                    default=None, help=argparse.SUPPRESS)  # phase 12 (b)
     ap.add_argument("--src", type=Path, default=None,
                     help="import repro_torch from this source tree instead "
                          "of the checkout's src/ (e.g. a parent commit's, "
@@ -4306,6 +4706,9 @@ def main() -> int:
     dev = torch.device("cuda")
     if args.resume_child:
         resume_child(torch, dev, args.resume_child)
+        return 0
+    if args.mesh_child:
+        mesh_child(torch, dev, int(args.mesh_child[0]), args.mesh_child[1])
         return 0
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, card "
         f"{torch.cuda.get_device_name(0)}")
@@ -4341,6 +4744,17 @@ def main() -> int:
         card_line(torch)
         return 0
     results = {}
+    if args.mesh:
+        check_translate_shard(torch, dev, results)
+        cfg, dims, params = served_model(torch, dev, "granite-8b",
+                                         torch.bfloat16, seed=SEED)
+        _, phase5_digest = full_width_prefix(torch, dev, cfg, dims, params)
+        torch.cuda.empty_cache()
+        counts = mesh_phase(torch, dev, cfg, dims, params, phase5_digest,
+                            src)
+        log("phase 12 launches: " + json.dumps(counts))
+        card_line(torch)
+        return 0
     if args.translation:
         translation(torch, dev, results)
         card_line(torch)
@@ -4367,6 +4781,7 @@ def main() -> int:
     check_rsw(torch, dev)
     check_translate_step(torch, dev, results)
     check_translate_window(torch, dev, results)
+    check_translate_shard(torch, dev, results)
     check_paged(torch, dev, results)
     check_paged_verify(torch, dev, results)
     check_paged_prefix(torch, dev, results)
@@ -4379,7 +4794,8 @@ def main() -> int:
     paths = {}
     paths["phase4"], *phase4 = full_width(torch, dev, cfg, dims, params)
     torch.cuda.empty_cache()
-    paths["phase5"] = full_width_prefix(torch, dev, cfg, dims, params)
+    paths["phase5"], phase5_digest = full_width_prefix(torch, dev, cfg, dims,
+                                                       params)
     torch.cuda.empty_cache()
     paths["phase6"], streams_6b = full_width_overload(torch, dev, cfg, dims,
                                                       params)
@@ -4393,6 +4809,10 @@ def main() -> int:
     paths["phase6f"] = persisted_recovery(torch, dev, cfg, params,
                                           streams_6b, src)
     t6f = time.perf_counter()
+    torch.cuda.empty_cache()
+    paths["phase12"] = mesh_phase(torch, dev, cfg, dims, params,
+                                  phase5_digest, src)
+    t12 = time.perf_counter()
     # phase 8 draws ~61 GB of MoE weights: granite-8b's go first
     del params
     gc.collect()
@@ -4415,7 +4835,8 @@ def main() -> int:
     t11 = time.perf_counter()
     paths["phase11"] = translation(torch, dev, results)
     log(f"new sub-runs: phase 4 (b) {t4b - t0:.1f} s, phase 6 (f) "
-        f"{t6f - t4b:.1f} s, phase 11 {time.perf_counter() - t11:.1f} s")
+        f"{t6f - t4b:.1f} s, phase 12 {t12 - t6f:.1f} s, phase 11 "
+        f"{time.perf_counter() - t11:.1f} s")
 
     # launches: each path's count was set to 0 just before it and read
     # just after; the line gives their sum and each path's
@@ -4436,6 +4857,12 @@ def main() -> int:
                 k: c["utopia_rsw"] for k, c in paths.items()
                 if c.get("utopia_rsw")}
             extra["vpn_list"] = results.pop("utopia_rsw_vpn_list")
+            # the sharded step's entries (phase 12's path)
+            extra["launches_shard"] = sum(
+                c.get("utopia_translate_shard", 0) for c in paths.values())
+            extra["launches_combine"] = sum(
+                c.get("utopia_combine_shard", 0) for c in paths.values())
+            extra["shard"] = results.pop("utopia_translate_shard")
         if name == "paged_attention":
             extra["launches_q_gt1"] = sum(
                 c["paged_attention_q_gt1"] for c in paths.values())

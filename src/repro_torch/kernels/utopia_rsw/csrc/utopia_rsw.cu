@@ -1,5 +1,7 @@
 // Hybrid RestSeg walk (RSW) for Hopper: the decode step's whole
-// translation in one launch, and the vpn-list walk it is built from.
+// translation in one launch, the vpn-list walk it is built from, and the
+// sharded step's two entries (a rank's contributions, and their combine
+// after the caller's all-reduce; see "the sharded step" below).
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/utopia_rsw/utopia_rsw.py
 // (_rsw_kernel / rsw_pallas).  That kernel gathered TAR rows with a one-hot
@@ -248,6 +250,124 @@ __global__ void translate_step_kernel(Tables T, Step S,
   }
 }
 
+// ---- the sharded step (sharded serving, DESIGN.md §sharded-serving) ----
+//
+// Replaces the JAX package's `_hybrid_lookup_sharded` and
+// `translate_step_sharded` (src/repro/serve/decode.py), which probe a
+// shard's local TAR/SF rows and flex range under shard_map and combine the
+// shards' verdicts with integer psums.  Here a rank launches the shard
+// entry over its local slices, the caller sums its one packed int32
+// output over the model group (one all-reduce), and the combine entry
+// turns the sums into the step's translation, in the step entry's layout.
+// Like the step entry, both are bound by latency: a step's grid is a few
+// thousand queries of a few dozen bytes each.
+
+// A rank's shard of the tables and the partition's geometry (the C
+// struct ShardParams below, minus the step's fields).
+struct Shard {
+  int m, spm, vpm;             // this shard, sets and flex vpns per shard
+  int rest_slots, fpm, cps;    // for the logical -> physical slot map
+};
+
+// core/partition.py's Partition.phys: a logical pool slot -> its
+// shard-contiguous physical slot (negative slots pass through).
+__device__ __forceinline__ int phys_slot(int slot, int assoc,
+                                         const Shard& P) {
+  if (slot < 0) return slot;
+  if (slot < P.rest_slots) {
+    const int i_r = (slot / assoc) / P.spm;
+    return i_r * P.cps + (slot - i_r * P.spm * assoc);
+  }
+  const int f_off = slot - P.rest_slots, i_f = f_off / P.fpm;
+  return i_f * P.cps + P.spm * assoc + (f_off - i_f * P.fpm);
+}
+
+// The rank's ownership-masked contributions for query i (vpn i), as the
+// JAX package's sharded lookup forms them: (hit, way + 1, sf_skipped,
+// flex entry + 2), each 0 where this shard does not own the query's set
+// (the first three) or its vpn (the last).  Exactly one shard owns each,
+// so the sums over the group are the unsharded lookup's verdicts.  Padded
+// TAR rows are zero and padded flex entries -1, and the clamped local
+// index of a query this shard does not own reads a row whose result is
+// masked out.
+__global__ void translate_shard_kernel(Tables T, Shard P, int n,
+                                       int* __restrict__ contrib) {
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += gridDim.x * blockDim.x) {
+    const int s = set_index(i, T.n_sets, T.hash_id, T.p);
+    const int tag = i + 1;
+    const int mine = floor_div(s, P.spm) == P.m;
+    const int loc = min(max(s - P.m * P.spm, 0), P.spm - 1);
+    const int mine_f = floor_div(i, P.vpm) == P.m;
+    const int fl = min(max(i - P.m * P.vpm, 0), P.vpm - 1);
+    // the SF word, the TAR row and the flex entry load together
+    const int cnt = __ldg(T.sf + loc);
+    const int ent = __ldg(T.flex + fl);
+    const int* row = T.tar + (long long)loc * T.assoc;
+    int way = -1;
+    for (int w = 0; w < T.assoc; ++w)
+      if (way < 0 && __ldg(row + w) == tag) way = w;
+    const int hit = mine && cnt > 0 && way >= 0;
+    contrib[i] = hit;
+    contrib[n + i] = hit ? way + 1 : 0;
+    contrib[2 * n + i] = mine && cnt <= 0;
+    contrib[3 * n + i] = mine_f ? ent + 2 : 0;
+  }
+}
+
+// The combine: the summed contributions -> the step's translation, in the
+// step entry's output layout and with its window, except that `w_row` is
+// the row of THIS rank's pool chunk: the write block's physical slot
+// rebased to the chunk where this rank owns it, else the chunk's sink
+// slot (`S.sink`, the chunk's last slot).  Slots stay logical.
+__global__ void combine_shard_kernel(Tables T, Shard P, Step S,
+                                     const int* __restrict__ sums,
+                                     const int* __restrict__ ctx_len,
+                                     const unsigned char* __restrict__ active,
+                                     int* __restrict__ out) {
+  const int B = S.batch, W = S.window, n = B * S.nblk, bw = B * W;
+  long long* w_row = reinterpret_cast<long long*>(out);
+  int* w_slot = out + 2 * bw;
+  int* w_valid = w_slot + bw;
+  int* extent = w_valid + bw;
+  int* in_rest = extent + bw;
+  int* accesses = in_rest + n;
+  int* mapped = accesses + n;
+  int* slots = mapped + n;
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += gridDim.x * blockDim.x) {
+    const int b = i / S.nblk, j = i - b * S.nblk;
+    const int pos = __ldg(ctx_len + b);
+    const int act = active == nullptr || __ldg(active + b) != 0;
+    const int hit = __ldg(sums + i) > 0;
+    const int way = __ldg(sums + n + i) - 1;
+    const int skipped = __ldg(sums + 2 * n + i) > 0;
+    const int flex_slot = __ldg(sums + 3 * n + i) - 2;
+    const int s = set_index(i, T.n_sets, T.hash_id, T.p);
+    const int map = hit || flex_slot >= 0;
+    const int slot = hit ? s * T.assoc + max(way, 0) : (map ? flex_slot : -1);
+    slots[i] = slot;
+    in_rest[i] = hit;
+    accesses[i] = 1 + (skipped ? 0 : 1) + (hit ? 0 : 1);
+    mapped[i] = map;
+    if (j < min(max(floor_div(pos, S.block_size), 0), S.nblk - 1)) continue;
+    const int ph = phys_slot(slot, T.assoc, P);
+    const int own = map && floor_div(ph, P.cps) == P.m;
+    for (int k = 0; k < W; ++k) {
+      const int p = pos + k;
+      const int cur = floor_div(p, S.block_size);
+      if (j != min(max(cur, 0), S.nblk - 1)) continue;
+      const int valid = map && cur < S.nblk && act;
+      const int e = b * W + k;
+      w_slot[e] = slot;
+      w_valid[e] = valid;
+      w_row[e] = (long long)(valid && own ? ph - P.m * P.cps : S.sink)
+                 * S.block_size + floor_mod(p, S.block_size);
+      extent[e] = p + 1;
+    }
+  }
+}
+
 __global__ void empty_kernel() {}
 
 }  // namespace
@@ -287,6 +407,56 @@ int utopia_rsw_launch(const void* vpns, const void* tar, const void* sf,
   rsw_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
       (const int*)vpns, T, n, (int*)slot, (int*)in_rest, (int*)mapped,
       (int*)accesses);
+  return (int)cudaGetLastError();
+}
+
+// The sharded step's fixed arguments, filled once by the host when the
+// step is bound: the tables' hash, the step's geometry (`sink` is the
+// rank's chunk's sink slot) and the rank's shard of the partition.
+struct ShardParams {
+  int n_sets, assoc, hash_id, p;
+  int batch, nblk, block_size, sink, window;
+  int m, spm, vpm, rest_slots, fpm, cps;
+};
+
+static void shard_args(const ShardParams* prm, const void* tar,
+                       const void* sf, const void* flex, Tables* T, Shard* P,
+                       int* blocks) {
+  *T = Tables{(const int*)tar, (const int*)sf, (const int*)flex, prm->n_sets,
+              prm->assoc, prm->vpm, prm->hash_id, prm->p, 0};
+  *P = Shard{prm->m, prm->spm, prm->vpm, prm->rest_slots, prm->fpm,
+             prm->cps};
+  int b = (prm->batch * prm->nblk + kThreads - 1) / kThreads;
+  *blocks = b < 1 ? 1 : (b > 1024 ? 1024 : b);
+}
+
+// The shard entry: tar (spm, assoc), sf (spm,), flex (vpm,) are the rank's
+// local slices; `contrib` receives (4, batch * nblk) int32.
+int utopia_translate_shard_launch(const void* tar, const void* sf,
+                                  const void* flex, void* contrib,
+                                  const ShardParams* prm, void* stream) {
+  Tables T;
+  Shard P;
+  int blocks;
+  shard_args(prm, tar, sf, flex, &T, &P, &blocks);
+  translate_shard_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      T, P, prm->batch * prm->nblk, (int*)contrib);
+  return (int)cudaGetLastError();
+}
+
+// The combine entry: `sums` is the shard entry's output summed over the
+// model group; `out` receives the step entry's layout (StepTranslation).
+int utopia_combine_shard_launch(const void* sums, const void* ctx_len,
+                                const void* active, void* out,
+                                const ShardParams* prm, void* stream) {
+  Tables T;
+  Shard P;
+  int blocks;
+  shard_args(prm, nullptr, nullptr, nullptr, &T, &P, &blocks);
+  Step S{prm->batch, prm->nblk, prm->block_size, prm->sink, prm->window};
+  combine_shard_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      T, P, S, (const int*)sums, (const int*)ctx_len,
+      (const unsigned char*)active, (int*)out);
   return (int)cudaGetLastError();
 }
 

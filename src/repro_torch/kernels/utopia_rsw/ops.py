@@ -1,9 +1,12 @@
 """Wrappers of the RSW kernels (``csrc/utopia_rsw.cu``).
 
 ``translate_step_translator`` binds the decode step's whole translation
-(one launch per step) to a geometry; ``utopia_rsw`` walks a list of vpns.
+(one launch per step) to a geometry, ``shard_translator`` a rank's sharded
+step (two launches and one all-reduce per step); ``utopia_rsw`` walks a
+list of vpns.
 A CUDA tensor launches the kernel or raises; a CPU tensor takes the plain
-version in ``ref.py``.  ``utopia_translate_step.launches`` and
+version in ``ref.py``.  ``utopia_translate_step.launches``,
+``utopia_translate_shard.launches`` / ``.launches_combine`` and
 ``utopia_rsw.launches`` count kernel launches.
 """
 from __future__ import annotations
@@ -13,8 +16,9 @@ import ctypes
 import torch
 
 from .. import _build
-from .ref import (HASH_IDS, StepTranslation, hash_param, rsw_ref,
-                  step_words, translate_step_ref, vpn_grid)
+from .ref import (HASH_IDS, StepTranslation, combine_shard_ref, hash_param,
+                  rsw_ref, step_words, translate_shard_ref,
+                  translate_step_ref, vpn_grid)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int       # bare ints would be 32-bit
 _bound = {}                                  # entry name -> C function
@@ -122,6 +126,130 @@ def utopia_translate_step(tar, sf, flex, ctx_len, active=None, *,
 
 
 utopia_translate_step.launches = 0
+
+
+class _ShardParams(ctypes.Structure):
+    """``ShardParams`` of the C source: the sharded step's fixed
+    arguments."""
+    _fields_ = [(f, ctypes.c_int) for f in (
+        "n_sets", "assoc", "hash_id", "p", "batch", "nblk", "block_size",
+        "sink", "window", "m", "spm", "vpm", "rest_slots", "fpm", "cps")]
+
+
+def _shard_params(tar_l, sf_l, flex_l, ctx_len, part, m: int,
+                  block_size: int, nblk: int, hash_name: str,
+                  window: int) -> _ShardParams:
+    """Validate the sharded step's inputs (once, at binding) and fill its
+    C arguments."""
+    dev = ctx_len.device
+    spm, vpm = part.sets_per_shard, part.vpns_per_shard
+    for name, t, shape in (("tar", tar_l, (1, spm, part.assoc)),
+                           ("sf", sf_l, (1, spm)), ("flex", flex_l, (1, vpm)),
+                           ("ctx_len", ctx_len, ctx_len.shape[:1])):
+        _check(name, t, shape, torch.int32, dev)
+    if hash_name not in HASH_IDS:
+        raise KeyError(f"unknown hash {hash_name!r}")
+    if not 0 <= m < part.n_shards or window < 1:
+        raise ValueError(f"translate_shard: shard {m} of {part.n_shards}, "
+                         f"window {window}")
+    cps = part.slots_per_shard
+    return _ShardParams(part.n_sets, part.assoc, HASH_IDS[hash_name],
+                        hash_param(hash_name, part.n_sets), ctx_len.shape[0],
+                        nblk, block_size, cps, window, m, spm, vpm,
+                        part.rest_slots, max(1, part.flex_per_shard), cps)
+
+
+def shard_translator(tar_l: torch.Tensor, sf_l: torch.Tensor,
+                     flex_l: torch.Tensor, ctx_len: torch.Tensor, *, part,
+                     m: int, reduce, block_size: int, nblk: int,
+                     hash_name: str, window: int = 1):
+    """Bind the sharded step's translation to rank ``m``'s slices of the
+    tables (``part``, a ``core.partition.Partition``): tar_l ``(1, spm,
+    assoc)``, sf_l ``(1, spm)``, flex_l ``(1, vpm)``, all int32, with
+    ``ctx_len (B,)`` int32 on the same device, and to ``window``.
+    ``reduce(t)`` sums an int32 tensor in place over the model group.
+
+    Validates once, here, and returns ``translate(tar_l, sf_l, flex_l,
+    ctx_len, active=None) -> StepTranslation``: one launch of the shard
+    entry (the rank's ownership-masked contributions, one packed int32
+    buffer), ``reduce`` of that buffer, and one launch of the combine
+    entry (the unsharded step's fields, with ``w_row`` a row of the rank's
+    pool chunk: ``combine_shard_ref``); on the CPU the plain versions."""
+    dev = ctx_len.device
+    B = ctx_len.shape[0]
+    prm = _shard_params(tar_l, sf_l, flex_l, ctx_len, part, m, block_size,
+                        nblk, hash_name, window)
+    if dev.type == "cpu":
+        geom = dict(block_size=block_size, nblk=nblk, hash_name=hash_name,
+                    part=part, m=m, window=window)
+
+        def translate(tar_l, sf_l, flex_l, ctx_len, active=None):
+            sums = reduce(translate_shard_ref(
+                tar_l, sf_l, flex_l, batch=B, nblk=nblk,
+                hash_name=hash_name, part=part, m=m))
+            return combine_shard_ref(sums, ctx_len, active, **geom)
+        return translate
+    if dev.type != "cuda":
+        raise ValueError(f"translate_shard: no kernel for device {dev}")
+    shard = _entry("utopia_translate_shard_launch", [_P] * 6)
+    combine = _entry("utopia_combine_shard_launch", [_P] * 6)
+    prm_ptr = ctypes.addressof(prm)
+    n = B * nblk
+    words = step_words(B, nblk, window)
+    grid = vpn_grid(B, nblk, dev)
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    stream = torch._C._cuda_getCurrentRawStream
+    empty, i32 = torch.empty, torch.int32
+
+    def translate(tar_l, sf_l, flex_l, ctx_len, active=None):
+        contrib = empty(4 * n, dtype=i32, device=dev)
+        rc = shard(tar_l.data_ptr(), sf_l.data_ptr(), flex_l.data_ptr(),
+                   contrib.data_ptr(), prm_ptr, stream(index))
+        if rc:
+            _build.check_launch("utopia_translate_shard", rc)
+        utopia_translate_shard.launches += 1
+        reduce(contrib)
+        out = empty(words, dtype=i32, device=dev)
+        rc = combine(contrib.data_ptr(), ctx_len.data_ptr(),
+                     None if active is None else active.data_ptr(),
+                     out.data_ptr(), prm_ptr, stream(index))
+        if rc:
+            _build.check_launch("utopia_combine_shard", rc)
+        utopia_translate_shard.launches_combine += 1
+        return StepTranslation(out, grid, window)
+
+    translate.params = prm                   # keeps the struct alive
+    return translate
+
+
+def utopia_translate_shard(tar_l, sf_l, flex_l, *, batch: int, nblk: int,
+                           hash_name: str, part, m: int) -> torch.Tensor:
+    """One launch of the shard entry alone: rank ``m``'s contributions
+    (4 * batch * nblk,) int32 (``translate_shard_ref`` on the CPU), for
+    checks and timing; the sharded step binds ``shard_translator``.
+    ``utopia_translate_shard.launches`` counts the shard entry's launches
+    and ``.launches_combine`` the combine entry's."""
+    dev = tar_l.device
+    if dev.type == "cpu":
+        return translate_shard_ref(tar_l, sf_l, flex_l, batch=batch,
+                                   nblk=nblk, hash_name=hash_name, part=part,
+                                   m=m)
+    if dev.type != "cuda":
+        raise ValueError(f"translate_shard: no kernel for device {dev}")
+    prm = _shard_params(tar_l, sf_l, flex_l,
+                        torch.zeros(batch, dtype=torch.int32, device=dev),
+                        part, m, 1, nblk, hash_name, 1)
+    out = torch.empty(4 * batch * nblk, dtype=torch.int32, device=dev)
+    rc = _entry("utopia_translate_shard_launch", [_P] * 6)(
+        tar_l.data_ptr(), sf_l.data_ptr(), flex_l.data_ptr(),
+        out.data_ptr(), ctypes.addressof(prm), _build.stream_handle(tar_l))
+    _build.check_launch("utopia_translate_shard", rc)
+    utopia_translate_shard.launches += 1
+    return out
+
+
+utopia_translate_shard.launches = 0
+utopia_translate_shard.launches_combine = 0
 
 
 def utopia_rsw(vpns: torch.Tensor, tar: torch.Tensor, sf: torch.Tensor,

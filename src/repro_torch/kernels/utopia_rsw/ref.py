@@ -1,5 +1,6 @@
 """Plain torch versions of the RSW kernels: the hybrid RSW ∥ flex lookup
-over a vpn list, and the decode step's whole translation built on it."""
+over a vpn list, the decode step's whole translation built on it, and the
+sharded step's two entries (a rank's contributions, and their combine)."""
 from __future__ import annotations
 
 import functools
@@ -7,7 +8,8 @@ import functools
 import torch
 
 from repro_torch.core.flex_table import FlexTable
-from repro_torch.core.tar_sf import RestSegState, rsw
+from repro_torch.core.hashes import get_hash
+from repro_torch.core.tar_sf import RestSegState, probe_rows, rsw
 
 HASH_IDS = {"modulo": 0, "xor_fold": 1, "prime_displacement": 2,
             "mersenne": 3, "multiplicative": 4}
@@ -171,9 +173,26 @@ def translate_step_ref(tar: torch.Tensor, sf: torch.Tensor,
     ``ctx_len`` (B,) int32, the pre-step context lengths; ``active`` (B,)
     bool or None (all active); ``sink`` the pool's write-sink slot."""
     B = ctx_len.shape[0]
+    grid = vpn_grid(B, nblk, ctx_len.device)
+    walk = rsw_ref(grid.reshape(-1), tar[0], sf[0], flex[0],
+                   hash_name=hash_name)
+    return _pack_step(walk, ctx_len, active, block_size, nblk, window,
+                      lambda w_slot, w_valid: torch.where(w_valid, w_slot,
+                                                          sink))
+
+
+def _pack_step(walk, ctx_len, active, block_size: int, nblk: int,
+               window: int, write_slot) -> StepTranslation:
+    """The step's output buffer from the walk of its query grid
+    (``walk``: slot, in_rest, mapped, accesses, each (B * nblk,) int32):
+    for each of a row's ``window`` positions ctx_len + i, the slot and
+    mapped flag of its block (the block index clamped into the row), its
+    validity and extent, and its write row ``write_slot(w_slot, w_valid) *
+    block_size + pos % block_size``."""
+    slot, hit, mapped, acc = walk
+    B = ctx_len.shape[0]
     bs = block_size
     dev = ctx_len.device
-    grid = vpn_grid(B, nblk, dev)
     pos = (ctx_len[:, None]
            + torch.arange(window, dtype=torch.int32, device=dev)[None, :])
     blk = torch.div(pos, bs, rounding_mode="floor")
@@ -183,17 +202,77 @@ def translate_step_ref(tar: torch.Tensor, sf: torch.Tensor,
     # as the kernel's is)
     in_range = blk < nblk
     blk = blk.clamp(0, nblk - 1).long()
-    slot, hit, mapped, acc = rsw_ref(grid.reshape(-1), tar[0], sf[0],
-                                     flex[0], hash_name=hash_name)
     w_slot = slot.view(B, nblk).gather(1, blk)
     act = (torch.ones(B, dtype=torch.bool, device=dev) if active is None
            else active.bool())
     w_valid = (mapped.view(B, nblk).gather(1, blk).bool() & in_range
                & act[:, None])
-    w_row = (torch.where(w_valid, w_slot, sink).long() * bs
+    w_row = (write_slot(w_slot, w_valid).long() * bs
              + torch.remainder(pos, bs).long())
     out = torch.cat([w_row.reshape(-1).view(torch.int32),
                      w_slot.reshape(-1), w_valid.to(torch.int32).reshape(-1),
                      (pos + 1).to(torch.int32).reshape(-1),
                      hit, acc, mapped, slot])
-    return StepTranslation(out, grid, window)
+    return StepTranslation(out, vpn_grid(B, nblk, dev), window)
+
+
+# ------------------------------------------- the sharded step's two entries
+
+def translate_shard_ref(tar_l: torch.Tensor, sf_l: torch.Tensor,
+                        flex_l: torch.Tensor, *, batch: int, nblk: int,
+                        hash_name: str, part, m: int) -> torch.Tensor:
+    """A rank's ownership-masked contributions to the step's lookup, as
+    the JAX package's ``_hybrid_lookup_sharded`` forms them: for query i
+    (vpn i of the (batch, nblk) grid), (hit, way + 1, sf_skipped, flex
+    entry + 2), each 0 where shard ``m`` of ``part`` (a
+    ``core.partition.Partition``) does not own the query's set (the first
+    three) or its vpn (the last).  tar_l (1, spm, assoc), sf_l (1, spm)
+    and flex_l (1, vpm) are the rank's slices.  Returns (4 * batch * nblk,)
+    int32; its sum over the shards is what ``combine_shard_ref`` takes."""
+    spm, vpm = part.sets_per_shard, part.vpns_per_shard
+    vpns = torch.arange(batch * nblk, dtype=torch.int32,
+                        device=tar_l.device)
+    set_g = get_hash(hash_name)(vpns, part.n_sets).to(torch.int32)
+    mine = torch.div(set_g, spm, rounding_mode="floor") == m
+    loc = (set_g - m * spm).clamp(0, spm - 1).long()
+    hit, way, skip = probe_rows(tar_l[0][loc], sf_l[0][loc], vpns)
+    hit = mine & hit
+    mine_f = torch.div(vpns, vpm, rounding_mode="floor") == m
+    ent = flex_l[0][(vpns - m * vpm).clamp(0, vpm - 1).long()]
+    zero = torch.zeros_like(vpns)
+    return torch.cat([hit.to(torch.int32), torch.where(hit, way + 1, zero),
+                      (mine & skip).to(torch.int32),
+                      torch.where(mine_f, ent + 2, zero)]).to(torch.int32)
+
+
+def combine_shard_ref(sums: torch.Tensor, ctx_len: torch.Tensor,
+                      active=None, *, block_size: int, nblk: int,
+                      hash_name: str, part, m: int,
+                      window: int = 1) -> StepTranslation:
+    """The sharded step's translation from the contributions summed over
+    the model group (``sums``, ``translate_shard_ref``'s layout): every
+    field of the unsharded step's (logical slots), except that ``w_row``
+    is the row of shard ``m``'s pool chunk (``part.slots_per_shard`` slots
+    and a sink slot after them): the write block's physical slot rebased
+    to the chunk where shard ``m`` owns it, else the chunk's sink."""
+    n = ctx_len.shape[0] * nblk
+    hit, way, skip, flex = (sums[k * n:(k + 1) * n] for k in range(4))
+    hit = hit > 0
+    flex = flex - 2
+    vpns = torch.arange(n, dtype=torch.int32, device=sums.device)
+    set_g = get_hash(hash_name)(vpns, part.n_sets).to(torch.int32)
+    mapped = hit | (flex >= 0)
+    slot = torch.where(hit, set_g * part.assoc + (way - 1).clamp(min=0),
+                       torch.where(flex >= 0, flex, -1))
+    acc = 1 + (skip <= 0).to(torch.int32) + (~hit).to(torch.int32)
+    walk = (slot.to(torch.int32), hit.to(torch.int32),
+            mapped.to(torch.int32), acc.to(torch.int32))
+    cps = part.slots_per_shard
+
+    def write_slot(w_slot, w_valid):
+        ph = part.phys(w_slot)
+        own = w_valid & (torch.div(ph, cps, rounding_mode="floor") == m)
+        return torch.where(own, ph - m * cps, cps)
+
+    return _pack_step(walk, ctx_len, active, block_size, nblk, window,
+                      write_slot)

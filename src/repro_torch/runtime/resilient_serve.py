@@ -149,7 +149,10 @@ class ResilientServe:
     # ---------------------------------------------------------- recovery
     def _take_snapshot(self) -> EngineSnapshot:
         snap = self.engine.snapshot()
-        if self.ckpt is not None:
+        # on a mesh every rank takes the snapshot (it assembles the pools
+        # over the model group) and holds the same one; rank 0 persists it
+        if self.ckpt is not None and getattr(self.engine, "writes_files",
+                                             True):
             self.ckpt.save_named(snap.step, snap.to_arrays())
         self.snapshots += 1
         return snap

@@ -1,4 +1,5 @@
-"""Single-device decode step: hybrid-translated paged attention.
+"""Decode step: hybrid-translated paged attention, on one device or on a
+rank of a (data, model) mesh.
 
 Translation (the paper's technique) runs exactly once per step:
 ``translate_step`` resolves every block vpn of every sequence, plus the
@@ -17,6 +18,22 @@ translation tables and ``ctx_len``.  Pool slot ``slots`` (the last one)
 is a write sink: a write the JAX package dropped out of bounds (an
 inactive row, an unmapped block) lands there instead, which keeps the
 step free of host syncs.  No translation ever resolves to it.
+
+Sharded serving (DESIGN.md §sharded-serving; ``spec.kv_shards >= 1`` with
+a mesh and a ``core.partition.Partition``): a rank holds its chunk of the
+pool, ``slots_per_shard`` physical slots and the sink, and its slices of
+the TAR/SF (its sets) and flex (its vpns) tables; everything else, and
+every float op, is replicated.  The step's translation is the RSW kernel's
+shard entry over the rank's slices, one integer all-reduce of its packed
+contributions over the model group, and the combine entry, which gives
+the unsharded step's fields bitwise (slots stay logical) and each write's
+row in the rank's chunk.  A write lands only on the rank that owns its
+block (elsewhere in the chunk's sink), and a read first assembles the
+step's blocks exactly: each rank gathers the blocks it owns, zeros
+elsewhere, and one all-reduce SUM of the buffer's bytes (disjoint terms:
+no carry, no rounding) gives every rank the same bits; the
+paged-attention kernel then reads that buffer.  No float is ever reduced
+across ranks, so the streams are bitwise the unsharded engine's.
 
 The recurrent families add each mamba sublayer's per-row state: ``ssm``
 ``(n_ssm, B, H, P, N)`` float32 and ``conv`` ``(n_ssm, B, W-1, C)`` in the
@@ -37,7 +54,8 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.paged_attention.ops import paged_attention
 from repro_torch.kernels.paged_attention.ref import normalize
-from repro_torch.kernels.utopia_rsw.ops import translate_step_translator
+from repro_torch.kernels.utopia_rsw.ops import (shard_translator,
+                                                translate_step_translator)
 from repro_torch.kernels.utopia_rsw.ref import StepTranslation
 from repro_torch.models import layers as Lmod
 from repro_torch.models.moe import moe_decode
@@ -57,7 +75,7 @@ class DecodeSpec:
     slots_per_group: int         # pool slots (the sink comes on top)
     n_sets: int
     assoc: int
-    mode: str = "batch"          # batch only (striped: ROADMAP P15)
+    mode: str = "batch"          # batch only (striped: ROADMAP P18)
     hash_name: str = "modulo"
     # prefix-KV chunked prefill: how chunk queries read the installed
     # prefix blocks.  "exact" places the gathered K/V at their absolute
@@ -66,6 +84,11 @@ class DecodeSpec:
     # read merged with the chunk's own causal part (equal up to float
     # associativity)
     prefix_gather: str = "exact"
+    # KV/translation sharding over the mesh's model axis: 0 = one device;
+    # >= 1 = the sharded serving layout (the pool and tables of a rank
+    # are its chunk of a ``core.partition.Partition`` over kv_shards
+    # shards; the step factories then take the mesh and the partition)
+    kv_shards: int = 0
 
     def __post_init__(self):
         if self.prefix_gather not in ("exact", "paged"):
@@ -74,30 +97,45 @@ class DecodeSpec:
                              "or 'paged')")
 
 
+def not_ported(what: str, item: str) -> NotImplementedError:
+    """The error of a JAX feature that the port does not run yet."""
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
+
+
 def init_decode_state(cfg: ArchConfig, dims: ModelDims, spec: DecodeSpec,
                       batch: int, data_size: int = 1, dtype=torch.float32,
-                      device="cuda") -> Dict[str, torch.Tensor]:
+                      device="cuda", part=None) -> Dict[str, torch.Tensor]:
     """Zeroed decode state on ``device`` (flex entries -1 = unmapped): the
     KV pools and translation tables when the model has attention layers,
     the ``ssm``/``conv`` rows when it has mamba sublayers, the
-    ``cross_k``/``cross_v`` rows when it is an encoder-decoder."""
-    if data_size != 1 or spec.mode != "batch":
-        raise NotImplementedError("only the single-device batch layout is "
-                                  "ported (sharded serving: ROADMAP P15)")
+    ``cross_k``/``cross_v`` rows when it is an encoder-decoder.
+
+    With ``part`` (a ``core.partition.Partition``, the sharded layout) the
+    pools and tables are one rank's padded chunk: ``slots_per_shard``
+    pool slots plus the sink, tar ``(1, spm, assoc)`` and sf ``(1, spm)``
+    with zero pad rows, flex ``(1, vpm)`` with -1 pads; ``data_size`` must
+    be 1 there (the data axis replicates the state)."""
+    if part is None and (data_size != 1 or spec.mode != "batch"):
+        raise not_ported("the data-sharded and striped decode state "
+                         "(make_decode_spec's layouts)", "P18")
+    if part is not None and data_size != 1:
+        raise ValueError("the sharded decode state requires data_size == 1")
     check_family(cfg)
     n_attn = n_attn_layers(cfg)
     i32 = dict(dtype=torch.int32, device=device)
     st: Dict[str, torch.Tensor] = {}
     if n_attn:
-        pool = (n_attn, spec.slots_per_group + 1, spec.block_size,
-                dims.n_kv, dims.head_dim)
+        slots, n_sets, flex_len = (
+            (spec.slots_per_group, spec.n_sets,
+             batch * spec.max_blocks_per_seq) if part is None else
+            (part.slots_per_shard, part.sets_per_shard, part.vpns_per_shard))
+        pool = (n_attn, slots + 1, spec.block_size, dims.n_kv, dims.head_dim)
         st.update(
             k_pool=torch.zeros(pool, dtype=dtype, device=device),
             v_pool=torch.zeros(pool, dtype=dtype, device=device),
-            tar=torch.zeros((1, spec.n_sets, spec.assoc), **i32),
-            sf=torch.zeros((1, spec.n_sets), **i32),
-            flex=torch.full((1, batch * spec.max_blocks_per_seq), -1,
-                            **i32))
+            tar=torch.zeros((1, n_sets, spec.assoc), **i32),
+            sf=torch.zeros((1, n_sets), **i32),
+            flex=torch.full((1, flex_len), -1, **i32))
     if cfg.family in RECURRENT_FAMILIES:
         md = dims.mamba
         n_ssm = cfg.num_layers - n_attn
@@ -130,36 +168,37 @@ def init_decode_state(cfg: ArchConfig, dims: ModelDims, spec: DecodeSpec,
 
 # ----------------------------------------------- once-per-step translation
 
-def not_ported(what: str, item: str) -> NotImplementedError:
-    """The error of a JAX feature that the port does not run yet."""
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
-
-
 def _hybrid_lookup(tar: torch.Tensor, sf: torch.Tensor, flex: torch.Tensor,
                    positions: torch.Tensor, active, spec: DecodeSpec,
-                   bound: Dict[tuple, Callable],
-                   window: int) -> StepTranslation:
+                   bound: Dict[tuple, Callable], window: int,
+                   shard=None) -> StepTranslation:
     """Hybrid RSW ∥ flex lookup of the whole step with
     ``translate()``-compatible accounting: the step's only translation
     primitive, ONE launch of the RSW step kernel (its plain version on the
-    CPU).  The kernel is bound to the step's geometry, and the tables
-    validated, on the first call for a (batch, device, window); ``bound``
-    keeps the bindings."""
+    CPU), or on a rank of a mesh (``shard``, a ``ShardedPool``) the shard
+    entry, one all-reduce and the combine entry.  The kernel is bound to
+    the step's geometry, and the tables validated, on the first call for a
+    (batch, device, window); ``bound`` keeps the bindings."""
     key = (positions.shape[0], positions.device, window)
     fn = bound.get(key)
     if fn is None:
-        if tar.shape[0] != 1:
-            raise not_ported("grouped translation (sharded serving)", "P15")
-        fn = bound[key] = translate_step_translator(
-            tar, sf, flex, positions, block_size=spec.block_size,
-            nblk=spec.max_blocks_per_seq, hash_name=spec.hash_name,
-            sink=spec.slots_per_group, window=window)
+        geom = dict(block_size=spec.block_size,
+                    nblk=spec.max_blocks_per_seq, hash_name=spec.hash_name,
+                    window=window)
+        if shard is not None:
+            fn = shard_translator(tar, sf, flex, positions, part=shard.part,
+                                  m=shard.m, reduce=shard.reduce, **geom)
+        else:
+            fn = translate_step_translator(tar, sf, flex, positions,
+                                           sink=spec.slots_per_group, **geom)
+        bound[key] = fn
     return fn(tar, sf, flex, positions, active)
 
 
 def translate_step(tar: torch.Tensor, sf: torch.Tensor, flex: torch.Tensor,
                    positions: torch.Tensor, spec: DecodeSpec, active=None,
-                   bound=None, window: int = 1) -> StepTranslation:
+                   bound=None, window: int = 1,
+                   shard=None) -> StepTranslation:
     """Translate every block vpn of every sequence in one launch, and
     derive in the same launch, for each of a row's ``window`` positions
     ``positions + i`` (1 for a decode step, K + 1 for a speculative verify
@@ -170,19 +209,88 @@ def translate_step(tar: torch.Tensor, sf: torch.Tensor, flex: torch.Tensor,
     (B,) bool or None (all active): an inactive row's writes go to the
     sink slot, as do those that are unmapped or past the vpn range.
     ``bound`` is the caller's dict of bindings (the decode and verify
-    steps share one); without it the call binds anew."""
+    steps share one); without it the call binds anew.  On a rank of a mesh
+    (``shard``, a ``ShardedPool``) the tables are the rank's slices, the
+    slots stay logical and the write rows are rows of the rank's chunk."""
     return _hybrid_lookup(tar, sf, flex, positions, active, spec,
-                          {} if bound is None else bound, window)
+                          {} if bound is None else bound, window, shard)
+
+
+# --------------------------------------------- the slot-sharded pool
+
+class ShardedPool:
+    """Rank ``m``'s chunk of the slot-sharded KV pool (sharded serving):
+    the partition ``part``, the rank's shard ``m`` and ``reduce(t)``, the
+    in-place sum over the model group.  The chunk holds the physical slots
+    ``[m * cps, (m + 1) * cps)`` (``cps = part.slots_per_shard``) at local
+    slots ``[0, cps)``, and the sink at ``cps``."""
+
+    def __init__(self, part, m: int, reduce):
+        self.part, self.m, self.reduce = part, m, reduce
+        self.cps = part.slots_per_shard
+
+    def local(self, slots: torch.Tensor):
+        """Logical ``slots`` -> (their local slots in this chunk, int64,
+        the sink where this rank does not own them or they are -1; the
+        owned mask)."""
+        ph = self.part.phys(slots)
+        own = (slots >= 0) & (torch.div(ph, self.cps,
+                                        rounding_mode="floor") == self.m)
+        return torch.where(own, ph - self.m * self.cps, self.cps).long(), own
+
+    def gather(self, pools, slots: torch.Tensor, dim: int = 0):
+        """The blocks at logical ``slots`` (1-D) of each tensor of
+        ``pools`` (this rank's chunks, slots along ``dim``), assembled
+        exactly on every rank of the group: each rank gathers the blocks
+        it owns, zeros the rest, and one all-reduce SUM over the buffer's
+        bytes gives each element's bits from its one owner.  A -1 slot
+        comes back as a zero block.  Returns one tensor per pool, ``dim``
+        now indexing ``slots``."""
+        return self.assemble(pools, *self.local(slots), dim)
+
+    def assemble(self, pools, idx: torch.Tensor, own: torch.Tensor,
+                 dim: int = 0):
+        """``gather`` of the slots that ``local`` resolved to ``idx`` and
+        ``own``."""
+        buf = torch.stack([p.index_select(dim, idx) for p in pools])
+        shape = [1] * buf.dim()
+        shape[dim + 1] = -1
+        buf = torch.where(own.view(shape), buf, 0)
+        self.reduce(buf.view(torch.uint8))
+        return buf.unbind(0)
+
+
+class BlockRead:
+    """One step's read of the blocks ``slots`` (B, nblk) logical from the
+    sharded pool: ``read(k_pool_l, v_pool_l)`` assembles them exactly
+    (``ShardedPool.gather``) into (B * nblk, bs, KV, hd) buffers, in which
+    row b's block j sits at slot ``b * nblk + j``; ``slots`` is that
+    renumbering, with the holes kept at -1.  The ownership is resolved
+    once a step, the gathers run once a layer."""
+
+    def __init__(self, pool: ShardedPool, slots: torch.Tensor):
+        B, nblk = slots.shape
+        self.pool = pool
+        self.idx, self.own = pool.local(slots.reshape(-1))
+        grid = torch.arange(B * nblk, dtype=torch.int32,
+                            device=slots.device).view(B, nblk)
+        self.slots = torch.where(slots >= 0, grid, -1)
+
+    def __call__(self, k_pool_l, v_pool_l):
+        return self.pool.assemble([k_pool_l, v_pool_l], self.idx, self.own)
 
 
 # ------------------------------------------------------ paged attention
 
-def _paged_attn_local(q, k_new, v_new, kp_l, vp_l, slots, w_row, extent):
+def _paged_attn_local(q, k_new, v_new, kp_l, vp_l, slots, w_row, extent,
+                      read=None):
     """Write the new tokens' K/V at their precomputed flat pool rows
     ``w_row`` (B[, Q]) int64 (in place; an invalid write goes to the sink
     slot's row) and attend over the resolved blocks ``slots`` (B, nblk) up
     to ``extent`` (B[, Q]), one extent per query, through the
     paged-attention kernel: all three come from the step's translation.
+    On a rank of a mesh, ``read`` (a ``BlockRead``) first assembles the
+    blocks from the sharded pool and ``slots`` index its buffer.
     Returns the normalized output (B[, Q], H, hd) in q's dtype.
 
     Several invalid writes of one call may land on the same sink row;
@@ -191,6 +299,8 @@ def _paged_attn_local(q, k_new, v_new, kp_l, vp_l, slots, w_row, extent):
     rows = (w_row,)
     kp_l.view(-1, *kp_l.shape[2:]).index_put_(rows, k_new.to(kp_l.dtype))
     vp_l.view(-1, *vp_l.shape[2:]).index_put_(rows, v_new.to(vp_l.dtype))
+    if read is not None:
+        kp_l, vp_l = read(kp_l, vp_l)
     o, m, l = paged_attention(q, kp_l, vp_l, slots, extent)
     return normalize(o, l).to(q.dtype)
 
@@ -378,9 +488,9 @@ def decode_attn(blk, x: torch.Tensor, kp_l: torch.Tensor,
     (B, d), ``positions`` (B,)) or of a verify step (Q tokens a row: ``x``
     (B, Q, d), ``positions`` (B, Q)): project, rotate, write every token's
     K/V and read the pool through the paged-attention kernel.  ``kv_at``
-    is the step translation's ``(slots, w_row, extent)``, shaped like
-    ``positions`` past the slots; the verify's per-query extents are the
-    sequential decode's causal mask inside one pool read.
+    is the step's ``(slots, w_row, extent[, read])`` (``kv_access``),
+    shaped like ``positions`` past the slots; the verify's per-query
+    extents are the sequential decode's causal mask inside one pool read.
 
     The verify step projects K and V (and takes the norm's mean square) one
     window position at a time, at the decode step's shape, so the rows it
@@ -428,8 +538,31 @@ def decode_layers(params, x: torch.Tensor, dstate, kv_at,
 
 # --------------------------------------------------------- full serve step
 
+def step_shard(spec: DecodeSpec, mesh, part):
+    """This rank's ``ShardedPool`` for a step factory's ``mesh`` and
+    ``part``, or None on one device (``mesh`` None)."""
+    if mesh is None:
+        return None
+    if spec.kv_shards < 1:
+        raise not_ported("the token-split mesh layout (kv_shards=0, the "
+                         "dry run's)", "P18")
+    if part is None:
+        raise ValueError("spec.kv_shards >= 1 requires a Partition")
+    return ShardedPool(part, mesh.model_index, mesh.model_all_reduce)
+
+
+def kv_access(trans: StepTranslation, shard):
+    """The layer loop's ``kv_at`` from the step's translation: the slots,
+    write rows and extents, and on a rank of a mesh the step's
+    ``BlockRead``, whose renumbered slots replace the logical ones."""
+    if shard is None:
+        return trans.slots[0], trans.w_row, trans.extent
+    read = BlockRead(shard, trans.slots[0])
+    return read.slots, trans.w_row, trans.extent, read
+
+
 def make_serve_step(cfg: ArchConfig, dims: ModelDims, spec: DecodeSpec,
-                    dtype=torch.float32, bound=None):
+                    dtype=torch.float32, bound=None, mesh=None, part=None):
     """Returns serve_step(params, dstate, tokens (B,), active=None, *,
     sample=False) -> (logits (B, V), dstate, stats).  One new token per
     live sequence.
@@ -448,9 +581,14 @@ def make_serve_step(cfg: ArchConfig, dims: ModelDims, spec: DecodeSpec,
     A model without attention layers (ssm) translates nothing: ``stats``
     then holds ``next_token`` only.  The hybrid family runs its groups'
     sublayers in order, the attention sublayer of group ``gi`` on pool
-    layer ``gi``."""
+    layer ``gi``.
+
+    With a ``mesh`` (``launch.mesh.Mesh``), ``spec.kv_shards >= 1`` and
+    ``part`` the step runs on this rank's chunk of the sharded state (see
+    the module's docstring); its outputs are the unsharded step's."""
     check_family(cfg)
     bound = {} if bound is None else bound   # the translation's bindings
+    shard = step_shard(spec, mesh, part)
     n_attn = n_attn_layers(cfg)
     fam = cfg.family
 
@@ -462,11 +600,11 @@ def make_serve_step(cfg: ArchConfig, dims: ModelDims, spec: DecodeSpec,
         if n_attn:
             trans = translate_step(dstate["tar"], dstate["sf"],
                                    dstate["flex"], positions, spec, act,
-                                   bound)
+                                   bound, shard=shard)
             stats = dict(slots=trans.slots, in_rest=trans.in_rest,
                          mapped=trans.mapped, accesses=trans.accesses,
                          telemetry=trans.telemetry)
-            kv_at = (trans.slots[0], trans.w_row, trans.extent)
+            kv_at = kv_access(trans, shard)
         if fam == "ssm":
             for i in range(cfg.num_layers):
                 x = decode_mamba(layer_params(params, i), x, dstate, i, act,

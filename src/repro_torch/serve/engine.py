@@ -1,7 +1,7 @@
 """Request-centric continuous-batching engine over the hybrid KV pool.
 
-The port of ``repro.serve.engine`` for the single-device path of its six
-families.  A request runs like this:
+The port of ``repro.serve.engine`` for its six families, on one device or
+as one rank of a (data, model) mesh.  A request runs like this:
 
 * ``submit`` queues it; the configured :class:`~.scheduler.Scheduler`
   orders the waiting requests;
@@ -85,6 +85,26 @@ first tokens of every prefill that completed this step are packed into one
 int32 tensor and copied with a single ``.cpu()``; a preemption adds its
 own copy only when a victim is actually swapped.
 
+Sharded serving (``mesh_shape=(data, model)``, DESIGN.md
+§sharded-serving): one process per mesh position, each with a replica of
+the weights and of this host engine, over an initialised
+``torch.distributed`` process group (``launch/mesh.py``).  The model axis
+shards only storage: a rank holds its chunk of the KV pool (in the
+shard-contiguous physical numbering of ``core/partition.py``) and its
+slices of the TAR/SF (set-index) and flex (vpn-range) tables; the data
+axis and all float compute are replicated (``serve/decode.py``).  The host
+side speaks LOGICAL slots throughout; the slow paths convert: a
+translation delta goes only to the rank owning its set or vpn, and a slot
+migration, a preemption's gather and a snapshot assemble their blocks
+exactly over the model group (an integer all-reduce of the blocks' bytes,
+disjoint terms), after which each block's owner writes it.  The caller
+drives every rank alike (the same submissions, cancels and polls, in the
+same order); every rank then takes the same host decisions from the same
+replicated tokens and telemetry, and the one wall-clock decision, a
+deadline, is rank 0's, broadcast.  Only rank 0 feeds the metrics logger
+and writes checkpoint files.  The streams are bitwise the
+``mesh_shape=None`` engine's.
+
 The JAX engine's legacy API works as there, warnings included:
 ``Engine(cfg, params, **kwargs)``, ``submit(req, share_prefix_from=,
 shared_blocks=)`` (accepted, no-op) and the blocking ``add_request``.
@@ -109,12 +129,14 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core import (CHAIN_SEED, HybridConfig, HybridKVManager,
                               PoolExhausted, PrefixCache, SWAP,
                               block_hash_chain)
+from repro_torch.core.partition import Partition
+from repro_torch.dist.sharding import kv_state_specs
+from repro_torch.launch.mesh import make_local_mesh
 from repro_torch.models import FwdOptions, model_dims
 from repro_torch.models.transformer import (RECURRENT_FAMILIES, check_family,
                                             n_attn_layers)
 from .decode import (DecodeSpec, init_decode_state, make_serve_step,
-                     probe_verify_gemms)
-from .decode import not_ported as _not_ported
+                     probe_verify_gemms, step_shard)
 from .prefill import make_prefill_step, make_prefix_prefill_step
 from .sampling import GREEDY, SamplingParams, prng_key_data
 from .scheduler import Scheduler, default_victim, make_scheduler
@@ -175,8 +197,13 @@ class EngineConfig:
     speculative decoding with ``num_draft_tokens`` drafts a step from the
     prompt-lookup drafter of order ``spec_ngram``.
 
-    The defaults are the JAX engine's.  Not ported yet, off-values only:
-    ``mesh_shape=None`` (P15).
+    ``mesh_shape``: None (one device) or ``(data, model)``, sharded
+    serving over the initialised default process group of ``data *
+    model`` ranks, this process being one of them (``launch.mesh.
+    make_local_mesh``, which raises when there is none or its size
+    differs).
+
+    The defaults are the JAX engine's.
     """
     max_batch: int = 4
     max_seq_len: int = 256
@@ -203,8 +230,12 @@ class EngineConfig:
     def check_ported(self) -> None:
         """Raise for a field set to a feature the port does not run yet,
         and for the values the JAX engine refuses."""
-        if self.mesh_shape is not None:
-            raise _not_ported("sharded serving (mesh_shape)", "P15")
+        if self.mesh_shape is not None and (
+                len(self.mesh_shape) != 2
+                or not all(isinstance(n, int) and n >= 1
+                           for n in self.mesh_shape)):
+            raise ValueError(f"mesh_shape must be (data, model) positive "
+                             f"ints, got {self.mesh_shape!r}")
         if self.attn_impl not in ("dense", "flash_jax", "pallas", "flash"):
             raise ValueError(f"unknown attn_impl {self.attn_impl!r} "
                              "(expected 'dense', 'flash_jax' or 'pallas')")
@@ -505,6 +536,19 @@ class Engine:
             mode=config.mode)
         self.track_stats = config.track_stats
         self.manager = HybridKVManager(self.hybrid_cfg)
+        # ---- the mesh and the partition (sharded serving) ---------------
+        self.mesh = self.partition = None
+        if config.mesh_shape is not None:
+            data, model = config.mesh_shape
+            self.mesh = make_local_mesh(data=data, model=model)
+            # the data axis replicates the state: the partition covers
+            # the model axis (kv_shards >= 1 selects the sharded layout
+            # even at model == 1)
+            self.partition = Partition.for_hybrid(self.hybrid_cfg, model)
+            self.manager.set_partition(self.partition)
+        # rank 0 alone feeds the logger and writes checkpoint files (every
+        # rank would write the same replicated events and snapshots)
+        self.writes_files = self.mesh is None or self.mesh.rank == 0
         self.prefill_mode = config.prefill_mode
         if self.prefill_mode == "prefix_kv" and config.attn_impl != "dense":
             # the prefix chunk forward implements the dense softmax; mixing
@@ -521,10 +565,14 @@ class Engine:
             slots_per_group=self.hybrid_cfg.total_slots,
             n_sets=self.hybrid_cfg.num_sets, assoc=self.hybrid_cfg.assoc,
             mode="batch", hash_name=self.hybrid_cfg.hash_name,
-            prefix_gather=config.prefix_gather)
+            prefix_gather=config.prefix_gather,
+            kv_shards=0 if self.mesh is None else self.mesh.model_size)
+        # this rank's chunk of the sharded pool (None on one device)
+        self._shard = step_shard(self.spec, self.mesh, self.partition)
         dtype = config.dtype
         self.dstate = init_decode_state(cfg, self.dims, self.spec, max_batch,
-                                        1, dtype=dtype, device=self.device)
+                                        1, dtype=dtype, device=self.device,
+                                        part=self.partition)
         self.max_batch = max_batch
         self.prefill_budget = (config.prefill_budget
                                if config.prefill_budget is not None
@@ -541,10 +589,12 @@ class Engine:
         self._preempted: Dict[int, _HostTierSeq] = {}
         self._swap_bytes_out = 0
         self._swap_bytes_in = 0
-        # swap traffic per KV shard; one shard on a single device (the
-        # sharded split is ROADMAP P15).  The rows sum to the globals
-        self._shard_swap_out = np.zeros(1, np.int64)
-        self._shard_swap_in = np.zeros(1, np.int64)
+        # swap traffic per KV shard (one on a single device): KV bytes go
+        # to each block's owner, the replicated rows to shard 0, so the
+        # rows sum EXACTLY to the globals
+        n_sh = self.partition.n_shards if self.partition else 1
+        self._shard_swap_out = np.zeros(n_sh, np.int64)
+        self._shard_swap_in = np.zeros(n_sh, np.int64)
         # monotone count of preempt/resume/cancel events: poll()'s
         # no-progress guard counts any of them as progress
         self._progress_events = 0
@@ -561,7 +611,7 @@ class Engine:
         # request-lifecycle counters: explicit cancels, deadline expiries
         self._cancelled = 0
         self._deadline_expired = 0
-        self.metrics = config.metrics
+        self.metrics = config.metrics if self.writes_files else None
         self.scheduler: Scheduler = make_scheduler(config.scheduler)
         # a scheduler instance is mutable state: sharing one between two
         # engines would let one engine admit the other's requests
@@ -576,8 +626,10 @@ class Engine:
         self.fwd = FwdOptions(attn_impl=config.attn_impl, dtype=dtype,
                               collect_cache=True)
         bound = {}       # translation bindings, shared by the decode steps
+        on_mesh = dict(mesh=self.mesh, part=self.partition)
         self._serve_step = make_serve_step(cfg, self.dims, self.spec,
-                                           dtype=dtype, bound=bound)
+                                           dtype=dtype, bound=bound,
+                                           **on_mesh)
         # ---- speculative decoding (serve/spec_decode.py) ----------------
         self.spec_K = 0
         if config.spec_decode and cfg.family in RECURRENT_FAMILIES:
@@ -588,7 +640,7 @@ class Engine:
             self.spec_K = int(config.num_draft_tokens)
             self._spec_step = make_spec_decode_step(
                 cfg, self.dims, self.spec, self.spec_K, dtype=dtype,
-                ngram=config.spec_ngram, bound=bound)
+                ngram=config.spec_ngram, bound=bound, **on_mesh)
             probe_verify_gemms(params, cfg, max_batch, self.spec_K + 1,
                                dtype)
             # each slot's token history for the drafter (prompt scattered
@@ -600,9 +652,10 @@ class Engine:
         self._spec_drafted = 0
         self._spec_accepted = 0
         self._prefill_step = make_prefill_step(cfg, self.dims, self.spec,
-                                               fwd=self.fwd)
+                                               fwd=self.fwd, **on_mesh)
         self._prefix_step = make_prefix_prefill_step(cfg, self.dims,
-                                                     self.spec, fwd=self.fwd)
+                                                     self.spec, fwd=self.fwd,
+                                                     **on_mesh)
         self.requests: Dict[int, Request] = {}      # registered, live
         self.finished: Dict[int, Request] = {}
         self._states: Dict[int, RequestState] = {}
@@ -1071,12 +1124,22 @@ class Engine:
                                     if self._states[sid].done),
             preempted=len(self._preempted))
 
-    def _attribute_swap(self, counter: np.ndarray,
-                        rec: _HostTierSeq) -> None:
-        """Charge a swap record's bytes to the KV shards.  A single device
-        holds one shard, which takes everything (the split across shards
-        by each block's owner is ROADMAP P15)."""
-        counter[0] += rec.nbytes
+    def _attribute_swap(self, counter: np.ndarray, rec: _HostTierSeq,
+                        slots) -> None:
+        """Charge a swap record's bytes to the KV shards so that the rows
+        sum EXACTLY to the global counter: the KV bytes to each block's
+        owning shard (an equal share a block, blocks being uniform; the
+        remainder to the first), everything else (recurrent or cross rows,
+        the drafter's history: replicated state) to shard 0.  ``slots``
+        are the blocks' logical slots."""
+        kv_bytes = 0 if rec.kv is None else rec.kv.nbytes
+        if kv_bytes and slots:
+            per, extra = divmod(kv_bytes, len(slots))
+            for i, s in enumerate(slots):
+                owner = (int(self.partition.shard_of_slot(int(s)))
+                         if self.partition is not None else 0)
+                counter[owner] += per + (extra if i == 0 else 0)
+        counter[0] += rec.nbytes - kv_bytes
 
     def preempt_request(self, seq_id: int) -> None:
         """Swap a live sequence out to the host KV tier.
@@ -1112,8 +1175,10 @@ class Engine:
         kv = hist = None
         if mapped:
             idx = _upload(np.asarray(mapped, np.int64), self.device)
-            kv = torch.stack([self.dstate["k_pool"][:, idx],
-                              self.dstate["v_pool"][:, idx]])
+            pools = [self.dstate["k_pool"], self.dstate["v_pool"]]
+            kv = torch.stack(
+                [p[:, idx] for p in pools] if self._shard is None
+                else self._shard.gather(pools, idx, dim=1))
         if self.spec_K:
             hist = self.dstate["hist"][slot]
         names = [k for k in ("ssm", "conv", "cross_k", "cross_v")
@@ -1147,7 +1212,7 @@ class Engine:
                               if r.seq_id != seq_id]
         self._preempted[seq_id] = rec
         self._swap_bytes_out += rec.nbytes
-        self._attribute_swap(self._shard_swap_out, rec)
+        self._attribute_swap(self._shard_swap_out, rec, mapped)
         st.preempts += 1
         self._request_preempts += 1
         self._progress_events += 1
@@ -1196,8 +1261,7 @@ class Engine:
                           self.device)
             kv = (rec.kv if self.device.type == "cpu"
                   else rec.kv.to(self.device, non_blocking=True))
-            self.dstate["k_pool"][:, dst] = kv[0]
-            self.dstate["v_pool"][:, dst] = kv[1]
+            self._write_blocks(dst, kv[0], kv[1])
         if rec.hist is not None:
             self.dstate["hist"][slot] = rec.hist.to(self.device,
                                                     non_blocking=True)
@@ -1214,7 +1278,8 @@ class Engine:
             self._current = req
         del self._preempted[sid]
         self._swap_bytes_in += rec.nbytes
-        self._attribute_swap(self._shard_swap_in, rec)
+        self._attribute_swap(self._shard_swap_in, rec,
+                             [m.lookup(sid, b)[0] for b, _ in rec.blocks])
         st.last_step = self._step_count
         st.resumes += 1
         self._request_resumes += 1
@@ -1505,39 +1570,88 @@ class Engine:
             self._finish(st, "stop" if hit_eos else "length")
 
     # ------------------------------------------------------------- serving
+    def _table_window(self) -> Tuple[int, int]:
+        """The first set and the first flex vpn of this rank's slices of
+        the translation tables (0, 0 on one device)."""
+        if self.partition is None:
+            return 0, 0
+        mi = self.mesh.model_index
+        return (mi * self.partition.sets_per_shard,
+                mi * self.partition.vpns_per_shard)
+
+    def _host_tables(self):
+        """The host tables as this rank's device tables hold them: the
+        whole TAR/SF/flat flex on one device; on a rank of a mesh its set
+        and vpn slices of the PADDED mirrors (zero TAR/SF rows, -1 flex
+        entries past the real sizes)."""
+        m = self.manager
+        flat = m.flex_table.reshape(-1)
+        if self.partition is None:
+            return m.tar, m.sf, flat
+        spm = self.partition.sets_per_shard
+        vpm = self.partition.vpns_per_shard
+        lo, flo = self._table_window()
+        tar = np.zeros((spm,) + m.tar.shape[1:], m.tar.dtype)
+        sf = np.zeros(spm, m.sf.dtype)
+        flex = np.full(vpm, -1, flat.dtype)
+        rows = m.tar[lo:lo + spm]
+        tar[:len(rows)] = rows
+        sf[:len(rows)] = m.sf[lo:lo + spm]
+        seg = flat[flo:flo + vpm]
+        flex[:len(seg)] = seg
+        return tar, sf, flex
+
     def _sync_translation(self, full: bool = False) -> None:
         """Upload TAR/SF/flex changes into the device tables, in place.
 
         The first call (or ``full=True``) uploads everything; afterwards
-        only the entries dirtied since the previous sync are written.  A
-        model without attention layers has no tables."""
+        only the entries dirtied since the previous sync are written, on a
+        rank of a mesh only those of its own set and vpn ranges (a delta
+        lands on the rank that owns it and nowhere else).  A model without
+        attention layers has no tables."""
         if not self._n_attn_layers:
             return
         m = self.manager
         dev = self.device
-        flat = m.flex_table.reshape(-1)
         if full or not self._synced_full:
             m.take_dirty()             # everything is covered below
-            self.dstate["tar"][0].copy_(_upload(m.tar, dev))
-            self.dstate["sf"][0].copy_(_upload(m.sf, dev))
-            self.dstate["flex"][0].copy_(_upload(flat, dev))
+            for key, host in zip(_TRANSLATION, self._host_tables()):
+                self.dstate[key][0].copy_(_upload(host, dev))
             self._synced_full = True
             return
         sets, flex_idx = m.take_dirty()
+        lo, flo = self._table_window()
+        if self.partition is not None:
+            sets = sets[(sets >= lo)
+                        & (sets < lo + self.partition.sets_per_shard)]
+            flex_idx = flex_idx[(flex_idx >= flo) & (
+                flex_idx < flo + self.partition.vpns_per_shard)]
         if sets.size:
-            idx = _upload(sets, dev)
+            idx = _upload(sets - lo, dev)
             self.dstate["tar"][0, idx] = _upload(m.tar[sets], dev)
             self.dstate["sf"][0, idx] = _upload(m.sf[sets], dev)
         if flex_idx.size:
-            self.dstate["flex"][0, _upload(flex_idx, dev)] = _upload(
-                flat[flex_idx], dev)
+            self.dstate["flex"][0, _upload(flex_idx - flo, dev)] = _upload(
+                m.flex_table.reshape(-1)[flex_idx], dev)
+
+    def _write_blocks(self, dst: torch.Tensor, k: torch.Tensor,
+                      v: torch.Tensor) -> None:
+        """Write blocks ``k``/``v`` (L, n, bs, KV, hd) at the logical pool
+        slots ``dst`` (n,); on a rank of a mesh only those it owns (the
+        others go to its chunk's sink)."""
+        if self._shard is not None:
+            dst, _ = self._shard.local(dst)
+        self.dstate["k_pool"][:, dst] = k
+        self.dstate["v_pool"][:, dst] = v
 
     def _apply_copies(self) -> None:
         """Apply pending slot migrations as ONE gather/scatter per pool.
 
         Chains inside a drain (a->b, b->c) resolve host-side to the
         original source, so the batched gather reads pre-copy contents
-        with sequential semantics."""
+        with sequential semantics.  On a rank of a mesh the gather is the
+        exact assembly over the model group and each destination's owner
+        writes it."""
         copies = self.manager.take_pending_copies()
         if not copies or not self._n_attn_layers:
             return
@@ -1551,9 +1665,10 @@ class Engine:
                       self.device)
         src = _upload(np.asarray([s for _, s in pairs], np.int64),
                       self.device)
-        for key in ("k_pool", "v_pool"):
-            pool = self.dstate[key]
-            pool[:, dst] = pool[:, src]
+        pools = [self.dstate["k_pool"], self.dstate["v_pool"]]
+        k, v = ([p[:, src] for p in pools] if self._shard is None
+                else self._shard.gather(pools, src, dim=1))
+        self._write_blocks(dst, k, v)
 
     def step(self) -> Dict[int, int]:
         """One engine step: admit under the prefill budget, then decode
@@ -1880,13 +1995,19 @@ class Engine:
     def _enforce_deadlines(self) -> None:
         """Cancel every live request whose wall-clock budget elapsed, with
         ``finish_reason="deadline"`` (one clock read per poll, none when
-        no request carries a deadline)."""
-        now = None
-        for sid in [s for s, st in self._states.items()
-                    if not st.done and st.deadline_at is not None]:
-            if now is None:
-                now = time.perf_counter()
-            if now >= self._states[sid].deadline_at:
+        no request carries a deadline).  On a mesh rank 0's clock decides
+        for every rank (one broadcast), so the ranks' schedulers stay in
+        lockstep."""
+        sids = [s for s, st in self._states.items()
+                if not st.done and st.deadline_at is not None]
+        if not sids:
+            return
+        now = time.perf_counter()
+        expired = [now >= self._states[sid].deadline_at for sid in sids]
+        if self.mesh is not None:
+            expired = self.mesh.decide(expired, self.device)
+        for sid, late in zip(sids, expired):
+            if late:
                 self.cancel(sid, reason="deadline")
 
     # ------------------------------------------------------------ teardown
@@ -1940,10 +2061,13 @@ class Engine:
         Device side: every decode-state tensor except the TAR/SF/flex
         tables (functions of the host tables, re-uploaded on restore),
         copied to the host in one batch of asynchronous copies and one
-        synchronisation.  Host side: ONE ``pickle.dumps`` of the manager,
-        prefix cache, scheduler queue, request registries and states
-        (mid-chunk progress and the host KV tier included) and all
-        monotone counters; absolute deadlines become remaining budgets.
+        synchronisation; on a mesh the pools are first assembled whole, in
+        the physical slot order, on every rank (so any rank's snapshot,
+        and rank 0's file, restores every rank).  Host side: ONE
+        ``pickle.dumps`` of the manager, prefix cache, scheduler queue,
+        request registries and states (mid-chunk progress and the host KV
+        tier included) and all monotone counters; absolute deadlines
+        become remaining budgets.
         The snapshot stays valid after the engine advances, and restoring
         it on an engine of the same configuration replays
         bit-identically."""
@@ -1951,7 +2075,7 @@ class Engine:
         # the manager's (pickled) post-copy slot map
         self._apply_copies()
         keys = [k for k in self.dstate if k not in _TRANSLATION]
-        dstate = dict(zip(keys, self._to_host(*(self.dstate[k]
+        dstate = dict(zip(keys, self._to_host(*(self._whole(k)
                                                 for k in keys))))
         now = time.perf_counter()
         payload: Dict[str, Any] = {f: getattr(self, f)
@@ -1980,6 +2104,39 @@ class Engine:
                               step=self._step_count, dstate=dstate,
                               host_blob=blob)
 
+    def _sharded(self, key: str) -> bool:
+        """Whether this rank holds only its chunk of decode-state tensor
+        ``key`` (``dist.sharding.kv_state_specs``)."""
+        return (self.partition is not None
+                and kv_state_specs([key])[key] is not None)
+
+    def _whole(self, key: str) -> torch.Tensor:
+        """A decode-state tensor as a snapshot holds it: on a rank of a
+        mesh a sharded pool becomes the whole ``(L, pool_slots, ...)``
+        pool in physical slot order, every rank's chunk (its sink left
+        out) assembled exactly by one all-reduce of the bytes."""
+        t = self.dstate[key]
+        if not self._sharded(key):
+            return t
+        cps, mi = self.partition.slots_per_shard, self.mesh.model_index
+        whole = torch.zeros((t.shape[0], self.partition.pool_slots)
+                            + t.shape[2:], dtype=t.dtype, device=t.device)
+        whole[:, mi * cps:(mi + 1) * cps] = t[:, :cps]
+        self.mesh.model_all_reduce(whole.view(torch.uint8))
+        return whole
+
+    def _snapshot_shapes(self) -> Dict[str, Tuple[tuple, Any]]:
+        """Name -> (shape, dtype) of each tensor a snapshot holds."""
+        out = {}
+        for k, v in self.dstate.items():
+            if k in _TRANSLATION:
+                continue
+            shape = tuple(v.shape)
+            if self._sharded(k):
+                shape = (shape[0], self.partition.pool_slots) + shape[2:]
+            out[k] = (shape, v.dtype)
+        return out
+
     def restore(self, snap: EngineSnapshot) -> None:
         """Overwrite this engine's serving state with ``snap``'s.
 
@@ -1995,8 +2152,7 @@ class Engine:
             raise ValueError(
                 f"snapshot version {snap.version} != engine "
                 f"{SNAPSHOT_VERSION}: cross-version restore unsupported")
-        expect = {k: (tuple(v.shape), v.dtype)
-                  for k, v in self.dstate.items() if k not in _TRANSLATION}
+        expect = self._snapshot_shapes()
         got = {k: (tuple(v.shape), v.dtype) for k, v in snap.dstate.items()}
         if got != expect:
             diff = sorted(k for k in set(expect) | set(got)
@@ -2028,7 +2184,12 @@ class Engine:
             if st is not None:
                 st.deadline_at = now + rem
         for k, v in snap.dstate.items():
-            self.dstate[k].copy_(v, non_blocking=True)
+            dst = self.dstate[k]
+            if self._sharded(k):
+                cps = self.partition.slots_per_shard
+                mi = self.mesh.model_index
+                dst, v = dst[:, :cps], v[:, mi * cps:(mi + 1) * cps]
+            dst.copy_(v, non_blocking=True)
         self._synced_full = False
         self._sync_translation(full=True)
         if self.metrics is not None:
@@ -2066,6 +2227,11 @@ class Engine:
             "prefix_hits": int(pc.stats["hits"]) if pc else 0,
             "cancelled": self._cancelled,
             "deadline_expired": self._deadline_expired,
+            **({} if self.partition is None else {
+                "shard_swap_bytes_out": [int(x)
+                                         for x in self._shard_swap_out],
+                "shard_swap_bytes_in": [int(x)
+                                        for x in self._shard_swap_in]}),
         }
 
     def _metrics_gauges(self) -> Dict[str, Any]:
@@ -2131,15 +2297,29 @@ class Engine:
                   "cached_blocks": st.cached_blocks,
                   "preempts": st.preempts, "resumes": st.resumes}
             for sid, st in self._states.items()}
+        if self.partition is not None:
+            # per-shard view: each key sums EXACTLY to its global above
+            # (the manager attributes at the one site that mutates the
+            # globals).  The spec counters describe replicated compute
+            # and sit on shard 0, NOT scaled by the shard count
+            s["shards"] = [
+                {"rsw_hits": int(ss.get("rsw_hits", 0)),
+                 "flex_walks": int(ss.get("flex_walks", 0)),
+                 "swap_bytes_out": int(self._shard_swap_out[i]),
+                 "swap_bytes_in": int(self._shard_swap_in[i]),
+                 "spec_drafted": self._spec_drafted if i == 0 else 0,
+                 "spec_accepted": self._spec_accepted if i == 0 else 0}
+                for i, ss in enumerate(self.manager.shard_stats)]
         return s
 
     def check_invariants(self) -> None:
-        """The manager's structural oracle, plus: the prefix cache's
-        directory agrees with the manager, the monotone preempt/resume
-        counters equal the per-request rows plus the banked share, the
-        per-shard swap bytes sum to the global ones, and the device
-        translation tables equal the host tables (after uploading the
-        deltas a step leaves for the next step's sync)."""
+        """The manager's structural oracle (with its per-shard sums), plus:
+        the prefix cache's directory agrees with the manager, the monotone
+        preempt/resume counters equal the per-request rows plus the banked
+        share, the per-shard swap bytes sum to the global ones, and the
+        device translation tables equal the host tables (after uploading
+        the deltas a step leaves for the next step's sync; on a rank of a
+        mesh, its slices of the padded mirrors)."""
         self._sync_translation()
         self.manager.check_invariants()
         if self.prefix_cache is not None:
@@ -2154,13 +2334,10 @@ class Engine:
             "per-shard swap-out bytes != global"
         assert int(self._shard_swap_in.sum()) == self._swap_bytes_in, \
             "per-shard swap-in bytes != global"
-        m = self.manager
         if not self._n_attn_layers:
             return
-        tar = self.dstate["tar"][0].cpu().numpy()
-        sf = self.dstate["sf"][0].cpu().numpy()
-        flex = self.dstate["flex"][0].cpu().numpy()
-        assert (tar == m.tar).all(), "device TAR != host TAR"
-        assert (sf == m.sf).all(), "device SF != host SF"
-        assert (flex == m.flex_table.reshape(-1)).all(), \
-            "device flex != host flex"
+        # on a rank of a mesh: its slices of the padded mirrors, so the
+        # pad rows (zero TAR/SF, -1 flex) are checked too
+        for key, host in zip(_TRANSLATION, self._host_tables()):
+            dev = self.dstate[key][0].cpu().numpy()
+            assert (dev == host).all(), f"device {key} != host {key}"

@@ -49,6 +49,12 @@ The decode state is updated in place: the pools through the forward's
 collected K/V (a ``-1`` block is written into the pool's sink slot
 instead, see ``serve/decode.py``), ``ctx_len`` only at participating
 slots.
+
+On a rank of a mesh (the factories' ``mesh`` and ``part``, see
+``serve/decode.py``) the forward is replicated, a block installs only on
+the rank that owns it, and the prefix-KV step's reads (both gathers)
+assemble the prefix blocks exactly from the sharded pool first, so the
+installed blocks and the first tokens are the unsharded step's.
 """
 from __future__ import annotations
 
@@ -67,20 +73,25 @@ from repro_torch.models.transformer import (FwdOptions, ModelDims, _ffn,
                                             check_family, forward,
                                             hybrid_ffn_select, layer_params,
                                             mamba_block, stack_caches, take)
-from .decode import DecodeSpec
+from .decode import BlockRead, DecodeSpec, step_shard
 from .sampling import sample_tokens
 
 
-def _install_kv(spec: DecodeSpec, dstate, caches, eff_slots, B: int) -> None:
+def _install_kv(spec: DecodeSpec, dstate, caches, eff_slots, B: int,
+                shard=None) -> None:
     """Write per-layer chunk K/V (L, B, S, KV, hd) into the pools at
-    ``eff_slots`` (B, S // bs); -1 entries go to the sink slot."""
+    ``eff_slots`` (B, S // bs); -1 entries go to the sink slot, and on a
+    rank of a mesh (``shard``) so do the blocks other ranks own."""
     k, v = caches["k"], caches["v"]
     L, _, S, KV, hd = k.shape
     bs = spec.block_size
     nblk = S // bs
     sink = dstate["k_pool"].shape[1] - 1
     sl = eff_slots.reshape(-1)
-    idx = torch.where(sl >= 0, sl, sink).long()
+    if shard is None:
+        idx = torch.where(sl >= 0, sl, sink).long()
+    else:
+        idx, _ = shard.local(sl)
     for name, c in (("k_pool", k), ("v_pool", v)):
         pool = dstate[name]
         pool[:, idx] = c.reshape(L, B * nblk, bs, KV, hd).to(pool.dtype)
@@ -135,11 +146,12 @@ def _first_token_stats(dstate, last, slot_ids, ctx, sample: bool):
 
 
 def make_prefill_step(cfg: ArchConfig, dims: ModelDims, spec: DecodeSpec,
-                      fwd: FwdOptions = FwdOptions()):
+                      fwd: FwdOptions = FwdOptions(), mesh=None, part=None):
     """Returns prefill_step(params, dstate, batch, slots, slot_ids, ctx,
     last_pos, *, sample=False) -> (last_logits (B, V), dstate, stats);
     ``stats["next_token"]`` is the first generated token per row."""
     check_family(cfg)
+    shard = step_shard(spec, mesh, part)
     fwd_collect = dataclasses.replace(fwd, collect_cache=True)
 
     def prefill_step(params, dstate, batch, slots, slot_ids, ctx, last_pos,
@@ -149,7 +161,7 @@ def make_prefill_step(cfg: ArchConfig, dims: ModelDims, spec: DecodeSpec,
         row_ok = slot_ids >= 0
         if "k" in caches:
             _install_kv(spec, dstate, caches,
-                        torch.where(row_ok[:, None], slots, -1), B)
+                        torch.where(row_ok[:, None], slots, -1), B, shard)
         if "ssm" in caches:
             mc = caches["ssm"]
             _install_rows(dstate, {"ssm": mc.state, "conv": mc.conv},
@@ -168,7 +180,8 @@ def make_prefill_step(cfg: ArchConfig, dims: ModelDims, spec: DecodeSpec,
 
 def make_prefix_prefill_step(cfg: ArchConfig, dims: ModelDims,
                              spec: DecodeSpec,
-                             fwd: FwdOptions = FwdOptions()):
+                             fwd: FwdOptions = FwdOptions(), mesh=None,
+                             part=None):
     """Chunk-k (k > 0) prefill: forward ONLY the chunk's new tokens.
 
     Returns prefix_prefill_step(params, dstate, batch, new_slots,
@@ -203,20 +216,33 @@ def make_prefix_prefill_step(cfg: ArchConfig, dims: ModelDims,
     paged = spec.prefix_gather == "paged"
     bs = spec.block_size
     H, KV, hd = dims.n_heads, dims.n_kv, dims.head_dim
+    shard = step_shard(spec, mesh, part)
 
-    def attn_read(q, k_new, v_new, kp_l, vp_l, prefix_slots, prefix_ctx):
+    def attn_read(q, k_new, v_new, kp_l, vp_l, prefix_slots, prefix_ctx,
+                  read):
+        """The attention of the chunk's queries over the installed prefix
+        and the chunk's own K/V.  ``read``: on a rank of a mesh, the
+        step's ``BlockRead`` of the prefix blocks (None on one device)."""
         B, S = q.shape[:2]
+        if read is not None:
+            kp_l, vp_l = read(kp_l, vp_l)    # (B * nbuf, bs, KV, hd) each
         if paged:
-            pool = paged_attention(q, kp_l, vp_l, prefix_slots, prefix_ctx)
+            pool = paged_attention(
+                q, kp_l, vp_l,
+                prefix_slots if read is None else read.slots, prefix_ctx)
             own = causal_attention_parts(q, k_new, v_new)
             return merge_attention_parts([pool, own]).to(q.dtype)
         nblk_buf = prefix_slots.shape[1]
         nblk_chunk = S // bs
         ok = (prefix_slots >= 0)[..., None, None, None]
-        gk = torch.where(ok, gather_pool_blocks(kp_l, prefix_slots),
-                         0.0).to(k_new.dtype)          # (B, nbuf, bs, KV, hd)
-        gv = torch.where(ok, gather_pool_blocks(vp_l, prefix_slots),
-                         0.0).to(v_new.dtype)
+        if read is None:
+            gk = gather_pool_blocks(kp_l, prefix_slots)
+            gv = gather_pool_blocks(vp_l, prefix_slots)
+        else:          # assembled in order; the -1 blocks came back zero
+            gk = kp_l.view(B, nblk_buf, *kp_l.shape[1:])
+            gv = vp_l.view(B, nblk_buf, *vp_l.shape[1:])
+        gk = torch.where(ok, gk, 0.0).to(k_new.dtype)  # (B, nbuf, bs, KV, hd)
+        gv = torch.where(ok, gv, 0.0).to(v_new.dtype)
         ck = k_new.reshape(B, nblk_chunk, bs, KV, hd)
         cv = v_new.reshape(B, nblk_chunk, bs, KV, hd)
         start_blk = prefix_ctx // bs
@@ -249,6 +275,7 @@ def make_prefix_prefill_step(cfg: ArchConfig, dims: ModelDims,
         sid = slot_ids.clamp(0, dstate["ctx_len"].shape[0] - 1).long()
         # per-row real chunk length: the pad tail's identity mask
         chunk_len = ctx - prefix_ctx
+        read = None if shard is None else BlockRead(shard, prefix_slots)
 
         def mamba_sub(blk, x, j):
             x, c = mamba_block(blk, x, cfg, dims, collect=True,
@@ -264,7 +291,7 @@ def make_prefix_prefill_step(cfg: ArchConfig, dims: ModelDims,
             q, k, v = Lmod.qkv_project(blk["attn"], h, h, H, KV, hd,
                                        positions, positions, cfg.rope_theta)
             o = attn_read(q, k, v, dstate["k_pool"][j], dstate["v_pool"][j],
-                          prefix_slots, prefix_ctx)
+                          prefix_slots, prefix_ctx, read)
             ks.append(k)
             vs.append(v)
             return x + Lmod.linear(blk["attn"]["o"], o.reshape(B, S, -1))
@@ -302,7 +329,8 @@ def make_prefix_prefill_step(cfg: ArchConfig, dims: ModelDims,
         if ks:
             _install_kv(spec, dstate,
                         {"k": torch.stack(ks), "v": torch.stack(vs)},
-                        torch.where(row_ok[:, None], new_slots, -1), B)
+                        torch.where(row_ok[:, None], new_slots, -1), B,
+                        shard)
         if ssm:
             mc = stack_caches(ssm)
             _install_rows(dstate, {"ssm": mc.state, "conv": mc.conv},

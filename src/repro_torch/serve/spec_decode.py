@@ -1,7 +1,9 @@
 """Speculative decoding on the serve path: draft -> verify -> accept, up to
 K+1 tokens a row per step, with no host sync inside the step.
 
-The port of ``repro.serve.spec_decode`` (single device).  A step:
+The port of ``repro.serve.spec_decode``, on one device or on a rank of a
+mesh (the sharded verify: the translation and the pool reads of
+``serve/decode.py``'s sharded step, everything else replicated).  A step:
 
 * **draft** — prompt lookup: each slot's token history (``dstate["hist"]``
   (B, max_seq_len) int32, -1 = unknown; the prompt is scattered at
@@ -32,8 +34,8 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.transformer import ModelDims, check_family
-from .decode import (DecodeSpec, decode_layers, not_ported, project_logits,
-                     translate_step)
+from .decode import (DecodeSpec, decode_layers, kv_access, project_logits,
+                     step_shard, translate_step)
 from .sampling import sample_tokens_q, verify_draft_tokens
 
 # families whose decode state is position-indexed only: a rejected tail
@@ -85,7 +87,7 @@ def propose_ngram_drafts(hist: torch.Tensor, ctx: torch.Tensor, K: int,
 def make_spec_decode_step(cfg: ArchConfig, dims: ModelDims,
                           spec: DecodeSpec, num_draft_tokens: int,
                           mesh=None, dtype=torch.float32, ngram: int = 2,
-                          bound=None):
+                          bound=None, part=None):
     """Returns spec_step(params, dstate, tokens (B,), active=None, *,
     sample=False) -> (logits (B, K+1, V), dstate, stats).
 
@@ -94,9 +96,8 @@ def make_spec_decode_step(cfg: ArchConfig, dims: ModelDims,
     step's) and ``acc_tokens (B, K+1)`` / ``n_emit (B,)`` (a row commits
     ``acc_tokens[b, :n_emit[b]]``) and ``draft_tokens (B, K)``, all on the
     device.  ``bound`` is the translation-binding dict shared with the
-    serve step (``make_serve_step``)."""
-    if mesh is not None:
-        raise not_ported("sharded speculative decoding (mesh)", "P15")
+    serve step (``make_serve_step``); ``mesh`` and ``part`` run it on this
+    rank's chunk of the sharded state, as ``make_serve_step`` does."""
     if cfg.family not in SPEC_FAMILIES:
         raise ValueError(
             f"speculative decode does not support family {cfg.family!r} "
@@ -107,6 +108,7 @@ def make_spec_decode_step(cfg: ArchConfig, dims: ModelDims,
         raise ValueError(f"num_draft_tokens must be >= 1, got {K}")
     Qw = K + 1
     bound = {} if bound is None else bound   # the translation's bindings
+    shard = step_shard(spec, mesh, part)
 
     def spec_step(params, dstate, tokens, active=None, *, sample=False):
         pos0 = dstate["ctx_len"]                 # the fed token's position
@@ -132,11 +134,11 @@ def make_spec_decode_step(cfg: ArchConfig, dims: ModelDims,
         # position's write row and extent pos + i + 1
         trans = translate_step(dstate["tar"], dstate["sf"], dstate["flex"],
                                pos0, spec, None if active is None else act,
-                               bound, window=Qw)
+                               bound, window=Qw, shard=shard)
         stats = dict(slots=trans.slots, in_rest=trans.in_rest,
                      mapped=trans.mapped, accesses=trans.accesses,
                      telemetry=trans.telemetry)
-        kv_at = (trans.slots[0], trans.w_row, trans.extent)
+        kv_at = kv_access(trans, shard)
         x = decode_layers(params, x, dstate, kv_at, positions, cfg, dims)
         logits = project_logits(params, x, cfg, dims)            # (B,Qw,V)
 

@@ -140,12 +140,14 @@ def test_engine_streams_and_telemetry_match(weights):
 
 
 def test_engine_refuses_unported_features(weights):
-    """Only the features still unported raise (meshes); the JAX engine's
-    defaults (prefix-KV prefill, the prefix cache, preemption to the host
-    tier) construct, speculative decoding constructs, and a sampled
-    request is accepted."""
+    """A mesh needs its process group (this process has none: the error
+    names the recipe, and nothing falls back to one device); the JAX
+    engine's defaults (prefix-KV prefill, the prefix cache, preemption to
+    the host tier) construct, speculative decoding constructs, and a
+    sampled request is accepted."""
     _, _, cfg, tp = weights
-    with pytest.raises(NotImplementedError, match="ROADMAP P15"):
+    EngineConfig(mesh_shape=(1, 1)).check_ported()
+    with pytest.raises(ValueError, match="init_process_group"):
         Engine(cfg, tp, EngineConfig(mesh_shape=(1, 1)), device="cpu")
     assert Engine(cfg, tp, EngineConfig(spec_decode="ngram"),
                   device="cpu").spec_K == 4

@@ -284,8 +284,9 @@ def test_moe_spec_on_equals_spec_off(moe_weights):
 def test_what_still_raises(arch):
     """Every family runs; what is refused: the verify step for the
     recurrent families (a rejected draft would need a state rollback),
-    meshes (ROADMAP P15) at every entry point that takes one, and an
-    unknown family."""
+    the dry run's mesh layouts (ROADMAP P18: the token-split step of
+    ``kv_shards=0`` and the data-sharded decode state without a
+    partition), while a mesh shape is accepted, and an unknown family."""
     import types
     from repro_torch.serve import decode, spec_decode
     cfg = reduced(ARCHS[arch])
@@ -296,13 +297,13 @@ def test_what_still_raises(arch):
         spec_decode.make_spec_decode_step(cfg, dims, spec, 4)
     dense = reduced(ARCHS["granite-8b"])
     ddims = model_dims(dense)
-    for call in (lambda: EngineConfig(mesh_shape=(1, 2)).check_ported(),
-                 lambda: spec_decode.make_spec_decode_step(
+    EngineConfig(mesh_shape=(1, 2)).check_ported()
+    for call in (lambda: spec_decode.make_spec_decode_step(
                      dense, ddims, spec, 4, mesh=object()),
                  lambda: decode.init_decode_state(dense, ddims, spec, 2,
                                                   data_size=2,
                                                   device="cpu")):
-        with pytest.raises(NotImplementedError, match="ROADMAP P15"):
+        with pytest.raises(NotImplementedError, match="ROADMAP P18"):
             call()
     odd = types.SimpleNamespace(family="retrieval")
     with pytest.raises(ValueError, match="unknown model family"):
