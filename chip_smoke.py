@@ -13,13 +13,15 @@ JAX):
     python3 chip_smoke.py --frontends [--src OTHER_CHECKOUT/src]
     python3 chip_smoke.py --translation [--src OTHER_CHECKOUT/src]
     python3 chip_smoke.py --mesh [--src OTHER_CHECKOUT/src]
+    python3 chip_smoke.py --train [--src OTHER_CHECKOUT/src]
 
 The second form builds the kernels and runs only phase 4's decode-step
 profile, the third only phase 2's paged-attention checks and timings (the
 decode, verify and prefix reads), the fourth only phase 8, the fifth only
 phase 9, the sixth only phase 10, the seventh only phase 11, the eighth
-only the sharded step's check, phase 5 and phase 12, of this
-checkout's port or of another commit's (a parent unpacked with ``git
+only the sharded step's check, phase 5 and phase 12, the ninth only
+phase 13 (without building the kernels, which training does not
+launch), of this checkout's port or of another commit's (a parent unpacked with ``git
 archive``), so that two commits compare in one call.
 Phase 3's first two runs, phase 4 and the profile pass their engine
 configuration explicitly (flash attention, recompute prefill, no prefix
@@ -244,14 +246,33 @@ Phases, each failing loudly:
    each rank, and the unsharded step entry never.  It prints per-step
    wall and device ms at (1, 1) and (1, 2) and the bytes each step's
    exact gathers move.
+13. training (last, every earlier model freed): (a) granite-8b at full
+   width (d 4096, 32/8 heads, d_ff 14336, vocab 49152) cut to
+   ``PHASE13["layers"]`` = 12 of its 36 layers (AdamW in float32 holds
+   16 B a parameter: 48.3 GB at 12 layers, 132 GB at 36), 20 steps
+   through ``ResilientLoop`` with the launcher's settings (float32, TF32
+   off, ``flash_jax``, remat, AdamW, lr 3e-4, 5 warmup steps, batch 8 x
+   128 ``SyntheticLM`` tokens, seed 0; no checkpoint in the window): the
+   losses must be finite and the last below the first; it prints the
+   median step's wall ms, a profiled step's device ms and idle share,
+   peak memory, tokens/s and the AdamW update's ms beside its bytes
+   bound; (b) the JAX test's restart-and-replay scenario on the card
+   (reduced granite-8b, 2 microbatches, int8 compression, remat, a fault
+   at step 17, checkpoints every 10 steps): the replayed losses must
+   equal the first pass's bitwise; a checkpoint's MB and save ms; (c)
+   float32 card = CPU for three train steps of each of the six families
+   at ``reduced`` (``PHASE13_TOL``); (d) ``python -m
+   repro_torch.launch.train --arch granite-8b --reduced --steps 10`` as
+   a child process on the card, which must exit 0, print its ``done:``
+   line and import nothing of JAX.  No kernel may launch in (a)-(c).
 
 Each serving phase prints a digest of its streams (``streams_sha256``), so
 that two commits' runs compare token for token.
 
 It prints the build times, the kernel checks, the serving numbers, one
 JSON line of kernel measurements (launches counted on phases 4, 5, 6, 7,
-4 (b), 6 (f), 8 (a) and (c), 9 (a) and (b), 10 (a) and (b), 11 and 12,
-each from 0; the RSW's ``launches`` are its step entry's,
+4 (b), 6 (f), 8 (a) and (c), 9 (a) and (b), 10 (a) and (b), 11, 12
+and 13, each from 0; the RSW's ``launches`` are its step entry's,
 ``launches_vpn_list`` its vpn-list entry's and ``launches_shard`` /
 ``launches_combine`` its sharded step's two entries'), the card's name
 and power limit, and as its last line ``{"ok": true, "device":
@@ -4625,6 +4646,408 @@ def mesh_phase(torch, dev, cfg, dims, params, phase5_digest, src):
     return counts
 
 
+PHASE13 = dict(arch="granite-8b", layers=12, global_batch=8, seq_len=128,
+               steps=20, lr=3e-4, warmup=5)
+PHASE13_FAMILIES = ("granite-8b", "qwen3-moe-30b-a3b", "mamba2-130m",
+                    "jamba-1.5-large-398b", "paligemma-3b", "whisper-medium")
+PHASE13_TOL = 1e-4
+# the attention K biases: their gradient is zero in exact arithmetic (a
+# bias on K adds one constant to a query's scores, which the softmax
+# drops), so each device's is rounding noise (~1e-9 against JAX's, tests/
+# test_torch_train.py), which AdamW's normalisation turns into steps of
+# +-lr; held to 2 lr a step instead of PHASE13_TOL
+PHASE13_NOISE_LEAVES = ("attn.k.b", "cross.k.b")
+# leaves drawn as zeros under Adafactor (jamba's conv_b and dt_bias) hold
+# nothing but three of its updates, which scale each element's gradient
+# by a factored second moment and so keep an element's rounding error
+# where a far larger one sets the leaf's scale: jamba's conv_b differed by
+# 1.26e-4 of its largest element after three steps on an H100, held to
+# 3e-4; every other leaf drawn as zeros is held to PHASE13_TOL.  The
+# witness that this is float32 rounding is the CPU's own: the same three
+# steps from weights each nudged by one float32 ulp (``_ulp_nudged``)
+PHASE13_ADAFACTOR_ZERO_INIT_TOL = 3e-4
+
+
+def _recording(step_fn, torch, wall=None):
+    """``step_fn`` that keeps its last returned state in ``.last`` (the
+    loop returns only its report) and, with ``wall``, appends each step's
+    ms between two device synchronisations."""
+    def fn(state, batch):
+        if wall is None:
+            out = step_fn(state, batch)
+        else:
+            out, ms = sync_ms(torch, step_fn, state, batch)
+            wall.append(ms)
+        fn.last = out[0]
+        return out
+    return fn
+
+
+def _n_params(tree):
+    return sum(x.numel() for x in _leaves(tree))
+
+
+def train_full_width(torch, dev):
+    """Phase 13 (a): granite-8b at full width, ``PHASE13["layers"]`` of
+    its 36 layers, trained ``PHASE13["steps"]`` steps through
+    ``ResilientLoop`` with the launcher's settings (float32 with TF32 off,
+    ``flash_jax``, remat, AdamW, lr 3e-4 with 5 warmup steps, a global
+    batch of 8 x 128 ``SyntheticLM`` tokens, seed 0); no checkpoint falls
+    inside the window.  Then one more step under the profiler (device
+    ms, idle share, kernels, the largest by device time) and the AdamW
+    update alone (CUDA events and device ms beside its bytes bound)."""
+    import math
+    import tempfile
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.ckpt.checkpoint import tree_flatten, tree_unflatten
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.models import FwdOptions, model_dims
+    from repro_torch.optim import make_optimizer
+    from repro_torch.runtime import ResilientLoop
+    from repro_torch.train import TrainConfig, init_state, make_train_step
+    o = PHASE13
+    full = get_config(o["arch"])
+    cfg = dataclasses.replace(full, num_layers=o["layers"])
+    dims = model_dims(cfg)
+    tc = TrainConfig(lr=o["lr"], warmup_steps=o["warmup"],
+                     total_steps=o["steps"], dtype=torch.float32,
+                     microbatches=cfg.train_microbatches)
+    fwd = FwdOptions(attn_impl="flash_jax", dtype=torch.float32,
+                     remat=cfg.remat)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = init_state(torch.Generator(dev).manual_seed(SEED), cfg, dims,
+                       tc, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n = _n_params(state["params"])
+    n_layers = _n_params(state["params"]["layers"])
+    log(f"phase 13 (a): {cfg.name} at full width (d {cfg.d_model}, "
+        f"{cfg.num_heads}/{cfg.num_kv_heads} heads of "
+        f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size}) cut to {cfg.num_layers} of {full.num_layers} "
+        f"layers: AdamW in float32 holds params, grads, m and v at 16 B a "
+        f"parameter, {16 * n / 1e9:.1f} GB at {cfg.num_layers} layers and "
+        f"{16 * (n + n_layers * (full.num_layers / cfg.num_layers - 1)) / 1e9:.0f} "
+        f"GB at {full.num_layers}; {n / 1e9:.3f} B parameters, "
+        f"{n_layers / 1e9:.3f} B in the layers; drawn in {init_s:.1f} s")
+    wall = []
+    step_fn = make_train_step(cfg, dims, tc, fwd)
+    timed = _recording(step_fn, torch, wall)
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                                  seq_len=o["seq_len"],
+                                  global_batch=o["global_batch"], seed=0))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_phase13a_") as d:
+        loop = ResilientLoop(CheckpointManager(d), data, timed,
+                             ckpt_every=o["steps"] + 1)
+        rep = loop.run(state, total_steps=o["steps"])
+        saved = loop.ckpt.all_steps()
+    peak = torch.cuda.max_memory_allocated()
+    losses = rep.losses
+    if saved or rep.steps_run != o["steps"]:
+        raise AssertionError(f"phase 13 (a): {rep.steps_run} steps, "
+                             f"checkpoints {saved}")
+    if not all(math.isfinite(x) for x in losses) or losses[-1] >= losses[0]:
+        raise AssertionError(f"phase 13 (a): the losses are not finite and "
+                             f"falling: {losses}")
+    state = timed.last
+    batch = {k: torch.as_tensor(v).to(dev)
+             for k, v in data.batch_at(o["steps"]).items()}
+    step_med = statistics.median(wall[1:])
+    rows = profile_device(torch, lambda: step_fn(state, batch), 1)
+    step_dev = sum(ms for _, ms, _ in rows) if rows else None
+    if step_dev is not None and step_dev > max(wall[1:]):
+        raise AssertionError(
+            f"phase 13 (a): a step's device time {step_dev:.2f} ms exceeds "
+            f"the slowest timed step's wall {max(wall[1:]):.2f} ms")
+    tokens = o["global_batch"] * o["seq_len"]
+    # the step's multiply-adds: 6 T over the layers' and the LM head's
+    # parameters (forward and backward), 2 T over the layers' again
+    # (remat's second forward; the head is outside the checkpointed
+    # layers); the embedding lookup does none, and the attention scores
+    # and mixing (4 S d a token and layer forward, 0.5% of a layer's at
+    # S = 128) are left out
+    head = state["params"].get("lm_head", state["params"]["embed"])
+    n_head = _n_params(head)
+    flops = (6 * (n_layers + n_head) + 2 * n_layers) * tokens
+    # the AdamW update alone, on gradients of the parameters' shapes
+    opt = make_optimizer(cfg.optimizer, weight_decay=tc.weight_decay)
+    params = state["params"]
+    with torch.no_grad():
+        grads = tree_unflatten(params, [torch.randn_like(p) * 1e-3
+                                        for p in tree_flatten(params)[0]])
+    lr = torch.tensor(o["lr"], device=dev)
+
+    def update():
+        opt.update(grads, state["opt"], params, state["step"], lr)
+
+    update_ms = time_ms(torch, [update], iters=3)
+    update_dev = device_ms(torch, update, 1)
+    update_bytes = 7 * 4 * n     # read g, p, m, v; write p, m, v
+    del grads
+    out = dict(
+        layers=f"{cfg.num_layers} of {full.num_layers}", params=n,
+        steps=rep.steps_run, loss_first=losses[0], loss_last=losses[-1],
+        losses=[round(x, 4) for x in losses],
+        step_wall_ms_median=round(step_med, 2),
+        step_wall_ms_first=round(wall[0], 1),
+        step_device_ms=None if step_dev is None else round(step_dev, 2),
+        idle_share=None if step_dev is None else round(
+            1 - step_dev / step_med, 3),
+        step_kernels=round(sum(k for _, _, k in rows)),
+        step_top_kernels=[[name[:70], round(ms, 2), round(k)]
+                          for name, ms, k in rows[:8]],
+        tokens_per_s=round(tokens / (step_med / 1e3), 1),
+        flops_per_step=flops,
+        flops_bound_ms=round(flops / PEAK_FLOPS["float32"] * 1e3, 1),
+        peak_gb=round(peak / 1e9, 2),
+        update_ms=round(update_ms, 2),
+        update_device_ms=None if update_dev is None else round(update_dev,
+                                                               2),
+        update_bytes=update_bytes,
+        update_bound_ms=round(update_bytes / HBM_BYTES_PER_S * 1e3, 2))
+    log("phase 13 (a) granite-8b training: " + json.dumps(out))
+    return out
+
+
+def train_replay(torch, dev):
+    """Phase 13 (b): restart and replay on the card, the JAX test's
+    scenario (``tests/test_train.py`` ``test_resilient_loop_restart_and_
+    replay``): reduced granite-8b, 2 microbatches, int8 compression,
+    remat, ``FaultInjector([17])``, checkpoints every 10 steps, 25 steps.
+    The replayed losses of steps 10..16 must equal the first pass's
+    bitwise.  Prints a checkpoint's MB and a blocking save's ms."""
+    import os
+    import shutil
+    import tempfile
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.models import FwdOptions, model_dims
+    from repro_torch.runtime import FaultInjector, ResilientLoop
+    from repro_torch.train import TrainConfig, init_state, make_train_step
+    cfg = reduced(get_config("granite-8b"))
+    dims = model_dims(cfg)
+    tc = TrainConfig(lr=1e-3, warmup_steps=5, total_steps=40,
+                     microbatches=2, grad_compression=True,
+                     dtype=torch.float32)
+    state = init_state(torch.Generator(dev).manual_seed(SEED), cfg, dims,
+                       tc, device=dev)
+    step_fn = _recording(make_train_step(cfg, dims, tc, FwdOptions(
+        dtype=torch.float32, remat=True)), torch)
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=32,
+                                  global_batch=8, seed=1))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_phase13b_")
+    try:
+        ckpt = CheckpointManager(tmp, keep_last=2)
+        loop = ResilientLoop(ckpt, data, step_fn, ckpt_every=10,
+                             injector=FaultInjector([17]))
+        t0 = time.perf_counter()
+        rep = loop.run(state, total_steps=25)
+        run_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ckpt.save(25, step_fn.last, blocking=True)
+        save_ms = (time.perf_counter() - t0) * 1e3
+        d = os.path.join(tmp, "step_25")
+        mb = sum(os.path.getsize(os.path.join(d, f))
+                 for f in os.listdir(d)) / 1e6
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    L = rep.losses
+    if not (rep.restarts == 1 and rep.final_step == 25
+            and L[10:17] == L[17:24] and L[-1] < L[0]):
+        raise AssertionError(f"phase 13 (b): restarts {rep.restarts}, "
+                             f"final step {rep.final_step}, losses {L}")
+    out = dict(restarts=rep.restarts, final_step=rep.final_step,
+               steps_run=rep.steps_run, replay_bitwise=True,
+               loss_first=L[0], loss_last=L[-1], run_s=round(run_s, 2),
+               ckpt_mb=round(mb, 3), save_ms=round(save_ms, 1))
+    log("phase 13 (b) restart and replay: " + json.dumps(out))
+    return out
+
+
+def _named_leaves(tree, prefix=""):
+    """(dotted path, leaf) in ``tree_flatten``'s order (keys sorted)."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _named_leaves(tree[k], f"{prefix}{k}.")
+    else:
+        yield prefix[:-1], tree
+
+
+def _leaf_errors(got, want):
+    """Per leaf path, ``(max |got - want|, max |want|)`` (got on any
+    device, want on the CPU)."""
+    out = {}
+    for (name, g), (_, w) in zip(_named_leaves(got), _named_leaves(want)):
+        w = w.detach()
+        out[name] = (float((g.detach().cpu() - w).abs().max()),
+                     float(w.abs().max()))
+    return out
+
+
+def _ulp_nudged(torch, params, seed):
+    """``params`` (float32, on the CPU) with each nonzero element moved one
+    ulp up or down, the sign drawn from ``seed``: a perturbation of one
+    rounding's size."""
+    from repro_torch.ckpt.checkpoint import tree_flatten, tree_unflatten
+    gen = torch.Generator().manual_seed(seed)
+    out = []
+    for p in tree_flatten(params)[0]:
+        p = p.detach()
+        inf = torch.full_like(p, float("inf"))
+        up = torch.rand(p.shape, generator=gen) < 0.5
+        out.append(torch.where(p == 0, p, torch.nextafter(
+            p, torch.where(up, inf, -inf))))
+    return tree_unflatten(params, out)
+
+
+def train_card_vs_cpu(torch, dev, cpu_dev=None):
+    """Phase 13 (c): for each of the six families at ``reduced``, three
+    train steps in float32 from the same weights (drawn on the CPU, then
+    copied) and the same batches on the card and on the CPU, with the
+    config's optimizer and microbatches: the losses and every parameter
+    leaf must agree to ``PHASE13_TOL`` relative (a leaf's largest error
+    over its largest element), a leaf drawn as zeros under Adafactor to
+    ``PHASE13_ADAFACTOR_ZERO_INIT_TOL``, the attention K biases
+    (``PHASE13_NOISE_LEAVES``) to 2 lr a step.  Beside each error it
+    prints what float32 rounding alone moves on the CPU: the same steps
+    from weights nudged by one ulp (``_ulp_nudged``) against the CPU
+    run."""
+    from repro_torch.ckpt.checkpoint import tree_flatten, tree_unflatten
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.models import FwdOptions, model_dims
+    from repro_torch.params import init_params
+    from repro_torch.train import (TrainConfig, make_train_step,
+                                   state_from_params)
+    cpu = cpu_dev or torch.device("cpu")
+    out = {}
+    for name in PHASE13_FAMILIES:
+        cfg = reduced(get_config(name))
+        dims = model_dims(cfg)
+        tc = TrainConfig(lr=1e-3, warmup_steps=1, total_steps=10,
+                         microbatches=cfg.train_microbatches,
+                         dtype=torch.float32)
+        params = init_params(torch.Generator().manual_seed(SEED + 13), cfg,
+                             dims, device="cpu")
+        zero_init = {k for k, p in _named_leaves(params) if not p.any()}
+        runs = {}
+        for label, d, p0 in (("card", dev, params), ("cpu", cpu, params),
+                             ("cpu_ulp", cpu, _ulp_nudged(torch, params,
+                                                          SEED + 13))):
+            state = state_from_params(tree_unflatten(p0, [
+                p.to(d, copy=True) for p in tree_flatten(p0)[0]]), cfg,
+                tc)
+            step = make_train_step(cfg, dims, tc, FwdOptions(
+                dtype=torch.float32, remat=True))
+            front = cfg.frontend_tokens if cfg.frontend != "none" else 0
+            data = SyntheticLM(DataConfig(
+                vocab_size=cfg.vocab_size, seq_len=16, global_batch=4,
+                seed=SEED + 13, frontend_tokens=front, d_model=cfg.d_model))
+            losses = []
+            for i in range(3):
+                batch = {k: torch.as_tensor(v).to(d)
+                         for k, v in data.batch_at(i).items()}
+                state, m = step(state, batch)
+                losses.append(float(m["loss"]))
+            runs[label] = (losses, state["params"])
+        (lc, pc), (lw, pw), (lu, pu) = (runs["card"], runs["cpu"],
+                                        runs["cpu_ulp"])
+
+        def split(got, losses):
+            """(loss rel err, drawn leaves' rel errs, zero-init leaves'
+            rel errs, K biases' abs errs) of ``got`` against the CPU's."""
+            errs = _leaf_errors(got, pw)
+            noise = {k: d for k, (d, m) in errs.items()
+                     if k.endswith(PHASE13_NOISE_LEAVES)}
+            rel = {k: d / max(m, 1e-30) for k, (d, m) in errs.items()
+                   if k not in noise}
+            return (max(abs(a - b) / abs(b) for a, b in zip(losses, lw)),
+                    {k: e for k, e in rel.items() if k not in zero_init},
+                    {k: e for k, e in rel.items() if k in zero_init}, noise)
+        loss_err, drawn, zeros, noise = split(pc, lc)
+        u_loss, u_drawn, u_zeros, u_noise = split(pu, lu)
+        zero_tol = (PHASE13_ADAFACTOR_ZERO_INIT_TOL
+                    if cfg.optimizer == "adafactor" else PHASE13_TOL)
+        out[name] = dict(optimizer=cfg.optimizer,
+                         microbatches=cfg.train_microbatches,
+                         losses=lc, loss_rel_err=loss_err,
+                         param_rel_err_max=max(drawn.values()),
+                         worst_leaf=max(drawn, key=drawn.get),
+                         zero_init_rel_err=zeros, zero_init_tol=zero_tol,
+                         k_bias_abs_err=noise,
+                         ulp_nudge=dict(
+                             loss_rel_change=u_loss,
+                             param_rel_change_max=max(u_drawn.values()),
+                             zero_init_rel_change=u_zeros,
+                             k_bias_abs_change=u_noise))
+        if (loss_err > PHASE13_TOL or max(drawn.values()) > PHASE13_TOL
+                or any(e > zero_tol for e in zeros.values())
+                or any(d > 2 * tc.lr * 3 for d in noise.values())):
+            raise AssertionError(f"phase 13 (c) {name}: card != CPU: "
+                                 + json.dumps(out[name]))
+    log(f"phase 13 (c) float32 card = CPU, 3 train steps, tolerance "
+        f"{PHASE13_TOL} relative: " + json.dumps(out))
+    return out
+
+
+def train_launcher(torch, root):
+    """Phase 13 (d): ``python -m repro_torch.launch.train --arch
+    granite-8b --reduced --steps 10 --ckpt-dir <tmp>`` as a child process
+    on the card, run from the port's ``src`` without ``PYTHONPATH`` (so
+    that ``src/sitecustomize.py`` stays unread) and with ``-X
+    importtime``: it must exit 0, print its ``done:`` line and import no
+    module of JAX."""
+    import os
+    import shutil
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_phase13d_")
+    try:
+        cmd = [sys.executable, "-X", "importtime", "-m",
+               "repro_torch.launch.train", "--arch", "granite-8b",
+               "--reduced", "--steps", "10", "--ckpt-dir", tmp]
+        env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=str(root), env=env,
+                              capture_output=True, text=True, timeout=600)
+        secs = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    done = [x for x in proc.stdout.splitlines() if x.startswith("done: ")]
+    jax_mods = [x for x in proc.stderr.splitlines()
+                if x.startswith("import time:")
+                and x.rsplit("|", 1)[-1].strip().split(".")[0] in ("jax",
+                                                                   "repro")]
+    if proc.returncode != 0 or not done or jax_mods:
+        raise AssertionError(
+            f"phase 13 (d): the launcher exited {proc.returncode}, JAX "
+            f"imports {jax_mods[:3]}:\n{proc.stdout[-3000:]}\n"
+            f"{proc.stderr[-3000:]}")
+    log(f"phase 13 (d) {' '.join(cmd[3:])}: exit 0 in {secs:.1f} s, no "
+        f"JAX module imported; " + " | ".join(proc.stdout.splitlines()))
+    return dict(exit=0, seconds=round(secs, 1), done=done[0])
+
+
+def training(torch, dev, src):
+    """Phase 13: (a), (b), (c), then (d).  Returns the kernels' launch
+    counts of (a)-(c), each from 0 (the training path launches none of
+    the three kernels, as in the JAX package)."""
+    t0 = time.perf_counter()
+    _kernel_counts(reset=True)
+    train_full_width(torch, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_replay(torch, dev)
+    train_card_vs_cpu(torch, dev)
+    counts = _kernel_counts()
+    train_launcher(torch, src)
+    log(f"phase 13: {time.perf_counter() - t0:.1f} s; launches "
+        + json.dumps(counts))
+    return counts
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -4685,6 +5108,9 @@ def main() -> int:
     ap.add_argument("--mesh", action="store_true",
                     help="build the kernels and run only the sharded step's "
                          "check, phase 5 and phase 12 (sharded serving)")
+    ap.add_argument("--train", action="store_true",
+                    help="run only phase 13 (training on the card; no "
+                         "kernel build: the training path launches none)")
     ap.add_argument("--resume-child", metavar="DIR", default=None,
                     help=argparse.SUPPRESS)  # phase 6 (f)'s fresh process
     ap.add_argument("--mesh-child", nargs=2, metavar=("RANK", "DIR"),
@@ -4694,6 +5120,12 @@ def main() -> int:
                          "of the checkout's src/ (e.g. a parent commit's, "
                          "unpacked with git archive)")
     args = ap.parse_args()
+    import os
+    # phase 13's train step runs in torch's deterministic mode, which on
+    # the card needs cuBLAS's deterministic workspace; cuBLAS reads the
+    # setting once, at its first call in the process (32 MiB, the same
+    # size as its default on Hopper)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is "
@@ -4712,6 +5144,10 @@ def main() -> int:
         return 0
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, card "
         f"{torch.cuda.get_device_name(0)}")
+    if args.train:
+        training(torch, dev, src)
+        card_line(torch)
+        return 0
 
     t0 = time.perf_counter()
     built = _build.build()
@@ -4834,9 +5270,13 @@ def main() -> int:
     paths.update(frontends(torch, dev, results))
     t11 = time.perf_counter()
     paths["phase11"] = translation(torch, dev, results)
+    t13 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths["phase13"] = training(torch, dev, src)
     log(f"new sub-runs: phase 4 (b) {t4b - t0:.1f} s, phase 6 (f) "
         f"{t6f - t4b:.1f} s, phase 12 {t12 - t6f:.1f} s, phase 11 "
-        f"{time.perf_counter() - t11:.1f} s")
+        f"{t13 - t11:.1f} s, phase 13 {time.perf_counter() - t13:.1f} s")
 
     # launches: each path's count was set to 0 just before it and read
     # just after; the line gives their sum and each path's

@@ -108,11 +108,35 @@ def tree_unflatten(like, leaves: List[Any]):
     return build(like)
 
 
+def flatten_up_to(like, tree) -> List[Any]:
+    """The subtrees of ``tree`` at the positions of ``like``'s leaves, in
+    ``like``'s leaf order (JAX's ``treedef.flatten_up_to``): e.g. each
+    parameter's optimizer-state dict."""
+    out: List[Any] = []
+
+    def walk(x, t):
+        if x is None:
+            return
+        if isinstance(x, dict):
+            for k in sorted(x):
+                walk(x[k], t[k])
+        elif isinstance(x, (list, tuple)):
+            for a, b in zip(x, t):
+                walk(a, b)
+        else:
+            out.append(t)
+
+    walk(like, tree)
+    return out
+
+
 def _host(key: str, x) -> Tuple[str, np.ndarray]:
-    """(file key, numpy array) of one leaf: a tensor is copied to the host,
-    a bfloat16 one as its int16 bits under ``key + ":bf16"``."""
+    """(file key, numpy array) of one leaf: a tensor is copied to the host
+    (a CPU tensor too: the writer thread must not see a later in-place
+    update, as the optimizers make), a bfloat16 one as its int16 bits
+    under ``key + ":bf16"``."""
     if isinstance(x, torch.Tensor):
-        x = x.detach().cpu()
+        x = x.detach().to("cpu", copy=True)
         if x.dtype == torch.bfloat16:
             return key + _BF16, x.view(torch.int16).numpy()
         return key, x.numpy()

@@ -14,11 +14,51 @@ import torch
 import torch.nn.functional as F
 
 
-def rms_norm(x: torch.Tensor, scale: torch.Tensor,
-             eps: float = 1e-5) -> torch.Tensor:
+def _rms_norm_fwd(x: torch.Tensor, scale: torch.Tensor,
+                  eps: float) -> torch.Tensor:
     x32 = x.float()
     var = x32.square().mean(dim=-1, keepdim=True)
     return (x32 * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
+
+
+def _rms_norm_bwd(eps: float, x: torch.Tensor, scale: torch.Tensor,
+                  g: torch.Tensor):
+    """The JAX package's custom VJP: float32 internal math, ``dx`` in x's
+    dtype, ``dscale`` summed over every axis but the last, in scale's
+    dtype."""
+    x32 = x.float()
+    g32 = g.float()
+    var = x32.square().mean(dim=-1, keepdim=True)
+    rstd = torch.rsqrt(var + eps)
+    xhat = x32 * rstd
+    gs = g32 * scale.float()
+    dx = rstd * (gs - xhat * (gs * xhat).mean(dim=-1, keepdim=True))
+    dscale = (g32 * xhat).sum(dim=tuple(range(x.dim() - 1)))
+    return dx.to(x.dtype), dscale.to(scale.dtype)
+
+
+class _RMSNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scale, eps):
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        return _rms_norm_fwd(x, scale, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, scale = ctx.saved_tensors
+        dx, dscale = _rms_norm_bwd(ctx.eps, x, scale, g)
+        return dx, dscale, None
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor,
+             eps: float = 1e-5) -> torch.Tensor:
+    """RMS norm in float32, returned in x's dtype.  Under autograd its
+    gradient is the JAX package's custom one (``_rms_norm_bwd``); without
+    it (serving) the same forward runs as plain ops."""
+    if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad):
+        return _RMSNorm.apply(x, scale, eps)
+    return _rms_norm_fwd(x, scale, eps)
 
 
 def silu(x: torch.Tensor) -> torch.Tensor:

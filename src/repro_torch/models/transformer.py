@@ -2,7 +2,10 @@
 
 ``forward`` mirrors ``repro.models.transformer.forward``: a loop over the
 stacked layers (leading layer axis, as ``params.init_params`` lays them
-out), returning ``(logits, aux, caches)``; ``opt.collect_cache``
+out; under autograd each stacked leaf is unbound once, ``layer_stack``,
+and with ``opt.remat`` each layer, each hybrid group and each encoder
+layer runs under ``torch.utils.checkpoint``), returning ``(logits, aux,
+caches)``; ``opt.collect_cache``
 additionally returns what the serving engine installs — the per-layer
 K/V for the hybrid-translated KV pool, each mamba sublayer's SSM state
 and conv tail, and the audio decoder's cross-attention K/V.  Attention
@@ -11,6 +14,8 @@ goes through ``attention(impl=opt.attn_impl)``: with ``"pallas"`` (alias
 plain version; ``"flash_jax"`` runs the chunked eager attention.  A
 layer whose parameters hold ``"moe"`` runs the MoE FFN (``models/moe.py``)
 in place of the MLP, and ``aux`` sums its losses over the layers.
+``loss_fn`` is the training loss over ``forward`` (JAX's, with its
+metrics); ``layers.rms_norm`` carries JAX's custom gradient.
 
 * dense / moe: every layer is causal self-attention then the FFN.
 * vlm (paligemma): the dense body over ``frontend_proj(frontend)``
@@ -30,11 +35,14 @@ in place of the MLP, and ``aux`` sums its losses over the layers.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
+from repro_torch.ckpt.checkpoint import tree_flatten
 from repro_torch.configs.base import ArchConfig, resolve
 from . import layers as L
 from .attention import attention
@@ -78,6 +86,7 @@ def n_attn_layers(cfg: ArchConfig) -> int:
 class FwdOptions:
     attn_impl: str = "dense"           # dense | flash_jax | pallas (flash)
     dtype: Any = torch.float32
+    remat: bool = False                # recompute each layer in backward
     q_chunk: int = 512                 # flash_jax's chunks
     kv_chunk: int = 512
     triangular_schedule: bool = False
@@ -86,10 +95,47 @@ class FwdOptions:
 
 
 def take(tree, i: int):
-    """Entry ``i`` of every leaf of a stacked tree (views)."""
+    """Entry ``i`` of every leaf of a stacked tree (views; a leaf may also
+    be a tuple of the entries, as ``layer_stack`` makes it)."""
     if isinstance(tree, dict):
         return {k: take(v, i) for k, v in tree.items()}
     return tree[i]
+
+
+def _unstack(tree, depth: int = 1):
+    """Each leaf of a stacked tree as the tuple of its entries, ``depth``
+    leading axes deep (nested tuples)."""
+    if isinstance(tree, dict):
+        return {k: _unstack(v, depth) for k, v in tree.items()}
+    parts = tree.unbind(0)
+    if depth == 1:
+        return parts
+    return tuple(_unstack(t, depth - 1) for t in parts)
+
+
+def layer_stack(layers, cfg: ArchConfig):
+    """The stacked layer tree the forward indexes.  Under autograd, when a
+    leaf requires grad, each leaf is unbound once into its entries (the
+    hybrid family's group stacks of mamba, MLP and MoE sublayers two axes
+    deep): the backward of ``unbind`` stacks every entry's gradient once,
+    where indexing the stack layer by layer would add a zero tensor the
+    size of the whole stack per layer.  Without grad (serving) the tree
+    is returned as it is; the entries are the same views either way."""
+    if not (torch.is_grad_enabled()
+            and any(t.requires_grad for t in tree_flatten(layers)[0])):
+        return layers
+    if cfg.family == "hybrid":
+        return {k: _unstack(v, 1 if k == "attn" else 2)
+                for k, v in layers.items()}
+    return _unstack(layers)
+
+
+def _remat(fn, remat: bool, *args):
+    """``fn(*args)``, under ``torch.utils.checkpoint`` (its activations
+    recomputed in backward) when ``remat`` and grad are on."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 def layer_params(params, i: int) -> Dict[str, Any]:
@@ -135,10 +181,15 @@ def encoder(params, frames: torch.Tensor, cfg: ArchConfig, dims: ModelDims,
     the encoder's final norm.  Returns ``(B, F, d)`` in ``opt.dtype``."""
     x = L.linear(params["frontend_proj"], frames.to(opt.dtype))
     enc = params["encoder"]
-    for i in range(cfg.encoder_layers):
-        blk = layer_params(enc, i)
+    layers = layer_stack(enc["layers"], cfg)
+
+    def body(blk, x):
         x, _ = _self_attn(blk, x, cfg, dims, opt, causal=False)
         x, _ = _ffn(blk, x, cfg, opt)
+        return x
+
+    for i in range(cfg.encoder_layers):
+        x = _remat(body, opt.remat, take(layers, i), x)
     return L.rms_norm(x, enc["final_norm"], cfg.norm_eps)
 
 
@@ -210,6 +261,47 @@ def _zero_aux(device) -> Dict[str, torch.Tensor]:
             for k in ("lb_loss", "z_loss", "fraction_dropped")}
 
 
+def _acc_aux(aux, a):
+    return aux if a is None else {key: aux[key] + a[key] for key in aux}
+
+
+def _layer(blk, x, aux, enc_out, seq_len, cfg: ArchConfig, dims: ModelDims,
+           opt: FwdOptions):
+    """One layer of the dense, moe, vlm, audio or ssm family: ``(x, aux,
+    cache)``, cache the layer's ``MambaCache`` (ssm, None unless
+    ``opt.collect_cache``) or ``(k, v, ck, cv)`` (ck, cv None but in the
+    audio decoder)."""
+    if cfg.family == "ssm":
+        x, st = mamba_block(blk, x, cfg, dims, collect=opt.collect_cache,
+                            seq_len=seq_len)
+        return x, aux, st
+    x, (k, v) = _self_attn(blk, x, cfg, dims, opt)
+    ck = cv = None
+    if enc_out is not None:
+        x, (ck, cv) = _cross_attn(blk, x, enc_out, cfg, dims, opt)
+    x, a = _ffn(blk, x, cfg, opt)
+    return x, _acc_aux(aux, a), (k, v, ck, cv)
+
+
+def _group(blk, x, aux, seq_len, cfg: ArchConfig, dims: ModelDims,
+           opt: FwdOptions):
+    """One hybrid group (``attn_every - 1`` mamba sublayers, then the
+    attention sublayer, each followed by its FFN): ``(x, aux, ((k, v),
+    [MambaCache | None, ...]))``."""
+    g = cfg.attn_every
+    ssm = []
+    for i in range(g):
+        if i < g - 1:
+            x, st = mamba_block(take(blk["mamba"], i), x, cfg, dims,
+                                collect=opt.collect_cache, seq_len=seq_len)
+            ssm.append(st)
+        else:
+            x, kv = _self_attn(blk["attn"], x, cfg, dims, opt)
+        x, a = _ffn(hybrid_ffn_select(cfg, blk, i), x, cfg, opt)
+        aux = _acc_aux(aux, a)
+    return x, aux, (kv, ssm)
+
+
 def forward(params, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
             dims: ModelDims, opt: FwdOptions = FwdOptions()):
     """batch: tokens (B, S) [+ seq_len (B,), each row's real length, which
@@ -240,43 +332,35 @@ def forward(params, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
     elif cfg.family == "audio":
         enc_out = encoder(params, batch["frontend"], cfg, dims, opt)
 
-    def acc(a):
-        return aux if a is None else {key: aux[key] + a[key] for key in aux}
-
+    layers = layer_stack(params["layers"], cfg)
     if cfg.family == "hybrid":
         g = cfg.attn_every
         n_groups = cfg.num_layers // g
         for gi in range(n_groups):
-            blk = layer_params(params, gi)
-            for i in range(g):
-                if i < g - 1:
-                    x, st = mamba_block(take(blk["mamba"], i), x, cfg, dims,
-                                        collect=collect, seq_len=seq_len)
-                    ssm.append(st)
-                else:
-                    x, (k, v) = _self_attn(blk["attn"], x, cfg, dims, opt)
-                    ks.append(k)
-                    vs.append(v)
-                x, a = _ffn(hybrid_ffn_select(cfg, blk, i), x, cfg, opt)
-                aux = acc(a)
+            x, aux, ((k, v), st) = _remat(
+                functools.partial(_group, cfg=cfg, dims=dims, opt=opt),
+                opt.remat, take(layers, gi), x, aux, seq_len)
+            if collect:
+                ks.append(k)
+                vs.append(v)
+                ssm.extend(st)
         lead = (n_groups, g - 1)
     else:
         for i in range(cfg.num_layers):
-            blk = layer_params(params, i)
-            if cfg.family == "ssm":
-                x, st = mamba_block(blk, x, cfg, dims, collect=collect,
-                                    seq_len=seq_len)
-                ssm.append(st)
+            x, aux, cache = _remat(
+                functools.partial(_layer, cfg=cfg, dims=dims, opt=opt),
+                opt.remat, take(layers, i), x, aux, enc_out, seq_len)
+            if not collect:
                 continue
-            x, (k, v) = _self_attn(blk, x, cfg, dims, opt)
+            if cfg.family == "ssm":
+                ssm.append(cache)
+                continue
+            k, v, ck, cv = cache
             ks.append(k)
             vs.append(v)
             if enc_out is not None:
-                x, (ck, cv) = _cross_attn(blk, x, enc_out, cfg, dims, opt)
                 cks.append(ck)
                 cvs.append(cv)
-            x, a = _ffn(blk, x, cfg, opt)
-            aux = acc(a)
         lead = ()
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     if n_front:
@@ -294,3 +378,28 @@ def forward(params, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
         if ssm:
             caches["ssm"] = stack_caches(ssm, lead)
     return logits, aux, caches
+
+
+def loss_fn(params, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
+            dims: ModelDims, opt: FwdOptions = FwdOptions(),
+            moe_loss_weight: float = 0.01, z_loss_weight: float = 1e-3):
+    """Next-token cross-entropy over ``log_softmax`` in float32, labels < 0
+    masked; MoE models add ``moe_loss_weight * lb_loss + z_loss_weight *
+    z_loss``.  Returns ``(loss, metrics)`` with the JAX package's keys:
+    ``ce`` and ``loss``, and for MoE models ``lb_loss``, ``z_loss`` and
+    ``fraction_dropped``."""
+    logits, aux, _ = forward(params, batch, cfg, dims, opt)
+    labels = batch["labels"]
+    mask = (labels >= 0).float()
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    ll = logp.gather(-1, labels.clamp(min=0).long()[..., None])[..., 0]
+    ce = -(ll * mask).sum() / mask.sum().clamp(min=1.0)
+    loss = ce
+    metrics = {"ce": ce}
+    if cfg.moe_num_experts:
+        loss = loss + moe_loss_weight * aux["lb_loss"] \
+            + z_loss_weight * aux["z_loss"]
+        metrics.update({k: aux[k] for k in
+                        ("lb_loss", "z_loss", "fraction_dropped")})
+    metrics["loss"] = loss
+    return loss, metrics

@@ -1,9 +1,11 @@
-"""Serving fault tolerance: the fault injector, the step watchdog and the
-snapshot/restore supervisor (the serving half of ``repro.runtime``)."""
-from .fault import (ServeFaultInjector, InjectedFault, InjectedStepFault,
-                    InjectedAllocFault, StragglerMonitor, StepWatchdog)
+"""Fault tolerance: the fault injectors, the step watchdog, the resilient
+train loop and the serving snapshot/restore supervisor."""
+from .fault import (FaultInjector, ServeFaultInjector, InjectedFault,
+                    InjectedStepFault, InjectedAllocFault, StragglerMonitor,
+                    StepWatchdog, ResilientLoop, LoopReport, restore_like)
 from .resilient_serve import ResilientServe, ReplayDivergence
 
-__all__ = ["ServeFaultInjector", "InjectedFault", "InjectedStepFault",
-           "InjectedAllocFault", "StragglerMonitor", "StepWatchdog",
+__all__ = ["FaultInjector", "ServeFaultInjector", "InjectedFault",
+           "InjectedStepFault", "InjectedAllocFault", "StragglerMonitor",
+           "StepWatchdog", "ResilientLoop", "LoopReport", "restore_like",
            "ResilientServe", "ReplayDivergence"]

@@ -1,9 +1,14 @@
-"""Fault injection and step-time monitoring for the serving engine.
+"""Fault injection, step-time monitoring and the resilient train loop.
 
-The serving half of ``repro.runtime.fault``, copied (the port imports
-nothing of the JAX package).  The training loop's ``FaultInjector`` and
-``ResilientLoop`` are not ported yet (ROADMAP P16).
+The port of ``repro.runtime.fault`` (the port imports nothing of the JAX
+package).
 
+* ``FaultInjector``      — deterministic failure schedule for the train
+                           loop (each scheduled step fires once).
+* ``ResilientLoop``      — the train loop: periodic checkpoints,
+                           restore-and-replay on failure (the data
+                           pipeline is f(step), so replay is exact),
+                           bounded retries.
 * ``ServeFaultInjector`` — chaos schedule for the serving engine: forced
                            allocation denials, preemptions and crashes at
                            the step's safe points.
@@ -20,10 +25,14 @@ dispatch).
 """
 from __future__ import annotations
 
+import dataclasses
 from collections import defaultdict
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
+
+from repro_torch.ckpt.checkpoint import tree_flatten, tree_unflatten
 
 
 class InjectedFault(RuntimeError):
@@ -45,6 +54,21 @@ class InjectedStepFault(InjectedFault):
 
 class InjectedAllocFault(InjectedFault):
     kind = "alloc"
+
+
+class FaultInjector:
+    """Raises :class:`InjectedStepFault` at the scheduled steps (each
+    fires once).  Serve-path chaos uses :class:`ServeFaultInjector`
+    instead: the engine polls for denials rather than catching."""
+
+    def __init__(self, fail_at_steps=()):
+        self.fail_at = set(fail_at_steps)
+        self.fired = set()
+
+    def maybe_fail(self, step: int) -> None:
+        if step in self.fail_at and step not in self.fired:
+            self.fired.add(step)
+            raise InjectedStepFault(f"injected failure at step {step}")
 
 
 class ServeFaultInjector:
@@ -209,3 +233,82 @@ class StepWatchdog:
             self.flags.append((self.seen, float(step_time)))
         self._mon.record(0, step_time)
         return bool(hung)
+
+
+@dataclasses.dataclass
+class LoopReport:
+    steps_run: int
+    restarts: int
+    final_step: int
+    losses: List[float]
+
+
+def restore_like(restored, state):
+    """``restored`` (``CheckpointManager.restore``'s CPU tensors) as fresh
+    tensors on ``state``'s devices, each leaf requiring grad where
+    ``state``'s does."""
+    flat, _ = tree_flatten(state)
+    out = [torch.empty_like(s, requires_grad=False).copy_(r)
+           .requires_grad_(s.requires_grad)
+           for r, s in zip(tree_flatten(restored)[0], flat)]
+    return tree_unflatten(state, out)
+
+
+class ResilientLoop:
+    """Checkpointed train loop with restart-and-replay semantics.
+
+    Recovers from :class:`InjectedStepFault` (a whole step died): the
+    latest committed checkpoint is restored and the steps after it are
+    replayed, each batch ``data.batch_at(step)`` again; with no checkpoint
+    yet, training restarts from step 0 through ``on_restart(None)``; more
+    than ``max_restarts`` restarts re-raise.  Batches and restored state
+    go to the device the given ``state`` is on.  Its serving counterpart
+    is ``runtime/resilient_serve.py``."""
+
+    def __init__(self, ckpt_manager, data, train_step: Callable,
+                 ckpt_every: int = 10, max_restarts: int = 3,
+                 injector: Optional[FaultInjector] = None,
+                 on_restart: Optional[Callable] = None):
+        self.ckpt = ckpt_manager
+        self.data = data
+        self.train_step = train_step
+        self.ckpt_every = ckpt_every
+        self.max_restarts = max_restarts
+        self.injector = injector
+        self.on_restart = on_restart
+
+    def run(self, state, total_steps: int) -> LoopReport:
+        device = state["step"].device
+        restarts = 0
+        losses: List[float] = []
+        step = int(state["step"])
+        while step < total_steps:
+            try:
+                while step < total_steps:
+                    if self.injector is not None:
+                        self.injector.maybe_fail(step)
+                    batch = {k: torch.as_tensor(v).to(device)
+                             for k, v in self.data.batch_at(step).items()}
+                    state, metrics = self.train_step(state, batch)
+                    losses.append(float(metrics["loss"]))
+                    step += 1
+                    if step % self.ckpt_every == 0:
+                        self.ckpt.save(step, state)
+            except InjectedFault:
+                restarts += 1
+                if restarts > self.max_restarts:
+                    raise
+                self.ckpt.wait()
+                latest = self.ckpt.latest_step()
+                if latest is None:
+                    # no checkpoint yet: restart from scratch is the policy
+                    step = 0
+                    if self.on_restart is not None:
+                        state = self.on_restart(None)
+                    continue
+                restored, step = self.ckpt.restore(state, latest)
+                state = (self.on_restart(restored) if self.on_restart
+                         else restore_like(restored, state))
+        self.ckpt.wait()
+        return LoopReport(steps_run=len(losses), restarts=restarts,
+                          final_step=step, losses=losses)
