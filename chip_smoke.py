@@ -14,15 +14,17 @@ JAX):
     python3 chip_smoke.py --translation [--src OTHER_CHECKOUT/src]
     python3 chip_smoke.py --mesh [--src OTHER_CHECKOUT/src]
     python3 chip_smoke.py --train [--src OTHER_CHECKOUT/src]
+    python3 chip_smoke.py --mesh-train [--src OTHER_CHECKOUT/src]
 
 The second form builds the kernels and runs only phase 4's decode-step
 profile, the third only phase 2's paged-attention checks and timings (the
 decode, verify and prefix reads), the fourth only phase 8, the fifth only
 phase 9, the sixth only phase 10, the seventh only phase 11, the eighth
 only the sharded step's check, phase 5 and phase 12, the ninth only
-phase 13 (without building the kernels, which training does not
-launch), of this checkout's port or of another commit's (a parent unpacked with ``git
-archive``), so that two commits compare in one call.
+phase 13 and the tenth only phase 14 (both without building the kernels,
+which training does not launch), of this checkout's port or of another
+commit's (a parent unpacked with ``git archive``), so that two commits
+compare in one call.
 Phase 3's first two runs, phase 4 and the profile pass their engine
 configuration explicitly (flash attention, recompute prefill, no prefix
 cache, ``overload_policy="fail"``), so that their numbers compare with
@@ -265,14 +267,35 @@ Phases, each failing loudly:
    repro_torch.launch.train --arch granite-8b --reduced --steps 10`` as
    a child process on the card, which must exit 0, print its ``done:``
    line and import nothing of JAX.  No kernel may launch in (a)-(c).
+14. training over a (data, model) mesh (last, after phase 13's state is
+   freed): (a) the mesh step at ``(1, 1)`` over NCCL (world size 1, this
+   process) on phase 13 (a)'s model, schedule, seed and batches,
+   ``PHASE14_STEPS`` = 5 steps through ``ResilientLoop`` with a sharded
+   ``CheckpointManager``: its gathers and reductions run on groups of one
+   (counted), and its losses must equal phase 13 (a)'s first five
+   bitwise (``--mesh-train`` alone runs those five single-device steps
+   first); (b) ``(1, 2)`` and then ``(2, 1)`` as two processes on the
+   card over gloo (``--mesh-train-child``), granite-8b at full width cut
+   to ``PHASE14_LAYERS`` = 2 layers, float32, AdamW, 3 steps: every
+   rank's losses within ``PHASE14_TOL`` = 2e-4 of a single-device run
+   here, its gradient norms within ``PHASE14_GNORM_RTOL`` and its
+   gathered parameters' norms and ramp sums after the last step within
+   ``PHASE14_PARAM_RTOL``, and at (1, 2) first the Megatron forward against the
+   single-device forward (``PHASE14_MEGATRON_TOL``); each rank prints its
+   state bytes, step wall ms, the bytes its gathers and reductions hand
+   over a step and its peak memory; (c) ``torchrun --nproc-per-node 2 -m
+   repro_torch.launch.train --arch granite-8b --reduced --steps 4
+   --data-mesh 1 --model-mesh 2`` as a child, which must exit 0, print
+   ``done:`` and import nothing of JAX.  No kernel may launch in (a) or
+   (b).
 
 Each serving phase prints a digest of its streams (``streams_sha256``), so
 that two commits' runs compare token for token.
 
 It prints the build times, the kernel checks, the serving numbers, one
 JSON line of kernel measurements (launches counted on phases 4, 5, 6, 7,
-4 (b), 6 (f), 8 (a) and (c), 9 (a) and (b), 10 (a) and (b), 11, 12
-and 13, each from 0; the RSW's ``launches`` are its step entry's,
+4 (b), 6 (f), 8 (a) and (c), 9 (a) and (b), 10 (a) and (b), 11, 12,
+13 and 14, each from 0; the RSW's ``launches`` are its step entry's,
 ``launches_vpn_list`` its vpn-list entry's and ``launches_shard`` /
 ``launches_combine`` its sharded step's two entries'), the card's name
 and power limit, and as its last line ``{"ok": true, "device":
@@ -4687,6 +4710,29 @@ def _n_params(tree):
     return sum(x.numel() for x in _leaves(tree))
 
 
+def phase13_setup(torch, layers=None):
+    """Phase 13 (a)'s training, ``layers`` deep (``PHASE13["layers"]`` by
+    default): (published config, cut config, dims, TrainConfig,
+    FwdOptions, data), the launcher's settings."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.models import FwdOptions, model_dims
+    from repro_torch.train import TrainConfig
+    o = PHASE13
+    full = get_config(o["arch"])
+    cfg = dataclasses.replace(full, num_layers=layers or o["layers"])
+    dims = model_dims(cfg)
+    tc = TrainConfig(lr=o["lr"], warmup_steps=o["warmup"],
+                     total_steps=o["steps"], dtype=torch.float32,
+                     microbatches=cfg.train_microbatches)
+    fwd = FwdOptions(attn_impl="flash_jax", dtype=torch.float32,
+                     remat=cfg.remat)
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                                  seq_len=o["seq_len"],
+                                  global_batch=o["global_batch"], seed=0))
+    return full, cfg, dims, tc, fwd, data
+
+
 def train_full_width(torch, dev):
     """Phase 13 (a): granite-8b at full width, ``PHASE13["layers"]`` of
     its 36 layers, trained ``PHASE13["steps"]`` steps through
@@ -4700,21 +4746,11 @@ def train_full_width(torch, dev):
     import tempfile
     from repro_torch.ckpt import CheckpointManager
     from repro_torch.ckpt.checkpoint import tree_flatten, tree_unflatten
-    from repro_torch.configs import get_config
-    from repro_torch.data import DataConfig, SyntheticLM
-    from repro_torch.models import FwdOptions, model_dims
     from repro_torch.optim import make_optimizer
     from repro_torch.runtime import ResilientLoop
-    from repro_torch.train import TrainConfig, init_state, make_train_step
+    from repro_torch.train import init_state, make_train_step
     o = PHASE13
-    full = get_config(o["arch"])
-    cfg = dataclasses.replace(full, num_layers=o["layers"])
-    dims = model_dims(cfg)
-    tc = TrainConfig(lr=o["lr"], warmup_steps=o["warmup"],
-                     total_steps=o["steps"], dtype=torch.float32,
-                     microbatches=cfg.train_microbatches)
-    fwd = FwdOptions(attn_impl="flash_jax", dtype=torch.float32,
-                     remat=cfg.remat)
+    full, cfg, dims, tc, fwd, data = phase13_setup(torch)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     state = init_state(torch.Generator(dev).manual_seed(SEED), cfg, dims,
@@ -4735,9 +4771,6 @@ def train_full_width(torch, dev):
     wall = []
     step_fn = make_train_step(cfg, dims, tc, fwd)
     timed = _recording(step_fn, torch, wall)
-    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
-                                  seq_len=o["seq_len"],
-                                  global_batch=o["global_batch"], seed=0))
     with tempfile.TemporaryDirectory(prefix="chip_smoke_phase13a_") as d:
         loop = ResilientLoop(CheckpointManager(d), data, timed,
                              ckpt_every=o["steps"] + 1)
@@ -4808,7 +4841,7 @@ def train_full_width(torch, dev):
         update_bytes=update_bytes,
         update_bound_ms=round(update_bytes / HBM_BYTES_PER_S * 1e3, 2))
     log("phase 13 (a) granite-8b training: " + json.dumps(out))
-    return out
+    return out, losses
 
 
 def train_replay(torch, dev):
@@ -5033,10 +5066,10 @@ def train_launcher(torch, root):
 def training(torch, dev, src):
     """Phase 13: (a), (b), (c), then (d).  Returns the kernels' launch
     counts of (a)-(c), each from 0 (the training path launches none of
-    the three kernels, as in the JAX package)."""
+    the three kernels, as in the JAX package), and (a)'s losses."""
     t0 = time.perf_counter()
     _kernel_counts(reset=True)
-    train_full_width(torch, dev)
+    _, losses = train_full_width(torch, dev)
     gc.collect()
     torch.cuda.empty_cache()
     train_replay(torch, dev)
@@ -5044,6 +5077,398 @@ def training(torch, dev, src):
     counts = _kernel_counts()
     train_launcher(torch, src)
     log(f"phase 13: {time.perf_counter() - t0:.1f} s; launches "
+        + json.dumps(counts))
+    return counts, losses
+
+
+# ---------------------------------------------------------------- phase 14
+PHASE14_STEPS = 5              # (a): phase 13 (a)'s first steps
+PHASE14_LAYERS = 2             # (b)'s depth over gloo (full width)
+PHASE14_B_STEPS = 3
+PHASE14_MESHES = ((1, 2), (2, 1))
+PHASE14_TOL = 2e-4             # (b)'s losses against the single device's
+# (b)'s gradient norms against the single device's, relative: AdamW and
+# the clip hide a gradient off by a constant factor from the losses, the
+# norm shows it; the two sum each gradient in another order, ~1e-7 of it
+PHASE14_GNORM_RTOL = 1e-5
+# (b)'s gathered parameters after the last step, each leaf's norm and its
+# ramp-weighted sum (``_fingerprint``) against the single device's, as a
+# share of the leaf's norm: the updates differ by their rounding, and a
+# sign flip of AdamW's first update where a gradient element is ~0 moves
+# an element by 2 lr; a block laid in the wrong place moves the ramp sum
+# by a share of order 1
+PHASE14_PARAM_RTOL = 1e-5
+# (b)'s Megatron logits against the single-device forward's, relative to
+# the largest: the row-parallel sums add two halves of each dot product
+PHASE14_MEGATRON_TOL = 1e-4
+PHASE14_TIMEOUT_S = 300        # a collective never joined fails
+MESH_TRAIN_TAG = "phase 14 (b) rank: "
+
+
+def _counted(mesh):
+    """Wrap ``mesh``'s all-gather and all-reduce to count the bytes of the
+    tensors each hands over (the gathered whole, the reduced tensor) and
+    the calls; returns the tally dict."""
+    tally = {"gather_calls": 0, "gather_bytes": 0, "reduce_calls": 0,
+             "reduce_bytes": 0}
+    gather, reduce = mesh.all_gather, mesh.all_reduce
+
+    def all_gather(t, dim, axis="model"):
+        out = gather(t, dim, axis)
+        tally["gather_calls"] += 1
+        tally["gather_bytes"] += out.numel() * out.element_size()
+        return out
+
+    def all_reduce(t, axis="model", **kw):
+        tally["reduce_calls"] += 1
+        tally["reduce_bytes"] += t.numel() * t.element_size()
+        return reduce(t, axis, **kw)
+
+    mesh.all_gather, mesh.all_reduce = all_gather, all_reduce
+    return tally
+
+
+def _mesh_state(torch, dev, mesh, cfg, dims, tc):
+    """(specs, this rank's blocks, the state's bytes on this rank): the
+    phase's seeded whole state, laid out by JAX's rules."""
+    from repro_torch.dist.sharding import ShardingRules, shard_tree
+    from repro_torch.train import abstract_state, init_state, state_shardings
+    specs = state_shardings(abstract_state(cfg, dims, tc, torch.float32),
+                            mesh, ShardingRules(
+                                zero_params=cfg.zero_shard_params))
+    state = shard_tree(init_state(torch.Generator(dev).manual_seed(SEED),
+                                  cfg, dims, tc, device=dev), specs, mesh)
+    nbytes = sum(x.numel() * x.element_size() for x in _leaves(state))
+    return specs, state, nbytes
+
+
+def _per_step(tally, steps):
+    return {k: v // steps for k, v in tally.items()}
+
+
+def _fingerprint(torch, leaves):
+    """For each leaf (whole, in ``tree_flatten`` order): its norm, its sum
+    weighted by a ramp from 0 to 1 over its flat index (a block in the
+    wrong place moves it), and the ramp's norm, in float64."""
+    out = []
+    for x in leaves:
+        x = x.detach().reshape(-1).double()
+        ramp = torch.linspace(0, 1, x.numel(), dtype=torch.float64,
+                              device=x.device)
+        out.append([float(x.norm()), float(x @ ramp), float(ramp.norm())])
+        del x, ramp
+    return out
+
+
+def _fingerprints_differ(got, want):
+    """The leaves whose ``_fingerprint`` differs from ``want``'s by more
+    than ``PHASE14_PARAM_RTOL`` of the leaf's norm (the ramp sum's
+    difference weighed by the ramp's norm, its bound per unit of the
+    parameters' difference)."""
+    bad = []
+    for i, ((n, r, rn), (wn, wr, _)) in enumerate(zip(got, want)):
+        if abs(n - wn) > PHASE14_PARAM_RTOL * wn \
+                or abs(r - wr) > PHASE14_PARAM_RTOL * wn * rn:
+            bad.append(i)
+    return bad if len(got) == len(want) else ["leaf count"]
+
+
+def train_reference(torch, dev, steps, layers=None):
+    """Phase 13 (a)'s training for ``steps`` steps on one device (its
+    schedule, seed and batches): (the losses, each step's gradient norm,
+    the parameters after the last step)."""
+    import tempfile
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.runtime import ResilientLoop
+    from repro_torch.train import init_state, make_train_step
+    _, cfg, dims, tc, fwd, data = phase13_setup(torch, layers)
+    state = init_state(torch.Generator(dev).manual_seed(SEED), cfg, dims,
+                       tc, device=dev)
+    inner, norms = make_train_step(cfg, dims, tc, fwd), []
+
+    def step(state, batch):
+        state, m = inner(state, batch)
+        norms.append(float(m["grad_norm"]))
+        step.last = state
+        return state, m
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_phase14r_") as d:
+        rep = ResilientLoop(CheckpointManager(d), data, step,
+                            ckpt_every=steps + 1).run(state, steps)
+    return rep.losses, norms, step.last["params"]
+
+
+def mesh_train_one(torch, dev, ref_losses):
+    """Phase 14 (a): the mesh step at ``(1, 1)`` over NCCL (world size 1,
+    this process) on phase 13 (a)'s model, schedule, seed and batches,
+    ``PHASE14_STEPS`` steps through ``ResilientLoop`` with a sharded
+    ``CheckpointManager``: its gathers and reductions run on groups of one
+    (counted), and its losses must equal phase 13 (a)'s first bitwise."""
+    import datetime
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.runtime import ResilientLoop
+    from repro_torch.train import make_train_step
+    steps = PHASE14_STEPS
+    full, cfg, dims, tc, fwd, data = phase13_setup(torch)
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    dist.init_process_group(
+        "nccl", init_method=f"tcp://localhost:{_free_port()}", world_size=1,
+        rank=0, timeout=datetime.timedelta(seconds=PHASE14_TIMEOUT_S))
+    try:
+        mesh = make_local_mesh(1, 1)
+        torch.cuda.reset_peak_memory_stats()
+        specs, state, nbytes = _mesh_state(torch, dev, mesh, cfg, dims, tc)
+        tally = _counted(mesh)
+        wall = []
+        step_fn = _recording(make_train_step(cfg, dims, tc, fwd, mesh,
+                                             specs=specs), torch, wall)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_phase14a_") as d:
+            rep = ResilientLoop(CheckpointManager(d, mesh=mesh, specs=specs),
+                                data, step_fn, ckpt_every=steps + 1).run(
+                state, steps)
+        peak = torch.cuda.max_memory_allocated()
+        del state, step_fn
+    finally:
+        dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    want = ref_losses[:steps]
+    if rep.losses != want or not tally["gather_calls"] \
+            or not tally["reduce_calls"]:
+        raise AssertionError(f"phase 14 (a): losses {rep.losses} != phase "
+                             f"13 (a)'s {want} bitwise, or no collective "
+                             f"ran: {tally}")
+    out = dict(layers=f"{cfg.num_layers} of {full.num_layers}",
+               steps=steps, losses=rep.losses, bitwise=True,
+               state_bytes=nbytes,
+               step_wall_ms_median=round(statistics.median(wall[1:]), 2),
+               step_wall_ms_first=round(wall[0], 1),
+               collectives_per_step=_per_step(tally, steps),
+               peak_gb=round(peak / 1e9, 2))
+    log("phase 14 (a) mesh step at (1, 1) over NCCL, granite-8b full "
+        "width: " + json.dumps(out))
+    return out
+
+
+def mesh_train_child(torch, dev, rank, directory, shape):
+    """Phase 14 (b)'s rank (``--mesh-train-child RANK DIR D,M``): join the
+    gloo group of two (file rendezvous in DIR), draw phase 13 (a)'s seeded
+    state at ``PHASE14_LAYERS`` deep, keep its blocks, train
+    ``PHASE14_B_STEPS`` steps and print what it measured, with each step's
+    gradient norm and the ``_fingerprint`` of the parameters gathered after
+    the last step.  At (1, 2) it
+    first holds the Megatron forward, the whole weights' schedule, against
+    the single-device forward on the first batch."""
+    import datetime
+    import torch.distributed as dist
+    from repro_torch.dist.megatron import (make_megatron_forward,
+                                           megatron_param_shardings)
+    from repro_torch.ckpt.checkpoint import tree_flatten
+    from repro_torch.dist.sharding import ShardingRules, shard_tree, whole_of
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import forward
+    from repro_torch.params import init_params
+    from repro_torch.train import make_train_step
+    t0 = time.perf_counter()
+    dist.init_process_group(
+        "gloo", init_method=f"file://{Path(directory) / 'rendezvous'}",
+        world_size=shape[0] * shape[1], rank=rank,
+        timeout=datetime.timedelta(seconds=PHASE14_TIMEOUT_S))
+    try:
+        _kernel_counts(reset=True)
+        mesh = make_local_mesh(*shape)
+        _, cfg, dims, tc, fwd, data = phase13_setup(torch, PHASE14_LAYERS)
+        out = dict(rank=rank, shape=list(shape))
+        batch = {k: torch.as_tensor(v).to(dev)
+                 for k, v in data.batch_at(0).items()}
+        if shape == (1, 2):
+            params = init_params(torch.Generator(dev).manual_seed(SEED), cfg,
+                                 dims, device=dev)
+            with torch.no_grad():
+                want, _, _ = forward(params, batch, cfg, dims, fwd)
+                blocks = shard_tree(params, megatron_param_shardings(
+                    params, mesh, ShardingRules()), mesh)
+                del params
+                got, _, _ = make_megatron_forward(
+                    cfg, dims, mesh, attn_impl=fwd.attn_impl)(blocks, batch)
+            err = float((got - want).abs().max() / want.abs().max())
+            del blocks, got, want
+            if err > PHASE14_MEGATRON_TOL:
+                raise AssertionError(f"Megatron logits differ by {err} of "
+                                     "the largest")
+            out["megatron_logits_rel_err"] = err
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        specs, state, nbytes = _mesh_state(torch, dev, mesh, cfg, dims, tc)
+        tally = _counted(mesh)
+        step = make_train_step(cfg, dims, tc, fwd, mesh, specs=specs)
+        losses, norms, wall = [], [], []
+        for i in range(PHASE14_B_STEPS):
+            batch = {k: torch.as_tensor(v).to(dev)
+                     for k, v in data.batch_at(i).items()}
+            (state, m), ms = sync_ms(torch, step, state, batch)
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+            wall.append(ms)
+        out.update(losses=losses, grad_norms=norms, state_bytes=nbytes,
+                   step_wall_ms=[round(w, 1) for w in wall],
+                   collectives_per_step=_per_step(tally, PHASE14_B_STEPS),
+                   peak_gb=round(torch.cuda.max_memory_allocated() / 1e9, 2),
+                   launches=_kernel_counts())
+        with torch.no_grad():
+            out["params"] = _fingerprint(torch, (
+                whole_of(b, s, mesh) for b, s in zip(
+                    tree_flatten(state["params"])[0],
+                    tree_flatten(specs["params"])[0])))
+        out["total_s"] = round(time.perf_counter() - t0, 1)
+        print(MESH_TRAIN_TAG + json.dumps(out), flush=True)
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_train_two(torch, dev, src):
+    """Phase 14 (b): ``PHASE14_MESHES`` in turn, each as two processes on
+    this card over gloo (``--mesh-train-child``), granite-8b at full width
+    cut to ``PHASE14_LAYERS``, float32, AdamW, ``PHASE14_B_STEPS`` steps:
+    every rank's losses within ``PHASE14_TOL`` of a single-device run here
+    (run first, alone on the card), its gradient norms within
+    ``PHASE14_GNORM_RTOL`` and its gathered parameters' ``_fingerprint``
+    within ``PHASE14_PARAM_RTOL``.  Returns the ranks' reports."""
+    import os
+    import shutil
+    import tempfile
+    ref, ref_norms, params = train_reference(torch, dev, PHASE14_B_STEPS,
+                                             PHASE14_LAYERS)
+    from repro_torch.ckpt.checkpoint import tree_flatten
+    ref_params = _fingerprint(torch, tree_flatten(params)[0])
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    reports = []
+    for shape in PHASE14_MESHES:
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_phase14b_")
+        procs = []
+        try:
+            for r in range(shape[0] * shape[1]):
+                procs.append(subprocess.Popen(
+                    [sys.executable, str(Path(__file__).resolve()),
+                     "--mesh-train-child", str(r), tmp,
+                     f"{shape[0]},{shape[1]}", "--src", str(src)],
+                    stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                    text=True, env=env))
+            outs = [p.communicate(timeout=900) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            shutil.rmtree(tmp, ignore_errors=True)
+        for r, (p, (out, err)) in enumerate(zip(procs, outs)):
+            lines = [x for x in out.splitlines()
+                     if x.startswith(MESH_TRAIN_TAG)]
+            if p.returncode != 0 or not lines:
+                raise AssertionError(
+                    f"phase 14 (b) {shape}: rank {r} failed (exit "
+                    f"{p.returncode}):\n{out[-3000:]}\n{err[-4000:]}")
+            got = json.loads(lines[-1][len(MESH_TRAIN_TAG):])
+            diff = max(abs(a - b) for a, b in zip(got["losses"], ref))
+            if len(got["losses"]) != len(ref) or diff > PHASE14_TOL:
+                raise AssertionError(f"phase 14 (b) {shape}: rank {r}'s "
+                                     f"losses {got['losses']} against the "
+                                     f"single device's {ref}")
+            gdiff = max(abs(a - b) / b
+                        for a, b in zip(got["grad_norms"], ref_norms))
+            if len(got["grad_norms"]) != len(ref_norms) \
+                    or gdiff > PHASE14_GNORM_RTOL:
+                raise AssertionError(
+                    f"phase 14 (b) {shape}: rank {r}'s gradient norms "
+                    f"{got['grad_norms']} against the single device's "
+                    f"{ref_norms}")
+            bad = _fingerprints_differ(got["params"], ref_params)
+            if bad:
+                raise AssertionError(
+                    f"phase 14 (b) {shape}: rank {r}'s parameters after "
+                    f"step {PHASE14_B_STEPS} differ from the single "
+                    f"device's in leaves {bad}: {got['params']} against "
+                    f"{ref_params}")
+            got["loss_max_abs_diff"] = diff
+            got["grad_norm_max_rel_diff"] = gdiff
+            got["param_norm_max_rel_diff"] = max(
+                abs(g[0] - w[0]) / w[0]
+                for g, w in zip(got.pop("params"), ref_params))
+            reports.append(got)
+    log(f"phase 14 (b) granite-8b full width, {PHASE14_LAYERS} of 36 "
+        f"layers (depth cut: {PHASE14_LAYERS != 36}), float32, AdamW, "
+        f"{PHASE14_B_STEPS} steps, two processes on one card over gloo; "
+        f"single-device losses {ref}, gradient norms {ref_norms}: "
+        + json.dumps(reports))
+    return reports
+
+
+def mesh_train_launcher(torch, root):
+    """Phase 14 (c): ``torchrun --nproc-per-node 2 -m
+    repro_torch.launch.train --arch granite-8b --reduced --steps 4
+    --data-mesh 1 --model-mesh 2`` as a child (torchrun as ``python -m
+    torch.distributed.run --standalone``, from the port's ``src`` without
+    ``PYTHONPATH``, every process with ``PYTHONPROFILEIMPORTTIME``): it
+    must exit 0, print ``done:`` and import nothing of JAX."""
+    import os
+    import shutil
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_phase14c_")
+    try:
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc-per-node", "2", "-m", "repro_torch.launch.train",
+               "--arch", "granite-8b", "--reduced", "--steps", "4",
+               "--data-mesh", "1", "--model-mesh", "2", "--ckpt-dir", tmp]
+        env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+        env["PYTHONPROFILEIMPORTTIME"] = "1"
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=str(root), env=env,
+                              capture_output=True, text=True, timeout=600)
+        secs = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    done = [x for x in proc.stdout.splitlines() if "done: " in x]
+    jax_mods = [x for x in proc.stderr.splitlines()
+                if "import time:" in x
+                and x.rsplit("|", 1)[-1].strip().split(".")[0] in ("jax",
+                                                                   "repro")]
+    if proc.returncode != 0 or not done or jax_mods:
+        raise AssertionError(
+            f"phase 14 (c): torchrun exited {proc.returncode}, JAX imports "
+            f"{jax_mods[:3]}:\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    log(f"phase 14 (c) torchrun {' '.join(cmd[4:-2])}: exit 0 in "
+        f"{secs:.1f} s, no JAX module imported; "
+        + " | ".join(proc.stdout.splitlines()))
+    return dict(exit=0, seconds=round(secs, 1), done=done[0])
+
+
+def mesh_training(torch, dev, src, ref_losses=None):
+    """Phase 14: (a), (b), then (c).  ``ref_losses``: phase 13 (a)'s (run
+    here for ``PHASE14_STEPS`` steps when not given).  Returns the kernels'
+    launch counts of (a) and (b)'s ranks, each from 0: none may launch."""
+    t0 = time.perf_counter()
+    if ref_losses is None:
+        ref_losses = train_reference(torch, dev, PHASE14_STEPS)[0]
+        gc.collect()
+        torch.cuda.empty_cache()
+    _kernel_counts(reset=True)
+    mesh_train_one(torch, dev, ref_losses)
+    counts = _kernel_counts()
+    for got in mesh_train_two(torch, dev, src):
+        for k, n in got["launches"].items():
+            counts[k] += n
+    mesh_train_launcher(torch, src)
+    if any(counts.values()):
+        raise AssertionError(f"phase 14: a kernel launched: {counts}")
+    log(f"phase 14: {time.perf_counter() - t0:.1f} s; launches "
         + json.dumps(counts))
     return counts
 
@@ -5111,6 +5536,12 @@ def main() -> int:
     ap.add_argument("--train", action="store_true",
                     help="run only phase 13 (training on the card; no "
                          "kernel build: the training path launches none)")
+    ap.add_argument("--mesh-train", action="store_true",
+                    help="run only phase 14 (training over a mesh; no "
+                         "kernel build)")
+    ap.add_argument("--mesh-train-child", nargs=3,
+                    metavar=("RANK", "DIR", "SHAPE"), default=None,
+                    help=argparse.SUPPRESS)  # phase 14 (b)'s ranks
     ap.add_argument("--resume-child", metavar="DIR", default=None,
                     help=argparse.SUPPRESS)  # phase 6 (f)'s fresh process
     ap.add_argument("--mesh-child", nargs=2, metavar=("RANK", "DIR"),
@@ -5142,10 +5573,19 @@ def main() -> int:
     if args.mesh_child:
         mesh_child(torch, dev, int(args.mesh_child[0]), args.mesh_child[1])
         return 0
+    if args.mesh_train_child:
+        rank, directory, shape = args.mesh_train_child
+        mesh_train_child(torch, dev, int(rank), directory,
+                         tuple(int(x) for x in shape.split(",")))
+        return 0
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, card "
         f"{torch.cuda.get_device_name(0)}")
     if args.train:
         training(torch, dev, src)
+        card_line(torch)
+        return 0
+    if args.mesh_train:
+        mesh_training(torch, dev, src)
         card_line(torch)
         return 0
 
@@ -5273,10 +5713,15 @@ def main() -> int:
     t13 = time.perf_counter()
     gc.collect()
     torch.cuda.empty_cache()
-    paths["phase13"] = training(torch, dev, src)
+    paths["phase13"], phase13_losses = training(torch, dev, src)
+    t14 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths["phase14"] = mesh_training(torch, dev, src, phase13_losses)
     log(f"new sub-runs: phase 4 (b) {t4b - t0:.1f} s, phase 6 (f) "
         f"{t6f - t4b:.1f} s, phase 12 {t12 - t6f:.1f} s, phase 11 "
-        f"{t13 - t11:.1f} s, phase 13 {time.perf_counter() - t13:.1f} s")
+        f"{t13 - t11:.1f} s, phase 13 {t14 - t13:.1f} s, phase 14 "
+        f"{time.perf_counter() - t14:.1f} s")
 
     # launches: each path's count was set to 0 just before it and read
     # just after; the line gives their sum and each path's

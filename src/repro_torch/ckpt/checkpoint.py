@@ -30,6 +30,14 @@ wrote.
   entries may change shape between steps (the serving engine's pickled
   host state does), which the positional pair's shape check forbids.
 * Retention: ``keep_last`` checkpoints are retained, older ones pruned.
+* **Sharded states** (``mesh``, ``specs``: a train state each rank holds
+  in blocks, ``dist/sharding.py``): saved as the JAX package saves one,
+  whole leaves in the same files.  Every rank joins the gather of each
+  leaf on its own thread (the writer thread calls no collective); rank 0
+  alone writes.  ``wait`` then holds every rank until rank 0's write is
+  committed, so that all read the same steps.  ``restore`` reads the whole
+  leaves and gives each rank its block under its own ``specs``: a state
+  saved on one mesh restores onto any other (JAX's elastic restore).
 """
 from __future__ import annotations
 
@@ -144,9 +152,18 @@ def _host(key: str, x) -> Tuple[str, np.ndarray]:
 
 
 class CheckpointManager:
-    def __init__(self, directory: str, keep_last: int = 3):
+    def __init__(self, directory: str, keep_last: int = 3, mesh=None,
+                 specs=None):
+        """``mesh`` (this rank's ``launch.mesh.Mesh``) and ``specs`` (the
+        state's ``PartitionSpec`` tree) for a sharded state: every rank
+        makes its manager over the same directory."""
+        if (mesh is None) != (specs is None):
+            raise ValueError("a sharded state's manager takes both the mesh "
+                             "and the specs")
         self.dir = directory
         self.keep_last = keep_last
+        self.mesh, self.specs = mesh, specs
+        self.writer = mesh is None or mesh.rank == 0
         os.makedirs(directory, exist_ok=True)
         self._thread: Optional[threading.Thread] = None
         self.save_count = 0
@@ -182,7 +199,7 @@ class CheckpointManager:
 
     def _write(self, step: int, named: Dict[str, np.ndarray],
                extra: Dict[str, Any], blocking: bool) -> None:
-        self.wait()                                  # one writer at a time
+        self._join()                                 # one writer at a time
         if blocking:
             self._write_step(step, named, extra)
         else:
@@ -192,9 +209,23 @@ class CheckpointManager:
             self._thread.start()
 
     def save(self, step: int, state, blocking: bool = False) -> None:
-        """Snapshot now; write in the background (unless blocking)."""
+        """Snapshot now; write in the background (unless blocking).  A
+        sharded state's leaves are gathered whole first, one at a time,
+        by every rank."""
         flat, treedef = tree_flatten(state)
-        named = dict(_host(str(i), x) for i, x in enumerate(flat))
+        if self.mesh is not None:
+            from repro_torch.dist.sharding import whole_of
+            named = {}
+            for i, (x, spec) in enumerate(zip(
+                    flat, tree_flatten(self.specs)[0])):
+                whole = whole_of(x.detach(), spec, self.mesh)
+                if self.writer:
+                    key, a = _host(str(i), whole)
+                    named[key] = a
+            if not self.writer:
+                return
+        else:
+            named = dict(_host(str(i), x) for i, x in enumerate(flat))
         self._write(step, named, {"treedef": treedef}, blocking)
 
     def save_named(self, step: int, arrays: Dict[str, Any],
@@ -205,10 +236,17 @@ class CheckpointManager:
         host = dict(_host(str(k), v) for k, v in arrays.items())
         self._write(step, host, {"named": True}, blocking)
 
-    def wait(self) -> None:
+    def _join(self) -> None:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+
+    def wait(self) -> None:
+        """Until the last save is written; for a sharded state, on every
+        rank (a barrier over the mesh)."""
+        self._join()
+        if self.mesh is not None:
+            self.mesh.barrier()
 
     def _prune(self) -> None:
         steps = self.all_steps()
@@ -272,25 +310,35 @@ class CheckpointManager:
         leaf is a tensor (bfloat16 ones back from their bits).  A
         corrupt/truncated shard under a COMMIT marker is skipped with a
         warning and the previous committed step restored instead; the
-        returned step says which one actually loaded.
+        returned step says which one actually loaded.  For a sharded
+        state (``state_like`` this rank's blocks) each leaf is this rank's
+        block of the whole leaf on disk.
         """
         shard, step = self._load_with_fallback(step)
         targets, _ = tree_flatten(state_like)
         if len(targets) != len(shard):
             raise ValueError(f"checkpoint step_{step} holds {len(shard)} "
                              f"leaves, the target {len(targets)}")
+        specs = (None if self.mesh is None
+                 else tree_flatten(self.specs)[0])
+        if specs is not None:
+            from repro_torch.dist.sharding import block_of, whole_shape
         flat = []
         for i, tgt in enumerate(targets):
             bits = shard.get(str(i) + _BF16)
             got = shard[str(i)] if bits is None else bits
-            if tuple(tgt.shape) != tuple(got.shape):
+            want = tuple(tgt.shape) if specs is None else whole_shape(
+                tgt.shape, specs[i], self.mesh)
+            if want != tuple(got.shape):
                 raise ValueError(
-                    f"checkpoint leaf {got.shape} != target {tgt.shape} — "
+                    f"checkpoint leaf {got.shape} != target {want} — "
                     "restore requires matching shapes")
             if isinstance(tgt, torch.Tensor):
                 got = torch.from_numpy(np.array(got, copy=True))
                 if bits is not None:
                     got = got.view(torch.bfloat16)
+                if specs is not None:
+                    got = block_of(got, specs[i], self.mesh).clone()
             flat.append(got)
         return tree_unflatten(state_like, flat), step
 

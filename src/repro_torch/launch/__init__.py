@@ -1,4 +1,5 @@
-"""Process-group meshes for sharded serving (``launch/mesh.py``)."""
-from .mesh import Mesh, make_local_mesh
+"""Process-group meshes (``launch/mesh.py``) and the training launcher
+(``launch/train.py``)."""
+from .mesh import AXES, Mesh, MeshAxis, local_device, make_local_mesh
 
-__all__ = ["Mesh", "make_local_mesh"]
+__all__ = ["AXES", "Mesh", "MeshAxis", "local_device", "make_local_mesh"]

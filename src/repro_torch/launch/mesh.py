@@ -1,46 +1,113 @@
-"""The (data, model) mesh of sharded serving over ``torch.distributed``.
+"""The (data, model) mesh over ``torch.distributed``, for sharded serving
+and training.
 
 The port of ``repro.launch.mesh.make_local_mesh``.  A JAX mesh is one
-process over many devices; here a mesh is one process per position, each
-holding a replica of the weights and of the host engine.  Ranks ``(d, m)``
-with the same ``d`` form the model-axis group, over which every collective
-of the serving step runs (an integer sum); the data axis replicates
-everything.  Rank ``r`` sits at ``(r // model, r % model)``.
+process over many devices; here a mesh is one process per position.  Rank
+``r`` sits at ``(r // model, r % model)``.  Ranks with the same data index
+form the model group, ranks with the same model index the data group.
+Serving runs every collective of its step over the model group (an integer
+sum) and replicates everything along the data axis.  Training splits the
+batch over the data group and the parameter blocks over both
+(``dist/sharding.py``); ``Mesh.axis`` names the group, size and index of
+either axis, or of both at once (the world), and the collectives below run
+over any of them.
 
 The caller starts the processes and initialises the default process group
 itself (``init_process_group(backend, init_method=..., world_size=data *
 model, rank=r, timeout=...)``): nothing here reads a cluster's
-environment.  A timeout there makes a collective that one rank never joins
-fail instead of hanging; the model groups take the same timeout.
-``make_production_mesh`` is ROADMAP P18's.
+environment (``launch/train.py`` reads torchrun's).  A timeout there makes
+a collective that one rank never joins fail instead of hanging; the
+groups take the same timeout.  On one card two ranks share the device, and
+NCCL refuses that: such ranks use gloo, which moves CUDA tensors through
+the host.  ``make_production_mesh`` is ROADMAP P18's.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, List, Sequence, Tuple
+import os
+from typing import Any, List, Sequence, Tuple, Union
 
 import torch
 import torch.distributed as dist
 
 
+AXES = ("data", "model")
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshAxis:
+    """One axis of a mesh, or several taken together, as this rank sees
+    it: the process group over it (None: the default group), its size,
+    this rank's index along it, and the global ranks of its positions in
+    index order."""
+
+    group: Any
+    size: int
+    index: int
+    ranks: Tuple[int, ...]
+
+
 @dataclasses.dataclass(eq=False)
 class Mesh:
-    """This rank's place in a (data, model) mesh and its model group."""
+    """This rank's place in a (data, model) mesh and its two groups."""
 
     shape: Tuple[int, int]       # (data, model)
     rank: int
     data_index: int
     model_index: int
     model_group: Any             # None: the default group (data == 1)
+    data_group: Any = None       # None: the default group (model == 1)
 
     @property
     def model_size(self) -> int:
         return self.shape[1]
 
+    @property
+    def data_size(self) -> int:
+        return self.shape[0]
+
+    def axis(self, name: Union[str, Sequence[str]]) -> MeshAxis:
+        """``"data"``, ``"model"``, or a sequence of both (the world, its
+        index the rank; the order given is the major-to-minor order, and
+        only ``("data", "model")`` is the rank order)."""
+        names = (name,) if isinstance(name, str) else tuple(name)
+        data, model = self.shape
+        d, m = self.data_index, self.model_index
+        if names == ("model",):
+            return MeshAxis(self.model_group, model, m,
+                            tuple(d * model + j for j in range(model)))
+        if names == ("data",):
+            return MeshAxis(self.data_group, data, d,
+                            tuple(i * model + m for i in range(data)))
+        if names == AXES:
+            return MeshAxis(None, data * model, self.rank,
+                            tuple(range(data * model)))
+        raise ValueError(f"unknown mesh axes {names!r} (expected 'data', "
+                         "'model' or ('data', 'model'))")
+
+    def all_reduce(self, t: torch.Tensor, axis="model",
+                   op=dist.ReduceOp.SUM) -> torch.Tensor:
+        """Reduce ``t`` in place over ``axis`` (``op``: a ``ReduceOp``)."""
+        dist.all_reduce(t, op=op, group=self.axis(axis).group)
+        return t
+
+    def all_gather(self, t: torch.Tensor, dim: int,
+                   axis="model") -> torch.Tensor:
+        """The blocks of ``axis``'s ranks, each ``t``'s shape,
+        concatenated along ``dim`` in index order (a new tensor)."""
+        ax = self.axis(axis)
+        t = t.contiguous()
+        parts = [torch.empty_like(t) for _ in range(ax.size)]
+        dist.all_gather(parts, t, group=ax.group)
+        return torch.cat(parts, dim=dim)
+
     def model_all_reduce(self, t: torch.Tensor) -> torch.Tensor:
         """Sum ``t`` in place over this rank's model group."""
-        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=self.model_group)
-        return t
+        return self.all_reduce(t, "model")
+
+    def barrier(self) -> None:
+        """Wait until every rank of the world arrives here."""
+        dist.barrier()
 
     def decide(self, flags: Sequence[bool], device) -> List[bool]:
         """Rank 0's ``flags`` on every rank (one broadcast over the
@@ -52,9 +119,26 @@ class Mesh:
         return [bool(f) for f in t.tolist()]
 
 
+def local_device(device: str = "cuda") -> torch.device:
+    """This process's device: ``cuda:(local_rank % device_count)`` for
+    ``"cuda"`` (the local rank from torchrun's ``LOCAL_RANK``, else the
+    global rank of the initialised group, else 0), the device as given
+    otherwise.  Two ranks land on one card when there are fewer cards
+    than local ranks."""
+    if device != "cuda":
+        return torch.device(device)
+    if "LOCAL_RANK" in os.environ:
+        local = int(os.environ["LOCAL_RANK"])
+    elif dist.is_available() and dist.is_initialized():
+        local = dist.get_rank()
+    else:
+        local = 0
+    return torch.device("cuda", local % max(torch.cuda.device_count(), 1))
+
+
 def _world_timeout():
     """The default group's timeout (None: torch's default), for the
-    model groups."""
+    data and model groups."""
     pg = dist.distributed_c10d._get_default_group()
     dev = torch.device("cuda" if dist.get_backend() == "nccl" else "cpu")
     try:
@@ -69,8 +153,10 @@ def make_local_mesh(data: int = 1, model: int = 1) -> Mesh:
 
     Raises a clear error when no process group is initialised or when its
     world size is not ``data * model``; nothing falls back to a single
-    device.  Every rank must call it, in the same order (the model groups
-    are created collectively)."""
+    device.  Every rank must call it, in the same order (the groups are
+    created collectively: the model groups when ``data > 1``, then the data
+    groups when ``model > 1``; an axis of the whole world runs over the
+    default group)."""
     need = data * model
     if data < 1 or model < 1:
         raise ValueError(f"mesh shape ({data}, {model}) must be positive")
@@ -90,14 +176,19 @@ def make_local_mesh(data: int = 1, model: int = 1) -> Mesh:
             "processes, one per mesh position")
     rank = dist.get_rank()
     d, m = divmod(rank, model)
-    group = None
+    model_group = data_group = None
+    timeout = _world_timeout() if data > 1 or model > 1 else None
     if data > 1:
-        timeout = _world_timeout()
         groups = [dist.new_group(list(range(g * model, (g + 1) * model)),
                                  timeout=timeout) for g in range(data)]
-        group = groups[d]
+        model_group = groups[d]
+    if model > 1:
+        groups = [dist.new_group(list(range(j, data * model, model)),
+                                 timeout=timeout) for j in range(model)]
+        data_group = groups[m]
     return Mesh(shape=(data, model), rank=rank, data_index=d,
-                model_index=m, model_group=group)
+                model_index=m, model_group=model_group,
+                data_group=data_group)
 
 
-__all__ = ["Mesh", "make_local_mesh"]
+__all__ = ["AXES", "Mesh", "MeshAxis", "local_device", "make_local_mesh"]

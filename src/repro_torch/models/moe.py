@@ -9,11 +9,15 @@ float32 under any model dtype), the softmax and the renormalisation in
 float32, and the combine weights the expert outputs by the gates cast to
 the activation's dtype.
 
-* ``moe_layer`` — the prefill / training layer over ``(B, S, d)``: each
-  (token, k) takes its place in its expert's queue by its rank, in the
-  token-major (then k) order, among the entries that chose that expert;
-  entries past the capacity C spill into column C, which is cut off.  Pad rows are routed and take queue places like any
-  other row.
+* ``moe_layer`` — the prefill / training layer over ``(B, S, d)``: the
+  ``T = B * S`` tokens form ``n_groups`` contiguous groups of ``T //
+  n_groups`` (one group when ``T % n_groups``), each with its own
+  capacity C and its own ``(E, C)`` table; in its group each (token, k)
+  takes its place in its expert's queue by its rank, in the token-major
+  (then k) order, among the entries that chose that expert; entries past
+  C spill into column C, which is cut off.  The aux losses are means over
+  all groups' tokens.  Pad rows are routed and take queue places like
+  any other row.
 * ``moe_decode`` — the decode step's layer over ``(M, d)``: every expert
   computes all M rows (batched matmuls that read the ``(E, d, F)``
   weights in place) and the gates select.
@@ -93,65 +97,78 @@ def moe_layer(p: dict, x: torch.Tensor, *, top_k: int,
     """x: (B, S, d) -> (out (B, S, d) in x's dtype, aux).
 
     ``aux`` holds the float32 scalars ``lb_loss`` (Switch load balance),
-    ``z_loss`` (router z-loss) and ``fraction_dropped``.  ``n_groups``
-    (the JAX package's per-shard dispatch groups) must be 1: grouped
-    dispatch belongs to sharded serving.  ``trace``, when given, receives
-    the routing's integer results (``expert_idx``, ``pos``, ``keep``,
-    ``table``) for tests."""
-    if n_groups != 1:
-        raise NotImplementedError("grouped MoE dispatch (n_groups > 1) is "
-                                  "not ported yet (ROADMAP P15)")
+    ``z_loss`` (router z-loss) and ``fraction_dropped``.  ``n_groups``:
+    token groups for local dispatch (the JAX package sets it to the data
+    shard count of a dry run's mesh).  ``trace``, when given, receives the
+    routing's integer results (``expert_idx``, ``pos``, ``keep``, ``table``)
+    for tests: with one group of shapes (T, k) and (E, C), else with the
+    group dim in front, (g, Tg, k) and (g, E, C), as the JAX function
+    holds them."""
     B, S, D = x.shape
     E = p["gate"].shape[0]
     T = B * S
-    C = _capacity(T, E, top_k, capacity_factor)
+    if T % n_groups:
+        n_groups = 1
+    G, Tg = n_groups, T // n_groups
+    C = _capacity(Tg, E, top_k, capacity_factor)
     xt = x.reshape(T, D)
     dev = x.device
 
     logits = xt.float() @ p["router"]["w"].float()               # (T, E)
     probs, gate_vals, expert_idx = route(logits, top_k)
 
-    # position of each (token, k) in its expert's queue: how many entries
-    # before it, in the token-major, then k, order, chose the same expert
-    # (the JAX package's cumsum of one-hot selections, here as a stable
-    # sort of the entries by expert)
+    # position of each (token, k) in its group's expert queue: how many
+    # entries before it, in the token-major, then k, order, chose the same
+    # expert in the same group (the JAX package's cumsum of one-hot
+    # selections, here as a stable sort of the entries by (group, expert))
     flat_e = expert_idx.reshape(-1)
-    counts = torch.zeros(E, dtype=flat_e.dtype, device=dev).scatter_add_(
-        0, flat_e, torch.ones_like(flat_e))           # no host sync (E,)
-    order = torch.sort(flat_e, stable=True).indices
+    group = torch.arange(T * top_k, device=dev) // (Tg * top_k)
+    key = flat_e + group * E                                     # (T*k,)
+    counts = torch.zeros(G * E, dtype=key.dtype, device=dev).scatter_add_(
+        0, key, torch.ones_like(key))               # no host sync (G*E,)
+    order = torch.sort(key, stable=True).indices
     start = torch.cumsum(counts, dim=0) - counts
     pos = torch.empty_like(flat_e)
-    pos[order] = (torch.arange(T * top_k, device=dev)
-                  - start[flat_e[order]])
+    pos[order] = torch.arange(T * top_k, device=dev) - start[key[order]]
     pos = pos.reshape(T, top_k)
     keep = pos < C
     gate_vals = gate_vals * keep
 
-    # dispatch: token ids + 1 into the (E, C) table; drops spill to col C
+    # dispatch: group-local token ids + 1 into each group's (E, C) table;
+    # drops spill to col C
     pos_c = torch.where(keep, pos, C)
-    tok_ids = torch.arange(T, dtype=torch.int32, device=dev)
-    table = torch.zeros((E, C + 1), dtype=torch.int32, device=dev)
-    table.index_put_((flat_e, pos_c.reshape(-1)),
+    tok_ids = torch.arange(T, dtype=torch.int32, device=dev) % Tg
+    table = torch.zeros((G * E, C + 1), dtype=torch.int32, device=dev)
+    table.index_put_((key, pos_c.reshape(-1)),
                      (tok_ids[:, None].expand(T, top_k) + 1).reshape(-1))
-    table = table[:, :C]
+    table = table[:, :C]                                         # (G*E, C)
     occupied = table > 0
 
-    xin = xt[(table - 1).clamp(min=0).long()]                    # (E,C,D)
+    first = (torch.arange(G * E, device=dev) // E * Tg)[:, None]
+    xin = xt[((table - 1).clamp(min=0) + first).long()]          # (G*E,C,D)
     xin = torch.where(occupied[..., None], xin,
                       torch.zeros((), dtype=x.dtype, device=dev))
-    out_e = _experts(p, xin, act)                                # (E,C,D)
+    # every expert over its rows of all groups, then back to (E, G, C, D)
+    xin = xin.reshape(G, E, C, D).transpose(0, 1).reshape(E, G * C, D)
+    out_e = _experts(p, xin, act).reshape(E, G, C, D)
 
     # combine: each token's k expert outputs back, weighted by its gates
-    out_tok = out_e[expert_idx, pos_c.clamp(max=C - 1)]
+    tok_group = (torch.arange(T, device=dev) // Tg)[:, None]
+    out_tok = out_e[expert_idx, tok_group, pos_c.clamp(max=C - 1)]
     out = _combine(out_tok, gate_vals.to(x.dtype), x.dtype)
 
     me = probs.mean(dim=0)                                       # (E,)
-    ce = counts.float() / T         # each token picks an expert at most once
+    # each token picks an expert at most once
+    ce = counts.reshape(G, E).sum(dim=0).float() / T
     aux = {"lb_loss": E * torch.sum(me * ce),
            "z_loss": torch.logsumexp(logits, dim=-1).square().mean(),
            "fraction_dropped": 1.0 - keep.float().mean()}
     if trace is not None:
-        trace.update(expert_idx=expert_idx, pos=pos, keep=keep, table=table)
+        lead = (G, Tg) if G > 1 else (T,)
+        trace.update(expert_idx=expert_idx.reshape(*lead, top_k),
+                     pos=pos.reshape(*lead, top_k),
+                     keep=keep.reshape(*lead, top_k),
+                     table=table.reshape(G, E, C) if G > 1 else table)
     return out.reshape(B, S, D), aux
 
 

@@ -91,7 +91,11 @@ class FwdOptions:
     kv_chunk: int = 512
     triangular_schedule: bool = False
     collect_cache: bool = False        # prefill: emit per-layer caches
-    moe_groups: int = 1                # MoE dispatch groups (1 only)
+    moe_groups: int = 1                # MoE dispatch groups (models/moe.py)
+    # mesh training with the batch split over the data axis: the MoE
+    # routes the rows of every data rank (``.gather(h)``), then keeps this
+    # rank's (``.keep(out)``), as one device routes the whole batch
+    moe_rows: Any = None
 
 
 def take(tree, i: int):
@@ -214,10 +218,12 @@ def _ffn(blk, x, cfg: ArchConfig, opt: FwdOptions = FwdOptions()):
     h = L.rms_norm(x, blk["norm2"], cfg.norm_eps)
     act = ffn_act(cfg)
     if "moe" in blk:
-        out, aux = moe_layer(blk["moe"], h, top_k=cfg.moe_top_k,
+        rows = opt.moe_rows
+        h_in = h if rows is None else rows.gather(h)
+        out, aux = moe_layer(blk["moe"], h_in, top_k=cfg.moe_top_k,
                              capacity_factor=cfg.moe_capacity_factor,
                              n_groups=opt.moe_groups, act=act)
-        return x + out, aux
+        return x + (out if rows is None else rows.keep(out)), aux
     return x + L.mlp(blk["mlp"], h, act), None
 
 
@@ -380,26 +386,54 @@ def forward(params, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
     return logits, aux, caches
 
 
+def ce_terms(logits: torch.Tensor, labels: torch.Tensor, data_sum):
+    """``loss_fn``'s cross-entropy over a batch split across ranks: ``(this
+    rank's term, the whole batch's ce)``.  ``data_sum`` sums a scalar
+    tensor in place over the ranks that hold the batch's other rows; the
+    masked log-likelihood sum and the label count each sum over them, so
+    the terms add up to the masked sum over the whole batch divided by its
+    whole count (a mean of per-rank means would weigh ranks that hold
+    fewer labels more).  With ``data_sum`` over one rank the two are the
+    same number; the ce carries no gradient."""
+    mask = (labels >= 0).float()
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    ll = logp.gather(-1, labels.clamp(min=0).long()[..., None])[..., 0]
+    num = (ll * mask).sum()
+    denom = data_sum(mask.sum().detach().clone()).clamp(min=1.0)
+    term = -num / denom
+    ce = -data_sum(num.detach().clone()) / denom
+    return term, ce
+
+
+def _one_rank(x: torch.Tensor) -> torch.Tensor:
+    return x
+
+
 def loss_fn(params, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
             dims: ModelDims, opt: FwdOptions = FwdOptions(),
-            moe_loss_weight: float = 0.01, z_loss_weight: float = 1e-3):
+            moe_loss_weight: float = 0.01, z_loss_weight: float = 1e-3,
+            data_sum=_one_rank, data_size: int = 1):
     """Next-token cross-entropy over ``log_softmax`` in float32, labels < 0
     masked; MoE models add ``moe_loss_weight * lb_loss + z_loss_weight *
     z_loss``.  Returns ``(loss, metrics)`` with the JAX package's keys:
     ``ce`` and ``loss``, and for MoE models ``lb_loss``, ``z_loss`` and
-    ``fraction_dropped``."""
+    ``fraction_dropped``; the metrics carry no gradient.
+
+    Over a batch split across ``data_size`` ranks (the mesh train step's
+    data axis; ``data_sum`` sums a scalar over them, as ``ce_terms``
+    takes it) ``loss`` is this rank's term of the whole batch's loss and
+    the metrics are the whole batch's.  An MoE model's aux losses are then
+    whole-batch means, the same on every rank (``opt.moe_rows``), so each
+    rank's term carries ``1 / data_size`` of them."""
     logits, aux, _ = forward(params, batch, cfg, dims, opt)
-    labels = batch["labels"]
-    mask = (labels >= 0).float()
-    logp = torch.log_softmax(logits.float(), dim=-1)
-    ll = logp.gather(-1, labels.clamp(min=0).long()[..., None])[..., 0]
-    ce = -(ll * mask).sum() / mask.sum().clamp(min=1.0)
-    loss = ce
+    loss, ce = ce_terms(logits, batch["labels"], data_sum)
     metrics = {"ce": ce}
     if cfg.moe_num_experts:
-        loss = loss + moe_loss_weight * aux["lb_loss"] \
-            + z_loss_weight * aux["z_loss"]
-        metrics.update({k: aux[k] for k in
+        loss = loss + moe_loss_weight * aux["lb_loss"] / data_size \
+            + z_loss_weight * aux["z_loss"] / data_size
+        metrics.update({k: aux[k].detach() for k in
                         ("lb_loss", "z_loss", "fraction_dropped")})
-    metrics["loss"] = loss
+        ce = ce + moe_loss_weight * metrics["lb_loss"] \
+            + z_loss_weight * metrics["z_loss"]
+    metrics["loss"] = ce
     return loss, metrics

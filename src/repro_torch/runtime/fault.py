@@ -263,7 +263,14 @@ class ResilientLoop:
     yet, training restarts from step 0 through ``on_restart(None)``; more
     than ``max_restarts`` restarts re-raise.  Batches and restored state
     go to the device the given ``state`` is on.  Its serving counterpart
-    is ``runtime/resilient_serve.py``."""
+    is ``runtime/resilient_serve.py``.
+
+    On a mesh every rank runs its own loop over its blocks of the state,
+    with a step built by ``make_train_step(mesh=...)`` and a
+    ``CheckpointManager(mesh=..., specs=...)``: each draws the global batch
+    and the step takes its rows; saves gather on every rank and rank 0
+    writes; after a fault every rank waits for rank 0's last write, reads
+    the same latest step and replays the same steps."""
 
     def __init__(self, ckpt_manager, data, train_step: Callable,
                  ckpt_every: int = 10, max_restarts: int = 3,

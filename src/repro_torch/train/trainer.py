@@ -1,4 +1,4 @@
-"""Single-device train step factory: the port of ``repro.train.trainer``.
+"""Train step factory: the port of ``repro.train.trainer``.
 
 ``make_train_step`` returns ``train_step(state, batch) -> (state,
 metrics)`` with:
@@ -8,7 +8,9 @@ metrics)`` with:
 * remat (``FwdOptions.remat``: each layer under ``torch.utils.checkpoint``),
 * gradient clipping by the global norm and the LR schedule,
 * optional int8 + error-feedback gradient compression,
-* the in-place optimizer update (``optim``), then ``step + 1``.
+* the in-place optimizer update (``optim``), then ``step + 1``,
+* ``loss_override(params, batch) -> (loss, metrics)`` in place of the
+  model's loss (the tensor-parallel forward of ``dist/megatron.py``).
 
 The step runs with ``torch.use_deterministic_algorithms(True)``
 (``deterministic``): on the card the backward of a gather (the embedding
@@ -22,28 +24,36 @@ points (``launch/train.py``, ``chip_smoke.py``) set it before any; a
 caller of ``make_train_step`` on the card sets it likewise, or the first
 matrix product of the step raises.
 
-The state is ``{"params", "opt", "step" (int32 0-d), "ef"?}``, every
-tensor on one device; parameters are leaves that require grad.  Training
-over a mesh is not ported yet (ROADMAP, mesh training).
+The state is ``{"params", "opt", "step" (int32 0-d), "ef"?}``.  On one
+device every tensor is whole and the parameters are leaves that require
+grad.  Over a ``(data, model)`` mesh (``launch/mesh.py``: one process a
+position) each rank holds only its block of every leaf, laid out by
+``state_shardings`` (JAX's rules, ``dist/sharding.py``), and a step gives
+what the single-device step gives: see ``make_train_step``.
+``abstract_state`` is the state on the ``meta`` device (shapes and
+dtypes, no memory), from which the specs are taken.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Any, Callable
+import functools
+from typing import Any, Callable, Optional
 
 import torch
 
-from repro_torch.ckpt.checkpoint import tree_flatten, tree_unflatten
+from repro_torch.ckpt.checkpoint import (flatten_up_to, tree_flatten,
+                                        tree_unflatten)
 from repro_torch.configs.base import ArchConfig
 from repro_torch.dist import compression
+from repro_torch.dist.sharding import (P, ShardingRules, block_of,
+                                       block_tree, param_shardings,
+                                       whole_of)
+from repro_torch.launch.mesh import AXES
 from repro_torch.models.transformer import FwdOptions, loss_fn
 from repro_torch.optim import clip_by_global_norm, make_optimizer
 from repro_torch.optim.schedules import warmup_cosine
 from repro_torch.params import init_params
-
-MESH_TODO = ("training over a mesh is not ported yet (ROADMAP Queue 1, "
-             "mesh training)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,6 +98,14 @@ def init_state(generator: torch.Generator, cfg: ArchConfig, dims,
     return state_from_params(params, cfg, tc)
 
 
+def abstract_state(cfg: ArchConfig, dims, tc: TrainConfig,
+                   param_dtype=torch.bfloat16):
+    """The state on the ``meta`` device: every leaf's shape and dtype, no
+    memory (the JAX package's ``ShapeDtypeStruct`` tree)."""
+    params = init_params(None, cfg, dims, dtype=param_dtype, device="meta")
+    return state_from_params(params, cfg, tc)
+
+
 @contextlib.contextmanager
 def deterministic():
     """Hold ``torch.use_deterministic_algorithms(True)``, then restore the
@@ -102,35 +120,96 @@ def deterministic():
 
 
 def make_train_step(cfg: ArchConfig, dims, tc: TrainConfig,
-                    fwd: FwdOptions, mesh=None, rules=None) -> Callable:
+                    fwd: FwdOptions, mesh=None,
+                    rules: Optional[ShardingRules] = None,
+                    loss_override: Optional[Callable] = None, *,
+                    specs=None) -> Callable:
     """Returns ``train_step(state, batch) -> (state, metrics)``; ``batch``
     holds tensors on the state's device.  The step updates the state's
     tensors in place and returns a new dict around them (``step`` is a new
-    tensor).  ``mesh`` and ``rules`` raise: training over a mesh is a
-    later slice."""
-    if mesh is not None or rules is not None:
-        raise NotImplementedError(MESH_TODO)
+    tensor).
+
+    ``loss_override(params, batch) -> (loss, metrics)`` swaps the model's
+    loss (e.g. the explicit-schedule Megatron path, ``dist/megatron.py``).
+
+    Over a mesh (``mesh``: this rank's ``launch.mesh.Mesh``; ``rules``:
+    the ``ShardingRules``, JAX's defaults when None) the state holds this
+    rank's blocks, and ``specs`` is its layout: the tree of
+    ``PartitionSpec`` that ``state_shardings`` gives (or
+    ``megatron_param_shardings`` for the parameters and their moments).
+    It is the port's counterpart of the JAX step's ``jax.jit(
+    in_shardings=...)``, from which JAX learns the layout.  ``batch`` is
+    the global batch, the same on every rank (every rank draws
+    ``data.batch_at(step)``).  The step
+
+    * takes this rank's rows of it, as ``batch_spec`` splits the batch over
+      the data axis (with microbatches, this rank's rows of each
+      microbatch, so that a microbatch holds the single device's rows);
+      the rows of a microbatch must split evenly over the data axis;
+    * gathers each parameter leaf whole; a ``loss_override`` with a
+      ``sharded_axes`` attribute takes the blocks of those axes as they lie
+      (``dist.megatron.megatron_loss``: the model axis's), and one without
+      it takes whole leaves, as the model's loss does;
+    * runs the forward and backward; the loss sums its numerator and its
+      label count over the data axis (``models.transformer.ce_terms``);
+      an MoE layer routes every data rank's rows and keeps this rank's, so
+      that capacity and queue places are the single device's, and its
+      aux losses, whole-batch means, count once over the data axis;
+    * sums the gradients over the data group, keeps this rank's block, and
+      clips, compresses and updates that block in place, with the
+      whole-leaf statistics (``optim``, ``dist/compression.py``) taken over
+      the whole leaf.
+
+    Ranks along the model axis repeat the same compute; the model axis's
+    own tensor-parallel compute is the Megatron schedule's.  A
+    ``loss_override`` on a mesh returns this rank's term of the loss (the
+    data group's terms sum to it) and the whole batch's metrics, as
+    ``dist.megatron.megatron_loss`` does."""
     opt = make_optimizer(cfg.optimizer, weight_decay=tc.weight_decay)
     schedule = make_schedule(tc)
+    if mesh is None:
+        if specs is not None:
+            raise ValueError("specs lay out a sharded state: pass the mesh")
+        model_loss = functools.partial(loss_fn, cfg=cfg, dims=dims, opt=fwd)
+
+        def split(batch):
+            return _microbatches(batch, tc.microbatches)
+    else:
+        if specs is None:
+            raise ValueError("a mesh step needs the state's specs "
+                             "(state_shardings(abstract_state(...), mesh, "
+                             "rules))")
+        rules = rules or ShardingRules()
+        data_sum = functools.partial(mesh.all_reduce, axis="data")
+        model_loss = functools.partial(
+            loss_fn, cfg=cfg, dims=dims,
+            opt=dataclasses.replace(fwd, moe_rows=MoeRows(mesh)),
+            data_sum=data_sum, data_size=mesh.data_size)
+
+        rows = P(tuple(rules.data_axes))       # batch_spec's leading dim
+
+        def split(batch):
+            return [{k: block_of(x, rows, mesh) for k, x in m.items()}
+                    for m in _microbatches(batch, tc.microbatches,
+                                           mesh.data_size)]
+
+    loss_of = loss_override or model_loss
 
     def metrics_and_grads(params, batch):
         """(metrics, the gradient of each leaf in tree_flatten order)."""
-        loss, metrics = loss_fn(params, batch, cfg, dims, fwd)
+        loss, metrics = loss_of(params, batch)
         grads = torch.autograd.grad(loss, tree_flatten(params)[0],
                                     materialize_grads=True)
         return {k: m.detach() for k, m in metrics.items()}, list(grads)
 
     def compute_grads(params, batch):
-        if tc.microbatches <= 1:
-            metrics, grads = metrics_and_grads(params, batch)
-            return metrics, tree_unflatten(params, grads)
-        # gradient accumulation over microbatches (the batch dim splits);
-        # the metrics (the loss among them) are the microbatches' mean
-        mb = tc.microbatches
+        micros = split(batch)
+        if len(micros) == 1:
+            return metrics_and_grads(params, micros[0])
+        # gradient accumulation over microbatches; the metrics (the loss
+        # among them) are the microbatches' mean
         acc, mets = None, []
-        for i in range(mb):
-            micro = {k: x.reshape(mb, x.shape[0] // mb, *x.shape[1:])[i]
-                     for k, x in batch.items()}
+        for micro in micros:
             metrics, grads = metrics_and_grads(params, micro)
             grads = [g.to(tc.accum_dtype) for g in grads]
             if acc is None:
@@ -141,23 +220,135 @@ def make_train_step(cfg: ArchConfig, dims, tc: TrainConfig,
             mets.append(metrics)
         metrics = {k: torch.stack([m[k] for m in mets]).mean()
                    for k in mets[0]}
-        return metrics, tree_unflatten(params, [a.div_(mb) for a in acc])
+        return metrics, [a.div_(len(micros)) for a in acc]
 
-    def train_step(state, batch):
-        params = state["params"]
-        with deterministic():
-            metrics, grads = compute_grads(params, batch)
-            grads, gnorm = clip_by_global_norm(grads, tc.max_grad_norm)
-            new_state = dict(state)
-            if tc.grad_compression:
-                grads, new_state["ef"] = compression.tree_compress_with_ef(
-                    grads, state["ef"])
-            lr = schedule(state["step"])
-            new_params, new_opt = opt.update(grads, state["opt"], params,
-                                             state["step"], lr)
+    def update(state, params, grads, metrics, blocks=None):
+        grads, gnorm = clip_by_global_norm(grads, tc.max_grad_norm, blocks)
+        new_state = dict(state)
+        if tc.grad_compression:
+            grads, new_state["ef"] = compression.tree_compress_with_ef(
+                grads, state["ef"], blocks)
+        lr = schedule(state["step"])
+        new_params, new_opt = opt.update(grads, state["opt"], params,
+                                         state["step"], lr, blocks=blocks)
         new_state.update(params=new_params, opt=new_opt,
                          step=state["step"] + 1)
         metrics.update(grad_norm=gnorm, lr=lr)
         return new_state, metrics
 
-    return train_step
+    def train_step(state, batch):
+        params = state["params"]
+        with deterministic():
+            metrics, grads = compute_grads(params, batch)
+            return update(state, params, tree_unflatten(params, grads),
+                          metrics)
+
+    if mesh is None:
+        return train_step
+    p_specs = specs["params"]
+    # the step gathers each leaf over the axes whose blocks the loss does
+    # not take as they lie (``loss_override.sharded_axes``)
+    kept = getattr(loss_override, "sharded_axes", ())
+    axes = tuple(a for a in AXES if a not in kept)
+
+    def mesh_train_step(state, batch):
+        blocks = state["params"]
+        flat, sp = tree_flatten(blocks)[0], tree_flatten(p_specs)[0]
+        with deterministic():
+            with torch.no_grad():
+                whole = [whole_of(b, s, mesh, axes) for b, s in zip(flat, sp)]
+            params = tree_unflatten(blocks, [
+                w.detach().requires_grad_(True) for w in whole])
+            del whole
+            metrics, grads = compute_grads(params, batch)
+            del params
+            grads = [block_of(data_sum(g), s, mesh, axes)
+                     for g, s in zip(grads, sp)]
+            return update(state, blocks, tree_unflatten(blocks, grads),
+                          metrics, block_tree(blocks, p_specs, mesh))
+
+    return mesh_train_step
+
+
+def _microbatches(batch, mb: int, parts: int = 1):
+    """``batch``'s microbatches (its leading dim in ``mb`` contiguous
+    runs; the batch itself when ``mb <= 1``), each of whose rows must split
+    into ``parts`` equal runs."""
+    rows = next(iter(batch.values())).shape[0]
+    mb = max(mb, 1)
+    if rows % mb or (rows // mb) % parts:
+        raise ValueError(f"a batch of {rows} rows in {mb} microbatch(es) "
+                         f"does not split over {parts} data rank(s)")
+    if mb == 1:
+        return [batch]
+    return [{k: x.reshape(mb, rows // mb, *x.shape[1:])[i]
+             for k, x in batch.items()} for i in range(mb)]
+
+
+class _GatherRows(torch.autograd.Function):
+    """All-gather of the data group's rows (dim 0) forward; backward, each
+    rank's gradient of the whole is a partial one (its own rows' outputs,
+    its share of the aux losses), so the rank's rows take the group's sum."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh, ctx.rows = mesh, x.shape[0]
+        return mesh.all_gather(x, 0, "data")
+
+    @staticmethod
+    def backward(ctx, g):
+        g = ctx.mesh.all_reduce(g.contiguous().clone(), "data")
+        i = ctx.mesh.data_index
+        return g[i * ctx.rows:(i + 1) * ctx.rows], None
+
+
+class MoeRows:
+    """``FwdOptions.moe_rows`` on a mesh whose data axis splits the batch:
+    the MoE routes the whole batch's rows, in the single device's order,
+    and each rank keeps its own rows of the output."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+
+    def gather(self, h: torch.Tensor) -> torch.Tensor:
+        return _GatherRows.apply(h, self.mesh)
+
+    def keep(self, out: torch.Tensor) -> torch.Tensor:
+        n = out.shape[0] // self.mesh.data_size
+        return out[self.mesh.data_index * n:(self.mesh.data_index + 1) * n]
+
+
+def state_shardings(state_shape, mesh, rules: ShardingRules):
+    """``PartitionSpec``s for the full train state (the optimizer state
+    mirrors the parameters)."""
+    p_sh = param_shardings(state_shape["params"], rules, mesh)
+    out = {"params": p_sh, "step": P()}
+    if "opt" in state_shape:
+        o = state_shape["opt"]
+        if "m" in o:   # adamw: m/v mirror params exactly
+            out["opt"] = {"m": p_sh, "v": p_sh}
+        else:          # adafactor: vr/vc factors drop one dim's spec
+            out["opt"] = {"v": _adafactor_shardings(
+                o["v"], state_shape["params"], p_sh)}
+    if "ef" in state_shape:
+        # EFState(residual) mirrors the parameter sharding
+        out["ef"] = tree_unflatten(p_sh, [
+            compression.EFState(residual=s)
+            for s in tree_flatten(p_sh)[0]])
+    return out
+
+
+def _adafactor_shardings(v_tree, params_shape, p_sh):
+    """vr drops the last dim's spec; vc drops the second-to-last."""
+    flat_p = tree_flatten(params_shape)[0]
+    flat_sh = flatten_up_to(params_shape, p_sh)
+    flat_v = flatten_up_to(params_shape, v_tree)
+
+    def factor_sh(p, sh, v):
+        full = tuple(sh) + (None,) * (len(p.shape) - len(sh))
+        if "vr" in v:
+            return {"vr": P(*full[:-1]), "vc": P(*(full[:-2] + full[-1:]))}
+        return {"v": sh}
+
+    return tree_unflatten(params_shape, [
+        factor_sh(p, sh, v) for p, sh, v in zip(flat_p, flat_sh, flat_v)])

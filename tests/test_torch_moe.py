@@ -171,7 +171,24 @@ def test_moe_router_stays_float32():
 
 
 def test_grouped_dispatch_raises():
-    _, tp = _weights("float32")
-    x = torch.zeros((2, 8, D))
-    with pytest.raises(NotImplementedError, match="ROADMAP P15"):
-        moe_layer(tp, x, top_k=K, n_groups=2)
+    """Grouped dispatch (no longer refused): two groups of 8 tokens, each
+    routed as a batch of its own tokens alone (its own capacity and
+    table), and the outputs and aux equal to the JAX function's at
+    ``n_groups=2``.  Across group counts: ``tests/test_torch_dist.py``."""
+    jp, tp = _weights("float32")
+    x = _rows("random", (2, 8, D))
+    jout, jaux = jmoe_layer(jp, jnp.asarray(x), top_k=K,
+                            capacity_factor=1.25, n_groups=2)
+    trace = {}
+    out, aux = moe_layer(tp, torch.from_numpy(x), top_k=K,
+                         capacity_factor=1.25, n_groups=2, trace=trace)
+    for g in range(2):
+        idx, pos, keep, table = _jax_routing(jp, x[g:g + 1], K, 1.25)
+        npt.assert_array_equal(trace["expert_idx"][g].numpy(), idx)
+        npt.assert_array_equal(trace["pos"][g].numpy(), pos)
+        npt.assert_array_equal(trace["keep"][g].numpy(), keep)
+        npt.assert_array_equal(trace["table"][g].numpy(), table)
+    for key in ("lb_loss", "z_loss", "fraction_dropped"):
+        npt.assert_allclose(float(aux[key]), float(jaux[key]), rtol=1e-5,
+                            atol=1e-5, err_msg=key)
+    _close(out, jout, "float32")

@@ -59,6 +59,7 @@ from repro_torch.data import (DataConfig, PackedFileDataset, SyntheticLM,
                               host_slice)
 from repro_torch.dist import compression
 from repro_torch.launch import train as launch_train
+from repro_torch.launch.mesh import make_local_mesh
 from repro_torch.models import FwdOptions, layers, loss_fn, model_dims
 from repro_torch.optim import optimizers, schedules
 from repro_torch.params import params_from_numpy
@@ -433,14 +434,25 @@ def test_train_step_adafactor_matches_jax():
     _assert_tree_close(state["opt"], jstate["opt"], rtol=1e-4, atol=1e-9)
 
 
-def test_train_step_refuses_a_mesh():
+def test_train_step_refuses_a_mesh(monkeypatch):
+    """Without a process group a mesh of more than one position raises
+    ``make_local_mesh``'s error, through the launcher too (nothing falls
+    back to one device); a mesh step needs the state's specs, and specs
+    need a mesh.  Mesh training itself: ``tests/test_torch_dist.py``."""
     _, cfg = _family("granite-8b")
-    with pytest.raises(NotImplementedError, match="mesh training"):
-        make_train_step(cfg, model_dims(cfg), TrainConfig(), FwdOptions(),
-                        mesh=object())
-    with pytest.raises(NotImplementedError, match="mesh training"):
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    assert not torch.distributed.is_initialized()
+    with pytest.raises(ValueError, match="init_process_group"):
+        make_local_mesh(2, 1)
+    with pytest.raises(ValueError, match="init_process_group"):
         launch_train.main(["--arch", "granite-8b", "--reduced",
                            "--data-mesh", "2", "--device", "cpu"])
+    with pytest.raises(ValueError, match="specs"):
+        make_train_step(cfg, model_dims(cfg), TrainConfig(), FwdOptions(),
+                        mesh=object())
+    with pytest.raises(ValueError, match="mesh"):
+        make_train_step(cfg, model_dims(cfg), TrainConfig(), FwdOptions(),
+                        specs={})
 
 
 # ------------------------------------------------------------ resilient loop
