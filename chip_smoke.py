@@ -15,6 +15,7 @@ JAX):
     python3 chip_smoke.py --mesh [--src OTHER_CHECKOUT/src]
     python3 chip_smoke.py --train [--src OTHER_CHECKOUT/src]
     python3 chip_smoke.py --mesh-train [--src OTHER_CHECKOUT/src]
+    python3 chip_smoke.py --token-split [--src OTHER_CHECKOUT/src]
 
 The second form builds the kernels and runs only phase 4's decode-step
 profile, the third only phase 2's paged-attention checks and timings (the
@@ -22,7 +23,8 @@ decode, verify and prefix reads), the fourth only phase 8, the fifth only
 phase 9, the sixth only phase 10, the seventh only phase 11, the eighth
 only the sharded step's check, phase 5 and phase 12, the ninth only
 phase 13 and the tenth only phase 14 (both without building the kernels,
-which training does not launch), of this checkout's port or of another
+which training does not launch), the eleventh only phase 15, of this
+checkout's port or of another
 commit's (a parent unpacked with ``git archive``), so that two commits
 compare in one call.
 Phase 3's first two runs, phase 4 and the profile pass their engine
@@ -288,6 +290,28 @@ Phases, each failing loudly:
    --data-mesh 1 --model-mesh 2`` as a child, which must exit 0, print
    ``done:`` and import nothing of JAX.  No kernel may launch in (a) or
    (b).
+15. the token-split layout (the JAX package's ``kv_shards=0`` mesh path,
+   its dry run's) over a (2, 2) mesh: four processes on the card over
+   gloo (``--token-split-child``), granite-8b at full width (64-token
+   blocks, 32 a rank).  First the kernels at its geometries
+   (``check_token_split_kernels``): the RSW step entry with the group
+   layout bitwise its plain version at four layouts, one launch a call,
+   and the paged read of a token shard and of a striped rank
+   (``block_tokens = 128``) within 3e-2 of theirs, each timed beside its
+   bound.  Then each rank runs, and this process runs on one device
+   (``mesh=None``) with the same weights and inputs: (a) float32, 2
+   layers, batch mode, 4 prompts through the token-split recompute
+   prefill with the flash kernel, 16 greedy steps: logits within 1e-4 of
+   the largest, streams equal, each rank's translation bitwise its plain
+   version; (b) bf16, 12 layers, batch mode, prompts of 256-1024 tokens,
+   32 steps: the streams' agreement (the top-2 margin where a row first
+   differs), each rank's step wall and device ms, idle share, launches
+   and gloo bytes a step; (c) bf16, 12 layers, striped mode, one row of a
+   131,072-token context written straight into the pools, 16 steps held
+   to mesh=None within ``PHASE15_C["tol"]``, peak memory a rank; (d) the
+   serve CLI (``python -m repro_torch.launch.serve --arch granite-8b
+   --requests 8 --max-new 16``), alone and at ``--data 1 --model 2``
+   under torchrun, each exit 0 with its printout.
 
 Each serving phase prints a digest of its streams (``streams_sha256``), so
 that two commits' runs compare token for token.
@@ -295,9 +319,11 @@ that two commits' runs compare token for token.
 It prints the build times, the kernel checks, the serving numbers, one
 JSON line of kernel measurements (launches counted on phases 4, 5, 6, 7,
 4 (b), 6 (f), 8 (a) and (c), 9 (a) and (b), 10 (a) and (b), 11, 12,
-13 and 14, each from 0; the RSW's ``launches`` are its step entry's,
-``launches_vpn_list`` its vpn-list entry's and ``launches_shard`` /
-``launches_combine`` its sharded step's two entries'), the card's name
+13, 14 and 15 (its four ranks' added), each from 0; the RSW's
+``launches`` are its step entry's, ``launches_group_layout`` those of
+them on a token-split rank, ``launches_vpn_list`` its vpn-list entry's
+and ``launches_shard`` / ``launches_combine`` its sharded step's two
+entries'), the card's name
 and power limit, and as its last line ``{"ok": true, "device":
 {...}}``.  Without a CUDA card, or without the rest of the repository
 beside it, it exits non-zero and prints no result.
@@ -1734,6 +1760,8 @@ def _kernel_counts(reset=False):
            "utopia_translate_shard": (utopia_translate_shard, "launches"),
            "utopia_combine_shard": (utopia_translate_shard,
                                     "launches_combine"),
+           "utopia_translate_step_group": (utopia_translate_step,
+                                           "launches_group"),
            "flash_attention": (flash_attention, "launches")}
     if reset:
         for fn, attr in fns.values():
@@ -5473,6 +5501,676 @@ def mesh_training(torch, dev, src, ref_losses=None):
     return counts
 
 
+# ------------------------------------------------------------- phase 15
+
+PHASE15_MESH = (2, 2)                      # (data, model): 4 ranks, gloo
+PHASE15_TIMEOUT_S = 300                    # a collective never joined fails
+PHASE15_ARCH = "granite-8b"                # full width: d 4096, 32/8 heads
+# (a): float32, 2 layers, batch mode, 4 prompts, 16 greedy steps
+PHASE15_A = dict(layers=2, prompts=(100, 64, 37, 128), steps=16, tol=1e-4)
+# (b): bf16, 12 layers, batch mode, 4 prompts of 256-1024 tokens, 32 steps
+PHASE15_B = dict(layers=12, prompts=(1024, 256, 700, 512), steps=32)
+# (c): bf16, 12 layers, striped mode, one row of a 131,072-token context
+# (2,048 blocks of 64), 16 teacher-forced steps; its logits are held to
+# a mesh=None step's within PHASE15_C_TOL of the largest |logit|: the
+# combine adds four partial softmax sums in float32, and one bf16 ulp
+# (2^-8 relative) of the attention output, moved in a few elements and
+# carried through 12 layers, stays far inside this bound
+PHASE15_C = dict(layers=12, context=131072, steps=16, tol=5e-2)
+PHASE15_ASSOC = 8
+TOKEN_SPLIT_TAG = "phase 15 rank: "
+
+
+def _ts_group_tables(rows, nblk, n_sets, assoc, extra):
+    """A data group's tables for ``rows`` rows of ``nblk`` blocks: local
+    vpn v = r * nblk + j in the RestSeg (set v % n_sets, its next free
+    way) for every other vpn while the set has room, the rest in the flex
+    table at slots n_sets * assoc + k.  Returns (tar, sf, flex, slot of
+    each vpn, the group's slots) as lists."""
+    tar = [[0] * assoc for _ in range(n_sets)]
+    sf = [0] * n_sets
+    flex = [-1] * (rows * nblk)
+    slot_of = []
+    nxt = n_sets * assoc
+    for v in range(rows * nblk):
+        s = v % n_sets
+        if v % 2 == 0 and sf[s] < assoc:
+            tar[s][sf[s]] = v + 1
+            slot_of.append(s * assoc + sf[s])
+            sf[s] += 1
+        else:
+            flex[v] = nxt
+            slot_of.append(nxt)
+            nxt += 1
+    return tar, sf, flex, slot_of, nxt + extra
+
+
+def _ts_batch_case(cfg, sub):
+    """The batch-mode geometry of (a) or (b): each group's tables, the
+    mesh spec and the one-device spec whose flex table maps row r's block
+    j to group g's slot + g * slots (g = r // rows)."""
+    from repro_torch.serve.decode import DecodeSpec
+    G, _ = PHASE15_MESH
+    bs = cfg.kv_block_size
+    B = len(sub["prompts"])
+    rows = B // G
+    nblk = -(-(max(sub["prompts"]) + sub["steps"] + 2) // bs)
+    n_sets = 2
+    tables = [_ts_group_tables(rows, nblk, n_sets, PHASE15_ASSOC, 0)
+              for _ in range(G)]
+    S = max(t[4] for t in tables)
+    mesh_spec = DecodeSpec(block_size=bs, max_blocks_per_seq=nblk,
+                           slots_per_group=S, n_sets=n_sets,
+                           assoc=PHASE15_ASSOC)
+    one_spec = DecodeSpec(block_size=bs, max_blocks_per_seq=nblk,
+                          slots_per_group=G * S, n_sets=1,
+                          assoc=PHASE15_ASSOC)
+    one_flex = [-1] * (B * nblk)
+    for r in range(B):
+        g, rl = divmod(r, rows)
+        for j in range(nblk):
+            one_flex[r * nblk + j] = g * S + tables[g][3][rl * nblk + j]
+    return dict(G=G, B=B, rows=rows, nblk=nblk, S=S, tables=tables,
+                mesh_spec=mesh_spec, one_spec=one_spec, one_flex=one_flex)
+
+
+def _ts_prompts(torch, cfg, sub, seed):
+    """(tokens (B, S_pad) int32, lengths) of the sub-phase's prompts, from
+    a seeded CPU generator."""
+    gen = torch.Generator().manual_seed(seed)
+    bs = cfg.kv_block_size
+    lens = list(sub["prompts"])
+    pad = -(-max(lens) // bs) * bs
+    toks = torch.randint(0, cfg.vocab_size, (len(lens), pad), generator=gen,
+                         dtype=torch.int32)
+    return toks, lens
+
+
+def _profile_once(torch, fn):
+    """(device ms by kernel of one call of ``fn``, its wall ms) from one
+    profiler session, without the retries of ``profile_cold``: every rank
+    of a mesh runs it at once, and a rank that ran the step again alone
+    would wait for the others in its collectives."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            us = getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0))
+            if us > 0:
+                rows.append((e.key, us / 1e3, e.count))
+    return sorted(rows, key=lambda r: -r[1]), wall
+
+
+def ts_batch_run(torch, dev, cfg, dims, params, sub, case, seed, dtype,
+                 mesh=None, check_translation=False, profile=False):
+    """(a)/(b) on this rank of the mesh (``mesh``) or on one device: the
+    token-split recompute prefill of the prompts with the flash kernel
+    (``attn_impl="pallas"``), then ``sub["steps"]`` greedy steps fed their
+    own tokens.  Returns the streams, each step's logits (the prefill's
+    last logits first), and per step the wall ms between two device
+    synchronisations.  With ``check_translation`` every step's RSW output
+    (this rank's group) is held bitwise to its plain version on the
+    CPU; with ``profile`` one more step runs under the profiler (its
+    device ms, wall ms, idle share and kernels in ``profile``)."""
+    from repro_torch.kernels.utopia_rsw.ref import translate_step_ref
+    from repro_torch.models import FwdOptions
+    from repro_torch.serve.decode import init_decode_state, make_serve_step
+    from repro_torch.serve.prefill import make_prefill_step
+    G, B, rows, nblk, S = (case[k] for k in ("G", "B", "rows", "nblk", "S"))
+    bs = cfg.kv_block_size
+    i32 = dict(dtype=torch.int32, device=dev)
+    toks, lens = _ts_prompts(torch, cfg, sub, seed)
+    nb_prompt = toks.shape[1] // bs
+    fwd = FwdOptions(attn_impl="pallas", dtype=dtype)
+    if mesh is None:
+        spec = case["one_spec"]
+        st = init_decode_state(cfg, dims, spec, B, 1, dtype, dev)
+        flex = torch.tensor(case["one_flex"], **i32)
+        st["flex"].copy_(flex[None])
+        slot_of = lambda r, j: case["one_flex"][r * nblk + j]  # noqa: E731
+    else:
+        spec = case["mesh_spec"]
+        g = mesh.data_index
+        st = init_decode_state(cfg, dims, spec, B, G, dtype, dev, mesh=mesh)
+        tar, sf, flex, slots_g, _ = case["tables"][g]
+        st["tar"].copy_(torch.tensor([tar], **i32))
+        st["sf"].copy_(torch.tensor([sf], **i32))
+        st["flex"].copy_(torch.tensor([flex], **i32))
+        slot_of = lambda r, j: case["tables"][r // rows][3][  # noqa: E731
+            (r % rows) * nblk + j]
+    slots = torch.tensor([[slot_of(r, j) if j * bs < lens[r] else -1
+                           for j in range(nb_prompt)] for r in range(B)],
+                         **i32)
+    ctx = torch.tensor(lens, **i32)
+    prefill = make_prefill_step(cfg, dims, spec, fwd, mesh=mesh)
+    serve = make_serve_step(cfg, dims, spec, dtype, mesh=mesh)
+    logits_all, walls = [], []
+    torch.cuda.synchronize()
+    last, st, stats = prefill(params, st, {"tokens": toks.to(dev)}, slots,
+                              torch.arange(B, **i32), ctx, ctx - 1)
+    logits_all.append(last.float().cpu())
+    tok = stats["next_token"]
+    streams = [[int(t)] for t in tok.tolist()]
+    for _ in range(sub["steps"]):
+        if check_translation:
+            rsel = slice(None) if mesh is None else slice(
+                mesh.data_index * rows, (mesh.data_index + 1) * rows)
+            pos = st["ctx_len"][rsel].cpu()
+            tabs = [st[k].cpu() for k in ("tar", "sf", "flex")]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, st, stats = serve(params, st, tok)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        if check_translation and mesh is not None:
+            split = (G, mesh.data_index, False, PHASE15_MESH[1],
+                     mesh.model_index)
+            want = translate_step_ref(*tabs, pos, block_size=bs, nblk=nblk,
+                                      hash_name=spec.hash_name,
+                                      sink=spec.slots_per_group,
+                                      layout=split)
+            for k in ("slots", "in_rest", "mapped", "accesses"):
+                got = stats[k][mesh.data_index].cpu()
+                if not torch.equal(got, getattr(want, k)[0]):
+                    raise AssertionError(f"phase 15 (a): rank "
+                                         f"{mesh.rank}'s {k} differ from "
+                                         "the plain translation")
+        logits_all.append(logits.float().cpu())
+        tok = stats["next_token"]
+        for r, t in enumerate(tok.tolist()):
+            streams[r].append(int(t))
+    out = dict(streams=streams, logits=logits_all, walls=walls)
+    if profile:
+        rows, wall = _profile_once(torch, lambda: serve(params, st, tok))
+        busy = sum(ms for _, ms, _ in rows)
+        out["profile"] = dict(
+            device_ms=busy if rows else None, wall_ms=wall,
+            idle_share=1 - busy / wall if rows else None,
+            kernels=int(sum(n for _, _, n in rows)),
+            top=[(k[:60], round(ms, 4), n) for k, ms, n in rows[:6]])
+    return out
+
+
+def _ts_striped_case(cfg):
+    """(c)'s geometry: one row of ``context`` tokens; global block b on
+    group b % G at local block b // G, whose local slot is its vpn's
+    (RestSeg for the first three quarters, flex for the rest)."""
+    from repro_torch.serve.decode import DecodeSpec
+    G, _ = PHASE15_MESH
+    bs = cfg.kv_block_size
+    nglob = PHASE15_C["context"] // bs
+    nloc = nglob // G
+    rest = nloc * 3 // 4
+    n_sets = rest // PHASE15_ASSOC
+    tar = [[0] * PHASE15_ASSOC for _ in range(n_sets)]
+    sf = [0] * n_sets
+    flex = [-1] * nloc
+    slot_of = []
+    for v in range(nloc):
+        if v < rest:
+            s, w = v % n_sets, v // n_sets
+            tar[s][w] = v + 1
+            sf[s] += 1
+            slot_of.append(s * PHASE15_ASSOC + w)
+        else:
+            flex[v] = v
+            slot_of.append(v)
+    mesh_spec = DecodeSpec(block_size=bs, max_blocks_per_seq=nloc,
+                           slots_per_group=nloc, n_sets=n_sets,
+                           assoc=PHASE15_ASSOC, mode="striped")
+    one_spec = DecodeSpec(block_size=bs, max_blocks_per_seq=nglob,
+                          slots_per_group=nglob, n_sets=1,
+                          assoc=PHASE15_ASSOC)
+    return dict(G=G, nglob=nglob, nloc=nloc, tables=(tar, sf, flex),
+                slot_of=slot_of, mesh_spec=mesh_spec, one_spec=one_spec)
+
+
+def _ts_block_kv(torch, dev, cfg, dims, layer, kv, seed):
+    """Layer ``layer``'s K (kv 0) or V (kv 1) of every block of (c)'s
+    context, (n_blocks, bs, KV, hd) bf16, from a generator on the card
+    seeded by (seed, layer, kv): each rank and the one-device run draw the
+    same numbers."""
+    gen = torch.Generator(device=dev).manual_seed(seed + 2 * layer + kv)
+    nglob = PHASE15_C["context"] // cfg.kv_block_size
+    return torch.randn((nglob, cfg.kv_block_size, dims.n_kv, dims.head_dim),
+                       generator=gen, device=dev, dtype=torch.bfloat16)
+
+
+def ts_striped_run(torch, dev, cfg, dims, params, case, seed, mesh=None):
+    """(c) on this rank (``mesh``) or on one device: the state written
+    straight from seeded numbers (no prefill), then ``steps`` decode steps
+    fed seeded tokens.  Returns each step's logits and wall ms."""
+    from repro_torch.serve.decode import init_decode_state, make_serve_step
+    G, nloc, nglob = case["G"], case["nloc"], case["nglob"]
+    bs = cfg.kv_block_size
+    i32 = dict(dtype=torch.int32, device=dev)
+    if mesh is None:
+        spec = case["one_spec"]
+        st = init_decode_state(cfg, dims, spec, 1, 1, torch.bfloat16, dev)
+        st["flex"].copy_(torch.arange(nglob, **i32)[None])
+    else:
+        spec = case["mesh_spec"]
+        st = init_decode_state(cfg, dims, spec, 1, G, torch.bfloat16, dev,
+                               mesh=mesh)
+        tar, sf, flex = case["tables"]
+        st["tar"].copy_(torch.tensor([tar], **i32))
+        st["sf"].copy_(torch.tensor([sf], **i32))
+        st["flex"].copy_(torch.tensor([flex], **i32))
+        g, m = mesh.data_index, mesh.model_index
+        bs_loc = bs // PHASE15_MESH[1]
+        blocks = torch.arange(nloc, device=dev) * G + g
+        local = torch.tensor(case["slot_of"], dtype=torch.long, device=dev)
+    for layer in range(cfg.num_layers):
+        for kv, name in enumerate(("k_pool", "v_pool")):
+            whole = _ts_block_kv(torch, dev, cfg, dims, layer, kv, seed)
+            if mesh is None:
+                st[name][layer, :nglob] = whole
+            else:
+                st[name][layer, local] = whole[blocks, m * bs_loc:
+                                               (m + 1) * bs_loc]
+            del whole
+    st["ctx_len"].fill_(PHASE15_C["context"] - PHASE15_C["steps"] - 4)
+    gen = torch.Generator().manual_seed(seed + 99)
+    feed = torch.randint(0, cfg.vocab_size, (PHASE15_C["steps"], 1),
+                         generator=gen, dtype=torch.int32)
+    serve = make_serve_step(cfg, dims, spec, torch.bfloat16, mesh=mesh)
+    logits_all, walls = [], []
+    for i in range(PHASE15_C["steps"]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, st, stats = serve(params, st, feed[i].to(dev))
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        logits_all.append(logits.float().cpu())
+    del st
+    return dict(logits=logits_all, walls=walls)
+
+
+def token_split_child(torch, dev, rank, directory):
+    """Phase 15's rank (``--token-split-child RANK DIR``): join the gloo
+    group of four (file rendezvous in DIR) as rank (r // 2, r % 2) of the
+    (2, 2) mesh and run (a), (b) and (c) on its share, counting its
+    launches (from 0), its gloo bytes and its peak memory; it saves what
+    it served and printed to DIR/rankRANK.pt."""
+    import datetime
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_local_mesh
+    t0 = time.perf_counter()
+    world = PHASE15_MESH[0] * PHASE15_MESH[1]
+    dist.init_process_group(
+        "gloo", init_method=f"file://{Path(directory) / 'rendezvous'}",
+        world_size=world, rank=rank,
+        timeout=datetime.timedelta(seconds=PHASE15_TIMEOUT_S))
+    out = {"rank": rank}
+    try:
+        mesh = make_local_mesh(*PHASE15_MESH)
+        tally = _counted(mesh)
+        torch.cuda.reset_peak_memory_stats()
+        _kernel_counts(reset=True)
+        # (a)
+        cfg, dims, params = served_model(torch, dev, PHASE15_ARCH,
+                                         torch.float32, seed=SEED + 15,
+                                         layers=PHASE15_A["layers"])
+        case = _ts_batch_case(cfg, PHASE15_A)
+        a = ts_batch_run(torch, dev, cfg, dims, params, PHASE15_A, case,
+                         SEED + 151, torch.float32, mesh,
+                         check_translation=True)
+        out["a"] = {k: a[k] for k in ("streams", "logits")}
+        del params
+        torch.cuda.empty_cache()
+        # (b)
+        cfg, dims, params = served_model(torch, dev, PHASE15_ARCH,
+                                         torch.bfloat16, seed=SEED + 16,
+                                         layers=PHASE15_B["layers"])
+        case = _ts_batch_case(cfg, PHASE15_B)
+        before = dict(tally)
+        counts0 = _kernel_counts()
+        b = ts_batch_run(torch, dev, cfg, dims, params, PHASE15_B, case,
+                         SEED + 152, torch.bfloat16, mesh, profile=True)
+        counts1 = _kernel_counts()
+        steps = PHASE15_B["steps"] + 1          # and the profiled one
+        out["b"] = dict(
+            streams=b["streams"], logits=b["logits"],
+            step_wall_ms=b["walls"],
+            step_wall_ms_median=statistics.median(b["walls"][2:]),
+            profile=b["profile"],
+            launches={k: counts1[k] - counts0[k] for k in counts1},
+            # the steps' collectives, the prefill's one gather spread
+            # over them
+            gloo_per_step={k: (tally[k] - before[k]) / steps
+                           for k in tally})
+        del b
+        # (c)
+        case_c = _ts_striped_case(cfg)
+        c = ts_striped_run(torch, dev, cfg, dims, params, case_c,
+                           SEED + 153, mesh)
+        out["c"] = dict(logits=c["logits"], step_wall_ms=c["walls"])
+        out["launches"] = _kernel_counts()
+        out["gloo_bytes"] = dict(tally)
+        out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        out["total_s"] = time.perf_counter() - t0
+    finally:
+        torch.save(out, Path(directory) / f"rank{rank}.pt")
+        dist.destroy_process_group()
+    print(TOKEN_SPLIT_TAG + json.dumps({"rank": rank,
+                                        "total_s": out.get("total_s")}),
+          flush=True)
+
+
+def check_token_split_kernels(torch, dev, results):
+    """The two kernels at phase 15's token-split geometries, against their
+    plain versions and bounds: the RSW step entry with the group layout
+    ((G, TP) = (2, 2) batch and striped, (4, 1) striped, (1, 4) batch;
+    bitwise, one launch a call), timed at (b)'s geometry (2 rows of 18
+    blocks, rank (0, 1)); the paged read of a token shard (``bs / TP =
+    32`` of granite-8b's 64-token blocks at offset 32, 2 rows, bf16) and
+    of a striped rank (1,024 local blocks of a 131,072-token row,
+    ``block_tokens = 128``, offset 32), each within 3e-2 of its plain
+    version, timed beside its bytes bound."""
+    from repro_torch.kernels.paged_attention.ops import paged_attention
+    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+    from repro_torch.kernels.utopia_rsw.ops import (
+        translate_step_translator, utopia_translate_step)
+    from repro_torch.kernels.utopia_rsw.ref import (step_words,
+                                                    translate_step_ref)
+    gen = torch.Generator().manual_seed(SEED + 150)
+    bs, nblk, n_sets, assoc = 64, 18, 2, PHASE15_ASSOC
+
+    def tables(rows):
+        tar, sf, flex, _, S = _ts_group_tables(rows, nblk, n_sets, assoc, 0)
+        i32 = dict(dtype=torch.int32, device=dev)
+        return (torch.tensor([tar], **i32), torch.tensor([sf], **i32),
+                torch.tensor([flex], **i32), S)
+
+    for G, TP, striped in ((2, 2, False), (2, 2, True), (4, 1, True),
+                           (1, 4, False)):
+        for g in range(G):
+            for m in range(TP):
+                tar, sf, flex, S = tables(2)
+                hi = (G if striped else 1) * nblk * bs + 70
+                pos = torch.randint(0, hi, (2,), generator=gen,
+                                    dtype=torch.int32).to(dev)
+                kw = dict(block_size=bs, nblk=nblk, hash_name="modulo",
+                          sink=S, layout=(G, g, striped, TP, m))
+                n0 = utopia_translate_step.launches_group
+                got = utopia_translate_step(tar, sf, flex, pos, **kw)
+                want = translate_step_ref(tar, sf, flex, pos, **kw)
+                if not torch.equal(got.out, want.out):
+                    raise AssertionError(f"translate_step layout {kw['layout']}"
+                                         ": differs from the plain version")
+                if G * TP > 1 and utopia_translate_step.launches_group != \
+                        n0 + 1:
+                    raise AssertionError("translate_step: a group layout's "
+                                         "launch went uncounted")
+    tar, sf, flex, S = tables(2)
+    pos = torch.tensor([1040, 290], dtype=torch.int32, device=dev)
+    kw = dict(block_size=bs, nblk=nblk, hash_name="modulo", sink=S,
+              layout=(2, 0, False, 2, 1))
+    bound = translate_step_translator(tar, sf, flex, pos, **kw)  # as a step
+    fn = [lambda: bound(tar, sf, flex, pos)]
+    per_call = launches_per_call(torch, fn[0])
+    if per_call != 1:
+        raise AssertionError(f"translate_step (token split): {per_call} "
+                             "device kernels per call, expected 1")
+    nbytes = _step_bytes(torch, (tar, sf, flex, pos, pos), nblk, "modulo")
+    results["utopia_translate_step_group"] = dict(
+        max_abs_err=0.0, ms=time_ms(torch, fn, 400),
+        device_ms=device_ms(torch, fn[0], 100, ("translate_step_kernel",)),
+        plain_ms=time_ms(torch, [lambda: translate_step_ref(
+            tar, sf, flex, pos, **kw)], 50),
+        bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+        library_ms=None, bytes=nbytes, words=step_words(2, nblk),
+        shape=f"2 rows x {nblk} blocks, layout (G, g, striped, TP, m) = "
+              "(2, 0, False, 2, 1)")
+    log("check translate_step group layouts: bitwise the plain version at "
+        "(2, 2) batch and striped, (4, 1) striped, (1, 4) batch, one launch "
+        "a call; " + json.dumps(results["utopia_translate_step_group"]))
+
+    H, KV, D = 32, 8, 128
+    reads = {}
+    for name, (B, nb, ctx, off, bt) in {
+            "token_split_read": (2, nblk, [1040, 290], 32, 64),
+            "striped_read": (1, 1024, [PHASE15_C["context"] - 19], 32, 128),
+    }.items():
+        L = 4 if name == "striped_read" else 8
+        kp = torch.randn((L, nb + 1, 32, KV, D), generator=gen).to(
+            dev, torch.bfloat16)
+        vp = torch.randn((L, nb + 1, 32, KV, D), generator=gen).to(
+            dev, torch.bfloat16)
+        slots = torch.stack([torch.randperm(nb, generator=gen)
+                             for _ in range(B)]).to(dev, torch.int32)
+        q = torch.randn((B, H, D), generator=gen).to(dev, torch.bfloat16)
+        ext = torch.tensor(ctx, dtype=torch.int32, device=dev)
+        geo = dict(tok_offset=off, block_tokens=bt)
+        got = paged_attention(q, kp[0], vp[0], slots, ext, **geo)
+        want = paged_attention_ref(q, kp[0], vp[0], slots, ext, **geo)
+        err = max(check_close(f"paged_attention[{name}]", g, w, 3e-2)
+                  for g, w in zip(got, want))
+        kern = [lambda i=i: paged_attention(q, kp[i], vp[i], slots, ext,
+                                            **geo) for i in range(L)]
+        # the tokens below each row's extent that this rank holds
+        n_tok = sum(sum(min(32, max(0, e - (j * bt + off)))
+                        for j in range(nb)) for e in ctx)
+        nbytes = (q.numel() * 2 + 2 * n_tok * KV * D * 2 + slots.numel() * 4
+                  + B * 4 + B * H * D * 4 + 2 * B * H * 4)
+        flops = 4 * D * H * n_tok
+        reads[name] = dict(
+            max_abs_err=err, ms=time_ms(torch, kern, 40),
+            device_ms=device_ms(torch, kern[0], 20, ("paged_attn_kernel",)),
+            plain_ms=time_ms(torch, [lambda: paged_attention_ref(
+                q, kp[0], vp[0], slots, ext, **geo)], 4),
+            bound_ms=max(nbytes / HBM_BYTES_PER_S,
+                         flops / PEAK_FLOPS["bfloat16"]) * 1e3,
+            bound_by=_bound_by(nbytes, flops), library_ms=None,
+            bytes=nbytes, ctas=_grid_ctas(B, 1, H, KV, D, nb),
+            shape=f"B={B} H={H} KV={KV} D={D} pool bs=32 nblk={nb} "
+                  f"tok_offset={off} block_tokens={bt} ctx={ctx} bf16")
+        del kp, vp
+        log(f"check paged_attention [{name}]: within 3e-2 of the plain "
+            "version; " + json.dumps(reads[name]))
+    results["paged_attention_token_split"] = reads
+    torch.cuda.empty_cache()
+
+
+def _margin(logits_row):
+    top = logits_row.float().topk(2).values
+    return float(top[0] - top[1])
+
+
+def _serve_cli(torch, root, mesh):
+    """Phase 15 (d): ``python -m repro_torch.launch.serve --arch
+    granite-8b --requests 8 --max-new 16`` on the card as a child process,
+    and with ``--data 1 --model 2`` under torchrun (two ranks on one card:
+    gloo); each must exit 0 and print its run and translation lines."""
+    import os
+    cmd = ["-m", "repro_torch.launch.serve", "--arch", "granite-8b",
+           "--requests", "8", "--max-new", "16"]
+    if mesh:
+        cmd = ["-m", "torch.distributed.run", "--standalone",
+               "--nproc-per-node", "2"] + cmd + ["--data", "1", "--model",
+                                                 "2"]
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable] + cmd, cwd=str(root), env=env,
+                          capture_output=True, text=True, timeout=600)
+    secs = time.perf_counter() - t0
+    lines = proc.stdout.splitlines()
+    if (proc.returncode != 0 or not any("engine steps" in x for x in lines)
+            or not any(x.startswith("translation:") for x in lines)):
+        raise AssertionError(
+            f"phase 15 (d): {' '.join(cmd)} exited {proc.returncode}:\n"
+            f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    return dict(cmd=" ".join(cmd), exit=0, seconds=round(secs, 1),
+                lines=lines[:3])
+
+
+def token_split(torch, dev, src, results):
+    """Phase 15: the token-split layout over a (2, 2) mesh, four
+    processes on this card over gloo (``--token-split-child``), granite-8b
+    at full width (64-token blocks, 32 tokens a rank).  The kernels first
+    (``check_token_split_kernels``); then the ranks run (a), (b) and (c)
+    while this process runs each on one device (``mesh=None``) with the
+    same weights and inputs: (a) float32, 2 layers, batch mode, the
+    recompute prefill with the flash kernel then 16 greedy steps: every
+    step's logits within ``PHASE15_A["tol"]`` of the largest |logit|,
+    every stream equal, and each rank's translation bitwise its plain
+    version; (b) bf16, 12 layers, batch mode, prompts of 256-1024 tokens,
+    32 steps: streams against mesh=None (agreement, and the top-2 margin
+    where a row first differs), each rank's step wall and device ms, idle
+    share, launches and gloo bytes a step; (c) bf16, 12 layers, striped
+    mode, one row of 131,072 tokens written straight into the pools, 16
+    teacher-forced steps held to mesh=None within ``PHASE15_C["tol"]``;
+    peak memory a rank; (d) the serve CLI alone and at ``--data 1 --model
+    2`` under torchrun.  Returns the ranks' launch counts, added."""
+    import os
+    import shutil
+    import tempfile
+    t_phase = time.perf_counter()
+    check_token_split_kernels(torch, dev, results)
+    world = PHASE15_MESH[0] * PHASE15_MESH[1]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_phase15_")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    procs, ranks = [], []
+    try:
+        for r in range(world):
+            procs.append(subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()),
+                 "--token-split-child", str(r), tmp, "--src", str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                env=env))
+        ref = {}
+        cfg, dims, params = served_model(torch, dev, PHASE15_ARCH,
+                                         torch.float32, seed=SEED + 15,
+                                         layers=PHASE15_A["layers"])
+        ref["a"] = ts_batch_run(torch, dev, cfg, dims, params, PHASE15_A,
+                                _ts_batch_case(cfg, PHASE15_A),
+                                SEED + 151, torch.float32)
+        del params
+        torch.cuda.empty_cache()
+        cfg, dims, params = served_model(torch, dev, PHASE15_ARCH,
+                                         torch.bfloat16, seed=SEED + 16,
+                                         layers=PHASE15_B["layers"])
+        ref["b"] = ts_batch_run(torch, dev, cfg, dims, params, PHASE15_B,
+                                _ts_batch_case(cfg, PHASE15_B),
+                                SEED + 152, torch.bfloat16, profile=True)
+        torch.cuda.reset_peak_memory_stats()
+        ref["c"] = ts_striped_run(torch, dev, cfg, dims, params,
+                                  _ts_striped_case(cfg), SEED + 153)
+        ref_peak = torch.cuda.max_memory_allocated() / 1e9
+        del params
+        torch.cuda.empty_cache()
+        outs = [p.communicate(timeout=900) for p in procs]
+        for r, (p, (out, err)) in enumerate(zip(procs, outs)):
+            path = Path(tmp) / f"rank{r}.pt"
+            got = torch.load(path, weights_only=False) if path.exists() \
+                else {}
+            if p.returncode != 0 or "total_s" not in got:
+                raise AssertionError(f"phase 15: rank {r} failed (exit "
+                                     f"{p.returncode}):\n{out[-2000:]}\n"
+                                     f"{err[-4000:]}")
+            ranks.append(got)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    report = {}
+    # (a)
+    errs = []
+    for r, got in enumerate(ranks):
+        if got["a"]["streams"] != ref["a"]["streams"]:
+            raise AssertionError(f"phase 15 (a): rank {r}'s streams differ "
+                                 "from mesh=None's")
+        for i, (g, w) in enumerate(zip(got["a"]["logits"],
+                                       ref["a"]["logits"])):
+            e = float((g - w).abs().max()) / float(w.abs().max())
+            errs.append(e)
+            if e > PHASE15_A["tol"]:
+                raise AssertionError(f"phase 15 (a): rank {r}'s logits at "
+                                     f"step {i} differ by {e:.3g} of the "
+                                     "largest |logit|")
+    report["a"] = dict(max_rel_err=max(errs),
+                       streams_sha256=stream_digest(dict(enumerate(
+                           ref["a"]["streams"]))))
+    # (b)
+    want = ref["b"]["streams"]
+    for r, got in enumerate(ranks[1:], 1):
+        if got["b"]["streams"] != ranks[0]["b"]["streams"]:
+            raise AssertionError(f"phase 15 (b): rank {r}'s streams differ "
+                                 "from rank 0's")
+    got = ranks[0]["b"]["streams"]
+    div = []
+    for row, (g, w) in enumerate(zip(got, want)):
+        at = next((i for i, (x, y) in enumerate(zip(g, w)) if x != y), None)
+        if at is not None:
+            div.append(dict(row=row, step=at, margin=_margin(
+                ref["b"]["logits"][at][row])))
+    report["b"] = dict(
+        rows_equal=sum(g == w for g, w in zip(got, want)), rows=len(want),
+        divergences=div,
+        streams_sha256=stream_digest(dict(enumerate(got))),
+        reference_step_wall_ms_median=statistics.median(
+            ref["b"]["walls"][2:]),
+        reference_profile=ref["b"]["profile"],
+        ranks=[dict(rank=g["rank"],
+                    step_wall_ms_median=g["b"]["step_wall_ms_median"],
+                    profile=g["b"]["profile"], launches={
+                        k: v for k, v in g["b"]["launches"].items() if v},
+                    gloo_per_step=g["b"]["gloo_per_step"])
+               for g in ranks])
+    # (c)
+    errs, agree = [], 0
+    for r, got in enumerate(ranks):
+        for i, (g, w) in enumerate(zip(got["c"]["logits"],
+                                       ref["c"]["logits"])):
+            e = float((g - w).abs().max()) / float(w.abs().max())
+            errs.append(e)
+            if e > PHASE15_C["tol"]:
+                raise AssertionError(f"phase 15 (c): rank {r}'s logits at "
+                                     f"step {i} differ by {e:.3g} of the "
+                                     "largest |logit|")
+            agree += int(int(g.argmax()) == int(w.argmax()))
+    report["c"] = dict(
+        max_rel_err=max(errs), argmax_agree=agree,
+        argmax_of=len(errs),
+        step_wall_ms_median=[statistics.median(g["c"]["step_wall_ms"][2:])
+                             for g in ranks],
+        reference_step_wall_ms_median=statistics.median(
+            ref["c"]["walls"][2:]),
+        reference_peak_gb=ref_peak,
+        peak_gb=[g["peak_gb"] for g in ranks])
+    # (d)
+    root = src
+    report["d"] = [_serve_cli(torch, root, False),
+                   _serve_cli(torch, root, True)]
+    counts = {}
+    for g in ranks:
+        for k, v in g["launches"].items():
+            counts[k] = counts.get(k, 0) + v
+    report["launches"] = counts
+    report["rank_s"] = [round(g["total_s"], 1) for g in ranks]
+    report["phase_s"] = round(time.perf_counter() - t_phase, 1)
+    log("phase 15: granite-8b full width, the token-split layout over a "
+        "(2, 2) mesh of four processes on one card over gloo: " + json.dumps(
+            report, default=lambda x: round(x, 6) if isinstance(x, float)
+            else str(x)))
+    for name in ("utopia_translate_step", "utopia_translate_step_group",
+                 "paged_attention", "flash_attention"):
+        if counts.get(name, 0) <= 0:
+            raise AssertionError(f"phase 15: {name} was never launched")
+    return counts
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -5539,6 +6237,12 @@ def main() -> int:
     ap.add_argument("--mesh-train", action="store_true",
                     help="run only phase 14 (training over a mesh; no "
                          "kernel build)")
+    ap.add_argument("--token-split", action="store_true",
+                    help="build the kernels and run only phase 15 (the "
+                         "token-split layout over a (2, 2) mesh, the serve "
+                         "CLI)")
+    ap.add_argument("--token-split-child", nargs=2, metavar=("RANK", "DIR"),
+                    default=None, help=argparse.SUPPRESS)  # phase 15's ranks
     ap.add_argument("--mesh-train-child", nargs=3,
                     metavar=("RANK", "DIR", "SHAPE"), default=None,
                     help=argparse.SUPPRESS)  # phase 14 (b)'s ranks
@@ -5572,6 +6276,10 @@ def main() -> int:
         return 0
     if args.mesh_child:
         mesh_child(torch, dev, int(args.mesh_child[0]), args.mesh_child[1])
+        return 0
+    if args.token_split_child:
+        token_split_child(torch, dev, int(args.token_split_child[0]),
+                          args.token_split_child[1])
         return 0
     if args.mesh_train_child:
         rank, directory, shape = args.mesh_train_child
@@ -5633,6 +6341,11 @@ def main() -> int:
         return 0
     if args.translation:
         translation(torch, dev, results)
+        card_line(torch)
+        return 0
+    if args.token_split:
+        counts = token_split(torch, dev, src, results)
+        log("phase 15 launches: " + json.dumps(counts))
         card_line(torch)
         return 0
     if args.recurrent:
@@ -5718,10 +6431,14 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     paths["phase14"] = mesh_training(torch, dev, src, phase13_losses)
+    t15 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths["phase15"] = token_split(torch, dev, src, results)
     log(f"new sub-runs: phase 4 (b) {t4b - t0:.1f} s, phase 6 (f) "
         f"{t6f - t4b:.1f} s, phase 12 {t12 - t6f:.1f} s, phase 11 "
         f"{t13 - t11:.1f} s, phase 13 {t14 - t13:.1f} s, phase 14 "
-        f"{time.perf_counter() - t14:.1f} s")
+        f"{t15 - t14:.1f} s, phase 15 {time.perf_counter() - t15:.1f} s")
 
     # launches: each path's count was set to 0 just before it and read
     # just after; the line gives their sum and each path's
@@ -5748,7 +6465,14 @@ def main() -> int:
             extra["launches_combine"] = sum(
                 c.get("utopia_combine_shard", 0) for c in paths.values())
             extra["shard"] = results.pop("utopia_translate_shard")
+            # the token-split rank's layout (phase 15's path)
+            extra["launches_group_layout"] = sum(
+                c.get("utopia_translate_step_group", 0)
+                for c in paths.values())
+            extra["group_layout"] = results.pop(
+                "utopia_translate_step_group")
         if name == "paged_attention":
+            extra.update(results.pop("paged_attention_token_split"))
             extra["launches_q_gt1"] = sum(
                 c["paged_attention_q_gt1"] for c in paths.values())
             extra["launches_q_per_query"] = sum(

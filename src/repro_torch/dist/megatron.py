@@ -175,8 +175,10 @@ def make_megatron_forward(cfg: ArchConfig, dims: ModelDims, mesh,
     split)."""
     if cfg.family != "dense":
         raise ValueError("explicit megatron schedule is dense-only")
-    if model_axis != "model" or tuple(data_axes) != ("data",):
-        raise ValueError("the port's mesh has the axes 'data' and 'model'")
+    if model_axis != "model" or tuple(data_axes) != tuple(
+            getattr(mesh, "data_axes", ("data",))):
+        raise ValueError(f"data axes {tuple(data_axes)} and model axis "
+                         f"{model_axis!r} are not the mesh's")
     tp = mesh.model_size
     kv_sh = _kv_sharded(dims, tp)
     kv_div = (dims.n_kv * dims.head_dim) % tp == 0   # the state's k/v split
@@ -271,7 +273,8 @@ def megatron_loss(mfwd, mesh):
     the whole batch's ``ce`` and ``loss`` as metrics.  It takes the
     parameters as this rank's model-axis blocks (``sharded_axes``, which
     the train step reads: it gathers them over the data axis only)."""
-    data_sum = functools.partial(mesh.all_reduce, axis="data")
+    data_sum = functools.partial(
+        mesh.all_reduce, axis=tuple(getattr(mesh, "data_axes", ("data",))))
 
     def loss(params, batch):
         logits, _, _ = mfwd(params, batch)

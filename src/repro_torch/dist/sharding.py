@@ -100,6 +100,12 @@ def _sizes(mesh) -> Dict[str, int]:
     return dict(zip(AXES, shape))
 
 
+def _mesh_axes(mesh) -> Tuple[str, ...]:
+    """The mesh's axis names, major to minor (a ``Mesh``'s are ``AXES``;
+    a ``MeshDesc`` may have a ``pod`` axis before them)."""
+    return tuple(getattr(mesh, "axis_names", AXES))
+
+
 def _names(axes) -> Tuple[str, ...]:
     return (axes,) if isinstance(axes, str) else tuple(axes)
 
@@ -212,10 +218,11 @@ def _entries(spec, ndim: int) -> Tuple[Any, ...]:
 
 
 def block_of(x: torch.Tensor, spec, mesh,
-             axes: Iterable[str] = AXES) -> torch.Tensor:
+             axes: Iterable[str] = None) -> torch.Tensor:
     """This rank's block of the whole tensor ``x`` under ``spec``: a view,
-    cut only along the dims split over ``axes``."""
-    keep = set(axes)
+    cut only along the dims split over ``axes`` (all of the mesh's by
+    default)."""
+    keep = set(_mesh_axes(mesh) if axes is None else axes)
     for dim, entry in enumerate(_entries(spec, x.dim())):
         if entry is None or not set(_names(entry)) <= keep:
             continue
@@ -226,7 +233,7 @@ def block_of(x: torch.Tensor, spec, mesh,
 
 
 def whole_of(x: torch.Tensor, spec, mesh,
-             axes: Iterable[str] = AXES) -> torch.Tensor:
+             axes: Iterable[str] = None) -> torch.Tensor:
     """The whole tensor from every rank's block ``x`` under ``spec``: one
     all-gather over the axes (among ``axes``) that split its dims, the
     blocks then laid into place (every rank of those axes must call it).
@@ -234,12 +241,13 @@ def whole_of(x: torch.Tensor, spec, mesh,
     the card it returns once the gather has run: the collective's buffers
     are freed only then, and a host running ahead of the card would hold
     every leaf's at once."""
-    keep = set(axes)
+    keep = set(_mesh_axes(mesh) if axes is None else axes)
     split = {d: _names(e) for d, e in enumerate(_entries(spec, x.dim()))
              if e is not None and set(_names(e)) <= keep}
     if not split:
         return x
-    names = tuple(a for a in AXES if any(a in n for n in split.values()))
+    names = tuple(a for a in _mesh_axes(mesh)
+                  if any(a in n for n in split.values()))
     sizes = _sizes(mesh)
     # (blocks of each axis in index order, the block's dims)
     g = mesh.all_gather(x.unsqueeze(0), 0, names).reshape(
@@ -321,7 +329,7 @@ class Block:
             e = self.spec[d % nd]
             if e is not None:
                 names.update(a for a in _names(e) if sizes[a] > 1)
-        return tuple(a for a in AXES if a in names)
+        return tuple(a for a in _mesh_axes(self.mesh) if a in names)
 
     def split(self, dim: int) -> bool:
         """Whether the spec splits leaf dim ``dim``."""
@@ -352,8 +360,8 @@ class Block:
         in a sum over the world: index 0 along every axis that does not
         split the leaf."""
         split = self._axes(range(len(self.shape)))
-        return all(self.mesh.axis(a).index == 0 for a in AXES
-                   if a not in split)
+        return all(self.mesh.axis(a).index == 0
+                   for a in _mesh_axes(self.mesh) if a not in split)
 
 
 def block_tree(tree, specs, mesh):

@@ -10,6 +10,7 @@ imported: the CPU tests import every module and have no ``nvcc``.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -28,6 +29,20 @@ KERNELS = ("utopia_rsw", "paged_attention", "flash_attention")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
+
+# What the kernels' wrappers would have launched on ``meta`` tensors (the
+# dry run, ``launch/dryrun.py``): per kernel, calls, operations (the
+# formulas behind PERF.md's bounds) and the bytes each call must move.
+META_COSTS: Dict[str, collections.Counter] = collections.defaultdict(
+    collections.Counter)
+
+
+def count_meta(name: str, flops: int, nbytes: int) -> None:
+    """Record one shape-only call of kernel ``name`` (``META_COSTS``)."""
+    c = META_COSTS[name]
+    c["calls"] += 1
+    c["flops"] += int(flops)
+    c["bytes"] += int(nbytes)
 
 
 def source(name: str) -> Path:

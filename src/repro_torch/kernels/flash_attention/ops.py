@@ -37,6 +37,15 @@ def flash_attention(q, k, v, *, causal: bool = True):
     if all(t.device.type == "cpu" for t in (q, k, v)):
         return flash_attention_ref(q, k, v, causal=causal)
     dev = q.device
+    if dev.type == "meta":
+        # the dry run: the output's shape, and the kernel's cost
+        B, S, H, D = q.shape
+        Skv = k.shape[1]
+        pairs = S * Skv // 2 if causal else S * Skv
+        _build.count_meta("flash_attention", 4 * B * H * D * pairs,
+                          (2 * q.numel() + k.numel() + v.numel())
+                          * q.element_size())
+        return torch.empty_like(q)
     if dev.type != "cuda" or k.device != dev or v.device != dev:
         raise ValueError("flash_attention: q, k, v must be on one CUDA "
                          f"device (got {q.device}, {k.device}, {v.device})")

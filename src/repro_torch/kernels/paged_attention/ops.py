@@ -91,6 +91,8 @@ def paged_attention(q, k_pool, v_pool, slots, ctx_len, *,
                                    tok_offset=tok_offset,
                                    tok_stride=tok_stride,
                                    block_tokens=block_tokens)
+    if dev.type == "meta":
+        return _meta_call(q, k_pool, slots, ctx_len)
     if (dev.type != "cuda" or k_pool.device != dev or v_pool.device != dev
             or slots.device != dev or ctx_len.device != dev):
         raise ValueError("paged_attention: all inputs must be on one CUDA "
@@ -159,6 +161,24 @@ def paged_attention(q, k_pool, v_pool, slots, ctx_len, *,
             paged_attention.launches_multi_query += 1
         if ctx_len.dim() == 2:
             paged_attention.launches_q_per_query += 1
+    return o, m, l
+
+
+def _meta_call(q, k_pool, slots, ctx_len):
+    """The kernel's outputs' shapes on the ``meta`` device, and its cost
+    as if every row read all of its ``nblk`` blocks (the dry run)."""
+    B, H, D = q.shape[0], q.shape[-2], q.shape[-1]
+    Q = 1 if q.dim() == 3 else q.shape[1]
+    _, bs, KV, _ = k_pool.shape
+    tokens = B * slots.shape[1] * bs
+    _build.count_meta(
+        "paged_attention", 4 * D * H * Q * tokens,
+        q.numel() * q.element_size() + 2 * tokens * KV * D
+        * k_pool.element_size() + 4 * (slots.numel() + ctx_len.numel())
+        + 4 * B * Q * H * (D + 2))
+    o = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    m, l = torch.empty((2,) + q.shape[:-1], dtype=torch.float32,
+                       device=q.device).unbind(0)
     return o, m, l
 
 

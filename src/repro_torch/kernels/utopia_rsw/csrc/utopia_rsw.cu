@@ -187,10 +187,21 @@ __global__ void rsw_kernel(const int* __restrict__ vpns, Tables T, int n,
   accesses[i] = r.accesses;
 }
 
-// The step's geometry, bound once on the host (see StepParams below).
+// The step's geometry, bound once on the host (see StepParams below), and
+// the token-split layout of a rank of a (data, model) mesh: G groups, this
+// rank's group g, striped (global block b on group b % G at local block
+// b / G), TP token shards of a block and this rank's shard m.  One device
+// is G = TP = 1, g = m = 0, not striped.
 struct Step {
   int batch, nblk, block_size, sink, window;
+  int groups, group, striped, tok_shards, tok_index;
 };
+
+// A position's block, local to its group in striped mode.
+__device__ __forceinline__ int local_block(int p, const Step& S) {
+  const int b = floor_div(p, S.block_size);
+  return S.striped ? floor_div(b, S.groups) : b;
+}
 
 // Output layout of the step entry, in int32 words of one buffer, with
 // W = window and N = B * nblk; entry (b, i) is row b's position
@@ -202,7 +213,11 @@ struct Step {
 //   [5BW, 5BW + 3N)   in_rest, accesses, mapped, (N,) each
 //   [5BW + 3N, +N)    slots    (N,)
 // At W = 1 this is the decode step's layout.  The telemetry block is what
-// the engine fetches, as it lies.
+// the engine fetches, as it lies.  On a rank of the token-split layout a
+// write is valid only on the group that owns its block (striped mode),
+// and lands only on the token shard that holds its position: its row is
+// slot * (bs / TP) + pos % (bs / TP), else the sink's; the extent stays
+// the global pos + 1.  At G = TP = 1 every output is the one device's.
 __global__ void translate_step_kernel(Tables T, Step S,
                                       const int* __restrict__ ctx_len,
                                       const unsigned char* __restrict__ active,
@@ -234,17 +249,21 @@ __global__ void translate_step_kernel(Tables T, Step S,
     mapped[i] = r.mapped;
     // an idle row's position can run past its vpn range; without the
     // clamp its write block would alias ANOTHER row's block
-    if (j < min(max(floor_div(pos, S.block_size), 0), S.nblk - 1)) continue;
+    if (j < min(max(local_block(pos, S), 0), S.nblk - 1)) continue;
+    const int bs_loc = S.block_size / S.tok_shards;
     for (int k = 0; k < W; ++k) {
       const int p = pos + k;
-      const int cur = floor_div(p, S.block_size);
+      const int cur = local_block(p, S);
       if (j != min(max(cur, 0), S.nblk - 1)) continue;
-      const int valid = r.mapped && cur < S.nblk && act;
+      const int owner = !S.striped
+          || floor_mod(floor_div(p, S.block_size), S.groups) == S.group;
+      const int valid = r.mapped && cur < S.nblk && act && owner;
+      const int tok = floor_mod(p, S.block_size);
       const int e = b * W + k;
       w_slot[e] = r.slot;
       w_valid[e] = valid;
-      w_row[e] = (long long)(valid ? r.slot : S.sink) * S.block_size
-                 + floor_mod(p, S.block_size);
+      w_row[e] = (long long)(valid && tok / bs_loc == S.tok_index
+                             ? r.slot : S.sink) * bs_loc + tok % bs_loc;
       extent[e] = p + 1;
     }
   }
@@ -379,6 +398,7 @@ extern "C" {
 struct StepParams {
   int n_sets, assoc, flex_len, hash_id, p;
   int batch, nblk, block_size, sink, window;
+  int groups, group, striped, tok_shards, tok_index;
 };
 
 int utopia_translate_step_launch(const void* tar, const void* sf,
@@ -387,7 +407,9 @@ int utopia_translate_step_launch(const void* tar, const void* sf,
                                  const StepParams* prm, void* stream) {
   Tables T{(const int*)tar, (const int*)sf, (const int*)flex, prm->n_sets,
            prm->assoc, prm->flex_len, prm->hash_id, prm->p, 0};
-  Step S{prm->batch, prm->nblk, prm->block_size, prm->sink, prm->window};
+  Step S{prm->batch,  prm->nblk,  prm->block_size, prm->sink,
+         prm->window, prm->groups, prm->group, prm->striped,
+         prm->tok_shards, prm->tok_index};
   int total = prm->batch * prm->nblk;
   int blocks = (total + kThreads - 1) / kThreads;
   blocks = blocks < 1 ? 1 : (blocks > 1024 ? 1024 : blocks);
@@ -453,7 +475,8 @@ int utopia_combine_shard_launch(const void* sums, const void* ctx_len,
   Shard P;
   int blocks;
   shard_args(prm, nullptr, nullptr, nullptr, &T, &P, &blocks);
-  Step S{prm->batch, prm->nblk, prm->block_size, prm->sink, prm->window};
+  Step S{prm->batch, prm->nblk, prm->block_size, prm->sink, prm->window,
+         1, 0, 0, 1, 0};
   combine_shard_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
       T, P, S, (const int*)sums, (const int*)ctx_len,
       (const unsigned char*)active, (int*)out);

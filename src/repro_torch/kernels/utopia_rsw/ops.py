@@ -5,7 +5,9 @@
 step (two launches and one all-reduce per step); ``utopia_rsw`` walks a
 list of vpns.
 A CUDA tensor launches the kernel or raises; a CPU tensor takes the plain
-version in ``ref.py``.  ``utopia_translate_step.launches``,
+version in ``ref.py``; a ``meta`` tensor gives the outputs' shapes (the
+dry run).  ``utopia_translate_step.launches`` (``.launches_group``: those
+bound to a token-split rank's layout),
 ``utopia_translate_shard.launches`` / ``.launches_combine`` and
 ``utopia_rsw.launches`` count kernel launches.
 """
@@ -16,8 +18,8 @@ import ctypes
 import torch
 
 from .. import _build
-from .ref import (HASH_IDS, StepTranslation, combine_shard_ref, hash_param,
-                  rsw_ref, step_words, translate_shard_ref,
+from .ref import (HASH_IDS, ONE_RANK, StepTranslation, combine_shard_ref,
+                  hash_param, rsw_ref, step_words, translate_shard_ref,
                   translate_step_ref, vpn_grid)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int       # bare ints would be 32-bit
@@ -38,7 +40,8 @@ class _StepParams(ctypes.Structure):
     """``StepParams`` of the C source: the step's fixed arguments."""
     _fields_ = [(f, ctypes.c_int) for f in (
         "n_sets", "assoc", "flex_len", "hash_id", "p", "batch", "nblk",
-        "block_size", "sink", "window")]
+        "block_size", "sink", "window", "groups", "group", "striped",
+        "tok_shards", "tok_index")]
 
 
 def _check(name: str, t: torch.Tensor, shape, dtype, device) -> None:
@@ -53,18 +56,21 @@ def _check(name: str, t: torch.Tensor, shape, dtype, device) -> None:
 def translate_step_translator(tar: torch.Tensor, sf: torch.Tensor,
                               flex: torch.Tensor, ctx_len: torch.Tensor, *,
                               block_size: int, nblk: int, hash_name: str,
-                              sink: int, window: int = 1):
+                              sink: int, window: int = 1, layout=ONE_RANK):
     """Bind the decode step's translation to the geometry of these tables:
     tar ``(1, n_sets, assoc)``, sf ``(1, n_sets)``, flex ``(1, B * nblk)``,
-    all int32, and ``ctx_len (B,)`` int32, on one device, and to the
+    all int32, and ``ctx_len (B,)`` int32, on one device, to the
     ``window`` of positions each row writes (1 for a decode step, K + 1
-    for a speculative verify step).
+    for a speculative verify step), and to the token-split ``layout`` ``(G,
+    g, striped, TP, m)`` of a rank of a mesh (``ref.translate_step_ref``;
+    ``ONE_RANK`` on one device).
 
     Validates shapes, dtypes and the device once, here, and returns
     ``translate(tar, sf, flex, ctx_len, active=None) -> StepTranslation``,
     which checks nothing: on a card it passes four pointers, the optional
     ``active (B,)`` bool mask, one output buffer and the stream to ONE
-    launch; on the CPU it runs ``translate_step_ref``."""
+    launch; on the CPU it runs ``translate_step_ref``; on the ``meta``
+    device it returns the output's shape (the dry run)."""
     dev = ctx_len.device
     B = ctx_len.shape[0]
     if tar.dim() != 3 or tar.shape[0] != 1:
@@ -81,23 +87,35 @@ def translate_step_translator(tar: torch.Tensor, sf: torch.Tensor,
     if window < 1:
         raise ValueError(f"translate_step: window must be >= 1, got "
                          f"{window}")
+    G, g, striped, TP, m = layout
+    if not (0 <= g < G and 0 <= m < TP and block_size % TP == 0):
+        raise ValueError(f"translate_step: layout {layout} does not fit "
+                         f"{block_size}-token blocks")
     geom = dict(block_size=block_size, nblk=nblk, hash_name=hash_name,
-                sink=sink, window=window)
+                sink=sink, window=window, layout=tuple(layout))
     if dev.type == "cpu":
         return lambda tar, sf, flex, ctx_len, active=None: (
             translate_step_ref(tar, sf, flex, ctx_len, active, **geom))
+    if dev.type == "meta":
+        words = step_words(B, nblk, window)
+        _build.count_meta("utopia_translate_step", 0, 4 * (
+            tar.numel() + sf.numel() + flex.numel() + B + words))
+        return lambda tar, sf, flex, ctx_len, active=None: StepTranslation(
+            torch.empty(words, dtype=torch.int32, device=dev),
+            vpn_grid(B, nblk, dev), window)
     if dev.type != "cuda":
         raise ValueError(f"translate_step: no kernel for device {dev}")
     fn = _entry("utopia_translate_step_launch", [_P] * 6 + [_P, _P])
     prm = _StepParams(n_sets, assoc, B * nblk, HASH_IDS[hash_name],
                       hash_param(hash_name, n_sets), B, nblk, block_size,
-                      sink, window)
+                      sink, window, G, g, int(bool(striped)), TP, m)
     prm_ptr = ctypes.addressof(prm)
     words = step_words(B, nblk, window)
     grid = vpn_grid(B, nblk, dev)
     index = dev.index if dev.index is not None else torch.cuda.current_device()
     stream = torch._C._cuda_getCurrentRawStream
     empty, i32 = torch.empty, torch.int32
+    grouped = tuple(layout) != ONE_RANK
 
     def translate(tar, sf, flex, ctx_len, active=None):
         out = empty(words, dtype=i32, device=dev)
@@ -108,6 +126,8 @@ def translate_step_translator(tar: torch.Tensor, sf: torch.Tensor,
         if rc:
             _build.check_launch("utopia_translate_step", rc)
         utopia_translate_step.launches += 1
+        if grouped:
+            utopia_translate_step.launches_group += 1
         return StepTranslation(out, grid, window)
 
     translate.params = prm                   # keeps the struct alive
@@ -116,16 +136,17 @@ def translate_step_translator(tar: torch.Tensor, sf: torch.Tensor,
 
 def utopia_translate_step(tar, sf, flex, ctx_len, active=None, *,
                           block_size: int, nblk: int, hash_name: str,
-                          sink: int, window: int = 1):
+                          sink: int, window: int = 1, layout=ONE_RANK):
     """One call of the decode step's translation (binds, then launches).
     The decode step binds once and calls the bound function instead."""
     return translate_step_translator(
         tar, sf, flex, ctx_len, block_size=block_size, nblk=nblk,
-        hash_name=hash_name, sink=sink, window=window)(tar, sf, flex,
-                                                       ctx_len, active)
+        hash_name=hash_name, sink=sink, window=window,
+        layout=layout)(tar, sf, flex, ctx_len, active)
 
 
 utopia_translate_step.launches = 0
+utopia_translate_step.launches_group = 0     # those on a token-split rank
 
 
 class _ShardParams(ctypes.Structure):

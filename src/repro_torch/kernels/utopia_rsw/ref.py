@@ -158,11 +158,18 @@ def vpn_grid(batch: int, nblk: int, device) -> torch.Tensor:
                         device=device).view(batch, nblk)
 
 
+# The token-split layout of a rank of a (data, model) mesh (the JAX
+# package's ``kv_shards=0`` mesh path): (groups G, this rank's group g,
+# striped, token shards TP, this rank's shard m).  One device is
+# ``ONE_RANK``.
+ONE_RANK = (1, 0, False, 1, 0)
+
+
 def translate_step_ref(tar: torch.Tensor, sf: torch.Tensor,
                        flex: torch.Tensor, ctx_len: torch.Tensor,
                        active=None, *, block_size: int, nblk: int,
-                       hash_name: str, sink: int,
-                       window: int = 1) -> StepTranslation:
+                       hash_name: str, sink: int, window: int = 1,
+                       layout=ONE_RANK) -> StepTranslation:
     """The step's translation in plain torch: ``rsw_ref`` over the query
     grid (every block vpn of every row), and what the layer loop derives
     from the result for each of a row's ``window`` positions ctx_len + i:
@@ -171,31 +178,46 @@ def translate_step_ref(tar: torch.Tensor, sf: torch.Tensor,
 
     tar (1, n_sets, assoc), sf (1, n_sets), flex (1, B * nblk) int32;
     ``ctx_len`` (B,) int32, the pre-step context lengths; ``active`` (B,)
-    bool or None (all active); ``sink`` the pool's write-sink slot."""
+    bool or None (all active); ``sink`` the pool's write-sink slot.
+
+    ``layout`` ``(G, g, striped, TP, m)``: the tables are group ``g``'s of
+    ``G``; in striped mode global block b lives on group ``b % G`` at
+    local block ``b // G``, and a write is valid only on the group that
+    owns its block; the pool holds this rank's ``bs / TP`` tokens of every
+    block, so a write lands (at row ``slot * bs / TP + pos % (bs / TP)``)
+    only where ``(pos % bs) // (bs / TP) == m``, elsewhere in the sink.
+    The extent stays the global ``pos + 1``."""
     B = ctx_len.shape[0]
     grid = vpn_grid(B, nblk, ctx_len.device)
     walk = rsw_ref(grid.reshape(-1), tar[0], sf[0], flex[0],
                    hash_name=hash_name)
     return _pack_step(walk, ctx_len, active, block_size, nblk, window,
                       lambda w_slot, w_valid: torch.where(w_valid, w_slot,
-                                                          sink))
+                                                          sink), layout)
 
 
 def _pack_step(walk, ctx_len, active, block_size: int, nblk: int,
-               window: int, write_slot) -> StepTranslation:
+               window: int, write_slot, layout=ONE_RANK) -> StepTranslation:
     """The step's output buffer from the walk of its query grid
     (``walk``: slot, in_rest, mapped, accesses, each (B * nblk,) int32):
     for each of a row's ``window`` positions ctx_len + i, the slot and
-    mapped flag of its block (the block index clamped into the row), its
-    validity and extent, and its write row ``write_slot(w_slot, w_valid) *
-    block_size + pos % block_size``."""
+    mapped flag of its block (the block index, local to the group in
+    striped mode, clamped into the row), its validity and extent, and its
+    write row ``write_slot(w_slot, w_valid & token owned) * bs_loc + pos %
+    bs_loc`` (``layout``: see ``translate_step_ref``)."""
     slot, hit, mapped, acc = walk
+    G, g, striped, TP, m = layout
     B = ctx_len.shape[0]
     bs = block_size
+    bs_loc = bs // TP
     dev = ctx_len.device
     pos = (ctx_len[:, None]
            + torch.arange(window, dtype=torch.int32, device=dev)[None, :])
     blk = torch.div(pos, bs, rounding_mode="floor")
+    owner = torch.ones_like(blk, dtype=torch.bool)
+    if striped:
+        owner = torch.remainder(blk, G) == g
+        blk = torch.div(blk, G, rounding_mode="floor")
     # an idle row's position can run past its vpn range; without the clamp
     # its write block would alias ANOTHER row's block (a context length is
     # never negative: the lower clamp keeps the write block in the row,
@@ -206,9 +228,11 @@ def _pack_step(walk, ctx_len, active, block_size: int, nblk: int,
     act = (torch.ones(B, dtype=torch.bool, device=dev) if active is None
            else active.bool())
     w_valid = (mapped.view(B, nblk).gather(1, blk).bool() & in_range
-               & act[:, None])
-    w_row = (write_slot(w_slot, w_valid).long() * bs
-             + torch.remainder(pos, bs).long())
+               & act[:, None] & owner)
+    tok = torch.remainder(pos, bs)
+    own_tok = torch.div(tok, bs_loc, rounding_mode="floor") == m
+    w_row = (write_slot(w_slot, w_valid & own_tok).long() * bs_loc
+             + torch.remainder(tok, bs_loc).long())
     out = torch.cat([w_row.reshape(-1).view(torch.int32),
                      w_slot.reshape(-1), w_valid.to(torch.int32).reshape(-1),
                      (pos + 1).to(torch.int32).reshape(-1),

@@ -19,13 +19,22 @@ environment (``launch/train.py`` reads torchrun's).  A timeout there makes
 a collective that one rank never joins fail instead of hanging; the
 groups take the same timeout.  On one card two ranks share the device, and
 NCCL refuses that: such ranks use gloo, which moves CUDA tensors through
-the host.  ``make_production_mesh`` is ROADMAP P18's.
+the host.
+
+``make_production_mesh`` describes JAX's production mesh, (16, 16) or
+(2, 16, 16) with axes ``pod, data, model``, for the dry run: a
+``MeshDesc`` needs no process group, and its collectives return tensors
+of the right shape on the ``meta`` device and count the bytes of each
+kind.  ``data_axes_for`` names a mesh's data axes, which act as one data
+group.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
+import math
 import os
-from typing import Any, List, Sequence, Tuple, Union
+from typing import Any, Dict, List, Sequence, Tuple, Union
 
 import torch
 import torch.distributed as dist
@@ -57,6 +66,9 @@ class Mesh:
     model_index: int
     model_group: Any             # None: the default group (data == 1)
     data_group: Any = None       # None: the default group (model == 1)
+
+    axis_names = AXES
+    data_axes = ("data",)
 
     @property
     def model_size(self) -> int:
@@ -136,6 +148,26 @@ def local_device(device: str = "cuda") -> torch.device:
     return torch.device("cuda", local % max(torch.cuda.device_count(), 1))
 
 
+def join_from_env(device: str = "cuda", timeout=None) -> bool:
+    """Join the default process group from torchrun's environment
+    (``env://``) unless one is initialised or the environment has no
+    ``WORLD_SIZE``: NCCL when each local rank has a card of its own (the
+    rank's card then becomes the current one), gloo when ranks share one
+    or with a ``device`` other than ``"cuda"``.  Returns whether it
+    joined here (the caller destroys the group then)."""
+    if dist.is_initialized() or "WORLD_SIZE" not in os.environ:
+        return False
+    local_world = int(os.environ.get("LOCAL_WORLD_SIZE",
+                                     os.environ["WORLD_SIZE"]))
+    nccl = device == "cuda" and torch.cuda.device_count() >= local_world
+    if nccl:
+        torch.cuda.set_device(local_device(device))
+    kw = {} if timeout is None else {"timeout": timeout}
+    dist.init_process_group("nccl" if nccl else "gloo",
+                            init_method="env://", **kw)
+    return True
+
+
 def _world_timeout():
     """The default group's timeout (None: torch's default), for the
     data and model groups."""
@@ -191,4 +223,103 @@ def make_local_mesh(data: int = 1, model: int = 1) -> Mesh:
                 data_group=data_group)
 
 
-__all__ = ["AXES", "Mesh", "MeshAxis", "local_device", "make_local_mesh"]
+class MeshDesc:
+    """One rank's place in a mesh of any axes, without a process group:
+    the dry run's stand-in for a ``Mesh`` (``make_production_mesh``).
+
+    ``sizes`` maps the axis names, major to minor, to their sizes; rank
+    ``r`` sits at the mixed-radix digits of ``r``.  The data axes
+    (``data_axes_for``) act as one data group (``data_size``,
+    ``data_index``), as JAX's specs name them together.  The
+    collectives take ``meta`` tensors only: they return a tensor of the
+    result's shape and add the bytes this rank hands over to ``traffic``
+    by kind (an all-reduce or an all-gather its whole input)."""
+
+    def __init__(self, sizes: Dict[str, int], rank: int = 0):
+        self.sizes = dict(sizes)
+        self.axis_names = tuple(self.sizes)
+        self.data_axes = data_axes_for(self)
+        n = math.prod(self.sizes.values())
+        if not 0 <= rank < n:
+            raise ValueError(f"rank {rank} outside a mesh of {n}")
+        self.rank = rank
+        self.coords, r = {}, rank
+        for a in reversed(self.axis_names):
+            r, self.coords[a] = divmod(r, self.sizes[a])
+        self.traffic = collections.Counter()
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return dict(self.sizes)
+
+    def axis(self, name: Union[str, Sequence[str]]) -> MeshAxis:
+        """The axes ``name`` taken together, in the mesh's order (the
+        ranks are not listed: a description holds no group)."""
+        names = (name,) if isinstance(name, str) else tuple(name)
+        if not set(names) <= set(self.axis_names):
+            raise ValueError(f"unknown mesh axes {names!r} (the mesh has "
+                             f"{self.axis_names})")
+        size, index = 1, 0
+        for a in self.axis_names:
+            if a in names:
+                size *= self.sizes[a]
+                index = index * self.sizes[a] + self.coords[a]
+        return MeshAxis(None, size, index, ())
+
+    @property
+    def data_size(self) -> int:
+        return self.axis(self.data_axes).size
+
+    @property
+    def data_index(self) -> int:
+        return self.axis(self.data_axes).index
+
+    @property
+    def model_size(self) -> int:
+        return self.sizes.get("model", 1)
+
+    @property
+    def model_index(self) -> int:
+        return self.coords.get("model", 0)
+
+    @staticmethod
+    def _meta(t: torch.Tensor) -> None:
+        if t.device.type != "meta":
+            raise ValueError("a mesh description moves meta tensors only, "
+                             f"got one on {t.device}")
+
+    def all_reduce(self, t: torch.Tensor, axis="model",
+                   op=dist.ReduceOp.SUM) -> torch.Tensor:
+        self._meta(t)
+        if self.axis(axis).size > 1:
+            self.traffic["all_reduce"] += t.numel() * t.element_size()
+        return t
+
+    def all_gather(self, t: torch.Tensor, dim: int,
+                   axis="model") -> torch.Tensor:
+        self._meta(t)
+        n = self.axis(axis).size
+        if n > 1:
+            self.traffic["all_gather"] += t.numel() * t.element_size()
+        shape = list(t.shape)
+        shape[dim] *= n
+        return torch.empty(shape, dtype=t.dtype, device=t.device)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> MeshDesc:
+    """JAX's production mesh as its rank 0 sees it: (16, 16) with axes
+    ``data, model``, or (2, 16, 16) with ``pod, data, model``."""
+    sizes = {"pod": 2, "data": 16, "model": 16} if multi_pod else \
+        {"data": 16, "model": 16}
+    return MeshDesc(sizes)
+
+
+def data_axes_for(mesh) -> tuple:
+    """The mesh's data axes (``pod`` and ``data``), in its order."""
+    return tuple(a for a in getattr(mesh, "axis_names", AXES)
+                 if a in ("pod", "data"))
+
+
+__all__ = ["AXES", "Mesh", "MeshAxis", "MeshDesc", "data_axes_for",
+           "join_from_env", "local_device", "make_local_mesh",
+           "make_production_mesh"]

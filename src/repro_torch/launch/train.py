@@ -39,7 +39,8 @@ from repro_torch.ckpt.checkpoint import tree_flatten
 from repro_torch.configs import get_config, reduced as reduce_cfg
 from repro_torch.data import DataConfig, SyntheticLM
 from repro_torch.dist.sharding import ShardingRules, shard_tree
-from repro_torch.launch.mesh import local_device, make_local_mesh
+from repro_torch.launch.mesh import (join_from_env, local_device,
+                                     make_local_mesh)
 from repro_torch.models import FwdOptions, model_dims
 from repro_torch.runtime import ResilientLoop, restore_like
 from repro_torch.train import (TrainConfig, abstract_state, init_state,
@@ -53,18 +54,7 @@ def join_mesh(data: int, model: int, device: str):
     model)`` mesh, over the initialised group or one joined from
     torchrun's environment (``created``: joined here).  Without either,
     ``make_local_mesh`` raises its error."""
-    created = False
-    if not dist.is_initialized() and "WORLD_SIZE" in os.environ:
-        local_world = int(os.environ.get("LOCAL_WORLD_SIZE",
-                                         os.environ["WORLD_SIZE"]))
-        nccl = (device == "cuda"
-                and torch.cuda.device_count() >= local_world)
-        if nccl:
-            torch.cuda.set_device(local_device(device))
-        dist.init_process_group("nccl" if nccl else "gloo",
-                                init_method="env://",
-                                timeout=COLLECTIVE_TIMEOUT)
-        created = True
+    created = join_from_env(device, COLLECTIVE_TIMEOUT)
     mesh = make_local_mesh(data, model)
     return mesh, local_device(device), created
 

@@ -35,6 +35,23 @@ no carry, no rounding) gives every rank the same bits; the
 paged-attention kernel then reads that buffer.  No float is ever reduced
 across ranks, so the streams are bitwise the unsharded engine's.
 
+The token-split layout (the JAX package's ``kv_shards=0`` with a mesh,
+its dry run's; ``TokenSplit``): rank (g, m) of a (data, model) mesh holds
+its data group's pool, ``slots_per_group`` slots and the sink of ``bs /
+TP`` tokens each (token sub-range m of every block), and its group's
+tables.  In batch mode group g owns rows ``[g B/G, (g+1) B/G)`` and their
+blocks; in striped mode every group sees every row and global block b
+lives on group ``b % G`` at local block ``b // G``.  A rank translates its
+group's queries (one RSW launch, which also resolves the token-owned
+write row), runs every op outside attention on its rows (replicated along
+the model axis), reads its token sub-range of each block through the
+paged kernel at its token offset, and combines the partial softmax
+results ``(o, m, l)`` over the model group (batch mode) or the world
+(striped mode) with a max and two sums, flash-decoding's combine.  The
+step returns the whole batch's logits and stats on every rank (one
+all-gather over the data group).  The combine reduces floats across
+ranks, so the step equals ``mesh=None`` to float rounding, not bitwise.
+
 The recurrent families add each mamba sublayer's per-row state: ``ssm``
 ``(n_ssm, B, H, P, N)`` float32 and ``conv`` ``(n_ssm, B, W-1, C)`` in the
 model dtype, which every fed token advances (an inactive row keeps its
@@ -47,16 +64,18 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Dict
+from typing import Callable, Dict, Tuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.dist.sharding import _guard, block_of
 from repro_torch.kernels.paged_attention.ops import paged_attention
 from repro_torch.kernels.paged_attention.ref import normalize
 from repro_torch.kernels.utopia_rsw.ops import (shard_translator,
                                                 translate_step_translator)
-from repro_torch.kernels.utopia_rsw.ref import StepTranslation
+from repro_torch.kernels.utopia_rsw.ref import ONE_RANK, StepTranslation
 from repro_torch.models import layers as Lmod
 from repro_torch.models.moe import moe_decode
 from repro_torch.models.ssm import MambaCache, mamba_decode_step
@@ -75,8 +94,10 @@ class DecodeSpec:
     slots_per_group: int         # pool slots (the sink comes on top)
     n_sets: int
     assoc: int
-    mode: str = "batch"          # batch only (striped: ROADMAP P18)
+    mode: str = "batch"          # batch | striped (per data group then)
     hash_name: str = "modulo"
+    data_axes: Tuple[str, ...] = ("data",)
+    model_axis: str = "model"
     # prefix-KV chunked prefill: how chunk queries read the installed
     # prefix blocks.  "exact" places the gathered K/V at their absolute
     # positions and reuses the recompute forward's dense softmax
@@ -95,16 +116,132 @@ class DecodeSpec:
             raise ValueError(f"unknown prefix gather impl "
                              f"{self.prefix_gather!r} (expected 'exact' "
                              "or 'paged')")
+        if self.mode not in ("batch", "striped"):
+            raise ValueError(f"unknown decode mode {self.mode!r} (expected "
+                             "'batch' or 'striped')")
 
 
-def not_ported(what: str, item: str) -> NotImplementedError:
-    """The error of a JAX feature that the port does not run yet."""
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
+def make_decode_spec(cfg: ArchConfig, seq_len: int, batch: int,
+                     data_size: int, mode: str = "batch",
+                     headroom: float = 1.25,
+                     data_axes: Tuple[str, ...] = ("data",)) -> DecodeSpec:
+    """The decode spec of ``batch`` sequences of ``seq_len`` tokens over
+    ``data_size`` data groups, as the JAX package sizes it: in batch mode
+    a group holds its rows' whole sequences, in striped mode its share of
+    every sequence's blocks; a group's pool has the blocks it holds times
+    ``headroom``, three quarters of them (whole sets of 8) in the
+    RestSeg."""
+    bs = cfg.kv_block_size
+    seq_blocks = (seq_len + bs - 1) // bs
+    blocks_per_group = seq_blocks * batch // data_size
+    max_blocks = seq_blocks if mode == "batch" else seq_blocks // data_size
+    assoc = 8
+    slots = max(assoc * 2, int(blocks_per_group * headroom))
+    rest = max(assoc, int(slots * 0.75) // assoc * assoc)
+    slots = rest + max(assoc, slots - rest)
+    return DecodeSpec(block_size=bs, max_blocks_per_seq=max_blocks,
+                      slots_per_group=slots, n_sets=rest // assoc,
+                      assoc=assoc, mode=mode,
+                      hash_name=getattr(cfg, "hash_name", "modulo"),
+                      data_axes=tuple(data_axes))
+
+
+def abstract_decode_state(cfg: ArchConfig, dims: ModelDims,
+                          spec: DecodeSpec, batch: int, data_size: int,
+                          dtype=torch.bfloat16) -> Dict[str, torch.Tensor]:
+    """The whole decode state of ``data_size`` groups in the JAX package's
+    layout, on the ``meta`` device (shapes and dtypes, no memory): pools
+    ``(L_attn, G * slots, bs, KV, hd)`` without the port's sink slot,
+    tables ``(G, ...)``, a group's flex over its rows' blocks.  The
+    sampling keys, JAX's uint32, are the port's int64.  A rank's share is
+    ``local_decode_state``'s."""
+    check_family(cfg)
+    G = data_size
+    meta = dict(device="meta")
+    n_attn = n_attn_layers(cfg)
+    rows = max(1, batch // G) if spec.mode == "batch" else batch
+    st: Dict[str, torch.Tensor] = {}
+    if n_attn:
+        pool = (n_attn, G * spec.slots_per_group, spec.block_size,
+                max(dims.n_kv, 1), dims.head_dim)
+        st["k_pool"] = torch.empty(pool, dtype=dtype, **meta)
+        st["v_pool"] = torch.empty(pool, dtype=dtype, **meta)
+        st["tar"] = torch.empty((G, spec.n_sets, spec.assoc),
+                                dtype=torch.int32, **meta)
+        st["sf"] = torch.empty((G, spec.n_sets), dtype=torch.int32, **meta)
+        st["flex"] = torch.empty((G, rows * spec.max_blocks_per_seq),
+                                 dtype=torch.int32, **meta)
+    if cfg.family in RECURRENT_FAMILIES:
+        md = dims.mamba
+        n_ssm = cfg.num_layers - n_attn
+        st["ssm"] = torch.empty((n_ssm, batch, md.n_heads, md.head_dim,
+                                 md.d_state), dtype=torch.float32, **meta)
+        st["conv"] = torch.empty((n_ssm, batch, md.conv_width - 1,
+                                  md.conv_channels), dtype=dtype, **meta)
+    if cfg.is_encoder_decoder:
+        cross = (cfg.num_layers, batch, cfg.frontend_tokens, dims.n_kv,
+                 dims.head_dim)
+        st["cross_k"] = torch.empty(cross, dtype=dtype, **meta)
+        st["cross_v"] = torch.empty(cross, dtype=dtype, **meta)
+    for name, dt in (("ctx_len", torch.int32), ("samp_temp", torch.float32),
+                     ("samp_topk", torch.int32),
+                     ("samp_topp", torch.float32)):
+        st[name] = torch.empty((batch,), dtype=dt, **meta)
+    st["samp_key"] = torch.empty((batch, 2), dtype=torch.int64, **meta)
+    return st
+
+
+def decode_state_shardings(state_shape, mesh, spec: DecodeSpec):
+    """The JAX package's ``PartitionSpec`` of each decode-state leaf over
+    ``mesh`` (a ``Mesh``, a ``MeshDesc`` or ``{axis: size}``): pools by
+    slot over the data axes and by token over the model axis, tables over
+    the data axes, per-row state over the data axes in batch mode, the
+    rest replicated; an axis that does not divide its dim is dropped
+    (``_guard``)."""
+    da, ma = tuple(spec.data_axes), spec.model_axis
+    rows = da if spec.mode == "batch" else None
+    table = {
+        "k_pool": (None, da, ma, None, None),
+        "v_pool": (None, da, ma, None, None),
+        "tar": (da, None, None), "sf": (da, None), "flex": (da, None),
+        "ssm": (None, rows, ma, None, None),
+        "conv": (None, rows, None, ma),
+        "cross_k": (None, rows, None, None, None),
+        "cross_v": (None, rows, None, None, None),
+    }
+    return {k: _guard(table.get(k, ()), tuple(v.shape), mesh)
+            for k, v in state_shape.items()}
+
+
+def local_decode_state(whole, spec: DecodeSpec,
+                       mesh) -> Dict[str, torch.Tensor]:
+    """A rank's token-split decode state from the ``whole`` one (the JAX
+    layout, ``abstract_decode_state``'s shapes; any device): every leaf
+    cut along the data axes by ``decode_state_shardings``, the pools also
+    along the model axis (the rank's token sub-range), then a zero sink
+    slot after each pool's slots; a cut leaf is a copy, a whole one the
+    leaf itself.  Everything else the JAX specs split over the model axis
+    (the ssm heads, the conv channels) stays whole: the port replicates
+    that compute."""
+    specs = decode_state_shardings(whole, mesh, spec)
+    da = tuple(spec.data_axes)
+    out = {}
+    for k, x in whole.items():
+        pool = k in ("k_pool", "v_pool")
+        t = block_of(x, specs[k], mesh, da + ((spec.model_axis,) if pool
+                                              else ()))
+        if pool:
+            t = torch.cat([t, torch.zeros_like(t[:, :1])], dim=1)
+        elif t.numel() != x.numel():
+            t = t.clone(memory_format=torch.contiguous_format)
+        out[k] = t.contiguous()
+    return out
 
 
 def init_decode_state(cfg: ArchConfig, dims: ModelDims, spec: DecodeSpec,
                       batch: int, data_size: int = 1, dtype=torch.float32,
-                      device="cuda", part=None) -> Dict[str, torch.Tensor]:
+                      device="cuda", part=None,
+                      mesh=None) -> Dict[str, torch.Tensor]:
     """Zeroed decode state on ``device`` (flex entries -1 = unmapped): the
     KV pools and translation tables when the model has attention layers,
     the ``ssm``/``conv`` rows when it has mamba sublayers, the
@@ -114,12 +251,23 @@ def init_decode_state(cfg: ArchConfig, dims: ModelDims, spec: DecodeSpec,
     pools and tables are one rank's padded chunk: ``slots_per_shard``
     pool slots plus the sink, tar ``(1, spm, assoc)`` and sf ``(1, spm)``
     with zero pad rows, flex ``(1, vpm)`` with -1 pads; ``data_size`` must
-    be 1 there (the data axis replicates the state)."""
-    if part is None and (data_size != 1 or spec.mode != "batch"):
-        raise not_ported("the data-sharded and striped decode state "
-                         "(make_decode_spec's layouts)", "P18")
+    be 1 there (the data axis replicates the state).  With ``mesh`` and no
+    ``part`` it is this rank's state of the token-split layout over
+    ``data_size`` groups (``local_decode_state``); a state of several
+    data groups lives on the ranks of a mesh only."""
     if part is not None and data_size != 1:
         raise ValueError("the sharded decode state requires data_size == 1")
+    if part is None and mesh is not None:
+        local = local_decode_state(abstract_decode_state(
+            cfg, dims, spec, batch, data_size, dtype), spec, mesh)
+        st = {k: torch.zeros(v.shape, dtype=v.dtype, device=device)
+              for k, v in local.items()}
+        if "flex" in st:
+            st["flex"].fill_(-1)
+        return st
+    if part is None and data_size != 1:
+        raise ValueError(f"a decode state of {data_size} data groups lives "
+                         "on the ranks of a mesh: pass the rank's mesh")
     check_family(cfg)
     n_attn = n_attn_layers(cfg)
     i32 = dict(dtype=torch.int32, device=device)
@@ -185,12 +333,13 @@ def _hybrid_lookup(tar: torch.Tensor, sf: torch.Tensor, flex: torch.Tensor,
         geom = dict(block_size=spec.block_size,
                     nblk=spec.max_blocks_per_seq, hash_name=spec.hash_name,
                     window=window)
-        if shard is not None:
+        if isinstance(shard, ShardedPool):
             fn = shard_translator(tar, sf, flex, positions, part=shard.part,
                                   m=shard.m, reduce=shard.reduce, **geom)
         else:
-            fn = translate_step_translator(tar, sf, flex, positions,
-                                           sink=spec.slots_per_group, **geom)
+            fn = translate_step_translator(
+                tar, sf, flex, positions, sink=spec.slots_per_group,
+                layout=ONE_RANK if shard is None else shard.layout, **geom)
         bound[key] = fn
     return fn(tar, sf, flex, positions, active)
 
@@ -211,7 +360,10 @@ def translate_step(tar: torch.Tensor, sf: torch.Tensor, flex: torch.Tensor,
     ``bound`` is the caller's dict of bindings (the decode and verify
     steps share one); without it the call binds anew.  On a rank of a mesh
     (``shard``, a ``ShardedPool``) the tables are the rank's slices, the
-    slots stay logical and the write rows are rows of the rank's chunk."""
+    slots stay logical and the write rows are rows of the rank's chunk;
+    on a rank of the token-split layout (``shard``, a ``TokenSplit``) the
+    tables and rows are its group's, and the write rows its token
+    shard's."""
     return _hybrid_lookup(tar, sf, flex, positions, active, spec,
                           {} if bound is None else bound, window, shard)
 
@@ -279,6 +431,89 @@ class BlockRead:
     def __call__(self, k_pool_l, v_pool_l):
         return self.pool.assemble([k_pool_l, v_pool_l], self.idx, self.own)
 
+    def attend(self, q, kp_l, vp_l, slots, extent):
+        kp_l, vp_l = self(kp_l, vp_l)
+        o, _, l = paged_attention(q, kp_l, vp_l, slots, extent)
+        return normalize(o, l).to(q.dtype)
+
+
+# ------------------------------------------------- the token-split layout
+
+class TokenSplit:
+    """Rank (g, m)'s place in the token-split layout over ``mesh`` (the
+    JAX package's ``kv_shards=0`` mesh path, ``_paged_attn_shardmap``):
+    group ``g`` of the ``G`` data groups (``spec.data_axes`` taken
+    together), token shard ``m`` of the ``TP`` along ``spec.model_axis``.
+    The rank's pool holds ``bs_loc = bs / TP`` tokens of each block, the
+    range that starts at ``m * bs_loc``; ``rows`` are the batch rows it
+    computes (its group's in batch mode, all in striped mode), and the
+    paged read's positions are ``tok_offset + j * block_tokens + t``."""
+
+    def __init__(self, spec: DecodeSpec, mesh):
+        dax, mx = mesh.axis(spec.data_axes), mesh.axis(spec.model_axis)
+        self.mesh, self.spec = mesh, spec
+        self.G, self.g, self.TP, self.m = dax.size, dax.index, mx.size, \
+            mx.index
+        bs = spec.block_size
+        if bs % self.TP:
+            raise ValueError(f"{bs}-token blocks do not split over "
+                             f"{self.TP} token shards")
+        self.bs_loc = bs // self.TP
+        self.striped = spec.mode == "striped"
+        self.layout = (self.G, self.g, self.striped, self.TP, self.m)
+        if self.striped:
+            self.tok_offset = self.g * bs + self.m * self.bs_loc
+            self.block_tokens = self.G * bs
+            self.combine_axes = tuple(spec.data_axes) + (spec.model_axis,)
+        else:
+            self.tok_offset, self.block_tokens = self.m * self.bs_loc, bs
+            self.combine_axes = (spec.model_axis,)
+
+    def rows(self, batch: int) -> slice:
+        """The rows of a ``batch``-row step that this rank computes."""
+        if self.striped:
+            return slice(0, batch)
+        if batch % self.G:
+            raise ValueError(f"a batch of {batch} rows does not split over "
+                             f"{self.G} data groups")
+        n = batch // self.G
+        return slice(self.g * n, (self.g + 1) * n)
+
+    def attend(self, q, kp_l, vp_l, slots, extent):
+        """The paged read of this rank's token sub-range, combined over
+        ``combine_axes`` as flash-decoding combines partial softmax
+        results: the max of ``m`` over the group, then the sums of ``o *
+        corr`` and ``l * corr`` (one all-reduce each).  Returns the
+        normalized output in q's dtype."""
+        o, m, l = paged_attention(q, kp_l, vp_l, slots, extent,
+                                  tok_offset=self.tok_offset,
+                                  block_tokens=self.block_tokens)
+        m_glob = self.mesh.all_reduce(m.clone(), self.combine_axes,
+                                      op=dist.ReduceOp.MAX)
+        corr = torch.exp(m - m_glob)
+        buf = torch.cat([(o * corr[..., None]).reshape(-1),
+                         (l * corr).reshape(-1)])
+        self.mesh.all_reduce(buf, self.combine_axes)
+        o, l = buf[:o.numel()].view(o.shape), buf[o.numel():].view(l.shape)
+        return normalize(o, l).to(q.dtype)
+
+    def gather_groups(self, tensors):
+        """Each of ``tensors`` (this group's share along dim 0) with every
+        group's, in group order, from one all-gather of their bytes over
+        the data group."""
+        if self.G == 1:
+            return list(tensors)
+        flat = [t.contiguous().view(-1).view(torch.uint8) for t in tensors]
+        got = self.mesh.all_gather(torch.cat(flat), 0,
+                                   tuple(self.spec.data_axes))
+        got = got.view(self.G, -1)
+        out, at = [], 0
+        for t, f in zip(tensors, flat):
+            part = got[:, at:at + f.numel()].contiguous().view(t.dtype)
+            out.append(part.view(self.G * t.shape[0], *t.shape[1:]))
+            at += f.numel()
+        return out
+
 
 # ------------------------------------------------------ paged attention
 
@@ -289,8 +524,10 @@ def _paged_attn_local(q, k_new, v_new, kp_l, vp_l, slots, w_row, extent,
     slot's row) and attend over the resolved blocks ``slots`` (B, nblk) up
     to ``extent`` (B[, Q]), one extent per query, through the
     paged-attention kernel: all three come from the step's translation.
-    On a rank of a mesh, ``read`` (a ``BlockRead``) first assembles the
-    blocks from the sharded pool and ``slots`` index its buffer.
+    On a rank of a mesh, ``read`` (a ``BlockRead`` or a ``TokenSplit``)
+    attends instead: a ``BlockRead`` first assembles the blocks from the
+    sharded pool and ``slots`` index its buffer; a ``TokenSplit`` reads
+    the rank's token sub-range and combines over its group.
     Returns the normalized output (B[, Q], H, hd) in q's dtype.
 
     Several invalid writes of one call may land on the same sink row;
@@ -300,7 +537,7 @@ def _paged_attn_local(q, k_new, v_new, kp_l, vp_l, slots, w_row, extent,
     kp_l.view(-1, *kp_l.shape[2:]).index_put_(rows, k_new.to(kp_l.dtype))
     vp_l.view(-1, *vp_l.shape[2:]).index_put_(rows, v_new.to(vp_l.dtype))
     if read is not None:
-        kp_l, vp_l = read(kp_l, vp_l)
+        return read.attend(q, kp_l, vp_l, slots, extent)
     o, m, l = paged_attention(q, kp_l, vp_l, slots, extent)
     return normalize(o, l).to(q.dtype)
 
@@ -539,13 +776,14 @@ def decode_layers(params, x: torch.Tensor, dstate, kv_at,
 # --------------------------------------------------------- full serve step
 
 def step_shard(spec: DecodeSpec, mesh, part):
-    """This rank's ``ShardedPool`` for a step factory's ``mesh`` and
-    ``part``, or None on one device (``mesh`` None)."""
+    """This rank's place for a step factory's ``mesh`` and ``part``: None
+    on one device (``mesh`` None), its ``ShardedPool`` in the sharded
+    layout (``spec.kv_shards >= 1``), its ``TokenSplit`` in the
+    token-split layout (``kv_shards == 0``)."""
     if mesh is None:
         return None
     if spec.kv_shards < 1:
-        raise not_ported("the token-split mesh layout (kv_shards=0, the "
-                         "dry run's)", "P18")
+        return TokenSplit(spec, mesh)
     if part is None:
         raise ValueError("spec.kv_shards >= 1 requires a Partition")
     return ShardedPool(part, mesh.model_index, mesh.model_all_reduce)
@@ -553,10 +791,13 @@ def step_shard(spec: DecodeSpec, mesh, part):
 
 def kv_access(trans: StepTranslation, shard):
     """The layer loop's ``kv_at`` from the step's translation: the slots,
-    write rows and extents, and on a rank of a mesh the step's
-    ``BlockRead``, whose renumbered slots replace the logical ones."""
+    write rows and extents, and on a rank of a mesh the step's read: a
+    ``BlockRead``, whose renumbered slots replace the logical ones, or
+    the ``TokenSplit``."""
     if shard is None:
         return trans.slots[0], trans.w_row, trans.extent
+    if isinstance(shard, TokenSplit):
+        return trans.slots[0], trans.w_row, trans.extent, shard
     read = BlockRead(shard, trans.slots[0])
     return read.slots, trans.w_row, trans.extent, read
 
@@ -585,16 +826,27 @@ def make_serve_step(cfg: ArchConfig, dims: ModelDims, spec: DecodeSpec,
 
     With a ``mesh`` (``launch.mesh.Mesh``), ``spec.kv_shards >= 1`` and
     ``part`` the step runs on this rank's chunk of the sharded state (see
-    the module's docstring); its outputs are the unsharded step's."""
+    the module's docstring); its outputs are the unsharded step's.  With a
+    ``mesh`` and ``kv_shards == 0`` it runs on this rank's token-split
+    state (``init_decode_state(mesh=)``, ``TokenSplit``) and returns the
+    whole batch's logits and ``next_token``, and the stats of every
+    group, ``(G, rows, nblk)`` (one all-gather over the data group)."""
     check_family(cfg)
     bound = {} if bound is None else bound   # the translation's bindings
     shard = step_shard(spec, mesh, part)
+    split = shard if isinstance(shard, TokenSplit) else None
     n_attn = n_attn_layers(cfg)
     fam = cfg.family
 
     def serve_step(params, dstate, tokens, active=None, *, sample=False):
         positions = dstate["ctx_len"]
         act = None if active is None else active.bool()
+        whole_act = act
+        rows = None
+        if split is not None:
+            rows = split.rows(positions.shape[0])
+            positions, tokens = positions[rows], tokens[rows]
+            act = None if act is None else act[rows]
         x = params["embed"]["table"][tokens.long()].to(dtype)
         stats = {}
         if n_attn:
@@ -626,14 +878,37 @@ def make_serve_step(cfg: ArchConfig, dims: ModelDims, spec: DecodeSpec,
             x = decode_layers(params, x, dstate, kv_at, positions, cfg,
                               dims)
         logits = project_logits(params, x, cfg, dims)
+        samp = slice(None) if rows is None else rows
         if sample:
             stats["next_token"] = sample_tokens(
-                logits, dstate["samp_temp"], dstate["samp_topk"],
-                dstate["samp_topp"], dstate["samp_key"], positions)
+                logits, dstate["samp_temp"][samp], dstate["samp_topk"][samp],
+                dstate["samp_topp"][samp], dstate["samp_key"][samp],
+                positions)
         else:
             stats["next_token"] = logits.argmax(dim=-1).to(torch.int32)
+        if split is not None:
+            logits, stats = _gather_step(split, logits, stats)
         # only active slots advance (in place, after every read above)
-        dstate["ctx_len"].add_(1 if act is None else act)
+        dstate["ctx_len"].add_(1 if whole_act is None else whole_act)
         return logits, dstate, stats
 
     return serve_step
+
+
+def _gather_step(split: TokenSplit, logits, stats):
+    """A token-split rank's step outputs, whole: the batch's logits and
+    ``next_token`` (in batch mode gathered over the data group; in striped
+    mode every rank computed every row) and every group's translation
+    stats, ``(G, rows, nblk)`` each, from one all-gather."""
+    names = [k for k in ("slots", "in_rest", "mapped", "accesses")
+             if k in stats]
+    out = [logits, stats["next_token"]]
+    grids = [stats[k] for k in names]
+    if split.striped:
+        grids = split.gather_groups(grids)
+    else:
+        out = split.gather_groups(out + grids)
+        out, grids = out[:2], out[2:]
+    new = dict(zip(names, grids))
+    new["next_token"] = out[1]
+    return out[0], new

@@ -55,6 +55,16 @@ On a rank of a mesh (the factories' ``mesh`` and ``part``, see
 the rank that owns it, and the prefix-KV step's reads (both gathers)
 assemble the prefix blocks exactly from the sharded pool first, so the
 installed blocks and the first tokens are the unsharded step's.
+
+On a rank of the token-split layout (a mesh without ``part``, the JAX
+package's ``kv_shards=0``; batch mode) the recompute step forwards its
+data group's rows, installs its token sub-range of each of their blocks
+(the JAX package's ``_scatter_pool``) and its rows' recurrent and cross
+rows (a row's ``slot_ids`` entry must lie in its own group's slots, as
+the step's rows are laid out; another writes nothing), sets ``ctx_len``
+for the whole batch, and returns the whole batch's last logits and first
+tokens (one all-gather over the data group).  The prefix-KV step refuses
+that layout, as the JAX package's does.
 """
 from __future__ import annotations
 
@@ -73,7 +83,7 @@ from repro_torch.models.transformer import (FwdOptions, ModelDims, _ffn,
                                             check_family, forward,
                                             hybrid_ffn_select, layer_params,
                                             mamba_block, stack_caches, take)
-from .decode import BlockRead, DecodeSpec, step_shard
+from .decode import BlockRead, DecodeSpec, TokenSplit, step_shard
 from .sampling import sample_tokens
 
 
@@ -81,20 +91,27 @@ def _install_kv(spec: DecodeSpec, dstate, caches, eff_slots, B: int,
                 shard=None) -> None:
     """Write per-layer chunk K/V (L, B, S, KV, hd) into the pools at
     ``eff_slots`` (B, S // bs); -1 entries go to the sink slot, and on a
-    rank of a mesh (``shard``) so do the blocks other ranks own."""
+    rank of a mesh (``shard``) so do the blocks other ranks own.  A
+    token-split rank (``shard``, a ``TokenSplit``) writes its token
+    sub-range of each block."""
     k, v = caches["k"], caches["v"]
     L, _, S, KV, hd = k.shape
     bs = spec.block_size
     nblk = S // bs
     sink = dstate["k_pool"].shape[1] - 1
     sl = eff_slots.reshape(-1)
-    if shard is None:
+    tokens = slice(None)
+    if shard is None or isinstance(shard, TokenSplit):
         idx = torch.where(sl >= 0, sl, sink).long()
+        if shard is not None:
+            tokens = slice(shard.m * shard.bs_loc,
+                           (shard.m + 1) * shard.bs_loc)
     else:
         idx, _ = shard.local(sl)
     for name, c in (("k_pool", k), ("v_pool", v)):
         pool = dstate[name]
-        pool[:, idx] = c.reshape(L, B * nblk, bs, KV, hd).to(pool.dtype)
+        c = c.reshape(L, B * nblk, bs, KV, hd)[:, :, tokens]
+        pool[:, idx] = c.to(pool.dtype)
 
 
 def _slot_rows(slot_ids, n: int):
@@ -152,10 +169,25 @@ def make_prefill_step(cfg: ArchConfig, dims: ModelDims, spec: DecodeSpec,
     ``stats["next_token"]`` is the first generated token per row."""
     check_family(cfg)
     shard = step_shard(spec, mesh, part)
+    split = shard if isinstance(shard, TokenSplit) else None
+    if split is not None and split.striped:
+        raise ValueError("the striped layout is decode-only (no JAX cell "
+                         "prefills it)")
     fwd_collect = dataclasses.replace(fwd, collect_cache=True)
 
     def prefill_step(params, dstate, batch, slots, slot_ids, ctx, last_pos,
                      *, sample=False):
+        whole_ids, whole_ctx = slot_ids, ctx
+        row_ids = slot_ids                       # slots of the state's rows
+        if split is not None:
+            rows = split.rows(batch["tokens"].shape[0])
+            batch = {k: x[rows] for k, x in batch.items()}
+            slots, slot_ids, ctx, last_pos = (
+                t[rows] for t in (slots, slot_ids, ctx, last_pos))
+            n = rows.stop - rows.start
+            row_ids = slot_ids - rows.start
+            row_ids = torch.where((row_ids >= 0) & (row_ids < n), row_ids,
+                                  -1)
         logits, _, caches = forward(params, batch, cfg, dims, fwd_collect)
         B = batch["tokens"].shape[0]
         row_ok = slot_ids >= 0
@@ -165,15 +197,18 @@ def make_prefill_step(cfg: ArchConfig, dims: ModelDims, spec: DecodeSpec,
         if "ssm" in caches:
             mc = caches["ssm"]
             _install_rows(dstate, {"ssm": mc.state, "conv": mc.conv},
-                          slot_ids, B)
+                          row_ids, B)
         if "ck" in caches:
             _install_rows(dstate, {"cross_k": caches["ck"],
-                                   "cross_v": caches["cv"]}, slot_ids, B)
-        _scatter_ctx(dstate, slot_ids, ctx)
+                                   "cross_v": caches["cv"]}, row_ids, B)
+        _scatter_ctx(dstate, whole_ids, whole_ctx)
         rows = torch.arange(B, device=logits.device)
         last = logits[rows, last_pos.long()]
-        return last, dstate, _first_token_stats(dstate, last, slot_ids, ctx,
-                                                sample)
+        stats = _first_token_stats(dstate, last, slot_ids, ctx, sample)
+        if split is not None:
+            last, stats["next_token"] = split.gather_groups(
+                [last, stats["next_token"]])
+        return last, dstate, stats
 
     return prefill_step
 
@@ -217,6 +252,10 @@ def make_prefix_prefill_step(cfg: ArchConfig, dims: ModelDims,
     bs = spec.block_size
     H, KV, hd = dims.n_heads, dims.n_kv, dims.head_dim
     shard = step_shard(spec, mesh, part)
+    if isinstance(shard, TokenSplit):
+        raise NotImplementedError(
+            "prefix-KV prefill is single-host for now; the SPMD admission "
+            "path (ROADMAP) still drives the recompute prefill")
 
     def attn_read(q, k_new, v_new, kp_l, vp_l, prefix_slots, prefix_ctx,
                   read):

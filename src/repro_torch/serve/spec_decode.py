@@ -34,8 +34,8 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.transformer import ModelDims, check_family
-from .decode import (DecodeSpec, decode_layers, kv_access, project_logits,
-                     step_shard, translate_step)
+from .decode import (DecodeSpec, TokenSplit, decode_layers, kv_access,
+                     project_logits, step_shard, translate_step)
 from .sampling import sample_tokens_q, verify_draft_tokens
 
 # families whose decode state is position-indexed only: a rejected tail
@@ -109,6 +109,10 @@ def make_spec_decode_step(cfg: ArchConfig, dims: ModelDims,
     Qw = K + 1
     bound = {} if bound is None else bound   # the translation's bindings
     shard = step_shard(spec, mesh, part)
+    if isinstance(shard, TokenSplit):
+        raise NotImplementedError(
+            "speculative decode is single-host for now; the SPMD serve "
+            "path (ROADMAP) drives the non-speculative step")
 
     def spec_step(params, dstate, tokens, active=None, *, sample=False):
         pos0 = dstate["ctx_len"]                 # the fed token's position

@@ -145,7 +145,11 @@ def make_train_step(cfg: ArchConfig, dims, tc: TrainConfig,
     * takes this rank's rows of it, as ``batch_spec`` splits the batch over
       the data axis (with microbatches, this rank's rows of each
       microbatch, so that a microbatch holds the single device's rows);
-      the rows of a microbatch must split evenly over the data axis;
+      where a microbatch's rows do not split evenly over the data axis,
+      every data rank takes the whole microbatch, as ``batch_spec``'s
+      ``_guard`` replicates it, and the step then sums neither the loss
+      over the data group nor the gradients (each rank's are already the
+      whole batch's);
     * gathers each parameter leaf whole; a ``loss_override`` with a
       ``sharded_axes`` attribute takes the blocks of those axes as they lie
       (``dist.megatron.megatron_loss``: the model axis's), and one without
@@ -180,37 +184,38 @@ def make_train_step(cfg: ArchConfig, dims, tc: TrainConfig,
                              "(state_shardings(abstract_state(...), mesh, "
                              "rules))")
         rules = rules or ShardingRules()
-        data_sum = functools.partial(mesh.all_reduce, axis="data")
+        data_axes = tuple(rules.data_axes)
+        data_sum = functools.partial(mesh.all_reduce, axis=data_axes)
         model_loss = functools.partial(
             loss_fn, cfg=cfg, dims=dims,
-            opt=dataclasses.replace(fwd, moe_rows=MoeRows(mesh)),
+            opt=dataclasses.replace(fwd, moe_rows=MoeRows(mesh, data_axes)),
             data_sum=data_sum, data_size=mesh.data_size)
+        whole_loss = functools.partial(loss_fn, cfg=cfg, dims=dims, opt=fwd)
 
-        rows = P(tuple(rules.data_axes))       # batch_spec's leading dim
+        rows = P(data_axes)                    # batch_spec's leading dim
 
         def split(batch):
             return [{k: block_of(x, rows, mesh) for k, x in m.items()}
-                    for m in _microbatches(batch, tc.microbatches,
-                                           mesh.data_size)]
+                    for m in _microbatches(batch, tc.microbatches)]
 
     loss_of = loss_override or model_loss
 
-    def metrics_and_grads(params, batch):
+    def metrics_and_grads(params, batch, loss_of=loss_of):
         """(metrics, the gradient of each leaf in tree_flatten order)."""
         loss, metrics = loss_of(params, batch)
         grads = torch.autograd.grad(loss, tree_flatten(params)[0],
                                     materialize_grads=True)
         return {k: m.detach() for k, m in metrics.items()}, list(grads)
 
-    def compute_grads(params, batch):
+    def compute_grads(params, batch, loss_of=loss_of, split=split):
         micros = split(batch)
         if len(micros) == 1:
-            return metrics_and_grads(params, micros[0])
+            return metrics_and_grads(params, micros[0], loss_of)
         # gradient accumulation over microbatches; the metrics (the loss
         # among them) are the microbatches' mean
         acc, mets = None, []
         for micro in micros:
-            metrics, grads = metrics_and_grads(params, micro)
+            metrics, grads = metrics_and_grads(params, micro, loss_of)
             grads = [g.to(tc.accum_dtype) for g in grads]
             if acc is None:
                 acc = grads
@@ -249,9 +254,20 @@ def make_train_step(cfg: ArchConfig, dims, tc: TrainConfig,
     # the step gathers each leaf over the axes whose blocks the loss does
     # not take as they lie (``loss_override.sharded_axes``)
     kept = getattr(loss_override, "sharded_axes", ())
-    axes = tuple(a for a in AXES if a not in kept)
+    axes = tuple(a for a in getattr(mesh, "axis_names", AXES)
+                 if a not in kept)
+
+    def replicated(batch) -> bool:
+        """Whether a microbatch's rows do not split over the data axis."""
+        rows = next(iter(batch.values())).shape[0] // max(tc.microbatches, 1)
+        return rows % mesh.data_size != 0
 
     def mesh_train_step(state, batch):
+        rep = replicated(batch)
+        if rep and loss_override is not None:
+            raise ValueError("a loss_override sums its terms over the data "
+                             "axis: give it a batch whose microbatch rows "
+                             "split over the data axis")
         blocks = state["params"]
         flat, sp = tree_flatten(blocks)[0], tree_flatten(p_specs)[0]
         with deterministic():
@@ -260,9 +276,14 @@ def make_train_step(cfg: ArchConfig, dims, tc: TrainConfig,
             params = tree_unflatten(blocks, [
                 w.detach().requires_grad_(True) for w in whole])
             del whole
-            metrics, grads = compute_grads(params, batch)
+            if rep:
+                metrics, grads = compute_grads(
+                    params, batch, whole_loss,
+                    lambda b: _microbatches(b, tc.microbatches))
+            else:
+                metrics, grads = compute_grads(params, batch)
             del params
-            grads = [block_of(data_sum(g), s, mesh, axes)
+            grads = [block_of(g if rep else data_sum(g), s, mesh, axes)
                      for g, s in zip(grads, sp)]
             return update(state, blocks, tree_unflatten(blocks, grads),
                           metrics, block_tree(blocks, p_specs, mesh))
@@ -270,15 +291,14 @@ def make_train_step(cfg: ArchConfig, dims, tc: TrainConfig,
     return mesh_train_step
 
 
-def _microbatches(batch, mb: int, parts: int = 1):
+def _microbatches(batch, mb: int):
     """``batch``'s microbatches (its leading dim in ``mb`` contiguous
-    runs; the batch itself when ``mb <= 1``), each of whose rows must split
-    into ``parts`` equal runs."""
+    runs; the batch itself when ``mb <= 1``)."""
     rows = next(iter(batch.values())).shape[0]
     mb = max(mb, 1)
-    if rows % mb or (rows // mb) % parts:
-        raise ValueError(f"a batch of {rows} rows in {mb} microbatch(es) "
-                         f"does not split over {parts} data rank(s)")
+    if rows % mb:
+        raise ValueError(f"a batch of {rows} rows does not split into {mb} "
+                         "microbatches")
     if mb == 1:
         return [batch]
     return [{k: x.reshape(mb, rows // mb, *x.shape[1:])[i]
@@ -291,15 +311,15 @@ class _GatherRows(torch.autograd.Function):
     its share of the aux losses), so the rank's rows take the group's sum."""
 
     @staticmethod
-    def forward(ctx, x, mesh):
-        ctx.mesh, ctx.rows = mesh, x.shape[0]
-        return mesh.all_gather(x, 0, "data")
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes, ctx.rows = mesh, axes, x.shape[0]
+        return mesh.all_gather(x, 0, axes)
 
     @staticmethod
     def backward(ctx, g):
-        g = ctx.mesh.all_reduce(g.contiguous().clone(), "data")
+        g = ctx.mesh.all_reduce(g.contiguous().clone(), ctx.axes)
         i = ctx.mesh.data_index
-        return g[i * ctx.rows:(i + 1) * ctx.rows], None
+        return g[i * ctx.rows:(i + 1) * ctx.rows], None, None
 
 
 class MoeRows:
@@ -307,11 +327,11 @@ class MoeRows:
     the MoE routes the whole batch's rows, in the single device's order,
     and each rank keeps its own rows of the output."""
 
-    def __init__(self, mesh):
-        self.mesh = mesh
+    def __init__(self, mesh, axes=("data",)):
+        self.mesh, self.axes = mesh, tuple(axes)
 
     def gather(self, h: torch.Tensor) -> torch.Tensor:
-        return _GatherRows.apply(h, self.mesh)
+        return _GatherRows.apply(h, self.mesh, self.axes)
 
     def keep(self, out: torch.Tensor) -> torch.Tensor:
         n = out.shape[0] // self.mesh.data_size

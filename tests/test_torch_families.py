@@ -284,10 +284,12 @@ def test_moe_spec_on_equals_spec_off(moe_weights):
 def test_what_still_raises(arch):
     """Every family runs; what is refused: the verify step for the
     recurrent families (a rejected draft would need a state rollback),
-    the dry run's mesh layouts (ROADMAP P18: the token-split step of
-    ``kv_shards=0`` and the data-sharded decode state without a
-    partition), while a mesh shape is accepted, and an unknown family."""
+    the verify step on a token-split mesh (``kv_shards=0``; the JAX
+    package's refusal) and a state of several data groups without a
+    rank's mesh, while a mesh shape is accepted, and an unknown
+    family."""
     import types
+    from repro_torch.launch.mesh import MeshDesc
     from repro_torch.serve import decode, spec_decode
     cfg = reduced(ARCHS[arch])
     dims = model_dims(cfg)
@@ -298,13 +300,12 @@ def test_what_still_raises(arch):
     dense = reduced(ARCHS["granite-8b"])
     ddims = model_dims(dense)
     EngineConfig(mesh_shape=(1, 2)).check_ported()
-    for call in (lambda: spec_decode.make_spec_decode_step(
-                     dense, ddims, spec, 4, mesh=object()),
-                 lambda: decode.init_decode_state(dense, ddims, spec, 2,
-                                                  data_size=2,
-                                                  device="cpu")):
-        with pytest.raises(NotImplementedError, match="ROADMAP P18"):
-            call()
+    with pytest.raises(NotImplementedError, match="single-host"):
+        spec_decode.make_spec_decode_step(
+            dense, ddims, spec, 4, mesh=MeshDesc({"data": 1, "model": 2}))
+    with pytest.raises(ValueError, match="ranks of a mesh"):
+        decode.init_decode_state(dense, ddims, spec, 2, data_size=2,
+                                 device="cpu")
     odd = types.SimpleNamespace(family="retrieval")
     with pytest.raises(ValueError, match="unknown model family"):
         forward({}, {"tokens": torch.zeros((1, 8), dtype=torch.long)}, odd,
