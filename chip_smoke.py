@@ -16,6 +16,7 @@ JAX):
     python3 chip_smoke.py --train [--src OTHER_CHECKOUT/src]
     python3 chip_smoke.py --mesh-train [--src OTHER_CHECKOUT/src]
     python3 chip_smoke.py --token-split [--src OTHER_CHECKOUT/src]
+    python3 chip_smoke.py --examples
 
 The second form builds the kernels and runs only phase 4's decode-step
 profile, the third only phase 2's paged-attention checks and timings (the
@@ -23,8 +24,9 @@ decode, verify and prefix reads), the fourth only phase 8, the fifth only
 phase 9, the sixth only phase 10, the seventh only phase 11, the eighth
 only the sharded step's check, phase 5 and phase 12, the ninth only
 phase 13 and the tenth only phase 14 (both without building the kernels,
-which training does not launch), the eleventh only phase 15, of this
-checkout's port or of another
+which training does not launch), the eleventh only phase 15 and the
+twelfth only phase 16 (the examples), of this checkout's port or of
+another
 commit's (a parent unpacked with ``git archive``), so that two commits
 compare in one call.
 Phase 3's first two runs, phase 4 and the profile pass their engine
@@ -296,22 +298,33 @@ Phases, each failing loudly:
    blocks, 32 a rank).  First the kernels at its geometries
    (``check_token_split_kernels``): the RSW step entry with the group
    layout bitwise its plain version at four layouts, one launch a call,
-   and the paged read of a token shard and of a striped rank
-   (``block_tokens = 128``) within 3e-2 of theirs, each timed beside its
-   bound.  Then each rank runs, and this process runs on one device
-   (``mesh=None``) with the same weights and inputs: (a) float32, 2
-   layers, batch mode, 4 prompts through the token-split recompute
-   prefill with the flash kernel, 16 greedy steps: logits within 1e-4 of
+   the paged read of a token shard and of a striped rank
+   (``block_tokens = 128``) within 3e-2 of theirs, and flash attention at
+   a rank's query heads (2, 1024, 16, 4, 128), each timed beside its
+   bound.  Then each rank draws its blocks of the weights (JAX's
+   ``param_shardings``, each matrix cut as it is drawn: its bytes must
+   equal the specs' arithmetic) and runs, tensor-parallel over the model
+   axis, while this process runs on one device (``mesh=None``) with the
+   same weights and inputs: (a) float32, 2 layers, ZeRO over the data
+   axis too, batch mode, 4 prompts through the token-split recompute
+   prefill with the flash kernel, 8 greedy steps: logits within 1e-4 of
    the largest, streams equal, each rank's translation bitwise its plain
-   version; (b) bf16, 12 layers, batch mode, prompts of 256-1024 tokens,
-   32 steps: the streams' agreement (the top-2 margin where a row first
-   differs), each rank's step wall and device ms, idle share, launches
-   and gloo bytes a step; (c) bf16, 12 layers, striped mode, one row of a
+   version; (b) bf16, 12 layers (the weights over the model axis only),
+   batch mode, prompts of 256-1024 tokens, 32 steps: the streams'
+   agreement (the top-2 margin where a row first differs), each rank's
+   step wall and device ms, idle share, launches and gloo calls and
+   bytes a step; (c) bf16, 12 layers, striped mode, one row of a
    131,072-token context written straight into the pools, 16 steps held
-   to mesh=None within ``PHASE15_C["tol"]``, peak memory a rank; (d) the
-   serve CLI (``python -m repro_torch.launch.serve --arch granite-8b
-   --requests 8 --max-new 16``), alone and at ``--data 1 --model 2``
-   under torchrun, each exit 0 with its printout.
+   to mesh=None within ``PHASE15_C["tol"]``; each a rank's weight bytes
+   and peak memory; (d) the serve CLI (``python -m
+   repro_torch.launch.serve --arch granite-8b --requests 8 --max-new
+   16``), alone and at ``--data 1 --model 2`` under torchrun, each exit 0
+   with its printout.
+16. the three examples (``examples/*_torch.py``) on the card through
+   their ``main``: the quickstart (equal to its CPU printout), the
+   serving example with prefix sharing on and off (equal streams), the
+   train example at its ~100M-parameter config with a failure injected
+   and without (equal final weights).
 
 Each serving phase prints a digest of its streams (``streams_sha256``), so
 that two commits' runs compare token for token.
@@ -319,7 +332,7 @@ that two commits' runs compare token for token.
 It prints the build times, the kernel checks, the serving numbers, one
 JSON line of kernel measurements (launches counted on phases 4, 5, 6, 7,
 4 (b), 6 (f), 8 (a) and (c), 9 (a) and (b), 10 (a) and (b), 11, 12,
-13, 14 and 15 (its four ranks' added), each from 0; the RSW's
+13, 14, 15 (its four ranks' added) and 16, each from 0; the RSW's
 ``launches`` are its step entry's, ``launches_group_layout`` those of
 them on a token-split rank, ``launches_vpn_list`` its vpn-list entry's
 and ``launches_shard`` / ``launches_combine`` its sharded step's two
@@ -334,6 +347,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -5506,10 +5520,17 @@ def mesh_training(torch, dev, src, ref_losses=None):
 PHASE15_MESH = (2, 2)                      # (data, model): 4 ranks, gloo
 PHASE15_TIMEOUT_S = 300                    # a collective never joined fails
 PHASE15_ARCH = "granite-8b"                # full width: d 4096, 32/8 heads
-# (a): float32, 2 layers, batch mode, 4 prompts, 16 greedy steps
-PHASE15_A = dict(layers=2, prompts=(100, 64, 37, 128), steps=16, tol=1e-4)
-# (b): bf16, 12 layers, batch mode, 4 prompts of 256-1024 tokens, 32 steps
-PHASE15_B = dict(layers=12, prompts=(1024, 256, 700, 512), steps=32)
+# (a): float32, 2 layers, batch mode, 4 prompts, 8 greedy steps (16 until
+# the weights were cut: ZeRO's gathers of a rank's 1.8 GB of each step's
+# layers take 2 s a step through the host); the weights ZeRO-split over
+# the data axis as well (gathered a layer at a time, exact)
+PHASE15_A = dict(layers=2, prompts=(100, 64, 37, 128), steps=8, tol=1e-4,
+                 zero=True)
+# (b): bf16, 12 layers, batch mode, 4 prompts of 256-1024 tokens, 32
+# steps; (b) and (c) cut the weights over the model axis only: ZeRO would
+# gather a rank's 1.3 GB of each step's layers through the host (gloo)
+PHASE15_B = dict(layers=12, prompts=(1024, 256, 700, 512), steps=32,
+                 zero=False)
 # (c): bf16, 12 layers, striped mode, one row of a 131,072-token context
 # (2,048 blocks of 64), 16 teacher-forced steps; its logits are held to
 # a mesh=None step's within PHASE15_C_TOL of the largest |logit|: the
@@ -5610,8 +5631,59 @@ def _profile_once(torch, fn):
     return sorted(rows, key=lambda r: -r[1]), wall
 
 
+def ts_weights(torch, dev, dtype, seed, layers, zero, mesh=None):
+    """(cfg, dims, params, rules, sizes): granite-8b at full width cut to
+    ``layers``, its weights drawn from a generator on the card seeded with
+    ``seed`` (``served_model``'s numbers).  On one device (``mesh`` None)
+    the whole tree; on a rank its blocks under ``param_shardings`` (ZeRO
+    over the data axis as ``zero``), each matrix cut as soon as it is
+    drawn (``ServingTP.draw``), so no whole weight tree reaches the card.
+    ``sizes``: the rank's parameter bytes, the same from the specs'
+    arithmetic (they must be equal) and the whole tree's."""
+    from repro_torch.ckpt.checkpoint import tree_flatten
+    from repro_torch.configs import get_config
+    from repro_torch.dist.megatron import ServingTP
+    from repro_torch.dist.sharding import ShardingRules, param_shardings
+    from repro_torch.models import model_dims
+    from repro_torch.params import init_params
+    if mesh is None:
+        cfg, dims, params = served_model(torch, dev, PHASE15_ARCH, dtype,
+                                         seed=seed, layers=layers)
+        return cfg, dims, params, None, None
+    cfg = dataclasses.replace(get_config(PHASE15_ARCH), num_layers=layers,
+                              zero_shard_params=zero)
+    if cfg.qkv_bias:
+        raise ValueError("ts_weights draws no qkv biases")
+    dims = model_dims(cfg)
+    rules = ShardingRules(zero_params=zero)
+    tp = ServingTP(cfg, dims, mesh, rules)
+    t0 = time.perf_counter()
+    params = tp.draw(torch.Generator(device=dev).manual_seed(seed), dtype,
+                     dev)
+    torch.cuda.synchronize()
+    meta = init_params(None, cfg, dims, dtype, "meta")
+    metas = tree_flatten(meta)[0]
+    specs = tree_flatten(param_shardings(meta, rules, mesh))[0]
+    sizes = dict(
+        param_bytes=sum(t.numel() * t.element_size()
+                        for t in tree_flatten(params)[0]),
+        # each leaf's bytes over the sizes of the axes its spec splits
+        spec_param_bytes=sum(
+            m.numel() * m.element_size() // math.prod(
+                mesh.axis(e).size for e in sp if e is not None)
+            for m, sp in zip(metas, specs)),
+        whole_param_bytes=sum(m.numel() * m.element_size() for m in metas),
+        draw_s=round(time.perf_counter() - t0, 2))
+    if sizes["param_bytes"] != sizes["spec_param_bytes"]:
+        raise AssertionError(f"phase 15: rank {mesh.rank} holds "
+                             f"{sizes['param_bytes']} B of weights, its "
+                             f"blocks are {sizes['spec_param_bytes']} B")
+    return cfg, dims, params, rules, sizes
+
+
 def ts_batch_run(torch, dev, cfg, dims, params, sub, case, seed, dtype,
-                 mesh=None, check_translation=False, profile=False):
+                 mesh=None, check_translation=False, profile=False,
+                 rules=None, on_prefill=None):
     """(a)/(b) on this rank of the mesh (``mesh``) or on one device: the
     token-split recompute prefill of the prompts with the flash kernel
     (``attn_impl="pallas"``), then ``sub["steps"]`` greedy steps fed their
@@ -5620,7 +5692,8 @@ def ts_batch_run(torch, dev, cfg, dims, params, sub, case, seed, dtype,
     synchronisations.  With ``check_translation`` every step's RSW output
     (this rank's group) is held bitwise to its plain version on the
     CPU; with ``profile`` one more step runs under the profiler (its
-    device ms, wall ms, idle share and kernels in ``profile``)."""
+    device ms, wall ms, idle share and kernels in ``profile``).
+    ``on_prefill()`` is called once the prefill has run."""
     from repro_torch.kernels.utopia_rsw.ref import translate_step_ref
     from repro_torch.models import FwdOptions
     from repro_torch.serve.decode import init_decode_state, make_serve_step
@@ -5651,8 +5724,8 @@ def ts_batch_run(torch, dev, cfg, dims, params, sub, case, seed, dtype,
                            for j in range(nb_prompt)] for r in range(B)],
                          **i32)
     ctx = torch.tensor(lens, **i32)
-    prefill = make_prefill_step(cfg, dims, spec, fwd, mesh=mesh)
-    serve = make_serve_step(cfg, dims, spec, dtype, mesh=mesh)
+    prefill = make_prefill_step(cfg, dims, spec, fwd, mesh=mesh, rules=rules)
+    serve = make_serve_step(cfg, dims, spec, dtype, mesh=mesh, rules=rules)
     logits_all, walls = [], []
     torch.cuda.synchronize()
     last, st, stats = prefill(params, st, {"tokens": toks.to(dev)}, slots,
@@ -5660,6 +5733,8 @@ def ts_batch_run(torch, dev, cfg, dims, params, sub, case, seed, dtype,
     logits_all.append(last.float().cpu())
     tok = stats["next_token"]
     streams = [[int(t)] for t in tok.tolist()]
+    if on_prefill is not None:
+        on_prefill()
     for _ in range(sub["steps"]):
         if check_translation:
             rsel = slice(None) if mesh is None else slice(
@@ -5690,14 +5765,19 @@ def ts_batch_run(torch, dev, cfg, dims, params, sub, case, seed, dtype,
             streams[r].append(int(t))
     out = dict(streams=streams, logits=logits_all, walls=walls)
     if profile:
-        rows, wall = _profile_once(torch, lambda: serve(params, st, tok))
-        busy = sum(ms for _, ms, _ in rows)
-        out["profile"] = dict(
-            device_ms=busy if rows else None, wall_ms=wall,
-            idle_share=1 - busy / wall if rows else None,
-            kernels=int(sum(n for _, _, n in rows)),
-            top=[(k[:60], round(ms, 4), n) for k, ms, n in rows[:6]])
+        out["profile"] = _step_profile(torch, lambda: serve(params, st, tok))
     return out
+
+
+def _step_profile(torch, fn):
+    """Device ms, wall ms, idle share, kernels and the top kernels of one
+    call of ``fn`` (``_profile_once``)."""
+    rows, wall = _profile_once(torch, fn)
+    busy = sum(ms for _, ms, _ in rows)
+    return dict(device_ms=busy if rows else None, wall_ms=wall,
+                idle_share=1 - busy / wall if rows else None,
+                kernels=int(sum(n for _, _, n in rows)),
+                top=[(k[:60], round(ms, 4), n) for k, ms, n in rows[:6]])
 
 
 def _ts_striped_case(cfg):
@@ -5745,10 +5825,12 @@ def _ts_block_kv(torch, dev, cfg, dims, layer, kv, seed):
                        generator=gen, device=dev, dtype=torch.bfloat16)
 
 
-def ts_striped_run(torch, dev, cfg, dims, params, case, seed, mesh=None):
+def ts_striped_run(torch, dev, cfg, dims, params, case, seed, mesh=None,
+                   rules=None, profile=False):
     """(c) on this rank (``mesh``) or on one device: the state written
     straight from seeded numbers (no prefill), then ``steps`` decode steps
-    fed seeded tokens.  Returns each step's logits and wall ms."""
+    fed seeded tokens.  Returns each step's logits and wall ms (with
+    ``profile``, one more step's profile)."""
     from repro_torch.serve.decode import init_decode_state, make_serve_step
     G, nloc, nglob = case["G"], case["nloc"], case["nglob"]
     bs = cfg.kv_block_size
@@ -5782,7 +5864,8 @@ def ts_striped_run(torch, dev, cfg, dims, params, case, seed, mesh=None):
     gen = torch.Generator().manual_seed(seed + 99)
     feed = torch.randint(0, cfg.vocab_size, (PHASE15_C["steps"], 1),
                          generator=gen, dtype=torch.int32)
-    serve = make_serve_step(cfg, dims, spec, torch.bfloat16, mesh=mesh)
+    serve = make_serve_step(cfg, dims, spec, torch.bfloat16, mesh=mesh,
+                            rules=rules)
     logits_all, walls = [], []
     for i in range(PHASE15_C["steps"]):
         torch.cuda.synchronize()
@@ -5791,8 +5874,12 @@ def ts_striped_run(torch, dev, cfg, dims, params, case, seed, mesh=None):
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
         logits_all.append(logits.float().cpu())
+    out = dict(logits=logits_all, walls=walls)
+    if profile:
+        out["profile"] = _step_profile(
+            torch, lambda: serve(params, st, feed[-1].to(dev)))
     del st
-    return dict(logits=logits_all, walls=walls)
+    return out
 
 
 def token_split_child(torch, dev, rank, directory):
@@ -5816,47 +5903,85 @@ def token_split_child(torch, dev, rank, directory):
         tally = _counted(mesh)
         torch.cuda.reset_peak_memory_stats()
         _kernel_counts(reset=True)
+
+        def gloo_since(before, n):
+            """The collectives' calls and bytes a step since ``before``."""
+            return {k: (tally[k] - before[k]) / n for k in tally}
+
         # (a)
-        cfg, dims, params = served_model(torch, dev, PHASE15_ARCH,
-                                         torch.float32, seed=SEED + 15,
-                                         layers=PHASE15_A["layers"])
+        cfg, dims, params, rules, sizes = ts_weights(
+            torch, dev, torch.float32, SEED + 15, PHASE15_A["layers"],
+            PHASE15_A["zero"], mesh)
         case = _ts_batch_case(cfg, PHASE15_A)
+        before = dict(tally)
+        prefill = {}
+
+        def after_prefill():
+            """The prefill's collectives; the steps' count from here."""
+            prefill.update(gloo_since(before, 1))
+            before.update(tally)
+
+        counts0 = _kernel_counts()
         a = ts_batch_run(torch, dev, cfg, dims, params, PHASE15_A, case,
                          SEED + 151, torch.float32, mesh,
-                         check_translation=True)
-        out["a"] = {k: a[k] for k in ("streams", "logits")}
+                         check_translation=True, profile=True, rules=rules,
+                         on_prefill=after_prefill)
+        counts1 = _kernel_counts()
+        out["a"] = dict({k: a[k] for k in ("streams", "logits", "profile")},
+                        launches={k: counts1[k] - counts0[k]
+                                  for k in counts1 if counts1[k] - counts0[k]},
+                        **sizes, step_wall_ms=a["walls"],
+                        step_wall_ms_median=statistics.median(
+                            a["walls"][2:]),
+                        gloo_prefill=dict(prefill),
+                        gloo_per_step=gloo_since(
+                            before, PHASE15_A["steps"] + 1),
+                        peak_gb=torch.cuda.max_memory_allocated() / 1e9)
         del params
         torch.cuda.empty_cache()
         # (b)
-        cfg, dims, params = served_model(torch, dev, PHASE15_ARCH,
-                                         torch.bfloat16, seed=SEED + 16,
-                                         layers=PHASE15_B["layers"])
+        torch.cuda.reset_peak_memory_stats()
+        cfg, dims, params, rules, sizes = ts_weights(
+            torch, dev, torch.bfloat16, SEED + 16, PHASE15_B["layers"],
+            PHASE15_B["zero"], mesh)
         case = _ts_batch_case(cfg, PHASE15_B)
         before = dict(tally)
+        prefill = {}
         counts0 = _kernel_counts()
         b = ts_batch_run(torch, dev, cfg, dims, params, PHASE15_B, case,
-                         SEED + 152, torch.bfloat16, mesh, profile=True)
+                         SEED + 152, torch.bfloat16, mesh, profile=True,
+                         rules=rules, on_prefill=after_prefill)
         counts1 = _kernel_counts()
         steps = PHASE15_B["steps"] + 1          # and the profiled one
         out["b"] = dict(
-            streams=b["streams"], logits=b["logits"],
+            streams=b["streams"], logits=b["logits"], **sizes,
             step_wall_ms=b["walls"],
             step_wall_ms_median=statistics.median(b["walls"][2:]),
             profile=b["profile"],
             launches={k: counts1[k] - counts0[k] for k in counts1},
-            # the steps' collectives, the prefill's one gather spread
-            # over them
-            gloo_per_step={k: (tally[k] - before[k]) / steps
-                           for k in tally})
+            gloo_prefill=dict(prefill), gloo_per_step=gloo_since(before,
+                                                                 steps),
+            peak_gb=torch.cuda.max_memory_allocated() / 1e9)
         del b
         # (c)
+        torch.cuda.reset_peak_memory_stats()
         case_c = _ts_striped_case(cfg)
+        before = dict(tally)
+        counts0 = _kernel_counts()
         c = ts_striped_run(torch, dev, cfg, dims, params, case_c,
-                           SEED + 153, mesh)
-        out["c"] = dict(logits=c["logits"], step_wall_ms=c["walls"])
+                           SEED + 153, mesh, rules=rules, profile=True)
+        counts1 = _kernel_counts()
+        out["c"] = dict(logits=c["logits"], step_wall_ms=c["walls"],
+                        step_wall_ms_median=statistics.median(c["walls"][2:]),
+                        profile=c["profile"],
+                        gloo_per_step=gloo_since(before,
+                                                 PHASE15_C["steps"] + 1),
+                        launches={k: counts1[k] - counts0[k]
+                                  for k in counts1 if counts1[k] - counts0[k]},
+                        peak_gb=torch.cuda.max_memory_allocated() / 1e9)
         out["launches"] = _kernel_counts()
         out["gloo_bytes"] = dict(tally)
-        out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        out["peak_gb"] = max(out[k]["peak_gb"] for k in "abc")
         out["total_s"] = time.perf_counter() - t0
     finally:
         torch.save(out, Path(directory) / f"rank{rank}.pt")
@@ -5979,6 +6104,15 @@ def check_token_split_kernels(torch, dev, results):
             "version; " + json.dumps(reads[name]))
     results["paged_attention_token_split"] = reads
     torch.cuda.empty_cache()
+    # the token-split prefill's flash at a rank's query heads: (b)'s
+    # 1,024-token prompts, 2 rows a data group, granite-8b's 32/8 heads
+    # over the model axis of 2
+    results["flash_attention_token_split"] = geometry_reads(
+        torch, dev, heads=(), kinds=(),
+        flash=((2, 1024, 1024, 32 // PHASE15_MESH[1],
+                8 // PHASE15_MESH[1], 128, True),),
+        label="phase 15 (a rank's query heads)")
+    torch.cuda.empty_cache()
 
 
 def _margin(logits_row):
@@ -6019,8 +6153,9 @@ def token_split(torch, dev, src, results):
     at full width (64-token blocks, 32 tokens a rank).  The kernels first
     (``check_token_split_kernels``); then the ranks run (a), (b) and (c)
     while this process runs each on one device (``mesh=None``) with the
-    same weights and inputs: (a) float32, 2 layers, batch mode, the
-    recompute prefill with the flash kernel then 16 greedy steps: every
+    same weights and inputs, each rank on its blocks of the weights
+    (``ts_weights``): (a) float32, 2 layers, ZeRO on, batch mode, the
+    recompute prefill with the flash kernel then 8 greedy steps: every
     step's logits within ``PHASE15_A["tol"]`` of the largest |logit|,
     every stream equal, and each rank's translation bitwise its plain
     version; (b) bf16, 12 layers, batch mode, prompts of 256-1024 tokens,
@@ -6099,9 +6234,20 @@ def token_split(torch, dev, src, results):
                 raise AssertionError(f"phase 15 (a): rank {r}'s logits at "
                                      f"step {i} differ by {e:.3g} of the "
                                      "largest |logit|")
-    report["a"] = dict(max_rel_err=max(errs),
+    def rank_row(g, sub, *extra):
+        """A rank's row of sub-run ``sub``: its weights' bytes against the
+        specs' and the whole tree's, peak, step wall ms, gloo a step."""
+        r = g[sub]
+        keys = ("param_bytes", "spec_param_bytes", "whole_param_bytes",
+                "peak_gb", "step_wall_ms_median", "gloo_prefill",
+                "gloo_per_step") + extra
+        return dict(rank=g["rank"], **{k: r[k] for k in keys if k in r})
+
+    report["a"] = dict(max_rel_err=max(errs), zero=PHASE15_A["zero"],
                        streams_sha256=stream_digest(dict(enumerate(
-                           ref["a"]["streams"]))))
+                           ref["a"]["streams"]))),
+                       ranks=[rank_row(g, "a", "profile", "launches")
+                              for g in ranks])
     # (b)
     want = ref["b"]["streams"]
     for r, got in enumerate(ranks[1:], 1):
@@ -6121,13 +6267,10 @@ def token_split(torch, dev, src, results):
         streams_sha256=stream_digest(dict(enumerate(got))),
         reference_step_wall_ms_median=statistics.median(
             ref["b"]["walls"][2:]),
-        reference_profile=ref["b"]["profile"],
-        ranks=[dict(rank=g["rank"],
-                    step_wall_ms_median=g["b"]["step_wall_ms_median"],
-                    profile=g["b"]["profile"], launches={
-                        k: v for k, v in g["b"]["launches"].items() if v},
-                    gloo_per_step=g["b"]["gloo_per_step"])
-               for g in ranks])
+        reference_profile=ref["b"]["profile"], zero=PHASE15_B["zero"],
+        ranks=[dict(rank_row(g, "b", "profile"), launches={
+            k: v for k, v in g["b"]["launches"].items() if v})
+            for g in ranks])
     # (c)
     errs, agree = [], 0
     for r, got in enumerate(ranks):
@@ -6148,7 +6291,8 @@ def token_split(torch, dev, src, results):
         reference_step_wall_ms_median=statistics.median(
             ref["c"]["walls"][2:]),
         reference_peak_gb=ref_peak,
-        peak_gb=[g["peak_gb"] for g in ranks])
+        peak_gb=[g["peak_gb"] for g in ranks],
+        ranks=[rank_row(g, "c", "profile", "launches") for g in ranks])
     # (d)
     root = src
     report["d"] = [_serve_cli(torch, root, False),
@@ -6168,6 +6312,79 @@ def token_split(torch, dev, src, results):
                  "paged_attention", "flash_attention"):
         if counts.get(name, 0) <= 0:
             raise AssertionError(f"phase 15: {name} was never launched")
+    return counts
+
+
+# ------------------------------------------------------------- phase 16
+
+# the train example at its ~100M-parameter config: 20 steps, checkpoints
+# every 8, the failure (run 1) at step 10
+EXAMPLES_TRAIN = ("--steps", "20", "--ckpt-every", "8")
+
+
+def _example(root, name):
+    """``examples/NAME.py`` of the checkout at ``root`` as a module."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"example_{name}", Path(root) / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def examples(torch, dev, root):
+    """Phase 16: the three ``examples/*_torch.py`` on the card through
+    their ``main(argv)``: the quickstart (its printout equal to a CPU
+    run's: the RSW kernel's translation is integers), the serving example
+    with prefix sharing on and off (equal streams; the translation and
+    paged-attention kernels launched), and the train example at its
+    ~100M-parameter config (``EXAMPLES_TRAIN``) with a failure injected
+    mid-run and without one (its final weights' digest and loss equal,
+    the loss falling).  Returns the launch counts, from 0."""
+    import re
+    t0 = time.perf_counter()
+    _kernel_counts(reset=True)
+    quick = _example(root, "quickstart_torch")
+    card = quick.main(["--device", "cuda"])
+    if card != quick.main(["--device", "cpu"]):
+        raise AssertionError("phase 16: the quickstart's card printout "
+                             "differs from the CPU's")
+    serve = _example(root, "serve_engine_torch")
+    on = serve.main(["--device", "cuda"])
+    off = serve.main(["--device", "cuda", "--no-prefix-sharing"])
+
+    def streams(out):
+        return [x for x in out.splitlines() if re.match(r"  seq \d+: \[", x)]
+
+    if len(streams(on)) != 5 or streams(on) != streams(off):
+        raise AssertionError("phase 16: the serving example's streams "
+                             f"differ with prefix sharing off:\n{on}\n{off}")
+    t_serve = time.perf_counter()
+    train = _example(root, "train_lm_torch")
+    failed = train.main(["--device", "cuda", *EXAMPLES_TRAIN])
+    clean = train.main(["--device", "cuda", *EXAMPLES_TRAIN,
+                        "--fail-at", "-1"])
+
+    def final(out):
+        return [x for x in out.splitlines() if x.startswith("final ")]
+
+    if "(1 restart)" not in failed or final(failed) != final(clean):
+        raise AssertionError("phase 16: the train example's resumed run "
+                             f"differs from the uninterrupted one:\n"
+                             f"{failed}\n{clean}")
+    counts = _kernel_counts()
+    for name in ("utopia_rsw", "utopia_translate_step", "paged_attention"):
+        if counts[name] <= 0:
+            raise AssertionError(f"phase 16: {name} was never launched")
+    log("phase 16: the examples on the card: " + json.dumps(dict(
+        quickstart=card.splitlines()[1],
+        serve=[x for x in on.splitlines() if x.startswith(
+            ("generated", "prefix cache", "translation stats"))],
+        train=[x for x in failed.splitlines()
+               if x.startswith(("arch", "ran"))] + final(failed),
+        serve_s=round(t_serve - t0, 1),
+        train_s=round(time.perf_counter() - t_serve, 1),
+        launches={k: v for k, v in counts.items() if v})))
     return counts
 
 
@@ -6241,6 +6458,9 @@ def main() -> int:
                     help="build the kernels and run only phase 15 (the "
                          "token-split layout over a (2, 2) mesh, the serve "
                          "CLI)")
+    ap.add_argument("--examples", action="store_true",
+                    help="build the kernels and run only phase 16 (the "
+                         "three examples/*_torch.py on the card)")
     ap.add_argument("--token-split-child", nargs=2, metavar=("RANK", "DIR"),
                     default=None, help=argparse.SUPPRESS)  # phase 15's ranks
     ap.add_argument("--mesh-train-child", nargs=3,
@@ -6352,6 +6572,11 @@ def main() -> int:
         recurrent(torch, dev, results)
         card_line(torch)
         return 0
+    if args.examples:
+        counts = examples(torch, dev, root)
+        log("phase 16 launches: " + json.dumps(counts))
+        card_line(torch)
+        return 0
     if args.frontends:
         frontends(torch, dev, results)
         card_line(torch)
@@ -6435,10 +6660,15 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     paths["phase15"] = token_split(torch, dev, src, results)
+    t16 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths["phase16"] = examples(torch, dev, root)
     log(f"new sub-runs: phase 4 (b) {t4b - t0:.1f} s, phase 6 (f) "
         f"{t6f - t4b:.1f} s, phase 12 {t12 - t6f:.1f} s, phase 11 "
         f"{t13 - t11:.1f} s, phase 13 {t14 - t13:.1f} s, phase 14 "
-        f"{t15 - t14:.1f} s, phase 15 {time.perf_counter() - t15:.1f} s")
+        f"{t15 - t14:.1f} s, phase 15 {t16 - t15:.1f} s, phase 16 "
+        f"{time.perf_counter() - t16:.1f} s")
 
     # launches: each path's count was set to 0 just before it and read
     # just after; the line gives their sum and each path's
@@ -6471,6 +6701,8 @@ def main() -> int:
                 for c in paths.values())
             extra["group_layout"] = results.pop(
                 "utopia_translate_step_group")
+        if name == "flash_attention":
+            extra["token_split"] = results.pop("flash_attention_token_split")
         if name == "paged_attention":
             extra.update(results.pop("paged_attention_token_split"))
             extra["launches_q_gt1"] = sum(

@@ -28,6 +28,17 @@ The parameters come as this rank's blocks in ``megatron_param_shardings``'
 layout (JAX's, which shards k/v by their shape; where the schedule keeps
 KV replicated, the forward gathers those blocks), the batch as this
 rank's rows (the mesh train step splits it over the data axis).
+
+``ServingTP`` is the same split, forward only and for every family, on a
+token-split serving rank (``serve/decode.py``, ``serve/prefill.py``):
+the weights are the rank's blocks under JAX's ``param_shardings``
+(``ShardingRules(zero_params=cfg.zero_shard_params)``), gathered over
+the data axes one layer at a time where ZeRO splits them; column-parallel
+projections, row-parallel ones closed by one float32 sum over the model
+group, the vocab-split embedding and head, expert-parallel MoE layers and
+head-parallel mamba sublayers.  The model code takes it as
+``FwdOptions.tp`` and the decode sublayers as ``tp``; both share the
+helpers below with the training schedule.
 """
 from __future__ import annotations
 
@@ -42,8 +53,11 @@ from repro_torch.models import layers as L
 from repro_torch.models.attention import attention
 from repro_torch.models.transformer import (ModelDims, _remat, _zero_aux,
                                             ce_terms, layer_stack, take)
+from repro_torch.params import init_params
 
-from .sharding import P, ShardingRules, _path_names, _sizes, map_with_path
+from .sharding import (P, ShardingRules, ZeroGather, _own, _path_names,
+                       _sizes, block_of, block_shapes, map_with_path,
+                       param_shardings, shard_tree)
 
 
 def _kv_sharded(dims: ModelDims, tp: int) -> bool:
@@ -160,6 +174,30 @@ def gather_from(x, mesh, dim):
     return _GatherFrom.apply(x, mesh, dim)
 
 
+# ------------------------------------------- shared by both schedules
+
+def local_kv_heads(k, v, n_heads: int, n_kv: int, h_loc: int, m: int):
+    """``k``/``v`` (B, S, n_kv, hd), whole, cut to the KV head of each of
+    this rank's ``h_loc`` query heads (rank ``m`` holds query heads ``[m *
+    h_loc, (m + 1) * h_loc)``): (B, S, h_loc, hd) each.  The schedules
+    keep KV whole where ``n_kv`` does not split over the model axis."""
+    g = n_heads // n_kv
+    idx = (m * h_loc + torch.arange(h_loc, device=k.device)) // g
+    return k[:, :, idx], v[:, :, idx]
+
+
+def vocab_block_rows(table, tokens, m: int):
+    """The embedding rows of ``tokens`` that rank ``m``'s vocab block
+    ``table`` (V / tp, d) holds, zeros for the others: summed over the
+    model group, the whole table's rows (one nonzero term each)."""
+    v_loc = table.shape[0]
+    idx = tokens.long() - m * v_loc
+    ok = (idx >= 0) & (idx < v_loc)
+    x = table[idx.clamp(0, v_loc - 1)]
+    return torch.where(ok[..., None], x, torch.zeros((), dtype=x.dtype,
+                                                     device=x.device))
+
+
 # ------------------------------------------------------------ forward
 
 def make_megatron_forward(cfg: ArchConfig, dims: ModelDims, mesh,
@@ -207,10 +245,8 @@ def make_megatron_forward(cfg: ArchConfig, dims: ModelDims, mesh,
                                                             hd)
             v = copy_to(L.linear(kv["v"], h), mesh).reshape(B, S, dims.n_kv,
                                                             hd)
-            # each local query head reads its own KV head
-            g = dims.n_heads // dims.n_kv
-            idx = (m_idx * H_loc + torch.arange(H_loc, device=x.device)) // g
-            k, v = k[:, :, idx], v[:, :, idx]
+            k, v = local_kv_heads(k, v, dims.n_heads, dims.n_kv, H_loc,
+                                  m_idx)
         if cfg.rope_theta > 0:
             q = L.apply_rope(q, pos, cfg.rope_theta)
             k = L.apply_rope(k, pos, cfg.rope_theta)
@@ -233,13 +269,7 @@ def make_megatron_forward(cfg: ArchConfig, dims: ModelDims, mesh,
         # ---- vocab-sharded embedding -----------------------------------
         table = params["embed"]["table"]
         if vocab_sh:
-            v_loc = table.shape[0]
-            idx = tokens.long() - m_idx * v_loc
-            ok = (idx >= 0) & (idx < v_loc)
-            x = table[idx.clamp(0, v_loc - 1)]
-            x = torch.where(ok[..., None], x, torch.zeros((), dtype=x.dtype,
-                                                          device=x.device))
-            x = reduce_from(x, mesh)
+            x = reduce_from(vocab_block_rows(table, tokens, m_idx), mesh)
         else:
             x = table[tokens.long()]
 
@@ -283,3 +313,248 @@ def megatron_loss(mfwd, mesh):
 
     loss.sharded_axes = ("model",)
     return loss
+
+
+# ---------------------------------------------- the serving schedule
+
+def _bytes_of(t: torch.Tensor) -> torch.Tensor:
+    """``t``'s bytes, its last dim widened by the element size (a
+    collective then moves bytes, which gloo takes in any dtype)."""
+    return t.contiguous().view(torch.uint8)
+
+
+class ServingTP:
+    """Tensor parallelism of a token-split serving rank, forward only.
+
+    ``cfg``/``dims`` the model, ``mesh`` the rank's mesh, ``rules`` the
+    sharding rules of its weights (``sharding.serving_rules``).  The
+    rank's parameters are its blocks under ``specs``
+    (``param_shardings``): ``blocks(whole)`` cuts them from a whole tree
+    (on the host, or wherever the tree lies), ``layer``/``subtree`` give a
+    layer's (or a top-level entry's) leaves gathered over the data axes
+    (``ZeroGather``), still cut along the model axis, and ``check``
+    refuses a tree whose leaves are not the blocks' shapes.
+
+    The ops tell a model-split weight from a whole one by its shape
+    against the whole width the caller names (``_guard`` keeps a dim
+    whole where the axis does not divide it), so one call serves both:
+    ``col`` is the column-parallel projection (the rank's columns, or
+    all of them), ``row`` the row-parallel one (the rank's rows of the
+    input times its block, closed by one float32 sum over the model
+    group), ``embed``/``unembed`` the vocab-split table, ``qkv`` the
+    attention projections on the rank's query heads, ``mlp`` the gated
+    MLP.  ``sum``, ``cat`` and ``cat_cols`` are the collectives over the
+    model group."""
+
+    def __init__(self, cfg, dims, mesh, rules: ShardingRules):
+        self.cfg, self.dims, self.mesh = cfg, dims, mesh
+        ax = mesh.axis(rules.model_axis)
+        self.tp, self.m, self.ma = ax.size, ax.index, rules.model_axis
+        whole = init_params(None, cfg, dims, device="meta")
+        self.specs = param_shardings(whole, rules, mesh)
+        self.shapes = block_shapes(whole, self.specs, mesh)
+        self.zero = ZeroGather(self.specs, mesh, rules.data_axes)
+        self._checked = set()
+
+    # -- the rank's weights ------------------------------------------
+    def blocks(self, params):
+        """This rank's blocks of the whole tree ``params``."""
+        return shard_tree(params, self.specs, self.mesh)
+
+    def draw(self, generator, dtype=torch.float32, device="cuda"):
+        """This rank's blocks of ``params.init_params(generator, ...)``,
+        each matrix cut as soon as it is drawn: bitwise ``blocks`` of the
+        whole draw, without ever holding a whole leaf (an MoE layer's
+        experts excepted) on ``device``."""
+
+        def cut(path, x):
+            spec = tuple(_leaf_at(self.specs, path))
+            spec = (None,) * max(0, x.dim() - len(spec)) + spec
+            return _own(block_of(x, P(*spec[len(spec) - x.dim():]),
+                                 self.mesh), x)
+
+        return init_params(generator, self.cfg, self.dims, dtype, device,
+                           cut=cut)
+
+    def check(self, params) -> None:
+        """Raise unless every leaf of ``params`` has this rank's block's
+        shape (once per tree)."""
+        key = id(params)
+        if key in self._checked:
+            return
+
+        def cmp(path, x):
+            w = _leaf_at(self.shapes, path)
+            if tuple(x.shape) != tuple(w):
+                raise ValueError(
+                    f"token-split weights: {'.'.join(path)} has shape "
+                    f"{tuple(x.shape)}, this rank's block is {tuple(w)} "
+                    "(cut the whole tree with ServingTP.blocks)")
+
+        map_with_path(cmp, params)
+        self._checked.add(key)
+
+    def layer(self, params, i: int, path=("layers",)):
+        return self.zero.take(params, tuple(path), i)
+
+    def subtree(self, params, *path):
+        return self.zero.subtree(params, tuple(path))
+
+    # -- collectives over the model group --------------------------------
+    def sum(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` summed over the model group in float32, in ``t``'s
+        dtype."""
+        if self.tp == 1:
+            return t
+        return self.mesh.all_reduce(t.float(), self.ma).to(t.dtype)
+
+    def cat(self, t: torch.Tensor, dim: int = -1) -> torch.Tensor:
+        """The model group's blocks of ``t`` concatenated along ``dim``
+        in rank order (one all-gather of their bytes)."""
+        if self.tp == 1:
+            return t
+        return self.mesh.all_gather(_bytes_of(t), dim % t.dim(),
+                                    self.ma).view(t.dtype)
+
+    def cat_cols(self, ts, widths):
+        """Each of ``ts`` (same leading dims) whole along its last dim,
+        ``widths`` the whole widths: the column blocks among them (last
+        dim below its width) come from one all-gather, the rest are
+        returned as they are."""
+        part = [i for i, (t, n) in enumerate(zip(ts, widths))
+                if t.shape[-1] != n]
+        if not part:
+            return list(ts)
+        lead = ts[part[0]].shape[:-1]
+        flat = [ts[i].reshape(-1, ts[i].shape[-1]) for i in part]
+        buf = torch.cat(flat, dim=-1)
+        got = self.mesh.all_gather(_bytes_of(buf)[None], 0, self.ma).view(
+            buf.dtype)                                  # (tp, rows, sum)
+        out, at = list(ts), 0
+        for i, f in zip(part, flat):
+            n = f.shape[-1]
+            out[i] = got[..., at:at + n].transpose(0, 1).reshape(
+                *lead, self.tp * n)
+            at += n
+        return out
+
+    # -- the ops -----------------------------------------------------------
+    def col(self, p, x: torch.Tensor, n_out: int,
+            whole: bool = False) -> torch.Tensor:
+        """``x @ w (+ b)`` of a column-parallel projection of ``n_out``
+        whole columns: the rank's columns where ``w`` is split (all of
+        them with ``whole``, one all-gather), else all."""
+        w = p["w"]
+        y = x @ w.to(x.dtype)
+        n = w.shape[-1]
+        split = n != n_out
+        if "b" in p:
+            b = p["b"]
+            if split and b.shape[-1] == n_out:
+                b = b.narrow(-1, self.m * n, n)
+            y = y + b.to(x.dtype)
+        if split and whole:
+            y = self.cat(y)
+        return y
+
+    def row(self, p, x: torch.Tensor, n_in: int) -> torch.Tensor:
+        """``x @ w (+ b)`` of a row-parallel projection of ``n_in`` whole
+        input features; ``x`` holds them all or the rank's block.  Where
+        ``w`` is split, the rank's product is summed over the model group
+        in float32."""
+        w = p["w"]
+        n = w.shape[-2]
+        if n == n_in:
+            if x.shape[-1] != n_in:
+                x = self.cat(x)
+            y = x @ w.to(x.dtype)
+        else:
+            if x.shape[-1] == n_in:
+                x = x.narrow(-1, self.m * n, n)
+            y = self.sum(x @ w.to(x.dtype))
+        if "b" in p:
+            y = y + p["b"].to(x.dtype)
+        return y
+
+    def embed(self, table: torch.Tensor, tokens: torch.Tensor):
+        """The rows of ``tokens`` from the (vocab-split) ``table``."""
+        if table.shape[0] == self.dims.vocab:
+            return table[tokens.long()]
+        return self.sum(vocab_block_rows(table, tokens, self.m))
+
+    def unembed(self, table: torch.Tensor, x: torch.Tensor,
+                logical_vocab: int) -> torch.Tensor:
+        """``layers.unembed`` over the (vocab-split) ``table``: the rank's
+        logits, one all-gather, then the padded ids' mask."""
+        logits = x @ table.T.to(x.dtype)
+        if table.shape[0] != self.dims.vocab:
+            logits = self.cat(logits)
+        return L.mask_vocab(logits, logical_vocab)
+
+    def heads_local(self, p_q) -> bool:
+        """Whether the rank's query heads are whole heads of its own
+        (``q``'s columns split on a head boundary)."""
+        H, hd = self.dims.n_heads, self.dims.head_dim
+        return p_q["w"].shape[-1] != H * hd and H % self.tp == 0
+
+    def qkv(self, p, x, xkv, positions, kv_positions, theta: float,
+            want_kv: bool = False):
+        """``layers.qkv_project`` on this rank: ``(q, k, v, kv)`` with q
+        the rank's query heads (B, S, H / tp, hd) and k/v the KV heads
+        they read (its own KV heads where ``n_kv`` splits over the model
+        axis; else the whole KV projection, from the gathered weight, cut
+        to each query head's KV head, ``local_kv_heads``), and ``kv`` the
+        whole KV heads ``(k, v)`` (B, Skv, n_kv, hd) when ``want_kv`` (one
+        all-gather of the rank's KV heads), else None.  Where the query
+        heads do not split on a head boundary every head is computed
+        (the projections' columns gathered)."""
+        H, KV, hd = self.dims.n_heads, self.dims.n_kv, self.dims.head_dim
+        B, S = x.shape[:2]
+        Skv = xkv.shape[1]
+        if not self.heads_local(p["q"]):
+            q, k, v = self.cat_cols(
+                [self.col(p["q"], x, H * hd), self.col(p["k"], xkv, KV * hd),
+                 self.col(p["v"], xkv, KV * hd)],
+                [H * hd, KV * hd, KV * hd])
+            q, k, v = (q.reshape(B, S, H, hd), k.reshape(B, Skv, KV, hd),
+                       v.reshape(B, Skv, KV, hd))
+            if theta > 0:
+                q = L.apply_rope(q, positions, theta)
+                k = L.apply_rope(k, kv_positions, theta)
+            return q, k, v, ((k, v) if want_kv else None)
+        h_loc = H // self.tp
+        q = self.col(p["q"], x, H * hd).reshape(B, S, h_loc, hd)
+        if theta > 0:
+            q = L.apply_rope(q, positions, theta)
+        if KV % self.tp == 0 and p["k"]["w"].shape[-1] != KV * hd:
+            kv_loc = KV // self.tp
+            k = self.col(p["k"], xkv, KV * hd).reshape(B, Skv, kv_loc, hd)
+            v = self.col(p["v"], xkv, KV * hd).reshape(B, Skv, kv_loc, hd)
+            if theta > 0:
+                k = L.apply_rope(k, kv_positions, theta)
+            kv = None
+            if want_kv:
+                kv = (self.cat(k, 2), self.cat(v, 2))
+            return q, k, v, kv
+        whole = {n: dict(p[n], w=self.cat(p[n]["w"])
+                         if p[n]["w"].shape[-1] != KV * hd else p[n]["w"])
+                 for n in ("k", "v")}
+        k = L.linear(whole["k"], xkv).reshape(B, Skv, KV, hd)
+        v = L.linear(whole["v"], xkv).reshape(B, Skv, KV, hd)
+        if theta > 0:
+            k = L.apply_rope(k, kv_positions, theta)
+        kv = (k, v) if want_kv else None
+        k, v = local_kv_heads(k, v, H, KV, h_loc, self.m)
+        return q, k, v, kv
+
+    def mlp(self, p, x: torch.Tensor, act=F.silu) -> torch.Tensor:
+        """``layers.mlp``: column-parallel gate/up, row-parallel down."""
+        ff = self.dims.d_ff
+        g = act(self.col(p["gate"], x, ff)) * self.col(p["up"], x, ff)
+        return self.row(p["down"], g, ff)
+
+
+def _leaf_at(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree

@@ -373,6 +373,90 @@ def block_tree(tree, specs, mesh):
     return tree_unflatten(tree, out)
 
 
+# ------------------------------------------------ the serving blocks
+
+def serving_rules(cfg, spec) -> ShardingRules:
+    """The rules of a token-split rank's weights, as the JAX dry run sets
+    them for its serving cells: the decode spec's axes and the config's
+    ``zero_shard_params``."""
+    return ShardingRules(data_axes=tuple(spec.data_axes),
+                         model_axis=spec.model_axis,
+                         zero_params=cfg.zero_shard_params)
+
+
+def block_shapes(tree, specs, mesh):
+    """The shape of this rank's block of each leaf of the whole ``tree``
+    (anything with a ``.shape``) under ``specs``."""
+    flat, _ = tree_flatten(tree)
+    out = [tuple(n // (1 if e is None else _axes_size(e, mesh)) for n, e in
+                 zip(x.shape, _entries(s, len(x.shape))))
+           for x, s in zip(flat, tree_flatten(specs)[0])]
+    return tree_unflatten(tree, out)
+
+
+def _drop_lead(spec, n: int) -> PartitionSpec:
+    return P(*tuple(spec)[n:])
+
+
+class ZeroGather:
+    """A rank's blocks of a parameter tree under ``specs``, gathered over
+    the data axes (ZeRO) one subtree at a time: ``take(params, path, i)``
+    is entry ``i`` of the stacked subtree at ``path`` (a layer, or a
+    hybrid group) and ``subtree(params, path)`` an unstacked one, each
+    with every leaf whole along the dims the spec splits over
+    ``data_axes`` and still cut along the model axis.  The gather moves
+    bytes (exact); the caller drops the gathered tree after use, so a
+    step holds one layer whole along the data axes at a time, never the
+    model.  Every rank of a data group must take the same subtrees in the
+    same order.  With no data axis of more than one position, the leaves
+    come back as they are."""
+
+    def __init__(self, specs, mesh, data_axes: Tuple[str, ...]):
+        self.specs, self.mesh = specs, mesh
+        self.data_axes = tuple(data_axes)
+        self.active = _axes_size(self.data_axes, mesh) > 1
+
+    def _specs_at(self, path):
+        s = self.specs
+        for k in path:
+            s = s[k]
+        return s
+
+    def _gather(self, tree, specs, lead: int):
+        if isinstance(tree, dict):
+            return {k: self._gather(v, specs[k], lead)
+                    for k, v in tree.items()}
+        if not self.active:
+            return tree
+        spec = _drop_lead(specs, lead)
+        if tree.element_size() != 2:
+            return whole_of(tree, spec, self.mesh, self.data_axes)
+        # a 2-byte float moves as its bytes (gloo reduces no bfloat16)
+        return whole_of(tree.contiguous().view(torch.uint8), spec,
+                        self.mesh, self.data_axes).view(tree.dtype)
+
+    @torch.no_grad()
+    def subtree(self, params, path: Tuple[str, ...]):
+        tree = params
+        for k in path:
+            tree = tree[k]
+        return self._gather(tree, self._specs_at(path), 0)
+
+    @torch.no_grad()
+    def take(self, params, path: Tuple[str, ...], i: int):
+        tree = params
+        for k in path:
+            tree = tree[k]
+        return self._gather(_entry(tree, i), self._specs_at(path), 1)
+
+
+def _entry(tree, i: int):
+    """Entry ``i`` of every leaf of a stacked tree (views)."""
+    if isinstance(tree, dict):
+        return {k: _entry(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
 # ---------------------------------------- KV / translation state rules
 
 # decode-state tensors sharded over the model axis, and the dimension each

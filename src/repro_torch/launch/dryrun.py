@@ -9,8 +9,10 @@ no card) on ``meta`` tensors, so nothing is allocated, and records per
 rank:
 
   * argument bytes: the tensors the step takes, each storage once (the
-    state's blocks by the specs, the batch; serving's parameters whole, as
-    the token-split step replicates every op outside attention);
+    state's blocks by the specs, the batch; serving's parameters as the
+    rank's blocks under JAX's ``param_shardings``, ZeRO over the data axes
+    as ``cfg.zero_shard_params`` or the perf variant sets it, which the
+    token-split steps compute with);
   * peak bytes: the arguments plus the largest sum of live tensors the
     step made (``LiveBytes`` follows each meta storage's lifetime);
   * FLOPs: ``torch.utils.flop_counter.FlopCounterMode`` over the aten ops
@@ -143,7 +145,8 @@ def build_cell(arch: str, shape_name: str, multi_pod: bool,
     from repro_torch.params import init_params
     from repro_torch.serve.decode import (abstract_decode_state,
                                           local_decode_state,
-                                          make_decode_spec, make_serve_step)
+                                          make_decode_spec, make_serve_step,
+                                          token_split_tp)
     from repro_torch.serve.prefill import make_prefill_step
     from repro_torch.train import (TrainConfig, abstract_state,
                                    make_train_step, state_shardings)
@@ -227,13 +230,15 @@ def build_cell(arch: str, shape_name: str, multi_pod: bool,
     spec = make_decode_spec(cfg, seq_eff, B, G, mode=mode, data_axes=da)
     dstate = local_decode_state(
         abstract_decode_state(cfg, dims, spec, B, G, dtype), spec, mesh)
-    params = init_params(None, cfg, dims, dtype=dtype, device="meta")
+    params = token_split_tp(cfg, dims, spec, mesh, rules).blocks(
+        init_params(None, cfg, dims, dtype=dtype, device="meta"))
     info["mode"] = mode
     if shape.kind == "prefill":
         # the rank forwards its data group's rows as one MoE group
         fwd = FwdOptions(attn_impl="flash_jax", dtype=dtype, remat=False,
                          q_chunk=1024, kv_chunk=1024, **fwd_over)
-        step = make_prefill_step(cfg, dims, spec, fwd, mesh=mesh)
+        step = make_prefill_step(cfg, dims, spec, fwd, mesh=mesh,
+                                 rules=rules)
         batch = batch_of(False)
         nblk = seq_eff // spec.block_size
         slots = torch.empty((B, nblk), dtype=torch.int32, **meta)
@@ -248,7 +253,8 @@ def build_cell(arch: str, shape_name: str, multi_pod: bool,
                 if k in dstate:
                     dstate[k] = torch.empty(dstate[k].shape,
                                             dtype=torch.int8, **meta)
-        step = make_serve_step(cfg, dims, spec, dtype, mesh=mesh)
+        step = make_serve_step(cfg, dims, spec, dtype, mesh=mesh,
+                               rules=rules)
         tokens = torch.empty((B,), dtype=torch.int32, **meta)
         args = (params, dstate, tokens)
         return (lambda: step(*args)), args, mesh, info

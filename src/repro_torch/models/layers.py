@@ -72,9 +72,18 @@ def silu(x: torch.Tensor) -> torch.Tensor:
 
 
 def gated_rms_norm(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
-                   eps: float = 1e-5) -> torch.Tensor:
-    """Mamba2's RMSNormGated: ``rms_norm(y) * silu(z)``, in y's dtype."""
-    return (rms_norm(y, scale, eps) * silu(z).to(y.dtype)).to(y.dtype)
+                   eps: float = 1e-5, tp=None) -> torch.Tensor:
+    """Mamba2's RMSNormGated: ``rms_norm(y) * silu(z)``, in y's dtype.
+    With ``tp`` (``dist.megatron.ServingTP``) ``y``, ``z`` and ``scale``
+    hold this rank's block of the features: the mean square is the sum
+    of squares over the model group over the whole width."""
+    if tp is None:
+        return (rms_norm(y, scale, eps) * silu(z).to(y.dtype)).to(y.dtype)
+    y32 = y.float()
+    var = tp.sum(y32.square().sum(dim=-1, keepdim=True)) / (
+        y.shape[-1] * tp.tp)
+    out = (y32 * torch.rsqrt(var + eps) * scale.float()).to(y.dtype)
+    return (out * silu(z).to(y.dtype)).to(y.dtype)
 
 
 def rope_frequencies(head_dim: int, theta: float, device=None):
@@ -129,11 +138,17 @@ def embed(p: dict, tokens: torch.Tensor) -> torch.Tensor:
 
 def unembed(p: dict, x: torch.Tensor, logical_vocab: int) -> torch.Tensor:
     """Project to the (padded) vocab; padded ids masked to -1e9."""
-    logits = x @ p["table"].T.to(x.dtype)
+    return mask_vocab(x @ p["table"].T.to(x.dtype), logical_vocab)
+
+
+def mask_vocab(logits: torch.Tensor, logical_vocab: int) -> torch.Tensor:
+    """``logits`` over the padded vocab with the ids past
+    ``logical_vocab`` set to -1e9."""
     vpad = logits.shape[-1]
     if vpad > logical_vocab:
-        mask = torch.arange(vpad, device=x.device) < logical_vocab
+        dev = logits.device
+        mask = torch.arange(vpad, device=dev) < logical_vocab
         logits = torch.where(mask, logits,
                              torch.tensor(-1e9, dtype=logits.dtype,
-                                          device=x.device))
+                                          device=dev))
     return logits

@@ -69,15 +69,30 @@ def route(logits: torch.Tensor, top_k: int):
 
 
 def _combine(out_tok: torch.Tensor, gates: torch.Tensor,
-             dtype) -> torch.Tensor:
+             dtype, ep=None) -> torch.Tensor:
     """sum_k gates[..., k] * out_tok[..., k, :] in float32, k in order,
     rounded to ``dtype``: ``out_tok`` (..., k, d), ``gates`` (..., k)
-    already in the activation's dtype."""
+    already in the activation's dtype.  With ``ep`` the float32 sum is
+    this rank's experts' part, summed over the model group before the
+    rounding."""
     prod = out_tok * gates.float().unsqueeze(-1)      # float32 products
     acc = prod[..., 0, :]
     for j in range(1, gates.shape[-1]):
         acc = acc + prod[..., j, :]
+    if ep is not None:
+        acc = ep.sum(acc)
     return acc.to(dtype)
+
+
+def _local_experts(p: dict, ep):
+    """``(first, count)`` of the experts whose weights ``p`` holds: this
+    rank's block where ``ep`` (a ``dist.megatron.ServingTP``) splits them
+    over the model axis, else all (None)."""
+    E = p["router"]["w"].shape[-1]
+    n = p["gate"].shape[0]
+    if ep is None or n == E:
+        return None
+    return ep.m * n, n
 
 
 def _experts(p: dict, xin: torch.Tensor, act=F.silu) -> torch.Tensor:
@@ -92,7 +107,7 @@ def _experts(p: dict, xin: torch.Tensor, act=F.silu) -> torch.Tensor:
 
 def moe_layer(p: dict, x: torch.Tensor, *, top_k: int,
               capacity_factor: float = 1.25, n_groups: int = 1,
-              trace: Optional[dict] = None, act=F.silu
+              trace: Optional[dict] = None, act=F.silu, ep=None
               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """x: (B, S, d) -> (out (B, S, d) in x's dtype, aux).
 
@@ -103,9 +118,16 @@ def moe_layer(p: dict, x: torch.Tensor, *, top_k: int,
     routing's integer results (``expert_idx``, ``pos``, ``keep``, ``table``)
     for tests: with one group of shapes (T, k) and (E, C), else with the
     group dim in front, (g, Tg, k) and (g, E, C), as the JAX function
-    holds them."""
+    holds them.
+
+    ``ep`` (a ``dist.megatron.ServingTP``, ``p`` the rank's blocks, the
+    experts split over the model axis) runs the layer expert-parallel:
+    every rank routes all the tokens and sizes the queues as the whole
+    layer does (so the same tokens drop), computes its experts' rows only,
+    and the combine sums the ranks' parts."""
     B, S, D = x.shape
-    E = p["gate"].shape[0]
+    E = p["router"]["w"].shape[-1]
+    local = _local_experts(p, ep)
     T = B * S
     if T % n_groups:
         n_groups = 1
@@ -145,17 +167,31 @@ def moe_layer(p: dict, x: torch.Tensor, *, top_k: int,
     occupied = table > 0
 
     first = (torch.arange(G * E, device=dev) // E * Tg)[:, None]
-    xin = xt[((table - 1).clamp(min=0) + first).long()]          # (G*E,C,D)
+    e0, ne = (0, E) if local is None else local
+    rows = (table - 1).clamp(min=0) + first
+    if local is not None:          # this rank's experts' queues only
+        rows = rows.view(G, E, C)[:, e0:e0 + ne].reshape(G * ne, C)
+        occupied = occupied.view(G, E, C)[:, e0:e0 + ne].reshape(G * ne, C)
+    xin = xt[rows.long()]                                      # (G*ne,C,D)
     xin = torch.where(occupied[..., None], xin,
                       torch.zeros((), dtype=x.dtype, device=dev))
-    # every expert over its rows of all groups, then back to (E, G, C, D)
-    xin = xin.reshape(G, E, C, D).transpose(0, 1).reshape(E, G * C, D)
-    out_e = _experts(p, xin, act).reshape(E, G, C, D)
+    # every expert over its rows of all groups, then back to (ne, G, C, D)
+    xin = xin.reshape(G, ne, C, D).transpose(0, 1).reshape(ne, G * C, D)
+    out_e = _experts(p, xin, act).reshape(ne, G, C, D)
 
     # combine: each token's k expert outputs back, weighted by its gates
+    # (on an expert-parallel rank, the other ranks' experts weigh zero)
     tok_group = (torch.arange(T, device=dev) // Tg)[:, None]
-    out_tok = out_e[expert_idx, tok_group, pos_c.clamp(max=C - 1)]
-    out = _combine(out_tok, gate_vals.to(x.dtype), x.dtype)
+    gates = gate_vals
+    if local is not None:
+        mine = (expert_idx >= e0) & (expert_idx < e0 + ne)
+        gates = gates * mine
+        expert_idx_l = (expert_idx - e0).clamp(0, ne - 1)
+    else:
+        expert_idx_l = expert_idx
+    out_tok = out_e[expert_idx_l, tok_group, pos_c.clamp(max=C - 1)]
+    out = _combine(out_tok, gates.to(x.dtype), x.dtype,
+                   None if local is None else ep)
 
     me = probs.mean(dim=0)                                       # (E,)
     # each token picks an expert at most once
@@ -174,18 +210,28 @@ def moe_layer(p: dict, x: torch.Tensor, *, top_k: int,
 
 def moe_decode(p: dict, x: torch.Tensor, *, top_k: int,
                logits: Optional[torch.Tensor] = None,
-               act=F.silu) -> torch.Tensor:
+               act=F.silu, ep=None) -> torch.Tensor:
     """Decode-time MoE for a few rows: x (M, d) -> (M, d) in x's dtype.
     Every expert computes all M rows (no capacity); the gates select.
 
     ``logits`` (M, E) are the float32 router logits ``x.float() @
     router.w``, computed here unless the caller took them at another
-    shape (the verify step takes them one window position at a time)."""
-    E = p["gate"].shape[0]
+    shape (the verify step takes them one window position at a time).
+    ``ep`` (a ``dist.megatron.ServingTP``, ``p`` the rank's blocks) runs
+    it expert-parallel: the rank's experts over every row, the others'
+    gates zero, one sum over the model group."""
     M, D = x.shape
     if logits is None:
         logits = x.float() @ p["router"]["w"].float()
     _, gate_vals, expert_idx = route(logits, top_k)
-    out_e = _experts(p, x.expand(E, M, D), act)                  # (E,M,D)
+    local = _local_experts(p, ep)
+    ne = p["gate"].shape[0]
+    out_e = _experts(p, x.expand(ne, M, D), act)                # (ne,M,D)
     rows = torch.arange(M, device=x.device)[:, None]
-    return _combine(out_e[expert_idx, rows], gate_vals.to(x.dtype), x.dtype)
+    if local is None:
+        return _combine(out_e[expert_idx, rows], gate_vals.to(x.dtype),
+                        x.dtype)
+    e0 = local[0]
+    mine = (expert_idx >= e0) & (expert_idx < e0 + ne)
+    return _combine(out_e[(expert_idx - e0).clamp(0, ne - 1), rows],
+                    (gate_vals * mine).to(x.dtype), x.dtype, ep)

@@ -161,6 +161,43 @@ def ssd_chunked(xd: torch.Tensor, dtA: torch.Tensor, B_: torch.Tensor,
     return y, s
 
 
+def _tp_weights(p: dict, dims: MambaDims, tp):
+    """A mamba block's weights as a token-split rank computes with them
+    (``tp``, a ``dist.megatron.ServingTP``; ``p`` its blocks): ``(p, h0,
+    nh)``, the rank's heads ``[h0, h0 + nh)``.  Where the heads split over
+    the model axis, ``in_z``/``in_x``/``in_dt`` are already the rank's
+    columns and the per-head and per-feature vectors are cut to them;
+    otherwise every head is the rank's (the projections' column blocks
+    gathered).  ``conv_w`` comes whole (a few rows: its channel blocks
+    gathered), ``in_B``/``in_C``/``conv_b`` are whole."""
+    H, P, di = dims.n_heads, dims.head_dim, dims.d_inner
+    q = dict(p)
+    if p["conv_w"].shape[-1] != dims.conv_channels:
+        q["conv_w"] = tp.cat(p["conv_w"])
+    if p["in_dt"].shape[-1] != H and H % tp.tp == 0 \
+            and p["in_x"].shape[-1] != di:
+        nh = H // tp.tp
+        h0 = tp.m * nh
+        for k in ("A_log", "D", "dt_bias"):
+            q[k] = p[k].narrow(-1, h0, nh)
+        q["norm"] = p["norm"].narrow(-1, h0 * P, nh * P)
+        return q, h0, nh
+    for k, n in (("in_z", di), ("in_x", di), ("in_dt", H)):
+        if p[k].shape[-1] != n:
+            q[k] = tp.cat(p[k])
+    return q, 0, H
+
+
+def _conv_block(t: torch.Tensor, dims: MambaDims, tp) -> torch.Tensor:
+    """This rank's block of conv channels of ``t`` (..., conv_channels)
+    where the decode state splits them over the model axis."""
+    C = dims.conv_channels
+    if tp is None or C % tp.tp:
+        return t
+    n = C // tp.tp
+    return t.narrow(-1, tp.m * n, n)
+
+
 class MambaCache(NamedTuple):
     conv: torch.Tensor   # (B, W-1, conv_channels) trailing conv inputs
     state: torch.Tensor  # (B, H, P, N) SSM state, float32
@@ -181,7 +218,7 @@ def mamba_forward(p: dict, x: torch.Tensor, dims: MambaDims, *,
                   initial_state: Optional[torch.Tensor] = None,
                   initial_conv: Optional[torch.Tensor] = None,
                   seq_len: Optional[torch.Tensor] = None,
-                  return_state: bool = False):
+                  return_state: bool = False, tp=None):
     """Full mamba2 block on (B, L, D).  Returns (out, MambaCache | None).
 
     ``initial_state`` (B, H, P, N) and ``initial_conv`` (B, W-1,
@@ -190,10 +227,25 @@ def mamba_forward(p: dict, x: torch.Tensor, dims: MambaDims, *,
     windows read the prefix's trailing raw xBC inputs.  ``seq_len`` (B,)
     marks each row's real length: dt is zeroed past it (an identity
     transition of the recurrence), and the returned conv tail is gathered
-    at the row's real end."""
+    at the row's real end.
+
+    With ``tp`` (a ``dist.megatron.ServingTP``, ``p`` the rank's blocks)
+    the block runs on the rank's heads (``_tp_weights``): its columns of
+    z, x and dt, the conv on its x channels and the whole B and C, the
+    scan, and the gated norm over its features (one sum of squares over
+    the model group); ``out_proj`` is row-parallel.  The state it returns
+    is its heads', the conv tail its block of channels (the tail's x
+    channels gathered: ``W - 1`` rows)."""
     B, L, _ = x.shape
     di, n = dims.d_inner, dims.d_state
     W1 = dims.conv_width - 1
+    h0, nh = 0, dims.n_heads
+    if tp is not None:
+        if initial_state is not None or initial_conv is not None:
+            raise ValueError("a tensor-parallel mamba block starts from a "
+                             "zero state (the recompute prefill)")
+        p, h0, nh = _tp_weights(p, dims, tp)
+    di_l, x0 = nh * dims.head_dim, h0 * dims.head_dim
     z = x @ p["in_z"].to(x.dtype)
     x_raw = x @ p["in_x"].to(x.dtype)
     B_raw = x @ p["in_B"].to(x.dtype)
@@ -202,7 +254,8 @@ def mamba_forward(p: dict, x: torch.Tensor, dims: MambaDims, *,
     xbc_raw = torch.cat([x_raw, B_raw, C_raw], dim=-1)
     if initial_conv is not None:
         ic = initial_conv.to(x.dtype)
-        icx, icB, icC = ic[..., :di], ic[..., di:di + n], ic[..., di + n:]
+        icx, icB, icC = ic[..., :di_l], ic[..., di_l:di_l + n], \
+            ic[..., di_l + n:]
     else:
         ic = torch.zeros_like(xbc_raw[:, :W1])   # the conv's zero left-pad
         icx = icB = icC = None
@@ -216,10 +269,16 @@ def mamba_forward(p: dict, x: torch.Tensor, dims: MambaDims, *,
                + torch.arange(W1, device=x.device)[None, :])
         conv_tail = full.gather(
             1, idx[..., None].expand(-1, -1, full.shape[-1]))
+    if tp is not None:
+        if di_l != di:
+            conv_tail = torch.cat([tp.cat(conv_tail[..., :di_l]),
+                                   conv_tail[..., di_l:]], dim=-1)
+        conv_tail = _conv_block(conv_tail, dims, tp)
     # the depthwise conv works per channel, so x / B / C convolve apart
     cw = p["conv_w"].to(x.dtype)
     cb = p["conv_b"].to(x.dtype)
-    xs = silu(_causal_depthwise_conv(x_raw, cw[:, :di], cb[:di], icx))
+    xs = silu(_causal_depthwise_conv(x_raw, cw[:, x0:x0 + di_l],
+                                     cb[x0:x0 + di_l], icx))
     B_ = silu(_causal_depthwise_conv(B_raw, cw[:, di:di + n],
                                        cb[di:di + n], icB))
     C_ = silu(_causal_depthwise_conv(C_raw, cw[:, di + n:], cb[di + n:],
@@ -230,7 +289,7 @@ def mamba_forward(p: dict, x: torch.Tensor, dims: MambaDims, *,
                   < seq_len[:, None])
         dt = torch.where(tok_ok[:, :, None], dt, 0.0)
     A = -torch.exp(p["A_log"].float())                             # (H,)
-    xh = xs.reshape(B, L, dims.n_heads, dims.head_dim)
+    xh = xs.reshape(B, L, nh, dims.head_dim)
     pad = (-L) % chunk
     if pad and return_state and seq_len is None:
         raise ValueError(f"seq len {L} must divide chunk {chunk} when the "
@@ -251,46 +310,74 @@ def mamba_forward(p: dict, x: torch.Tensor, dims: MambaDims, *,
     if pad:
         y = y[:, :L]
     y = y + xh.float() * p["D"].float()[None, None, :, None]
-    y = y.reshape(B, L, di).to(x.dtype)
-    out = gated_rms_norm(y, z, p["norm"].float())
-    out = out @ p["out_proj"].to(x.dtype)
+    y = y.reshape(B, L, di_l).to(x.dtype)
+    out = gated_rms_norm(y, z, p["norm"].float(),
+                         tp=tp if nh != dims.n_heads else None)
+    out = _out_proj(p, out, dims, tp)
     if return_state:
         return out, MambaCache(conv=conv_tail, state=final_state)
     return out, None
 
 
+def _out_proj(p: dict, y: torch.Tensor, dims: MambaDims,
+              tp) -> torch.Tensor:
+    if tp is None:
+        return y @ p["out_proj"].to(y.dtype)
+    return tp.row({"w": p["out_proj"]}, y, dims.d_inner)
+
+
 def mamba_decode_step(p: dict, x: torch.Tensor, cache: MambaCache,
-                      dims: MambaDims) -> Tuple[torch.Tensor, MambaCache]:
+                      dims: MambaDims,
+                      tp=None) -> Tuple[torch.Tensor, MambaCache]:
     """One-token recurrence.  x (B, D) -> (out (B, D), new cache).  The
     conv runs in float32 (its taps in order), the state update in
-    float32."""
+    float32.
+
+    With ``tp`` (a ``dist.megatron.ServingTP``, ``p`` the rank's blocks)
+    ``cache`` holds the rank's heads of the state and its block of conv
+    channels (``decode_state_shardings``): the rank's x columns are
+    gathered (a few rows), the conv runs on its channel block and its
+    output is gathered, then the state update runs on its heads, the
+    gated norm takes one sum of squares over the model group and
+    ``out_proj`` is row-parallel."""
     B = x.shape[0]
     di, n = dims.d_inner, dims.d_state
+    h0, nh = 0, dims.n_heads
+    if tp is not None:
+        p, h0, nh = _tp_weights(p, dims, tp)
+    di_l, x0 = nh * dims.head_dim, h0 * dims.head_dim
     z = x @ p["in_z"].to(x.dtype)
-    xbc_new = torch.cat([x @ p["in_x"].to(x.dtype),
-                         x @ p["in_B"].to(x.dtype),
+    x_new = x @ p["in_x"].to(x.dtype)
+    if di_l != di:
+        x_new = tp.cat(x_new)
+    xbc_new = torch.cat([x_new, x @ p["in_B"].to(x.dtype),
                          x @ p["in_C"].to(x.dtype)], dim=-1)
     dt_raw = x @ p["in_dt"].to(x.dtype)
-    window = torch.cat([cache.conv, xbc_new[:, None, :].to(cache.conv.dtype)],
-                       dim=1)
-    w32 = p["conv_w"].float()
+    Cc = cache.conv.shape[-1]                  # the state's conv channels
+    c0 = 0 if Cc == dims.conv_channels else tp.m * Cc
+    window = torch.cat([cache.conv, xbc_new[:, None, c0:c0 + Cc].to(
+        cache.conv.dtype)], dim=1)
+    w32 = p["conv_w"].float()[:, c0:c0 + Cc]
     win32 = window.float()
     conv_out = win32[:, 0] * w32[0]
     for t in range(1, w32.shape[0]):
         conv_out = conv_out + win32[:, t] * w32[t]
-    conv_out = conv_out + p["conv_b"].float()
+    conv_out = conv_out + p["conv_b"].float()[c0:c0 + Cc]
     xbc = silu(conv_out).to(x.dtype)
-    xs, B_, C_ = xbc[:, :di], xbc[:, di:di + n], xbc[:, di + n:]
+    if Cc != dims.conv_channels:
+        xbc = tp.cat(xbc)
+    xs, B_, C_ = xbc[:, x0:x0 + di_l], xbc[:, di:di + n], xbc[:, di + n:]
     dt = F.softplus(dt_raw.float() + p["dt_bias"])                 # (B,H)
     A = -torch.exp(p["A_log"].float())
-    xh = xs.reshape(B, dims.n_heads, dims.head_dim).float()
+    xh = xs.reshape(B, nh, dims.head_dim).float()
     decay = torch.exp(dt * A)                                      # (B,H)
     state = (cache.state * decay[..., None, None]
              + (xh * dt[..., None])[..., None]
              * B_.float()[:, None, None, :])
     y = torch.einsum("bhpn,bn->bhp", state, C_.float())
     y = y + xh * p["D"].float()[None, :, None]
-    y = y.reshape(B, di).to(x.dtype)
-    out = gated_rms_norm(y, z, p["norm"].float())
-    out = out @ p["out_proj"].to(x.dtype)
-    return out, MambaCache(conv=window[:, 1:], state=state)
+    y = y.reshape(B, di_l).to(x.dtype)
+    out = gated_rms_norm(y, z, p["norm"].float(),
+                         tp=tp if nh != dims.n_heads else None)
+    return _out_proj(p, out, dims, tp), MambaCache(conv=window[:, 1:],
+                                                   state=state)

@@ -96,6 +96,11 @@ class FwdOptions:
     # routes the rows of every data rank (``.gather(h)``), then keeps this
     # rank's (``.keep(out)``), as one device routes the whole batch
     moe_rows: Any = None
+    # a token-split serving rank (forward only): ``dist.megatron.
+    # ServingTP``, the parameters its blocks; every projection runs
+    # column- or row-parallel over the model group, the MoE layers
+    # expert-parallel, the mamba sublayers on the rank's heads
+    tp: Any = None
 
 
 def take(tree, i: int):
@@ -156,13 +161,33 @@ def _self_attn(blk, x, cfg: ArchConfig, dims: ModelDims, opt: FwdOptions,
     pos = torch.arange(S, device=x.device)[None, :]
     h = L.rms_norm(x, blk["norm1"], cfg.norm_eps)
     theta = cfg.rope_theta if causal else 0.0
-    q, k, v = L.qkv_project(blk["attn"], h, h, dims.n_heads, dims.n_kv,
-                            dims.head_dim, pos, pos, theta)
+    q, k, v, kv = _qkv(blk["attn"], h, h, pos, theta, dims, opt)
     o = attention(q, k, v, impl=opt.attn_impl, causal=causal,
                   q_chunk=opt.q_chunk, kv_chunk=opt.kv_chunk,
                   triangular_schedule=opt.triangular_schedule)
-    o = L.linear(blk["attn"]["o"], o.reshape(B, S, -1))
-    return x + o, (k, v)
+    return x + _out(blk["attn"]["o"], o.reshape(B, S, -1), dims, opt), kv
+
+
+def _qkv(p, h, hkv, pos, theta: float, dims: ModelDims, opt: FwdOptions):
+    """``(q, k, v, kv)``: the attention's inputs and the K/V it returns
+    (whole KV heads).  On a token-split rank (``opt.tp``) q holds the
+    rank's query heads and k/v the KV heads they read (``ServingTP.qkv``),
+    and ``kv`` is ``(None, None)`` without ``opt.collect_cache``."""
+    if opt.tp is not None:
+        q, k, v, kv = opt.tp.qkv(p, h, hkv, pos, pos if theta > 0 else None,
+                                 theta, want_kv=opt.collect_cache)
+        return q, k, v, (None, None) if kv is None else kv
+    q, k, v = L.qkv_project(p, h, hkv, dims.n_heads, dims.n_kv,
+                            dims.head_dim, pos, pos, theta)
+    return q, k, v, (k, v)
+
+
+def _out(p, o, dims: ModelDims, opt: FwdOptions):
+    """The attention's output projection (row-parallel on a token-split
+    rank, its heads' rows)."""
+    if opt.tp is not None:
+        return opt.tp.row(p, o, dims.n_heads * dims.head_dim)
+    return L.linear(p, o)
 
 
 def _cross_attn(blk, x, enc_out, cfg: ArchConfig, dims: ModelDims,
@@ -171,11 +196,10 @@ def _cross_attn(blk, x, enc_out, cfg: ArchConfig, dims: ModelDims,
     output (no RoPE, full mask): ``(x + o, (ck, cv))``."""
     B, S, _ = x.shape
     h = L.rms_norm(x, blk["norm_x"], cfg.norm_eps)
-    q, ck, cv = L.qkv_project(blk["cross"], h, enc_out, dims.n_heads,
-                              dims.n_kv, dims.head_dim, None, None, 0.0)
+    q, ck, cv, kv = _qkv(blk["cross"], h, enc_out, None, 0.0, dims, opt)
     o = attention(q, ck, cv, impl=opt.attn_impl, causal=False,
                   q_chunk=opt.q_chunk, kv_chunk=opt.kv_chunk)
-    return x + L.linear(blk["cross"]["o"], o.reshape(B, S, -1)), (ck, cv)
+    return x + _out(blk["cross"]["o"], o.reshape(B, S, -1), dims, opt), kv
 
 
 def encoder(params, frames: torch.Tensor, cfg: ArchConfig, dims: ModelDims,
@@ -183,7 +207,7 @@ def encoder(params, frames: torch.Tensor, cfg: ArchConfig, dims: ModelDims,
     """The audio encoder: ``frontend_proj`` of the frame embeddings ``(B,
     F, d)``, then per layer non-causal self-attention and the FFN, then
     the encoder's final norm.  Returns ``(B, F, d)`` in ``opt.dtype``."""
-    x = L.linear(params["frontend_proj"], frames.to(opt.dtype))
+    x = L.linear(_top(params, "frontend_proj", opt), frames.to(opt.dtype))
     enc = params["encoder"]
     layers = layer_stack(enc["layers"], cfg)
 
@@ -193,8 +217,26 @@ def encoder(params, frames: torch.Tensor, cfg: ArchConfig, dims: ModelDims,
         return x
 
     for i in range(cfg.encoder_layers):
-        x = _remat(body, opt.remat, take(layers, i), x)
+        x = _remat(body, opt.remat, _take_layer(params, layers, i, opt,
+                                                ("encoder", "layers")), x)
     return L.rms_norm(x, enc["final_norm"], cfg.norm_eps)
+
+
+def _top(params, name: str, opt: FwdOptions):
+    """The top-level entry ``name`` of the parameters (on a token-split
+    rank gathered over the data axes)."""
+    if opt.tp is not None:
+        return opt.tp.subtree(params, name)
+    return params[name]
+
+
+def _take_layer(params, layers, i: int, opt: FwdOptions,
+                path=("layers",)):
+    """Layer ``i`` of the stack ``layers`` (on a token-split rank, the
+    rank's blocks of it gathered over the data axes)."""
+    if opt.tp is not None:
+        return opt.tp.layer(params, i, path)
+    return take(layers, i)
 
 
 def check_family(cfg: ArchConfig) -> None:
@@ -222,8 +264,10 @@ def _ffn(blk, x, cfg: ArchConfig, opt: FwdOptions = FwdOptions()):
         h_in = h if rows is None else rows.gather(h)
         out, aux = moe_layer(blk["moe"], h_in, top_k=cfg.moe_top_k,
                              capacity_factor=cfg.moe_capacity_factor,
-                             n_groups=opt.moe_groups, act=act)
+                             n_groups=opt.moe_groups, act=act, ep=opt.tp)
         return x + (out if rows is None else rows.keep(out)), aux
+    if opt.tp is not None:
+        return x + opt.tp.mlp(blk["mlp"], h, act), None
     return x + L.mlp(blk["mlp"], h, act), None
 
 
@@ -240,14 +284,15 @@ def hybrid_ffn_select(cfg: ArchConfig, blk, i: int):
 
 def mamba_block(blk, x, cfg: ArchConfig, dims: ModelDims, *,
                 collect: bool = False, seq_len=None, initial_state=None,
-                initial_conv=None):
-    """The mamba sublayer: ``(x + mamba(norm1(x)), MambaCache | None)``."""
+                initial_conv=None, tp=None):
+    """The mamba sublayer: ``(x + mamba(norm1(x)), MambaCache | None)``
+    (``tp``: on a token-split rank, ``mamba_forward``'s)."""
     h = L.rms_norm(x, blk["norm1"], cfg.norm_eps)
     out, state = mamba_forward(blk["mamba"], h, dims.mamba,
                                chunk=cfg.ssm_chunk,
                                initial_state=initial_state,
                                initial_conv=initial_conv, seq_len=seq_len,
-                               return_state=collect)
+                               return_state=collect, tp=tp)
     return x + out, state
 
 
@@ -279,7 +324,7 @@ def _layer(blk, x, aux, enc_out, seq_len, cfg: ArchConfig, dims: ModelDims,
     audio decoder)."""
     if cfg.family == "ssm":
         x, st = mamba_block(blk, x, cfg, dims, collect=opt.collect_cache,
-                            seq_len=seq_len)
+                            seq_len=seq_len, tp=opt.tp)
         return x, aux, st
     x, (k, v) = _self_attn(blk, x, cfg, dims, opt)
     ck = cv = None
@@ -299,7 +344,8 @@ def _group(blk, x, aux, seq_len, cfg: ArchConfig, dims: ModelDims,
     for i in range(g):
         if i < g - 1:
             x, st = mamba_block(take(blk["mamba"], i), x, cfg, dims,
-                                collect=opt.collect_cache, seq_len=seq_len)
+                                collect=opt.collect_cache, seq_len=seq_len,
+                                tp=opt.tp)
             ssm.append(st)
         else:
             x, kv = _self_attn(blk["attn"], x, cfg, dims, opt)
@@ -324,14 +370,19 @@ def forward(params, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
     stacked (n_groups, attn_every - 1, B, ...)."""
     check_family(cfg)
     seq_len = batch.get("seq_len")
-    x = L.embed(params["embed"], batch["tokens"]).to(opt.dtype)
+    tp = opt.tp
+    if tp is None:
+        x = L.embed(params["embed"], batch["tokens"])
+    else:
+        x = tp.embed(_top(params, "embed", opt)["table"], batch["tokens"])
+    x = x.to(opt.dtype)
     aux = _zero_aux(x.device)
     collect = opt.collect_cache
     ks, vs, ssm, cks, cvs = [], [], [], [], []
     n_front = 0
     enc_out = None
     if cfg.family == "vlm":
-        front = L.linear(params["frontend_proj"],
+        front = L.linear(_top(params, "frontend_proj", opt),
                          batch["frontend"].to(opt.dtype))
         x = torch.cat([front, x], dim=1)
         n_front = front.shape[1]
@@ -345,7 +396,8 @@ def forward(params, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
         for gi in range(n_groups):
             x, aux, ((k, v), st) = _remat(
                 functools.partial(_group, cfg=cfg, dims=dims, opt=opt),
-                opt.remat, take(layers, gi), x, aux, seq_len)
+                opt.remat, _take_layer(params, layers, gi, opt), x, aux,
+                seq_len)
             if collect:
                 ks.append(k)
                 vs.append(v)
@@ -355,7 +407,8 @@ def forward(params, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
         for i in range(cfg.num_layers):
             x, aux, cache = _remat(
                 functools.partial(_layer, cfg=cfg, dims=dims, opt=opt),
-                opt.remat, take(layers, i), x, aux, enc_out, seq_len)
+                opt.remat, _take_layer(params, layers, i, opt), x, aux,
+                enc_out, seq_len)
             if not collect:
                 continue
             if cfg.family == "ssm":
@@ -371,8 +424,12 @@ def forward(params, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     if n_front:
         x = x[:, n_front:]
-    head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
-    logits = L.unembed(head, x, dims.logical_vocab)
+    head = "embed" if cfg.tie_embeddings else "lm_head"
+    if tp is None:
+        logits = L.unembed(params[head], x, dims.logical_vocab)
+    else:
+        logits = tp.unembed(_top(params, head, opt)["table"], x,
+                            dims.logical_vocab)
     caches = None
     if collect:
         caches = {}

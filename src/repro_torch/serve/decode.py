@@ -41,16 +41,24 @@ its data group's pool, ``slots_per_group`` slots and the sink of ``bs /
 TP`` tokens each (token sub-range m of every block), and its group's
 tables.  In batch mode group g owns rows ``[g B/G, (g+1) B/G)`` and their
 blocks; in striped mode every group sees every row and global block b
-lives on group ``b % G`` at local block ``b // G``.  A rank translates its
-group's queries (one RSW launch, which also resolves the token-owned
-write row), runs every op outside attention on its rows (replicated along
-the model axis), reads its token sub-range of each block through the
-paged kernel at its token offset, and combines the partial softmax
+lives on group ``b % G`` at local block ``b // G``.  A rank holds its
+blocks of the weights as JAX's ``param_shardings`` lays them out
+(``token_split_tp``; ZeRO over the data axes as ``cfg.zero_shard_params``,
+gathered a layer at a time) and of the recurrent state as
+``decode_state_shardings`` does (its ssm heads and conv channels).  It
+translates its group's queries (one RSW launch, which also resolves the
+token-owned write row) and computes its rows tensor-parallel over the
+model group (``dist.megatron.ServingTP``): q, k and v column-parallel and
+made whole by one all-gather, o and the MLP's down row-parallel closed by
+a float32 sum, the vocab-split embedding and head, the MoE's experts, the
+mamba heads.  It reads its token sub-range of each block through the
+paged kernel at its token offset and combines the partial softmax
 results ``(o, m, l)`` over the model group (batch mode) or the world
 (striped mode) with a max and two sums, flash-decoding's combine.  The
 step returns the whole batch's logits and stats on every rank (one
-all-gather over the data group).  The combine reduces floats across
-ranks, so the step equals ``mesh=None`` to float rounding, not bitwise.
+all-gather over the data group).  The combine and the row-parallel sums
+reduce floats across ranks, as GSPMD does, so the step equals
+``mesh=None`` to float rounding, not bitwise.
 
 The recurrent families add each mamba sublayer's per-row state: ``ssm``
 ``(n_ssm, B, H, P, N)`` float32 and ``conv`` ``(n_ssm, B, W-1, C)`` in the
@@ -70,7 +78,8 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.dist.sharding import _guard, block_of
+from repro_torch.dist.megatron import ServingTP
+from repro_torch.dist.sharding import _guard, block_of, serving_rules
 from repro_torch.kernels.paged_attention.ops import paged_attention
 from repro_torch.kernels.paged_attention.ref import normalize
 from repro_torch.kernels.utopia_rsw.ops import (shard_translator,
@@ -217,19 +226,18 @@ def local_decode_state(whole, spec: DecodeSpec,
                        mesh) -> Dict[str, torch.Tensor]:
     """A rank's token-split decode state from the ``whole`` one (the JAX
     layout, ``abstract_decode_state``'s shapes; any device): every leaf
-    cut along the data axes by ``decode_state_shardings``, the pools also
-    along the model axis (the rank's token sub-range), then a zero sink
-    slot after each pool's slots; a cut leaf is a copy, a whole one the
-    leaf itself.  Everything else the JAX specs split over the model axis
-    (the ssm heads, the conv channels) stays whole: the port replicates
-    that compute."""
+    cut to this rank's block under ``decode_state_shardings`` (the pools
+    by slot over the data axes and to the rank's token sub-range, the
+    tables and batch-mode rows over the data axes, the ``ssm`` state to
+    the rank's heads and the ``conv`` tail to its block of channels over
+    the model axis), then a zero sink slot after each pool's slots; a cut
+    leaf is a copy, a whole one the leaf itself."""
     specs = decode_state_shardings(whole, mesh, spec)
-    da = tuple(spec.data_axes)
+    axes = tuple(spec.data_axes) + (spec.model_axis,)
     out = {}
     for k, x in whole.items():
         pool = k in ("k_pool", "v_pool")
-        t = block_of(x, specs[k], mesh, da + ((spec.model_axis,) if pool
-                                              else ()))
+        t = block_of(x, specs[k], mesh, axes)
         if pool:
             t = torch.cat([t, torch.zeros_like(t[:, :1])], dim=1)
         elif t.numel() != x.numel():
@@ -634,18 +642,23 @@ def _rms_norm(x: torch.Tensor, scale: torch.Tensor,
     return (x32 * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
 
 
-def decode_ffn(blk, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+def decode_ffn(blk, x: torch.Tensor, cfg: ArchConfig,
+               tp=None) -> torch.Tensor:
     """Post-attention FFN sublayer: the dense MLP (its projections through
     ``decode_linear``), or the decode-time MoE over every row of ``x`` (B,
     d) or (B, Q, d).  The MoE's float32
     router runs one window position at a time, at the decode step's
     shape: a flipped near-tie there would pick another expert; its
     experts read every row at once (their rows round alike at both
-    shapes, ``chip_smoke.py`` phase 8)."""
+    shapes, ``chip_smoke.py`` phase 8).  On a token-split rank (``tp``, a
+    ``dist.megatron.ServingTP``) the MLP is column- then row-parallel and
+    the MoE expert-parallel."""
     h = _rms_norm(x, blk["norm2"], cfg.norm_eps)
     act = ffn_act(cfg)
     if "moe" not in blk:
         p = blk["mlp"]
+        if tp is not None:
+            return x + tp.mlp(p, h, act)
         g = act(decode_linear(p["gate"], h)) * decode_linear(p["up"], h)
         return x + decode_linear(p["down"], g)
     p = blk["moe"]
@@ -653,21 +666,23 @@ def decode_ffn(blk, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     logits = _per_position(lambda t: t.float() @ w, h)
     d = h.shape[-1]
     out = moe_decode(p, h.reshape(-1, d), top_k=cfg.moe_top_k,
-                     logits=logits.reshape(-1, logits.shape[-1]), act=act)
+                     logits=logits.reshape(-1, logits.shape[-1]), act=act,
+                     ep=tp)
     return x + out.reshape(h.shape)
 
 
 def decode_mamba(blk, x: torch.Tensor, dstate, j: int, act,
-                 cfg: ArchConfig, dims: ModelDims) -> torch.Tensor:
+                 cfg: ArchConfig, dims: ModelDims, tp=None) -> torch.Tensor:
     """The mamba sublayer of a decode step: one token a row (``x`` (B,
     d)) advances state row ``j`` of ``dstate["ssm"]``/``["conv"]`` in
     place; an inactive row (``act`` (B,) bool, None = all active) keeps
-    its rows."""
+    its rows.  On a token-split rank (``tp``) the rows are the rank's
+    heads and conv channels (``mamba_decode_step``)."""
     h = Lmod.rms_norm(x, blk["norm1"], cfg.norm_eps)
     ssm, conv = dstate["ssm"][j], dstate["conv"][j]
     out, cache = mamba_decode_step(blk["mamba"], h,
                                    MambaCache(conv=conv, state=ssm),
-                                   dims.mamba)
+                                   dims.mamba, tp=tp)
     new_state, new_conv = cache.state, cache.conv
     if act is not None:
         new_state = torch.where(act[:, None, None, None], new_state, ssm)
@@ -677,40 +692,59 @@ def decode_mamba(blk, x: torch.Tensor, dstate, j: int, act,
     return x + out
 
 
-def _cross_core(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
-                dims: ModelDims) -> torch.Tensor:
+def _cross_core(q: torch.Tensor, ck: torch.Tensor,
+                cv: torch.Tensor) -> torch.Tensor:
     """Attention of ``q (B, H * hd)`` over a row's cross K/V ``(B, F, KV,
     hd)``: scores, softmax and products in float32; returns ``(B, H *
     hd)`` float32."""
     B = q.shape[0]
-    g = dims.n_heads // dims.n_kv
-    qf = q.reshape(B, dims.n_kv, g, dims.head_dim).float()
+    KV, hd = ck.shape[2], ck.shape[3]
+    qf = q.reshape(B, KV, q.shape[-1] // (KV * hd), hd).float()
     s = torch.einsum("bkgd,bfkd->bkgf", qf, ck.float())
-    p = torch.softmax(s / math.sqrt(dims.head_dim), dim=-1)
+    p = torch.softmax(s / math.sqrt(hd), dim=-1)
     return torch.einsum("bkgf,bfkd->bkgd", p, cv.float()).reshape(B, -1)
 
 
 def decode_cross(blk, x: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
-                 cfg: ArchConfig, dims: ModelDims) -> torch.Tensor:
+                 cfg: ArchConfig, dims: ModelDims, tp=None) -> torch.Tensor:
     """The audio decoder's cross-attention sublayer over the slots'
     installed cross K/V ``(B, F, KV, hd)``, for ``x`` (B, d) of a decode
     step or (B, Q, d) of a verify step.  The verify step takes the norm's
     mean square and the attention itself one window position at a time,
     at the decode step's shape, so its rows are bitwise the decode
-    step's; the q and o projections go through ``decode_linear``."""
+    step's; the q and o projections go through ``decode_linear``.  On a
+    token-split rank (``tp``) q is column-parallel: the rank attends with
+    its query heads over their KV heads where both split on a head
+    boundary (else with every head), and o is row-parallel."""
     lead = x.shape[:-1]
     h = _rms_norm(x, blk["norm_x"], cfg.norm_eps)
-    q = decode_linear(blk["cross"]["q"], h)
-    o = _per_position(lambda t: _cross_core(t, ck, cv, dims), q)
-    o = o.reshape(*lead, -1).to(x.dtype)
-    return x + decode_linear(blk["cross"]["o"], o)
+    p = blk["cross"]
+    if tp is None:
+        q = decode_linear(p["q"], h)
+        o = _per_position(lambda t: _cross_core(t, ck, cv), q)
+        o = o.reshape(*lead, -1).to(x.dtype)
+        return x + decode_linear(p["o"], o)
+    width = dims.n_heads * dims.head_dim
+    if tp.heads_local(p["q"]) and dims.n_kv % tp.tp == 0:
+        n = dims.n_kv // tp.tp
+        q = tp.col(p["q"], h, width)
+        ck, cv = (c.narrow(2, tp.m * n, n) for c in (ck, cv))
+    else:
+        q = tp.col(p["q"], h, width, whole=True)
+    o = _cross_core(q, ck, cv).to(x.dtype)
+    return x + tp.row(p["o"], o, width)
 
 
 def project_logits(params, x: torch.Tensor, cfg: ArchConfig,
-                   dims: ModelDims) -> torch.Tensor:
-    """Final norm -> (tied) head matmul -> vocab-pad mask."""
+                   dims: ModelDims, tp=None) -> torch.Tensor:
+    """Final norm -> (tied) head matmul -> vocab-pad mask (on a token-split
+    rank, ``tp``, the rank's vocab block's logits gathered)."""
     x = _rms_norm(x, params["final_norm"], cfg.norm_eps)
-    head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+    name = "embed" if cfg.tie_embeddings else "lm_head"
+    if tp is not None:
+        return tp.unembed(tp.subtree(params, name)["table"], x,
+                          dims.logical_vocab)
+    head = params[name]
     if x.dim() == 3 and not _rows_invariant(
             head["table"].T.to(x.dtype), *x.shape[:2]):
         return _per_position(
@@ -720,7 +754,7 @@ def project_logits(params, x: torch.Tensor, cfg: ArchConfig,
 
 def decode_attn(blk, x: torch.Tensor, kp_l: torch.Tensor,
                 vp_l: torch.Tensor, kv_at, positions: torch.Tensor,
-                cfg: ArchConfig, dims: ModelDims) -> torch.Tensor:
+                cfg: ArchConfig, dims: ModelDims, tp=None) -> torch.Tensor:
     """The attention sublayer of a decode step (one token a row: ``x``
     (B, d), ``positions`` (B,)) or of a verify step (Q tokens a row: ``x``
     (B, Q, d), ``positions`` (B, Q)): project, rotate, write every token's
@@ -732,16 +766,29 @@ def decode_attn(blk, x: torch.Tensor, kp_l: torch.Tensor,
     The verify step projects K and V (and takes the norm's mean square) one
     window position at a time, at the decode step's shape, so the rows it
     writes to the pool are bitwise the decode step's and spec-on streams
-    stay spec-off's; q and o go through ``decode_linear``."""
+    stay spec-off's; q and o go through ``decode_linear``.
+
+    On a token-split rank (``tp``, a ``dist.megatron.ServingTP``; decode
+    steps only) q, k and v are the rank's columns, made whole by one
+    all-gather over the model group (the paged read of the rank's token
+    sub-range and the pool write take every head), and o is
+    row-parallel."""
     lead = x.shape[:-1]
     B = lead[0]
     H, KV, hd = dims.n_heads, dims.n_kv, dims.head_dim
     h = _rms_norm(x, blk["norm1"], cfg.norm_eps)
-    q = decode_linear(blk["attn"]["q"], h).reshape(*lead, H, hd)
-    k = _per_position(lambda t: Lmod.linear(blk["attn"]["k"], t),
-                      h).reshape(*lead, KV, hd)
-    v = _per_position(lambda t: Lmod.linear(blk["attn"]["v"], t),
-                      h).reshape(*lead, KV, hd)
+    att = blk["attn"]
+    if tp is None:
+        q = decode_linear(att["q"], h)
+        k = _per_position(lambda t: Lmod.linear(att["k"], t), h)
+        v = _per_position(lambda t: Lmod.linear(att["v"], t), h)
+    else:
+        widths = (H * hd, KV * hd, KV * hd)
+        q, k, v = tp.cat_cols([tp.col(att[n], h, w) for n, w in
+                               zip("qkv", widths)], widths)
+    q = q.reshape(*lead, H, hd)
+    k = k.reshape(*lead, KV, hd)
+    v = v.reshape(*lead, KV, hd)
     if cfg.rope_theta > 0:
         pos = positions.reshape(B, -1)
         q = Lmod.apply_rope(q.reshape(B, -1, H, hd), pos,
@@ -749,27 +796,30 @@ def decode_attn(blk, x: torch.Tensor, kp_l: torch.Tensor,
         k = Lmod.apply_rope(k.reshape(B, -1, KV, hd), pos,
                             cfg.rope_theta).reshape(k.shape)
     out = _paged_attn_local(q, k, v, kp_l, vp_l, *kv_at)
-    o = decode_linear(blk["attn"]["o"], out.reshape(*lead, -1).to(x.dtype))
-    return x + o
+    out = out.reshape(*lead, -1).to(x.dtype)
+    if tp is not None:
+        return x + tp.row(att["o"], out, H * hd)
+    return x + decode_linear(att["o"], out)
 
 
 def decode_layers(params, x: torch.Tensor, dstate, kv_at,
                   positions: torch.Tensor, cfg: ArchConfig,
-                  dims: ModelDims) -> torch.Tensor:
+                  dims: ModelDims, tp=None) -> torch.Tensor:
     """The layer loop of the dense, moe, vlm and audio families, shared
     by the decode step (``x`` (B, d)) and the verify step (``x`` (B, Q,
     d)): per layer the attention sublayer on pool layer ``i``, the audio
     decoder's cross sublayer over ``dstate["cross_k"/"cross_v"][i]``, and
-    the FFN."""
+    the FFN.  On a token-split rank (``tp``) each layer's blocks are
+    gathered over the data axes first (``ServingTP.layer``)."""
     cross = cfg.family == "audio"
     for i in range(cfg.num_layers):
-        blk = layer_params(params, i)
+        blk = layer_params(params, i) if tp is None else tp.layer(params, i)
         x = decode_attn(blk, x, dstate["k_pool"][i], dstate["v_pool"][i],
-                        kv_at, positions, cfg, dims)
+                        kv_at, positions, cfg, dims, tp)
         if cross:
             x = decode_cross(blk, x, dstate["cross_k"][i],
-                             dstate["cross_v"][i], cfg, dims)
-        x = decode_ffn(blk, x, cfg)
+                             dstate["cross_v"][i], cfg, dims, tp)
+        x = decode_ffn(blk, x, cfg, tp)
     return x
 
 
@@ -803,7 +853,8 @@ def kv_access(trans: StepTranslation, shard):
 
 
 def make_serve_step(cfg: ArchConfig, dims: ModelDims, spec: DecodeSpec,
-                    dtype=torch.float32, bound=None, mesh=None, part=None):
+                    dtype=torch.float32, bound=None, mesh=None, part=None,
+                    rules=None):
     """Returns serve_step(params, dstate, tokens (B,), active=None, *,
     sample=False) -> (logits (B, V), dstate, stats).  One new token per
     live sequence.
@@ -828,15 +879,23 @@ def make_serve_step(cfg: ArchConfig, dims: ModelDims, spec: DecodeSpec,
     ``part`` the step runs on this rank's chunk of the sharded state (see
     the module's docstring); its outputs are the unsharded step's.  With a
     ``mesh`` and ``kv_shards == 0`` it runs on this rank's token-split
-    state (``init_decode_state(mesh=)``, ``TokenSplit``) and returns the
-    whole batch's logits and ``next_token``, and the stats of every
-    group, ``(G, rows, nblk)`` (one all-gather over the data group)."""
+    state (``init_decode_state(mesh=)``, ``TokenSplit``) and weights (its
+    blocks under ``param_shardings(..., rules)``, ``rules`` by default
+    ``dist.sharding.serving_rules(cfg, spec)``; ``token_split_tp(...)
+    .blocks`` cuts them), and returns the whole batch's logits and
+    ``next_token``, and the stats of every group, ``(G, rows, nblk)``
+    (one all-gather over the data group)."""
     check_family(cfg)
     bound = {} if bound is None else bound   # the translation's bindings
     shard = step_shard(spec, mesh, part)
     split = shard if isinstance(shard, TokenSplit) else None
+    tp = None if split is None else token_split_tp(cfg, dims, spec, mesh,
+                                                   rules)
     n_attn = n_attn_layers(cfg)
     fam = cfg.family
+
+    def layer(params, i):
+        return layer_params(params, i) if tp is None else tp.layer(params, i)
 
     def serve_step(params, dstate, tokens, active=None, *, sample=False):
         positions = dstate["ctx_len"]
@@ -844,10 +903,14 @@ def make_serve_step(cfg: ArchConfig, dims: ModelDims, spec: DecodeSpec,
         whole_act = act
         rows = None
         if split is not None:
+            tp.check(params)
             rows = split.rows(positions.shape[0])
             positions, tokens = positions[rows], tokens[rows]
             act = None if act is None else act[rows]
-        x = params["embed"]["table"][tokens.long()].to(dtype)
+            x = tp.embed(tp.subtree(params, "embed")["table"], tokens)
+        else:
+            x = params["embed"]["table"][tokens.long()]
+        x = x.to(dtype)
         stats = {}
         if n_attn:
             trans = translate_step(dstate["tar"], dstate["sf"],
@@ -859,25 +922,27 @@ def make_serve_step(cfg: ArchConfig, dims: ModelDims, spec: DecodeSpec,
             kv_at = kv_access(trans, shard)
         if fam == "ssm":
             for i in range(cfg.num_layers):
-                x = decode_mamba(layer_params(params, i), x, dstate, i, act,
-                                 cfg, dims)
+                x = decode_mamba(layer(params, i), x, dstate, i, act, cfg,
+                                 dims, tp)
         elif fam == "hybrid":
             g = cfg.attn_every
             for gi in range(cfg.num_layers // g):
-                blk = layer_params(params, gi)
+                blk = layer(params, gi)
                 for i in range(g):
                     if i < g - 1:
                         x = decode_mamba(take(blk["mamba"], i), x, dstate,
-                                         gi * (g - 1) + i, act, cfg, dims)
+                                         gi * (g - 1) + i, act, cfg, dims,
+                                         tp)
                     else:
                         x = decode_attn(blk["attn"], x, dstate["k_pool"][gi],
                                         dstate["v_pool"][gi], kv_at,
-                                        positions, cfg, dims)
-                    x = decode_ffn(hybrid_ffn_select(cfg, blk, i), x, cfg)
+                                        positions, cfg, dims, tp)
+                    x = decode_ffn(hybrid_ffn_select(cfg, blk, i), x, cfg,
+                                   tp)
         else:
             x = decode_layers(params, x, dstate, kv_at, positions, cfg,
-                              dims)
-        logits = project_logits(params, x, cfg, dims)
+                              dims, tp)
+        logits = project_logits(params, x, cfg, dims, tp)
         samp = slice(None) if rows is None else rows
         if sample:
             stats["next_token"] = sample_tokens(
@@ -893,6 +958,16 @@ def make_serve_step(cfg: ArchConfig, dims: ModelDims, spec: DecodeSpec,
         return logits, dstate, stats
 
     return serve_step
+
+
+def token_split_tp(cfg: ArchConfig, dims: ModelDims, spec: DecodeSpec,
+                   mesh, rules=None) -> ServingTP:
+    """The tensor parallelism of a token-split rank's steps: its weights
+    are its blocks under ``param_shardings(..., rules)``, JAX's layout
+    (``rules`` by default ``serving_rules(cfg, spec)``: the spec's axes,
+    ZeRO as ``cfg.zero_shard_params``).  ``.blocks(whole)`` cuts them."""
+    return ServingTP(cfg, dims, mesh,
+                     serving_rules(cfg, spec) if rules is None else rules)
 
 
 def _gather_step(split: TokenSplit, logits, stats):

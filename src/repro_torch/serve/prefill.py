@@ -58,13 +58,19 @@ installed blocks and the first tokens are the unsharded step's.
 
 On a rank of the token-split layout (a mesh without ``part``, the JAX
 package's ``kv_shards=0``; batch mode) the recompute step forwards its
-data group's rows, installs its token sub-range of each of their blocks
-(the JAX package's ``_scatter_pool``) and its rows' recurrent and cross
-rows (a row's ``slot_ids`` entry must lie in its own group's slots, as
-the step's rows are laid out; another writes nothing), sets ``ctx_len``
-for the whole batch, and returns the whole batch's last logits and first
-tokens (one all-gather over the data group).  The prefix-KV step refuses
-that layout, as the JAX package's does.
+data group's rows on the rank's blocks of the weights, tensor-parallel
+over the model group (``FwdOptions.tp``, a ``dist.megatron.ServingTP``:
+attention on the rank's query heads, the MoE expert-parallel, the mamba
+sublayers on its heads; each layer gathered over the data axes where ZeRO
+splits it), gathers each layer's K/V heads over the model group (one
+all-gather) and installs its token sub-range of each block (the JAX
+package's ``_scatter_pool``), and installs its rows' recurrent state (its
+heads, its block of conv channels) and cross rows (a row's ``slot_ids``
+entry must lie in its own group's slots, as the step's rows are laid out;
+another writes nothing); it sets ``ctx_len`` for the whole batch and
+returns the whole batch's last logits and first tokens (one all-gather
+over the data group).  The prefix-KV step refuses that layout, as the JAX
+package's does.
 """
 from __future__ import annotations
 
@@ -83,7 +89,8 @@ from repro_torch.models.transformer import (FwdOptions, ModelDims, _ffn,
                                             check_family, forward,
                                             hybrid_ffn_select, layer_params,
                                             mamba_block, stack_caches, take)
-from .decode import BlockRead, DecodeSpec, TokenSplit, step_shard
+from .decode import (BlockRead, DecodeSpec, TokenSplit, step_shard,
+                     token_split_tp)
 from .sampling import sample_tokens
 
 
@@ -163,23 +170,29 @@ def _first_token_stats(dstate, last, slot_ids, ctx, sample: bool):
 
 
 def make_prefill_step(cfg: ArchConfig, dims: ModelDims, spec: DecodeSpec,
-                      fwd: FwdOptions = FwdOptions(), mesh=None, part=None):
+                      fwd: FwdOptions = FwdOptions(), mesh=None, part=None,
+                      rules=None):
     """Returns prefill_step(params, dstate, batch, slots, slot_ids, ctx,
     last_pos, *, sample=False) -> (last_logits (B, V), dstate, stats);
-    ``stats["next_token"]`` is the first generated token per row."""
+    ``stats["next_token"]`` is the first generated token per row.  On a
+    token-split rank ``params`` are its blocks (``make_serve_step``'s
+    ``rules``)."""
     check_family(cfg)
     shard = step_shard(spec, mesh, part)
     split = shard if isinstance(shard, TokenSplit) else None
     if split is not None and split.striped:
         raise ValueError("the striped layout is decode-only (no JAX cell "
                          "prefills it)")
-    fwd_collect = dataclasses.replace(fwd, collect_cache=True)
+    tp = None if split is None else token_split_tp(cfg, dims, spec, mesh,
+                                                   rules)
+    fwd_collect = dataclasses.replace(fwd, collect_cache=True, tp=tp)
 
     def prefill_step(params, dstate, batch, slots, slot_ids, ctx, last_pos,
                      *, sample=False):
         whole_ids, whole_ctx = slot_ids, ctx
         row_ids = slot_ids                       # slots of the state's rows
         if split is not None:
+            tp.check(params)
             rows = split.rows(batch["tokens"].shape[0])
             batch = {k: x[rows] for k, x in batch.items()}
             slots, slot_ids, ctx, last_pos = (

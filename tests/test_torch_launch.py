@@ -151,19 +151,27 @@ def test_tiny_dryrun_decode_counts_by_hand(tiny_mesh):
     spec = make_decode_spec(cfg, TINY_S, TINY_B, G)
     bs_loc = spec.block_size // TP
     # the matrix products of a decode step on the rank's Bl rows: per layer
-    # q, k, v, o and the gated MLP, then the head; the paged read's own
-    # count: every row's nblk blocks of bs_loc tokens
+    # q, k, v, o and the gated MLP, then the head, each on the rank's
+    # 1 / TP of the weights (every width here splits over the model axis);
+    # the paged read's own count: every row's nblk blocks of bs_loc tokens
     per_layer = 2 * Bl * (d * H * hd + 2 * d * KV * hd + H * hd * d
-                          + 3 * d * ff)
-    mm = cfg.num_layers * per_layer + 2 * Bl * d * dims.vocab
+                          + 3 * d * ff) // TP
+    mm = cfg.num_layers * per_layer + 2 * Bl * d * dims.vocab // TP
     paged = cfg.num_layers * 4 * hd * H * Bl * spec.max_blocks_per_seq \
         * bs_loc
     assert res["flops_aten"] == mm
     assert res["flops_per_device"] == mm + paged
     assert res["kernels"]["paged_attention"]["calls"] == cfg.num_layers
     assert res["kernels"]["utopia_translate_step"]["calls"] == 1
-    # the arguments: the whole parameters, the rank's state, the tokens
-    pbytes, _ = _param_bytes(cfg, dims)
+    # the arguments: the rank's blocks of the parameters (JAX's
+    # param_shardings, ZeRO over the data axis), the rank's state, the
+    # tokens
+    from repro_torch.dist.sharding import param_shardings, shard_tree
+    _, p = _param_bytes(cfg, dims)
+    tiny = mesh_mod.MeshDesc(TINY)
+    pbytes = dryrun.storage_bytes(shard_tree(
+        p, param_shardings(p, ShardingRules(), tiny), tiny))
+    assert pbytes * 4 < _param_bytes(cfg, dims)[0]
     L = cfg.num_layers
     pool = 2 * L * (spec.slots_per_group + 1) * bs_loc * KV * hd * 2
     tables = 4 * (spec.n_sets * spec.assoc + spec.n_sets
@@ -199,12 +207,13 @@ def test_tiny_dryrun_train_and_prefill(tiny_mesh):
     want = dryrun.storage_bytes(state) + 2 * 4 * TINY_B * TINY_S
     assert tr["memory"]["argument_bytes"] == want
     # the forward's matrix products alone, on the rank's rows, are at
-    # least 2 * params * tokens; the backward doubles them
+    # least 2 * params * tokens; the backward doubles them.  The prefill
+    # rank multiplies by its 1 / TP of the weights
     n_mat = cfg.num_layers * (cfg.d_model * dims.n_heads * dims.head_dim
                               * 2 + 2 * cfg.d_model * dims.n_kv
                               * dims.head_dim + 3 * cfg.d_model * cfg.d_ff)
     assert tr["flops_per_device"] >= 6 * n_mat * Bl * TINY_S
-    assert pf["flops_per_device"] >= 2 * n_mat * Bl * TINY_S
+    assert pf["flops_per_device"] >= 2 * n_mat * Bl * TINY_S // TINY["model"]
 
 
 @pytest.mark.parametrize("shape,variant", [

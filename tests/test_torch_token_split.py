@@ -15,6 +15,15 @@ mesh path and its dry run's decode state), held to the JAX package.
   and the steps after it against ``mesh=None``.  The port's ranks are one
   gloo group of four processes (``tests/torch_token_split_cases.py``); the
   JAX mesh runs in a subprocess with four host devices.
+* Each rank holds and computes with its blocks of the weights: for
+  granite, qwen3-moe, mamba2, jamba and whisper (reduced, ZeRO on and
+  off) every leaf has its block's shape under JAX's ``param_shardings``,
+  the ``ssm``/``conv`` rows theirs under JAX's ``decode_state_shardings``,
+  and the prefill and decode logits lie within 1e-5 of ``mesh=None`` and
+  1e-4 of JAX's token-split steps (of the largest |logit|), the integers
+  exact.
+* The dry run's argument bytes of a serving cell are the spec blocks' of
+  the weights plus the state's and the batch's.
 """
 from __future__ import annotations
 
@@ -37,6 +46,8 @@ from jax.sharding import AbstractMesh
 import repro.serve.decode as jdecode
 from repro.configs import ARCHS as JARCHS, SHAPES as JSHAPES
 from repro.configs import reduced as jreduced
+from repro.dist.sharding import (ShardingRules as JRules,
+                                 param_shardings as jparam_shardings)
 from repro.models import init_params as jinit, model_dims as jdims
 
 from repro_torch.configs import ARCHS, SHAPES
@@ -239,6 +250,46 @@ JAX_CHILD = textwrap.dedent("""
         out[name] = {"steps": steps, "k_pool": np.asarray(st["k_pool"]),
                      "v_pool": np.asarray(st["v_pool"]),
                      "ctx_len": np.asarray(st["ctx_len"])}
+    from repro.models import FwdOptions
+    from repro.serve.prefill import make_prefill_step
+    for arch, fam in inp["families"].items():
+        fcfg = dataclasses.replace(reduced(ARCHS[arch]), num_layers=2)
+        fdims = model_dims(fcfg, tp=1)
+        fp = jax.tree.map(jnp.asarray, fam["params"])
+        spec = DecodeSpec(**fam["spec"])
+        st = {k: jnp.asarray(v) for k, v in fam["state"].items()}
+        fi = fam["inputs"]
+        B = len(fi["ctx"])
+        batch = {"tokens": jnp.asarray(fi["prompt"])}
+        if fcfg.family in ("ssm", "hybrid"):
+            batch["seq_len"] = jnp.asarray(fi["ctx"])
+        if "frontend" in fi:
+            batch["frontend"] = jnp.asarray(fi["frontend"])
+        pre = jax.jit(make_prefill_step(
+            fcfg, fdims, spec, mesh,
+            fwd=FwdOptions(dtype=jnp.float32, moe_groups=2)))
+        step = jax.jit(make_serve_step(fcfg, fdims, spec, mesh=mesh,
+                                       dtype=jnp.float32))
+        ctx = jnp.asarray(fi["ctx"])
+        with mesh:
+            last, st, stats = pre(fp, st, batch, jnp.asarray(fam["slots"]),
+                                  jnp.arange(B, dtype=jnp.int32), ctx,
+                                  ctx - 1)
+            res = {"prefill": (np.asarray(last),
+                               np.asarray(stats["next_token"])),
+                   "steps": []}
+            if "flex" in st:
+                st["flex"] = jnp.asarray(fam["flex_after"])
+            for i, act in enumerate(fam["actives"]):
+                tok = jnp.asarray(fi["tokens"][i])
+                if act is None:
+                    logits, st, stats = step(fp, st, tok)
+                else:
+                    logits, st, stats = step(fp, st, tok, jnp.asarray(act))
+                res["steps"].append({"logits": np.asarray(logits),
+                                     **{k: np.asarray(v) for k, v in
+                                        stats.items()}})
+        out[arch] = res
     ins = inp["install"]
     spec = DecodeSpec(**ins["spec"])
     with mesh:
@@ -278,20 +329,53 @@ def _install_inputs(rng):
         slots=slots)
 
 
+def _jcfg(arch):
+    return dataclasses.replace(jreduced(JARCHS[arch]), num_layers=2)
+
+
+def _family_inputs(arch, rng):
+    """A family's JAX weights, its scenario's inputs, and for the JAX
+    child the whole state in the JAX layout, the prefill's slots and the
+    flex table of the decode steps."""
+    jcfg = _jcfg(arch)
+    jparams = jinit(jax.random.PRNGKey(1), jcfg, jdims(jcfg, tp=1))
+    spec, _, B, actives = cases.geometry("prefill")
+    G = cases.MESH[0]
+    jspec = jdecode.DecodeSpec(**_spec_fields(spec))
+    state = {}
+    for k, v in jdecode.abstract_decode_state(
+            jcfg, jdims(jcfg, tp=1), jspec, B, G, jnp.float32).items():
+        state[k] = np.full(v.shape, -1 if k == "flex" else 0, v.dtype)
+    blocks, slots = cases.prefill_blocks()
+    rows = B // G
+    flex = -np.ones((G, rows * spec.max_blocks_per_seq), np.int32)
+    for r in range(B):
+        g, rl = divmod(r, rows)
+        flex[g, rl * spec.max_blocks_per_seq:
+             rl * spec.max_blocks_per_seq + blocks.shape[1]] = blocks[r]
+    return {"params": jax.tree.map(np.asarray, jparams),
+            "inputs": cases.draw_family_inputs(cases.config(arch), rng),
+            "spec": _spec_fields(spec), "state": state, "slots": slots,
+            "flex_after": flex, "actives": actives}
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """The inputs, the four gloo ranks and the JAX mesh run at once; the
     port's one-device runs here while they work."""
     root = tmp_path_factory.mktemp("token_split")
-    jcfg = dataclasses.replace(jreduced(JARCHS["granite-8b"]), num_layers=2)
+    jcfg = _jcfg("granite-8b")
     jparams = jinit(jax.random.PRNGKey(0), jcfg, jdims(jcfg, tp=1))
     scen = cases.draw_inputs()
     geo = {}
     for name in ("batch", "striped"):
         spec, _, _, actives = cases.geometry(name)
         geo[name] = {"spec": _spec_fields(spec), "actives": actives}
+    rng = np.random.RandomState(11)
     inputs = {"params": jax.tree.map(np.asarray, jparams),
               "scenarios": scen, "geometry": geo,
+              "families": {a: _family_inputs(a, rng)
+                           for a in cases.FAMILIES},
               "install": _install_inputs(np.random.RandomState(7))}
     with open(root / "inputs.pkl", "wb") as f:
         pickle.dump(inputs, f)
@@ -313,9 +397,8 @@ def runs(tmp_path_factory):
         [sys.executable, "-c", JAX_CHILD, str(root)], stdout=log,
         stderr=subprocess.STDOUT, env=jenv)))
     try:
-        cfg, params = cases.load(root)
-        oracle = {name: cases.run(name, cfg, params, None)
-                  for name in cases.SCENARIOS}
+        cases.load(root)
+        oracle = {name: cases.run(name, None) for name in cases.SCENARIOS}
         for _, p in procs:
             p.wait(timeout=SPAWN_TIMEOUT_S)
     finally:
@@ -462,3 +545,119 @@ def test_token_split_refusals_match_jax():
                                   dims.head_dim)
     assert st["flex"].shape == (1, 2 * spec.max_blocks_per_seq)
     assert bool((st["flex"] == -1).all())
+
+
+# ------------------------------- the families, on the ranks' weight blocks
+
+def _block_shape(shape, spec, sizes):
+    out = []
+    for n, e in zip(shape, tuple(spec) + (None,) * (len(shape) - len(spec))):
+        for a in (() if e is None else (e,) if isinstance(e, str) else e):
+            n //= sizes[a]
+        out.append(n)
+    return tuple(out)
+
+
+def _jax_param_blocks(arch, zero, sizes, dims_tp=1, dtype=jnp.float32):
+    """{dotted path: shape} of a rank's block of each leaf of ``arch``'s
+    reduced 2-layer JAX parameters under JAX's ``param_shardings``."""
+    jcfg = _jcfg(arch)
+    jd = jdims(jcfg, tp=dims_tp)
+    abs_ = jax.eval_shape(lambda k: jinit(k, jcfg, jd, dtype=dtype),
+                          jax.random.PRNGKey(0))
+    mesh = AbstractMesh(tuple(sizes.values()), tuple(sizes))
+    sh = jparam_shardings(abs_, JRules(data_axes=("data",),
+                                       zero_params=zero), mesh)
+    leaves = jax.tree_util.tree_flatten_with_path(abs_)[0]
+    specs = jax.tree_util.tree_leaves(sh)
+    return {".".join(str(k.key) for k in path):
+            _block_shape(leaf.shape, s.spec, sizes)
+            for (path, leaf), s in zip(leaves, specs)}
+
+
+@pytest.mark.parametrize("name", cases.FAMILY_SCENARIOS)
+def test_token_split_family_matches_jax_and_one_device(runs, name):
+    """Each rank holds its blocks of the weights and of the recurrent
+    state (JAX's specs), and its prefill and decode steps give the logits
+    of ``mesh=None`` (1e-5) and of JAX's token-split steps (1e-4), the
+    tokens and translation fields exactly."""
+    arch, zero = cases.family_of(name)
+    ranks = _ranks(runs, name)
+    one = runs["oracle"][name]
+    jres = _jax(runs)[arch]
+    data, model = cases.MESH
+    sizes = {"data": data, "model": model}
+    want_params = _jax_param_blocks(arch, zero, sizes)
+    spec = cases.geometry("prefill")[0]
+    jcfg = _jcfg(arch)
+    B = len(runs["inputs"]["families"][arch]["inputs"]["ctx"])
+    jspec = jdecode.DecodeSpec(**_spec_fields(spec))
+    jst = jdecode.abstract_decode_state(jcfg, jdims(jcfg, tp=1), jspec, B,
+                                        data, jnp.float32)
+    jsh = jdecode.decode_state_shardings(
+        jst, AbstractMesh((data, model), ("data", "model")), jspec)
+    for r, res in enumerate(ranks):
+        assert res["param_shapes"] == want_params, r
+        _close(res["prefill"][0], one["prefill"][0], 1e-5)
+        _close(res["prefill"][0], jres["prefill"][0], 1e-4)
+        npt.assert_array_equal(res["prefill"][1], one["prefill"][1])
+        npt.assert_array_equal(res["prefill"][1], jres["prefill"][1])
+        for i, step in enumerate(res["steps"]):
+            _close(step["logits"], one["steps"][i]["logits"], 1e-5)
+            _close(step["logits"], jres["steps"][i]["logits"], 1e-4)
+            npt.assert_array_equal(step["next_token"],
+                                   one["steps"][i]["next_token"])
+            npt.assert_array_equal(step["next_token"],
+                                   jres["steps"][i]["next_token"])
+            for k in ("slots", "in_rest", "mapped", "accesses"):
+                if k in step:
+                    npt.assert_array_equal(
+                        step[k], jres["steps"][i][k].astype(np.int32), k)
+        npt.assert_array_equal(res["ctx_len"], one["ctx_len"])
+        mesh = MeshDesc(sizes, r)
+        for k in ("ssm", "conv"):
+            if k not in one:
+                continue
+            assert res[k].shape == _block_shape(jst[k].shape, jsh[k].spec,
+                                                sizes), k
+            cut = local_decode_state({k: torch.as_tensor(one[k])}, spec,
+                                     mesh)[k]
+            _close(res[k], cut.numpy(), 1e-5)
+    if "k_pool" in one:
+        whole = _whole_pool(ranks, "k_pool", spec)
+        G, S = cases.MESH[0], cases.SLOTS
+        npt.assert_allclose(whole, one["k_pool"][:, :G * S], rtol=0,
+                            atol=1e-5)
+
+
+# ------------------------------------------------ the dry run's bytes
+
+@pytest.mark.parametrize("arch,shape", [
+    ("granite-8b", "decode_32k"), ("jamba-1.5-large-398b", "long_500k")])
+def test_dryrun_serving_arguments_are_the_spec_blocks(arch, shape):
+    """A serving cell's argument bytes a rank (the production (16, 16)
+    mesh, on ``meta``) are the blocks of JAX's ``param_shardings`` of the
+    bf16 parameters (ZeRO as the config sets it) plus the rank's decode
+    state and the tokens; jamba's 500k-token cell, 740.75 GiB a rank with
+    the weights whole, now holds under 10 GiB."""
+    import repro_torch.launch.dryrun as dryrun
+    _, args, mesh, info = dryrun.build_cell(arch, shape, False)
+    params, dstate, tokens = args
+    sizes = {"data": 16, "model": 16}
+    jcfg = JARCHS[arch]
+    jd = jdims(jcfg, tp=16)
+    abs_ = jax.eval_shape(lambda k: jinit(k, jcfg, jd, dtype=jnp.bfloat16),
+                          jax.random.PRNGKey(0))
+    sh = jparam_shardings(abs_, JRules(data_axes=("data",),
+                                       zero_params=jcfg.zero_shard_params),
+                          AbstractMesh((16, 16), ("data", "model")))
+    want = 0
+    for leaf, s in zip(jax.tree_util.tree_leaves(abs_),
+                       jax.tree_util.tree_leaves(sh)):
+        want += int(np.prod(_block_shape(leaf.shape, s.spec, sizes))) \
+            * leaf.dtype.itemsize
+    got = dryrun.storage_bytes(args)
+    assert got == want + dryrun.storage_bytes(dstate) \
+        + tokens.numel() * tokens.element_size()
+    if arch.startswith("jamba"):
+        assert got < 10 * 2 ** 30

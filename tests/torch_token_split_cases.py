@@ -1,6 +1,10 @@
 """Scenarios of the token-split layout's tests (``tests/test_torch_token_split.py``):
 the decode step in batch and striped mode and the recompute prefill over a
-(2, 2) mesh, the JAX package's ``kv_shards=0`` mesh path.
+(2, 2) mesh, the JAX package's ``kv_shards=0`` mesh path, and per family
+(granite, qwen3-moe, mamba2, jamba, whisper, reduced to 2 layers) the
+recompute prefill then decode steps with the weights cut as JAX's
+``param_shardings`` cuts them, ZeRO on and off.  A rank holds and computes
+with its blocks of the weights (``ServingTP.blocks``).
 
 The test process draws the inputs (the JAX package's weights as numpy and
 each scenario's whole decode state in the JAX layout) and pickles them to
@@ -31,11 +35,13 @@ if str(SRC) not in sys.path:
 
 import torch  # noqa: E402
 
+from repro_torch.ckpt.checkpoint import tree_flatten  # noqa: E402
 from repro_torch.configs import ARCHS, reduced  # noqa: E402
-from repro_torch.models import model_dims  # noqa: E402
+from repro_torch.models import FwdOptions, model_dims  # noqa: E402
 from repro_torch.params import params_from_numpy  # noqa: E402
 from repro_torch.serve.decode import (DecodeSpec, init_decode_state,  # noqa: E402
-                                      local_decode_state, make_serve_step)
+                                      local_decode_state, make_serve_step,
+                                      token_split_tp)
 from repro_torch.serve.prefill import make_prefill_step  # noqa: E402
 
 COLLECTIVE_TIMEOUT_S = 60      # a rank that never joins fails, not hangs
@@ -43,13 +49,43 @@ MESH = (2, 2)
 STEPS = 3
 SLOTS = 16                     # pool slots of a data group
 N_SETS, ASSOC = 2, 4           # 8 RestSeg slots a group, 8 flex slots
-SCENARIOS = ("batch", "striped", "prefill")
+FAMILIES = ("granite-8b", "qwen3-moe-30b-a3b", "mamba2-130m",
+            "jamba-1.5-large-398b", "whisper-medium")
+# a family's scenario: "ARCH/zero" (ZeRO over the data axis) or
+# "ARCH/nozero" (the weights cut over the model axis only)
+FAMILY_SCENARIOS = tuple(f"{a}/{z}" for a in FAMILIES
+                         for z in ("zero", "nozero"))
+SCENARIOS = ("batch", "striped", "prefill") + FAMILY_SCENARIOS
 
 
-def config():
-    """reduced granite-8b at 2 layers (d 64, 4/1 heads of 16, 8-token
-    blocks)."""
-    return dataclasses.replace(reduced(ARCHS["granite-8b"]), num_layers=2)
+def config(arch: str = "granite-8b", zero: bool = True):
+    """``arch`` reduced, at 2 layers (d 64, 4 heads of 16, 8-token blocks;
+    jamba one group of a mamba and an attention sublayer, whisper 2
+    encoder layers and 8 frames), ``zero_shard_params=zero``."""
+    return dataclasses.replace(reduced(ARCHS[arch]), num_layers=2,
+                               zero_shard_params=zero)
+
+
+def family_of(name: str):
+    """(arch, zero) of a family scenario."""
+    arch, z = name.split("/")
+    return arch, z == "zero"
+
+
+def draw_family_inputs(cfg, rng):
+    """A family scenario's prompts (the prefill scenario's geometry), its
+    decode steps' tokens and, for audio, the frames."""
+    spec, _, B, _ = geometry("prefill")
+    bs = cfg.kv_block_size
+    out = dict(prompt=rng.randint(0, cfg.vocab_size,
+                                  (B, 2 * bs)).astype(np.int32),
+               ctx=np.array([16, 16, 11, 16], np.int32),
+               tokens=rng.randint(0, cfg.vocab_size,
+                                  (STEPS, B)).astype(np.int32))
+    if cfg.frontend != "none":
+        out["frontend"] = rng.randn(B, cfg.frontend_tokens,
+                                    cfg.d_model).astype(np.float32)
+    return out
 
 
 def geometry(name):
@@ -130,16 +166,24 @@ def draw_inputs(seed: int = 0):
     # block 2 takes the decode steps' writes; row 3's block 0 is not
     # installed)
     spec, one, B, _ = geometry("prefill")
-    blocks = np.array([[0, 9, 4], [3, 12, 5], [1, 8, 6], [2, 10, 7]],
-                      np.int32)
-    slots = blocks[:, :2].copy()
-    slots[3, 0] = -1
+    blocks, slots = prefill_blocks()
     out["prefill"] = dict(
         prompt=rng.randint(0, cfg.vocab_size, (B, 2 * bs)).astype(np.int32),
         slots=slots, blocks=blocks,
         ctx=np.array([16, 16, 11, 16], np.int32),
         tokens=rng.randint(0, cfg.vocab_size, (STEPS, B)).astype(np.int32))
     return out
+
+
+def prefill_blocks():
+    """(blocks, slots) of the prefill scenarios: each row's group-local
+    slot of its blocks 0-2, and the slots its prompt's two blocks install
+    to (-1: not installed)."""
+    blocks = np.array([[0, 9, 4], [3, 12, 5], [1, 8, 6], [2, 10, 7]],
+                      np.int32)
+    slots = blocks[:, :2].copy()
+    slots[3, 0] = -1
+    return blocks, slots
 
 
 def _t(x):
@@ -152,9 +196,10 @@ def whole_state(name, inp, cfg, dims, spec, B):
     st = {k: torch.zeros(v.shape, dtype=v.dtype) for k, v in
           abstract_decode_state(cfg, dims, spec, B, MESH[0],
                                 torch.float32).items()}
-    st["flex"].fill_(-1)
+    if "flex" in st:
+        st["flex"].fill_(-1)
     for k in ("k_pool", "v_pool", "tar", "sf", "flex", "ctx_len"):
-        if k in inp:
+        if k in inp and k in st:
             st[k] = _t(inp[k]).clone()
     return st
 
@@ -162,7 +207,7 @@ def whole_state(name, inp, cfg, dims, spec, B):
 def one_state(name, inp, cfg, dims, one, B):
     """The one-device state holding the scenario's blocks."""
     st = init_decode_state(cfg, dims, one, B, 1, torch.float32, "cpu")
-    if name != "prefill":
+    if name in ("batch", "striped"):
         for k in ("k_pool", "v_pool"):
             st[k][:, :-1] = _t(inp[k])
         st["flex"] = _t(inp["flex1"]).clone()
@@ -170,24 +215,50 @@ def one_state(name, inp, cfg, dims, one, B):
     return st
 
 
-def _prefill(step, params, st, inp, B, prefill_slots):
-    return step(params, st, {"tokens": _t(inp["prompt"])}, prefill_slots,
+def _prefill(step, params, st, inp, B, prefill_slots, cfg):
+    batch = {"tokens": _t(inp["prompt"])}
+    if cfg.family in ("ssm", "hybrid"):
+        batch["seq_len"] = _t(inp["ctx"])
+    if "frontend" in inp:
+        batch["frontend"] = _t(inp["frontend"])
+    return step(params, st, batch, prefill_slots,
                 torch.arange(B, dtype=torch.int32), _t(inp["ctx"]),
                 _t(inp["ctx"]) - 1)
 
 
-def run(name, cfg, params, mesh):
+def _paths(tree, prefix=()):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _paths(tree[k], prefix + (k,))
+    else:
+        yield prefix, tree
+
+
+def run(name, mesh):
     """One scenario on this rank's share (``mesh``) or on one device
     (``mesh`` None): per step the logits, ``next_token`` and the stats,
-    then the rank's (or the device's) pools, without the sink."""
+    then the rank's (or the device's) pools, without the sink, its
+    recurrent state and, on a rank, the shapes of its weights."""
+    family = name in FAMILY_SCENARIOS
+    if family:
+        arch, zero = family_of(name)
+        cfg = config(arch, zero)
+        params, inp = FAMILY_PARAMS[arch], FAMILY_INPUTS[arch]
+        spec, one, B, actives = geometry("prefill")
+    else:
+        cfg, params, inp = config(), PARAMS[0], INPUTS[name]
+        spec, one, B, actives = geometry(name)
+    prefills = family or name == "prefill"
     dims = model_dims(cfg, tp=1)
-    spec, one, B, actives = geometry(name)
-    inp = INPUTS[name]
+    # the one device routes each data group's rows as one MoE group, as
+    # a token-split rank routes its group's
+    fwd = FwdOptions(moe_groups=MESH[0] if mesh is None else 1)
+    res = {"steps": []}
     if mesh is None:
         st = one_state(name, inp, cfg, dims, one, B)
         serve = make_serve_step(cfg, dims, one, torch.float32)
         first = None
-        if name == "prefill":
+        if prefills:
             # the mesh's group g slot s is the device's g * SLOTS + s; the
             # rows of group g are rows [g B/G, (g+1) B/G)
             grp = torch.arange(B)[:, None] // (B // MESH[0])
@@ -196,29 +267,38 @@ def run(name, cfg, params, mesh):
                 x = _t(x)
                 return torch.where(x >= 0, x + grp * SLOTS,
                                    -1).to(torch.int32)
-            first = _prefill(make_prefill_step(cfg, dims, one), params, st,
-                             inp, B, dev_slots(inp["slots"]))
-            blk = dev_slots(inp["blocks"])
+            blocks, slots = prefill_blocks()
+            first = _prefill(make_prefill_step(cfg, dims, one, fwd), params,
+                             st, inp, B, dev_slots(slots), cfg)
+            blk = dev_slots(blocks)
             flex1 = -torch.ones((B, one.max_blocks_per_seq),
                                 dtype=torch.int32)
             flex1[:, :blk.shape[1]] = blk
-            st["flex"] = flex1.reshape(1, -1).clone()
+            if "flex" in st:
+                st["flex"] = flex1.reshape(1, -1).clone()
     else:
+        params = token_split_tp(cfg, dims, spec, mesh).blocks(params)
+        res["param_shapes"] = {".".join(p): tuple(x.shape)
+                               for p, x in _paths(params)}
+        res["param_bytes"] = sum(x.numel() * x.element_size()
+                                 for x in tree_flatten(params)[0])
         whole = whole_state(name, inp, cfg, dims, spec, B)
         st = local_decode_state(whole, spec, mesh)
         serve = make_serve_step(cfg, dims, spec, torch.float32, mesh=mesh)
         first = None
-        if name == "prefill":
-            first = _prefill(make_prefill_step(cfg, dims, spec, mesh=mesh),
-                             params, st, inp, B, _t(inp["slots"]))
+        if prefills:
+            blocks, slots = prefill_blocks()
+            first = _prefill(make_prefill_step(cfg, dims, spec, fwd,
+                                               mesh=mesh),
+                             params, st, inp, B, _t(slots), cfg)
             rows = B // MESH[0]
             g = mesh.data_index
-            blk = _t(inp["blocks"][g * rows:(g + 1) * rows])
+            blk = _t(blocks[g * rows:(g + 1) * rows])
             flex = -torch.ones((rows, spec.max_blocks_per_seq),
                                dtype=torch.int32)
             flex[:, :blk.shape[1]] = blk
-            st["flex"] = flex.reshape(1, -1).clone()
-    res = {"steps": []}
+            if "flex" in st:
+                st["flex"] = flex.reshape(1, -1).clone()
     if first is not None:
         res["prefill"] = (first[0].numpy().copy(),
                           first[2]["next_token"].numpy().copy())
@@ -231,21 +311,27 @@ def run(name, cfg, params, mesh):
             "logits": logits.numpy().copy(),
             **{k: v.numpy().copy() for k, v in stats.items()
                if k != "telemetry"}})
-    res["k_pool"] = st["k_pool"][:, :-1].numpy().copy()
-    res["v_pool"] = st["v_pool"][:, :-1].numpy().copy()
-    res["ctx_len"] = st["ctx_len"].numpy().copy()
+    for k in ("k_pool", "v_pool"):
+        if k in st:
+            res[k] = st[k][:, :-1].numpy().copy()
+    for k in ("ssm", "conv", "ctx_len"):
+        if k in st:
+            res[k] = st[k].numpy().copy()
     return res
 
 
-INPUTS = {}
+INPUTS, PARAMS, FAMILY_INPUTS, FAMILY_PARAMS = {}, [], {}, {}
 
 
-def load(root: Path):
+def load(root: Path) -> None:
     """The weights and inputs that the test process pickled."""
     with open(root / "inputs.pkl", "rb") as f:
         inputs = pickle.load(f)
     INPUTS.update(inputs["scenarios"])
-    return config(), params_from_numpy(inputs["params"], "cpu")
+    PARAMS[:] = [params_from_numpy(inputs["params"], "cpu")]
+    for arch, fam in inputs["families"].items():
+        FAMILY_PARAMS[arch] = params_from_numpy(fam["params"], "cpu")
+        FAMILY_INPUTS[arch] = fam["inputs"]
 
 
 def main(argv) -> None:
@@ -261,11 +347,11 @@ def main(argv) -> None:
         timeout=datetime.timedelta(seconds=COLLECTIVE_TIMEOUT_S))
     results = {}
     try:
-        cfg, params = load(root)
+        load(root)
         mesh = make_local_mesh(data, model)
         for name in SCENARIOS:
             try:
-                results[name] = run(name, cfg, params, mesh)
+                results[name] = run(name, mesh)
             except Exception:
                 results[name] = {"error": traceback.format_exc()}
                 raise
