@@ -17,6 +17,7 @@ JAX):
     python3 chip_smoke.py --mesh-train [--src OTHER_CHECKOUT/src]
     python3 chip_smoke.py --token-split [--src OTHER_CHECKOUT/src]
     python3 chip_smoke.py --examples
+    python3 chip_smoke.py --rows
 
 The second form builds the kernels and runs only phase 4's decode-step
 profile, the third only phase 2's paged-attention checks and timings (the
@@ -25,7 +26,9 @@ phase 9, the sixth only phase 10, the seventh only phase 11, the eighth
 only the sharded step's check, phase 5 and phase 12, the ninth only
 phase 13 and the tenth only phase 14 (both without building the kernels,
 which training does not launch), the eleventh only phase 15 and the
-twelfth only phase 16 (the examples), of this checkout's port or of
+twelfth only phase 16 (the examples), the thirteenth only phase 2's
+checks of the rows-invariant kernels and phase 6 (g), of this
+checkout's port or of
 another
 commit's (a parent unpacked with ``git archive``), so that two commits
 compare in one call.
@@ -38,7 +41,7 @@ phase 7 the defaults with speculative decoding.
 
 Phases, each failing loudly:
 
-1. build the three CUDA kernels from ``src/repro_torch/kernels/*/csrc``
+1. build the five CUDA kernels from ``src/repro_torch/kernels/*/csrc``
    (one ``nvcc`` each, all started together) into
    ``build/repro_torch_kernels/``, printing from ptxas the registers,
    stack and spill bytes of each bf16 flash kernel and of every kernel
@@ -63,7 +66,17 @@ Phases, each failing loudly:
    queries 0, 3, 4, 127 and 255 must equal Q = 1 launches bitwise) and at
    the verify step's (Q = 5 queries a row, one extent a query: query i
    must equal a Q = 1 launch at its extent bitwise, f32 and bf16), with
-   their CTAs a call.
+   their CTAs a call.  The prefill's rows-invariant kernels: the GEMM at
+   granite-8b's projections (2048 rows; q, k/v, gate/up, down and the
+   unembed reading the table in place) in bf16 (1e-2) and float32
+   (1e-4), the SSD's einsums and the MoE's bmm, the RMS norm (gated
+   too), and flash attention with a per-row ``q_offset`` (4 rows of 512
+   queries over 1,024 keys), each against its plain version; every row
+   of the GEMM and the norm bitwise equal at M = 1, 7, 64, 448, 512,
+   1024 and 4096, permuted and shifted; a 1024-token sequence's flash
+   rows bitwise equal when run as chunks of 128, 192 and 320 at their
+   offsets over buffers with other keys past the chunk; RoPE's rows at
+   an offset bitwise.
    Then time kernel, plain version, and for
    flash attention ``scaled_dot_product_attention`` (CUDA events and
    profiler device time) as a yardstick the port never calls; the step
@@ -126,7 +139,10 @@ Phases, each failing loudly:
    gathered; (c) run (b) under ``ResilientServe(snapshot_every=8)`` with
    two crashes, whose delivered streams must equal (b)'s bitwise; then
    (d) and (e), runs (a) and (b) on the engine's default
-   ``prefix_gather="exact"``, whose tight-vs-roomy streams it reports;
+   ``prefix_gather="exact"``, whose streams must be equal bitwise, tight
+   against roomy; (g) one 704-token prompt admitted whole, in prefix-KV
+   chunks of 2 and of 3 blocks and in recomputed chunks of 2, which must
+   install the same K/V bitwise and give the same tokens;
    (f), after phase 7: (c) with its snapshots persisted
    (``CheckpointManager``, ``keep_last=3``), stopped after its second
    crash, the newest committed shard truncated, then resumed in a fresh
@@ -178,11 +194,12 @@ Phases, each failing loudly:
    24 heads of 64, d_state 128, vocab 50280 tied; attention-free), the
    defaults, then ``spec_decode="ngram"`` (one warning, spec_K = 0, the
    same streams), then forced preemptions (the same streams; the host
-   tier carries the ssm/conv rows): no CUDA kernel may launch; (c) float32
+   tier carries the ssm/conv rows): only the prefill's rows-invariant
+   GEMM and RMS norm may launch; (c) float32
    card = CPU (streams, admission logs, translation stats) for mamba2 cut
    to 4 layers and a reduced-width jamba, with a pad check (a 7-block
    prompt in an 8-block bucket beside a 5-block row installs the state of
-   its exact-length forward: bitwise on the CPU, reported on the card);
+   its exact-length forward: bitwise on the CPU and on the card);
    the paged decode and prefix reads and flash attention at jamba's
    64/8 heads of 128 against their plain versions and bounds; (b)
    jamba-1.5-large-398b at its published width (d 8192, 64/8 heads,
@@ -193,7 +210,8 @@ Phases, each failing loudly:
    ``attn_impl="pallas"`` (flash must launch); the prefix cache is off
    for a recurrent family.  Each prints weights and peak GiB, decode-step
    ms, a steady step's profile, ``fraction_dropped`` and the pad check in
-   bf16.
+   bf16, held bitwise (for the jamba cut, where its exact-length forward
+   drops MoE tokens, on the mamba sublayers no MoE layer precedes).
 10. the frontend families: the kernels at paligemma-3b's 8/1 heads of
    256 and whisper-medium's 16/16 of 64 (the decode, verify and prefix
    reads, each query of a Q > 1 read held bitwise to a Q = 1 launch;
@@ -280,7 +298,7 @@ Phases, each failing loudly:
    bitwise (``--mesh-train`` alone runs those five single-device steps
    first); (b) ``(1, 2)`` and then ``(2, 1)`` as two processes on the
    card over gloo (``--mesh-train-child``), granite-8b at full width cut
-   to ``PHASE14_LAYERS`` = 2 layers, float32, AdamW, 3 steps: every
+   to ``PHASE14_LAYERS`` = 2 layers, float32, AdamW, 2 steps: every
    rank's losses within ``PHASE14_TOL`` = 2e-4 of a single-device run
    here, its gradient norms within ``PHASE14_GNORM_RTOL`` and its
    gathered parameters' norms and ramp sums after the last step within
@@ -296,7 +314,9 @@ Phases, each failing loudly:
    its dry run's) over a (2, 2) mesh: four processes on the card over
    gloo (``--token-split-child``), granite-8b at full width (64-token
    blocks, 32 a rank).  First the kernels at its geometries
-   (``check_token_split_kernels``): the RSW step entry with the group
+   (``check_token_split_kernels``, which the whole script runs in phase
+   2, where this process's profiler sees their launches): the RSW step
+   entry with the group
    layout bitwise its plain version at four layouts, one launch a call,
    the paged read of a token shard and of a striped rank
    (``block_tokens = 128``) within 3e-2 of theirs, and flash attention at
@@ -330,13 +350,14 @@ Each serving phase prints a digest of its streams (``streams_sha256``), so
 that two commits' runs compare token for token.
 
 It prints the build times, the kernel checks, the serving numbers, one
-JSON line of kernel measurements (launches counted on phases 4, 5, 6, 7,
+JSON line of kernel measurements (launches counted on phases 4, 5, 6, 6 (g), 7,
 4 (b), 6 (f), 8 (a) and (c), 9 (a) and (b), 10 (a) and (b), 11, 12,
 13, 14, 15 (its four ranks' added) and 16, each from 0; the RSW's
 ``launches`` are its step entry's, ``launches_group_layout`` those of
 them on a token-split rank, ``launches_vpn_list`` its vpn-list entry's
 and ``launches_shard`` / ``launches_combine`` its sharded step's two
-entries'), the card's name
+entries'; flash attention's ``launches_q_offset`` are those with a
+per-row offset, the exact prefix-KV step's), the card's name
 and power limit, and as its last line ``{"ok": true, "device":
 {...}}``.  Without a CUDA card, or without the rest of the repository
 beside it, it exits non-zero and prints no result.
@@ -1265,6 +1286,350 @@ def check_flash(torch, dev, results):
         shape=f"B={B} S={S} H={H} KV={KV} D={D} causal bf16")
 
 
+# ------------------------------------------ phase 2: the rows kernels
+
+# granite-8b's prefill shapes (d 4096, 32/8 heads of 128, d_ff 14336,
+# vocab 49152): 2048 = 4 x 512 rows; (name, K, N, weight layout)
+ROWS_GEMMS = (("q", 4096, 4096, "k"), ("kv", 4096, 1024, "k"),
+              ("gate_up", 4096, 14336, "k"), ("down", 14336, 4096, "k"),
+              ("unembed", 4096, 49152, "n"))
+ROWS_MAIN = "gate_up"           # the kernels line's row
+ROWS_M = 2048
+# row counts at which every row must equal its bits at 4096 rows
+ROWS_MS = (1, 7, 64, 448, 512, 1024, 4096)
+ROWS_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+
+
+def _rows_bitwise(torch, fn, x, label):
+    """Hold ``fn``'s rows bitwise across ``ROWS_MS``, a permutation and a
+    shift by 3 rows against ``fn(x)`` (x holds ``max(ROWS_MS)`` rows);
+    returns the row counts checked."""
+    full = fn(x)
+    n = x.shape[0]
+    for m in ROWS_MS:
+        if not torch.equal(fn(x[:m]), full[:m]):
+            raise AssertionError(f"{label}: rows at M = {m} differ from "
+                                 f"the same rows at M = {n}")
+    perm = torch.randperm(n, generator=torch.Generator().manual_seed(SEED)
+                          ).to(x.device)
+    if not torch.equal(fn(x[perm]), full[perm]):
+        raise AssertionError(f"{label}: permuted rows differ")
+    if not torch.equal(fn(x[3:3 + n // 8]), full[3:3 + n // 8]):
+        raise AssertionError(f"{label}: rows shifted by 3 differ")
+    return list(ROWS_MS)
+
+
+def check_rows_gemm(torch, dev, results):
+    """The rows-invariant GEMM against its plain version (torch's matmul,
+    on the card cuBLAS) at granite-8b's prefill projections, 2048 rows,
+    in bf16 (rtol = atol = 1e-2: both sum in f32 and round once, so they
+    differ by the sum's order, about a bf16 ulp of the O(1) outputs) and
+    float32 (1e-4: FFMA chains against cuBLAS's f32 tiles); every row
+    bitwise equal across ``ROWS_MS``, a permutation and a shift, for the
+    k-major weights, the n-major table read in place and float32; the
+    SSD's einsums and the MoE's bmm against torch's.  Each shape timed
+    beside ``torch.matmul`` (the plain version and the yardstick: the same
+    call) and its bound."""
+    from repro_torch.kernels.rows_gemm.ops import (rows_bmm, rows_einsum,
+                                                   rows_gemm)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 27)
+
+    def randn(*shape, dtype=torch.bfloat16, scale=1.0):
+        return (scale * torch.randn(shape, generator=gen, device=dev)
+                ).to(dtype)
+
+    out = {"shapes": {}}
+    n_all, d = max(ROWS_MS), ROWS_GEMMS[0][1]
+    x4 = randn(n_all, d)
+    for name, K, N, lay in ROWS_GEMMS:
+        x = x4 if K == d else randn(n_all, K)
+        w = (randn(K, N, scale=K ** -0.5) if lay == "k"
+             else randn(N, K, scale=K ** -0.5).T)       # the table, in place
+        got = rows_gemm(x[:ROWS_M], w)
+        err = check_close(f"rows_gemm[{name}]", got, x[:ROWS_M] @ w,
+                          ROWS_TOL["bfloat16"])
+        if name in ("q", "unembed"):
+            _rows_bitwise(torch, lambda t: rows_gemm(t, w), x,
+                          f"rows_gemm[{name}, bf16]")
+        # timed at 2048 rows over two weights, which outgrow the L2
+        ws = [w, (randn(K, N, scale=K ** -0.5) if lay == "k"
+                  else randn(N, K, scale=K ** -0.5).T)]
+        xs = x[:ROWS_M]
+        kern = [lambda w=w: rows_gemm(xs, w) for w in ws]
+        lib = [lambda w=w: xs @ w for w in ws]
+        flops = 2 * ROWS_M * N * K
+        nbytes = 2 * (ROWS_M * K + K * N + ROWS_M * N)
+        ms, dms = kernel_times(torch, kern, ("gemm_bf16_kernel",), 10)
+        lib_ms = time_ms(torch, lib, 40)
+        out["shapes"][name] = dict(
+            M=ROWS_M, K=K, N=N, weight=("k-major" if lay == "k"
+                                        else "n-major (table.T)"),
+            max_abs_err=err, ms=ms, device_ms=dms, plain_ms=lib_ms,
+            library_ms=lib_ms, library_device_ms=device_ms(torch, lib[0], 10),
+            bound_ms=max(nbytes / HBM_BYTES_PER_S,
+                         flops / PEAK_FLOPS["bfloat16"]) * 1e3,
+            bound_by=_bound_by(nbytes, flops))
+        del ws, kern, lib
+    # float32: the FFMA kernel, k-major and n-major, and its rows
+    x32 = randn(n_all, 1024, dtype=torch.float32)
+    w32 = randn(1024, 512, dtype=torch.float32, scale=1024 ** -0.5)
+    t32 = randn(512, 1024, dtype=torch.float32, scale=1024 ** -0.5)
+    f32 = [check_close("rows_gemm[f32]", rows_gemm(x32, w32), x32 @ w32,
+                       ROWS_TOL["float32"]),
+           check_close("rows_gemm[f32, n-major]", rows_gemm(x32, t32.T),
+                       x32 @ t32.T, ROWS_TOL["float32"])]
+    _rows_bitwise(torch, lambda t: rows_gemm(t, w32), x32,
+                  "rows_gemm[f32]")
+    b32 = randn(512, dtype=torch.float32)
+    bb = randn(d, dtype=torch.bfloat16)
+    wq = randn(d, d, scale=d ** -0.5)
+    f32.append(check_close("rows_gemm[f32 bias]", rows_gemm(x32, w32, b32),
+                           x32 @ w32 + b32, ROWS_TOL["float32"]))
+    bias_err = check_close("rows_gemm[bf16 bias]", rows_gemm(x4, wq, bb),
+                           x4 @ wq + bb, ROWS_TOL["bfloat16"])
+    # the SSD's four products (mamba2-130m: 24 heads of 64, d_state 128,
+    # chunks of 64) at 4 rows of 16 chunks, and the MoE's expert bmm
+    b_, c_, k_, h_, p_, n_ = 4, 16, 64, 24, 64, 128
+    f = dict(dtype=torch.float32)
+    Cc, Bc = randn(b_, c_, k_, n_, **f), randn(b_, c_, k_, n_, **f)
+    Lm, xc = randn(b_, c_, h_, k_, k_, **f), randn(b_, c_, k_, h_, p_, **f)
+    prev = randn(b_, c_, h_, p_, n_, **f)
+    ein = {}
+    for eq, a, b in (("bckn,bcln->bckl", Cc, Bc),
+                     ("bchkl,bclhp->bckhp", Lm, xc),
+                     ("bclhp,bcln->bchpn", xc, Bc),
+                     ("bckn,bchpn->bckhp", Cc, prev)):
+        got = rows_einsum(eq, a, b)
+        ein[eq] = check_close(f"rows_einsum[{eq}]", got,
+                              torch.einsum(eq, a, b), ROWS_TOL["float32"])
+        # row 0 of the batch alone: the same bits as among 4 rows
+        if not torch.equal(rows_einsum(eq, a[:1], b[:1]), got[:1]):
+            raise AssertionError(f"rows_einsum[{eq}]: batch row 0 differs "
+                                 "at 1 row from 4")
+    xe, we = randn(8, 96, 512), randn(8, 512, 768, scale=512 ** -0.5)
+    ein["bmm bf16"] = check_close("rows_bmm[bf16]", rows_bmm(xe, we),
+                                  torch.bmm(xe, we), ROWS_TOL["bfloat16"])
+    if not torch.equal(rows_bmm(xe[:, :40], we), rows_bmm(xe, we)[:, :40]):
+        raise AssertionError("rows_bmm: rows differ at 40 rows from 96")
+    main = out["shapes"][ROWS_MAIN]
+    results["rows_gemm"] = dict(
+        {k: main[k] for k in ("max_abs_err", "ms", "device_ms", "plain_ms",
+                              "bound_ms", "bound_by", "library_ms",
+                              "library_device_ms")},
+        shape=f"M={ROWS_M} K={main['K']} N={main['N']} bf16 k-major",
+        float32_max_abs_err=max(f32), bf16_bias_max_abs_err=bias_err,
+        einsum_max_abs_err=ein, rows_bitwise_at_M=list(ROWS_MS),
+        **out)
+    log("check rows_gemm (bf16 tol 1e-2, f32 1e-4; rows bitwise at M = "
+        f"{ROWS_MS}, permuted, shifted): " + json.dumps(results["rows_gemm"]))
+
+
+def check_rms_norm(torch, dev, results):
+    """The rows-invariant RMS norm against its plain version
+    (``layers._rms_norm_fwd``; with the gate, ``gated_rms_norm``'s plain
+    form) at granite-8b's width (2048 rows of 4096) and mamba2-130m's
+    gated width (d_inner 1536), in bf16 (rtol = atol = 1e-2: one bf16
+    ulp of the O(1) outputs, the f32 mean square summed in another order)
+    and float32 (1e-5), rows bitwise across ``ROWS_MS``; timed beside
+    ``torch.nn.functional.rms_norm`` where torch has it."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.rms_norm.ops import rms_norm
+    from repro_torch.kernels.rms_norm.ref import (gated_rms_norm_ref,
+                                                  rms_norm_ref)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 28)
+    errs = {}
+    for dtype, tol in ((torch.bfloat16, 1e-2), (torch.float32, 1e-5)):
+        name = str(dtype)[6:]
+        x = torch.randn((max(ROWS_MS), 4096), generator=gen,
+                        device=dev).to(dtype)
+        s = torch.randn(4096, generator=gen, device=dev).to(dtype)
+        errs[name] = check_close(f"rms_norm[{name}]",
+                                 rms_norm(x[:ROWS_M], s, 1e-5),
+                                 rms_norm_ref(x[:ROWS_M], s, 1e-5), tol)
+        _rows_bitwise(torch, lambda t: rms_norm(t, s, 1e-5), x,
+                      f"rms_norm[{name}]")
+        y = torch.randn((max(ROWS_MS), 1536), generator=gen,
+                        device=dev).to(dtype)
+        z = torch.randn((max(ROWS_MS), 1536), generator=gen,
+                        device=dev).to(dtype)
+        g = torch.randn(1536, generator=gen, device=dev)
+        errs[f"{name} gated"] = check_close(
+            f"rms_norm[{name} gated]", rms_norm(y, g, 1e-5, z=z),
+            gated_rms_norm_ref(y, z, g, 1e-5), tol)
+        for m in ROWS_MS:
+            if not torch.equal(rms_norm(y[:m], g, 1e-5, z=z[:m]),
+                               rms_norm(y, g, 1e-5, z=z)[:m]):
+                raise AssertionError(f"rms_norm[{name} gated]: rows at M "
+                                     f"= {m} differ")
+    xs = [torch.randn((ROWS_M, 4096), generator=gen, device=dev).to(
+        torch.bfloat16) for _ in range(4)]
+    s = torch.randn(4096, generator=gen, device=dev).to(torch.bfloat16)
+    kern = [lambda x=x: rms_norm(x, s, 1e-5) for x in xs]
+    plain = [lambda x=x: rms_norm_ref(x, s, 1e-5) for x in xs]
+    lib = ([lambda x=x: F.rms_norm(x, (4096,), s, 1e-5) for x in xs]
+           if hasattr(F, "rms_norm") else None)
+    nbytes = 2 * (2 * ROWS_M * 4096 + 4096)
+    flops = 4 * ROWS_M * 4096
+    ms, dms = kernel_times(torch, kern, ("rms_norm_kernel",), 20)
+    results["rms_norm"] = dict(
+        max_abs_err=errs["bfloat16"], ms=ms, device_ms=dms,
+        plain_ms=time_ms(torch, plain, 20),
+        bound_ms=max(nbytes / HBM_BYTES_PER_S,
+                     flops / PEAK_FLOPS["float32"]) * 1e3,
+        bound_by=_bound_by(nbytes, flops, "float32"),
+        library_ms=None if lib is None else time_ms(torch, lib, 40),
+        library_device_ms=None if lib is None else device_ms(torch, lib[0],
+                                                             10),
+        shape=f"{ROWS_M} rows of 4096 bf16", max_abs_err_by_case=errs,
+        rows_bitwise_at_M=list(ROWS_MS))
+    log("check rms_norm (bf16 tol 1e-2, f32 1e-5; rows bitwise at M = "
+        f"{ROWS_MS}): " + json.dumps(results["rms_norm"]))
+
+
+# the prefix-KV chunk's read at granite-8b's heads: 4 rows of 512 queries
+# at these offsets over a 1024-key buffer
+FLASH_OFFSETS = (512, 256, 0, 448)
+
+
+def check_flash_offset(torch, dev, results):
+    """The flash kernel with a per-row ``q_offset`` against its plain
+    version (``dense_attention`` with the offsets) at granite-8b's 32/8
+    heads of 128, bf16 (``check_flash_bf16``'s limits) and float32
+    (1e-4); then the prefill's contract at the kernel: a 1024-token
+    sequence's rows from one causal call (recompute, blocking) equal,
+    bitwise, the rows of the same queries run as chunks of 128, 192 and
+    320 queries at their offsets over a buffer whose keys past each chunk
+    are other data (prefix-KV), in both dtypes, several rows a call; and
+    RoPE's rows at offsets equal the whole sequence's.  Timed beside
+    SDPA with the same boolean mask (a yardstick the port never calls)
+    and its bound (the pairs this call's offsets need)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.models.attention import dense_attention
+    from repro_torch.models.layers import apply_rope
+    gen = torch.Generator(device=dev).manual_seed(SEED + 29)
+    H, KV, D, S = 32, 8, 128, 1024
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype)[6:]
+        q, k, v = [torch.randn((4, n, w, D), generator=gen, device=dev
+                               ).to(dtype)
+                   for n, w in ((512, H), (S, KV), (S, KV))]
+        off = torch.tensor(FLASH_OFFSETS, dtype=torch.int32, device=dev)
+        got = flash_attention(q, k, v, causal=True, q_offset=off)
+        if dtype == torch.bfloat16:
+            # check_flash_bf16's limits, on the offset mask
+            want = dense_attention(q.float(), k.float(), v.float(),
+                                   causal=True, q_offset=off)
+            lim = 2 ** -7 * (want.abs() + dense_attention(
+                q.float(), k.float(), v.float().abs(), causal=True,
+                q_offset=off))
+            errt = (got.float() - want).abs()
+            ratio = float((errt / lim.clamp_min(1e-30)).max())
+            norm = float(errt.norm() / want.norm() / 2 ** -8)
+            if not (ratio <= 1 and norm <= 1):
+                raise AssertionError(f"flash_attention[bf16 q_offset]: "
+                                     f"elem ratio {ratio}, norm ratio "
+                                     f"{norm}")
+            out[name] = dict(max_abs_err=float(errt.max()),
+                             elem_ratio=ratio, norm_ratio=norm)
+        else:
+            out[name] = dict(max_abs_err=check_close(
+                "flash_attention[f32 q_offset]", got, dense_attention(
+                    q, k, v, causal=True, q_offset=off), 1e-4))
+        # chunked = whole, bitwise: 2 sequences of 1024 tokens
+        qs, ks, vs = [torch.randn((2, S, n, D), generator=gen, device=dev
+                                  ).to(dtype) for n in (H, KV, KV)]
+        whole = flash_attention(qs, ks, vs, causal=True)
+        for chunk in (128, 192, 320):
+            for s0 in range(0, S, chunk):
+                n = min(chunk, S - s0)
+                buf = ((s0 + n + 63) // 64) * 64 + 128   # keys past the chunk
+                kb = torch.randn((2, buf, KV, D), generator=gen,
+                                 device=dev).to(dtype)
+                vb = torch.randn((2, buf, KV, D), generator=gen,
+                                 device=dev).to(dtype)
+                kb[:, :s0 + n], vb[:, :s0 + n] = (ks[:, :s0 + n],
+                                                  vs[:, :s0 + n])
+                o = flash_attention(
+                    qs[:, s0:s0 + n].contiguous(), kb, vb, causal=True,
+                    q_offset=torch.full((2,), s0, dtype=torch.int32,
+                                        device=dev))
+                if not torch.equal(o, whole[:, s0:s0 + n]):
+                    raise AssertionError(
+                        f"flash_attention[{name}]: chunk [{s0}, {s0 + n}) "
+                        f"of {chunk} at its offset differs from the whole "
+                        "sequence's rows")
+        # two rows at different offsets in one call
+        both = flash_attention(
+            torch.stack([qs[0, 256:512], qs[1, 640:896]]).contiguous(),
+            torch.stack([ks[0], ks[1]]), torch.stack([vs[0], vs[1]]),
+            causal=True, q_offset=torch.tensor([256, 640],
+                                               dtype=torch.int32,
+                                               device=dev))
+        if not (torch.equal(both[0], whole[0, 256:512])
+                and torch.equal(both[1], whole[1, 640:896])):
+            raise AssertionError(f"flash_attention[{name}]: rows at two "
+                                 "offsets in one call differ")
+        out[name]["chunks_bitwise"] = [128, 192, 320]
+    # RoPE: a chunk's rows at its offset equal the whole sequence's
+    xr = torch.randn((2, S, H, D), generator=gen, device=dev).to(
+        torch.bfloat16)
+    pos = torch.arange(S, device=dev)[None, :]
+    whole = apply_rope(xr, pos, 10000.0)
+    for s0, n in ((0, 64), (448, 192), (960, 64)):
+        p2 = (torch.tensor([s0, s0], device=dev)[:, None]
+              + torch.arange(n, device=dev)[None, :])
+        if not torch.equal(apply_rope(xr[:, s0:s0 + n].contiguous(), p2,
+                                      10000.0), whole[:, s0:s0 + n]):
+            raise AssertionError(f"rope: rows [{s0}, {s0 + n}) at their "
+                                 "offsets differ from the whole sequence's")
+    # timing: 4 sets of the bf16 offset case
+    off = torch.tensor(FLASH_OFFSETS, dtype=torch.int32, device=dev)
+    sets = [[torch.randn((4, n, w, D), generator=gen, device=dev).to(
+        torch.bfloat16) for n, w in ((512, H), (S, KV), (S, KV))]
+        for _ in range(4)]
+    qpos = off[:, None] + torch.arange(512, device=dev)[None, :]
+    mask = (qpos[:, None, :, None]
+            >= torch.arange(S, device=dev)[None, None, None, :])
+    g = H // KV
+    lib_sets = [(q.transpose(1, 2).contiguous(),
+                 k.repeat_interleave(g, dim=2).transpose(1, 2).contiguous(),
+                 v.repeat_interleave(g, dim=2).transpose(1, 2).contiguous())
+                for q, k, v in sets]
+    kern = [lambda s=s: flash_attention(*s, causal=True, q_offset=off)
+            for s in sets]
+    plain = [lambda s=s: dense_attention(*s, causal=True, q_offset=off)
+             for s in sets]
+    lib = [lambda s=s: F.scaled_dot_product_attention(*s, attn_mask=mask)
+           for s in lib_sets]
+    pairs = sum(o * 512 + 512 * 513 // 2 for o in FLASH_OFFSETS)
+    flops = 4 * H * D * pairs
+    nbytes = 2 * (2 * 4 * 512 * H * D + 2 * 4 * S * KV * D)
+    ms, dms = kernel_times(torch, kern, ("flash_wgmma_kernel",), 5)
+    results["flash_attention_q_offset"] = dict(
+        max_abs_err=out["bfloat16"]["max_abs_err"], ms=ms, device_ms=dms,
+        plain_ms=time_ms(torch, plain, 8),
+        bound_ms=max(nbytes / HBM_BYTES_PER_S,
+                     flops / PEAK_FLOPS["bfloat16"]) * 1e3,
+        bound_by=_bound_by(nbytes, flops),
+        library_ms=time_ms(torch, lib, 20),
+        library_device_ms=device_ms(torch, lib[0], 5),
+        shape=f"B=4 Sq=512 Skv={S} H={H} KV={KV} D={D} causal bf16, "
+              f"q_offset {list(FLASH_OFFSETS)}",
+        checks=out, rope_rows_bitwise=True)
+    log("check flash_attention with q_offset: "
+        + json.dumps(results["flash_attention_q_offset"]))
+
+
+def rows_kernels(torch, dev, results):
+    """Phase 2's checks of the rows-invariant kernels (``--rows``)."""
+    check_rows_gemm(torch, dev, results)
+    check_rms_norm(torch, dev, results)
+    check_flash_offset(torch, dev, results)
+    torch.cuda.synchronize()
+
+
 # --------------------------------------------------------- phases 3, 4
 
 def to_device(tree, dev):
@@ -1761,6 +2126,8 @@ def _kernel_counts(reset=False):
     ``reset``)."""
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.paged_attention.ops import paged_attention
+    from repro_torch.kernels.rms_norm.ops import rms_norm
+    from repro_torch.kernels.rows_gemm.ops import rows_gemm
     from repro_torch.kernels.utopia_rsw.ops import (utopia_rsw,
                                                     utopia_translate_shard,
                                                     utopia_translate_step)
@@ -1776,7 +2143,11 @@ def _kernel_counts(reset=False):
                                     "launches_combine"),
            "utopia_translate_step_group": (utopia_translate_step,
                                            "launches_group"),
-           "flash_attention": (flash_attention, "launches")}
+           "flash_attention": (flash_attention, "launches"),
+           "flash_attention_q_offset": (flash_attention,
+                                        "launches_q_offset"),
+           "rows_gemm": (rows_gemm, "launches"),
+           "rms_norm": (rms_norm, "launches")}
     if reset:
         for fn, attr in fns.values():
             setattr(fn, attr, 0)
@@ -2147,8 +2518,9 @@ def full_width_overload(torch, dev, cfg, dims, params):
     once, and every resume must read back from the pool exactly the bytes
     its preemption gathered; (c) must deliver (b)'s streams bitwise.
     Reads the launch counts of the three runs together.  (d) and (e)
-    rerun (a) and (b) with ``prefix_gather="exact"``; their tight-vs-
-    roomy streams are reported, not held."""
+    rerun (a) and (b) with ``prefix_gather="exact"``, whose prefill keeps
+    a row's bits whatever its chunk, bucket and batch: every stream of
+    (e) must equal (d)'s bitwise."""
     from repro_torch.runtime import ResilientServe, ServeFaultInjector
     o = PHASE6_RUN
 
@@ -2269,9 +2641,8 @@ def full_width_overload(torch, dev, cfg, dims, params):
     del eng_c, sup
     torch.cuda.empty_cache()
 
-    # (d, e) = (a, b) on the engine's default prefix gather, "exact"
-    # (ROADMAP Queue 3: is the paged read where a prompt's split shows?);
-    # tight = roomy is reported, not held
+    # (d, e) = (a, b) on the engine's default prefix gather, "exact":
+    # tight = roomy, held bitwise
     exact = {}
     for run, headroom, injector in (
             ("d", o["roomy"], None),
@@ -2286,7 +2657,8 @@ def full_width_overload(torch, dev, cfg, dims, params):
         del eng
         torch.cuda.empty_cache()
 
-    # tight against roomy: reported here, held in phase 3 (float32).  For
+    # tight against roomy: (b) against (a) reported here (the paged
+    # gather), held in phase 3 (float32); (e) against (d) held below.  For
     # each request, the first token whose logits already differ bitwise,
     # and for a diverging stream both runs' prompt chunks (start, end):
     # the budget is shared by the requests of a step, so another schedule
@@ -2359,7 +2731,97 @@ def full_width_overload(torch, dev, cfg, dims, params):
         + f", pool_headroom {o['roomy']} (a, d) / {o['tight']} (b, c, e); "
         "d and e with prefix_gather='exact'): "
         + json.dumps({"overload": summary}))
+    if exact["e"][0] != exact["d"][0] or not exact["e"][4]:
+        raise AssertionError(
+            f"phase 6 (e): {len(diverged_exact)} streams differ from (d)'s "
+            f"under prefix_gather='exact' ({exact['e'][4]} preempted): "
+            f"{diverged_exact}")
     return launches, streams_b
+
+
+# phase 6 (g): one prompt of 11 blocks admitted whole, in prefix-KV chunks
+# of 2 and of 3 blocks (both ragged), and in recomputed chunks of 2
+PHASE6G = dict(blocks=11, new_tokens=16,
+               runs=(("blocking", "prefix_kv", 16),
+                     ("prefix_kv_2", "prefix_kv", 2),
+                     ("prefix_kv_3", "prefix_kv", 3),
+                     ("recompute_2", "recompute", 2)))
+
+
+def chunked_equals_blocking(torch, dev, cfg, params):
+    """Phase 6 (g): granite-8b at full width and depth in bf16, one
+    greedy request (``PHASE6G``) admitted whole (blocking), in prefix-KV
+    chunks of 2 blocks and of 3 blocks (2 x 5 + 1 and 3 x 3 + 2) under
+    the default ``prefix_gather="exact"``, and in recomputed chunks of 2:
+    every run must install the same K/V, bitwise, at each of the prompt's
+    positions in all 36 layers, reach the same ``ctx_len``, and give the
+    same tokens (the reference's contract, ``tests/
+    test_prefix_prefill.py``).  The rows-invariant GEMM and RMS norm and
+    the flash kernel must launch.  Returns the launch counts, from 0."""
+    import numpy as np
+    from repro_torch.serve import Engine, EngineConfig, Request
+    o = PHASE6G
+    bs = cfg.kv_block_size
+    n = o["blocks"] * bs
+    prompt = np.random.RandomState(SEED + 61).randint(0, cfg.vocab_size, n)
+    _kernel_counts(reset=True)
+    runs = {}
+    t0 = time.perf_counter()
+    for name, mode, budget in o["runs"]:
+        eng = Engine(cfg, params, EngineConfig(
+            max_batch=2, max_seq_len=1024, prefix_cache=None,
+            prefill_mode=mode, dtype=torch.bfloat16,
+            prefill_budget=budget * bs),
+            device=dev)
+        r = Request(seq_id=0, prompt=prompt, max_new_tokens=o["new_tokens"])
+        eng.submit(r)
+        eng.step()
+        while 0 in eng._prefilling:
+            eng.step()
+        slots = torch.tensor([eng.manager.lookup(0, b)[0]
+                              for b in range(o["blocks"])], device=dev)
+        kv = torch.stack([eng.dstate["k_pool"][:, slots],
+                          eng.dstate["v_pool"][:, slots]])
+        ctx = int(eng._ctx_host[eng._slot_of[0]])
+        while eng.has_unfinished():
+            eng.step()
+        runs[name] = dict(kv=kv.cpu(), ctx=ctx, tokens=list(r.generated),
+                          chunks=[(rec.start, rec.end, rec.path)
+                                  for rec in eng.admission_log])
+        del eng
+        torch.cuda.empty_cache()
+    counts = _kernel_counts()
+    ref = runs["blocking"]
+    report = {}
+    for name, run in runs.items():
+        same_kv = bool(torch.equal(run["kv"].view(torch.int16),
+                                   ref["kv"].view(torch.int16)))
+        report[name] = dict(chunks=run["chunks"], ctx=run["ctx"],
+                            kv_bitwise=same_kv,
+                            tokens_equal=run["tokens"] == ref["tokens"])
+        if not same_kv:
+            diff = (run["kv"].float() - ref["kv"].float()).abs()
+            report[name]["kv_max_abs_diff"] = float(diff.max())
+            report[name]["first_block_differing"] = int(
+                (diff.amax(dim=(0, 1, 3, 4, 5)) > 0).nonzero()[0])
+    log(f"phase 6 (g): granite-8b full width and depth, bf16, one prompt "
+        f"of {n} tokens, chunked = blocking under prefix_gather='exact' "
+        f"({time.perf_counter() - t0:.1f} s): " + json.dumps(dict(
+            report, tokens=ref["tokens"], launches=counts)))
+    if len(runs["prefix_kv_2"]["chunks"]) < 4 or len(
+            runs["blocking"]["chunks"]) != 1:
+        raise AssertionError("phase 6 (g): the budgets did not chunk the "
+                             f"prompt as planned: {report}")
+    for name, r in report.items():
+        if not (r["kv_bitwise"] and r["tokens_equal"]
+                and r["ctx"] == ref["ctx"] == n):
+            raise AssertionError(f"phase 6 (g): {name} differs from "
+                                 f"blocking admission: {r}")
+    for name in ("rows_gemm", "rms_norm", "flash_attention",
+                 "flash_attention_q_offset"):
+        if counts[name] <= 0:
+            raise AssertionError(f"phase 6 (g): {name} was never launched")
+    return counts
 
 
 def phase6_engine(torch, dev, cfg, params, headroom, injector=None, **kw):
@@ -3321,8 +3783,10 @@ def pad_invariance(torch, cfg, params, dtype, device):
     """A 7-block prompt's installed SSM state and conv tail: admitted in
     the 8-block bucket beside a 5-block row (the engine's recompute
     prefill, the pad tail masked) against the model's forward at the
-    prompt's exact length.  Returns whether each is bitwise equal, and
-    the max abs difference."""
+    prompt's exact length with the prefill's ``rows_invariant``.  Returns
+    whether each is bitwise equal, the max abs difference, and the MoE's
+    ``fraction_dropped`` in the exact-length forward (a token that forward
+    drops may be kept in the larger bucket's capacity)."""
     import numpy as np
     from repro_torch.models import FwdOptions, forward, model_dims
     from repro_torch.serve import Engine, EngineConfig, Request
@@ -3331,9 +3795,9 @@ def pad_invariance(torch, cfg, params, dtype, device):
     prompt = rng.randint(0, cfg.vocab_size, 7 * bs)
     short = rng.randint(0, cfg.vocab_size, 5 * bs)
     dims = model_dims(cfg)
-    _, _, c = forward(params, {"tokens": torch.tensor(
+    _, aux, c = forward(params, {"tokens": torch.tensor(
         prompt, device=device)[None]}, cfg, dims,
-        FwdOptions(dtype=dtype, collect_cache=True))
+        FwdOptions(dtype=dtype, collect_cache=True, rows_invariant=True))
     eng = Engine(cfg, params, EngineConfig(
         max_batch=2, max_seq_len=16 * bs, prefill_budget=12 * bs,
         dtype=dtype), device=device)
@@ -3344,15 +3808,32 @@ def pad_invariance(torch, cfg, params, dtype, device):
             (7 * bs, "recompute"), (5 * bs, "recompute")]:
         raise AssertionError(f"pad check admitted {eng.admission_log}")
     slot = eng._slot_of[0]
-    out = {}
+    out = {"exact_fraction_dropped": float(aux["fraction_dropped"])}
     for name, want in (("ssm", c["ssm"].state), ("conv", c["ssm"].conv)):
         got = eng.dstate[name][:, slot]
         want = want.reshape(got.shape[0], -1, *got.shape[1:])[:, 0]
         out[f"{name}_bitwise"] = bool(torch.equal(got, want))
+        out[f"{name}_bitwise_by_sublayer"] = [
+            bool(torch.equal(g, w)) for g, w in zip(got, want)]
         out[f"{name}_max_abs_diff"] = float(
             (got.float() - want.float()).abs().max())
     del eng
     return out
+
+
+def hold_pad(label, pad, before_moe=None):
+    """Fail unless the pad check ``pad`` was bitwise.  Where the
+    exact-length forward dropped MoE tokens (the capacity is the JAX
+    package's, sized by the batch's tokens, so the bucket keeps tokens
+    the exact length drops) only the first ``before_moe`` mamba
+    sublayers, which no MoE layer precedes, are held."""
+    n = None
+    if before_moe is not None and pad["exact_fraction_dropped"] > 0:
+        n = before_moe
+    if not all(all(pad[f"{k}_bitwise_by_sublayer"][:n])
+               for k in ("ssm", "conv")):
+        raise AssertionError(f"{label}: the pad tail moved the installed "
+                             f"state: {pad}")
 
 
 def engine_runs(torch, dev, cfg, params, runs, make_requests, label,
@@ -3410,8 +3891,10 @@ def full_width_ssm(torch, dev):
     tokens, half sampled, 32 new each): the defaults, then with
     ``spec_decode="ngram"`` (one warning, ``spec_K == 0``, the same
     streams), then under ``PHASE9_OVERLOAD`` (forced preemptions; the same
-    streams, swap bytes reported).  Fails unless no CUDA kernel launched
-    (an attention-free model translates nothing and reads no pool).
+    streams, swap bytes reported).  Fails unless the prefill launched the
+    rows-invariant GEMM and RMS norm and no other kernel launched (an
+    attention-free model translates nothing and reads no pool), or unless
+    the pad check in bf16 is bitwise.
     Prints weights and peak GiB, a steady decode step's wall and device
     ms, kernels, idle share and top kernels, a prefix-KV admission step's
     profile, the pad check in bf16 and each run's ``streams_sha256``."""
@@ -3448,8 +3931,13 @@ def full_width_ssm(torch, dev):
     if ov["request_preempts"] <= 0 or ov["swap_bytes_in"] != ov[
             "swap_bytes_out"]:
         raise AssertionError(f"phase 9 (a): overload stats {ov}")
+    counts = {}
     for name, r in runs.items():
-        if any(r["launches"].values()):
+        for k, n in r["launches"].items():
+            counts[k] = counts.get(k, 0) + n
+        if any(n for k, n in r["launches"].items()
+               if k not in ("rows_gemm", "rms_norm")) or not (
+                r["launches"]["rows_gemm"] and r["launches"]["rms_norm"]):
             raise AssertionError(f"phase 9 (a): {name} launched "
                                  f"{r['launches']}")
     eng = runs["defaults"]["engine"]
@@ -3469,8 +3957,9 @@ def full_width_ssm(torch, dev):
     log(f"phase 9 (a): {PHASE9_SSM} full width and depth, bf16, Engine("
         + ", ".join(f"{k}={v!r}" for k, v in PHASE5.items()) + "): "
         + json.dumps({"ssm": summary}))
+    hold_pad("phase 9 (a) pad check", pad)
     del runs, eng, spec_eng, params
-    return {k: 0 for k in _kernel_counts()}
+    return counts
 
 
 def full_width_hybrid(torch, dev):
@@ -3550,6 +4039,8 @@ def full_width_hybrid(torch, dev):
         "Engine(" + ", ".join(f"{k}={v!r}" for k, v in PHASE5.items())
         + "), then attn_impl='pallas', prefill_mode='recompute': "
         + json.dumps({"hybrid": summary}))
+    hold_pad("phase 9 (b) pad check", pad, before_moe=next(
+        i for i in range(cfg.attn_every) if cfg.moe_on_layer(i)) + 1)
     launches = {k: sum(r["launches"][k] for r in runs.values())
                 for k in runs["paged"]["launches"]}
     del runs, params
@@ -3563,7 +4054,7 @@ def recurrent_card_vs_cpu(torch, dev):
     heads of 128, d_ff 3072, 16 experts top-2, the config's SSM
     settings, one group of 2); 4 greedy requests of 64-256 tokens, 8 new
     each.  Streams, admission logs and translation stats identical; the
-    pad check held bitwise on the CPU and reported on the card."""
+    pad check held bitwise on the CPU and on the card."""
     import numpy as np
     out = {}
     for label, name, over in (("mamba2", PHASE9_SSM, dict(num_layers=4)),
@@ -3582,10 +4073,9 @@ def recurrent_card_vs_cpu(torch, dev):
                              torch.device("cpu"))
         card = pad_invariance(torch, cfg, to_device(params, dev),
                               torch.float32, dev)
-        if not (cpu["ssm_bitwise"] and cpu["conv_bitwise"]):
-            raise AssertionError(f"phase 9 (c) {label}: the pad tail "
-                                 f"moved the installed state: {cpu}")
         out[label] = dict(cpu=cpu, card=card)
+        hold_pad(f"phase 9 (c) {label} on the CPU", cpu)
+        hold_pad(f"phase 9 (c) {label} on the card", card)
     log("phase 9 (c) pad invariance, float32 (a 7-block prompt beside a "
         "5-block row against its exact-length forward): "
         + json.dumps(out))
@@ -4060,8 +4550,10 @@ def profile_decode_step(torch, eng, rng, cfg):
 
 
 def decode_profile(torch, dev):
-    """Phase 4's decode-step profile alone (``--decode-profile``): the same
-    engine and weights, so that another commit's port (``--src``) can be
+    """Phase 4's admission- and decode-step profile alone
+    (``--decode-profile``), then phase 5's prefix-KV admission step on
+    the paged gather and on the default ``"exact"`` one: the same engines
+    and weights, so that another commit's port (``--src``) can be
     profiled in the same call."""
     import numpy as np
     from repro_torch.serve import Engine, EngineConfig
@@ -4071,6 +4563,15 @@ def decode_profile(torch, dev):
         max_batch=4, max_seq_len=1024, auto_release=True,
         dtype=torch.bfloat16, **EARLIER_PATH), device=dev)
     profile_decode_step(torch, eng, np.random.RandomState(SEED), cfg)
+    del eng
+    for gather in ("paged", "exact"):
+        eng = Engine(cfg, params, EngineConfig(
+            dtype=torch.bfloat16, **dict(PHASE5, prefix_gather=gather)),
+            device=dev)
+        log(f"prefix_gather={gather!r}:")
+        profile_prefix_step(torch, eng, np.random.RandomState(SEED + 9), cfg)
+        del eng
+        torch.cuda.empty_cache()
 
 
 # phase 11: the paper's translation comparison (Figs. 18-20) on the
@@ -4352,8 +4853,9 @@ PHASE12_B = dict(PHASE5, spec_decode="ngram", num_draft_tokens=PHASE7_K)
 PHASE12_PREEMPT = [(14, "post", "auto")]   # a forced preemption in (b)
 # (b)'s depth, cut from granite-8b's 36: at full depth each rank stages
 # 604 MB of gathers a decode step through gloo (0.79 s a step on an H100
-# at 700 W), and the phase took 119 s, over its 90 s
-PHASE12_LAYERS = 12
+# at 700 W), and the phase took 119 s, over its 90 s; at 12 layers it took
+# 100 s on a slower host, with the whole script over its 1,200 s
+PHASE12_LAYERS = 6
 PHASE12_TIMEOUT_S = 300                    # a collective never joined fails
 MESH_CHILD_TAG = "phase 12 (b) rank: "
 
@@ -5126,7 +5628,7 @@ def training(torch, dev, src):
 # ---------------------------------------------------------------- phase 14
 PHASE14_STEPS = 5              # (a): phase 13 (a)'s first steps
 PHASE14_LAYERS = 2             # (b)'s depth over gloo (full width)
-PHASE14_B_STEPS = 3
+PHASE14_B_STEPS = 2            # 3 until the script neared its 1,200 s
 PHASE14_MESHES = ((1, 2), (2, 1))
 PHASE14_TOL = 2e-4             # (b)'s losses against the single device's
 # (b)'s gradient norms against the single device's, relative: AdamW and
@@ -6147,11 +6649,13 @@ def _serve_cli(torch, root, mesh):
                 lines=lines[:3])
 
 
-def token_split(torch, dev, src, results):
+def token_split(torch, dev, src, results, kernels=True):
     """Phase 15: the token-split layout over a (2, 2) mesh, four
     processes on this card over gloo (``--token-split-child``), granite-8b
     at full width (64-token blocks, 32 tokens a rank).  The kernels first
-    (``check_token_split_kernels``); then the ranks run (a), (b) and (c)
+    (``check_token_split_kernels``; the whole script runs them in phase
+    2, ``kernels=False`` here: after phase 14 this process's profiler has
+    seen no device kernel in some runs); then the ranks run (a), (b) and (c)
     while this process runs each on one device (``mesh=None``) with the
     same weights and inputs, each rank on its blocks of the weights
     (``ts_weights``): (a) float32, 2 layers, ZeRO on, batch mode, the
@@ -6170,7 +6674,8 @@ def token_split(torch, dev, src, results):
     import shutil
     import tempfile
     t_phase = time.perf_counter()
-    check_token_split_kernels(torch, dev, results)
+    if kernels:
+        check_token_split_kernels(torch, dev, results)
     world = PHASE15_MESH[0] * PHASE15_MESH[1]
     tmp = tempfile.mkdtemp(prefix="chip_smoke_phase15_")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -6406,6 +6911,16 @@ KERNEL_META = {
     "flash_attention": (
         "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
         "src/repro/kernels/flash_attention/flash_attention.py:67"),
+    # port-only kernels: no TPU kernel; the XLA ops whose function they
+    # compute in the JAX package
+    "rows_gemm": (
+        "src/repro_torch/kernels/rows_gemm/csrc/rows_gemm.cu",
+        "none: port-only (XLA's dot in src/repro/models/layers.py:105 "
+        "linear, :172 unembed)"),
+    "rms_norm": (
+        "src/repro_torch/kernels/rms_norm/csrc/rms_norm.cu",
+        "none: port-only (XLA's ops in src/repro/models/layers.py:31 "
+        "rms_norm, :62 gated_rms_norm)"),
 }
 
 
@@ -6458,6 +6973,11 @@ def main() -> int:
                     help="build the kernels and run only phase 15 (the "
                          "token-split layout over a (2, 2) mesh, the serve "
                          "CLI)")
+    ap.add_argument("--rows", action="store_true",
+                    help="build the kernels and run only phase 2's checks "
+                         "of the rows-invariant kernels (the GEMM, the RMS "
+                         "norm, flash attention's q_offset) and phase 6 "
+                         "(g), chunked = blocking at full width")
     ap.add_argument("--examples", action="store_true",
                     help="build the kernels and run only phase 16 (the "
                          "three examples/*_torch.py on the card)")
@@ -6517,7 +7037,7 @@ def main() -> int:
         card_line(torch)
         return 0
 
-    t0 = time.perf_counter()
+    t0 = t_start = time.perf_counter()
     built = _build.build()
     for name, (secs, out) in sorted(built.items()):
         ents = ptxas_entries(out)
@@ -6581,6 +7101,14 @@ def main() -> int:
         frontends(torch, dev, results)
         card_line(torch)
         return 0
+    if args.rows:
+        rows_kernels(torch, dev, results)
+        cfg, dims, params = served_model(torch, dev, "granite-8b",
+                                         torch.bfloat16, seed=SEED)
+        counts = chunked_equals_blocking(torch, dev, cfg, params)
+        log("phase 6 (g) launches: " + json.dumps(counts))
+        card_line(torch)
+        return 0
     if args.paged_reads:
         check_paged(torch, dev, results)
         check_paged_verify(torch, dev, results)
@@ -6592,6 +7120,15 @@ def main() -> int:
         card_line(torch)
         return 0
 
+    times = {}
+    last = [time.perf_counter()]
+
+    def took(name):
+        """Record the seconds since the previous phase ended."""
+        now = time.perf_counter()
+        times[name] = round(now - last[0], 1)
+        last[0] = now
+
     check_rsw(torch, dev)
     check_translate_step(torch, dev, results)
     check_translate_window(torch, dev, results)
@@ -6600,33 +7137,42 @@ def main() -> int:
     check_paged_verify(torch, dev, results)
     check_paged_prefix(torch, dev, results)
     check_flash(torch, dev, results)
-    torch.cuda.synchronize()
+    rows_kernels(torch, dev, results)
+    check_token_split_kernels(torch, dev, results)    # phase 15's kernels
+    took("phase2")
     card_vs_cpu_runs(torch, dev)
     torch.cuda.empty_cache()
+    took("phase3")
     cfg, dims, params = served_model(torch, dev, "granite-8b",
                                      torch.bfloat16, seed=SEED)
     paths = {}
     paths["phase4"], *phase4 = full_width(torch, dev, cfg, dims, params)
     torch.cuda.empty_cache()
+    took("phase4")
     paths["phase5"], phase5_digest = full_width_prefix(torch, dev, cfg, dims,
                                                        params)
     torch.cuda.empty_cache()
+    took("phase5")
     paths["phase6"], streams_6b = full_width_overload(torch, dev, cfg, dims,
                                                       params)
     torch.cuda.empty_cache()
+    took("phase6")
+    paths["phase6g"] = chunked_equals_blocking(torch, dev, cfg, params)
+    torch.cuda.empty_cache()
+    took("phase6g")
     paths["phase7"] = full_width_spec(torch, dev, cfg, dims, params)
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
+    took("phase7")
     paths["phase4b"] = full_width_flash_jax(torch, dev, cfg, params, phase4)
-    t4b = time.perf_counter()
     torch.cuda.empty_cache()
+    took("phase4b")
     paths["phase6f"] = persisted_recovery(torch, dev, cfg, params,
                                           streams_6b, src)
-    t6f = time.perf_counter()
     torch.cuda.empty_cache()
+    took("phase6f")
     paths["phase12"] = mesh_phase(torch, dev, cfg, dims, params,
                                   phase5_digest, src)
-    t12 = time.perf_counter()
+    took("phase12")
     # phase 8 draws ~61 GB of MoE weights: granite-8b's go first
     del params
     gc.collect()
@@ -6638,37 +7184,38 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     paths["phase8c"] = dense_geometry(torch, dev)
+    took("phase8")
     # phase 9 draws jamba's 68 GB last: qwen2.5-14b's weights go first
     gc.collect()
     torch.cuda.empty_cache()
     paths.update(recurrent(torch, dev, results))
+    took("phase9")
     # phase 10 after jamba's weights are freed
     gc.collect()
     torch.cuda.empty_cache()
     paths.update(frontends(torch, dev, results))
-    t11 = time.perf_counter()
+    took("phase10")
     paths["phase11"] = translation(torch, dev, results)
-    t13 = time.perf_counter()
+    took("phase11")
     gc.collect()
     torch.cuda.empty_cache()
     paths["phase13"], phase13_losses = training(torch, dev, src)
-    t14 = time.perf_counter()
+    took("phase13")
     gc.collect()
     torch.cuda.empty_cache()
     paths["phase14"] = mesh_training(torch, dev, src, phase13_losses)
-    t15 = time.perf_counter()
+    took("phase14")
     gc.collect()
     torch.cuda.empty_cache()
-    paths["phase15"] = token_split(torch, dev, src, results)
-    t16 = time.perf_counter()
+    paths["phase15"] = token_split(torch, dev, src, results, kernels=False)
+    took("phase15")
     gc.collect()
     torch.cuda.empty_cache()
     paths["phase16"] = examples(torch, dev, root)
-    log(f"new sub-runs: phase 4 (b) {t4b - t0:.1f} s, phase 6 (f) "
-        f"{t6f - t4b:.1f} s, phase 12 {t12 - t6f:.1f} s, phase 11 "
-        f"{t13 - t11:.1f} s, phase 13 {t14 - t13:.1f} s, phase 14 "
-        f"{t15 - t14:.1f} s, phase 15 {t16 - t15:.1f} s, phase 16 "
-        f"{time.perf_counter() - t16:.1f} s")
+    took("phase16")
+    total = time.perf_counter() - t_start
+    log("seconds a phase: " + json.dumps(times) + f"; {total:.1f} s since "
+        "the start, the build included")
 
     # launches: each path's count was set to 0 just before it and read
     # just after; the line gives their sum and each path's
@@ -6678,7 +7225,7 @@ def main() -> int:
         "paged_attention_verify_read")
     kernels = []
     for name in ("utopia_translate_step", "paged_attention",
-                 "flash_attention"):
+                 "flash_attention", "rows_gemm", "rms_norm"):
         r = dict(results[name])
         source, replaces = KERNEL_META[name]
         extra = {}
@@ -6703,6 +7250,9 @@ def main() -> int:
                 "utopia_translate_step_group")
         if name == "flash_attention":
             extra["token_split"] = results.pop("flash_attention_token_split")
+            extra["q_offset"] = results.pop("flash_attention_q_offset")
+            extra["launches_q_offset"] = sum(
+                c.get("flash_attention_q_offset", 0) for c in paths.values())
         if name == "paged_attention":
             extra.update(results.pop("paged_attention_token_split"))
             extra["launches_q_gt1"] = sum(
@@ -6711,8 +7261,8 @@ def main() -> int:
                 c["paged_attention_q_per_query"] for c in paths.values())
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=sum(c[name] for c in paths.values()),
-            launches_by_path={k: c[name] for k, c in paths.items()},
+            launches=sum(c.get(name, 0) for c in paths.values()),
+            launches_by_path={k: c.get(name, 0) for k, c in paths.items()},
             **extra, max_abs_err=r.pop("max_abs_err"),
             ms=r["ms"], kernel_ms=r.pop("ms"), **r))
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -23,9 +23,14 @@ from typing import Dict, Iterable, Tuple
 
 _KERNELS_DIR = Path(__file__).resolve().parent
 BUILD_DIR = _KERNELS_DIR.parents[2] / "build" / "repro_torch_kernels"
+# --split-compile=0: nvcc optimizes a source's kernels in parallel on
+# every core (the paged-attention source's 110 instantiations took ~180 s
+# in one thread, the five sources ~60 s together with it)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
-KERNELS = ("utopia_rsw", "paged_attention", "flash_attention")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+              "--split-compile=0")
+KERNELS = ("utopia_rsw", "paged_attention", "flash_attention",
+           "rows_gemm", "rms_norm")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

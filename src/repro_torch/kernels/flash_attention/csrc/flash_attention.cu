@@ -10,6 +10,13 @@
 // KV tiles wholly above the diagonal are skipped, and the ragged edges (S
 // not a multiple of the tile, e.g. an 8-token prefill bucket) come in as
 // zeros and are masked instead of asserted.  kv head = h / (H / KV).
+// An optional per-row q_offset (B,) places each row's queries inside the
+// causal mask (the prefix-KV prefill's chunk over its prefix at absolute
+// positions).  Key tiles always start at position 0 and a query folds its
+// tiles in order from tile 0; a tile wholly past its diagonal adds exact
+// zeros (the rescale is exp(0) = 1, every weight 0), so a query's bits
+// depend on its row of q and the keys up to it, not on its offset, on Sq
+// or on how many masked keys lie past it.
 //
 // Bound on the card: operations.  Causal attention does 4 * D flops per
 // (query, key) pair with k <= q while reading each q, k, v and writing each
@@ -74,8 +81,9 @@ constexpr size_t smem_floats() {
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
     flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int Sq, int Skv,
-                 int H, int KV, int causal, float scale) {
+                 const T* __restrict__ v, T* __restrict__ o,
+                 const int* __restrict__ q_offset, int Sq, int Skv, int H,
+                 int KV, int causal, float scale) {
   constexpr int DP = D + 1;
   constexpr int DPT = D / 4;  // output columns per thread
   const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
@@ -89,6 +97,7 @@ __global__ void __launch_bounds__(kThreads)
   float* sRow = sP + kBQ * (kBK + 1);
 
   const int q0 = qt * kBQ;
+  const int off = q_offset ? q_offset[b] : 0;  // the rows' first position
   for (int e = tid; e < kBQ * D; e += kThreads) {
     const int r = e / D, d = e - r * D, qp = q0 + r;
     sQ[r * DP + d] =
@@ -107,15 +116,16 @@ __global__ void __launch_bounds__(kThreads)
   for (int c = 0; c < DPT; ++c) acc[c] = 0.f;
 
   int n_kv = (Skv + kBK - 1) / kBK;
-  if (causal) n_kv = min(n_kv, (q0 + kBQ - 1) / kBK + 1);  // skip above diag
+  if (causal)  // skip tiles above the diagonal
+    n_kv = min(n_kv, (off + q0 + kBQ - 1) / kBK + 1);
   for (int j = 0; j < n_kv; ++j) {
     const int k0 = j * kBK;
     __syncthreads();  // the previous tile's sK / sV / sP reads are done
     for (int e = tid; e < kBK * D; e += kThreads) {
       const int r = e / D, d = e - r * D, kpos = k0 + r;
-      const long long off = (((long long)b * Skv + kpos) * KV + hk) * D + d;
-      sK[r * DP + d] = kpos < Skv ? k[off] : 0.f;
-      sV[r * D + d] = kpos < Skv ? v[off] : 0.f;
+      const long long g = (((long long)b * Skv + kpos) * KV + hk) * D + d;
+      sK[r * DP + d] = kpos < Skv ? k[g] : 0.f;
+      sV[r * D + d] = kpos < Skv ? v[g] : 0.f;
     }
     __syncthreads();
 
@@ -132,7 +142,7 @@ __global__ void __launch_bounds__(kThreads)
     const int kpos = k0 + lane;
 #pragma unroll
     for (int i = 0; i < kRowsPerWarp; ++i) {
-      const int r = warp + 4 * i, qpos = q0 + r;
+      const int r = warp + 4 * i, qpos = off + q0 + r;
       const bool valid = kpos < Skv && (!causal || kpos <= qpos);
       const float sv = valid ? s[i] * scale : kNegInf;
       const float m_new = fmaxf(m_r[i], warp_max(sv));
@@ -485,8 +495,10 @@ __global__ void __launch_bounds__(kWgThreads, DP <= 128 ? 2 : 1)
     flash_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
                        const __nv_bfloat16* __restrict__ k,
                        const __nv_bfloat16* __restrict__ v,
-                       __nv_bfloat16* __restrict__ o, int B, int Sq, int Skv,
-                       int H, int KV, int D, int causal, float scale_log2) {
+                       __nv_bfloat16* __restrict__ o,
+                       const int* __restrict__ q_offset, int B, int Sq,
+                       int Skv, int H, int KV, int D, int causal,
+                       float scale_log2) {
   using C = WgCfg<DP>;
   constexpr int BK = C::BK, ST = C::STAGES;
   constexpr int kOut = DP / 2;          // O accumulator floats per thread
@@ -498,6 +510,7 @@ __global__ void __launch_bounds__(kWgThreads, DP <= 128 ? 2 : 1)
   const int qt = causal ? n_qt - 1 - rank : rank;
   const int h = hb % H, b = hb / H, hk = h / (H / KV);
   const int q0 = qt * kWgBQ;
+  const int off = q_offset ? q_offset[b] : 0;  // the rows' first position
 
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = (uint32_t)__cvta_generic_to_shared(smem_raw);
@@ -506,11 +519,11 @@ __global__ void __launch_bounds__(kWgThreads, DP <= 128 ? 2 : 1)
   const uint32_t sK = base + C::kK, sV = base + C::kV;
 
   int n_kv = (Skv + BK - 1) / BK;
-  if (causal) n_kv = min(n_kv, (q0 + kWgBQ - 1) / BK + 1);
+  if (causal) n_kv = min(n_kv, (off + q0 + kWgBQ - 1) / BK + 1);
   const int wq0 = q0 + wg * 64;                      // warpgroup's first row
   // this warpgroup's key tiles: a prefix of the CTA's (causal: the last
   // one may lie wholly above its 64 rows)
-  const int n_act = causal ? min(n_kv, (wq0 + 63) / BK + 1) : n_kv;
+  const int n_act = causal ? min(n_kv, (off + wq0 + 63) / BK + 1) : n_kv;
   const long long kv_stride = (long long)KV * D;
   const __nv_bfloat16* kb = k + ((long long)b * Skv * KV + hk) * D;
   const __nv_bfloat16* vb = v + ((long long)b * Skv * KV + hk) * D;
@@ -552,8 +565,8 @@ __global__ void __launch_bounds__(kWgThreads, DP <= 128 ? 2 : 1)
       start_s<DP, BK>(sc, sQ, sK + st * C::kTileBytes, wg);
       wgmma_wait<0>();
       fence_regs<BK / 2>(sc);
-      softmax_tile<BK>(sc, m_r, l_r, corr, j * BK, wq0, row0, col0, Skv,
-                       causal, scale_log2);
+      softmax_tile<BK>(sc, m_r, l_r, corr, j * BK, off + wq0, off + row0,
+                       col0, Skv, causal, scale_log2);
 #pragma unroll
       for (int i = 0; i < kOut; ++i) acc[i] *= corr[(i >> 1) & 1];
       // the S fragment re-read as the A fragment of P V, in place
@@ -602,8 +615,8 @@ __global__ void __launch_bounds__(kWgThreads, DP <= 128 ? 2 : 1)
 
 template <int DP>
 int launch_wgmma(const void* q, const void* k, const void* v, void* o,
-                 int B, int Sq, int Skv, int H, int KV, int D, int causal,
-                 cudaStream_t stream) {
+                 const int* q_offset, int B, int Sq, int Skv, int H, int KV,
+                 int D, int causal, cudaStream_t stream) {
   constexpr int smem = WgCfg<DP>::bytes;
   static bool sized = false;   // the attribute is set once per kernel
   if (!sized) {
@@ -619,18 +632,19 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o,
   const float scale_log2 = (float)(1.4426950408889634 / sqrt((double)D));
   flash_wgmma_kernel<DP><<<(unsigned)grid, kWgThreads, smem, stream>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
-      (const __nv_bfloat16*)v, (__nv_bfloat16*)o, B, Sq, Skv, H, KV, D,
-      causal, scale_log2);
+      (const __nv_bfloat16*)v, (__nv_bfloat16*)o, q_offset, B, Sq, Skv, H,
+      KV, D, causal, scale_log2);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int Sq, int Skv, int H, int KV, int causal, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o,
+           const int* q_offset, int B, int Sq, int Skv, int H, int KV,
+           int causal, cudaStream_t stream) {
   if constexpr (sizeof(T) == 2) {
     constexpr int DP = D < 64 ? 64 : D;
-    return launch_wgmma<DP>(q, k, v, o, B, Sq, Skv, H, KV, D, causal,
-                            stream);
+    return launch_wgmma<DP>(q, k, v, o, q_offset, B, Sq, Skv, H, KV, D,
+                            causal, stream);
   } else {
     const float scale = (float)(1.0 / sqrt((double)D));
     const size_t smem = sizeof(float) * smem_floats<D>();
@@ -642,39 +656,50 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
     }
     dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
     flash_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-        (const T*)q, (const T*)k, (const T*)v, (T*)o, Sq, Skv, H, KV, causal,
-        scale);
+        (const T*)q, (const T*)k, (const T*)v, (T*)o, q_offset, Sq, Skv, H,
+        KV, causal, scale);
   }
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_d(int D, const void* q, const void* k, const void* v, void* o,
-             int B, int Sq, int Skv, int H, int KV, int causal,
+             const int* qo, int B, int Sq, int Skv, int H, int KV, int causal,
              cudaStream_t s) {
   switch (D) {
-    case 16: return launch<T, 16>(q, k, v, o, B, Sq, Skv, H, KV, causal, s);
-    case 32: return launch<T, 32>(q, k, v, o, B, Sq, Skv, H, KV, causal, s);
-    case 64: return launch<T, 64>(q, k, v, o, B, Sq, Skv, H, KV, causal, s);
-    case 128: return launch<T, 128>(q, k, v, o, B, Sq, Skv, H, KV, causal, s);
-    case 256: return launch<T, 256>(q, k, v, o, B, Sq, Skv, H, KV, causal, s);
+    case 16:
+      return launch<T, 16>(q, k, v, o, qo, B, Sq, Skv, H, KV, causal, s);
+    case 32:
+      return launch<T, 32>(q, k, v, o, qo, B, Sq, Skv, H, KV, causal, s);
+    case 64:
+      return launch<T, 64>(q, k, v, o, qo, B, Sq, Skv, H, KV, causal, s);
+    case 128:
+      return launch<T, 128>(q, k, v, o, qo, B, Sq, Skv, H, KV, causal, s);
+    case 256:
+      return launch<T, 256>(q, k, v, o, qo, B, Sq, Skv, H, KV, causal, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v and the output share it)
+// dtype: 0 = float32, 1 = bfloat16 (q, k, v and the output share it).
+// q_offset: null, or (B,) int32, each row's position of its first query
+// in the causal mask (key tiles stay at absolute position 0, and a
+// query's tiles past its diagonal add exact zeros, so its bits do not
+// depend on the offset, Sq or Skv).
 extern "C" int flash_attention_launch(int dtype, const void* q,
                                       const void* k, const void* v, void* o,
-                                      int B, int Sq, int Skv, int H, int KV,
-                                      int D, int causal, void* stream) {
+                                      const void* q_offset, int B, int Sq,
+                                      int Skv, int H, int KV, int D,
+                                      int causal, void* stream) {
   if (KV <= 0 || H % KV != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  const int* qo = (const int*)q_offset;
   if (dtype == 0)
-    return launch_d<float>(D, q, k, v, o, B, Sq, Skv, H, KV, causal, s);
+    return launch_d<float>(D, q, k, v, o, qo, B, Sq, Skv, H, KV, causal, s);
   if (dtype == 1)
-    return launch_d<__nv_bfloat16>(D, q, k, v, o, B, Sq, Skv, H, KV, causal,
-                                   s);
+    return launch_d<__nv_bfloat16>(D, q, k, v, o, qo, B, Sq, Skv, H, KV,
+                                   causal, s);
   return (int)cudaErrorInvalidValue;
 }

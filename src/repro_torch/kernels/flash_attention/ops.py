@@ -2,7 +2,8 @@
 
 A CUDA tensor launches the kernel or raises; a CPU tensor takes the plain
 version (``models.attention.dense_attention``).
-``flash_attention.launches`` counts kernel launches.
+``flash_attention.launches`` counts kernel launches,
+``flash_attention.launches_q_offset`` those with a per-row ``q_offset``.
 """
 from __future__ import annotations
 
@@ -24,18 +25,24 @@ def _lib():
     if not _launch:
         fn = _build.load("flash_attention").flash_attention_launch
         p, i = ctypes.c_void_p, ctypes.c_int   # bare ints would be 32-bit
-        fn.argtypes = [i, p, p, p, p, i, i, i, i, i, i, i, p]
+        fn.argtypes = [i, p, p, p, p, p, i, i, i, i, i, i, i, p]
         fn.restype = ctypes.c_int
         _launch.append(fn)
     return _launch[0]
 
 
-def flash_attention(q, k, v, *, causal: bool = True):
+def flash_attention(q, k, v, *, causal: bool = True, q_offset=None):
     """Causal (or full) GQA attention, ``q (B, S, H, D)`` against ``k/v
     (B, Skv, KV, D)``, kv head = h // (H // KV).  Returns the normalized
-    output ``(B, S, H, D)`` in q's dtype (float32 or bfloat16)."""
-    if all(t.device.type == "cpu" for t in (q, k, v)):
-        return flash_attention_ref(q, k, v, causal=causal)
+    output ``(B, S, H, D)`` in q's dtype (float32 or bfloat16).
+
+    ``q_offset`` (B,) int, causal only: row b's queries sit at positions
+    ``q_offset[b] + i`` of the causal mask (keys at 0 .. Skv - 1), as
+    ``dense_attention``'s per-row offset; a query's bits then do not
+    depend on its offset, on S or on the keys past it."""
+    ts = (q, k, v) if q_offset is None else (q, k, v, q_offset)
+    if all(t.device.type == "cpu" for t in ts):
+        return flash_attention_ref(q, k, v, causal=causal, q_offset=q_offset)
     dev = q.device
     if dev.type == "meta":
         # the dry run: the output's shape, and the kernel's cost
@@ -67,14 +74,25 @@ def flash_attention(q, k, v, *, causal: bool = True):
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("flash_attention: q, k, v must start on a 16-byte "
                          "boundary (the kernel loads 16 bytes at a time)")
+    if q_offset is not None:
+        if not causal or q_offset.device != dev or tuple(
+                q_offset.shape) != (B,):
+            raise ValueError(f"flash_attention: q_offset must be a ({B},) "
+                             f"tensor on {dev} of a causal call, got "
+                             f"{tuple(q_offset.shape)} on {q_offset.device}"
+                             f" (causal={causal})")
+        q_offset = q_offset.to(torch.int32).contiguous()
     out = torch.empty_like(q)
     if B and S and Skv:
         rc = _lib()(_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(),
-                    v.data_ptr(), out.data_ptr(), B, S, Skv, H, KV, D,
-                    int(causal), _build.stream_handle(q))
+                    v.data_ptr(), out.data_ptr(),
+                    0 if q_offset is None else q_offset.data_ptr(), B, S,
+                    Skv, H, KV, D, int(causal), _build.stream_handle(q))
         _build.check_launch("flash_attention", rc)
         flash_attention.launches += 1
+        flash_attention.launches_q_offset += q_offset is not None
     return out
 
 
 flash_attention.launches = 0
+flash_attention.launches_q_offset = 0

@@ -6,12 +6,20 @@ Conventions (as in ``repro.models.layers``):
   layer axis (``transformer.init_params``);
 * ``linear`` weights are ``(d_in, d_out)``;
 * activations compute in their own dtype, with float32 inside the norm and
-  the RoPE rotation.
+  the RoPE rotation;
+* ``rows=True`` (``FwdOptions.rows_invariant``, the prefill steps') sends
+  the projections and norms through the rows-invariant kernels
+  (``kernels/rows_gemm``, ``kernels/rms_norm``): on a CUDA tensor each
+  output row's bits then depend only on that row, not on how many rows
+  the call holds; on a CPU tensor the kernels' plain versions are these
+  functions' own arithmetic.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.kernels.rows_gemm.ops import rows_gemm
 
 
 def _rms_norm_fwd(x: torch.Tensor, scale: torch.Tensor,
@@ -52,12 +60,16 @@ class _RMSNorm(torch.autograd.Function):
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
-             eps: float = 1e-5) -> torch.Tensor:
+             eps: float = 1e-5, rows: bool = False) -> torch.Tensor:
     """RMS norm in float32, returned in x's dtype.  Under autograd its
     gradient is the JAX package's custom one (``_rms_norm_bwd``); without
-    it (serving) the same forward runs as plain ops."""
+    it (serving) the same forward runs as plain ops, or with ``rows``
+    through the rows-invariant kernel."""
     if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad):
         return _RMSNorm.apply(x, scale, eps)
+    if rows:
+        from repro_torch.kernels.rms_norm.ops import rms_norm as kernel
+        return kernel(x, scale, eps)
     return _rms_norm_fwd(x, scale, eps)
 
 
@@ -72,11 +84,16 @@ def silu(x: torch.Tensor) -> torch.Tensor:
 
 
 def gated_rms_norm(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
-                   eps: float = 1e-5, tp=None) -> torch.Tensor:
+                   eps: float = 1e-5, tp=None,
+                   rows: bool = False) -> torch.Tensor:
     """Mamba2's RMSNormGated: ``rms_norm(y) * silu(z)``, in y's dtype.
     With ``tp`` (``dist.megatron.ServingTP``) ``y``, ``z`` and ``scale``
     hold this rank's block of the features: the mean square is the sum
-    of squares over the model group over the whole width."""
+    of squares over the model group over the whole width.  ``rows``: the
+    rows-invariant kernel, gate included (not with ``tp``)."""
+    if rows and tp is None:
+        from repro_torch.kernels.rms_norm.ops import rms_norm as kernel
+        return kernel(y, scale, eps, z=z)
     if tp is None:
         return (rms_norm(y, scale, eps) * silu(z).to(y.dtype)).to(y.dtype)
     y32 = y.float()
@@ -105,27 +122,32 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
-def linear(p: dict, x: torch.Tensor) -> torch.Tensor:
-    y = x @ p["w"].to(x.dtype)
-    if "b" in p:
-        y = y + p["b"].to(x.dtype)
+def linear(p: dict, x: torch.Tensor, rows: bool = False) -> torch.Tensor:
+    w = p["w"].to(x.dtype)
+    b = p["b"].to(x.dtype) if "b" in p else None
+    if rows:
+        return rows_gemm(x, w, b)
+    y = x @ w
+    if b is not None:
+        y = y + b
     return y
 
 
-def mlp(p: dict, x: torch.Tensor, act=F.silu) -> torch.Tensor:
-    h = act(linear(p["gate"], x)) * linear(p["up"], x)
-    return linear(p["down"], h)
+def mlp(p: dict, x: torch.Tensor, act=F.silu,
+        rows: bool = False) -> torch.Tensor:
+    h = act(linear(p["gate"], x, rows)) * linear(p["up"], x, rows)
+    return linear(p["down"], h, rows)
 
 
 def qkv_project(p: dict, x: torch.Tensor, xkv: torch.Tensor, n_heads: int,
                 n_kv: int, head_dim: int, positions, kv_positions,
-                rope_theta: float):
+                rope_theta: float, rows: bool = False):
     """Returns q (B,S,H,hd), k/v (B,Skv,KV,hd) with RoPE applied."""
     B, S, _ = x.shape
     Skv = xkv.shape[1]
-    q = linear(p["q"], x).reshape(B, S, n_heads, head_dim)
-    k = linear(p["k"], xkv).reshape(B, Skv, n_kv, head_dim)
-    v = linear(p["v"], xkv).reshape(B, Skv, n_kv, head_dim)
+    q = linear(p["q"], x, rows).reshape(B, S, n_heads, head_dim)
+    k = linear(p["k"], xkv, rows).reshape(B, Skv, n_kv, head_dim)
+    v = linear(p["v"], xkv, rows).reshape(B, Skv, n_kv, head_dim)
     if rope_theta > 0:
         q = apply_rope(q, positions, rope_theta)
         k = apply_rope(k, kv_positions, rope_theta)
@@ -136,9 +158,12 @@ def embed(p: dict, tokens: torch.Tensor) -> torch.Tensor:
     return p["table"][tokens.long()]
 
 
-def unembed(p: dict, x: torch.Tensor, logical_vocab: int) -> torch.Tensor:
-    """Project to the (padded) vocab; padded ids masked to -1e9."""
-    return mask_vocab(x @ p["table"].T.to(x.dtype), logical_vocab)
+def unembed(p: dict, x: torch.Tensor, logical_vocab: int,
+            rows: bool = False) -> torch.Tensor:
+    """Project to the (padded) vocab; padded ids masked to -1e9.  With
+    ``rows`` the kernel reads the table as its transpose in place."""
+    w = p["table"].T.to(x.dtype)
+    return mask_vocab(rows_gemm(x, w) if rows else x @ w, logical_vocab)
 
 
 def mask_vocab(logits: torch.Tensor, logical_vocab: int) -> torch.Tensor:

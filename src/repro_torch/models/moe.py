@@ -37,6 +37,8 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.rows_gemm.ops import rows_bmm, rows_gemm
+
 
 def moe_shapes(d_model: int, d_ff: int,
                n_experts: int) -> Dict[str, Tuple[int, ...]]:
@@ -95,19 +97,23 @@ def _local_experts(p: dict, ep):
     return ep.m * n, n
 
 
-def _experts(p: dict, xin: torch.Tensor, act=F.silu) -> torch.Tensor:
+def _experts(p: dict, xin: torch.Tensor, act=F.silu,
+             rows_invariant: bool = False) -> torch.Tensor:
     """SwiGLU of every expert over its own rows: ``xin`` (E, R, d) ->
     (E, R, d); batched matmuls over the weights as they lie.  ``act`` is
-    the gate's activation."""
+    the gate's activation; ``rows_invariant``: the rows-invariant
+    kernel's ``rows_bmm`` (a row's bits then do not depend on R)."""
     dt = xin.dtype
-    h = act(torch.bmm(xin, p["gate"].to(dt)))
-    h = h * torch.bmm(xin, p["up"].to(dt))
-    return torch.bmm(h, p["down"].to(dt))
+    bmm = rows_bmm if rows_invariant else torch.bmm
+    h = act(bmm(xin, p["gate"].to(dt)))
+    h = h * bmm(xin, p["up"].to(dt))
+    return bmm(h, p["down"].to(dt))
 
 
 def moe_layer(p: dict, x: torch.Tensor, *, top_k: int,
               capacity_factor: float = 1.25, n_groups: int = 1,
-              trace: Optional[dict] = None, act=F.silu, ep=None
+              trace: Optional[dict] = None, act=F.silu, ep=None,
+              rows_invariant: bool = False
               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """x: (B, S, d) -> (out (B, S, d) in x's dtype, aux).
 
@@ -124,7 +130,12 @@ def moe_layer(p: dict, x: torch.Tensor, *, top_k: int,
     experts split over the model axis) runs the layer expert-parallel:
     every rank routes all the tokens and sizes the queues as the whole
     layer does (so the same tokens drop), computes its experts' rows only,
-    and the combine sums the ranks' parts."""
+    and the combine sums the ranks' parts.
+
+    ``rows_invariant`` (``FwdOptions``'s): the router and the experts
+    run through the rows-invariant kernel, so a token's logits and expert
+    outputs do not depend on how many tokens the call holds (which tokens
+    the capacity drops still does, as in the JAX package)."""
     B, S, D = x.shape
     E = p["router"]["w"].shape[-1]
     local = _local_experts(p, ep)
@@ -136,7 +147,9 @@ def moe_layer(p: dict, x: torch.Tensor, *, top_k: int,
     xt = x.reshape(T, D)
     dev = x.device
 
-    logits = xt.float() @ p["router"]["w"].float()               # (T, E)
+    router = p["router"]["w"].float()
+    logits = (rows_gemm(xt.float(), router) if rows_invariant
+              else xt.float() @ router)                          # (T, E)
     probs, gate_vals, expert_idx = route(logits, top_k)
 
     # position of each (token, k) in its group's expert queue: how many
@@ -177,7 +190,7 @@ def moe_layer(p: dict, x: torch.Tensor, *, top_k: int,
                       torch.zeros((), dtype=x.dtype, device=dev))
     # every expert over its rows of all groups, then back to (ne, G, C, D)
     xin = xin.reshape(G, ne, C, D).transpose(0, 1).reshape(ne, G * C, D)
-    out_e = _experts(p, xin, act).reshape(ne, G, C, D)
+    out_e = _experts(p, xin, act, rows_invariant).reshape(ne, G, C, D)
 
     # combine: each token's k expert outputs back, weighted by its gates
     # (on an expert-parallel rank, the other ranks' experts weigh zero)

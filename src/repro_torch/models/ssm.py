@@ -13,7 +13,10 @@ taps (not ``F.conv1d``, whose algorithm may change with L), and the
 narrow dt projection runs at a fixed row count (``_dt_proj``).  With
 dt zeroed past a row's ``seq_len`` every pad position is an identity
 transition, so the serving engine may put recurrent rows in power-of-two
-length buckets.
+length buckets.  That holds on the CPU; on the card the prefill passes
+``rows`` (``FwdOptions.rows_invariant``), which sends the projections,
+the SSD's products and the gated norm through the rows-invariant kernels
+(cuBLAS picks its GEMM by shape, so a padded row would round otherwise).
 """
 from __future__ import annotations
 
@@ -23,6 +26,8 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.rows_gemm.ops import rows_einsum, rows_gemm
+from repro_torch.kernels.rows_gemm.ref import rows_gemm_ref
 from .layers import gated_rms_norm, silu
 
 
@@ -67,18 +72,15 @@ FLOAT32_LEAVES = ("A_log", "D", "dt_bias")
 DT_ROWS = 64        # rows a block of the prefill's dt projection
 
 
-def _dt_proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def _dt_proj(x: torch.Tensor, w: torch.Tensor,
+             rows: bool = False) -> torch.Tensor:
     """``x @ w`` for the narrow dt projection (one column a head), one
-    block of ``DT_ROWS`` rows at a time.  BLAS libraries split a narrow
-    product's reduction by its row count (MKL at 8 threads does), so a
-    row would round otherwise in another bucket shape; at one block shape
-    a row's bits do not depend on the rows around it."""
-    lead = x.shape[:-1]
-    x2 = x.reshape(-1, x.shape[-1])
-    n = x2.shape[0]
-    x2 = F.pad(x2, (0, 0, 0, (-n) % DT_ROWS))
-    out = torch.cat([blk @ w for blk in x2.split(DT_ROWS)])
-    return out[:n].reshape(*lead, w.shape[-1])
+    block of ``DT_ROWS`` rows at a time (``rows_gemm_ref``'s ``block``),
+    or with ``rows`` through the rows-invariant kernel, whose plain
+    version takes the same blocks."""
+    if rows:
+        return rows_gemm(x, w, block=DT_ROWS)
+    return rows_gemm_ref(x, w, block=DT_ROWS)
 
 
 def _causal_depthwise_conv(xbc: torch.Tensor, w: torch.Tensor,
@@ -118,14 +120,17 @@ def _segsum(x: torch.Tensor) -> torch.Tensor:
 
 def ssd_chunked(xd: torch.Tensor, dtA: torch.Tensor, B_: torch.Tensor,
                 C_: torch.Tensor, chunk: int,
-                initial_state: Optional[torch.Tensor] = None
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
+                initial_state: Optional[torch.Tensor] = None,
+                rows: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """Chunked SSD scan, in float32.
 
     xd (b, l, h, p) dt-prescaled inputs; dtA (b, l, h) dt * A (negative);
     B_ / C_ (b, l, n) the input and output projections (one group).
     Returns (y (b, l, h, p), final_state (b, h, p, n)).  Each product
-    reduces over a chunk's positions or over n."""
+    reduces over a chunk's positions or over n; with ``rows`` each goes
+    through the rows-invariant kernel (``rows_einsum``), whose sums do
+    not depend on b or the chunk count."""
+    einsum = rows_einsum if rows else torch.einsum
     b, l, h, p = xd.shape
     n = B_.shape[-1]
     if l % chunk:
@@ -139,12 +144,11 @@ def ssd_chunked(xd: torch.Tensor, dtA: torch.Tensor, B_: torch.Tensor,
     a_cum = torch.cumsum(ac, dim=2)                        # (b,c,k,h)
     # --- intra-chunk (matmul form) ---
     Lm = torch.exp(_segsum(ac.permute(0, 1, 3, 2)))        # (b,c,h,k,l)
-    scores = torch.einsum("bckn,bcln->bckl", Cc, Bc)
-    y_diag = torch.einsum("bchkl,bclhp->bckhp", scores[:, :, None] * Lm, xc)
+    scores = einsum("bckn,bcln->bckl", Cc, Bc)
+    y_diag = einsum("bchkl,bclhp->bckhp", scores[:, :, None] * Lm, xc)
     # --- per-chunk states ---
     decay_states = torch.exp(a_cum[:, :, -1:, :] - a_cum)  # (b,c,l,h)
-    states = torch.einsum("bclhp,bcln->bchpn",
-                          xc * decay_states[..., None], Bc)
+    states = einsum("bclhp,bcln->bchpn", xc * decay_states[..., None], Bc)
     # --- inter-chunk recurrence: the state BEFORE each chunk ---
     chunk_decay = torch.exp(a_cum[:, :, -1, :])            # (b,c,h)
     s = (torch.zeros((b, h, p, n), dtype=torch.float32, device=xd.device)
@@ -155,7 +159,7 @@ def ssd_chunked(xd: torch.Tensor, dtA: torch.Tensor, B_: torch.Tensor,
         s = s * chunk_decay[:, ci, :, None, None] + states[:, ci]
     prev_states = torch.stack(prev, dim=1)                 # (b,c,h,p,n)
     # --- off-diagonal contribution ---
-    y_off = (torch.einsum("bckn,bchpn->bckhp", Cc, prev_states)
+    y_off = (einsum("bckn,bchpn->bckhp", Cc, prev_states)
              * torch.exp(a_cum)[..., None])
     y = (y_diag + y_off).reshape(b, l, h, p)
     return y, s
@@ -218,7 +222,7 @@ def mamba_forward(p: dict, x: torch.Tensor, dims: MambaDims, *,
                   initial_state: Optional[torch.Tensor] = None,
                   initial_conv: Optional[torch.Tensor] = None,
                   seq_len: Optional[torch.Tensor] = None,
-                  return_state: bool = False, tp=None):
+                  return_state: bool = False, tp=None, rows: bool = False):
     """Full mamba2 block on (B, L, D).  Returns (out, MambaCache | None).
 
     ``initial_state`` (B, H, P, N) and ``initial_conv`` (B, W-1,
@@ -235,7 +239,11 @@ def mamba_forward(p: dict, x: torch.Tensor, dims: MambaDims, *,
     scan, and the gated norm over its features (one sum of squares over
     the model group); ``out_proj`` is row-parallel.  The state it returns
     is its heads', the conv tail its block of channels (the tail's x
-    channels gathered: ``W - 1`` rows)."""
+    channels gathered: ``W - 1`` rows).
+
+    ``rows`` (``FwdOptions.rows_invariant``, not with ``tp``): the
+    projections, the SSD's products and the gated norm through the
+    rows-invariant kernels."""
     B, L, _ = x.shape
     di, n = dims.d_inner, dims.d_state
     W1 = dims.conv_width - 1
@@ -246,11 +254,12 @@ def mamba_forward(p: dict, x: torch.Tensor, dims: MambaDims, *,
                              "zero state (the recompute prefill)")
         p, h0, nh = _tp_weights(p, dims, tp)
     di_l, x0 = nh * dims.head_dim, h0 * dims.head_dim
-    z = x @ p["in_z"].to(x.dtype)
-    x_raw = x @ p["in_x"].to(x.dtype)
-    B_raw = x @ p["in_B"].to(x.dtype)
-    C_raw = x @ p["in_C"].to(x.dtype)
-    dt_raw = _dt_proj(x, p["in_dt"].to(x.dtype))
+    mm = rows_gemm if rows else torch.matmul
+    z = mm(x, p["in_z"].to(x.dtype))
+    x_raw = mm(x, p["in_x"].to(x.dtype))
+    B_raw = mm(x, p["in_B"].to(x.dtype))
+    C_raw = mm(x, p["in_C"].to(x.dtype))
+    dt_raw = _dt_proj(x, p["in_dt"].to(x.dtype), rows)
     xbc_raw = torch.cat([x_raw, B_raw, C_raw], dim=-1)
     if initial_conv is not None:
         ic = initial_conv.to(x.dtype)
@@ -306,23 +315,24 @@ def mamba_forward(p: dict, x: torch.Tensor, dims: MambaDims, *,
         xh_p, dt_p, B_p, C_p = xh, dt, B_, C_
     y, final_state = ssd_chunked(xh_p.float() * dt_p[..., None], dt_p * A,
                                  B_p, C_p, chunk=chunk,
-                                 initial_state=initial_state)
+                                 initial_state=initial_state, rows=rows)
     if pad:
         y = y[:, :L]
     y = y + xh.float() * p["D"].float()[None, None, :, None]
     y = y.reshape(B, L, di_l).to(x.dtype)
     out = gated_rms_norm(y, z, p["norm"].float(),
-                         tp=tp if nh != dims.n_heads else None)
-    out = _out_proj(p, out, dims, tp)
+                         tp=tp if nh != dims.n_heads else None, rows=rows)
+    out = _out_proj(p, out, dims, tp, rows)
     if return_state:
         return out, MambaCache(conv=conv_tail, state=final_state)
     return out, None
 
 
-def _out_proj(p: dict, y: torch.Tensor, dims: MambaDims,
-              tp) -> torch.Tensor:
+def _out_proj(p: dict, y: torch.Tensor, dims: MambaDims, tp,
+              rows: bool = False) -> torch.Tensor:
     if tp is None:
-        return y @ p["out_proj"].to(y.dtype)
+        w = p["out_proj"].to(y.dtype)
+        return rows_gemm(y, w) if rows else y @ w
     return tp.row({"w": p["out_proj"]}, y, dims.d_inner)
 
 

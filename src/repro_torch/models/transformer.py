@@ -101,6 +101,13 @@ class FwdOptions:
     # column- or row-parallel over the model group, the MoE layers
     # expert-parallel, the mamba sublayers on the rank's heads
     tp: Any = None
+    # the prefill steps' forward: every projection, norm, attention and SSD
+    # product through the rows-invariant kernels (attention through the
+    # flash kernel), so that on a CUDA tensor a row's bits depend only on
+    # its inputs, the weights and its absolute position, not on the call's
+    # row count, the chunking or the bucket; on a CPU tensor the kernels'
+    # plain versions, the same arithmetic as without it
+    rows_invariant: bool = False
 
 
 def take(tree, i: int):
@@ -159,10 +166,10 @@ def _self_attn(blk, x, cfg: ArchConfig, dims: ModelDims, opt: FwdOptions,
     (full mask, no RoPE)."""
     B, S, _ = x.shape
     pos = torch.arange(S, device=x.device)[None, :]
-    h = L.rms_norm(x, blk["norm1"], cfg.norm_eps)
+    h = L.rms_norm(x, blk["norm1"], cfg.norm_eps, opt.rows_invariant)
     theta = cfg.rope_theta if causal else 0.0
     q, k, v, kv = _qkv(blk["attn"], h, h, pos, theta, dims, opt)
-    o = attention(q, k, v, impl=opt.attn_impl, causal=causal,
+    o = attention(q, k, v, impl=_attn_impl(opt), causal=causal,
                   q_chunk=opt.q_chunk, kv_chunk=opt.kv_chunk,
                   triangular_schedule=opt.triangular_schedule)
     return x + _out(blk["attn"]["o"], o.reshape(B, S, -1), dims, opt), kv
@@ -178,7 +185,8 @@ def _qkv(p, h, hkv, pos, theta: float, dims: ModelDims, opt: FwdOptions):
                                  theta, want_kv=opt.collect_cache)
         return q, k, v, (None, None) if kv is None else kv
     q, k, v = L.qkv_project(p, h, hkv, dims.n_heads, dims.n_kv,
-                            dims.head_dim, pos, pos, theta)
+                            dims.head_dim, pos, pos, theta,
+                            opt.rows_invariant)
     return q, k, v, (k, v)
 
 
@@ -187,7 +195,14 @@ def _out(p, o, dims: ModelDims, opt: FwdOptions):
     rank, its heads' rows)."""
     if opt.tp is not None:
         return opt.tp.row(p, o, dims.n_heads * dims.head_dim)
-    return L.linear(p, o)
+    return L.linear(p, o, opt.rows_invariant)
+
+
+def _attn_impl(opt: FwdOptions) -> str:
+    """The attention's ``impl``: the flash kernel's wrapper for the
+    rows-invariant forward (its plain version on a CPU tensor is the
+    dense attention), else ``opt.attn_impl``."""
+    return "pallas" if opt.rows_invariant else opt.attn_impl
 
 
 def _cross_attn(blk, x, enc_out, cfg: ArchConfig, dims: ModelDims,
@@ -195,9 +210,9 @@ def _cross_attn(blk, x, enc_out, cfg: ArchConfig, dims: ModelDims,
     """The audio decoder's cross-attention sublayer over the encoder
     output (no RoPE, full mask): ``(x + o, (ck, cv))``."""
     B, S, _ = x.shape
-    h = L.rms_norm(x, blk["norm_x"], cfg.norm_eps)
+    h = L.rms_norm(x, blk["norm_x"], cfg.norm_eps, opt.rows_invariant)
     q, ck, cv, kv = _qkv(blk["cross"], h, enc_out, None, 0.0, dims, opt)
-    o = attention(q, ck, cv, impl=opt.attn_impl, causal=False,
+    o = attention(q, ck, cv, impl=_attn_impl(opt), causal=False,
                   q_chunk=opt.q_chunk, kv_chunk=opt.kv_chunk)
     return x + _out(blk["cross"]["o"], o.reshape(B, S, -1), dims, opt), kv
 
@@ -207,7 +222,8 @@ def encoder(params, frames: torch.Tensor, cfg: ArchConfig, dims: ModelDims,
     """The audio encoder: ``frontend_proj`` of the frame embeddings ``(B,
     F, d)``, then per layer non-causal self-attention and the FFN, then
     the encoder's final norm.  Returns ``(B, F, d)`` in ``opt.dtype``."""
-    x = L.linear(_top(params, "frontend_proj", opt), frames.to(opt.dtype))
+    x = L.linear(_top(params, "frontend_proj", opt), frames.to(opt.dtype),
+                 opt.rows_invariant)
     enc = params["encoder"]
     layers = layer_stack(enc["layers"], cfg)
 
@@ -219,7 +235,7 @@ def encoder(params, frames: torch.Tensor, cfg: ArchConfig, dims: ModelDims,
     for i in range(cfg.encoder_layers):
         x = _remat(body, opt.remat, _take_layer(params, layers, i, opt,
                                                 ("encoder", "layers")), x)
-    return L.rms_norm(x, enc["final_norm"], cfg.norm_eps)
+    return L.rms_norm(x, enc["final_norm"], cfg.norm_eps, opt.rows_invariant)
 
 
 def _top(params, name: str, opt: FwdOptions):
@@ -257,18 +273,19 @@ def ffn_act(cfg: ArchConfig):
 def _ffn(blk, x, cfg: ArchConfig, opt: FwdOptions = FwdOptions()):
     """The FFN sublayer: ``(x + ffn(norm(x)), aux)``; aux is None for the
     MLP, the MoE's losses otherwise."""
-    h = L.rms_norm(x, blk["norm2"], cfg.norm_eps)
+    h = L.rms_norm(x, blk["norm2"], cfg.norm_eps, opt.rows_invariant)
     act = ffn_act(cfg)
     if "moe" in blk:
         rows = opt.moe_rows
         h_in = h if rows is None else rows.gather(h)
         out, aux = moe_layer(blk["moe"], h_in, top_k=cfg.moe_top_k,
                              capacity_factor=cfg.moe_capacity_factor,
-                             n_groups=opt.moe_groups, act=act, ep=opt.tp)
+                             n_groups=opt.moe_groups, act=act, ep=opt.tp,
+                             rows_invariant=opt.rows_invariant)
         return x + (out if rows is None else rows.keep(out)), aux
     if opt.tp is not None:
         return x + opt.tp.mlp(blk["mlp"], h, act), None
-    return x + L.mlp(blk["mlp"], h, act), None
+    return x + L.mlp(blk["mlp"], h, act, opt.rows_invariant), None
 
 
 def hybrid_ffn_select(cfg: ArchConfig, blk, i: int):
@@ -284,15 +301,16 @@ def hybrid_ffn_select(cfg: ArchConfig, blk, i: int):
 
 def mamba_block(blk, x, cfg: ArchConfig, dims: ModelDims, *,
                 collect: bool = False, seq_len=None, initial_state=None,
-                initial_conv=None, tp=None):
+                initial_conv=None, tp=None, rows: bool = False):
     """The mamba sublayer: ``(x + mamba(norm1(x)), MambaCache | None)``
-    (``tp``: on a token-split rank, ``mamba_forward``'s)."""
-    h = L.rms_norm(x, blk["norm1"], cfg.norm_eps)
+    (``tp``: on a token-split rank, ``mamba_forward``'s; ``rows``:
+    ``FwdOptions.rows_invariant``)."""
+    h = L.rms_norm(x, blk["norm1"], cfg.norm_eps, rows)
     out, state = mamba_forward(blk["mamba"], h, dims.mamba,
                                chunk=cfg.ssm_chunk,
                                initial_state=initial_state,
                                initial_conv=initial_conv, seq_len=seq_len,
-                               return_state=collect, tp=tp)
+                               return_state=collect, tp=tp, rows=rows)
     return x + out, state
 
 
@@ -324,7 +342,8 @@ def _layer(blk, x, aux, enc_out, seq_len, cfg: ArchConfig, dims: ModelDims,
     audio decoder)."""
     if cfg.family == "ssm":
         x, st = mamba_block(blk, x, cfg, dims, collect=opt.collect_cache,
-                            seq_len=seq_len, tp=opt.tp)
+                            seq_len=seq_len, tp=opt.tp,
+                            rows=opt.rows_invariant)
         return x, aux, st
     x, (k, v) = _self_attn(blk, x, cfg, dims, opt)
     ck = cv = None
@@ -345,7 +364,7 @@ def _group(blk, x, aux, seq_len, cfg: ArchConfig, dims: ModelDims,
         if i < g - 1:
             x, st = mamba_block(take(blk["mamba"], i), x, cfg, dims,
                                 collect=opt.collect_cache, seq_len=seq_len,
-                                tp=opt.tp)
+                                tp=opt.tp, rows=opt.rows_invariant)
             ssm.append(st)
         else:
             x, kv = _self_attn(blk["attn"], x, cfg, dims, opt)
@@ -383,7 +402,7 @@ def forward(params, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
     enc_out = None
     if cfg.family == "vlm":
         front = L.linear(_top(params, "frontend_proj", opt),
-                         batch["frontend"].to(opt.dtype))
+                         batch["frontend"].to(opt.dtype), opt.rows_invariant)
         x = torch.cat([front, x], dim=1)
         n_front = front.shape[1]
     elif cfg.family == "audio":
@@ -421,12 +440,13 @@ def forward(params, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
                 cks.append(ck)
                 cvs.append(cv)
         lead = ()
-    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps, opt.rows_invariant)
     if n_front:
         x = x[:, n_front:]
     head = "embed" if cfg.tie_embeddings else "lm_head"
     if tp is None:
-        logits = L.unembed(params[head], x, dims.logical_vocab)
+        logits = L.unembed(params[head], x, dims.logical_vocab,
+                           opt.rows_invariant)
     else:
         logits = tp.unembed(_top(params, head, opt)["table"], x,
                             dims.logical_vocab)

@@ -45,6 +45,16 @@ Calling convention (the engine's admission contract):
 * ``sample`` (keyword) — False: the first token is the argmax; True: each
   row's sampled token (greedy rows still take the argmax).
 
+Both steps keep the reference's contract that a prompt installs the same
+blocks and state, and gives the same tokens, whether it is admitted
+whole, in chunks recomputed, or in prefix-KV chunks: they run their
+forward with ``FwdOptions.rows_invariant`` (the rows-invariant GEMM and
+RMS-norm kernels, and the flash kernel with each row's ``q_offset``), so
+on the card a row's bits depend only on its inputs, the weights and its
+absolute position.  Not the token-split step, not ``attn_impl=
+"flash_jax"`` and not the ``"paged"`` gather, which merges two partials
+at the chunk start and so cannot be bitwise across splits.
+
 The decode state is updated in place: the pools through the forward's
 collected K/V (a ``-1`` block is written into the pool's sink slot
 instead, see ``serve/decode.py``), ``ctx_len`` only at participating
@@ -79,6 +89,7 @@ import dataclasses
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.paged_attention.ops import paged_attention
 from repro_torch.kernels.paged_attention.ref import gather_pool_blocks
 from repro_torch.models import layers as Lmod
@@ -185,7 +196,9 @@ def make_prefill_step(cfg: ArchConfig, dims: ModelDims, spec: DecodeSpec,
                          "prefills it)")
     tp = None if split is None else token_split_tp(cfg, dims, spec, mesh,
                                                    rules)
-    fwd_collect = dataclasses.replace(fwd, collect_cache=True, tp=tp)
+    fwd_collect = dataclasses.replace(
+        fwd, collect_cache=True, tp=tp,
+        rows_invariant=split is None and fwd.attn_impl != "flash_jax")
 
     def prefill_step(params, dstate, batch, slots, slot_ids, ctx, last_pos,
                      *, sample=False):
@@ -247,9 +260,11 @@ def make_prefix_prefill_step(cfg: ArchConfig, dims: ModelDims,
 
     ``spec.prefix_gather``: ``"exact"`` places the gathered prefix blocks
     and the chunk's K/V at their absolute block positions and runs the
-    recompute forward's own ``dense_attention`` with the per-row
-    ``q_offset``, so installed blocks and logits equal the recompute
-    path's; ``"paged"`` reads the pool through the paged-attention kernel
+    recompute forward's own attention, the flash kernel (its plain
+    version, ``dense_attention``, on the CPU) with the per-row
+    ``q_offset``, and the rows-invariant projections and norms, so
+    installed blocks and logits equal the recompute path's bitwise;
+    ``"paged"`` reads the pool through the paged-attention kernel
     with Q = S queries per row (its plain version on the CPU) and merges
     that partial with ``causal_attention_parts`` over the chunk's own K/V,
     equal to "exact" up to float associativity.
@@ -262,6 +277,8 @@ def make_prefix_prefill_step(cfg: ArchConfig, dims: ModelDims,
     """
     check_family(cfg)
     paged = spec.prefix_gather == "paged"
+    rows = not paged
+    fwd = dataclasses.replace(fwd, rows_invariant=rows)
     bs = spec.block_size
     H, KV, hd = dims.n_heads, dims.n_kv, dims.head_dim
     shard = step_shard(spec, mesh, part)
@@ -310,7 +327,7 @@ def make_prefix_prefill_step(cfg: ArchConfig, dims: ModelDims,
             B, nblk_buf * bs, KV, hd)
         v_full = torch.where(sel, gv, cv[rows, cj]).reshape(
             B, nblk_buf * bs, KV, hd)
-        return dense_attention(q, k_full, v_full, causal=True,
+        return flash_attention(q, k_full, v_full, causal=True,
                                q_offset=prefix_ctx)
 
     def prefix_prefill_step(params, dstate, batch, new_slots, prefix_slots,
@@ -333,30 +350,36 @@ def make_prefix_prefill_step(cfg: ArchConfig, dims: ModelDims,
             x, c = mamba_block(blk, x, cfg, dims, collect=True,
                                seq_len=chunk_len,
                                initial_state=dstate["ssm"][j][sid],
-                               initial_conv=dstate["conv"][j][sid])
+                               initial_conv=dstate["conv"][j][sid],
+                               rows=rows)
             ssm.append(c)
             return x
 
         def attn_sub(blk, x, j):
             """The attention sublayer on pool layer ``j``."""
-            h = Lmod.rms_norm(x, blk["norm1"], cfg.norm_eps)
+            h = Lmod.rms_norm(x, blk["norm1"], cfg.norm_eps, rows)
             q, k, v = Lmod.qkv_project(blk["attn"], h, h, H, KV, hd,
-                                       positions, positions, cfg.rope_theta)
+                                       positions, positions, cfg.rope_theta,
+                                       rows)
             o = attn_read(q, k, v, dstate["k_pool"][j], dstate["v_pool"][j],
                           prefix_slots, prefix_ctx, read)
             ks.append(k)
             vs.append(v)
-            return x + Lmod.linear(blk["attn"]["o"], o.reshape(B, S, -1))
+            return x + Lmod.linear(blk["attn"]["o"], o.reshape(B, S, -1),
+                                   rows)
 
         def cross_sub(blk, x, j):
             """The audio decoder's cross sublayer of layer ``j`` over the
-            slots' installed cross K/V, through the plain dense softmax
-            (as the JAX step reads them)."""
-            h = Lmod.rms_norm(x, blk["norm_x"], cfg.norm_eps)
-            q = Lmod.linear(blk["cross"]["q"], h).reshape(B, S, H, hd)
-            o = dense_attention(q, dstate["cross_k"][j][sid],
-                                dstate["cross_v"][j][sid], causal=False)
-            return x + Lmod.linear(blk["cross"]["o"], o.reshape(B, S, -1))
+            slots' installed cross K/V, through the dense softmax (as the
+            JAX step reads them), or with ``rows`` the flash kernel, as
+            the recompute forward's cross sublayer runs it."""
+            h = Lmod.rms_norm(x, blk["norm_x"], cfg.norm_eps, rows)
+            q = Lmod.linear(blk["cross"]["q"], h, rows).reshape(B, S, H, hd)
+            attend = flash_attention if rows else dense_attention
+            o = attend(q, dstate["cross_k"][j][sid],
+                       dstate["cross_v"][j][sid], causal=False)
+            return x + Lmod.linear(blk["cross"]["o"], o.reshape(B, S, -1),
+                                   rows)
 
         if cfg.family == "hybrid":
             g = cfg.attn_every
@@ -388,9 +411,9 @@ def make_prefix_prefill_step(cfg: ArchConfig, dims: ModelDims,
             _install_rows(dstate, {"ssm": mc.state, "conv": mc.conv},
                           slot_ids, B)
         _scatter_ctx(dstate, slot_ids, ctx)
-        x = Lmod.rms_norm(x, params["final_norm"], cfg.norm_eps)
+        x = Lmod.rms_norm(x, params["final_norm"], cfg.norm_eps, rows)
         head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
-        logits = Lmod.unembed(head, x, dims.logical_vocab)
+        logits = Lmod.unembed(head, x, dims.logical_vocab, rows)
         last = logits[torch.arange(B, device=logits.device), last_pos.long()]
         return last, dstate, _first_token_stats(dstate, last, slot_ids, ctx,
                                                 sample)

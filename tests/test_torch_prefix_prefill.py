@@ -231,15 +231,16 @@ def test_engine_prefix_kv_matches_jax(weights, gather):
     teng.check_invariants()
 
 
-def _admit_all(cfg, tp, mode, budget_blocks, prompt):
+def _admit_all(cfg, tp, mode, budget_blocks, prompt, device="cpu",
+               dtype=torch.float32):
     """Admit one prompt (chunked by the budget) and return its installed
     blocks, ctx and 4-token stream."""
     bs = cfg.kv_block_size
     eng = Engine(cfg, tp, EngineConfig(
         max_batch=2, max_seq_len=16 * bs, prefix_cache=None,
-        prefill_mode=mode, prefill_budget=(budget_blocks * bs
-                                           if budget_blocks else None)),
-        device="cpu")
+        prefill_mode=mode, dtype=dtype,
+        prefill_budget=(budget_blocks * bs if budget_blocks else None)),
+        device=device)
     r = Request(seq_id=0, prompt=prompt, max_new_tokens=4)
     eng.submit(r)
     eng.step()
@@ -247,8 +248,8 @@ def _admit_all(cfg, tp, mode, budget_blocks, prompt):
         eng.step()
     nblk = len(prompt) // bs
     slots = [eng.manager.lookup(0, cb)[0] for cb in range(nblk)]
-    state = (slots, eng.dstate["k_pool"][:, slots].clone(),
-             eng.dstate["v_pool"][:, slots].clone(),
+    state = (slots, eng.dstate["k_pool"][:, slots].cpu(),
+             eng.dstate["v_pool"][:, slots].cpu(),
              int(eng._ctx_host[eng._slot_of[0]]))
     while eng.has_unfinished():
         eng.step()
@@ -358,3 +359,30 @@ def test_gpu_engine_prefix_kv_matches_cpu(weights, gather):
         runs.append((streams, list(eng.admission_log),
                      dict(eng.manager.stats)))
     assert runs[0] == runs[1]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("budget_blocks", [2, 3])
+def test_gpu_prefix_kv_bitwise_equals_recompute_and_blocking_bf16(
+        weights, budget_blocks):
+    """The port-against-port contract on the card in bf16: the prefill's
+    rows-invariant kernels (GEMM, RMS norm, flash with each row's
+    ``q_offset``) make the prefix-KV chunks install the recompute path's
+    blocks bitwise, and all three admissions give the same tokens."""
+    _need_card()
+    _, _, cfg, tp = weights
+    card = jax.tree.map(lambda t: t.to("cuda", torch.bfloat16), tp)
+    bs = cfg.kv_block_size
+    prompt = np.random.RandomState(11).randint(0, cfg.vocab_size, 8 * bs)
+    run = dict(device="cuda", dtype=torch.bfloat16)
+    a, ta, pa = _admit_all(cfg, card, "prefix_kv", budget_blocks, prompt,
+                           **run)
+    b, tb, pb = _admit_all(cfg, card, "recompute", budget_blocks, prompt,
+                           **run)
+    c, tc, _ = _admit_all(cfg, card, "prefix_kv", None, prompt, **run)
+    assert pa[0] == "recompute" and set(pa[1:]) == {"prefix_kv"}
+    assert a[3] == b[3] == c[3] == 8 * bs
+    for x in (b, c):
+        assert torch.equal(a[1].view(torch.int16), x[1].view(torch.int16))
+        assert torch.equal(a[2].view(torch.int16), x[2].view(torch.int16))
+    assert ta == tb == tc
