@@ -1295,6 +1295,9 @@ ROWS_GEMMS = (("q", 4096, 4096, "k"), ("kv", 4096, 1024, "k"),
               ("unembed", 4096, 49152, "n"))
 ROWS_MAIN = "gate_up"           # the kernels line's row
 ROWS_M = 2048
+ROWS_VERIFY_M = 20              # the verify window's rows (B 4 x K+1 5)
+ROWS_SYMBOLS = {"bfloat16": ("gemm_bf16_wgmma",),
+                "float32": ("gemm_f32_kernel",)}
 # row counts at which every row must equal its bits at 4096 rows
 ROWS_MS = (1, 7, 64, 448, 512, 1024, 4096)
 ROWS_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
@@ -1329,7 +1332,10 @@ def check_rows_gemm(torch, dev, results):
     k-major weights, the n-major table read in place and float32; the
     SSD's einsums and the MoE's bmm against torch's.  Each shape timed
     beside ``torch.matmul`` (the plain version and the yardstick: the same
-    call) and its bound."""
+    call) and its bound, with whether bf16's bits equal cuBLAS's
+    (reported, not held); also gate/up at the verify window's 20 rows,
+    qwen3-moe's expert gate as ``rows_bmm`` at its prefill's capacity for
+    2,048 tokens and its float32 router."""
     from repro_torch.kernels.rows_gemm.ops import (rows_bmm, rows_einsum,
                                                    rows_gemm)
     gen = torch.Generator(device=dev).manual_seed(SEED + 27)
@@ -1339,15 +1345,31 @@ def check_rows_gemm(torch, dev, results):
                 ).to(dtype)
 
     out = {"shapes": {}}
+
+    def timed(name, kern, lib, flops, nbytes, dtype="bfloat16", **shape):
+        """Time ``kern`` (a list of calls over inputs that outgrow the L2)
+        beside ``lib`` (the same PyTorch call on the same inputs, which is
+        also the plain version) and record the shape's row; bf16's bits
+        against the library's are reported, not held."""
+        got, want = kern[0](), lib[0]()
+        err = check_close(f"rows_gemm[{name}]", got, want, ROWS_TOL[dtype])
+        ms, dms = kernel_times(torch, kern, ROWS_SYMBOLS[dtype], 10)
+        lib_ms = time_ms(torch, lib, 40)
+        out["shapes"][name] = dict(
+            **shape, dtype=dtype, max_abs_err=err,
+            bits_equal_library=bool(torch.equal(got, want)), ms=ms,
+            device_ms=dms, plain_ms=lib_ms, library_ms=lib_ms,
+            library_device_ms=device_ms(torch, lib[0], 10),
+            bound_ms=max(nbytes / HBM_BYTES_PER_S,
+                         flops / PEAK_FLOPS[dtype]) * 1e3,
+            bound_by=_bound_by(nbytes, flops, dtype))
+
     n_all, d = max(ROWS_MS), ROWS_GEMMS[0][1]
     x4 = randn(n_all, d)
     for name, K, N, lay in ROWS_GEMMS:
         x = x4 if K == d else randn(n_all, K)
         w = (randn(K, N, scale=K ** -0.5) if lay == "k"
              else randn(N, K, scale=K ** -0.5).T)       # the table, in place
-        got = rows_gemm(x[:ROWS_M], w)
-        err = check_close(f"rows_gemm[{name}]", got, x[:ROWS_M] @ w,
-                          ROWS_TOL["bfloat16"])
         if name in ("q", "unembed"):
             _rows_bitwise(torch, lambda t: rows_gemm(t, w), x,
                           f"rows_gemm[{name}, bf16]")
@@ -1355,21 +1377,41 @@ def check_rows_gemm(torch, dev, results):
         ws = [w, (randn(K, N, scale=K ** -0.5) if lay == "k"
                   else randn(N, K, scale=K ** -0.5).T)]
         xs = x[:ROWS_M]
-        kern = [lambda w=w: rows_gemm(xs, w) for w in ws]
-        lib = [lambda w=w: xs @ w for w in ws]
-        flops = 2 * ROWS_M * N * K
-        nbytes = 2 * (ROWS_M * K + K * N + ROWS_M * N)
-        ms, dms = kernel_times(torch, kern, ("gemm_bf16_kernel",), 10)
-        lib_ms = time_ms(torch, lib, 40)
-        out["shapes"][name] = dict(
-            M=ROWS_M, K=K, N=N, weight=("k-major" if lay == "k"
-                                        else "n-major (table.T)"),
-            max_abs_err=err, ms=ms, device_ms=dms, plain_ms=lib_ms,
-            library_ms=lib_ms, library_device_ms=device_ms(torch, lib[0], 10),
-            bound_ms=max(nbytes / HBM_BYTES_PER_S,
-                         flops / PEAK_FLOPS["bfloat16"]) * 1e3,
-            bound_by=_bound_by(nbytes, flops))
-        del ws, kern, lib
+        timed(name, [lambda w=w: rows_gemm(xs, w) for w in ws],
+              [lambda w=w: xs @ w for w in ws], 2 * ROWS_M * N * K,
+              2 * (ROWS_M * K + K * N + ROWS_M * N), M=ROWS_M, K=K, N=N,
+              weight=("k-major" if lay == "k" else "n-major (table.T)"))
+        if name == "gate_up":
+            # the verify window's rows (ROADMAP staged item 6)
+            xv = x[:ROWS_VERIFY_M]
+            timed("gate_up_verify", [lambda w=w: rows_gemm(xv, w)
+                                     for w in ws],
+                  [lambda w=w: xv @ w for w in ws],
+                  2 * ROWS_VERIFY_M * N * K,
+                  2 * (ROWS_VERIFY_M * K + K * N + ROWS_VERIFY_M * N),
+                  M=ROWS_VERIFY_M, K=K, N=N, weight="k-major")
+        del ws
+    # qwen3-moe-30b-a3b's expert gate (128 experts, d 2048, d_ff 768) at
+    # the capacity its prefill computes for 2,048 tokens, and its float32
+    # router (2048 x 2048 x 128)
+    from repro_torch.configs import get_config
+    from repro_torch.models.moe import _capacity
+    mc = get_config("qwen3-moe-30b-a3b")
+    E, D, F = mc.moe_num_experts, mc.d_model, mc.d_ff
+    cap = _capacity(ROWS_M, E, mc.moe_top_k, mc.moe_capacity_factor)
+    xe, we = randn(E, cap, D), randn(E, D, F, scale=D ** -0.5)
+    timed("moe_gate_bmm", [lambda: rows_bmm(xe, we)],
+          [lambda: torch.bmm(xe, we)], 2 * E * cap * F * D,
+          2 * (E * cap * D + E * D * F + E * cap * F), G=E, M=cap, K=D,
+          N=F, tokens=ROWS_M, weight="k-major, batched")
+    del xe, we
+    xr = [randn(ROWS_M, D, dtype=torch.float32) for _ in range(4)]
+    wr = randn(D, E, dtype=torch.float32, scale=D ** -0.5)
+    timed("router_f32", [lambda x=x: rows_gemm(x, wr) for x in xr],
+          [lambda x=x: x @ wr for x in xr], 2 * ROWS_M * E * D,
+          4 * (ROWS_M * D + D * E + ROWS_M * E), dtype="float32", M=ROWS_M,
+          K=D, N=E, weight="k-major")
+    del xr, wr
     # float32: the FFMA kernel, k-major and n-major, and its rows
     x32 = randn(n_all, 1024, dtype=torch.float32)
     w32 = randn(1024, 512, dtype=torch.float32, scale=1024 ** -0.5)
@@ -1415,7 +1457,7 @@ def check_rows_gemm(torch, dev, results):
     results["rows_gemm"] = dict(
         {k: main[k] for k in ("max_abs_err", "ms", "device_ms", "plain_ms",
                               "bound_ms", "bound_by", "library_ms",
-                              "library_device_ms")},
+                              "library_device_ms", "bits_equal_library")},
         shape=f"M={ROWS_M} K={main['K']} N={main['N']} bf16 k-major",
         float32_max_abs_err=max(f32), bf16_bias_max_abs_err=bias_err,
         einsum_max_abs_err=ein, rows_bitwise_at_M=list(ROWS_MS),
@@ -7045,9 +7087,11 @@ def main() -> int:
         log(f"build {name}: {secs:.1f} s; {len(ents)} kernels, "
             f"{max((e[1] for e in ents), default=0)} registers at most, "
             f"{len(spills)} spilling")
-        # the bf16 flash kernels and anything that spills, one line each
+        # the bf16 flash and GEMM kernels and anything that spills, one
+        # line each
         for k, regs, stack, st, ld in ents:
-            if "flash_wgmma_kernel" in k or st or ld:
+            if ("flash_wgmma_kernel" in k or "gemm_bf16_wgmma" in k or st
+                    or ld):
                 log(f"  ptxas {k}: {regs} registers, {stack} bytes stack, "
                     f"{st} bytes spill stores, {ld} bytes spill loads")
     log(f"build: {time.perf_counter() - t0:.1f} s for {len(built)} "

@@ -350,6 +350,55 @@ def test_gpu_rows_gemm(cuda, dtype, tol):
     torch.cuda.synchronize()
 
 
+# the bf16 kernel's tile edges: K off its 64-k stage, N off its column
+# tile (128 columns up to N = 2048, else 256), rows across its 128-row tile
+EDGE_MS = (1, 127, 129, 257)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K,N,lay", [(520, 264, "k"), (520, 392, "n"),
+                                     (512, 2312, "k"), (520, 2312, "n")])
+def test_gpu_rows_gemm_tile_edges(cuda, K, N, lay):
+    """bf16 against the float32 product (1e-2) with and without a bias, and
+    each row bitwise the same at M = 1, 127, 129 and 257 as at 300."""
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    x = torch.randn((300, K), generator=gen, device=cuda).bfloat16()
+    w = (torch.randn((K, N) if lay == "k" else (N, K), generator=gen,
+                     device=cuda) / K ** 0.5).bfloat16()
+    w = w if lay == "k" else w.T                   # the table, in place
+    b = torch.randn(N, generator=gen, device=cuda).bfloat16()
+    want = x.float() @ w.float()
+    torch.testing.assert_close(rows_gemm(x, w).float(), want, rtol=1e-2,
+                               atol=1e-2)
+    torch.testing.assert_close(rows_gemm(x, w, b).float(), want + b.float(),
+                               rtol=1e-2, atol=1e-2)
+    for fn in (lambda r: rows_gemm(r, w), lambda r: rows_gemm(r, w, b)):
+        full = fn(x)
+        for m in EDGE_MS:
+            assert torch.equal(fn(x[:m]), full[:m]), m
+        assert torch.equal(fn(x[129:]), full[129:])
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_gpu_rows_bmm_rows_cross_a_tile(cuda):
+    """A batch of 3 whose 200 rows cross the 128-row tile, K off the
+    stage: against the float32 bmm, and each batch's rows bitwise at M =
+    1, 127 and 129 as at 200 (and batch 2 alone as among three)."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    xe = torch.randn((3, 200, 520), generator=gen, device=cuda).bfloat16()
+    we = (torch.randn((3, 520, 136), generator=gen, device=cuda)
+          / 520 ** 0.5).bfloat16()
+    full = rows_bmm(xe, we)
+    torch.testing.assert_close(full.float(),
+                               torch.bmm(xe.float(), we.float()),
+                               rtol=1e-2, atol=1e-2)
+    for m in EDGE_MS[:3]:
+        assert torch.equal(rows_bmm(xe[:, :m], we), full[:, :m]), m
+    assert torch.equal(rows_bmm(xe[2:], we[2:]), full[2:])
+    torch.cuda.synchronize()
+
+
 @pytest.mark.gpu
 def test_gpu_rows_bmm_and_einsums(cuda):
     gen = torch.Generator(device=cuda).manual_seed(1)
