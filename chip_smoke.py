@@ -76,7 +76,11 @@ Phases, each failing loudly:
    1024 and 4096, permuted and shifted; a 1024-token sequence's flash
    rows bitwise equal when run as chunks of 128, 192 and 320 at their
    offsets over buffers with other keys past the chunk; RoPE's rows at
-   an offset bitwise.
+   an offset bitwise.  The GEMM's float32 entry (the tiled FFMA kernel)
+   bitwise equal to its order's oracle (``rows_gemm_f32_ordered``) on
+   every float32 call checked, and timed at qwen3-moe's and jamba's
+   routers at 2,048 and 256 rows and the SSD's four products at
+   mamba2-130m's and jamba's widths beside torch's call and its bound.
    Then time kernel, plain version, and for
    flash attention ``scaled_dot_product_attention`` (CUDA events and
    profiler device time) as a yardstick the port never calls; the step
@@ -179,7 +183,9 @@ Phases, each failing loudly:
    stream, and a steady decode step must copy no weight (its copy ops,
    by recorded input shape).  It prints the decode and verify steps'
    wall and device ms, idle share, kernels and largest kernels, a
-   prefix-KV admission step's device ms by kernel, tokens/s, peak
+   prefix-KV admission step's device ms by kernel, then one on the
+   engine's default ``prefix_gather="exact"`` with the float32 GEMM's
+   (the router's) device ms and share of the step, tokens/s, peak
    memory, launches, the MoE's ``fraction_dropped`` over the admission
    steps and the verify's MoE rows against the decode shape's; (b) the
    same model cut to 2 layers in float32, card against CPU (4 greedy
@@ -195,7 +201,9 @@ Phases, each failing loudly:
    defaults, then ``spec_decode="ngram"`` (one warning, spec_K = 0, the
    same streams), then forced preemptions (the same streams; the host
    tier carries the ssm/conv rows): only the prefill's rows-invariant
-   GEMM and RMS norm may launch; (c) float32
+   GEMM and RMS norm may launch; an exact prefix-KV admission step's
+   profile with the float32 GEMM's (the SSD's products') share, as in
+   phase 8 (a), here and in (b); (c) float32
    card = CPU (streams, admission logs, translation stats) for mamba2 cut
    to 4 layers and a reduced-width jamba, with a pad check (a 7-block
    prompt in an 8-block bucket beside a 5-block row installs the state of
@@ -357,7 +365,9 @@ JSON line of kernel measurements (launches counted on phases 4, 5, 6, 6 (g), 7,
 them on a token-split rank, ``launches_vpn_list`` its vpn-list entry's
 and ``launches_shard`` / ``launches_combine`` its sharded step's two
 entries'; flash attention's ``launches_q_offset`` are those with a
-per-row offset, the exact prefix-KV step's), the card's name
+per-row offset, the exact prefix-KV step's; ``rows_gemm``'s
+``launches_f32`` those in float32, which ``rows_gemm_f32``'s entry
+repeats with its own timing), the card's name
 and power limit, and as its last line ``{"ok": true, "device":
 {...}}``.  Without a CUDA card, or without the rest of the repository
 beside it, it exits non-zero and prints no result.
@@ -379,6 +389,9 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 PEAK_FLOPS = {"float32": 67e12,    # CUDA cores, no tensor cores
               "bfloat16": 989e12}  # dense tensor cores
 SEED = 0
+# set by --src naming another tree than the checkout's src/: only there may
+# the float32 oracle, f32_tile and the float32 launch count be missing
+OTHER_TREE = False
 
 
 def log(msg: str) -> None:
@@ -1297,7 +1310,9 @@ ROWS_MAIN = "gate_up"           # the kernels line's row
 ROWS_M = 2048
 ROWS_VERIFY_M = 20              # the verify window's rows (B 4 x K+1 5)
 ROWS_SYMBOLS = {"bfloat16": ("gemm_bf16_wgmma",),
-                "float32": ("gemm_f32_kernel",)}
+                "float32": ("gemm_f32_tiled",)}   # the tiled FFMA kernel
+# the one-tile FFMA kernel that the tiled one replaced, timed under --src
+ROWS_F32_OLD_SYMBOL = "gemm_f32_kernel"
 # row counts at which every row must equal its bits at 4096 rows
 ROWS_MS = (1, 7, 64, 448, 512, 1024, 4096)
 ROWS_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
@@ -1405,45 +1420,40 @@ def check_rows_gemm(torch, dev, results):
           2 * (E * cap * D + E * D * F + E * cap * F), G=E, M=cap, K=D,
           N=F, tokens=ROWS_M, weight="k-major, batched")
     del xe, we
-    xr = [randn(ROWS_M, D, dtype=torch.float32) for _ in range(4)]
-    wr = randn(D, E, dtype=torch.float32, scale=D ** -0.5)
-    timed("router_f32", [lambda x=x: rows_gemm(x, wr) for x in xr],
-          [lambda x=x: x @ wr for x in xr], 2 * ROWS_M * E * D,
-          4 * (ROWS_M * D + D * E + ROWS_M * E), dtype="float32", M=ROWS_M,
-          K=D, N=E, weight="k-major")
-    del xr, wr
-    # float32: the FFMA kernel, k-major and n-major, and its rows
+    # float32: the FFMA kernel, k-major and n-major, and its rows; each
+    # call bitwise its order's oracle where the tree has one
     x32 = randn(n_all, 1024, dtype=torch.float32)
     w32 = randn(1024, 512, dtype=torch.float32, scale=1024 ** -0.5)
     t32 = randn(512, 1024, dtype=torch.float32, scale=1024 ** -0.5)
+    b32 = randn(512, dtype=torch.float32)
     f32 = [check_close("rows_gemm[f32]", rows_gemm(x32, w32), x32 @ w32,
                        ROWS_TOL["float32"]),
            check_close("rows_gemm[f32, n-major]", rows_gemm(x32, t32.T),
-                       x32 @ t32.T, ROWS_TOL["float32"])]
+                       x32 @ t32.T, ROWS_TOL["float32"]),
+           check_close("rows_gemm[f32 bias]", rows_gemm(x32, w32, b32),
+                       x32 @ w32 + b32, ROWS_TOL["float32"])]
+    for label, w_, b_ in (("k-major", w32, None), ("n-major", t32.T, None),
+                          ("bias", w32, b32)):
+        _f32_oracle(torch, f"rows_gemm[f32 {label}]", rows_gemm(x32, w_, b_),
+                    lambda o, w_=w_, b_=b_: o.rows_gemm_f32_ordered(
+                        o.gemm_plan(x32, w_), b_))
     _rows_bitwise(torch, lambda t: rows_gemm(t, w32), x32,
                   "rows_gemm[f32]")
-    b32 = randn(512, dtype=torch.float32)
     bb = randn(d, dtype=torch.bfloat16)
     wq = randn(d, d, scale=d ** -0.5)
-    f32.append(check_close("rows_gemm[f32 bias]", rows_gemm(x32, w32, b32),
-                           x32 @ w32 + b32, ROWS_TOL["float32"]))
     bias_err = check_close("rows_gemm[bf16 bias]", rows_gemm(x4, wq, bb),
                            x4 @ wq + bb, ROWS_TOL["bfloat16"])
     # the SSD's four products (mamba2-130m: 24 heads of 64, d_state 128,
     # chunks of 64) at 4 rows of 16 chunks, and the MoE's expert bmm
-    b_, c_, k_, h_, p_, n_ = 4, 16, 64, 24, 64, 128
-    f = dict(dtype=torch.float32)
-    Cc, Bc = randn(b_, c_, k_, n_, **f), randn(b_, c_, k_, n_, **f)
-    Lm, xc = randn(b_, c_, h_, k_, k_, **f), randn(b_, c_, k_, h_, p_, **f)
-    prev = randn(b_, c_, h_, p_, n_, **f)
     ein = {}
-    for eq, a, b in (("bckn,bcln->bckl", Cc, Bc),
-                     ("bchkl,bclhp->bckhp", Lm, xc),
-                     ("bclhp,bcln->bchpn", xc, Bc),
-                     ("bckn,bchpn->bckhp", Cc, prev)):
+    for eq, (a, b) in _ssd_operands(torch, randn, 4, 16, 24, 64,
+                                    128).items():
         got = rows_einsum(eq, a, b)
         ein[eq] = check_close(f"rows_einsum[{eq}]", got,
                               torch.einsum(eq, a, b), ROWS_TOL["float32"])
+        _f32_oracle(torch, f"rows_einsum[{eq}]", got,
+                    lambda o, eq=eq, a=a, b=b: o.rows_gemm_f32_ordered(
+                        o.einsum_plan(eq, a, b)))
         # row 0 of the batch alone: the same bits as among 4 rows
         if not torch.equal(rows_einsum(eq, a[:1], b[:1]), got[:1]):
             raise AssertionError(f"rows_einsum[{eq}]: batch row 0 differs "
@@ -1464,6 +1474,122 @@ def check_rows_gemm(torch, dev, results):
         **out)
     log("check rows_gemm (bf16 tol 1e-2, f32 1e-4; rows bitwise at M = "
         f"{ROWS_MS}, permuted, shifted): " + json.dumps(results["rows_gemm"]))
+
+
+def _f32_oracle(torch, label, got, oracle):
+    """Hold a float32 result ``got`` bitwise to ``oracle(ops)``, the
+    kernel's order's oracle (``rows_gemm_f32_ordered``); True when held,
+    None on another tree (``--src``) from before the oracle."""
+    from repro_torch.kernels.rows_gemm import ops
+    if OTHER_TREE and not hasattr(ops, "rows_gemm_f32_ordered"):
+        return None
+    if not torch.equal(got, oracle(ops)):
+        raise AssertionError(f"{label}: the float32 kernel differs from its "
+                             "order's oracle (one fmaf chain an output)")
+    return True
+
+
+# the SSD's four products (``ssd_chunked``): scores, y_diag, the states,
+# y_off
+SSD_EQS = ("bckn,bcln->bckl", "bchkl,bclhp->bckhp", "bclhp,bcln->bchpn",
+           "bckn,bchpn->bckhp")
+
+
+def _ssd_operands(torch, randn, b, c, h, p, n, k=64):
+    """The SSD's four einsums with operands laid out as ``ssd_chunked``
+    makes them: {equation: (a, b)}."""
+    f = dict(dtype=torch.float32)
+    Cc, Bc = randn(b, c, k, n, **f), randn(b, c, k, n, **f)
+    Lm, xc = randn(b, c, h, k, k, **f), randn(b, c, k, h, p, **f)
+    prev = randn(b, c, h, p, n, **f)
+    return dict(zip(SSD_EQS, ((Cc, Bc), (Lm, xc), (xc, Bc), (Cc, prev))))
+
+
+# the float32 entry's shapes (phase 2): the routers of qwen3-moe-30b-a3b
+# (d 2048, 128 experts) and jamba-1.5-large-398b (d 8192, 16 experts) at
+# 2,048 rows and at an admission chunk's 256, and the SSD's four products
+# at mamba2-130m's widths (h 24, p 64, n 128, chunks of 64; b 4 x c 16 as
+# check_rows_gemm holds them) and jamba's (h 256, p 64, n 16; one row of
+# 256 tokens, phase 9 (b)'s admission chunk)
+ROWS_F32_ROUTERS = (("qwen3-moe-30b-a3b", 2048, 128),
+                    ("jamba-1.5-large-398b", 8192, 16))
+ROWS_F32_SSD = (("mamba2-130m", (4, 16, 24, 64, 128)),
+                ("jamba-1.5-large-398b", (1, 4, 256, 64, 16)))
+ROWS_F32_MAIN = "router qwen3-moe-30b-a3b M=2048"   # the kernels line's row
+ROWS_F32_BYTES = 64e6      # inputs cycled through a timing (2-16 sets)
+
+
+def check_rows_gemm_f32(torch, dev, results):
+    """The float32 entry (the tiled FFMA kernel) at the routers' and the
+    SSD's shapes (``ROWS_F32_ROUTERS``, ``ROWS_F32_SSD``): bitwise its
+    order's oracle, within 1e-4 of torch's call (``x @ w``,
+    ``torch.einsum``; TF32 off, also its plain version), each timed beside
+    torch's call (CUDA events over inputs cycled through, 2-16 sets; the
+    kernel's and the call's device ms from the profiler) and its bound
+    (each operand read once, the output written once; operations at the
+    float32 FFMA peak)."""
+    from repro_torch.kernels.rows_gemm import ops
+    gen = torch.Generator(device=dev).manual_seed(SEED + 30)
+
+    def randn(*shape, dtype=torch.float32, scale=1.0):
+        return scale * torch.randn(shape, generator=gen, device=dev,
+                                   dtype=dtype)
+
+    cases = []
+    for arch, D, E in ROWS_F32_ROUTERS:
+        for M in (ROWS_M, 256):
+            cases.append((f"router {arch} M={M}", "x @ w", lambda D=D, E=E,
+                          M=M: (randn(M, D), randn(D, E, scale=D ** -0.5))))
+    for arch, dims in ROWS_F32_SSD:
+        for eq in SSD_EQS:
+            cases.append((f"ssd {arch} b{dims[0]} c{dims[1]} {eq}", eq,
+                          lambda dims=dims, eq=eq: _ssd_operands(
+                              torch, randn, *dims)[eq]))
+    shapes = {}
+    for name, eq, make in cases:
+        a, b = make()
+        nbytes = 4 * (a.numel() + b.numel())
+        sets = [(a, b)] + [make() for _ in range(
+            max(1, min(15, math.ceil(ROWS_F32_BYTES / nbytes) - 1)))]
+        if eq == "x @ w":
+            kern = [lambda a=a, b=b: ops.rows_gemm(a, b) for a, b in sets]
+            lib = [lambda a=a, b=b: a @ b for a, b in sets]
+            plan = ops.gemm_plan(a, b)
+        else:
+            kern = [lambda a=a, b=b: ops.rows_einsum(eq, a, b)
+                    for a, b in sets]
+            lib = [lambda a=a, b=b: torch.einsum(eq, a, b) for a, b in sets]
+            plan = ops.einsum_plan(eq, a, b)
+        got = kern[0]()
+        err = check_close(f"rows_gemm_f32[{name}]", got, lib[0](),
+                          ROWS_TOL["float32"])
+        oracle = _f32_oracle(torch, f"rows_gemm_f32[{name}]", got,
+                             lambda o: o.rows_gemm_f32_ordered(plan))
+        G, M, N, K = plan.G1 * plan.G2, plan.M, plan.N, plan.K
+        flops, nbytes = 2 * G * M * N * K, 4 * (a.numel() + b.numel()
+                                                 + G * M * N)
+        ms, lib_ms = time_ms(torch, kern, 20), time_ms(torch, lib, 20)
+        dms = device_ms(torch, kern[0], 5, ROWS_SYMBOLS["float32"])
+        lib_dms = device_ms(torch, lib[0], 5)
+        old = OTHER_TREE and not hasattr(ops, "f32_tile")
+        shapes[name] = dict(
+            G=G, M=M, N=N, K=K, max_abs_err=err, oracle_bitwise=oracle,
+            tile=None if old else ops.F32_TILES[ops.f32_tile(G, M, N)],
+            ms=ms, device_ms=dms, plain_ms=lib_ms, library_ms=lib_ms,
+            library_device_ms=lib_dms,
+            bound_ms=max(nbytes / HBM_BYTES_PER_S,
+                         flops / PEAK_FLOPS["float32"]) * 1e3,
+            bound_by=_bound_by(nbytes, flops, "float32"))
+        del sets, kern, lib, got, a, b, plan
+    main = shapes[ROWS_F32_MAIN]
+    results["rows_gemm_f32"] = dict(
+        {k: main[k] for k in ("max_abs_err", "ms", "device_ms", "plain_ms",
+                              "bound_ms", "bound_by", "library_ms",
+                              "library_device_ms", "oracle_bitwise")},
+        shape=f"M={main['M']} K={main['K']} N={main['N']} float32 "
+              "(qwen3-moe-30b-a3b's router)", shapes=shapes)
+    log("check rows_gemm float32 (tol 1e-4, bitwise its order's oracle): "
+        + json.dumps(results["rows_gemm_f32"]))
 
 
 def check_rms_norm(torch, dev, results):
@@ -1667,6 +1793,7 @@ def check_flash_offset(torch, dev, results):
 def rows_kernels(torch, dev, results):
     """Phase 2's checks of the rows-invariant kernels (``--rows``)."""
     check_rows_gemm(torch, dev, results)
+    check_rows_gemm_f32(torch, dev, results)
     check_rms_norm(torch, dev, results)
     check_flash_offset(torch, dev, results)
     torch.cuda.synchronize()
@@ -2189,11 +2316,15 @@ def _kernel_counts(reset=False):
            "flash_attention_q_offset": (flash_attention,
                                         "launches_q_offset"),
            "rows_gemm": (rows_gemm, "launches"),
+           "rows_gemm_f32": (rows_gemm, "launches_f32"),
            "rms_norm": (rms_norm, "launches")}
     if reset:
         for fn, attr in fns.values():
             setattr(fn, attr, 0)
-    return {name: getattr(fn, attr) for name, (fn, attr) in fns.items()}
+    # another tree (--src) from before the float32 count has no launches_f32
+    return {name: (getattr(fn, attr, 0) if OTHER_TREE and attr ==
+                   "launches_f32" else getattr(fn, attr))
+            for name, (fn, attr) in fns.items()}
 
 
 def stream_digest(streams) -> str:
@@ -2407,6 +2538,57 @@ def profile_prefix_step(torch, eng, rng, cfg, prompt_len=512):
             paged_q_gt1_launches=n_paged,
             paged_q_gt1_share=round(paged / busy, 4) if busy else None,
             kernels=len(rows), top=top)}))
+
+
+def profile_exact_step(torch, dev, cfg, params, label, prompt_len=512):
+    """One admission step on the engine's default ``prefix_gather=
+    "exact"`` (phase 5's engine otherwise) with the phase's weights, under
+    the profiler: a ``prompt_len``-token prompt admits as chunk 0
+    (recompute) and then one rows-invariant prefix-KV chunk of the rest,
+    whose step is profiled.  Prints its device ms by kernel and the
+    float32 entry's device ms, launches and share of the step (the MoE
+    router, the SSD's products); fails unless that entry launched.  Its
+    launches are not counted on any path."""
+    import numpy as np
+    from repro_torch.serve import Engine, EngineConfig, Request
+    eng = Engine(cfg, params, EngineConfig(
+        dtype=torch.bfloat16, **dict(PHASE5, prefix_gather="exact")),
+        device=dev)
+    rng = np.random.RandomState(SEED + 29)
+    eng.submit(Request(seq_id=0, prompt=rng.randint(0, cfg.vocab_size,
+                                                    prompt_len),
+                       max_new_tokens=2))
+    eng.step()                                   # chunk 0
+    n_log = len(eng.admission_log)
+    rows = profile_cold(torch, eng.step, tries=2)
+    if [r.path for r in eng.admission_log[n_log:]] != ["prefix_kv"]:
+        raise AssertionError(f"{label}: the profiled step admitted "
+                             f"{eng.admission_log[n_log:]}, not one "
+                             "prefix-KV chunk")
+    busy = sum(ms for _, ms, _ in rows)
+    sym = ROWS_SYMBOLS["float32"]
+    f32 = [(ms, n) for name, ms, n in rows if any(x in name for x in sym)]
+    bf16 = sum(ms for name, ms, _ in rows
+               if any(x in name for x in ROWS_SYMBOLS["bfloat16"]))
+    f32_ms, f32_n = sum(ms for ms, _ in f32), sum(n for _, n in f32)
+    if busy and not f32_n:
+        raise AssertionError(f"{label}: the exact prefix-KV step launched "
+                             "no float32 rows_gemm")
+    report = dict(
+        device_busy_ms=round(busy, 4), f32_entry_ms=round(f32_ms, 4),
+        f32_entry_launches=f32_n,
+        f32_entry_share=round(f32_ms / busy, 4) if busy else None,
+        bf16_entry_ms=round(bf16, 4), kernels=len(rows),
+        top=[dict(kernel=name[:90], ms=round(ms, 4), launches=n)
+             for name, ms, n in rows[:10]])
+    log(f"{label}: exact prefix-KV admission step under the profiler (one "
+        f"chunk of {prompt_len - 256} tokens over 256): "
+        + json.dumps({"profile": report}))
+    while eng.has_unfinished():
+        eng.step()
+    del eng
+    torch.cuda.empty_cache()
+    return report
 
 
 # phase 6: overload and recovery at full width and depth, on the engine's
@@ -3516,6 +3698,8 @@ def full_width_moe(torch, dev):
         if name == "off":
             profile_prefix_step(torch, eng, np.random.RandomState(SEED + 8),
                                 cfg)
+            r["exact_step"] = profile_exact_step(torch, dev, cfg, params,
+                                                 "phase 8 (a)")
         return r
 
     def requests():
@@ -3978,7 +4162,7 @@ def full_width_ssm(torch, dev):
         for k, n in r["launches"].items():
             counts[k] = counts.get(k, 0) + n
         if any(n for k, n in r["launches"].items()
-               if k not in ("rows_gemm", "rms_norm")) or not (
+               if k not in ("rows_gemm", "rows_gemm_f32", "rms_norm")) or not (
                 r["launches"]["rows_gemm"] and r["launches"]["rms_norm"]):
             raise AssertionError(f"phase 9 (a): {name} launched "
                                  f"{r['launches']}")
@@ -3986,6 +4170,7 @@ def full_width_ssm(torch, dev):
     pc = eng.stats()["prefix_cache"]
     steady = steady_step(torch, eng, cfg, top=8)
     profile_prefix_step(torch, eng, np.random.RandomState(SEED + 9), cfg)
+    profile_exact_step(torch, dev, cfg, params, "phase 9 (a)")
     pad = pad_invariance(torch, cfg, params, torch.bfloat16, dev)
     summary = dict(
         weights_gib=round(weights_gib, 3),
@@ -4053,6 +4238,7 @@ def full_width_hybrid(torch, dev):
     profile_prefix_step(torch, eng, np.random.RandomState(SEED + 9), cfg)
     del eng, runs["paged"]["engine"]
     torch.cuda.empty_cache()
+    profile_exact_step(torch, dev, cfg, params, "phase 9 (b)")
     pad = pad_invariance(torch, cfg, params, torch.bfloat16, dev)
 
     def dropped(rec):
@@ -6959,6 +7145,11 @@ KERNEL_META = {
         "src/repro_torch/kernels/rows_gemm/csrc/rows_gemm.cu",
         "none: port-only (XLA's dot in src/repro/models/layers.py:105 "
         "linear, :172 unembed)"),
+    "rows_gemm_f32": (
+        "src/repro_torch/kernels/rows_gemm/csrc/rows_gemm.cu",
+        "none: port-only (XLA's float32 dot of the MoE router, "
+        "src/repro/models/moe.py:67, and the SSD's einsums, "
+        "src/repro/models/ssm.py:146-166)"),
     "rms_norm": (
         "src/repro_torch/kernels/rms_norm/csrc/rms_norm.cu",
         "none: port-only (XLA's ops in src/repro/models/layers.py:31 "
@@ -7050,6 +7241,10 @@ def main() -> int:
         return 2
     root = Path(__file__).resolve().parent
     src = args.src.resolve() if args.src else root / "src"
+    if src != root / "src":
+        global OTHER_TREE
+        OTHER_TREE = True
+        ROWS_SYMBOLS["float32"] += (ROWS_F32_OLD_SYMBOL,)
     sys.path.insert(0, str(src))
     from repro_torch.kernels import _build   # fails outside a checkout
     dev = torch.device("cuda")
@@ -7269,7 +7464,7 @@ def main() -> int:
         "paged_attention_verify_read")
     kernels = []
     for name in ("utopia_translate_step", "paged_attention",
-                 "flash_attention", "rows_gemm", "rms_norm"):
+                 "flash_attention", "rows_gemm", "rows_gemm_f32", "rms_norm"):
         r = dict(results[name])
         source, replaces = KERNEL_META[name]
         extra = {}
@@ -7297,6 +7492,10 @@ def main() -> int:
             extra["q_offset"] = results.pop("flash_attention_q_offset")
             extra["launches_q_offset"] = sum(
                 c.get("flash_attention_q_offset", 0) for c in paths.values())
+        if name == "rows_gemm":
+            # the float32 entry's launches, also in its own entry below
+            extra["launches_f32"] = sum(
+                c.get("rows_gemm_f32", 0) for c in paths.values())
         if name == "paged_attention":
             extra.update(results.pop("paged_attention_token_split"))
             extra["launches_q_gt1"] = sum(

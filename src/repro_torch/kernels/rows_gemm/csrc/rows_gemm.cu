@@ -3,14 +3,15 @@
 // holds, nor on where the row sits among them.
 //
 // The invariant, which every choice below keeps: each output element is
-// the f32 sum over k = 0 ... K-1, 16 k at a time, in order, computed by
-// the same instruction sequence whatever M is, wherever the row sits in
-// its tile and whichever CTA computes it.  So there is no split-K or
-// stream-K, no atomic, and no choice of kernel, tile, stage count or
-// instruction by M.  The column tile is chosen by N alone (a weight's
-// shape never changes with the load).  bf16 results are rounded once from
-// the f32 sum; a bias is then added and rounded again, as torch's
-// `y + b` does.
+// the f32 sum over k = 0 ... K-1 in order, computed by the same
+// instruction sequence whatever M is, wherever the row sits in its tile
+// and whichever CTA computes it.  So there is no split-K or stream-K and
+// no atomic.  bf16 sums 16 k a wgmma, so its kernel, tile, stage count and
+// instructions are not chosen by M: its column tile is chosen by N alone
+// (a weight's shape never changes with the load).  bf16 results are
+// rounded once from the f32 sum; a bias is then added and rounded again,
+// as torch's `y + b` does.  float32 sums one k an FFMA, so any tile keeps
+// the bits (below).
 //
 // Replaces no TPU kernel.  The JAX package leaves its projections to
 // XLA's dot (src/repro/models/layers.py linear / unembed, the SSD einsums
@@ -46,10 +47,35 @@
 //   memory (swizzled, conflict-free) into 16-byte stores that never write
 //   a row >= M or a column >= N, while the producer already loads the
 //   next tile.
-// * float32: CTA tile 64 x 64, K tile 16, each thread 4 x 4 outputs, each
-//   a chain of FFMAs over k in order (no TF32), so float32 stays float32.
-//   Any strides, and two batch axes, so the SSD's einsums read their
-//   operands where they lie.
+// * float32 (the MoE router, the SSD's products, every float32 model's
+//   projections), on the CUDA cores.  The invariant here is stronger than
+//   the rows': every output is one chain y = fmaf(x[K-1], w[K-1], ...
+//   fmaf(x[0], w[0], +0.f)) in float32, k in increasing order, then the
+//   bias added; no TF32, no tensor cores, no split of k across CTAs,
+//   warps or threads, no atomics, and no FFMA past K.  No output's bits
+//   then depend on the tile, so the tile is chosen by the whole shape, M
+//   included (ops.py f32_tile), so that the grid covers the SMs wherever
+//   the outputs allow: 128 x 128 (8 x 8 outputs a thread), 64 x 64 and
+//   64 x 32 (4 x 4), and for N <= 32 128 x 16 (8 x 2), or 16 x 16 (2 x
+//   1) where few outputs must still spread over the SMs (the routers at
+//   an admission chunk).  Bound: operations for the SSD's larger products
+//   and the qwen3-moe router; bytes for jamba's router (16 experts) and
+//   the short-K products.  Each operand sits in shared memory as it
+//   lies: a k-contiguous one k-contiguous ([rows][k + 4]: a thread reads
+//   4 k of a row in one 128-bit load, the pad puts 8 neighbouring rows in
+//   8 bank quads), an m- or n-contiguous one row-contiguous ([k][rows +
+//   4]: a thread reads 4 neighbouring rows at one k), so both are copied
+//   along their contiguous axis, 16 bytes a cp.async where the base and
+//   the other strides are 16-byte aligned, else 4 (4 along k where
+//   neither axis is contiguous).  The copies fill a ring of k slices
+//   while the FFMAs run on an earlier one, and each thread loads its next
+//   4 k's fragments while it runs the FFMAs of these.  Rows, columns and k
+//   past the end are the copies' zero fill, never multiplied in.  Any
+//   strides and two batch axes (one may have stride 0), so the SSD's
+//   einsums read their operands where they lie.  `gemm_f32_ordered`, one
+//   thread an output and no shared memory, is the order's oracle: the
+//   tiled kernel equals it bitwise (tests and chip_smoke.py call it; the
+//   wrappers never do).
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -390,63 +416,311 @@ __global__ void __launch_bounds__(kThreads3, 1)
 
 // ------------------------------------------------------------ float32
 
-constexpr int kThreads = 256;
-constexpr int kFM = 64, kFN = 64, kFK = 16;
+// One tile of the float32 kernel: rows BM, columns BN, rows and columns a
+// thread TM and TN, k a slice BK, slices in the ring ST.
+template <int BM_, int BN_, int TM_, int TN_, int BK_, int ST_>
+struct F32Tile {
+  static constexpr int BM = BM_, BN = BN_, TM = TM_, TN = TN_, BK = BK_;
+  static constexpr int ST = ST_;
+  static constexpr int TY = BM / TM, TX = BN / TN, NT = TX * TY;
+  static_assert(((BK + 4) / 4) % 2 == 1, "8 neighbouring rows, 8 bank quads");
+  static_assert(BM % 8 == 0 && BN % 8 == 0 && BK % 4 == 0, "copy shapes");
+};
 
-__global__ void __launch_bounds__(kThreads) gemm_f32_kernel(Args a) {
-  __shared__ float sA[kFK][kFM + 4];          // A tile, k-major
-  __shared__ float sB[kFK][kFN + 4];
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int m0 = blockIdx.x * kFM, n0 = blockIdx.y * kFN;
+// An operand's slice in shared memory: ROWS rows (x's m, w's n) by BK k,
+// either k-contiguous, [ROWS][BK + 4] (a thread reads 4 k of a row in one
+// 128-bit load; the pad puts 8 neighbouring rows in 8 bank quads), or,
+// for an operand contiguous along its rows, row-contiguous, [BK][ROWS + 4]
+// (a thread reads 4 rows at one k).  A thread with TR rows owns, in the
+// first, rows t + i * ROWS / TR (neighbouring threads on neighbouring
+// rows), in the second groups of 4 neighbouring rows, t * 4 + i % 4 + (i
+// / 4) * 4 * ROWS / TR (TR >= 4), else rows t * TR + i.
+template <int ROWS, int BK, int TR, bool OUTER>
+struct Slice {
+  static constexpr int LD = OUTER ? ROWS + 4 : BK + 4;
+  static constexpr int size = OUTER ? BK * LD : ROWS * LD;   // floats
+  static __device__ __forceinline__ int row(int t, int i) {
+    if constexpr (!OUTER) return t + i * (ROWS / TR);
+    else if constexpr (TR >= 4)
+      return (i / 4) * (4 * ROWS / TR) + t * 4 + i % 4;
+    else return t * TR + i;
+  }
+};
+
+// how an operand's slices are copied (f32_mode): along k or along its
+// rows (which also picks the layout), 16 or 4 bytes a copy
+enum { kAlongK16 = 0, kAlongK4 = 1, kAlongRows16 = 2, kAlongRows4 = 3 };
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// rows r0 .. r0 + ROWS - 1 (of R) and k k0 .. k0 + BK - 1 (of K) of the
+// operand at g (element strides sr a row, sk a k) into the slice at dst;
+// zeros past R and K.  Neighbouring threads copy neighbouring elements
+// of the axis the copies run along.
+template <class S, int ROWS, int BK, int NT, bool OUTER>
+__device__ __forceinline__ void load_slice(uint32_t dst, const float* g,
+                                           long long sr, long long sk,
+                                           int r0, int R, int k0, int K,
+                                           bool wide, int tid) {
+  constexpr int A = OUTER ? ROWS : BK;   // the axis the copies run along
+  if (wide) {
+    constexpr int C = ROWS * BK / 4;     // 16-byte chunks
+    static_assert(C % NT == 0, "whole chunks a thread");
+#pragma unroll
+    for (int i = 0; i < C / NT; ++i) {
+      const int e = tid + i * NT, o = e / (A / 4), a = 4 * (e % (A / 4));
+      const int r = OUTER ? a : o, k = OUTER ? o : a;
+      const int m = r0 + r, kk = k0 + k;
+      const int n = OUTER ? (kk < K ? min(max(R - m, 0), 4) : 0)
+                          : (m < R ? min(max(K - kk, 0), 4) : 0);
+      cp_async16(dst + 4 * (o * S::LD + a),
+                 n ? g + m * sr + kk * sk : g, 4 * n);
+    }
+  } else {
+    constexpr int C = ROWS * BK;
+    static_assert(C % NT == 0, "whole elements a thread");
+#pragma unroll
+    for (int i = 0; i < C / NT; ++i) {
+      const int e = tid + i * NT, o = e / A, a = e % A;
+      const int r = OUTER ? a : o, k = OUTER ? o : a;
+      const int m = r0 + r, kk = k0 + k;
+      const bool ok = m < R && kk < K;
+      cp_async4(dst + 4 * (o * S::LD + a), ok ? g + m * sr + kk * sk : g,
+                ok ? 4 : 0);
+    }
+  }
+}
+
+// a thread's TR rows at k = 4 q .. 4 q + 3 of the slice at s: v[i][c]
+template <class S, int TR, bool OUTER>
+__device__ __forceinline__ void fragment(float (&v)[TR][4], const float* s,
+                                         int t, int q) {
+  if constexpr (!OUTER) {
+#pragma unroll
+    for (int i = 0; i < TR; ++i) {
+      const float4 f =
+          *reinterpret_cast<const float4*>(s + S::row(t, i) * S::LD + 4 * q);
+      v[i][0] = f.x, v[i][1] = f.y, v[i][2] = f.z, v[i][3] = f.w;
+    }
+  } else {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const float* k = s + (4 * q + c) * S::LD;
+      if constexpr (TR >= 4) {
+#pragma unroll
+        for (int i = 0; i < TR; i += 4) {
+          const float4 f = *reinterpret_cast<const float4*>(k + S::row(t, i));
+          v[i][c] = f.x, v[i + 1][c] = f.y, v[i + 2][c] = f.z;
+          v[i + 3][c] = f.w;
+        }
+      } else if constexpr (TR == 2) {
+        const float2 f = *reinterpret_cast<const float2*>(k + S::row(t, 0));
+        v[0][c] = f.x, v[1][c] = f.y;
+      } else {
+        v[0][c] = k[S::row(t, 0)];
+      }
+    }
+  }
+}
+
+// one slice's FFMAs, k in order; with TAIL only its first kv k (the last
+// slice).  Below 64 outputs a thread the next 4 k's fragments load while
+// the FFMAs of these run (at 64 the registers would not hold both).
+template <class T, class SA, class SB, bool AO, bool BO, bool TAIL>
+__device__ __forceinline__ void slice_ffma(float (&acc)[T::TM][T::TN],
+                                           const float* sa, const float* sb,
+                                           int tx, int ty, int kv) {
+  constexpr int NB = T::TM * T::TN < 64 ? 2 : 1;   // fragment buffers
+  float a[NB][T::TM][4], b[NB][T::TN][4];
+  if constexpr (NB == 2) {
+    fragment<SA, T::TM, AO>(a[0], sa, ty, 0);
+    fragment<SB, T::TN, BO>(b[0], sb, tx, 0);
+  }
+#pragma unroll
+  for (int q = 0; q < T::BK / 4; ++q) {
+    if (TAIL && 4 * q >= kv) break;
+    const int f = (q + NB - 1) % NB;   // the buffer loaded now
+    if (NB == 1 || q + 1 < T::BK / 4) {
+      fragment<SA, T::TM, AO>(a[f], sa, ty, q + NB - 1);
+      fragment<SB, T::TN, BO>(b[f], sb, tx, q + NB - 1);
+    }
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      if (TAIL && 4 * q + c >= kv) break;
+#pragma unroll
+      for (int i = 0; i < T::TM; ++i)
+#pragma unroll
+        for (int j = 0; j < T::TN; ++j)
+          acc[i][j] = fmaf(a[q % NB][i][c], b[q % NB][j][c], acc[i][j]);
+    }
+  }
+}
+
+// AO, BO: x, w stored row-contiguous (copied along m, n)
+template <class T, bool AO, bool BO>
+__global__ void __launch_bounds__(T::NT)
+    gemm_f32_tiled(const Args a, bool awide, bool bwide) {
+  using SA = Slice<T::BM, T::BK, T::TM, AO>;
+  using SB = Slice<T::BN, T::BK, T::TN, BO>;
+  extern __shared__ __align__(16) float fsm[];
+  const int tid = threadIdx.x, tx = tid % T::TX, ty = tid / T::TX;
+  const int m0 = blockIdx.x * T::BM, n0 = blockIdx.y * T::BN;
   const int g1 = blockIdx.z / a.G2, g2 = blockIdx.z % a.G2;
   const float* x = (const float*)a.x + g1 * a.sx1 + g2 * a.sx2;
   const float* w = (const float*)a.w + g1 * a.sw1 + g2 * a.sw2;
-  float acc[4][4];
+  const uint32_t base = (uint32_t)__cvta_generic_to_shared(fsm);
+  constexpr int STAGE = SA::size + SB::size;   // floats a slice
+  const int nk = (a.K + T::BK - 1) / T::BK;
+  auto load = [&](int s, int kt) {
+    const uint32_t sa = base + 4 * s * STAGE, sb = sa + 4 * SA::size;
+    load_slice<SA, T::BM, T::BK, T::NT, AO>(sa, x, a.sxm, a.sxk, m0, a.M,
+                                            kt * T::BK, a.K, awide, tid);
+    load_slice<SB, T::BN, T::BK, T::NT, BO>(sb, w, a.swn, a.swk, n0, a.N,
+                                            kt * T::BK, a.K, bwide, tid);
+  };
+  float acc[T::TM][T::TN];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < T::TM; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < T::TN; ++j) acc[i][j] = 0.f;
 
-  for (int k0 = 0; k0 < a.K; k0 += kFK) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {             // 1024 elements of each tile
-      const int e = tid + i * kThreads;
-      const int am = e >> 4, ak = e & 15;     // neighbours along k
-      const int bk = e >> 6, bn = e & 63;     // neighbours along n
-      const int m = m0 + am, k = k0 + ak;
-      sA[ak][am] = (m < a.M && k < a.K) ? x[m * a.sxm + k * a.sxk] : 0.f;
-      const int kb = k0 + bk, n = n0 + bn;
-      sB[bk][bn] = (kb < a.K && n < a.N) ? w[kb * a.swk + n * a.swn] : 0.f;
-    }
+  for (int s = 0; s < T::ST - 1; ++s) {
+    if (s < nk) load(s, s);
+    cp_async_commit();                 // empty groups keep the count
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    // slice kt has landed, and every thread is done with slice kt - 1,
+    // whose buffer the next copy overwrites
+    cp_async_wait<T::ST - 2>();
     __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kFK; ++kk) {
-      float av[4], bv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) av[i] = sA[kk][ty * 4 + i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) bv[j] = sB[kk][tx * 4 + j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
+    const int nx = kt + T::ST - 1;
+    if (nx < nk) load(nx % T::ST, nx);
+    cp_async_commit();
+    const float* sa = fsm + (kt % T::ST) * STAGE;
+    const float* sb = sa + SA::size;
+    const int kv = a.K - kt * T::BK;
+    if (kv >= T::BK)
+      slice_ffma<T, SA, SB, AO, BO, false>(acc, sa, sb, tx, ty, kv);
+    else
+      slice_ffma<T, SA, SB, AO, BO, true>(acc, sa, sb, tx, ty, kv);
   }
 
   float* y = (float*)a.y + (long long)blockIdx.z * a.M * a.N;
   const float* bias = (const float*)a.b;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty * 4 + i;
+  for (int i = 0; i < T::TM; ++i) {
+    const int m = m0 + SA::row(ty, i);
     if (m >= a.M) continue;
+    float* yr = y + (long long)m * a.N;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx * 4 + j;
-      if (n < a.N)
-        y[(long long)m * a.N + n] = bias ? acc[i][j] + bias[n] : acc[i][j];
+    for (int j = 0; j < T::TN; j += 4) {
+      // row-contiguous w: 4 neighbouring columns, one 16-byte store
+      const int n = n0 + SB::row(tx, j);
+      if (BO && T::TN >= 4 && a.N % 4 == 0 && n + 3 < a.N) {
+        float4 v = make_float4(acc[i][j], acc[i][j + 1], acc[i][j + 2],
+                               acc[i][j + 3]);
+        if (bias) {
+          v.x += bias[n], v.y += bias[n + 1];
+          v.z += bias[n + 2], v.w += bias[n + 3];
+        }
+        *reinterpret_cast<float4*>(yr + n) = v;
+        continue;
+      }
+#pragma unroll
+      for (int jj = j; jj < j + 4 && jj < T::TN; ++jj) {
+        const int nn = n0 + SB::row(tx, jj);
+        if (nn < a.N) yr[nn] = bias ? acc[i][jj] + bias[nn] : acc[i][jj];
+      }
     }
   }
+}
+
+// The order's oracle: one thread an output, the same chain and bias.
+__global__ void gemm_f32_ordered(const Args a) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (long long)a.M * a.N) return;
+  const int m = (int)(i / a.N), n = (int)(i % a.N);
+  const int g = blockIdx.y, g1 = g / a.G2, g2 = g % a.G2;
+  const float* x = (const float*)a.x + g1 * a.sx1 + g2 * a.sx2 + m * a.sxm;
+  const float* w = (const float*)a.w + g1 * a.sw1 + g2 * a.sw2 + n * a.swn;
+  float acc = 0.f;
+  for (int k = 0; k < a.K; ++k) acc = fmaf(x[k * a.sxk], w[k * a.swk], acc);
+  const float* bias = (const float*)a.b;
+  ((float*)a.y)[(long long)g * a.M * a.N + i] = bias ? acc + bias[n] : acc;
+}
+
+// how the operand at p (element strides: two batch axes, its rows, k) is
+// copied: along its contiguous axis, k (kept k-contiguous) or its rows (an
+// m-contiguous x, an n-contiguous weight: kept row-contiguous), 16 bytes a
+// copy where the base and the other strides are 16-byte aligned, else 4;
+// 4 bytes along k where neither axis is contiguous
+int f32_mode(const void* p, long long s1, long long s2, long long sr,
+             long long sk) {
+  const bool aligned = (uintptr_t)p % 16 == 0 && s1 % 4 == 0 && s2 % 4 == 0;
+  if (sk == 1) return aligned && sr % 4 == 0 ? kAlongK16 : kAlongK4;
+  if (sr == 1) return aligned && sk % 4 == 0 ? kAlongRows16 : kAlongRows4;
+  return kAlongK4;
+}
+
+constexpr int kMaxDevices = 64;
+
+template <class T, bool AO, bool BO>
+int launch_f32_as(const Args& a, int G1, bool awide, bool bwide,
+                  cudaStream_t s) {
+  constexpr int bytes =
+      4 * T::ST * (Slice<T::BM, T::BK, T::TM, AO>::size +
+                   Slice<T::BN, T::BK, T::TN, BO>::size);
+  static_assert(bytes <= 232448, "the ring fits in shared memory");
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  static bool sized[kMaxDevices];      // the attribute, once a device
+  if (!sized[dev]) {
+    e = cudaFuncSetAttribute(gemm_f32_tiled<T, AO, BO>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+    if (e != cudaSuccess) return (int)e;
+    sized[dev] = true;
+  }
+  const dim3 grid((a.M + T::BM - 1) / T::BM, (a.N + T::BN - 1) / T::BN,
+                  G1 * a.G2);
+  if (grid.y > 65535) return (int)cudaErrorInvalidValue;
+  gemm_f32_tiled<T, AO, BO><<<grid, T::NT, bytes, s>>>(a, awide, bwide);
+  return (int)cudaGetLastError();
+}
+
+template <class T>
+int launch_f32(const Args& a, int G1, cudaStream_t s) {
+  const int amode = f32_mode(a.x, a.sx1, a.sx2, a.sxm, a.sxk);
+  const int bmode = f32_mode(a.w, a.sw1, a.sw2, a.swn, a.swk);
+  const bool ao = amode >= kAlongRows16, bo = bmode >= kAlongRows16;
+  const bool aw = amode == kAlongK16 || amode == kAlongRows16;
+  const bool bw = bmode == kAlongK16 || bmode == kAlongRows16;
+  if (ao)
+    return bo ? launch_f32_as<T, true, true>(a, G1, aw, bw, s)
+              : launch_f32_as<T, true, false>(a, G1, aw, bw, s);
+  return bo ? launch_f32_as<T, false, true>(a, G1, aw, bw, s)
+            : launch_f32_as<T, false, false>(a, G1, aw, bw, s);
 }
 
 // ------------------------------------------------- the bf16 host side
@@ -534,8 +808,6 @@ int weight_map(WeightMap* out, const void* ptr, const long long d[4],
   return 0;
 }
 
-constexpr int kMaxDevices = 64;
-
 template <int BN, bool WK>
 int launch_bf16(const Args& h, int G1, cudaStream_t s) {
   using C = Cfg<BN>;
@@ -587,26 +859,38 @@ int launch_bf16(const Args& h, int G1, cudaStream_t s) {
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (x, w, b and y share it).  y is
-// contiguous (G1 * G2, M, N); b (N,) or null.  bfloat16 needs sxk == 1,
-// either swn == 1 (k-major weight) or swk == 1 (n-major), K and N
-// multiples of 8, the other strides multiples of 8 and 16-byte aligned
-// bases: the wrapper checks.
+// contiguous (G1 * G2, M, N); b (N,) or null.  float32: any strides, the
+// tile by ``tile`` (ops.py F32_TILES: 0 128 x 128, 1 64 x 64, 2 64 x 32,
+// 3 128 x 16, 4 16 x 16), x's and w's copies by their strides (f32_mode).
+// bfloat16 needs sxk == 1, either swn == 1 (k-major weight) or swk == 1
+// (n-major), K and N multiples of 8, the other strides multiples of 8 and
+// 16-byte aligned bases: the wrapper checks.
 extern "C" int rows_gemm_launch(int dtype, const void* x, const void* w,
                                 const void* b, void* y, int G1, int G2,
                                 int M, int N, int K, long long sx1,
                                 long long sx2, long long sxm, long long sxk,
                                 long long sw1, long long sw2, long long swk,
-                                long long swn, void* stream) {
+                                long long swn, int tile, void* stream) {
   if (G1 <= 0 || G2 <= 0 || M <= 0 || N <= 0 || K <= 0 ||
       (long long)G1 * G2 > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   Args a{x, w, b, y, G2, M, N, K, sx1, sx2, sxm, sxk, sw1, sw2, swk, swn};
   if (dtype == 0) {
-    dim3 grid((M + kFM - 1) / kFM, (N + kFN - 1) / kFN, G1 * G2);
-    if (grid.y > 65535) return (int)cudaErrorInvalidValue;
-    gemm_f32_kernel<<<grid, kThreads, 0, s>>>(a);
-    return (int)cudaGetLastError();
+    // F32Tile<rows, columns, a thread's rows, columns, k a slice, slices>
+    using Large = F32Tile<128, 128, 8, 8, 16, 3>;
+    using Wide = F32Tile<64, 64, 4, 4, 16, 3>;
+    using Mid = F32Tile<64, 32, 4, 4, 32, 3>;
+    using Narrow = F32Tile<128, 16, 8, 2, 32, 3>;
+    using Small = F32Tile<16, 16, 2, 1, 64, 6>;
+    switch (tile) {
+      case 0: return launch_f32<Large>(a, G1, s);
+      case 1: return launch_f32<Wide>(a, G1, s);
+      case 2: return launch_f32<Mid>(a, G1, s);
+      case 3: return launch_f32<Narrow>(a, G1, s);
+      case 4: return launch_f32<Small>(a, G1, s);
+      default: return (int)cudaErrorInvalidValue;
+    }
   }
   if (dtype != 1 || sxk != 1 || (swn != 1 && swk != 1) || K % 8 || N % 8)
     return (int)cudaErrorInvalidValue;
@@ -617,4 +901,21 @@ extern "C" int rows_gemm_launch(int dtype, const void* x, const void* w,
                     : launch_bf16<256, false>(a, G1, s);
   return swn == 1 ? launch_bf16<128, true>(a, G1, s)
                   : launch_bf16<128, false>(a, G1, s);
+}
+
+// float32 through the oracle (gemm_f32_ordered), the arguments as above
+extern "C" int rows_gemm_f32_ordered_launch(
+    const void* x, const void* w, const void* b, void* y, int G1, int G2,
+    int M, int N, int K, long long sx1, long long sx2, long long sxm,
+    long long sxk, long long sw1, long long sw2, long long swk,
+    long long swn, void* stream) {
+  if (G1 <= 0 || G2 <= 0 || M <= 0 || N <= 0 || K <= 0 ||
+      (long long)G1 * G2 > 65535)
+    return (int)cudaErrorInvalidValue;
+  Args a{x, w, b, y, G2, M, N, K, sx1, sx2, sxm, sxk, sw1, sw2, swk, swn};
+  const long long blocks = ((long long)M * N + 255) / 256;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  gemm_f32_ordered<<<dim3((unsigned)blocks, G1 * G2), 256, 0,
+                     (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
 }

@@ -18,7 +18,18 @@ A CUDA tensor launches the kernel or raises; a CPU tensor takes the plain
 version (``ref.py``: the op the forward runs without them).  On ``meta``
 tensors (the dry run) each returns the output's shape and records the
 kernel's cost.
-``rows_gemm.launches`` counts kernel launches of all three.
+``rows_gemm.launches`` counts kernel launches of all three,
+``rows_gemm.launches_f32`` those of them in float32.
+
+float32 runs on the CUDA cores: each output is one ``fmaf`` chain over k
+in increasing order from ``+0.f``, then the bias added, so its bits depend
+on no tile and ``f32_tile`` picks the tile (``F32_TILES``) by the whole
+shape, M included, so that the grid covers the SMs wherever the outputs
+allow; the C launch copies each operand along its contiguous axis, 16
+bytes a copy where its strides and alignment allow.
+``rows_gemm_f32_ordered(plan, b)`` launches the order's oracle (one thread
+an output); the tiled kernel equals it bitwise.  Only tests and
+``chip_smoke.py`` call it.
 """
 from __future__ import annotations
 
@@ -33,19 +44,52 @@ from .ref import rows_bmm_ref, rows_einsum_ref, rows_gemm_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_BATCH = 65535          # the grid's z extent
+SMS = 132                  # an H100 SXM's SMs
 
-_launch = []        # the bound C entry point, once loaded
+# the float32 kernel's tiles, by index (``rows_gemm_launch``'s ``tile``):
+# (rows, columns) a CTA; the C launch names each tile's thread shape
+F32_TILES = ((128, 128), (64, 64), (64, 32), (128, 16), (16, 16))
+F32_NARROW = (3, 4)        # the 16-column tiles, for N <= 32
+F32_FILL = 0.9             # a grid of this share of the SMs covers them
+F32_WASTE = 1.25           # at most this share of a tile's outputs padding
+
+_launch = {}        # the bound C entry points, once loaded
 
 
-def _lib():
-    if not _launch:
-        fn = _build.load("rows_gemm").rows_gemm_launch
+def _lib(entry="rows_gemm_launch"):
+    if entry not in _launch:
+        fn = getattr(_build.load("rows_gemm"), entry)
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [i, p, p, p, p, i, i, i, i, i,
-                       ll, ll, ll, ll, ll, ll, ll, ll, p]
+        main = entry == "rows_gemm_launch"
+        fn.argtypes = (([i] if main else []) + [p] * 4 + [i] * 5 + [ll] * 8
+                       + ([i] if main else []) + [p])  # dtype; tile
         fn.restype = ctypes.c_int
-        _launch.append(fn)
-    return _launch[0]
+        _launch[entry] = fn
+    return _launch[entry]
+
+
+def f32_ctas(tile: int, G: int, M: int, N: int) -> int:
+    """CTAs of the float32 grid over ``G`` batches of ``M x N`` with
+    ``F32_TILES[tile]``."""
+    bm, bn = F32_TILES[tile]
+    return G * -(-M // bm) * -(-N // bn)
+
+
+def f32_tile(G: int, M: int, N: int) -> int:
+    """The float32 kernel's tile for ``G`` batches of ``M x N`` outputs:
+    the largest tile (``F32_TILES``; for ``N <= 32`` the 16-column ones)
+    whose grid covers ``F32_FILL`` of the ``SMS`` SMs with at most
+    ``F32_WASTE`` of padded outputs, else the smallest.  Every output's
+    bits are the same under every tile; K does not enter (each CTA walks
+    all of it, no tile splits it)."""
+    order = F32_NARROW if N <= 32 else (0, 1, 2, 4)
+    for t in order[:-1]:
+        bm, bn = F32_TILES[t]
+        padded = -(-M // bm) * bm * -(-N // bn) * bn
+        if (f32_ctas(t, G, M, N) >= F32_FILL * SMS
+                and padded <= F32_WASTE * M * N):
+            return t
+    return order[-1]
 
 
 class Plan(NamedTuple):
@@ -66,9 +110,10 @@ class Plan(NamedTuple):
     perm: Tuple[int, ...]
 
 
-def _execute(plan: Plan, b=None):
+def _execute(plan: Plan, b=None, ordered=False):
     """Launch ``plan`` (with the bias ``b``) into a new contiguous output
-    and return the result's view."""
+    and return the result's view; ``ordered``: through the float32
+    oracle, uncounted."""
     x, w, G1, G2, M, N, K, sx, sw, shape, perm = plan
     if G1 * G2 > MAX_BATCH:
         raise ValueError(f"rows_gemm: {G1 * G2} batches (at most "
@@ -87,11 +132,20 @@ def _execute(plan: Plan, b=None):
         raise ValueError("rows_gemm: the bias must be contiguous")
     out = torch.empty((G1 * G2, M, N), dtype=x.dtype, device=x.device)
     if out.numel():
-        rc = _lib()(_DTYPES[x.dtype], x.data_ptr(), w.data_ptr(),
-                    0 if b is None else b.data_ptr(), out.data_ptr(), G1,
-                    G2, M, N, K, *sx, *sw, _build.stream_handle(x))
+        args = (x.data_ptr(), w.data_ptr(), 0 if b is None else b.data_ptr(),
+                out.data_ptr(), G1, G2, M, N, K, *sx, *sw)
+        f32 = x.dtype == torch.float32
+        if ordered:
+            rc = _lib("rows_gemm_f32_ordered_launch")(
+                *args, _build.stream_handle(x))
+        else:
+            tile = f32_tile(G1 * G2, M, N) if f32 else 0
+            rc = _lib()(_DTYPES[x.dtype], *args, tile,
+                        _build.stream_handle(x))
         _build.check_launch("rows_gemm", rc)
-        rows_gemm.launches += 1
+        if not ordered:
+            rows_gemm.launches += 1
+            rows_gemm.launches_f32 += f32
     return out.view(shape).permute(perm)
 
 
@@ -146,24 +200,31 @@ def _merge(sizes, strides):
     return size, stride
 
 
-def _operand(t, order, groups):
+def _merged(p, groups):
+    """Each group of ``p``'s leading dims (``groups``, lists of indices,
+    in order) merged to one (size, stride), or None if one does not."""
+    merged, i = [], 0
+    for g in groups:
+        m = _merge(p.shape[i:i + len(g)], p.stride()[i:i + len(g)])
+        if m is None:
+            return None
+        merged.append(m)
+        i += len(g)
+    return merged
+
+
+def _operand(t, order, groups, copy):
     """``t`` (indices ``order``) permuted to the concatenation of
     ``groups`` (lists of its indices) and each group merged to one (size,
-    stride): ``(tensor, [(size, stride), ...])``, the tensor copied into
-    that order once if a group does not merge in place."""
+    stride): ``(tensor, [(size, stride), ...])``; where a group does not
+    merge in place, None, or with ``copy`` the tensor copied into that
+    order once."""
     p = t.permute([order.index(c) for g in groups for c in g])
-    for _ in range(2):
-        merged, i = [], 0
-        for g in groups:
-            m = _merge(p.shape[i:i + len(g)], p.stride()[i:i + len(g)])
-            if m is None:
-                break
-            merged.append(m)
-            i += len(g)
-        else:
-            return p, merged
+    merged = _merged(p, groups)
+    if merged is None and copy:
         p = p.contiguous()
-    raise AssertionError("a contiguous tensor's groups always merge")
+        merged = _merged(p, groups)
+    return None if merged is None else (p, merged)
 
 
 def einsum_plan(eq: str, a, b) -> Plan:
@@ -190,12 +251,21 @@ def einsum_plan(eq: str, a, b) -> Plan:
         if a.shape[ia.index(c)] != b.shape[ib.index(c)]:
             raise ValueError(f"rows_einsum: index {c!r} has sizes "
                              f"{a.shape[ia.index(c)]}, {b.shape[ib.index(c)]}")
-    for cut in [len(batch), *range(1, len(batch))]:
+    def operands(cut, copy):
         groups = [batch[:cut], batch[cut:]]
-        pa, ma = _operand(a, ia, groups + [rows, red])
-        pb, mb = _operand(b, ib, groups + [red, cols])
-        if pa.data_ptr() == a.data_ptr() and pb.data_ptr() == b.data_ptr():
+        return (_operand(a, ia, groups + [rows, red], copy),
+                _operand(b, ib, groups + [red, cols], copy))
+
+    # the first split of the batch indices under which both operands
+    # merge in place, else the last, copying what does not merge
+    cuts = [len(batch), *range(1, len(batch))]
+    for cut in cuts:
+        found = operands(cut, False)
+        if all(found):
             break
+    else:
+        found = operands(cuts[-1], True)
+    (pa, ma), (pb, mb) = found
     (G1, sa1), (G2, sa2), (M, sam), (K, sak) = ma
     (_, sb1), (_, sb2), (_, sbk), (N, sbn) = mb
     order = batch + rows + cols
@@ -252,4 +322,16 @@ def rows_einsum(eq: str, a, b):
     return (_meta if where == "meta" else _execute)(einsum_plan(eq, a, b))
 
 
+def rows_gemm_f32_ordered(plan: Plan, b=None):
+    """``plan`` (``gemm_plan``, ``bmm_plan`` or ``einsum_plan`` of float32
+    CUDA operands) with the bias ``b``, through the float32 oracle: one
+    thread an output, the kernel's chain and bias (the tiled kernel's bits,
+    by another schedule).  For tests and ``chip_smoke.py``."""
+    if _where("rows_gemm_f32_ordered", plan.x, plan.w, b) != "cuda" or (
+            plan.x.dtype != torch.float32):
+        raise ValueError("rows_gemm_f32_ordered: float32 CUDA operands only")
+    return _execute(plan, b, ordered=True)
+
+
 rows_gemm.launches = 0
+rows_gemm.launches_f32 = 0

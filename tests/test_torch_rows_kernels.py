@@ -19,10 +19,24 @@ absolute position.
   einsums (their operands read where they lie).
 * ``meta`` tensors (the dry run): shapes, and the FLOPs and bytes each
   call records.
+* The float32 kernel's choices: ``f32_tile`` at the MoE routers' and the
+  SSD's shapes of qwen3-moe, jamba and mamba2 at 256 and 2,048 tokens (the
+  grid covers the SMs where the outputs allow; N <= 32 takes a 16-column
+  tile; a router prefill of 16k rows and 8 batches of 2,048 rows take the
+  128 x 16 tile), the C launch's tile table against ``F32_TILES``, and
+  the strides from which the C launch picks each operand's copy, for the
+  routers and the SSD's four products (which operand is contiguous along
+  k, which along its rows, and whether its other strides allow 16-byte
+  copies).
 * ``gpu``: each kernel against its plain version on the card, and its
-  rows bitwise across row counts, permutations and shifts; chunks at
-  their offsets bitwise the whole sequence's through flash; RoPE's rows
-  at an offset bitwise.  Run them on a card with ``pytest -m gpu``.
+  rows bitwise across row counts, permutations and shifts; the float32
+  kernel bitwise equal to its order's oracle (``rows_gemm_f32_ordered``)
+  over a grid of M, N and K, both orientations of each operand, with and
+  without a bias, two batch axes one of stride 0, on the 128 x 16 tile
+  with 16- and 4-byte copies and a slice's tail, and at the routers' and
+  the SSD's shapes (also within 1e-4 of torch's); chunks at their offsets
+  bitwise the whole sequence's through flash; RoPE's rows at an offset
+  bitwise.  Run them on a card with ``pytest -m gpu``.
 """
 import numpy as np
 import pytest
@@ -40,9 +54,11 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.rms_norm.ops import rms_norm
 from repro_torch.kernels.rms_norm.ref import gated_rms_norm_ref
+from repro_torch.kernels.rows_gemm import ops as rows_ops
 from repro_torch.kernels.rows_gemm.ops import (bmm_plan, einsum_plan,
                                                gemm_plan, rows_bmm,
-                                               rows_einsum, rows_gemm)
+                                               rows_einsum, rows_gemm,
+                                               rows_gemm_f32_ordered)
 from repro_torch.models import FwdOptions, forward, layers, model_dims
 from repro_torch.models import ssm
 from repro_torch.models.attention import dense_attention
@@ -309,6 +325,145 @@ def test_meta_calls_record_costs():
     _build.META_COSTS.clear()
 
 
+# ------------------------------------ the float32 kernel's tile, copies
+
+def _ssd_dims(arch):
+    """(heads, head dim, d_state, chunk) of ``arch``'s mamba layers."""
+    cfg = ARCHS[arch]
+    di = cfg.ssm_expand * cfg.d_model
+    return di // cfg.ssm_head_dim, cfg.ssm_head_dim, cfg.ssm_state, \
+        cfg.ssm_chunk
+
+
+def _ssd_shapes(arch, tokens):
+    """(G, M, N, K) of the SSD's four products (``SSD_EQS``) for one
+    prefill chunk of ``tokens`` tokens: one row of 256, or four of 512."""
+    h, p, n, k = _ssd_dims(arch)
+    b, l = (1, 256) if tokens == 256 else (4, 512)
+    c = l // k
+    return {SSD_EQS[0]: (b * c, k, k, n), SSD_EQS[1]: (b * c * h, k, p, k),
+            SSD_EQS[2]: (b * c, h * p, n, k), SSD_EQS[3]: (b * c, k, h * p, n)}
+
+
+def _f32_shapes():
+    """(label, tokens, (G, M, N, K)) of the float32 products the prefill
+    runs: qwen3-moe's and jamba's routers and the SSD of mamba2 and jamba,
+    at an admission chunk's 256 tokens and at 2,048."""
+    out = []
+    for tokens in (256, 2048):
+        for arch in ("qwen3-moe-30b-a3b", "jamba-1.5-large-398b"):
+            cfg = ARCHS[arch]
+            out.append((f"{arch} router", tokens,
+                        (1, tokens, cfg.moe_num_experts, cfg.d_model)))
+        for arch in ("mamba2-130m", "jamba-1.5-large-398b"):
+            for eq, shape in _ssd_shapes(arch, tokens).items():
+                out.append((f"{arch} {eq}", tokens, shape))
+    return out
+
+
+@pytest.mark.parametrize("label,tokens,shape", _f32_shapes(),
+                         ids=lambda v: str(v).replace(" ", "_"))
+def test_f32_tile_covers_the_sms(label, tokens, shape):
+    """The tile fills the card wherever the smallest tile would, pads at
+    most ``F32_WASTE`` of its outputs unless it is the smallest, and N <=
+    32 takes a 16-column tile."""
+    G, M, N, K = shape
+    t = rows_ops.f32_tile(G, M, N)
+    bm, bn = rows_ops.F32_TILES[t]
+    fill = rows_ops.F32_FILL * rows_ops.SMS
+    smallest = len(rows_ops.F32_TILES) - 1
+    if N <= 32:
+        assert bn == 16
+    if rows_ops.f32_ctas(smallest, G, M, N) >= fill:
+        assert rows_ops.f32_ctas(t, G, M, N) >= fill
+    if t != smallest:
+        assert -(-M // bm) * bm * -(-N // bn) * bn <= (
+            rows_ops.F32_WASTE * M * N)
+
+
+def test_f32_tile_table_is_the_launchs():
+    """``F32_TILES`` (index: rows, columns) is the C launch's table."""
+    import re
+    src = _build.source("rows_gemm").read_text()
+    tiles = dict(re.findall(r"using (\w+) = F32Tile<(\d+, \d+),", src))
+    cases = re.findall(r"case (\d): return launch_f32<(\w+)>", src)
+    assert {int(i): tuple(map(int, tiles[t].split(", ")))
+            for i, t in cases} == dict(enumerate(rows_ops.F32_TILES))
+
+
+# shapes that take the 128 x 16 tile: a float32 router prefill of 16k rows
+# at 16 and 30 columns (ragged rows and columns), 8 batches of 2,048 rows
+NARROW_SHAPES = ((1, 16384, 16), (1, 16381, 30), (8, 2048, 30))
+
+
+@pytest.mark.parametrize("G,M,N", NARROW_SHAPES)
+def test_f32_narrow_shapes_take_the_narrow_tile(G, M, N):
+    assert rows_ops.f32_tile(G, M, N) == 3
+    assert rows_ops.F32_TILES[3] == (128, 16)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-130m", "jamba-1.5-large-398b"])
+def test_ssd_plans_copy_each_operand_along_its_contiguous_axis(
+        arch, monkeypatch):
+    """The SSD's four products at full width, as ``ssd_chunked`` lays out
+    their operands (one row of 256 tokens): each is read in place,
+    k-contiguous (C and B in the scores, ``Lm`` in ``y_diag``, C in
+    ``y_off``, and the previous states, k-major for ``y_off``) or
+    contiguous along its rows (x in the states, m-contiguous; the
+    n-contiguous x of ``y_diag`` and B of the states), its base and other
+    strides 16-byte aligned: the C launch copies each 16 bytes along its
+    contiguous axis."""
+    want = {SSD_EQS[0]: ("k", "k"), SSD_EQS[1]: ("k", "n"),
+            SSD_EQS[2]: ("m", "n"), SSD_EQS[3]: ("k", "k")}
+    seen = {}
+
+    def recording(eq, a, b):
+        plan = einsum_plan(eq, a, b)
+        assert plan.x.data_ptr() == a.data_ptr()
+        assert plan.w.data_ptr() == b.data_ptr()
+        seen[eq] = plan
+        return torch.einsum(eq, a, b)
+
+    monkeypatch.setattr(ssm, "rows_einsum", recording)
+    h, p, n, chunk = _ssd_dims(arch)
+    b, l = 1, 256
+    g = torch.Generator().manual_seed(8)
+    ssm.ssd_chunked(torch.randn((b, l, h, p), generator=g),
+                    -torch.rand((b, l, h), generator=g),
+                    torch.randn((b, l, n), generator=g),
+                    torch.randn((b, l, n), generator=g), chunk, rows=True)
+    for eq, (xa, wa) in want.items():
+        plan = seen[eq]
+        (x1, x2, xm, xk), (w1, w2, wk, wn) = plan.sx, plan.sw
+        assert ("k" if xk == 1 else "m" if xm == 1 else None) == xa, eq
+        assert ("k" if wk == 1 else "n" if wn == 1 else None) == wa, eq
+        other = (x1, x2, xm if xa == "k" else xk, w1, w2,
+                 wn if wa == "k" else wk)
+        assert all(s % 4 == 0 for s in other), (eq, plan.sx, plan.sw)
+        assert plan.x.data_ptr() % 16 == 0 and plan.w.data_ptr() % 16 == 0
+
+
+def test_router_and_table_copies():
+    """The strides (x: batch, batch, row, k; w: batch, batch, k, column)
+    from which the C launch picks each copy: the router's x k-contiguous
+    with whole 16-byte rows (16 bytes along k), its (D, E) weight
+    n-contiguous (16 bytes along n); the embedding table read in place as
+    its transpose, k-contiguous (16 bytes along k); a view whose row
+    stride is not a multiple of 4 floats (4 bytes along k), a weight whose
+    k stride is not (4 bytes along n), an operand contiguous along neither
+    axis (4 bytes along k)."""
+    x, router = torch.zeros(8, 2048), torch.zeros(2048, 128)
+    table = torch.zeros(300, 64)
+    plan = gemm_plan(x, router)
+    assert (plan.sx, plan.sw) == ((0, 0, 2048, 1), (0, 0, 128, 1))
+    assert gemm_plan(x[:, :64], table.T).sw == (0, 0, 1, 64)
+    odd = torch.zeros(8, 67)[:, :64]
+    assert gemm_plan(odd, table.T).sx == (0, 0, 67, 1)
+    assert gemm_plan(odd[:, :8], odd).sw == (0, 0, 67, 1)
+    plan = gemm_plan(x[:, ::2], router[::2, ::2])
+    assert (plan.sx, plan.sw) == ((0, 0, 2048, 2), (0, 0, 256, 2))
+
+
 # ------------------------------------------------------------- the card
 
 ROWS_MS = (1, 7, 64, 448, 512, 1024)
@@ -415,6 +570,128 @@ def test_gpu_rows_bmm_and_einsums(cuda):
         torch.testing.assert_close(got, torch.einsum(eq, a, b), rtol=1e-4,
                                    atol=1e-4)
         assert torch.equal(rows_einsum(eq, a[:1], b[:1]), got[:1])
+
+
+# the float32 kernel against its order's oracle: every (M, N, K) of this
+# grid, the operands' orientations and the bias turning over with the case
+F32_MS = (1, 7, 64, 255, 256, 2048, 4097)
+F32_NS = (1, 16, 24, 128, 130, 1536)
+F32_KS = (1, 15, 17, 128, 2048, 8192)
+
+
+def _f32_operands(gen, dev, M, N, K, case):
+    """x (M, K) k- or m-contiguous, w (K, N) n- or k-contiguous, a bias
+    or None, by the bits of ``case``."""
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+    x = randn(M, K) if case & 1 else randn(K, M).T
+    w = (randn(K, N) if case & 2 else randn(N, K).T) / K ** 0.5
+    return x, w, randn(N) if case & 4 else None
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", F32_MS)
+def test_gpu_f32_equals_the_ordered_oracle(cuda, M):
+    """Bitwise the oracle's over N x K, all four orientations and the
+    bias among the cases; then two batch axes, one of stride 0, through
+    ``rows_einsum``."""
+    gen = torch.Generator(device=cuda).manual_seed(10 + M)
+    case = 0
+    for N in F32_NS:
+        for K in F32_KS:
+            x, w, b = _f32_operands(gen, cuda, M, N, K, case)
+            case += 1
+            got = rows_gemm(x, w, b)
+            assert torch.equal(got, rows_gemm_f32_ordered(gemm_plan(x, w),
+                                                          b)), (N, K, case)
+    a = torch.randn((3, 2, M, 17), generator=gen, device=cuda)
+    wb = torch.randn((3, 1, 17, 130), generator=gen, device=cuda).expand(
+        3, 2, 17, 130)
+    plan = einsum_plan("ghmk,ghkn->ghmn", a, wb)
+    assert plan.G1 * plan.G2 == 6 and 0 in plan.sw[:2]
+    assert torch.equal(rows_einsum("ghmk,ghkn->ghmn", a, wb),
+                       rows_gemm_f32_ordered(plan))
+    torch.cuda.synchronize()
+
+
+def _f32_narrow_operands(gen, dev, G, M, N, K, case):
+    """x (G, M, K) k- or m-contiguous and w (G, K, N) n- or k-contiguous
+    by the bits 1 and 2 of ``case``, each cut from one wider by a float
+    along its contiguous axis with bit 8 (a row or k stride that is not a
+    multiple of 4 floats: 4-byte copies)."""
+    pad = 1 if case & 8 else 0
+
+    def randn(rows, cols):
+        return torch.randn((G, rows, cols + pad), generator=gen,
+                           device=dev)[..., :cols]
+    x = randn(M, K) if case & 1 else randn(K, M).transpose(1, 2)
+    w = randn(K, N) if case & 2 else randn(N, K).transpose(1, 2)
+    return x, w / K ** 0.5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("G,M,N", NARROW_SHAPES)
+def test_gpu_f32_narrow_tile_equals_the_ordered_oracle(cuda, G, M, N):
+    """The 128 x 16 tile bitwise the oracle's at K = 15 and 17 (a slice's
+    tail) and 8,192, both orientations of each operand, 16- and 4-byte
+    copies, and (one batch) with a bias and without."""
+    assert rows_ops.f32_tile(G, M, N) == 3
+    gen = torch.Generator(device=cuda).manual_seed(20 + N)
+    for K in (15, 17, 8192):
+        for case in range(16):
+            x, w = _f32_narrow_operands(gen, cuda, G, M, N, K, case)
+            b = None
+            if G == 1:
+                x, w = x[0], w[0]
+                if case & 4:
+                    b = torch.randn(N, generator=gen, device=cuda)
+                got, plan = rows_gemm(x, w, b), gemm_plan(x, w)
+            else:
+                got, plan = rows_bmm(x, w), bmm_plan(x, w)
+            assert torch.equal(got, rows_gemm_f32_ordered(plan, b)), (
+                K, case)
+            del x, w, got, plan
+    torch.cuda.synchronize()
+
+
+def _f32_family_operands(gen, dev, label, tokens):
+    """(call, plan, torch's call) of one of ``_f32_shapes``: the router
+    as ``x @ w``, an SSD product as its einsum on operands laid out as
+    ``ssd_chunked`` makes them."""
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+    arch, what = label.split(" ", 1)
+    if what == "router":
+        cfg = ARCHS[arch]
+        x = randn(tokens, cfg.d_model)
+        w = randn(cfg.d_model, cfg.moe_num_experts) / cfg.d_model ** 0.5
+        return (lambda: rows_gemm(x, w)), gemm_plan(x, w), (lambda: x @ w)
+    h, p, n, k = _ssd_dims(arch)
+    b, l = (1, 256) if tokens == 256 else (4, 512)
+    c = l // k
+    ops = {SSD_EQS[0]: ((b, c, k, n), (b, c, k, n)),
+           SSD_EQS[1]: ((b, c, h, k, k), (b, c, k, h, p)),
+           SSD_EQS[2]: ((b, c, k, h, p), (b, c, k, n)),
+           SSD_EQS[3]: ((b, c, k, n), (b, c, h, p, n))}
+    sa, sb = ops[what]
+    a, bb = randn(*sa), randn(*sb)
+    return ((lambda: rows_einsum(what, a, bb)), einsum_plan(what, a, bb),
+            (lambda: torch.einsum(what, a, bb)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("label,tokens,shape", _f32_shapes(),
+                         ids=lambda v: str(v).replace(" ", "_"))
+def test_gpu_f32_family_shapes(cuda, label, tokens, shape):
+    """The routers' and the SSD's products bitwise the oracle's and within
+    1e-4 of torch's (which sums in another order; TF32 is off)."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    call, plan, lib = _f32_family_operands(gen, cuda, label, tokens)
+    assert (plan.G1 * plan.G2, plan.M, plan.N, plan.K) == shape
+    got = call()
+    assert torch.equal(got, rows_gemm_f32_ordered(plan))
+    torch.testing.assert_close(got, lib(), rtol=1e-4, atol=1e-4)
+    torch.cuda.synchronize()
 
 
 @pytest.mark.gpu
