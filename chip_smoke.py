@@ -18,6 +18,7 @@ JAX):
     python3 chip_smoke.py --token-split [--src OTHER_CHECKOUT/src]
     python3 chip_smoke.py --examples
     python3 chip_smoke.py --rows
+    python3 chip_smoke.py --flash [--src OTHER_CHECKOUT/src]
 
 The second form builds the kernels and runs only phase 4's decode-step
 profile, the third only phase 2's paged-attention checks and timings (the
@@ -27,7 +28,10 @@ only the sharded step's check, phase 5 and phase 12, the ninth only
 phase 13 and the tenth only phase 14 (both without building the kernels,
 which training does not launch), the eleventh only phase 15 and the
 twelfth only phase 16 (the examples), the thirteenth only phase 2's
-checks of the rows-invariant kernels and phase 6 (g), of this
+checks of the rows-invariant kernels and phase 6 (g), the fourteenth
+only phase 2's flash checks and the flash rows of phases 8 (c), 9, 10
+and 15 (device ms beside SDPA's, the bound, the CTAs and the wrapper's
+host time a call), of this
 checkout's port or of
 another
 commit's (a parent unpacked with ``git archive``), so that two commits
@@ -225,9 +229,12 @@ Phases, each failing loudly:
    reads, each query of a Q > 1 read held bitwise to a Q = 1 launch;
    flash causal at (2, 512, 8, 1, 256) and full at (2, 1500, 16, 16,
    64), whisper's encoder, and (2, 256 vs 1500, 16, 16, 64), its
-   cross-attention, in bf16 against the float32 plain version at limits
-   scaled to the kernel's rounding and in float32 at 1e-4) against their
-   plain versions, bounds and SDPA; (c)
+   cross-attention, and on the default admission path paligemma's exact
+   prefix-KV read (4 rows of 256 queries at offsets 768, 512, 704, 576
+   over 1,024 keys) and whisper's causal self-attention (4, 256, 16,
+   16, 64), in bf16 against the float32 plain version at limits scaled
+   to the kernel's rounding and in float32 at 1e-4, with the plan's CTAs)
+   against their plain versions, bounds and SDPA; (c)
    float32 card = CPU for both at d 512, cut to 2 layers (4 greedy
    requests with random frontends); then, in bf16 at full width and
    depth with seeded random weights and frontends, (a) paligemma-3b (18
@@ -243,7 +250,9 @@ Phases, each failing loudly:
    must restore the pool blocks and the ``cross_k``/``cross_v`` rows
    byte for byte and keep the streams.  Each prints weights and peak
    GiB, a steady decode and verify step's profile, an admission step's
-   (the encoder's share for whisper), the decode step's cross-attention
+   (the encoder's share for whisper), one exact prefix-KV admission
+   step's (the flash kernel's device ms and share; its launches counted
+   on no path), the decode step's cross-attention
    device ms (whisper), tokens/s, launches and ``streams_sha256``; the
    prefix cache is off for both, and the phase prints why.
 11. the paper's translation comparison (Figs. 18-20) at the translation
@@ -374,6 +383,7 @@ beside it, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import gc
@@ -389,6 +399,10 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 PEAK_FLOPS = {"float32": 67e12,    # CUDA cores, no tensor cores
               "bfloat16": 989e12}  # dense tensor cores
 SEED = 0
+# the flash kernels' names: the TMA kernels (bf16 at D = 64, 256), the
+# cp.async one (bf16 at D = 128; every bf16 D in trees before the TMA
+# kernels), the float32 one
+FLASH_SYMBOLS = ("flash_tma_kernel", "flash_wgmma_kernel", "flash_kernel")
 # set by --src naming another tree than the checkout's src/: only there may
 # the float32 oracle, f32_tile and the float32 launch count be missing
 OTHER_TREE = False
@@ -546,7 +560,7 @@ def check_close(name, got, want, tol) -> float:
     return max_err(got, want)
 
 
-def check_flash_bf16(name, got, q, k, v, causal) -> dict:
+def check_flash_bf16(name, got, q, k, v, causal, q_offset=None) -> dict:
     """Hold flash attention's bf16 output ``got`` to the float32 plain
     version on the same bf16 inputs, at limits scaled to what is compared.
     The kernel rounds each softmax weight to bf16 (within 2^-9 of itself)
@@ -555,13 +569,15 @@ def check_flash_bf16(name, got, q, k, v, causal) -> dict:
     the same weights' average of |v|; rounding keeps the error's norm
     near 0.29 bf16 ulps of the output's, held within 2^-8 of it.  A kernel
     that drops keys or lets masked ones in (a ragged tail) breaks one or
-    both.  Returns the max abs error, the limit at that element and both
-    ratios to their limits."""
+    both.  ``q_offset`` places row b's queries at ``q_offset[b] + i`` of
+    the causal mask.  Returns the max abs error, the limit at that element
+    and both ratios to their limits."""
     from repro_torch.models.attention import dense_attention
     q32, k32, v32 = (t.float() for t in (q, k, v))
-    want = dense_attention(q32, k32, v32, causal=causal)
-    lim = 2 ** -7 * (want.abs()
-                     + dense_attention(q32, k32, v32.abs(), causal=causal))
+    off = 0 if q_offset is None else q_offset
+    want = dense_attention(q32, k32, v32, causal=causal, q_offset=off)
+    lim = 2 ** -7 * (want.abs() + dense_attention(q32, k32, v32.abs(),
+                                                  causal=causal, q_offset=off))
     err = (got.float() - want).abs()
     at = int(err.argmax())
     out = dict(max_abs_err=float(err.max()),
@@ -1289,14 +1305,14 @@ def check_flash(torch, dev, results):
     bound_ops = flops / PEAK_FLOPS["bfloat16"]
     results["flash_attention"] = dict(
         max_abs_err=main_err, ms=time_ms(torch, kern, 20),
-        device_ms=device_ms(torch, kern[0], 5,
-                            ("flash_wgmma_kernel", "flash_kernel")),
+        device_ms=device_ms(torch, kern[0], 5, FLASH_SYMBOLS),
         plain_ms=time_ms(torch, plain, 8),
         bound_ms=max(bound_bytes, bound_ops) * 1e3,
         bound_by="bytes" if bound_bytes >= bound_ops else "operations",
         library_ms=time_ms(torch, lib, 20),
         library_device_ms=device_ms(torch, lib[0], 5),
-        shape=f"B={B} S={S} H={H} KV={KV} D={D} causal bf16")
+        shape=f"B={B} S={S} H={H} KV={KV} D={D} causal bf16",
+        **flash_grid(torch, dev, B, S, H, D))
 
 
 # ------------------------------------------ phase 2: the rows kernels
@@ -1774,7 +1790,7 @@ def check_flash_offset(torch, dev, results):
     pairs = sum(o * 512 + 512 * 513 // 2 for o in FLASH_OFFSETS)
     flops = 4 * H * D * pairs
     nbytes = 2 * (2 * 4 * 512 * H * D + 2 * 4 * S * KV * D)
-    ms, dms = kernel_times(torch, kern, ("flash_wgmma_kernel",), 5)
+    ms, dms = kernel_times(torch, kern, FLASH_SYMBOLS, 5)
     results["flash_attention_q_offset"] = dict(
         max_abs_err=out["bfloat16"]["max_abs_err"], ms=ms, device_ms=dms,
         plain_ms=time_ms(torch, plain, 8),
@@ -1785,9 +1801,34 @@ def check_flash_offset(torch, dev, results):
         library_device_ms=device_ms(torch, lib[0], 5),
         shape=f"B=4 Sq=512 Skv={S} H={H} KV={KV} D={D} causal bf16, "
               f"q_offset {list(FLASH_OFFSETS)}",
-        checks=out, rope_rows_bitwise=True)
+        checks=out, rope_rows_bitwise=True,
+        **flash_grid(torch, dev, 4, 512, H, D))
     log("check flash_attention with q_offset: "
         + json.dumps(results["flash_attention_q_offset"]))
+
+
+def flash_rows(torch, dev, results, src):
+    """``--flash``: phase 2's flash checks (``check_flash``,
+    ``check_flash_offset``) and the flash rows of phases 8 (c), 9, 15 and
+    10 (``OTHER_FLASH``, ``PHASE10_FLASH``) and ``WIDE_FLASH``, each held
+    to its plain version; then one line of every row's device ms, SDPA's,
+    bound, CTAs and the wrapper's host µs a call (``flash_host_us``), so
+    that ``--flash --src`` times another tree's kernel."""
+    check_flash(torch, dev, results)
+    check_flash_offset(torch, dev, results)
+    flash = OTHER_FLASH + PHASE10_FLASH + WIDE_FLASH
+    geo = geometry_reads(torch, dev, heads=(), kinds=(), flash=flash,
+                         label="flash rows")
+    for tag, row in zip([t for t in geo if t.startswith("flash_")], flash):
+        geo[tag].update(flash_host_us(torch, dev, *row))
+    rows = {"phase2_B2_S1024_H32_KV8": results["flash_attention"],
+            "phase2_q_offset": results["flash_attention_q_offset"], **geo}
+    keys = ("device_ms", "ms", "sdpa_device_ms", "library_device_ms",
+            "bound_ms", "bound_by", "rows_a_cta", "ctas", "host_us",
+            "plan_us", "encode_us")
+    log(f"flash rows of the port in {src}: " + json.dumps(
+        {k: {f: r[f] for f in keys if f in r} for k, r in rows.items()}))
+    torch.cuda.synchronize()
 
 
 def rows_kernels(torch, dev, results):
@@ -2540,24 +2581,29 @@ def profile_prefix_step(torch, eng, rng, cfg, prompt_len=512):
             kernels=len(rows), top=top)}))
 
 
-def profile_exact_step(torch, dev, cfg, params, label, prompt_len=512):
+def profile_exact_step(torch, dev, cfg, params, label, prompt_len=512,
+                       engine_kw=PHASE5, f32=True):
     """One admission step on the engine's default ``prefix_gather=
-    "exact"`` (phase 5's engine otherwise) with the phase's weights, under
-    the profiler: a ``prompt_len``-token prompt admits as chunk 0
+    "exact"`` (``engine_kw``, phase 5's engine, otherwise) with the
+    phase's weights, under the profiler: a ``prompt_len``-token prompt
+    (with a random frontend where the family has one) admits as chunk 0
     (recompute) and then one rows-invariant prefix-KV chunk of the rest,
-    whose step is profiled.  Prints its device ms by kernel and the
-    float32 entry's device ms, launches and share of the step (the MoE
-    router, the SSD's products); fails unless that entry launched.  Its
-    launches are not counted on any path."""
+    whose step is profiled.  Prints its device ms by kernel, the float32
+    entry's and the flash kernel's device ms, launches and share of the
+    step, and the wall ms of three more such steps unprofiled; fails
+    unless the float32 entry (the MoE router, the SSD's products)
+    launched, or with ``f32`` False the flash kernel.  Its launches are
+    not counted on any path."""
     import numpy as np
     from repro_torch.serve import Engine, EngineConfig, Request
     eng = Engine(cfg, params, EngineConfig(
-        dtype=torch.bfloat16, **dict(PHASE5, prefix_gather="exact")),
+        dtype=torch.bfloat16, **dict(engine_kw, prefix_gather="exact")),
         device=dev)
     rng = np.random.RandomState(SEED + 29)
     eng.submit(Request(seq_id=0, prompt=rng.randint(0, cfg.vocab_size,
                                                     prompt_len),
-                       max_new_tokens=2))
+                       max_new_tokens=2,
+                       frontend=random_frontend(cfg, rng)))
     eng.step()                                   # chunk 0
     n_log = len(eng.admission_log)
     rows = profile_cold(torch, eng.step, tries=2)
@@ -2571,21 +2617,45 @@ def profile_exact_step(torch, dev, cfg, params, label, prompt_len=512):
     bf16 = sum(ms for name, ms, _ in rows
                if any(x in name for x in ROWS_SYMBOLS["bfloat16"]))
     f32_ms, f32_n = sum(ms for ms, _ in f32), sum(n for _, n in f32)
-    if busy and not f32_n:
+    fl = [(ms, n) for name, ms, n in rows
+          if any(x in name for x in FLASH_SYMBOLS)]
+    fl_ms, fl_n = sum(ms for ms, _ in fl), sum(n for _, n in fl)
+    if busy and not (f32_n if f32 else fl_n):
         raise AssertionError(f"{label}: the exact prefix-KV step launched "
-                             "no float32 rows_gemm")
+                             + ("no float32 rows_gemm" if f32 else
+                                "no flash kernel"))
     report = dict(
         device_busy_ms=round(busy, 4), f32_entry_ms=round(f32_ms, 4),
         f32_entry_launches=f32_n,
         f32_entry_share=round(f32_ms / busy, 4) if busy else None,
+        flash_ms=round(fl_ms, 4), flash_launches=fl_n,
+        flash_share=round(fl_ms / busy, 4) if busy else None,
         bf16_entry_ms=round(bf16, 4), kernels=len(rows),
         top=[dict(kernel=name[:90], ms=round(ms, 4), launches=n)
              for name, ms, n in rows[:10]])
-    log(f"{label}: exact prefix-KV admission step under the profiler (one "
-        f"chunk of {prompt_len - 256} tokens over 256): "
-        + json.dumps({"profile": report}))
     while eng.has_unfinished():
         eng.step()
+    # the same step's wall ms, unprofiled, from one synchronisation to the
+    # next: three more prompts of the length, one at a time
+    wall = []
+    for sid in (1, 2, 3):
+        eng.submit(Request(seq_id=sid,
+                           prompt=rng.randint(0, cfg.vocab_size, prompt_len),
+                           max_new_tokens=2,
+                           frontend=random_frontend(cfg, rng)))
+        eng.step()                               # chunk 0
+        n_log = len(eng.admission_log)
+        _, ms = sync_ms(torch, eng.step)
+        if [r.path for r in eng.admission_log[n_log:]] != ["prefix_kv"]:
+            raise AssertionError(f"{label}: the timed step admitted "
+                                 f"{eng.admission_log[n_log:]}")
+        wall.append(round(ms, 4))
+        while eng.has_unfinished():
+            eng.step()
+    report["wall_ms"] = wall
+    log(f"{label}: exact prefix-KV admission step under the profiler (one "
+        f"chunk of {prompt_len - 256} tokens over 256), and its wall ms "
+        "unprofiled: " + json.dumps({"profile": report}))
     del eng
     torch.cuda.empty_cache()
     return report
@@ -3802,6 +3872,60 @@ def kernel_times(torch, fns, symbols, iters=20):
             device_ms(torch, fns[0], iters, symbols))
 
 
+def flash_grid(torch, dev, B, S, H, D):
+    """The bf16 flash launch's query rows a CTA and CTAs: the plan's
+    (``flash_plan``), or, only in another tree from before the plan, 128
+    rows."""
+    from repro_torch.kernels.flash_attention import ops
+    rows = (128 if OTHER_TREE and not hasattr(ops, "flash_plan")
+            else ops.flash_plan(B, S, H, D).rows)
+    return dict(rows_a_cta=rows, ctas=B * H * -(-S // rows))
+
+
+def flash_host_us(torch, dev, B, S, Skv, H, KV, D, causal, *offs):
+    """The bf16 flash wrapper's host time a call (µs, 200 calls on the
+    same inputs without a synchronisation, the device faster than the
+    host), and of its parts: ``flash_plan`` alone and the launch's three
+    tensor maps encoded alone (``flash_attention_encode_us``; None at D =
+    128, whose kernel has none, or in a tree without it)."""
+    import ctypes
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import ops
+    g = torch.Generator(device=dev).manual_seed(SEED + 30)
+    q, k, v = (torch.randn((B, n, h, D), generator=g, device=dev).to(
+        torch.bfloat16) for n, h in ((S, H), (Skv, KV), (Skv, KV)))
+    off = (torch.tensor(offs[0], dtype=torch.int32, device=dev)
+           if offs else None)
+    n = 200
+    for _ in range(3):
+        ops.flash_attention(q, k, v, causal=causal, q_offset=off)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        ops.flash_attention(q, k, v, causal=causal, q_offset=off)
+    host = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    out = dict(host_us=host, plan_us=None, encode_us=None)
+    if hasattr(ops, "flash_plan"):
+        t0 = time.perf_counter()
+        for _ in range(n):
+            ops.flash_plan(B, S, H, D)
+        out["plan_us"] = (time.perf_counter() - t0) / n * 1e6
+    lib = _build.load("flash_attention")
+    if max(D, 64) != 128 and hasattr(lib, "flash_attention_encode_us"):
+        fn = lib.flash_attention_encode_us
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, p, p, i, i, i, i, i, i, i]
+        fn.restype = ctypes.c_double
+        us = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), B, S, Skv, H, KV,
+                D, n)
+        if us < 0:
+            raise AssertionError(f"flash ({B}, {S}, {Skv}, {H}, {KV}, {D}): "
+                                 "a tensor map failed to encode")
+        out["encode_us"] = us
+    return out
+
+
 def geometry_reads(torch, dev, heads=((40, 8), (32, 4)),
                    kinds=("decode", "verify", "prefix"),
                    flash=((2, 512, 512, 40, 8, 128, True),),
@@ -3818,9 +3942,12 @@ def geometry_reads(torch, dev, heads=((40, 8), (32, 4)),
     reads are held at 3e-2, and every query of a verify read and queries
     ``PREFIX_QUERIES`` of a prefix read must equal Q = 1 launches at their
     extents bitwise; flash is held in bf16 by ``check_flash_bf16`` and in
-    float32 at 1e-4 on the same inputs.  ``heads`` ((H, KV) or (H, KV,
-    D)), ``kinds`` and ``flash`` ((B, Sq, Skv, H, KV, D, causal) each)
-    pick another phase's geometries."""
+    float32 at 1e-4 on the same inputs, and reports its plan's query
+    rows a CTA and CTAs.  ``heads`` ((H, KV) or (H, KV, D)), ``kinds`` and
+    ``flash`` ((B, Sq, Skv, H, KV, D, causal[, offsets]) each; offsets,
+    one a row, place the rows' queries in the causal mask as the exact
+    prefix-KV step's read does, its yardstick SDPA with the boolean
+    mask) pick another phase's geometries."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.paged_attention.ops import paged_attention
@@ -3879,40 +4006,56 @@ def geometry_reads(torch, dev, heads=((40, 8), (32, 4)),
                 ctas=_grid_ctas(q.shape[0], nq, H, KV, D, slots.shape[1]),
                 **({"queries_bitwise_q1": True} if Q is not None else {}))
     g2 = torch.Generator(device=dev).manual_seed(SEED + 8)
-    for B, S, Skv, H, KV, D, causal in flash:
+    for B, S, Skv, H, KV, D, causal, *offs in flash:
         sets = [[torch.randn((B, n, h, D), generator=g2, device=dev).to(
             torch.bfloat16) for n, h in ((S, H), (Skv, KV), (Skv, KV))]
             for _ in range(4)]
         q, k, v = sets[0]
+        off = (torch.tensor(offs[0], dtype=torch.int32, device=dev)
+               if offs else None)
         tag = (f"flash_B{B}_S{S}_H{H}_KV{KV}"
                + ("" if Skv == S else f"_Skv{Skv}")
                + ("" if D == 128 else f"_D{D}")
-               + ("" if causal else "_full"))
-        held = check_flash_bf16(tag, flash_attention(q, k, v, causal=causal),
-                                q, k, v, causal)
+               + ("" if causal else "_full")
+               + ("_q_offset" if offs else ""))
+        held = check_flash_bf16(tag, flash_attention(q, k, v, causal=causal,
+                                                     q_offset=off),
+                                q, k, v, causal, q_offset=off)
         q32, k32, v32 = (t.float() for t in (q, k, v))
         err32 = check_close(f"{tag} (float32)",
-                            flash_attention(q32, k32, v32, causal=causal),
-                            dense_attention(q32, k32, v32, causal=causal),
-                            1e-4)
+                            flash_attention(q32, k32, v32, causal=causal,
+                                            q_offset=off),
+                            dense_attention(q32, k32, v32, causal=causal,
+                                            q_offset=0 if off is None
+                                            else off), 1e-4)
         del q32, k32, v32
         heads_first = [(
             q.transpose(1, 2).contiguous(),
             k.repeat_interleave(H // KV, dim=2).transpose(1, 2).contiguous(),
             v.repeat_interleave(H // KV, dim=2).transpose(1, 2).contiguous())
             for q, k, v in sets]
-        lib = [lambda s=s: F.scaled_dot_product_attention(*s,
-                                                          is_causal=causal)
-               for s in heads_first]
-        pairs = (S * (S + 1) // 2) if causal else S * Skv
+        if offs:
+            qpos = off[:, None] + torch.arange(S, device=dev)[None, :]
+            mask = (qpos[:, None, :, None] >= torch.arange(
+                Skv, device=dev)[None, None, None, :])
+            lib = [lambda s=s: F.scaled_dot_product_attention(
+                *s, attn_mask=mask) for s in heads_first]
+            # the pairs these offsets need
+            pairs = sum(sum(min(o + i + 1, Skv) for i in range(S))
+                        for o in offs[0]) / B
+        else:
+            lib = [lambda s=s: F.scaled_dot_product_attention(
+                *s, is_causal=causal) for s in heads_first]
+            pairs = (S * (S + 1) // 2) if causal else S * Skv
         flops = 4 * B * H * D * pairs
         nbytes = 2 * (2 * B * S * H * D + 2 * B * Skv * KV * D)
         ms, dms = kernel_times(
-            torch, [lambda s=s: flash_attention(*s, causal=causal)
-                    for s in sets],
-            ("flash_wgmma_kernel", "flash_kernel"), iters=5)
+            torch, [lambda s=s: flash_attention(*s, causal=causal,
+                                                q_offset=off)
+                    for s in sets], FLASH_SYMBOLS, iters=5)
         out[tag] = dict(
-            g=H // KV, D=D, Sq=S, Skv=Skv, causal=causal, **held,
+            g=H // KV, D=D, Sq=S, Skv=Skv, causal=causal,
+            **({"q_offset": list(offs[0])} if offs else {}), **held,
             max_abs_err_f32=err32, tol_f32=1e-4,
             ms=ms, device_ms=dms,
             bound_ms=max(nbytes / HBM_BYTES_PER_S,
@@ -3921,7 +4064,9 @@ def geometry_reads(torch, dev, heads=((40, 8), (32, 4)),
             sdpa_ms=time_ms(torch, lib, 20),
             sdpa_device_ms=device_ms(torch, lib[0], 5),
             plain_ms=time_ms(torch, [lambda s=s: dense_attention(
-                *s, causal=causal) for s in sets], 8))
+                *s, causal=causal, q_offset=0 if off is None else off)
+                for s in sets], 8),
+            **flash_grid(torch, dev, B, S, H, D))
     log(f"{label} kernels at the serving geometries (bf16): "
         + json.dumps({k: {f: (round(x, 6) if isinstance(x, float) else x)
                           for f, x in r.items()} for k, r in out.items()}))
@@ -4351,13 +4496,17 @@ PHASE10_CPU = {PHASE10_VLM: dict(d_model=512, d_ff=2048, num_layers=2),
 @contextlib.contextmanager
 def attention_calls(rec):
     """Record every ``attention`` call of the model's forward while the
-    block runs: (Sq, Skv, H, KV, D, causal, impl)."""
+    block runs: (B, Sq, Skv, H, KV, D, causal, impl, the bf16 flash plan's
+    query rows a CTA and CTAs)."""
     import repro_torch.models.transformer as tmod
     orig = tmod.attention
 
     def attention(q, k, v, **kw):
-        rec.append((q.shape[1], k.shape[1], q.shape[2], k.shape[2],
-                    q.shape[3], kw.get("causal", True), kw.get("impl")))
+        B, S, H, D = q.shape
+        grid = flash_grid(None, None, B, S, H, D)
+        rec.append((B, S, k.shape[1], H, k.shape[2], D,
+                    kw.get("causal", True), kw.get("impl"),
+                    grid["rows_a_cta"], grid["ctas"]))
         return orig(q, k, v, **kw)
 
     tmod.attention = attention
@@ -4531,8 +4680,9 @@ def full_width_frontend(torch, dev, name, label):
     and device ms, kernels, idle share and top kernels, a prefix-KV and a
     recompute admission step's profile (the encoder's share for
     whisper), the decode step's cross-attention device ms (whisper),
-    tokens/s, launches and ``streams_sha256``.  Returns the launches of
-    all runs summed."""
+    the flash calls' shapes and plans (``attention_calls``), tokens/s,
+    launches and ``streams_sha256``.  Returns the launches of all runs
+    summed."""
     import numpy as np
     import repro_torch.serve.decode as dmod
     audio = name == PHASE10_AUDIO
@@ -4557,6 +4707,9 @@ def full_width_frontend(torch, dev, name, label):
             profile_prefix_step(torch, eng, rng, cfg,
                                 prompt_len=384 if audio else 512)
             r["admission"] = admission_profile(torch, eng, cfg, dims, rng)
+            r["exact_step"] = profile_exact_step(
+                torch, dev, cfg, params, label,
+                prompt_len=384 if audio else 512, engine_kw=kw, f32=False)
             if audio:
                 r["cross_decode"] = cross_decode_ms(torch, eng, cfg, dims)
             pc = eng.stats()["prefix_cache"]
@@ -4583,10 +4736,10 @@ def full_width_frontend(torch, dev, name, label):
             if r["launches"][k] <= 0:
                 raise AssertionError(f"{label}: {k} was never launched in "
                                      f"the {run} run")
-    flashed = [c for c in calls if c[6] in ("pallas", "flash")]
-    want = ([lambda c: c[4] == 256 and c[5]] if not audio else
-            [lambda c: c[0] == c[1] == cfg.frontend_tokens and not c[5],
-             lambda c: c[1] == cfg.frontend_tokens != c[0] and not c[5]])
+    flashed = [c for c in calls if c[7] in ("pallas", "flash")]
+    want = ([lambda c: c[5] == 256 and c[6]] if not audio else
+            [lambda c: c[1] == c[2] == cfg.frontend_tokens and not c[6],
+             lambda c: c[2] == cfg.frontend_tokens != c[1] and not c[6]])
     for w in want:
         if not any(w(c) for c in flashed):
             raise AssertionError(f"{label}: flash attention missed a "
@@ -4632,12 +4785,15 @@ def full_width_frontend(torch, dev, name, label):
         steady_b4={"decode": off["after"]["steady"],
                    "verify": on["after"]["steady"]},
         admission=off["after"]["admission"],
+        exact_step=off["after"]["exact_step"],
         spec_drafted=on["stats"]["spec_drafted"],
         spec_accepted=on["stats"]["spec_accepted"],
         prefix_cache=pc,
         rsw_hits=int(off["stats"].get("rsw_hits", 0)),
         flex_walks=int(off["stats"].get("flex_walks", 0)),
         flash_shapes=sorted(set(flashed)),
+        flash_calls_by_plan=dict(collections.Counter(
+            f"D{c[5]} rows {c[8]}" for c in flashed)),
         streams_flash_equal_paged=sum(
             flash["streams"][sid] == off["streams"][sid]
             for sid in off["streams"]),
@@ -4691,14 +4847,33 @@ def frontend_card_vs_cpu(torch, dev):
                     prefix_gather="paged", prefix_cache="auto")
 
 
+# phase 10's flash rows (B, Sq, Skv, H, KV, D, causal[, offsets]):
+# paligemma-3b's prefill, whisper-medium's encoder and cross-attention,
+# then the default admission path's: paligemma's exact prefix-KV read (4
+# rows of 256 queries at these offsets over a 1,024-key buffer, so 768 to
+# 1,024 keys a row) and whisper's causal self-attention
+PALI_PREFIX_OFFSETS = (768, 512, 704, 576)
+PHASE10_FLASH = ((2, 512, 512, 8, 1, 256, True),
+                 (2, 1500, 1500, 16, 16, 64, False),
+                 (2, 256, 1500, 16, 16, 64, False),
+                 (4, 256, 1024, 8, 1, 256, True, PALI_PREFIX_OFFSETS),
+                 (4, 256, 256, 16, 16, 64, True))
+# the flash rows of the other phases at D = 128: phase 8 (c)'s qwen2.5-14b
+# (40/8), phase 9's jamba (64/8), phase 15's token-split rank (16/4)
+OTHER_FLASH = ((2, 512, 512, 40, 8, 128, True),
+               (2, 512, 512, 64, 8, 128, True),
+               (2, 1024, 1024, 16, 4, 128, True))
+# ``--flash`` only: a D = 256 grid that 128-row CTAs would fill (256 of
+# them), which no phase launches (phase 10 (a) logs its calls' plans,
+# ``attention_calls``)
+WIDE_FLASH = ((4, 1024, 1024, 8, 1, 256, True),)
+
+
 def frontends(torch, dev, results):
     """Phase 10: the kernels at both models' geometries (into
     ``results``), (c), then (a) and (b).  Returns {path: launches}."""
     geo = geometry_reads(
-        torch, dev, heads=((8, 1, 256), (16, 16, 64)),
-        flash=((2, 512, 512, 8, 1, 256, True),
-               (2, 1500, 1500, 16, 16, 64, False),
-               (2, 256, 1500, 16, 16, 64, False)),
+        torch, dev, heads=((8, 1, 256), (16, 16, 64)), flash=PHASE10_FLASH,
         label="phase 10")
     for model, tag in (("paligemma", "H8_KV1_D256"),
                        ("whisper", "H16_KV16_D64")):
@@ -4711,6 +4886,10 @@ def frontends(torch, dev, results):
         "flash_B2_S1500_H16_KV16_D64_full"]
     fl["whisper_cross_B2_S256_Skv1500_H16_KV16_D64"] = geo[
         "flash_B2_S256_H16_KV16_Skv1500_D64_full"]
+    fl["paligemma_prefix_kv_B4_S256_Skv1024_H8_KV1_D256"] = geo[
+        "flash_B4_S256_H8_KV1_Skv1024_D256_q_offset"]
+    fl["whisper_causal_B4_S256_H16_KV16_D64"] = geo[
+        "flash_B4_S256_H16_KV16_D64"]
     gc.collect()
     torch.cuda.empty_cache()
     frontend_card_vs_cpu(torch, dev)
@@ -7211,6 +7390,11 @@ def main() -> int:
                          "of the rows-invariant kernels (the GEMM, the RMS "
                          "norm, flash attention's q_offset) and phase 6 "
                          "(g), chunked = blocking at full width")
+    ap.add_argument("--flash", action="store_true",
+                    help="build the kernels and run only phase 2's flash "
+                         "checks and the flash rows of every phase's "
+                         "geometry (device ms beside SDPA's, the bound, "
+                         "the CTAs and the wrapper's host time a call)")
     ap.add_argument("--examples", action="store_true",
                     help="build the kernels and run only phase 16 (the "
                          "three examples/*_torch.py on the card)")
@@ -7285,7 +7469,8 @@ def main() -> int:
         # the bf16 flash and GEMM kernels and anything that spills, one
         # line each
         for k, regs, stack, st, ld in ents:
-            if ("flash_wgmma_kernel" in k or "gemm_bf16_wgmma" in k or st
+            if ("flash_wgmma_kernel" in k or "flash_tma_kernel" in k
+                    or "gemm_bf16_wgmma" in k or st
                     or ld):
                 log(f"  ptxas {k}: {regs} registers, {stack} bytes stack, "
                     f"{st} bytes spill stores, {ld} bytes spill loads")
@@ -7338,6 +7523,10 @@ def main() -> int:
         return 0
     if args.frontends:
         frontends(torch, dev, results)
+        card_line(torch)
+        return 0
+    if args.flash:
+        flash_rows(torch, dev, results, src)
         card_line(torch)
         return 0
     if args.rows:

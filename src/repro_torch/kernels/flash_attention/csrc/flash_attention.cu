@@ -1,54 +1,82 @@
 // Causal (or full) flash attention with GQA for Hopper: the prefill's
-// self-attention, normalized output in q's dtype.
+// self-attention, whisper's encoder and cross-attention; normalized
+// output in q's dtype.
 //
 // Replaces the Pallas TPU kernel
 // src/repro/kernels/flash_attention/flash_attention.py (_flash_kernel /
 // flash_attention_pallas).  The Pallas grid (B, H, q_tiles, kv_tiles) ran
 // the kv axis in order and carried the softmax state in VMEM scratch; it
-// asserted that S divides the 128-row tiles.  Here one CTA owns one
-// (b, h, query tile) and loops over key tiles with an f32 online softmax.
-// KV tiles wholly above the diagonal are skipped, and the ragged edges (S
-// not a multiple of the tile, e.g. an 8-token prefill bucket) come in as
-// zeros and are masked instead of asserted.  kv head = h / (H / KV).
-// An optional per-row q_offset (B,) places each row's queries inside the
-// causal mask (the prefix-KV prefill's chunk over its prefix at absolute
-// positions).  Key tiles always start at position 0 and a query folds its
-// tiles in order from tile 0; a tile wholly past its diagonal adds exact
-// zeros (the rescale is exp(0) = 1, every weight 0), so a query's bits
-// depend on its row of q and the keys up to it, not on its offset, on Sq
-// or on how many masked keys lie past it.
+// asserted that S divides the 128-row tiles.  Here a CTA owns one (b, h)
+// and 64 or 128 queries and loops over 64-key tiles with an f32 online
+// softmax.  KV tiles wholly above the diagonal are skipped, and the ragged
+// edges (S not a multiple of the tile, e.g. an 8-token prefill bucket, or
+// whisper's 1500 = 23 x 64 + 28 frames) come in as zeros and are masked
+// instead of asserted.  kv head = h / (H / KV).  An optional per-row
+// q_offset (B,) places each row's queries inside the causal mask (the
+// prefix-KV prefill's chunk over its prefix at absolute positions).  Key
+// tiles always start at position 0 and a query folds its tiles in order
+// from tile 0; a tile wholly past its diagonal adds exact zeros (the
+// rescale is exp(0) = 1, every weight 0), so a query's bits depend on its
+// row of q and the keys up to it, not on its offset, on Sq, on how many
+// masked keys lie past it, or on the CTA its row falls in.
 //
-// Bound on the card: operations.  Causal attention does 4 * D flops per
-// (query, key) pair with k <= q while reading each q, k, v and writing each
-// output once; at prefill lengths that is far above the card's
-// flops-per-byte balance, so the products belong on the tensor cores at
-// Hopper's full rate, which only wgmma reaches.
+// Bound on the card: operations at long prefills (4 D flops a (query,
+// key) pair against each q, k, v read and each output written once), but
+// bytes or latency at the serving path's short ones: paligemma-3b's (2,
+// 512, 8, 1, 256) causal is bounded by 0.00217 ms of operations and
+// 0.00282 ms of bytes, whisper-medium's cross-attention (2, 256 vs 1500,
+// 16, 16, 64) by 0.00429 ms of bytes, its encoder (2, 1500, 16, 16, 64) by
+// 0.0186 ms of operations.  What holds a kernel back at these shapes is
+// idle SMs (a 128-query CTA gives 64 of them work at the first two) and
+// the latency of a key tile's steps run one after another; at D = 64 also
+// the shared memory each tile's products read, and the exponentials
+// (4,096 a 64 x 64 tile, 16 a clock on an SM).
 //
-// Two kernels, by dtype:
-// * bfloat16 (the serving path), FA3-shaped and simplified: a CTA of two
-//   warpgroups owns 128 queries (64 rows each) and walks 64-key tiles.
-//   S = Q K^T is one wgmma per 16 columns of D with Q and K read from
-//   shared memory through matrix descriptors (128-byte swizzle, K-major).
-//   The f32 S fragment is masked (diagonal and ragged tiles only), turned
-//   into probabilities in registers (row max and sum over the 4 threads
-//   that share a row, exp2 with scale * log2(e) folded in) and re-packed in
-//   place to bf16 as the A operand of O += P V, whose B operand is the V
-//   tile read MN-major.  O stays in registers for the whole key loop and
-//   is normalised once.  K/V tiles arrive by 16-byte cp.async copies
-//   (each thread's offsets computed once) into a two-stage ring, so the
-//   next tile's copy is in flight while this one is computed; rows past
-//   the end are zero-filled, never read.  96 KB of shared memory and at
-//   most 128 registers a thread at D = 128 let two CTAs share an SM, so
-//   one CTA's softmax runs beside the other's products.  Causal query
-//   tiles are launched longest first so the short ones fill the tail.
-//   Head dims below 64 are padded to 64 columns in shared memory.
+// Three kernels:
+// * bfloat16 at D = 64 (and 16, 32, padded to 64 columns) and D = 256:
+//   flash_tma_kernel.  The plan (ops.py flash_plan, passed in as the query
+//   rows a CTA) gives a CTA one consumer warpgroup of 64 query rows, so
+//   that the grid of B * H * ceil(Sq / 64) covers the SMs: paligemma's and
+//   whisper's cross shapes go from 64 CTAs to 128.  A producer warp's one
+//   elected thread loads the Q tile once and each K/V tile with TMA
+//   (cp.async.bulk.tensor, 128-byte swizzle, 64 x 64 boxes; rows past Skv
+//   and columns past D are zero-filled) into a ring of stages with a full
+//   and an empty mbarrier each; no __syncthreads() in the key loop.
+//   Stages by shared memory: at D = 256 a CTA holds its 32 KB Q tile and
+//   three 64 KB K/V stages (230,456 bytes with the barriers and the
+//   alignment slack), so the producer runs a tile ahead of the two the
+//   consumer holds.  At D = 64 four 16 KB stages, and three CTAs an SM,
+//   whose warpgroups overlap one another; Q's A fragments are read into
+//   registers once (16 a thread), so S reads only K from shared memory.
+//   The consumer warpgroup overlaps its softmax with the tensor cores
+//   (FA3's intra-warpgroup pipelining): it issues tile j's S = Q K^T and
+//   tile j-1's O += P V back to back, waits for S alone, runs tile j's
+//   softmax while P V runs, then waits for P V, releases tile j-1's stage,
+//   rescales O and packs tile j's P.  A row sees flash_wgmma_kernel's
+//   arithmetic in its order: S is one m64n64k16 wgmma per 16 columns of D
+//   (K read K-major), the masked ex2/fmaf softmax, the bf16 packing of P
+//   in registers, then P V as m64nDk16 wgmmas with V read MN-major; O *=
+//   corr_j before P_j V_j is added.  So its outputs are bitwise that
+//   kernel's at the same D.  The key axis is never split: a row's bits
+//   would depend on the split.
+// * bfloat16 at D = 128: flash_wgmma_kernel.  A CTA of two warpgroups
+//   owns 128 queries, K/V tiles arrive by 16-byte cp.async copies into a
+//   two-stage ring behind __syncthreads(), and each tile's S, softmax and
+//   P V run in turn; 96 KB of shared memory and at most 128 registers a
+//   thread let two CTAs share an SM, so one CTA's softmax runs beside the
+//   other's products.
 // * float32: 32-query tiles with both products as f32 FMAs on the CUDA
 //   cores, so float32 stays float32; warp w owns query rows w, w+4, ...,
 //   each lane one key, so row max and sum are warp shuffles.
+// Causal query tiles are launched longest first so the short ones fill
+// the tail.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <chrono>
 
 namespace {
 
@@ -184,8 +212,9 @@ __global__ void __launch_bounds__(kThreads)
 
 // ------------------------------------------------- bfloat16: wgmma
 
-constexpr int kWgBQ = 128;       // query rows per CTA: two warpgroups
+constexpr int kWgBQ = 128;       // flash_wgmma_kernel: query rows a CTA
 constexpr int kWgThreads = 256;
+constexpr int kBlk = 64 * 128;   // one 64-row x 64-column swizzled block
 
 template <int DP>
 struct WgCfg {
@@ -245,6 +274,44 @@ __device__ __forceinline__ void fence_regs(float* r) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
 
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count));
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+// waits until the barrier's phase with this parity has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+}
+// one 64 x 64 box of a 4-D tensor map into shared memory; completes on bar
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1, int c2,
+                                         int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
 // wgmma shared-memory matrix descriptor, 128-byte swizzle
 __device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
                                          uint32_t sbo) {
@@ -252,6 +319,10 @@ __device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
          ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
          ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32) | (1ull << 62);
 }
+
+#define F8(b)                                                          \
+  "+f"(d[b + 0]), "+f"(d[b + 1]), "+f"(d[b + 2]), "+f"(d[b + 3]),       \
+      "+f"(d[b + 4]), "+f"(d[b + 5]), "+f"(d[b + 6]), "+f"(d[b + 7])
 
 // D (64 x 64, f32) (+)= A (64 x 16, smem, K-major) * B (64 x 16, smem,
 // K-major); scale_d == 0 ignores D's old value
@@ -264,35 +335,26 @@ __device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t da,
       "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
       "%24, %25, %26, %27, %28, %29, %30, %31"
       "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
+      : F8(0), F8(8), F8(16), F8(24)
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
-// D (64 x 64, f32) += A (64 x 16, registers) * B (16 x 64, smem,
-// MN-major: the tile is stored keys x columns)
+// D (64 x 64, f32) (+)= A (64 x 16, registers) * B (16 x 64, smem; TB =
+// 1: MN-major, the tile stored keys x columns; 0: K-major); scale_d == 0
+// ignores D's old value
+template <int TB>
 __device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a,
-                                              uint64_t db) {
+                                              uint64_t db, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
       "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
       "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : F8(0), F8(8), F8(16), F8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
+        "n"(TB));
 }
 
 // D (64 x 128, f32) += A (64 x 16, registers) * B (16 x 128, smem,
@@ -309,19 +371,7 @@ __device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a,
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
       "%60, %61, %62, %63"
       "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : F8(0), F8(8), F8(16), F8(24), F8(32), F8(40), F8(48), F8(56)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
@@ -341,42 +391,19 @@ __device__ __forceinline__ void wgmma_rs_n256(float* d, const uint32_t* a,
       "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
       "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
       "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
-      "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "
-      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, "
+      "%119, %120, %121, %122, %123, %124, %125, %126, %127"
       "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
-        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
-        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
-        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
-        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
-        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
-        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
-        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
-        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
-        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
-        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
-        "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : F8(0), F8(8), F8(16), F8(24), F8(32), F8(40), F8(48), F8(56),
+        F8(64), F8(72), F8(80), F8(88), F8(96), F8(104), F8(112), F8(120)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
+#undef F8
 
 template <int DP>
 __device__ __forceinline__ void wgmma_pv(float* o, const uint32_t* a,
                                          uint64_t db) {
-  if constexpr (DP == 64) wgmma_rs_n64(o, a, db);
+  if constexpr (DP == 64) wgmma_rs_n64<1>(o, a, db, 1);
   else if constexpr (DP == 128) wgmma_rs_n128(o, a, db);
   else wgmma_rs_n256(o, a, db);
 }
@@ -386,20 +413,56 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// S = Q K^T for this warpgroup's 64 rows and one key tile, started and
-// committed, not waited for.
+// S = Q K^T for one warpgroup's 64 rows and one key tile, started and
+// committed, not waited for.  qw: the warpgroup's Q column block 0, the
+// blocks qblk bytes apart; tk: the K tile (column block a at a * BK * 128).
 template <int DP, int BK>
-__device__ __forceinline__ void start_s(float* sc, uint32_t sQ, uint32_t tk,
-                                        int wg) {
+__device__ __forceinline__ void start_s(float* sc, uint32_t qw, int qblk,
+                                        uint32_t tk) {
   static_assert(BK == 64, "S is one m64n64k16 wgmma per 16 columns of D");
 #pragma unroll
   for (int kk = 0; kk < DP / 16; ++kk) {
     const uint32_t off = (kk & 3) * 32;   // 16 columns = 32 bytes
-    const uint64_t da = desc(sQ + (kk >> 2) * (kWgBQ * 128) +
-                                 wg * (64 * 128) + off, 16, 1024);
+    const uint64_t da = desc(qw + (kk >> 2) * qblk + off, 16, 1024);
     const uint64_t db = desc(tk + (kk >> 2) * (BK * 128) + off, 16, 1024);
     wgmma_ss_n64(sc, da, db, kk > 0);
   }
+  wgmma_commit();
+}
+
+// This warp's A fragments of the warpgroup's 64 x DP Q tile (column
+// blocks of 64 at qw + a * kBlk, swizzled), 4 registers a 16-column step:
+// rows lane / 4 and + 8, columns 2 (lane % 4) and + 8, as P's
+template <int DP>
+__device__ __forceinline__ void load_q(uint32_t* qf, uint32_t qw, int warp,
+                                       int lane) {
+  const int mi = lane >> 3;                        // ldmatrix's matrix
+  const int row = warp * 16 + (mi & 1) * 8 + (lane & 7);
+#pragma unroll
+  for (int kk = 0; kk < DP / 16; ++kk) {
+    const int chunk = 2 * (kk & 3) + (mi >> 1);
+    const uint32_t addr =
+        qw + (kk >> 2) * kBlk + row * 128 + ((chunk ^ (row & 7)) << 4);
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+        : "=r"(qf[4 * kk]), "=r"(qf[4 * kk + 1]), "=r"(qf[4 * kk + 2]),
+          "=r"(qf[4 * kk + 3])
+        : "r"(addr));
+  }
+}
+
+// S = Q K^T as start_s, Q's fragments from registers (D = 64: one read of
+// Q, not one a key tile)
+template <int DP, int BK>
+__device__ __forceinline__ void start_s_rs(float* sc, const uint32_t* qf,
+                                           uint32_t tk) {
+  static_assert(BK == 64, "S is one m64n64k16 wgmma per 16 columns of D");
+#pragma unroll
+  for (int kk = 0; kk < DP / 16; ++kk)
+    wgmma_rs_n64<0>(sc, qf + 4 * kk,
+                    desc(tk + (kk >> 2) * (BK * 128) + (kk & 3) * 32, 16,
+                         1024),
+                    kk > 0);
   wgmma_commit();
 }
 
@@ -457,6 +520,46 @@ __device__ __forceinline__ void softmax_tile(float* sc, float* m_r,
   for (int r = 0; r < 2; ++r) l_r[r] = fmaf(l_r[r], corr[r], ls[r]);
 }
 
+// O *= corr (each row's rescale), then P packed to bf16 in place as the
+// A fragment of P V
+template <int DP, int BK>
+__device__ __forceinline__ void rescale_pack(float* acc, const float* corr,
+                                             const float* sc, uint32_t* pk) {
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) acc[i] *= corr[(i >> 1) & 1];
+#pragma unroll
+  for (int i = 0; i < BK / 4; ++i) pk[i] = pack_bf16(sc[2 * i], sc[2 * i + 1]);
+}
+
+// The normalised output of a warpgroup's 64 rows (this thread's rows row0
+// and row0 + 8, columns col0 + 8 c and the next), rows >= Sq dropped.
+template <int DP>
+__device__ __forceinline__ void store_rows(__nv_bfloat16* __restrict__ o,
+                                           const float* acc, float* l_r,
+                                           int b, int h, int row0, int col0,
+                                           int Sq, int H, int D) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 1);
+    l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 2);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if (row >= Sq) continue;
+    const float inv = 1.f / fmaxf(l_r[r], 1e-30f);
+    __nv_bfloat16* out = o + (((long long)b * Sq + row) * H + h) * D;
+#pragma unroll
+    for (int c = 0; c < DP / 8; ++c) {
+      const int col = c * 8 + col0;
+      if (col < D)
+        *reinterpret_cast<__nv_bfloat162*>(out + col) =
+            __floats2bfloat162_rn(acc[4 * c + 2 * r] * inv,
+                                  acc[4 * c + 2 * r + 1] * inv);
+    }
+  }
+}
+
 // The cp.async copies of one R-row tile (Q, K or V): thread `tid` always
 // copies the same column chunk of rows lr, lr + RS, ..., so its shared and
 // global offsets are computed once.
@@ -491,7 +594,7 @@ struct TileCopy {
 };
 
 template <int DP>
-__global__ void __launch_bounds__(kWgThreads, DP <= 128 ? 2 : 1)
+__global__ void __launch_bounds__(kWgThreads, 2)
     flash_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
                        const __nv_bfloat16* __restrict__ k,
                        const __nv_bfloat16* __restrict__ v,
@@ -562,17 +665,13 @@ __global__ void __launch_bounds__(kWgThreads, DP <= 128 ? 2 : 1)
     __syncthreads();
     if (j < n_act) {                    // warpgroup-uniform
       wgmma_fence();
-      start_s<DP, BK>(sc, sQ, sK + st * C::kTileBytes, wg);
+      start_s<DP, BK>(sc, sQ + wg * (64 * 128), kWgBQ * 128,
+                      sK + st * C::kTileBytes);
       wgmma_wait<0>();
       fence_regs<BK / 2>(sc);
       softmax_tile<BK>(sc, m_r, l_r, corr, j * BK, off + wq0, off + row0,
                        col0, Skv, causal, scale_log2);
-#pragma unroll
-      for (int i = 0; i < kOut; ++i) acc[i] *= corr[(i >> 1) & 1];
-      // the S fragment re-read as the A fragment of P V, in place
-#pragma unroll
-      for (int i = 0; i < BK / 4; ++i)
-        pk[i] = pack_bf16(sc[2 * i], sc[2 * i + 1]);
+      rescale_pack<DP, BK>(acc, corr, sc, pk);
       fence_regs<kOut>(acc);
       wgmma_fence();
       start_pv<DP, BK>(acc, pk, sV + st * C::kTileBytes);
@@ -590,27 +689,159 @@ __global__ void __launch_bounds__(kWgThreads, DP <= 128 ? 2 : 1)
     }
     cp_async_commit();
   }
+  store_rows<DP>(o, acc, l_r, b, h, row0, col0, Sq, H, D);
+}
 
+// flash_tma_kernel's shared memory: the CTA's 64-row Q tile (DP / 64
+// swizzled column blocks of 8 KB), ST stages of a K and a V tile (64 keys,
+// DP / 64 blocks each), then the full and empty barrier of each stage and
+// Q's barrier; CPS CTAs share an SM.  A consumer warpgroup and a producer
+// warp: 160 threads.
+template <int DP, int ST, int CPS>
+struct TmaCfg {
+  static constexpr int kBlocks = DP / 64;
+  static constexpr int kKV = kBlocks * kBlk;           // Q, or a K or V tile
+  static constexpr int kStage = 2 * kKV;
+  static constexpr int kBar = kKV + ST * kStage;
+  static constexpr int bytes = kBar + (2 * ST + 1) * 8 + 1024;  // + align
+  static constexpr int kThreads = 160;
+  static_assert(bytes <= 232448 && CPS * (bytes + 1024) <= 233472,
+                "CPS CTAs fit in an SM's shared memory");
+};
+
+template <int DP, int ST, int CPS>
+__global__ void __launch_bounds__(160, CPS)
+    flash_tma_kernel(const __grid_constant__ CUtensorMap tq,
+                     const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv,
+                     __nv_bfloat16* __restrict__ o,
+                     const int* __restrict__ q_offset, int B, int Sq,
+                     int Skv, int H, int KV, int D, int causal,
+                     float scale_log2) {
+  using C = TmaCfg<DP, ST, CPS>;
+  constexpr int BK = 64, kOut = DP / 2;
+  // D = 64 holds Q's A fragments in registers (16 a thread)
+  constexpr bool kQRegs = DP == 64;
+  extern __shared__ __align__(1024) unsigned char smem_tma[];
+  // the 128-byte swizzle repeats every 1024 bytes: tiles start on one
+  const uint32_t base =
+      ((uint32_t)__cvta_generic_to_shared(smem_tma) + 1023u) & ~1023u;
+  const uint32_t sKV = base + C::kKV;
+  const uint32_t full = base + C::kBar, empty = full + 8 * ST;
+  const uint32_t qbar = empty + 8 * ST;
+  // the q-tile index varies slowest, longest (causal) tiles first
+  const int n_qt = (Sq + 63) / 64;
+  const int hb = blockIdx.x % (H * B), rank = blockIdx.x / (H * B);
+  const int qt = causal ? n_qt - 1 - rank : rank;
+  const int h = hb % H, b = hb / H, hk = h / (H / KV);
+  const int q0 = qt * 64;
+  const int off = q_offset ? q_offset[b] : 0;  // the rows' first position
+  int n_kv = (Skv + BK - 1) / BK;
+  if (causal) n_kv = min(n_kv, (off + q0 + 63) / BK + 1);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 1);
-    l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 2);
-  }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row0 + 8 * r;
-    if (row >= Sq) continue;
-    const float inv = 1.f / fmaxf(l_r[r], 1e-30f);
-    __nv_bfloat16* out = o + (((long long)b * Sq + row) * H + h) * D;
-#pragma unroll
-    for (int c = 0; c < DP / 8; ++c) {
-      const int col = c * 8 + col0;
-      if (col < D)
-        *reinterpret_cast<__nv_bfloat162*>(out + col) =
-            __floats2bfloat162_rn(acc[4 * c + 2 * r] * inv,
-                                  acc[4 * c + 2 * r + 1] * inv);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(full + 8 * s, 1);        // the producer's expect_tx
+      mbar_init(empty + 8 * s, 4);       // one arrival a consumer warp
     }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __syncthreads();
+
+  if (warp == 4) {
+    // ---- producer: one thread loads Q, then keeps the ring full
+    if (lane == 0) {
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                       reinterpret_cast<uint64_t>(&tk))
+                   : "memory");
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                       reinterpret_cast<uint64_t>(&tv))
+                   : "memory");
+      mbar_expect_tx(qbar, C::kKV);        // zero-filled bytes count
+#pragma unroll
+      for (int a = 0; a < C::kBlocks; ++a)
+        tma_load(base + a * kBlk, &tq, qbar, 64 * a, h, q0, b);
+      for (int j = 0; j < n_kv; ++j) {
+        const int s = j % ST;
+        mbar_wait(empty + 8 * s, ((uint32_t)(j / ST) & 1u) ^ 1u);
+        const uint32_t bar = full + 8 * s;
+        const uint32_t sk = sKV + s * C::kStage, sv = sk + C::kKV;
+        mbar_expect_tx(bar, C::kStage);
+#pragma unroll
+        for (int a = 0; a < C::kBlocks; ++a) {
+          tma_load(sk + a * kBlk, &tk, bar, 64 * a, hk, j * BK, b);
+          tma_load(sv + a * kBlk, &tv, bar, 64 * a, hk, j * BK, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- the consumer warpgroup: rows q0 .. q0 + 63
+  float acc[kOut], sc[BK / 2], corr[2];
+  uint32_t pk[BK / 4];
+#pragma unroll
+  for (int i = 0; i < kOut; ++i) acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < BK / 2; ++i) sc[i] = 0.f;
+  float m_r[2] = {-INFINITY, -INFINITY}, l_r[2] = {0.f, 0.f};
+  const int row0 = q0 + warp * 16 + (lane >> 2);     // rows row0, row0 + 8
+  const int col0 = 2 * (lane & 3);
+
+  // tile 0: S, softmax, P
+  mbar_wait(qbar, 0);
+  uint32_t qf[kQRegs ? DP / 4 : 1];
+  if constexpr (kQRegs) load_q<DP>(qf, base, warp, lane);
+  mbar_wait(full, 0);
+  wgmma_fence();
+  if constexpr (kQRegs)
+    start_s_rs<DP, BK>(sc, qf, sKV);
+  else
+    start_s<DP, BK>(sc, base, kBlk, sKV);
+  wgmma_wait<0>();
+  fence_regs<BK / 2>(sc);
+  softmax_tile<BK>(sc, m_r, l_r, corr, 0, off + q0, off + row0, col0, Skv,
+                   causal, scale_log2);
+  rescale_pack<DP, BK>(acc, corr, sc, pk);
+  // tile j's S beside tile j-1's P V; tile j's softmax while P V runs
+  for (int j = 1; j < n_kv; ++j) {
+    const int s = j % ST, sp = (j - 1) % ST;
+    mbar_wait(full + 8 * s, (uint32_t)(j / ST) & 1u);
+    fence_regs<kOut>(acc);
+    wgmma_fence();
+    if constexpr (kQRegs)
+      start_s_rs<DP, BK>(sc, qf, sKV + s * C::kStage);
+    else
+      start_s<DP, BK>(sc, base, kBlk, sKV + s * C::kStage);
+    start_pv<DP, BK>(acc, pk, sKV + sp * C::kStage + C::kKV);
+    wgmma_wait<1>();                   // S has landed; P V still runs
+    fence_regs<BK / 2>(sc);
+    softmax_tile<BK>(sc, m_r, l_r, corr, j * BK, off + q0, off + row0,
+                     col0, Skv, causal, scale_log2);
+    wgmma_wait<0>();
+    fence_regs<kOut>(acc);
+    if (lane == 0) mbar_arrive(empty + 8 * sp);   // tile j-1 is done
+    rescale_pack<DP, BK>(acc, corr, sc, pk);
+  }
+  {
+    const int sp = (n_kv - 1) % ST;
+    fence_regs<kOut>(acc);
+    wgmma_fence();
+    start_pv<DP, BK>(acc, pk, sKV + sp * C::kStage + C::kKV);
+    wgmma_wait<0>();
+    fence_regs<kOut>(acc);
+  }
+  store_rows<DP>(o, acc, l_r, b, h, row0, col0, Sq, H, D);
+}
+
+// ------------------------------------------------------ the host side
+
+constexpr int kMaxDevices = 64;
+
+float scale_log2_of(int D) {
+  return (float)(1.4426950408889634 / sqrt((double)D));
 }
 
 template <int DP>
@@ -629,77 +860,192 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o,
   const long long n_qt = (Sq + kWgBQ - 1) / kWgBQ;
   const long long grid = n_qt * H * B;
   if (grid > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  const float scale_log2 = (float)(1.4426950408889634 / sqrt((double)D));
   flash_wgmma_kernel<DP><<<(unsigned)grid, kWgThreads, smem, stream>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
       (const __nv_bfloat16*)v, (__nv_bfloat16*)o, q_offset, B, Sq, Skv, H,
-      KV, D, causal, scale_log2);
+      KV, D, causal, scale_log2_of(D));
   return (int)cudaGetLastError();
 }
 
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o,
-           const int* q_offset, int B, int Sq, int Skv, int H, int KV,
-           int causal, cudaStream_t stream) {
-  if constexpr (sizeof(T) == 2) {
-    constexpr int DP = D < 64 ? 64 : D;
-    return launch_wgmma<DP>(q, k, v, o, q_offset, B, Sq, Skv, H, KV, D,
-                            causal, stream);
-  } else {
-    const float scale = (float)(1.0 / sqrt((double)D));
-    const size_t smem = sizeof(float) * smem_floats<D>();
-    if (smem > 48 * 1024) {
-      cudaError_t e = cudaFuncSetAttribute(
-          flash_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          (int)smem);
-      if (e != cudaSuccess) return (int)e;
-    }
-    dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
-    flash_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-        (const T*)q, (const T*)k, (const T*)v, (T*)o, q_offset, Sq, Skv, H,
-        KV, causal, scale);
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, found through the runtime's entry-point query
+// (no -lcuda)
+EncodeTiled encoder() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+    return e == cudaSuccess && q == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// The map of a contiguous bf16 (B, S, heads, D) tensor over (D, heads, S,
+// B), with a 64 x 64 box of (columns, 1 head, rows, 1 batch row): columns
+// past D and rows past S are zero-filled.  0 on success.
+int encode(CUtensorMap* map, const void* ptr, int B, int S, int heads,
+           int D) {
+  EncodeTiled fn = encoder();
+  if (!fn) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads,
+                              (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 2,
+                                 (cuuint64_t)heads * D * 2,
+                                 (cuuint64_t)S * heads * D * 2};
+  const cuuint32_t box[4] = {64, 1, 64, 1};
+  const cuuint32_t one[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                        const_cast<void*>(ptr), dims, strides, box, one,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+template <int DP, int ST, int CPS>
+int launch_tma(const void* q, const void* k, const void* v, void* o,
+               const int* q_offset, int B, int Sq, int Skv, int H, int KV,
+               int D, int causal, cudaStream_t stream) {
+  using C = TmaCfg<DP, ST, CPS>;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  static bool sized[kMaxDevices];      // the attribute, once a device
+  if (!sized[dev]) {
+    e = cudaFuncSetAttribute(flash_tma_kernel<DP, ST, CPS>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             C::bytes);
+    // all of the SM's 228 KB as shared memory, so that CPS CTAs fit
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(flash_tma_kernel<DP, ST, CPS>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
+    if (e != cudaSuccess) return (int)e;
+    sized[dev] = true;
   }
+  const long long n_qt = (Sq + 63) / 64;
+  const long long grid = n_qt * H * B;
+  if (grid > 0x7fffffffLL || Sq > 0x7fffffff - 64)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap mq, mk, mv;
+  int r = encode(&mq, q, B, Sq, H, D);
+  if (!r) r = encode(&mk, k, B, Skv, KV, D);
+  if (!r) r = encode(&mv, v, B, Skv, KV, D);
+  if (r) return r;
+  flash_tma_kernel<DP, ST, CPS><<<(unsigned)grid, C::kThreads, C::bytes,
+                                  stream>>>(
+      mq, mk, mv, (__nv_bfloat16*)o, q_offset, B, Sq, Skv, H, KV, D, causal,
+      scale_log2_of(D));
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_d(int D, const void* q, const void* k, const void* v, void* o,
-             const int* qo, int B, int Sq, int Skv, int H, int KV, int causal,
-             cudaStream_t s) {
+// bfloat16 by the plan's query rows a CTA (ops.py flash_plan): D = 128
+// takes flash_wgmma_kernel at 128 rows; D = 16, 32, 64 (padded to 64) and
+// 256 the TMA kernel at 64 rows, with (K/V stages, CTAs an SM) by D
+int launch_bf16(int D, int rows, const void* q, const void* k,
+                const void* v, void* o, const int* qo, int B, int Sq,
+                int Skv, int H, int KV, int causal, cudaStream_t s) {
+  const int DP = D < 64 ? 64 : D;
+  if (DP == 128 && rows == 128)
+    return launch_wgmma<128>(q, k, v, o, qo, B, Sq, Skv, H, KV, D, causal,
+                             s);
+  if (DP == 64 && rows == 64)
+    return launch_tma<64, 4, 3>(q, k, v, o, qo, B, Sq, Skv, H, KV, D,
+                                causal, s);
+  if (DP == 256 && rows == 64)
+    return launch_tma<256, 3, 1>(q, k, v, o, qo, B, Sq, Skv, H, KV, D,
+                                 causal, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+template <int D>
+int launch_f32(const void* q, const void* k, const void* v, void* o,
+               const int* q_offset, int B, int Sq, int Skv, int H, int KV,
+               int causal, cudaStream_t stream) {
+  const float scale = (float)(1.0 / sqrt((double)D));
+  const size_t smem = sizeof(float) * smem_floats<D>();
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        flash_kernel<float, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
+  flash_kernel<float, D><<<grid, kThreads, smem, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (float*)o, q_offset,
+      Sq, Skv, H, KV, causal, scale);
+  return (int)cudaGetLastError();
+}
+
+int launch_f32_d(int D, const void* q, const void* k, const void* v,
+                 void* o, const int* qo, int B, int Sq, int Skv, int H,
+                 int KV, int causal, cudaStream_t s) {
   switch (D) {
     case 16:
-      return launch<T, 16>(q, k, v, o, qo, B, Sq, Skv, H, KV, causal, s);
+      return launch_f32<16>(q, k, v, o, qo, B, Sq, Skv, H, KV, causal, s);
     case 32:
-      return launch<T, 32>(q, k, v, o, qo, B, Sq, Skv, H, KV, causal, s);
+      return launch_f32<32>(q, k, v, o, qo, B, Sq, Skv, H, KV, causal, s);
     case 64:
-      return launch<T, 64>(q, k, v, o, qo, B, Sq, Skv, H, KV, causal, s);
+      return launch_f32<64>(q, k, v, o, qo, B, Sq, Skv, H, KV, causal, s);
     case 128:
-      return launch<T, 128>(q, k, v, o, qo, B, Sq, Skv, H, KV, causal, s);
+      return launch_f32<128>(q, k, v, o, qo, B, Sq, Skv, H, KV, causal, s);
     case 256:
-      return launch<T, 256>(q, k, v, o, qo, B, Sq, Skv, H, KV, causal, s);
+      return launch_f32<256>(q, k, v, o, qo, B, Sq, Skv, H, KV, causal, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v and the output share it).
+// dtype: 0 = float32, 1 = bfloat16 (q, k, v and the output share it),
+// each contiguous (B, S, heads, D) with a 16-byte aligned base.
 // q_offset: null, or (B,) int32, each row's position of its first query
 // in the causal mask (key tiles stay at absolute position 0, and a
 // query's tiles past its diagonal add exact zeros, so its bits do not
-// depend on the offset, Sq or Skv).
+// depend on the offset, Sq or Skv).  rows: the bf16 plan's query rows a
+// CTA (ops.py flash_plan), ignored in float32.
 extern "C" int flash_attention_launch(int dtype, const void* q,
                                       const void* k, const void* v, void* o,
                                       const void* q_offset, int B, int Sq,
                                       int Skv, int H, int KV, int D,
-                                      int causal, void* stream) {
+                                      int causal, int rows, void* stream) {
   if (KV <= 0 || H % KV != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const int* qo = (const int*)q_offset;
   if (dtype == 0)
-    return launch_d<float>(D, q, k, v, o, qo, B, Sq, Skv, H, KV, causal, s);
-  if (dtype == 1)
-    return launch_d<__nv_bfloat16>(D, q, k, v, o, qo, B, Sq, Skv, H, KV,
-                                   causal, s);
+    return launch_f32_d(D, q, k, v, o, qo, B, Sq, Skv, H, KV, causal, s);
+  if (dtype == 1 && (D == 16 || D == 32 || D == 64 || D == 128 || D == 256))
+    return launch_bf16(D, rows, q, k, v, o, qo, B, Sq, Skv, H, KV, causal,
+                       s);
   return (int)cudaErrorInvalidValue;
+}
+
+// The host time of the three tensor maps a bf16 TMA launch encodes (q's,
+// k's and v's), in microseconds a launch over `iters` launches' worth, or
+// -1 if an encoding fails: a part of the wrapper's host time, which
+// chip_smoke.py reports beside it.
+extern "C" double flash_attention_encode_us(const void* q, const void* k,
+                                            const void* v, int B, int Sq,
+                                            int Skv, int H, int KV, int D,
+                                            int iters) {
+  CUtensorMap m[3];
+  const auto t0 = std::chrono::steady_clock::now();
+  for (int i = 0; i < iters; ++i)
+    if (encode(&m[0], q, B, Sq, H, D) || encode(&m[1], k, B, Skv, KV, D) ||
+        encode(&m[2], v, B, Skv, KV, D))
+      return -1.0;
+  const std::chrono::duration<double, std::micro> dt =
+      std::chrono::steady_clock::now() - t0;
+  return dt.count() / (iters > 0 ? iters : 1);
 }

@@ -4,10 +4,12 @@ A CUDA tensor launches the kernel or raises; a CPU tensor takes the plain
 version (``models.attention.dense_attention``).
 ``flash_attention.launches`` counts kernel launches,
 ``flash_attention.launches_q_offset`` those with a per-row ``q_offset``.
+``flash_plan`` is the bf16 launch's plan: query rows a CTA and grid.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -18,6 +20,22 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128, 256)
 
 
+class FlashPlan(NamedTuple):
+    rows: int      # query rows a CTA: 64 (one warpgroup) or 128 (two)
+    ctas: int      # the grid: B * H * ceil(Sq / rows)
+
+
+def flash_plan(B: int, Sq: int, H: int, D: int) -> FlashPlan:
+    """The bf16 launch's plan.  D = 128 keeps the cp.async kernel's 128
+    query rows a CTA; every other head dim takes the TMA kernel's 64, so
+    that B * H * ceil(Sq / 64) CTAs spread over the 132 SMs (paligemma-3b's
+    and whisper-medium's prefill shapes make 64 CTAs at 128 rows).  The
+    launch picks its kernel, K/V stages and CTAs an SM by (padded D,
+    rows)."""
+    rows = 128 if max(D, 64) == 128 else 64
+    return FlashPlan(rows, B * H * -(-Sq // rows))
+
+
 _launch = []        # the bound C entry point, once loaded
 
 
@@ -25,7 +43,7 @@ def _lib():
     if not _launch:
         fn = _build.load("flash_attention").flash_attention_launch
         p, i = ctypes.c_void_p, ctypes.c_int   # bare ints would be 32-bit
-        fn.argtypes = [i, p, p, p, p, p, i, i, i, i, i, i, i, p]
+        fn.argtypes = [i, p, p, p, p, p, i, i, i, i, i, i, i, i, p]
         fn.restype = ctypes.c_int
         _launch.append(fn)
     return _launch[0]
@@ -39,7 +57,11 @@ def flash_attention(q, k, v, *, causal: bool = True, q_offset=None):
     ``q_offset`` (B,) int, causal only: row b's queries sit at positions
     ``q_offset[b] + i`` of the causal mask (keys at 0 .. Skv - 1), as
     ``dense_attention``'s per-row offset; a query's bits then do not
-    depend on its offset, on S or on the keys past it."""
+    depend on its offset, on S or on the keys past it.
+
+    On the card, bf16 runs the ``flash_plan``'s kernel: at D = 128 the
+    two-warpgroup cp.async one, at every other head dim the TMA one of one
+    64-row warpgroup a CTA; float32 an FFMA kernel."""
     ts = (q, k, v) if q_offset is None else (q, k, v, q_offset)
     if all(t.device.type == "cpu" for t in ts):
         return flash_attention_ref(q, k, v, causal=causal, q_offset=q_offset)
@@ -84,10 +106,13 @@ def flash_attention(q, k, v, *, causal: bool = True, q_offset=None):
         q_offset = q_offset.to(torch.int32).contiguous()
     out = torch.empty_like(q)
     if B and S and Skv:
+        rows = (flash_plan(B, S, H, D).rows if q.dtype == torch.bfloat16
+                else 0)
         rc = _lib()(_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(),
                     v.data_ptr(), out.data_ptr(),
                     0 if q_offset is None else q_offset.data_ptr(), B, S,
-                    Skv, H, KV, D, int(causal), _build.stream_handle(q))
+                    Skv, H, KV, D, int(causal), rows,
+                    _build.stream_handle(q))
         _build.check_launch("flash_attention", rc)
         flash_attention.launches += 1
         flash_attention.launches_q_offset += q_offset is not None

@@ -33,7 +33,8 @@ try:
 except ImportError:         # a card machine without JAX: gpu tests only
     jnp = None
 from repro_torch.core import HybridConfig, HybridKVManager
-from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention.ops import (flash_attention,
+                                                     flash_plan)
 from repro_torch.kernels.paged_attention.ops import (MAX_SPLIT, cta_grid,
                                                      paged_attention,
                                                      query_tile, split_plan)
@@ -593,6 +594,50 @@ def test_dense_attention_row_offsets_and_kv_len(jax_ref):
     npt.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5, atol=2e-5)
 
 
+# ------------------------------------------ the bf16 flash launch's plan
+
+# (H, KV, D) of the six families' attention: granite-8b (32/8), a
+# token-split rank of it (16/4), qwen2.5-14b (40/8), qwen3-moe (32/4),
+# jamba (64/8), paligemma-3b (8/1 of 256), whisper-medium (16/16 of 64)
+FLASH_HEADS = [(32, 8, 128), (16, 4, 128), (40, 8, 128), (32, 4, 128),
+               (64, 8, 128), (8, 1, 256), (16, 16, 64)]
+# the engine's bucket lengths, the vlm's with its 256 image positions
+# ahead, and whisper's 1500 encoder frames (its cross-attention's Sq runs
+# over the buckets)
+FLASH_SQ = (8, 16, 32, 64, 128, 256, 320, 384, 512, 768, 1024, 1280, 1500)
+
+
+@pytest.mark.parametrize("heads", FLASH_HEADS, ids=str)
+@pytest.mark.parametrize("B", [1, 2, 3, 4])
+def test_flash_plan_fills_the_card(heads, B):
+    """Rows and grid of every launch the serving path makes: D = 128 on
+    its cp.async kernel's 128 rows, every other head dim on the TMA
+    kernel's 64, so that its grid is the largest a key axis left whole
+    allows.  (The launch's K/V stages and shared memory, by padded D, are
+    held at compile time by the source's static_assert.)"""
+    H, KV, D = heads
+    for Sq in FLASH_SQ:
+        p = flash_plan(B, Sq, H, D)
+        if D == 128:
+            assert p == (128, B * H * -(-Sq // 128))
+        else:
+            assert p == (64, B * H * -(-Sq // 64))
+
+
+@pytest.mark.parametrize("B,Sq,H,D,rows,ctas", [
+    (2, 512, 8, 256, 64, 128),      # paligemma-3b's prefill
+    (4, 256, 8, 256, 64, 128),      # its exact prefix-KV chunk
+    (2, 256, 16, 64, 64, 128),      # whisper's cross-attention
+    (4, 256, 16, 64, 64, 256),      # its decoder's self-attention
+    (2, 1500, 16, 64, 64, 768),     # its encoder
+    (1, 1280, 8, 256, 64, 160),     # paligemma's longest recompute bucket
+    (8, 512, 8, 256, 64, 512), (1, 512, 8, 256, 64, 64),
+    (8, 512, 16, 64, 64, 1024), (1, 512, 16, 64, 64, 128)])
+def test_flash_plan_at_the_frontend_shapes(B, Sq, H, D, rows, ctas):
+    p = flash_plan(B, Sq, H, D)
+    assert (p.rows, p.ctas) == (rows, ctas)
+
+
 # ------------------------------------------ on the card: kernel vs plain
 
 @pytest.mark.gpu
@@ -718,6 +763,46 @@ def test_gpu_flash_kernel_matches_plain(cuda, shape, dtype, causal):
     tol = 1e-4 if dtype == "float32" else 3e-2
     npt.assert_allclose(got.float().cpu().numpy(),
                         want.float().cpu().numpy(), rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [True, False])
+def test_gpu_flash_query_bits_do_not_depend_on_the_batch(cuda, causal):
+    """A query's bf16 output at paligemma-3b's 8/1 heads of 256 is bitwise
+    the same in a launch of one row (64 CTAs) as in one of eight (512),
+    also at per-row offsets."""
+    H, KV, D, S = 8, 1, 256, 512
+    g = torch.Generator(device=cuda).manual_seed(D + causal)
+    q = torch.randn(8, S, H, D, generator=g, device=cuda).bfloat16()
+    k, v = (torch.randn(8, S + 64, KV, D, generator=g, device=cuda)
+            .bfloat16() for _ in range(2))
+    offs = [None] + ([torch.tensor([64 * (i % 2) for i in range(8)],
+                                   dtype=torch.int32, device=cuda)]
+                     if causal else [])
+    for off in offs:
+        many = flash_attention(q, k, v, causal=causal, q_offset=off)
+        for b in (0, 5):
+            one = flash_attention(
+                q[b:b + 1].contiguous(), k[b:b + 1].contiguous(),
+                v[b:b + 1].contiguous(), causal=causal,
+                q_offset=None if off is None else off[b:b + 1].contiguous())
+            assert torch.equal(one[0], many[b]), (b, off is not None)
+
+
+@pytest.mark.gpu
+def test_gpu_flash_cross_rows_equal_at_any_sq(cuda):
+    """whisper-medium's full cross-attention (16/16 heads of 64 over 1500
+    frames): the rows of Sq = 64 calls equal the same queries inside Sq =
+    256, bitwise."""
+    g = torch.Generator(device=cuda).manual_seed(1500)
+    q = torch.randn(2, 256, 16, 64, generator=g, device=cuda).bfloat16()
+    k, v = (torch.randn(2, 1500, 16, 64, generator=g, device=cuda)
+            .bfloat16() for _ in range(2))
+    whole = flash_attention(q, k, v, causal=False)
+    for s0 in (0, 64, 192):
+        part = flash_attention(q[:, s0:s0 + 64].contiguous(), k, v,
+                               causal=False)
+        assert torch.equal(part, whole[:, s0:s0 + 64]), s0
 
 
 @pytest.mark.gpu
