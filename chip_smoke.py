@@ -289,8 +289,8 @@ Phases, each failing loudly:
    exact gathers move.
 13. training (last, every earlier model freed): (a) granite-8b at full
    width (d 4096, 32/8 heads, d_ff 14336, vocab 49152) cut to
-   ``PHASE13["layers"]`` = 12 of its 36 layers (AdamW in float32 holds
-   16 B a parameter: 48.3 GB at 12 layers, 132 GB at 36), 20 steps
+   ``PHASE13["layers"]`` = 4 of its 36 layers (AdamW in float32 holds
+   16 B a parameter: 20.4 GB at 4 layers, 132 GB at 36), 20 steps
    through ``ResilientLoop`` with the launcher's settings (float32, TF32
    off, ``flash_jax``, remat, AdamW, lr 3e-4, 5 warmup steps, batch 8 x
    128 ``SyntheticLM`` tokens, seed 0; no checkpoint in the window): the
@@ -315,7 +315,7 @@ Phases, each failing loudly:
    bitwise (``--mesh-train`` alone runs those five single-device steps
    first); (b) ``(1, 2)`` and then ``(2, 1)`` as two processes on the
    card over gloo (``--mesh-train-child``), granite-8b at full width cut
-   to ``PHASE14_LAYERS`` = 2 layers, float32, AdamW, 2 steps: every
+   to ``PHASE14_LAYERS`` = 1 layer, float32, AdamW, 1 step: every
    rank's losses within ``PHASE14_TOL`` = 2e-4 of a single-device run
    here, its gradient norms within ``PHASE14_GNORM_RTOL`` and its
    gathered parameters' norms and ramp sums after the last step within
@@ -344,13 +344,13 @@ Phases, each failing loudly:
    axis, while this process runs on one device (``mesh=None``) with the
    same weights and inputs: (a) float32, 2 layers, ZeRO over the data
    axis too, batch mode, 4 prompts through the token-split recompute
-   prefill with the flash kernel, 8 greedy steps: logits within 1e-4 of
+   prefill with the flash kernel, 4 greedy steps: logits within 1e-4 of
    the largest, streams equal, each rank's translation bitwise its plain
-   version; (b) bf16, 12 layers (the weights over the model axis only),
-   batch mode, prompts of 256-1024 tokens, 32 steps: the streams'
+   version; (b) bf16, 4 layers (the weights over the model axis only),
+   batch mode, prompts of 256-1024 tokens, 16 steps: the streams'
    agreement (the top-2 margin where a row first differs), each rank's
    step wall and device ms, idle share, launches and gloo calls and
-   bytes a step; (c) bf16, 12 layers, striped mode, one row of a
+   bytes a step; (c) bf16, 4 layers, striped mode, one row of a
    131,072-token context written straight into the pools, 16 steps held
    to mesh=None within ``PHASE15_C["tol"]``; each a rank's weight bytes
    and peak memory; (d) the serve CLI (``python -m
@@ -403,6 +403,9 @@ SEED = 0
 # cp.async one (bf16 at D = 128; every bf16 D in trees before the TMA
 # kernels), the float32 one
 FLASH_SYMBOLS = ("flash_tma_kernel", "flash_wgmma_kernel", "flash_kernel")
+# the paged reads' kernels: the cluster kernel (every head dim but 64 and
+# 256), the fold kernel (64 and 256)
+PAGED_SYMBOLS = ("paged_attn_kernel", "paged_fold_kernel")
 # set by --src naming another tree than the checkout's src/: only there may
 # the float32 oracle, f32_tile and the float32 launch count be missing
 OTHER_TREE = False
@@ -1078,7 +1081,7 @@ def check_paged(torch, dev, results):
     bound_ops = flops / PEAK_FLOPS["bfloat16"]
     results["paged_attention"] = dict(
         max_abs_err=main_err, ms=time_ms(torch, kern, 80),
-        device_ms=device_ms(torch, kern[0], 20, ("paged_attn_kernel",)),
+        device_ms=device_ms(torch, kern[0], 20, PAGED_SYMBOLS),
         plain_ms=time_ms(torch, plain, 16),
         bound_ms=max(bound_bytes, bound_ops) * 1e3,
         bound_by="bytes" if bound_bytes >= bound_ops else "operations",
@@ -1137,7 +1140,7 @@ def check_paged_verify(torch, dev, results):
     bound_ops = flops / PEAK_FLOPS["bfloat16"]
     r = dict(
         max_abs_err=err, ms=time_ms(torch, kern, 80),
-        device_ms=device_ms(torch, kern[0], 20, ("paged_attn_kernel",)),
+        device_ms=device_ms(torch, kern[0], 20, PAGED_SYMBOLS),
         plain_ms=time_ms(torch, plain, 16),
         bound_ms=max(bound_bytes, bound_ops) * 1e3,
         bound_by="bytes" if bound_bytes >= bound_ops else "operations",
@@ -1237,7 +1240,7 @@ def check_paged_prefix(torch, dev, results):
     bound_ops = flops / PEAK_FLOPS["bfloat16"]
     r = dict(
         max_abs_err=err, ms=time_ms(torch, kern, 40),
-        device_ms=device_ms(torch, kern[0], 10, ("paged_attn_kernel",)),
+        device_ms=device_ms(torch, kern[0], 10, PAGED_SYMBOLS),
         plain_ms=time_ms(torch, plain, 8),
         bound_ms=max(bound_bytes, bound_ops) * 1e3,
         bound_by="bytes" if bound_bytes >= bound_ops else "operations",
@@ -1608,15 +1611,29 @@ def check_rows_gemm_f32(torch, dev, results):
         + json.dumps(results["rows_gemm_f32"]))
 
 
+# the configurations' norm widths (mamba2 768 and its gated 1536, whisper
+# 1024, qwen3-moe / paligemma 2048, granite 4096, qwen2.5 / llama4 5120,
+# jamba / qwen2-72b 8192, jamba's gated 16384) and one past the register
+# kernel's, held bitwise to the two-pass order
+RMS_WIDTHS = (768, 1024, 1536, 2048, 4096, 5120, 8192, 16384, 20000)
+RMS_SETS = 8          # 2048 x 4096 bf16 inputs cycled: 134 MB, past the L2
+RMS_SYMBOLS = ("rms_norm_",)
+
+
 def check_rms_norm(torch, dev, results):
     """The rows-invariant RMS norm against its plain version
     (``layers._rms_norm_fwd``; with the gate, ``gated_rms_norm``'s plain
     form) at granite-8b's width (2048 rows of 4096) and mamba2-130m's
     gated width (d_inner 1536), in bf16 (rtol = atol = 1e-2: one bf16
     ulp of the O(1) outputs, the f32 mean square summed in another order)
-    and float32 (1e-5), rows bitwise across ``ROWS_MS``; timed beside
-    ``torch.nn.functional.rms_norm`` where torch has it."""
+    and float32 (1e-5), rows bitwise across ``ROWS_MS``; a bf16 scale
+    bitwise its float32 cast and one launch a call; bitwise the two-pass
+    order (``rms_norm_two_pass``) at ``RMS_WIDTHS``, plain and gated.
+    Timed over ``RMS_SETS`` input sets, which outgrow the L2, beside
+    ``torch.nn.functional.rms_norm`` on the same sets (CUDA-event ms a
+    call and device ms a launch, both), so the bytes bound is a bound."""
     import torch.nn.functional as F
+    from repro_torch.kernels.rms_norm import ops as rms_ops
     from repro_torch.kernels.rms_norm.ops import rms_norm
     from repro_torch.kernels.rms_norm.ref import (gated_rms_norm_ref,
                                                   rms_norm_ref)
@@ -1645,8 +1662,32 @@ def check_rms_norm(torch, dev, results):
                                rms_norm(y, g, 1e-5, z=z)[:m]):
                 raise AssertionError(f"rms_norm[{name} gated]: rows at M "
                                      f"= {m} differ")
+        s16 = s.to(torch.bfloat16)
+        n0 = rms_norm.launches
+        a16 = rms_norm(x, s16, 1e-5)
+        launches = rms_norm.launches - n0
+        if OTHER_TREE and not hasattr(rms_ops, "rms_norm_two_pass"):
+            continue            # a parent from before the one-read kernel
+        if launches != 1 or not torch.equal(a16,
+                                            rms_norm(x, s16.float(), 1e-5)):
+            raise AssertionError(f"rms_norm[{name}]: a bf16 scale took "
+                                 f"{launches} launches or differs from its "
+                                 "float32 cast")
+        for n in RMS_WIDTHS:
+            xw = torch.randn((5, n), generator=gen, device=dev).to(dtype)
+            zw = torch.randn((5, n), generator=gen, device=dev).to(dtype)
+            sw = torch.randn(n, generator=gen, device=dev).to(
+                torch.bfloat16)
+            for gate in (None, zw):
+                if not torch.equal(
+                        rms_norm(xw, sw, 1e-5, z=gate),
+                        rms_ops.rms_norm_two_pass(xw, sw, 1e-5, z=gate)):
+                    raise AssertionError(
+                        f"rms_norm[{name}] at width {n}"
+                        f"{' gated' if gate is not None else ''}: differs "
+                        "from the two-pass order")
     xs = [torch.randn((ROWS_M, 4096), generator=gen, device=dev).to(
-        torch.bfloat16) for _ in range(4)]
+        torch.bfloat16) for _ in range(RMS_SETS)]
     s = torch.randn(4096, generator=gen, device=dev).to(torch.bfloat16)
     kern = [lambda x=x: rms_norm(x, s, 1e-5) for x in xs]
     plain = [lambda x=x: rms_norm_ref(x, s, 1e-5) for x in xs]
@@ -1654,20 +1695,30 @@ def check_rms_norm(torch, dev, results):
            if hasattr(F, "rms_norm") else None)
     nbytes = 2 * (2 * ROWS_M * 4096 + 4096)
     flops = 4 * ROWS_M * 4096
-    ms, dms = kernel_times(torch, kern, ("rms_norm_kernel",), 20)
+
+    def cycled(fns):
+        return lambda: [f() for f in fns]
+
+    ms = time_ms(torch, kern, 80)
+    dms = device_ms(torch, cycled(kern), 3, RMS_SYMBOLS)
+    lib_dev = None if lib is None else device_ms(torch, cycled(lib), 3)
     results["rms_norm"] = dict(
         max_abs_err=errs["bfloat16"], ms=ms, device_ms=dms,
-        plain_ms=time_ms(torch, plain, 20),
+        plain_ms=time_ms(torch, plain, 16),
         bound_ms=max(nbytes / HBM_BYTES_PER_S,
                      flops / PEAK_FLOPS["float32"]) * 1e3,
         bound_by=_bound_by(nbytes, flops, "float32"),
-        library_ms=None if lib is None else time_ms(torch, lib, 40),
-        library_device_ms=None if lib is None else device_ms(torch, lib[0],
-                                                             10),
-        shape=f"{ROWS_M} rows of 4096 bf16", max_abs_err_by_case=errs,
-        rows_bitwise_at_M=list(ROWS_MS))
+        library_ms=None if lib is None else time_ms(torch, lib, 80),
+        library_device_ms=None if lib_dev is None else lib_dev / len(lib),
+        device_ms_one_set=device_ms(torch, kern[0], 20, RMS_SYMBOLS),
+        input_sets=RMS_SETS, input_mb=round(
+            RMS_SETS * ROWS_M * 4096 * 2 / 1e6, 1),
+        shape=f"{ROWS_M} rows of 4096 bf16, bf16 scale",
+        max_abs_err_by_case=errs, rows_bitwise_at_M=list(ROWS_MS),
+        two_pass_bitwise_at_n=list(RMS_WIDTHS))
     log("check rms_norm (bf16 tol 1e-2, f32 1e-5; rows bitwise at M = "
-        f"{ROWS_MS}): " + json.dumps(results["rms_norm"]))
+        f"{ROWS_MS}; the two-pass order bitwise at n = {RMS_WIDTHS}): "
+        + json.dumps(results["rms_norm"]))
 
 
 # the prefix-KV chunk's read at granite-8b's heads: 4 rows of 512 queries
@@ -2568,8 +2619,10 @@ def profile_prefix_step(torch, eng, rng, cfg, prompt_len=512):
     while eng.has_unfinished():
         eng.step()
     busy = sum(ms for _, ms, _ in rows)
-    paged = sum(ms for name, ms, _ in rows if "paged_attn_kernel" in name)
-    n_paged = sum(n for name, _, n in rows if "paged_attn_kernel" in name)
+    paged = sum(ms for name, ms, _ in rows
+                if any(x in name for x in PAGED_SYMBOLS))
+    n_paged = sum(n for name, _, n in rows
+                  if any(x in name for x in PAGED_SYMBOLS))
     top = [dict(kernel=name[:90], ms=round(ms, 4), launches=n)
            for name, ms, n in rows[:8]]
     log(f"prefix-KV admission step under the profiler (one chunk of "
@@ -3434,8 +3487,9 @@ def steady_step(torch, eng, cfg, probe=None, top=0, copies_of=None,
         wall_ms=round(wall, 3), device_busy_ms=round(busy, 3),
         idle_share=round(1 - busy / wall, 4) if rows else None,
         device_kernels=int(round(sum(n for _, _, n in rows))),
-        paged_attention_ms=round(sum(ms for name, ms, _ in rows
-                                     if "paged_attn_kernel" in name), 4))
+        paged_attention_ms=round(sum(
+            ms for name, ms, _ in rows
+            if any(x in name for x in PAGED_SYMBOLS)), 4))
 
 
 def weight_copies(torch, fn, params):
@@ -3984,6 +4038,8 @@ def geometry_reads(torch, dev, heads=((40, 8), (32, 4)),
                         raise AssertionError(
                             f"paged_attention[{kind}, {tag}]: query {i} "
                             "differs from a Q=1 launch at its extent")
+            paged_contracts(torch, paged_attention, args, got,
+                            f"paged_attention[{kind}, {tag}]")
             bs = kp.shape[1]
             nq = 1 if Q is None else Q
             last = ext[:, -1] if per_query else ext
@@ -3996,7 +4052,7 @@ def geometry_reads(torch, dev, heads=((40, 8), (32, 4)),
                         flops / PEAK_FLOPS["bfloat16"]) * 1e3
             ms, dms = kernel_times(
                 torch, [lambda s=s: paged_attention(*s) for s in sets],
-                ("paged_attn_kernel",))
+                PAGED_SYMBOLS)
             out[f"paged_{kind}_{tag}"] = dict(
                 g=H // KV, D=D, Q=nq, max_abs_err=err, ms=ms, device_ms=dms,
                 bound_ms=bound, bound_by=_bound_by(nbytes, flops),
@@ -4070,6 +4126,143 @@ def geometry_reads(torch, dev, heads=((40, 8), (32, 4)),
     log(f"{label} kernels at the serving geometries (bf16): "
         + json.dumps({k: {f: (round(x, 6) if isinstance(x, float) else x)
                           for f, x in r.items()} for k, r in out.items()}))
+    return out
+
+
+def paged_contracts(torch, paged_attention, args, got, label):
+    """The paged read's contracts, bitwise, on ``args`` (q, pools, slots,
+    extents) whose launch gave ``got``: a second launch gives the same
+    bits (the fold kernel's counters reset themselves), each row alone
+    equals the row in the batch, and a row whose extents are all 0 comes
+    out with l == 0 and m == -1e30."""
+    q, kp, vp, slots, ext = args
+    again = paged_attention(*args)
+    if not all(torch.equal(x, y) for x, y in zip(again, got)):
+        raise AssertionError(f"{label}: a second launch differs")
+    for b in range(q.shape[0]):
+        alone = paged_attention(q[b:b + 1].contiguous(), kp, vp,
+                                slots[b:b + 1].contiguous(),
+                                ext[b:b + 1].contiguous())
+        if not all(torch.equal(x[0], y[b]) for x, y in zip(alone, got)):
+            raise AssertionError(f"{label}: row {b} alone differs from the "
+                                 "batch")
+    ext0 = ext.clone()
+    ext0[-1] = 0
+    _, m, l = paged_attention(q, kp, vp, slots, ext0)
+    if float(l[-1].abs().max()) != 0.0 or bool((m[-1] != -1e30).any()):
+        raise AssertionError(f"{label}: a zero-extent row must give l == 0 "
+                             "and m == -1e30")
+
+
+# the --paged-reads breakdown's geometries: granite-8b's (the cluster
+# kernel), paligemma-3b's and whisper-medium's (the fold kernel, and the
+# cluster kernel beside it through ops.CLUSTER_ONLY)
+PAGED_BREAKDOWN = ((32, 8, 128), (8, 1, 256), (16, 16, 64))
+PAGED_STAGES = ("copy_wait", "tiles", "cta_merge", "merge_or_partial",
+                "tail_or_fold")
+# the fold kernel's folding CTA's last stage, in four
+FOLD_STAGES = ("counter_fence", "m_l_in", "weights_l", "o_fold")
+
+
+def _quantiles(xs):
+    xs = sorted(xs)
+    if not xs:
+        return None
+    return [round(xs[len(xs) // 2], 3), round(xs[-1], 3)]
+
+
+def paged_breakdown(torch, dev):
+    """``--paged-reads``: the paged read's stage breakdown at
+    ``PAGED_BREAKDOWN``'s geometries, decode (B=4, Q=1), verify (Q=5,
+    per-query extents) and prefix (Q=256) reads, bf16, bs 64, 16 blocks:
+    each design the tree has (the cluster kernel everywhere through
+    ``ops.CLUSTER_ONLY``, the fold kernel at D = 64 and 256) launched with
+    ``stamps`` (each CTA's SM clock at its start, first tile in, tiles
+    done, CTA merge done, cluster merge done or partial written, end; the
+    globaltimer at its start and end), five launches; per stage the median
+    and the largest over CTAs of the cycles (and µs at the SM clock
+    nvidia-smi reads after the run), the span from the first CTA's start
+    to the last CTA's end, the folding CTAs' fold, and the device ms a
+    launch without stamps (profiler) and CUDA-event ms over four input
+    sets.  A tree without ``stamps`` is skipped."""
+    from repro_torch.kernels.paged_attention import ops
+    from repro_torch.kernels.paged_attention.ops import paged_attention
+    if not hasattr(ops, "STAMPS"):
+        log("paged breakdown: this tree's paged read takes no stamps")
+        return {}
+    gen = torch.Generator().manual_seed(SEED + 31)
+    shapes = {"decode": (None, False), "verify": (WINDOW, True),
+              "prefix": (256, False)}
+    out = {}
+    for H, KV, D in PAGED_BREAKDOWN:
+        designs = ("cluster",) if D == 128 else ("cluster", "fold")
+        for kind, (Q, per_query) in shapes.items():
+            sets = []
+            for _ in range(4):
+                q, kp, vp, slots, ext = _paged_case(
+                    torch, dev, torch.bfloat16, H=H, KV=KV, D=D, Q=Q,
+                    per_query=per_query, gen=gen)
+                sets.append((q.to(torch.bfloat16), kp[0], vp[0], slots,
+                             ext))
+            args = sets[0]
+            B, nq, nblk = args[0].shape[0], Q or 1, args[3].shape[1]
+            for design in designs:
+                ops.CLUSTER_ONLY = design == "cluster"
+                try:
+                    x, y, z = ops.cta_grid(B, nq, H, KV, D, nblk)
+                    n = x * y * z
+                    st = torch.zeros(n * ops.STAMPS, dtype=torch.int64,
+                                     device=dev)
+                    runs = []
+                    for _ in range(6):
+                        st.zero_()
+                        paged_attention(*args, stamps=st)
+                        torch.cuda.synchronize()
+                        runs.append(st.view(n, ops.STAMPS).cpu())
+                    dms = device_ms(torch, lambda: paged_attention(*args),
+                                    20, PAGED_SYMBOLS)
+                    ms = time_ms(torch, [lambda s=s: paged_attention(*s)
+                                         for s in sets], 80)
+                finally:
+                    ops.CLUSTER_ONLY = False
+                stages = {k: [] for k in PAGED_STAGES}
+                spans, folds, busy = [], [], []
+                fold_parts = {k: [] for k in FOLD_STAGES}
+                for t in runs[1:]:
+                    spans.append(int(t[:, 1].max() - t[:, 0].min()) / 1e3)
+                    for i, k in enumerate(PAGED_STAGES):
+                        stages[k] += (t[:, 3 + i] - t[:, 2 + i]).tolist()
+                    last = t[(t[:, 8] == 1) & (t[:, 10] > 0)]
+                    folds += (t[t[:, 8] == 1, 7] - t[t[:, 8] == 1, 6]
+                              ).tolist()
+                    if t.shape[1] > 12 and len(last):
+                        for k, (a, z) in zip(FOLD_STAGES, ((6, 10), (10, 11),
+                                                           (11, 12), (12, 7))):
+                            fold_parts[k] += (last[:, z] - last[:, a]).tolist()
+                    busy.append(int((t[:, 9] > 0).sum()))
+                out[f"{kind}_H{H}_KV{KV}_D{D}_{design}"] = dict(
+                    ctas=n, device_ms=dms, ms=ms,
+                    span_us=_quantiles(spans)[0],
+                    cycles_median_max={k: _quantiles(v)
+                                       for k, v in stages.items()},
+                    folding_cta_last_stage_cycles=_quantiles(folds),
+                    folding_cta_cycles_median_max={
+                        k: _quantiles(v) for k, v in fold_parts.items()
+                        if v},
+                    ctas_with_tiles=(busy[0] if design == "fold" else None))
+    clock = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,"
+         "nounits"], capture_output=True, text=True).stdout.strip()
+    try:
+        mhz = float(clock.splitlines()[0])
+    except (ValueError, IndexError):
+        mhz = None
+    for r in out.values():
+        r["us_median_at_sm_clock"] = None if not mhz else {
+            k: None if v is None else round(v[0] / mhz, 3)
+            for k, v in r["cycles_median_max"].items()}
+    log(f"paged breakdown (SM clock {clock} MHz after the run; cycles "
+        "[median, max] over CTAs a stage): " + json.dumps(out))
     return out
 
 
@@ -4940,7 +5133,8 @@ def profile_decode_step(torch, eng, rng, cfg):
         eng.step()
     busy = sum(ms for _, ms, _ in rows)
     n_kernels = int(round(sum(n for _, _, n in rows)))
-    paged = sum(ms for name, ms, _ in rows if "paged_attn_kernel" in name)
+    paged = sum(ms for name, ms, _ in rows
+                if any(x in name for x in PAGED_SYMBOLS))
     top = [dict(kernel=name[:90], ms=round(ms, 4), launches=n)
            for name, ms, n in rows[:8]]
     log("decode step under the profiler (B=4, ctx ~512): " + json.dumps(
@@ -5261,8 +5455,10 @@ PHASE12_PREEMPT = [(14, "post", "auto")]   # a forced preemption in (b)
 # (b)'s depth, cut from granite-8b's 36: at full depth each rank stages
 # 604 MB of gathers a decode step through gloo (0.79 s a step on an H100
 # at 700 W), and the phase took 119 s, over its 90 s; at 12 layers it took
-# 100 s on a slower host, with the whole script over its 1,200 s
-PHASE12_LAYERS = 6
+# 100 s on a slower host, with the whole script over its 1,200 s; 6 until
+# the script passed its 1,200 s on a slow host again (two layers still
+# gather, attend through the paged reads and hold every stream bitwise)
+PHASE12_LAYERS = 2
 PHASE12_TIMEOUT_S = 300                    # a collective never joined fails
 MESH_CHILD_TAG = "phase 12 (b) rank: "
 
@@ -5620,7 +5816,10 @@ def mesh_phase(torch, dev, cfg, dims, params, phase5_digest, src):
     return counts
 
 
-PHASE13 = dict(arch="granite-8b", layers=12, global_batch=8, seq_len=128,
+# 4 of granite-8b's 36 layers (12 until the script passed its 1,200 s on
+# a slow host): the width, the update and the remat path are the same at
+# any depth; 20 steps, since the loss must fall past the warmup's rise
+PHASE13 = dict(arch="granite-8b", layers=4, global_batch=8, seq_len=128,
                steps=20, lr=3e-4, warmup=5)
 PHASE13_FAMILIES = ("granite-8b", "qwen3-moe-30b-a3b", "mamba2-130m",
                     "jamba-1.5-large-398b", "paligemma-3b", "whisper-medium")
@@ -5979,7 +6178,7 @@ def train_card_vs_cpu(torch, dev, cpu_dev=None):
 
 def train_launcher(torch, root):
     """Phase 13 (d): ``python -m repro_torch.launch.train --arch
-    granite-8b --reduced --steps 10 --ckpt-dir <tmp>`` as a child process
+    granite-8b --reduced --steps 4 --ckpt-dir <tmp>`` as a child process
     on the card, run from the port's ``src`` without ``PYTHONPATH`` (so
     that ``src/sitecustomize.py`` stays unread) and with ``-X
     importtime``: it must exit 0, print its ``done:`` line and import no
@@ -5991,7 +6190,7 @@ def train_launcher(torch, root):
     try:
         cmd = [sys.executable, "-X", "importtime", "-m",
                "repro_torch.launch.train", "--arch", "granite-8b",
-               "--reduced", "--steps", "10", "--ckpt-dir", tmp]
+               "--reduced", "--steps", "4", "--ckpt-dir", tmp]
         env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
         t0 = time.perf_counter()
         proc = subprocess.run(cmd, cwd=str(root), env=env,
@@ -6034,8 +6233,10 @@ def training(torch, dev, src):
 
 # ---------------------------------------------------------------- phase 14
 PHASE14_STEPS = 5              # (a): phase 13 (a)'s first steps
-PHASE14_LAYERS = 2             # (b)'s depth over gloo (full width)
-PHASE14_B_STEPS = 2            # 3 until the script neared its 1,200 s
+PHASE14_LAYERS = 1             # (b)'s depth over gloo (full width; 2
+                               # until the script passed its 1,200 s)
+PHASE14_B_STEPS = 1            # 3, then 2: one step shows the loss, the
+                               # gradient norm and the updated parameters
 PHASE14_MESHES = ((1, 2), (2, 1))
 PHASE14_TOL = 2e-4             # (b)'s losses against the single device's
 # (b)'s gradient norms against the single device's, relative: AdamW and
@@ -6364,7 +6565,7 @@ def mesh_train_two(torch, dev, src):
 
 def mesh_train_launcher(torch, root):
     """Phase 14 (c): ``torchrun --nproc-per-node 2 -m
-    repro_torch.launch.train --arch granite-8b --reduced --steps 4
+    repro_torch.launch.train --arch granite-8b --reduced --steps 2
     --data-mesh 1 --model-mesh 2`` as a child (torchrun as ``python -m
     torch.distributed.run --standalone``, from the port's ``src`` without
     ``PYTHONPATH``, every process with ``PYTHONPROFILEIMPORTTIME``): it
@@ -6376,7 +6577,7 @@ def mesh_train_launcher(torch, root):
     try:
         cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
                "--nproc-per-node", "2", "-m", "repro_torch.launch.train",
-               "--arch", "granite-8b", "--reduced", "--steps", "4",
+               "--arch", "granite-8b", "--reduced", "--steps", "2",
                "--data-mesh", "1", "--model-mesh", "2", "--ckpt-dir", tmp]
         env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
         env["PYTHONPROFILEIMPORTTIME"] = "1"
@@ -6429,24 +6630,28 @@ def mesh_training(torch, dev, src, ref_losses=None):
 PHASE15_MESH = (2, 2)                      # (data, model): 4 ranks, gloo
 PHASE15_TIMEOUT_S = 300                    # a collective never joined fails
 PHASE15_ARCH = "granite-8b"                # full width: d 4096, 32/8 heads
-# (a): float32, 2 layers, batch mode, 4 prompts, 8 greedy steps (16 until
-# the weights were cut: ZeRO's gathers of a rank's 1.8 GB of each step's
-# layers take 2 s a step through the host); the weights ZeRO-split over
-# the data axis as well (gathered a layer at a time, exact)
-PHASE15_A = dict(layers=2, prompts=(100, 64, 37, 128), steps=8, tol=1e-4,
+# (a): float32, 2 layers, batch mode, 4 prompts, 4 greedy steps (16 until
+# the weights were cut, 8 until the script passed its 1,200 s on a slow
+# host; at 2 a rank's median step wall had no step to take: ZeRO's
+# gathers of a rank's 1.8 GB of each step's layers take 2 s a step
+# through the host); the weights ZeRO-split over the data axis as well
+# (gathered a layer at a time, exact)
+PHASE15_A = dict(layers=2, prompts=(100, 64, 37, 128), steps=4, tol=1e-4,
                  zero=True)
-# (b): bf16, 12 layers, batch mode, 4 prompts of 256-1024 tokens, 32
-# steps; (b) and (c) cut the weights over the model axis only: ZeRO would
-# gather a rank's 1.3 GB of each step's layers through the host (gloo)
-PHASE15_B = dict(layers=12, prompts=(1024, 256, 700, 512), steps=32,
+# (b): bf16, 4 layers, batch mode, 4 prompts of 256-1024 tokens, 16
+# steps (12 layers and 32 steps until the script passed its 1,200 s on a
+# slow host); (b) and (c) cut the weights over the model axis only: ZeRO
+# would gather a rank's 1.3 GB of each step's layers through the host
+PHASE15_B = dict(layers=4, prompts=(1024, 256, 700, 512), steps=16,
                  zero=False)
-# (c): bf16, 12 layers, striped mode, one row of a 131,072-token context
+# (c): bf16, 4 layers, striped mode, one row of a 131,072-token context
 # (2,048 blocks of 64), 16 teacher-forced steps; its logits are held to
 # a mesh=None step's within PHASE15_C_TOL of the largest |logit|: the
 # combine adds four partial softmax sums in float32, and one bf16 ulp
 # (2^-8 relative) of the attention output, moved in a few elements and
-# carried through 12 layers, stays far inside this bound
-PHASE15_C = dict(layers=12, context=131072, steps=16, tol=5e-2)
+# carried through 12 layers (the depth until the script passed its
+# 1,200 s), stays far inside this bound
+PHASE15_C = dict(layers=4, context=131072, steps=16, tol=5e-2)
 PHASE15_ASSOC = 8
 TOKEN_SPLIT_TAG = "phase 15 rank: "
 
@@ -6999,7 +7204,7 @@ def check_token_split_kernels(torch, dev, results):
         flops = 4 * D * H * n_tok
         reads[name] = dict(
             max_abs_err=err, ms=time_ms(torch, kern, 40),
-            device_ms=device_ms(torch, kern[0], 20, ("paged_attn_kernel",)),
+            device_ms=device_ms(torch, kern[0], 20, PAGED_SYMBOLS),
             plain_ms=time_ms(torch, [lambda: paged_attention_ref(
                 q, kp[0], vp[0], slots, ext, **geo)], 4),
             bound_ms=max(nbytes / HBM_BYTES_PER_S,
@@ -7066,13 +7271,15 @@ def token_split(torch, dev, src, results, kernels=True):
     while this process runs each on one device (``mesh=None``) with the
     same weights and inputs, each rank on its blocks of the weights
     (``ts_weights``): (a) float32, 2 layers, ZeRO on, batch mode, the
-    recompute prefill with the flash kernel then 8 greedy steps: every
-    step's logits within ``PHASE15_A["tol"]`` of the largest |logit|,
-    every stream equal, and each rank's translation bitwise its plain
-    version; (b) bf16, 12 layers, batch mode, prompts of 256-1024 tokens,
-    32 steps: streams against mesh=None (agreement, and the top-2 margin
-    where a row first differs), each rank's step wall and device ms, idle
-    share, launches and gloo bytes a step; (c) bf16, 12 layers, striped
+    recompute prefill with the flash kernel then ``PHASE15_A["steps"]``
+    greedy steps: every step's logits within ``PHASE15_A["tol"]`` of the
+    largest |logit|, every stream equal, and each rank's translation
+    bitwise its plain version; (b) bf16, ``PHASE15_B["layers"]`` layers,
+    batch mode, prompts of 256-1024 tokens, ``PHASE15_B["steps"]`` steps:
+    streams against mesh=None (agreement, and the top-2 margin where a
+    row first differs), each rank's step wall and device ms, idle share,
+    launches and gloo bytes a step; (c) bf16, ``PHASE15_C["layers"]``
+    layers, striped
     mode, one row of 131,072 tokens written straight into the pools, 16
     teacher-forced steps held to mesh=None within ``PHASE15_C["tol"]``;
     peak memory a rank; (d) the serve CLI alone and at ``--data 1 --model
@@ -7541,6 +7748,10 @@ def main() -> int:
         check_paged(torch, dev, results)
         check_paged_verify(torch, dev, results)
         check_paged_prefix(torch, dev, results)
+        results.update(geometry_reads(
+            torch, dev, heads=((8, 1, 256), (16, 16, 64)), flash=(),
+            label="phase 10"))
+        paged_breakdown(torch, dev)
         log(f"paged reads of the port in {src}: " + json.dumps({
             k: {f: r.get(f) for f in ("device_ms", "ms", "plain_ms",
                                       "bound_ms", "ctas")}
@@ -7691,6 +7902,12 @@ def main() -> int:
                 c["paged_attention_q_gt1"] for c in paths.values())
             extra["launches_q_per_query"] = sum(
                 c["paged_attention_q_per_query"] for c in paths.values())
+            # by path: the prefix reads are the Q > 1 launches that are
+            # not per-query (PERF.md's recount of the paged rows)
+            for kind in ("q_gt1", "q_per_query"):
+                extra[f"launches_{kind}_by_path"] = {
+                    k: c[f"paged_attention_{kind}"] for k, c in paths.items()
+                    if c.get(f"paged_attention_{kind}")}
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=sum(c.get(name, 0) for c in paths.values()),

@@ -35,9 +35,12 @@ except ImportError:         # a card machine without JAX: gpu tests only
 from repro_torch.core import HybridConfig, HybridKVManager
 from repro_torch.kernels.flash_attention.ops import (flash_attention,
                                                      flash_plan)
-from repro_torch.kernels.paged_attention.ops import (MAX_SPLIT, cta_grid,
+from repro_torch.kernels.paged_attention import ops as paged_ops
+from repro_torch.kernels.paged_attention.ops import (MAX_FOLD, MAX_SPLIT,
+                                                     cta_grid, fold_ctas,
                                                      paged_attention,
-                                                     query_tile, split_plan)
+                                                     query_tile, read_plan,
+                                                     split_plan)
 from repro_torch.kernels.paged_attention.ref import (normalize,
                                                      paged_attention_ref)
 from repro_torch.kernels.utopia_rsw.ops import (utopia_rsw,
@@ -508,7 +511,10 @@ def test_paged_query_tiles_cover_each_query_once(Q, g):
             B, KV, nblk = 3, 2, 9
             x, y, z = cta_grid(B, Q, g * KV, KV, D, nblk,
                                tensor_cores=tensor)
-            assert (x, z) == (KV * split_plan(nblk)[0], B)
+            plan = read_plan(nblk, KV, D, g)
+            n = (fold_ctas(plan, Q, D, tensor) if plan.fold
+                 else split_plan(nblk)[0])
+            assert (x, z) == (KV * n, B)
             tiles = [range(t * qt, min(Q, (t + 1) * qt)) for t in range(y)]
             assert all(len(t) > 0 for t in tiles)          # no idle tile
             assert [i for t in tiles for i in t] == list(range(Q))
@@ -526,6 +532,127 @@ def test_paged_query_tile_depends_on_shape_only():
         assert cta_grid(B, 1, 32, 8, 128, 16) == (64, 1, B)
         assert cta_grid(B, 5, 32, 8, 128, 16, tensor_cores=False) == (
             64, 3, B)
+
+
+# (H, KV, D) of the families' attention: granite-8b, qwen2.5-14b,
+# qwen3-moe-30b-a3b, jamba-1.5-large-398b, a token-split rank's 16 / 4
+CLUSTER_GEOMETRIES = [(32, 8, 128), (40, 8, 128), (32, 4, 128),
+                      (64, 8, 128), (16, 4, 128)]
+FOLD_GEOMETRIES = [(8, 1, 256), (16, 16, 64)]   # paligemma-3b, whisper
+
+
+@pytest.mark.parametrize("nblk", [1, 2, 5, 8, 9, 16, 17, 31, 64, 1000])
+@pytest.mark.parametrize("heads", FOLD_GEOMETRIES + [(4, 2, 16), (8, 2, 40),
+                                                     (4, 4, 200)])
+def test_paged_read_plan_covers_each_block_once(nblk, heads):
+    """Every plan cuts a row's blocks into chunks of per_split blocks,
+    each block in exactly one chunk and no chunk idle; the fold kernel's
+    (D = 64 and 256) a chunk a block, with one CTA a chunk at Q <= 8 (two,
+    a column half each, on the tensor cores at D = 256) up to 64 chunks,
+    else one CTA taking every chunk."""
+    H, KV, D = heads
+    plan = read_plan(nblk, KV, D, H // KV)
+    chunks = [range(s * plan.per_split,
+                    min(nblk, (s + 1) * plan.per_split))
+              for s in range(plan.n_split)]
+    assert all(len(c) > 0 for c in chunks)              # no idle chunk
+    assert sorted(j for c in chunks for j in c) == list(range(nblk))
+    if not plan.fold:
+        assert plan[:2] == split_plan(nblk)
+        return
+    assert (plan.n_split, plan.per_split) == (nblk, 1)
+    halves = 2 if D > 128 else 1
+    for Q in (1, 5, 8, 9, 256):
+        want = 1 if Q > 8 or nblk > MAX_FOLD else nblk * halves
+        assert fold_ctas(plan, Q, D) == want
+        assert fold_ctas(plan, Q, D, tensor_cores=False) == (
+            1 if want == 1 else nblk)
+
+
+def test_paged_read_plan_depends_on_geometry_only():
+    """The plan takes (nblk, KV, D, g) and nothing else, so no row's plan
+    depends on its batch, its queries or the extents; ``cta_grid``'s
+    CTAs a row likewise follow from the plan and Q alone."""
+    assert list(inspect.signature(read_plan).parameters) == [
+        "nblk", "KV", "D", "g"]
+    plans = [read_plan(n, kv, d, g) for n in range(1, 80)
+             for kv, d, g in ((1, 256, 8), (16, 64, 1), (8, 128, 4))]
+    assert plans == [read_plan(n, kv, d, g) for n in range(1, 80)
+                     for kv, d, g in ((1, 256, 8), (16, 64, 1), (8, 128, 4))]
+    for H, KV, D in FOLD_GEOMETRIES:
+        for Q in (1, 5, 256):
+            rows = {cta_grid(B, Q, H, KV, D, 16)[0] for B in (1, 4, 64)}
+            assert len(rows) == 1
+            assert {cta_grid(B, Q, H, KV, D, 16)[2] for B in (1, 4)} == {1, 4}
+
+
+@pytest.mark.parametrize("heads", CLUSTER_GEOMETRIES)
+def test_paged_read_plan_is_split_plan_at_the_cluster_geometries(heads):
+    """Granite's, qwen's, jamba's and the token split's reads keep the
+    cluster kernel's plan (PRs 12 and 17), so their bits do not move."""
+    H, KV, D = heads
+    for nblk in (1, 7, 16, 18, 1024):
+        plan = read_plan(nblk, KV, D, H // KV)
+        assert not plan.fold and plan[:2] == split_plan(nblk)
+        for Q in (1, 5, 256):
+            assert cta_grid(4, Q, H, KV, D, nblk)[0] == KV * split_plan(
+                nblk)[0]
+
+
+def test_paged_read_plan_fills_the_card_at_the_frontend_reads():
+    """paligemma-3b's decode read (B = 4, 8 / 1 heads of 256, 16 blocks of
+    64) launches at least 128 CTAs (the cluster kernel's plan gave 32 for
+    132 SMs), whisper-medium's (16 / 16 of 64) 1,024; their verify reads
+    (Q = 5) a CTA a chunk too; the prefix reads (Q = 256) one CTA a (row,
+    query tile, KV head) over every chunk."""
+    x, y, z = cta_grid(4, 1, 8, 1, 256, 16)
+    assert x * y * z >= 128 and (x, y, z) == (32, 1, 4)
+    assert cta_grid(4, 1, 16, 16, 64, 16) == (256, 1, 4)
+    assert cta_grid(4, 5, 8, 1, 256, 16) == (32, 3, 4)
+    assert cta_grid(4, 5, 16, 16, 64, 16) == (256, 1, 4)
+    assert cta_grid(4, 256, 8, 1, 256, 16) == (1, 128, 4)
+    assert cta_grid(4, 256, 16, 16, 64, 16) == (16, 8, 4)
+    plan = read_plan(16, 1, 256, 8)
+    assert fold_ctas(plan, 1, 256) == 32 and plan.n_split <= MAX_FOLD
+    assert fold_ctas(read_plan(MAX_FOLD + 1, 1, 256, 8), 1, 256) == 1
+
+
+def test_paged_cluster_only_switch_restores_the_split_plan(monkeypatch):
+    """``CLUSTER_ONLY`` (the measurement switch of chip_smoke.py
+    --paged-reads) sends the fold geometries to the cluster kernel's
+    plan."""
+    monkeypatch.setattr(paged_ops, "CLUSTER_ONLY", True)
+    for H, KV, D in FOLD_GEOMETRIES:
+        plan = read_plan(16, KV, D, H // KV)
+        assert not plan.fold and plan[:2] == split_plan(16)
+        assert cta_grid(4, 1, H, KV, D, 16)[0] == KV * split_plan(16)[0]
+
+
+@pytest.mark.parametrize("heads", FOLD_GEOMETRIES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_decode_read_at_the_frontend_geometries_matches_jax(
+        heads, dtype, jax_ref):
+    """The port's decode read at paligemma-3b's 8 / 1 heads of 256 and
+    whisper-medium's 16 / 16 of 64 (64-token blocks, a hole, a zero
+    extent, an extent on a block edge) against the JAX oracle within 2e-5
+    (float32) or 3e-2 (bf16), and the Pallas kernel in float32."""
+    H, KV, D = heads
+    q, kp, vp, slots, ctx = _paged_inputs(4, None, H, KV, D, 64, 6, 32,
+                                          seed=H + D)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    jargs = (jnp.asarray(q), jnp.asarray(kp, jdt), jnp.asarray(vp, jdt),
+             jnp.asarray(slots), jnp.asarray(ctx))
+    got = paged_attention(_t(q), _t(kp, tdt), _t(vp, tdt), _t(slots),
+                          _t(ctx))
+    wants = [j_paged_ref(*jargs)]
+    if dtype == "float32":
+        wants.append(paged_attention_pallas(*jargs, interpret=True))
+    tol = 2e-5 if dtype == "float32" else 3e-2
+    for want in wants:
+        for g, w in zip(got, want):
+            npt.assert_allclose(g.numpy(), np.asarray(w), rtol=tol, atol=tol)
+    o, m, l = got
+    assert float(l[0].abs().max()) == 0.0 and bool((m[0] == -1e30).all())
 
 
 def test_paged_q1_query_rank_round_trip():
@@ -806,11 +933,17 @@ def test_gpu_flash_cross_rows_equal_at_any_sq(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("heads", [(32, 8, 128), (8, 1, 256), (16, 16, 64)],
+                         ids=str)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_gpu_paged_kernel_batch_and_query_rank_invariant(cuda, dtype):
+def test_gpu_paged_kernel_batch_and_query_rank_invariant(cuda, dtype, heads):
     """Bitwise: each row alone equals the same row in the batch of 4, and
-    Q=1 equals column 0 of Q=4 (the split follows nblk only)."""
-    B, H, KV, D, bs, nblk = 4, 32, 8, 128, 64, 16
+    Q=1 equals column 0 of Q=4 (the split follows the geometry only), at
+    granite-8b's heads (the cluster kernel) and paligemma-3b's and
+    whisper-medium's (the fold kernel), where a second launch also gives
+    the same bits (the fold's counters reset themselves)."""
+    H, KV, D = heads
+    B, bs, nblk = 4, 64, 16
     rng = np.random.RandomState(7)
     tdt = getattr(torch, dtype)
     q4 = _t(rng.randn(B, 4, H, D).astype(np.float32)).to(cuda, tdt)
@@ -830,6 +963,9 @@ def test_gpu_paged_kernel_batch_and_query_rank_invariant(cuda, dtype):
     wide = paged_attention(q4, kp, vp, slots, ctx)
     for x, y in zip(full, wide):
         assert torch.equal(x, y[:, 0])
+    again = paged_attention(q1, kp, vp, slots, ctx)
+    for x, y in zip(again, full):
+        assert torch.equal(x, y)
 
 
 @pytest.mark.gpu

@@ -131,6 +131,29 @@ def test_cpu_wrappers_equal_the_plain_ops(dtype):
                        layers.gated_rms_norm(x, z, s.float()))
 
 
+@pytest.mark.parametrize("gated", [False, True])
+def test_rms_norm_bf16_scale_equals_its_float32_scale(gated):
+    """The wrapper takes the scale in its own dtype: a bf16 scale gives
+    the bits of the same scale cast to float32 (bf16 -> float32 is exact),
+    on the plain path, and the same shape and recorded cost on ``meta``."""
+    rng = np.random.default_rng(3)
+    x = _t(_rand(rng, 6, 96), torch.bfloat16)
+    z = _t(_rand(rng, 6, 96), torch.bfloat16) if gated else None
+    s16 = _t(_rand(rng, 96), torch.bfloat16)
+    assert torch.equal(rms_norm(x, s16, 1e-5, z=z),
+                       rms_norm(x, s16.float(), 1e-5, z=z))
+    m = dict(device="meta")
+    xm = torch.empty((2048, 4096), dtype=torch.bfloat16, **m)
+    zm = None if z is None else xm
+    costs = []
+    for sm in (torch.empty(4096, dtype=torch.bfloat16, **m),
+               torch.empty(4096, dtype=torch.float32, **m)):
+        _build.META_COSTS.clear()
+        assert rms_norm(xm, sm, 1e-5, z=zm).shape == xm.shape
+        costs.append(dict(_build.META_COSTS["rms_norm"]))
+    assert costs[0] == costs[1] and costs[0]["calls"] == 1
+
+
 def test_cpu_blocked_gemm_and_einsums_equal_the_plain_ops():
     """The dt projection's blocks (``block``) and the SSD's einsums."""
     rng = np.random.default_rng(1)
@@ -711,6 +734,35 @@ def test_gpu_rms_norm(cuda, dtype, tol):
                                rtol=tol, atol=tol)
     assert rms_norm.launches - before == 2
     _rows_bitwise(lambda r: rms_norm(r, s, 1e-5), x)
+    torch.cuda.synchronize()
+
+
+# the configurations' norm widths (reduced 64; mamba2 768 and its gated
+# 1536; whisper 1024; qwen3-moe / paligemma 2048; granite 4096; qwen2.5 /
+# llama4 5120; jamba / qwen2-72b 8192 and jamba's gated 16384) and a
+# width past the register kernel's (the two-pass loop)
+RMS_WIDTHS = (64, 768, 1024, 1536, 2048, 4096, 5120, 8192, 16384, 20000)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_gpu_rms_norm_is_the_two_pass_order(cuda, dtype):
+    """The one-read kernel keeps the two-pass kernel's sums: bitwise equal
+    to it (``rms_norm_two_pass``) at every width in ``ROWS_MS`` and the
+    configurations' widths, plain and gated, with a bf16 and a float32
+    scale, and one launch a call with a bf16 scale."""
+    from repro_torch.kernels.rms_norm.ops import rms_norm_two_pass
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    for n in ROWS_MS + RMS_WIDTHS:
+        x = torch.randn((9, n), generator=gen, device=cuda).to(dtype)
+        z = torch.randn((9, n), generator=gen, device=cuda).to(dtype)
+        s = torch.randn(n, generator=gen, device=cuda).to(torch.bfloat16)
+        for gate in (None, z):
+            before = rms_norm.launches
+            got = rms_norm(x, s, 1e-5, z=gate)
+            assert rms_norm.launches - before == 1
+            assert torch.equal(got, rms_norm_two_pass(x, s, 1e-5, z=gate)), n
+            assert torch.equal(got, rms_norm(x, s.float(), 1e-5, z=gate)), n
     torch.cuda.synchronize()
 
 
