@@ -29,9 +29,10 @@ phase 13 and the tenth only phase 14 (both without building the kernels,
 which training does not launch), the eleventh only phase 15 and the
 twelfth only phase 16 (the examples), the thirteenth only phase 2's
 checks of the rows-invariant kernels and phase 6 (g), the fourteenth
-only phase 2's flash checks and the flash rows of phases 8 (c), 9, 10
-and 15 (device ms beside SDPA's, the bound, the CTAs and the wrapper's
-host time a call), of this
+only phase 2's flash checks and the flash rows of phases 8 (a), 8 (c),
+9, 10 and 15 (device ms beside SDPA's, the bound, the CTAs, the
+wrapper's host time a call and a digest of each row's output; on this
+checkout's tree also each D = 128 row under every design), of this
 checkout's port or of
 another
 commit's (a parent unpacked with ``git archive``), so that two commits
@@ -399,10 +400,13 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 PEAK_FLOPS = {"float32": 67e12,    # CUDA cores, no tensor cores
               "bfloat16": 989e12}  # dense tensor cores
 SEED = 0
-# the flash kernels' names: the TMA kernels (bf16 at D = 64, 256), the
-# cp.async one (bf16 at D = 128; every bf16 D in trees before the TMA
-# kernels), the float32 one
-FLASH_SYMBOLS = ("flash_tma_kernel", "flash_wgmma_kernel", "flash_kernel")
+# the flash kernels' names: the ping-pong one (bf16 at D = 128), the TMA
+# one (bf16 at D = 64, 256, and at D = 128 where the plan gives 64 rows,
+# flash_plan), the cp.async
+# one (bf16 at D = 128 in trees before the ping-pong kernel; every bf16 D
+# in trees before the TMA kernel), the float32 one
+FLASH_SYMBOLS = ("flash_pp_kernel", "flash_tma_kernel",
+                 "flash_wgmma_kernel", "flash_kernel")
 # the paged reads' kernels: the cluster kernel (every head dim but 64 and
 # 256), the fold kernel (64 and 256)
 PAGED_SYMBOLS = ("paged_attn_kernel", "paged_fold_kernel")
@@ -551,6 +555,18 @@ def _ms(us):
 
 def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
+
+
+def tensor_digest(t) -> str:
+    """The first 16 hex digits of the sha256 of ``t``'s bytes (a bf16
+    output's bits), so that two trees' outputs on the same seeded inputs
+    compare by eye."""
+    import hashlib
+    import torch
+    raw = t.detach().contiguous()
+    if raw.dtype == torch.bfloat16:
+        raw = raw.view(torch.int16)
+    return hashlib.sha256(raw.cpu().numpy().tobytes()).hexdigest()[:16]
 
 
 def check_close(name, got, want, tol) -> float:
@@ -1307,7 +1323,8 @@ def check_flash(torch, dev, results):
     bound_bytes = nbytes / HBM_BYTES_PER_S
     bound_ops = flops / PEAK_FLOPS["bfloat16"]
     results["flash_attention"] = dict(
-        max_abs_err=main_err, ms=time_ms(torch, kern, 20),
+        max_abs_err=main_err, sha256=tensor_digest(kern[0]()),
+        ms=time_ms(torch, kern, 20),
         device_ms=device_ms(torch, kern[0], 5, FLASH_SYMBOLS),
         plain_ms=time_ms(torch, plain, 8),
         bound_ms=max(bound_bytes, bound_ops) * 1e3,
@@ -1843,7 +1860,8 @@ def check_flash_offset(torch, dev, results):
     nbytes = 2 * (2 * 4 * 512 * H * D + 2 * 4 * S * KV * D)
     ms, dms = kernel_times(torch, kern, FLASH_SYMBOLS, 5)
     results["flash_attention_q_offset"] = dict(
-        max_abs_err=out["bfloat16"]["max_abs_err"], ms=ms, device_ms=dms,
+        max_abs_err=out["bfloat16"]["max_abs_err"],
+        sha256=tensor_digest(kern[0]()), ms=ms, device_ms=dms,
         plain_ms=time_ms(torch, plain, 8),
         bound_ms=max(nbytes / HBM_BYTES_PER_S,
                      flops / PEAK_FLOPS["bfloat16"]) * 1e3,
@@ -1875,11 +1893,53 @@ def flash_rows(torch, dev, results, src):
     rows = {"phase2_B2_S1024_H32_KV8": results["flash_attention"],
             "phase2_q_offset": results["flash_attention_q_offset"], **geo}
     keys = ("device_ms", "ms", "sdpa_device_ms", "library_device_ms",
-            "bound_ms", "bound_by", "rows_a_cta", "ctas", "host_us",
-            "plan_us", "encode_us")
+            "sdpa_ms", "library_ms", "plain_ms", "bound_ms", "bound_by",
+            "rows_a_cta", "ctas", "host_us", "plan_us", "encode_us",
+            "sha256")
     log(f"flash rows of the port in {src}: " + json.dumps(
         {k: {f: r[f] for f in keys if f in r} for k, r in rows.items()}))
+    if not OTHER_TREE:
+        flash_designs(torch, dev)
     torch.cuda.synchronize()
+
+
+def flash_designs(torch, dev):
+    """Each ``FLASH_D128`` row launched under each ``FLASH_DESIGNS`` plan
+    (``flash_attention``'s ``plan``): its output bitwise the plan's, its
+    device ms (profiler, 20 launches) and CUDA-event ms (80 calls over four
+    input sets) beside the plan's own, in turns (plan, designs, plan)."""
+    from repro_torch.kernels.flash_attention import ops
+    g = torch.Generator(device=dev).manual_seed(SEED + 32)
+    out = {}
+    for B, S, Skv, H, KV, D, causal, *offs in FLASH_D128:
+        sets = [[torch.randn((B, n, h, D), generator=g, device=dev).to(
+            torch.bfloat16) for n, h in ((S, H), (Skv, KV), (Skv, KV))]
+            for _ in range(4)]
+        off = (torch.tensor(offs[0], dtype=torch.int32, device=dev)
+               if offs else None)
+        plan = ops.flash_plan(B, S, H, D)
+        want = ops.flash_attention(*sets[0], causal=causal, q_offset=off)
+        tag = f"B{B}_S{S}_Skv{Skv}_H{H}_KV{KV}" + ("_q_offset" if offs
+                                                    else "")
+        row = {"plan": dict(rows=plan.rows, ctas=plan.ctas,
+                            sha256=tensor_digest(want))}
+        order = [("plan", plan)] + [
+            (name, ops.FlashPlan(rows, ctas(B, S, H)))
+            for name, rows, ctas in FLASH_DESIGNS] + [("plan_again", plan)]
+        for name, p in order:
+            fns = [lambda s=s, p=p: ops.flash_attention(
+                *s, causal=causal, q_offset=off, plan=p) for s in sets]
+            got = fns[0]()
+            if not torch.equal(got, want):
+                raise AssertionError(f"flash {tag}: design {name} {p} "
+                                     "differs from the plan's bits")
+            ms, dms = kernel_times(torch, fns, FLASH_SYMBOLS, 20)
+            row.setdefault(name, {}).update(rows=p.rows, ctas=p.ctas,
+                                            device_ms=dms, ms=ms)
+        out[tag] = row
+    log("flash designs at D = 128 (each bitwise the plan's): "
+        + json.dumps(out))
+    return out
 
 
 def rows_kernels(torch, dev, results):
@@ -3829,10 +3889,20 @@ def full_width_moe(torch, dev):
     def requests():
         return phase5_requests(cfg, np.random.RandomState(SEED + 5))[0]
 
+    calls = []
+
+    @contextlib.contextmanager
+    def wrap(name):
+        with moe_drops(torch, drops[name]), attention_calls(calls):
+            yield
+
     runs = spec_pair(torch, dev, cfg, params, requests, PHASE5, "phase 8",
-                     after=after,
-                     wrap=lambda name: moe_drops(torch, drops[name]))
+                     after=after, wrap=wrap)
     on, off = runs["on"], runs["off"]
+    log("phase 8 (a) flash calls of both runs, (B, Sq, Skv, H, KV, D, "
+        "causal, impl, rows a CTA, CTAs): launches " + json.dumps(
+            [[list(c), n] for c, n in sorted(collections.Counter(
+                c for c in calls if c[7] in ("pallas", "flash")).items())]))
     launches = {k: off["launches"][k] + on["launches"][k]
                 for k in off["launches"]}
     for name in ("utopia_translate_step", "paged_attention",
@@ -3931,17 +4001,19 @@ def flash_grid(torch, dev, B, S, H, D):
     (``flash_plan``), or, only in another tree from before the plan, 128
     rows."""
     from repro_torch.kernels.flash_attention import ops
-    rows = (128 if OTHER_TREE and not hasattr(ops, "flash_plan")
-            else ops.flash_plan(B, S, H, D).rows)
-    return dict(rows_a_cta=rows, ctas=B * H * -(-S // rows))
+    if OTHER_TREE and not hasattr(ops, "flash_plan"):
+        return dict(rows_a_cta=128, ctas=B * H * -(-S // 128))
+    p = ops.flash_plan(B, S, H, D)
+    return dict(rows_a_cta=p.rows, ctas=p.ctas)
 
 
 def flash_host_us(torch, dev, B, S, Skv, H, KV, D, causal, *offs):
     """The bf16 flash wrapper's host time a call (µs, 200 calls on the
     same inputs without a synchronisation, the device faster than the
     host), and of its parts: ``flash_plan`` alone and the launch's three
-    tensor maps encoded alone (``flash_attention_encode_us``; None at D =
-    128, whose kernel has none, or in a tree without it)."""
+    tensor maps encoded alone (``flash_attention_encode_us``; None in a
+    tree without it, and at D = 128 in another tree, ``--src``, whose D =
+    128 kernel may encode none)."""
     import ctypes
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import ops
@@ -3966,7 +4038,8 @@ def flash_host_us(torch, dev, B, S, Skv, H, KV, D, causal, *offs):
             ops.flash_plan(B, S, H, D)
         out["plan_us"] = (time.perf_counter() - t0) / n * 1e6
     lib = _build.load("flash_attention")
-    if max(D, 64) != 128 and hasattr(lib, "flash_attention_encode_us"):
+    if (hasattr(lib, "flash_attention_encode_us")
+            and not (OTHER_TREE and max(D, 64) == 128)):
         fn = lib.flash_attention_encode_us
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [p, p, p, i, i, i, i, i, i, i]
@@ -4074,9 +4147,10 @@ def geometry_reads(torch, dev, heads=((40, 8), (32, 4)),
                + ("" if D == 128 else f"_D{D}")
                + ("" if causal else "_full")
                + ("_q_offset" if offs else ""))
-        held = check_flash_bf16(tag, flash_attention(q, k, v, causal=causal,
-                                                     q_offset=off),
-                                q, k, v, causal, q_offset=off)
+        got = flash_attention(q, k, v, causal=causal, q_offset=off)
+        held = check_flash_bf16(tag, got, q, k, v, causal, q_offset=off)
+        held["sha256"] = tensor_digest(got)
+        del got
         q32, k32, v32 = (t.float() for t in (q, k, v))
         err32 = check_close(f"{tag} (float32)",
                             flash_attention(q32, k32, v32, causal=causal,
@@ -5052,10 +5126,28 @@ PHASE10_FLASH = ((2, 512, 512, 8, 1, 256, True),
                  (4, 256, 1024, 8, 1, 256, True, PALI_PREFIX_OFFSETS),
                  (4, 256, 256, 16, 16, 64, True))
 # the flash rows of the other phases at D = 128: phase 8 (c)'s qwen2.5-14b
-# (40/8), phase 9's jamba (64/8), phase 15's token-split rank (16/4)
+# (40/8), phase 9's jamba (64/8), phase 15's token-split rank (16/4), and
+# phase 8 (a)'s qwen3-moe-30b-a3b (32/4) at the shape of 288 of its
+# prefill's 480 launches (a prompt's first chunk of 256 tokens; the others
+# are of 64 and 128, ``attention_calls``)
 OTHER_FLASH = ((2, 512, 512, 40, 8, 128, True),
                (2, 512, 512, 64, 8, 128, True),
-               (2, 1024, 1024, 16, 4, 128, True))
+               (2, 1024, 1024, 16, 4, 128, True),
+               (1, 256, 256, 32, 4, 128, True))
+# ``--flash`` only: every D = 128 row (phase 2's, its ``q_offset`` row and
+# ``OTHER_FLASH``), each launched under every bf16 design at D = 128
+# (``FLASH_DESIGNS``), held bitwise to the plan's output and timed
+FLASH_D128 = ((2, 1024, 1024, 32, 8, 128, True),
+              (4, 512, 1024, 32, 8, 128, True, FLASH_OFFSETS),
+              *OTHER_FLASH)
+# (name, query rows a CTA, CTAs of a (B, Sq, H) launch): one 64-row
+# consumer warpgroup a CTA (flash_tma_kernel), two (flash_pp_kernel) with
+# a CTA a query tile, and two on a persistent grid of one CTA an SM
+FLASH_DESIGNS = (
+    ("rows64", 64, lambda B, S, H: B * H * -(-S // 64)),
+    ("rows128", 128, lambda B, S, H: B * H * -(-S // 128)),
+    ("rows128_persistent", 128, lambda B, S, H: min(B * H * -(-S // 128),
+                                                    132)))   # the SMs
 # ``--flash`` only: a D = 256 grid that 128-row CTAs would fill (256 of
 # them), which no phase launches (phase 10 (a) logs its calls' plans,
 # ``attention_calls``)
@@ -7676,11 +7768,15 @@ def main() -> int:
         # the bf16 flash and GEMM kernels and anything that spills, one
         # line each
         for k, regs, stack, st, ld in ents:
-            if ("flash_wgmma_kernel" in k or "flash_tma_kernel" in k
+            if ("flash_pp_kernel" in k or "flash_tma_kernel" in k
                     or "gemm_bf16_wgmma" in k or st
                     or ld):
                 log(f"  ptxas {k}: {regs} registers, {stack} bytes stack, "
                     f"{st} bytes spill stores, {ld} bytes spill loads")
+        # ptxas's advisories, e.g. wgmmas serialised (C7510-C7520)
+        for ln in out.splitlines():
+            if "Performance Loss" in ln or "C75" in ln:
+                log(f"  {ln.strip()[:300]}")
     log(f"build: {time.perf_counter() - t0:.1f} s for {len(built)} "
         f"kernel(s) into {_build.BUILD_DIR}")
     if args.decode_profile:

@@ -33,12 +33,13 @@
 // (4,096 a 64 x 64 tile, 16 a clock on an SM).
 //
 // Three kernels:
-// * bfloat16 at D = 64 (and 16, 32, padded to 64 columns) and D = 256:
-//   flash_tma_kernel.  The plan (ops.py flash_plan, passed in as the query
-//   rows a CTA) gives a CTA one consumer warpgroup of 64 query rows, so
-//   that the grid of B * H * ceil(Sq / 64) covers the SMs: paligemma's and
-//   whisper's cross shapes go from 64 CTAs to 128.  A producer warp's one
-//   elected thread loads the Q tile once and each K/V tile with TMA
+// * bfloat16 at D = 64 (and 16, 32, padded to 64 columns) and D = 256, and
+//   at D = 128 where the plan gives 64 rows: flash_tma_kernel.  The plan
+//   (ops.py flash_plan, passed in as the query rows a CTA and the CTAs)
+//   gives a CTA one consumer warpgroup of 64 query rows, so that the grid
+//   of B * H * ceil(Sq / 64) covers the SMs: paligemma's and whisper's
+//   cross shapes go from 64 CTAs to 128.  A producer warp's one elected
+//   thread loads the Q tile once and each K/V tile with TMA
 //   (cp.async.bulk.tensor, 128-byte swizzle, 64 x 64 boxes; rows past Skv
 //   and columns past D are zero-filled) into a ring of stages with a full
 //   and an empty mbarrier each; no __syncthreads() in the key loop.
@@ -48,26 +49,30 @@
 //   consumer holds.  At D = 64 four 16 KB stages, and three CTAs an SM,
 //   whose warpgroups overlap one another; Q's A fragments are read into
 //   registers once (16 a thread), so S reads only K from shared memory.
+//   At D = 128 two 32 KB stages and two CTAs an SM.
 //   The consumer warpgroup overlaps its softmax with the tensor cores
 //   (FA3's intra-warpgroup pipelining): it issues tile j's S = Q K^T and
 //   tile j-1's O += P V back to back, waits for S alone, runs tile j's
 //   softmax while P V runs, then waits for P V, releases tile j-1's stage,
-//   rescales O and packs tile j's P.  A row sees flash_wgmma_kernel's
-//   arithmetic in its order: S is one m64n64k16 wgmma per 16 columns of D
-//   (K read K-major), the masked ex2/fmaf softmax, the bf16 packing of P
-//   in registers, then P V as m64nDk16 wgmmas with V read MN-major; O *=
-//   corr_j before P_j V_j is added.  So its outputs are bitwise that
-//   kernel's at the same D.  The key axis is never split: a row's bits
-//   would depend on the split.
-// * bfloat16 at D = 128: flash_wgmma_kernel.  A CTA of two warpgroups
-//   owns 128 queries, K/V tiles arrive by 16-byte cp.async copies into a
-//   two-stage ring behind __syncthreads(), and each tile's S, softmax and
-//   P V run in turn; 96 KB of shared memory and at most 128 registers a
-//   thread let two CTAs share an SM, so one CTA's softmax runs beside the
-//   other's products.
+//   rescales O and packs tile j's P.
+// * bfloat16 at D = 128 where the plan gives 128 rows (its 128-row tiles
+//   fill the card): flash_pp_kernel, two consumer warpgroups of 64 rows
+//   sharing each TMA-fed K/V tile, taking the tensor cores in turn (a
+//   ping-pong on named barriers: one's softmax runs beside the other's
+//   products), each pipelined as above, on a persistent grid of one CTA an
+//   SM whose producer warpgroup hands its registers to the consumers.
 // * float32: 32-query tiles with both products as f32 FMAs on the CUDA
 //   cores, so float32 stays float32; warp w owns query rows w, w+4, ...,
 //   each lane one key, so row max and sum are warp shuffles.
+// Every bf16 row sees one arithmetic in one order (PR 12's cp.async
+// kernel's, kept since): S is one m64n64k16 wgmma per 16 columns of D (K
+// read K-major), the masked ex2/fmaf softmax, the bf16 packing of P in
+// registers, then P V as m64nDk16 wgmmas with V read MN-major; O *=
+// corr_j before P_j V_j is added; key tiles of 64 from position 0, those
+// wholly above a warpgroup's 64 rows skipped.  So a row's bits are the
+// same in either bf16 kernel, whatever the plan, the grid or the tile
+// order.  The key axis is never split: a row's bits would depend on the
+// split.
 // Causal query tiles are launched longest first so the short ones fill
 // the tail.
 #include <cuda.h>
@@ -212,46 +217,8 @@ __global__ void __launch_bounds__(kThreads)
 
 // ------------------------------------------------- bfloat16: wgmma
 
-constexpr int kWgBQ = 128;       // flash_wgmma_kernel: query rows a CTA
-constexpr int kWgThreads = 256;
 constexpr int kBlk = 64 * 128;   // one 64-row x 64-column swizzled block
 
-template <int DP>
-struct WgCfg {
-  static constexpr int BK = 64;                        // keys per tile
-  static constexpr int STAGES = 2;                     // cp.async ring
-  // every tile is stored in 128-byte swizzled column blocks of 64 values:
-  // block a of a tile of R rows at a * R * 128 bytes, row r at r * 128,
-  // 16-byte chunk c at ((c ^ r) & 7) * 16
-  static constexpr int kQBytes = kWgBQ * DP * 2;
-  static constexpr int kTileBytes = BK * DP * 2;       // one K or V tile
-  static constexpr int kK = kQBytes;
-  static constexpr int kV = kK + STAGES * kTileBytes;
-  static constexpr int bytes = kV + STAGES * kTileBytes + 1024;  // + align
-};
-
-template <int R>
-__device__ __forceinline__ uint32_t swz(int r, int c) {
-  return (uint32_t)((c >> 3) * (R * 128) + r * 128 + (((c ^ r) & 7) << 4));
-}
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           int bytes) {
-  // bytes < 16 zero-fills the rest; 0 reads nothing
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-__device__ __forceinline__ void fence_async_smem() {
-  // make the generic-proxy (cp.async) writes visible to wgmma's reads
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
 __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
@@ -560,151 +527,23 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* __restrict__ o,
   }
 }
 
-// The cp.async copies of one R-row tile (Q, K or V): thread `tid` always
-// copies the same column chunk of rows lr, lr + RS, ..., so its shared and
-// global offsets are computed once.
-template <int DP, int R>
-struct TileCopy {
-  static constexpr int kChunks = DP / 8;               // 16-byte chunks
-  static constexpr int RS = kWgThreads / kChunks;      // row step
-  static constexpr int N = R / RS;                     // copies per thread
-  uint32_t soff;
-  int lr;
-  long long goff;
-  bool col_ok;
-  __device__ __forceinline__ TileCopy(int tid, long long stride, int D) {
-    const int lc = tid % kChunks;
-    lr = tid / kChunks;
-    soff = swz<R>(lr, lc);
-    goff = lr * stride + lc * 8;
-    col_ok = lc * 8 < D;
-  }
-  // rows at or past `valid` are zero-filled without a read
-  __device__ __forceinline__ void copy(uint32_t dst,
-                                       const __nv_bfloat16* src,
-                                       const __nv_bfloat16* any,
-                                       long long stride, int valid) const {
-#pragma unroll
-    for (int i = 0; i < N; ++i) {
-      const bool ok = col_ok && lr + i * RS < valid;
-      cp_async16(dst + soff + i * RS * 128,
-                 ok ? src + goff + i * RS * stride : any, ok ? 16 : 0);
-    }
-  }
-};
-
-template <int DP>
-__global__ void __launch_bounds__(kWgThreads, 2)
-    flash_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
-                       const __nv_bfloat16* __restrict__ k,
-                       const __nv_bfloat16* __restrict__ v,
-                       __nv_bfloat16* __restrict__ o,
-                       const int* __restrict__ q_offset, int B, int Sq,
-                       int Skv, int H, int KV, int D, int causal,
-                       float scale_log2) {
-  using C = WgCfg<DP>;
-  constexpr int BK = C::BK, ST = C::STAGES;
-  constexpr int kOut = DP / 2;          // O accumulator floats per thread
-  const int tid = threadIdx.x, wg = tid >> 7, lane = tid & 31;
-  const int warp = (tid >> 5) & 3;
-  // the q-tile index varies slowest, longest (causal) tiles first
-  const int n_qt = (Sq + kWgBQ - 1) / kWgBQ;
-  const int hb = blockIdx.x % (H * B), rank = blockIdx.x / (H * B);
-  const int qt = causal ? n_qt - 1 - rank : rank;
-  const int h = hb % H, b = hb / H, hk = h / (H / KV);
-  const int q0 = qt * kWgBQ;
-  const int off = q_offset ? q_offset[b] : 0;  // the rows' first position
-
-  extern __shared__ unsigned char smem_raw[];
-  const uint32_t raw = (uint32_t)__cvta_generic_to_shared(smem_raw);
-  const uint32_t base = (raw + 1023u) & ~1023u;   // swizzle atoms: 1 KB
-  const uint32_t sQ = base;
-  const uint32_t sK = base + C::kK, sV = base + C::kV;
-
-  int n_kv = (Skv + BK - 1) / BK;
-  if (causal) n_kv = min(n_kv, (off + q0 + kWgBQ - 1) / BK + 1);
-  const int wq0 = q0 + wg * 64;                      // warpgroup's first row
-  // this warpgroup's key tiles: a prefix of the CTA's (causal: the last
-  // one may lie wholly above its 64 rows)
-  const int n_act = causal ? min(n_kv, (off + wq0 + 63) / BK + 1) : n_kv;
-  const long long kv_stride = (long long)KV * D;
-  const __nv_bfloat16* kb = k + ((long long)b * Skv * KV + hk) * D;
-  const __nv_bfloat16* vb = v + ((long long)b * Skv * KV + hk) * D;
-  const TileCopy<DP, BK> cp(tid, kv_stride, D);
-
-  const long long q_stride = (long long)H * D;
-  TileCopy<DP, kWgBQ>(tid, q_stride, D)
-      .copy(sQ, q + (((long long)b * Sq + q0) * H + h) * D, q, q_stride,
-            Sq - q0);
-#pragma unroll
-  for (int s = 0; s < ST; ++s) {
-    if (s < n_kv) {
-      const int k0 = s * BK;
-      cp.copy(sK + s * C::kTileBytes, kb + k0 * kv_stride, k, kv_stride,
-              Skv - k0);
-      cp.copy(sV + s * C::kTileBytes, vb + k0 * kv_stride, v, kv_stride,
-              Skv - k0);
-    }
-    cp_async_commit();
-  }
-
-  float acc[kOut], sc[BK / 2], corr[2];
-  uint32_t pk[BK / 4];
-#pragma unroll
-  for (int i = 0; i < kOut; ++i) acc[i] = 0.f;
-#pragma unroll
-  for (int i = 0; i < BK / 2; ++i) sc[i] = 0.f;
-  float m_r[2] = {-INFINITY, -INFINITY}, l_r[2] = {0.f, 0.f};
-  const int row0 = wq0 + warp * 16 + (lane >> 2);    // rows row0, row0 + 8
-  const int col0 = 2 * (lane & 3);
-
-  for (int j = 0; j < n_kv; ++j) {
-    const int st = j % ST;
-    cp_async_wait<ST - 1>();            // tile j has landed
-    fence_async_smem();
-    __syncthreads();
-    if (j < n_act) {                    // warpgroup-uniform
-      wgmma_fence();
-      start_s<DP, BK>(sc, sQ + wg * (64 * 128), kWgBQ * 128,
-                      sK + st * C::kTileBytes);
-      wgmma_wait<0>();
-      fence_regs<BK / 2>(sc);
-      softmax_tile<BK>(sc, m_r, l_r, corr, j * BK, off + wq0, off + row0,
-                       col0, Skv, causal, scale_log2);
-      rescale_pack<DP, BK>(acc, corr, sc, pk);
-      fence_regs<kOut>(acc);
-      wgmma_fence();
-      start_pv<DP, BK>(acc, pk, sV + st * C::kTileBytes);
-      wgmma_wait<0>();
-      fence_regs<kOut>(acc);
-    }
-    __syncthreads();   // both warpgroups are done with this stage
-    const int jn = j + ST;
-    if (jn < n_kv) {
-      const int k0n = jn * BK;
-      cp.copy(sK + st * C::kTileBytes, kb + k0n * kv_stride, k, kv_stride,
-              Skv - k0n);
-      cp.copy(sV + st * C::kTileBytes, vb + k0n * kv_stride, v, kv_stride,
-              Skv - k0n);
-    }
-    cp_async_commit();
-  }
-  store_rows<DP>(o, acc, l_r, b, h, row0, col0, Sq, H, D);
-}
-
-// flash_tma_kernel's shared memory: the CTA's 64-row Q tile (DP / 64
-// swizzled column blocks of 8 KB), ST stages of a K and a V tile (64 keys,
-// DP / 64 blocks each), then the full and empty barrier of each stage and
-// Q's barrier; CPS CTAs share an SM.  A consumer warpgroup and a producer
-// warp: 160 threads.
-template <int DP, int ST, int CPS>
+// flash_pp_kernel's (WGS = 2 consumer warpgroups): the Q tile holds one
+// warpgroup's 64 rows after the other's, then come the ST stages, the
+// barriers (full and empty a stage and for Q) and the tile order's keys
+// and slots; 384 threads, the third warpgroup the producer's.
+constexpr int kMaxClasses = 256;   // (row, query tile) classes sorted
+template <int DP, int ST, int CPS, int WGS = 1>
 struct TmaCfg {
   static constexpr int kBlocks = DP / 64;
-  static constexpr int kKV = kBlocks * kBlk;           // Q, or a K or V tile
+  static constexpr int kKV = kBlocks * kBlk;   // 64 rows of Q, a K or V tile
+  static constexpr int kQ = WGS * kKV;
   static constexpr int kStage = 2 * kKV;
-  static constexpr int kBar = kKV + ST * kStage;
-  static constexpr int bytes = kBar + (2 * ST + 1) * 8 + 1024;  // + align
-  static constexpr int kThreads = 160;
+  static constexpr int kBar = kQ + ST * kStage;
+  // flash_pp_kernel's tile order by length: a key and a slot a class
+  static constexpr int kOrder = kBar + (2 * ST + 2) * 8;
+  static constexpr int bytes =
+      kOrder + (WGS == 1 ? 0 : 12 * kMaxClasses) + 1024;  // + align
+  static constexpr int kThreads = WGS == 1 ? 160 : 128 * (WGS + 1);
   static_assert(bytes <= 232448 && CPS * (bytes + 1024) <= 233472,
                 "CPS CTAs fit in an SM's shared memory");
 };
@@ -836,35 +675,263 @@ __global__ void __launch_bounds__(160, CPS)
   store_rows<DP>(o, acc, l_r, b, h, row0, col0, Sq, H, D);
 }
 
+__device__ __forceinline__ void prefetch_map(const CUtensorMap* m) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(m))
+               : "memory");
+}
+
+// The ping-pong of two consumer warpgroups (named barriers 1 and 2, 256
+// threads each): a warpgroup issues its wgmmas between bar.sync on its own
+// barrier and bar.arrive on the other's, so the two issue in turn and one's
+// softmax runs while the other's products hold the tensor cores.
+__device__ __forceinline__ void named_sync(int id) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
+}
+
+// bfloat16 at D = 128.  A CTA of two consumer warpgroups (rows q0 .. q0 +
+// 63 and q0 + 64 .. q0 + 127 of a 128-row query tile) and a producer
+// warpgroup, one CTA an SM: the producer gives up its registers
+// (setmaxnreg, 168 a thread at entry down to 24) and the consumers take
+// them (240), so that O (64 floats), S (32), P (16) and Q's fragments (32)
+// live in registers.  The grid is persistent: CTA c takes tiles c, 2G - 1
+// - c, 2G + c, ... of the longest-first order (G CTAs; the snake evens out
+// the causal tiles' lengths; with q_offset the (row, query tile) classes
+// are sorted by length first), and with G = the tile count each CTA runs
+// one.  The producer's one elected thread loads each tile's Q and every
+// K/V tile of every tile in turn into the ring, so each K/V tile is read
+// once for 128 queries and the ring runs on across tiles.  The consumers
+// read their Q's A fragments into registers (32 a thread) and free the Q
+// tile at once, so the next tile's Q lands while they work on this one;
+// S = Q K^T then reads only K from shared memory.  A warpgroup's rows see
+// flash_tma_kernel's arithmetic and tiles: tiles 0 .. na - 1 of its 64
+// rows (causal: the CTA's last tile may lie wholly above the first
+// warpgroup's rows, which skips it as a 64-row CTA would not have loaded
+// it), so each output is bitwise that of a 64-row CTA.  Both warpgroups
+// wait on every K/V tile, release every stage and take their ping-pong
+// turn on every tile of the CTA, whether or not they have rows there.
+template <int ST>
+__global__ void __launch_bounds__(384, 1)
+    flash_pp_kernel(const __grid_constant__ CUtensorMap tq,
+                    const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv,
+                    __nv_bfloat16* __restrict__ o,
+                    const int* __restrict__ q_offset, int B, int Sq,
+                    int Skv, int H, int KV, int D, int causal,
+                    float scale_log2) {
+  constexpr int DP = 128, BK = 64, kOut = DP / 2;
+  using C = TmaCfg<DP, ST, 1, 2>;
+  extern __shared__ __align__(1024) unsigned char smem_pp[];
+  const uint32_t base =
+      ((uint32_t)__cvta_generic_to_shared(smem_pp) + 1023u) & ~1023u;
+  const uint32_t sKV = base + C::kQ;
+  const uint32_t full = base + C::kBar, empty = full + 8 * ST;
+  const uint32_t qfull = empty + 8 * ST, qempty = qfull + 8;
+  const int n_qt = (Sq + 127) / 128, G = gridDim.x, c = blockIdx.x;
+  const int n_tiles = n_qt * H * B;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(full + 8 * s, 1);        // the producer's expect_tx
+      mbar_init(empty + 8 * s, 8);       // one arrival a consumer warp
+    }
+    mbar_init(qfull, 1);
+    mbar_init(qempty, 8);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // Tiles go longest first.  Without offsets a query tile's rank says its
+  // length; with them each (row, query tile) class of H tiles is sorted by
+  // its key tiles (then query tile, then row, so that equal offsets keep
+  // the rank order), up to kMaxClasses classes.
+  const int n_cls = B * n_qt;
+  const bool by_length = q_offset && causal && n_cls <= kMaxClasses;
+  long long* key = reinterpret_cast<long long*>(
+      smem_pp + (base - (uint32_t)__cvta_generic_to_shared(smem_pp)) +
+      C::kOrder);
+  int* cls = reinterpret_cast<int*>(key + kMaxClasses);
+  if (by_length) {
+    const int n_all = (Skv + BK - 1) / BK;
+    for (int i = threadIdx.x; i < n_cls; i += blockDim.x) {
+      const int qt = i % n_qt, b = i / n_qt;
+      const int len = min(n_all, (q_offset[b] + qt * 128 + 127) / BK + 1);
+      key[i] = ((long long)len << 16) | (qt << 8) | (255 - b);
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < n_cls; i += blockDim.x) {
+      int r = 0;
+      for (int j = 0; j < n_cls; ++j) r += key[j] > key[i];
+      cls[r] = i;
+    }
+  }
+  __syncthreads();
+  // tile t's (row, head, first query)
+  auto tile_of = [&](int t, int& b, int& h, int& q0) {
+    int qt;
+    if (by_length) {
+      const int ci = cls[t / H];
+      h = t % H;
+      b = ci / n_qt;
+      qt = ci % n_qt;
+    } else {
+      const int hb = t % (H * B), rank = t / (H * B);
+      qt = causal ? n_qt - 1 - rank : rank;
+      h = hb % H;
+      b = hb / H;
+    }
+    q0 = qt * 128;
+  };
+
+  if (warp >= 8) {
+    // ---- producer: each tile's Q, then its K/V tiles through the ring
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (warp == 8 && lane == 0) {
+      prefetch_map(&tq);
+      prefetch_map(&tk);
+      prefetch_map(&tv);
+      int it = 0;                        // K/V tiles loaded so far
+      for (int n = 0;; ++n) {
+        const int t = n * G + (n & 1 ? G - 1 - c : c);
+        if (t >= n_tiles) break;
+        int b, h, q0;
+        tile_of(t, b, h, q0);
+        const int hk = h / (H / KV);
+        const int off = q_offset ? q_offset[b] : 0;
+        int n_kv = (Skv + BK - 1) / BK;
+        if (causal) n_kv = min(n_kv, (off + q0 + 127) / BK + 1);
+        const int nq = q0 + 64 < Sq ? 2 : 1;   // Q blocks holding a row
+        if (n) mbar_wait(qempty, (uint32_t)(n - 1) & 1u);
+        mbar_expect_tx(qfull, nq * C::kKV);
+        for (int w = 0; w < nq; ++w)
+#pragma unroll
+          for (int a = 0; a < 2; ++a)
+            tma_load(base + w * C::kKV + a * kBlk, &tq, qfull, 64 * a, h,
+                     q0 + 64 * w, b);
+        for (int j = 0; j < n_kv; ++j, ++it) {
+          const int s = it % ST;
+          mbar_wait(empty + 8 * s, ((uint32_t)(it / ST) & 1u) ^ 1u);
+          const uint32_t bar = full + 8 * s;
+          const uint32_t sk = sKV + s * C::kStage, sv = sk + C::kKV;
+          mbar_expect_tx(bar, C::kStage);
+#pragma unroll
+          for (int a = 0; a < 2; ++a) {
+            tma_load(sk + a * kBlk, &tk, bar, 64 * a, hk, j * BK, b);
+            tma_load(sv + a * kBlk, &tv, bar, 64 * a, hk, j * BK, b);
+          }
+        }
+      }
+    }
+  } else {
+    // ---- the consumer warpgroups: wg's rows q0 + 64 wg .. q0 + 64 wg + 63
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    const int wg = warp >> 2, w4 = warp & 3;
+    const int col0 = 2 * (lane & 3);
+    if (wg == 1) named_arrive(1);          // the first warpgroup issues first
+    int it = 0;                            // K/V tiles consumed so far
+    for (int n = 0;; ++n) {
+      const int t = n * G + (n & 1 ? G - 1 - c : c);
+      if (t >= n_tiles) break;
+      const int tn = (n + 1) * G + (n & 1 ? c : G - 1 - c);
+      const bool last = tn >= n_tiles;     // this CTA's last tile
+      int b, h, q0;
+      tile_of(t, b, h, q0);
+      const int off = q_offset ? q_offset[b] : 0;
+      int n_kv = (Skv + BK - 1) / BK;
+      if (causal) n_kv = min(n_kv, (off + q0 + 127) / BK + 1);
+      const int wq0 = q0 + 64 * wg;
+      // this warpgroup's key tiles: a prefix of the CTA's.  Every wgmma is
+      // issued on every path (ptxas serialises wgmmas issued in a divergent
+      // branch), so a warpgroup whose rows lie past Sq runs tile 0 on a stale
+      // Q buffer and stores nothing.
+      const int na = wq0 >= Sq ? 1
+                     : causal ? min(n_kv, (off + wq0 + 63) / BK + 1) : n_kv;
+      float acc[kOut], sc[BK / 2], corr[2];
+      uint32_t pk[BK / 4], qf[DP / 4];
+#pragma unroll
+      for (int i = 0; i < kOut; ++i) acc[i] = 0.f;
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) sc[i] = 0.f;
+      float m_r[2] = {-INFINITY, -INFINITY}, l_r[2] = {0.f, 0.f};
+      const int row0 = wq0 + w4 * 16 + (lane >> 2);   // rows row0, row0 + 8
+      // Q's A fragments into registers (32 a thread); the Q tile is then
+      // free for the CTA's next tile
+      mbar_wait(qfull, (uint32_t)n & 1u);
+      load_q<DP>(qf, base + wg * C::kKV, w4, lane);
+      if (lane == 0) mbar_arrive(qempty);
+      // tile 0: S, softmax, P
+      mbar_wait(full + 8 * (it % ST), (uint32_t)(it / ST) & 1u);
+      named_sync(1 + wg);
+      wgmma_fence();
+      start_s_rs<DP, BK>(sc, qf, sKV + (it % ST) * C::kStage);
+      if (wg == 0 || !(last && n_kv == 1)) named_arrive(2 - wg);
+      wgmma_wait<0>();
+      fence_regs<BK / 2>(sc);
+      softmax_tile<BK>(sc, m_r, l_r, corr, 0, off + wq0, off + row0, col0, Skv,
+                       causal, scale_log2);
+      rescale_pack<DP, BK>(acc, corr, sc, pk);
+      // tiles 1 .. na - 1: tile j's S beside tile j-1's P V, tile j's
+      // softmax while P V runs
+      for (int j = 1; j < na; ++j) {
+        const int s = (it + j) % ST, sp = (it + j - 1) % ST;
+        mbar_wait(full + 8 * s, (uint32_t)((it + j) / ST) & 1u);
+        named_sync(1 + wg);
+        fence_regs<kOut>(acc);
+        wgmma_fence();
+        start_s_rs<DP, BK>(sc, qf, sKV + s * C::kStage);
+        start_pv<DP, BK>(acc, pk, sKV + sp * C::kStage + C::kKV);
+        if (wg == 0 || !(last && j == n_kv - 1)) named_arrive(2 - wg);
+        wgmma_wait<1>();                   // S has landed; P V still runs
+        fence_regs<BK / 2>(sc);
+        softmax_tile<BK>(sc, m_r, l_r, corr, j * BK, off + wq0, off + row0,
+                         col0, Skv, causal, scale_log2);
+        wgmma_wait<0>();
+        fence_regs<kOut>(acc);
+        if (lane == 0) mbar_arrive(empty + 8 * sp);   // tile j-1 is done
+        rescale_pack<DP, BK>(acc, corr, sc, pk);
+      }
+      // the last P V: after the loop, or in the turn of tile na when this
+      // warpgroup's tiles end before the CTA's
+      const bool short_rows = na < n_kv;
+      if (short_rows) {
+        mbar_wait(full + 8 * ((it + na) % ST), (uint32_t)((it + na) / ST) & 1u);
+        named_sync(1 + wg);
+      }
+      fence_regs<kOut>(acc);
+      wgmma_fence();
+      start_pv<DP, BK>(acc, pk,
+                       sKV + ((it + na - 1) % ST) * C::kStage + C::kKV);
+      if (short_rows && (wg == 0 || !(last && na == n_kv - 1)))
+        named_arrive(2 - wg);
+      wgmma_wait<0>();
+      fence_regs<kOut>(acc);
+      // release the stages of tiles na - 1 and na (the latter waited for but
+      // not read)
+      if (lane == 0) {
+        mbar_arrive(empty + 8 * ((it + na - 1) % ST));
+        if (short_rows) mbar_arrive(empty + 8 * ((it + na) % ST));
+      }
+      // the turns of the CTA's tiles past those: no row of this warpgroup
+      for (int j = na + 1; j < n_kv; ++j) {
+        mbar_wait(full + 8 * ((it + j) % ST), (uint32_t)((it + j) / ST) & 1u);
+        named_sync(1 + wg);
+        if (wg == 0 || !(last && j == n_kv - 1)) named_arrive(2 - wg);
+        if (lane == 0) mbar_arrive(empty + 8 * ((it + j) % ST));
+      }
+      if (wq0 < Sq) store_rows<DP>(o, acc, l_r, b, h, row0, col0, Sq, H, D);
+      it += n_kv;
+    }
+  }
+}
+
 // ------------------------------------------------------ the host side
 
 constexpr int kMaxDevices = 64;
 
 float scale_log2_of(int D) {
   return (float)(1.4426950408889634 / sqrt((double)D));
-}
-
-template <int DP>
-int launch_wgmma(const void* q, const void* k, const void* v, void* o,
-                 const int* q_offset, int B, int Sq, int Skv, int H, int KV,
-                 int D, int causal, cudaStream_t stream) {
-  constexpr int smem = WgCfg<DP>::bytes;
-  static bool sized = false;   // the attribute is set once per kernel
-  if (!sized) {
-    cudaError_t e = cudaFuncSetAttribute(
-        flash_wgmma_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
-    if (e != cudaSuccess) return (int)e;
-    sized = true;
-  }
-  const long long n_qt = (Sq + kWgBQ - 1) / kWgBQ;
-  const long long grid = n_qt * H * B;
-  if (grid > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  flash_wgmma_kernel<DP><<<(unsigned)grid, kWgThreads, smem, stream>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
-      (const __nv_bfloat16*)v, (__nv_bfloat16*)o, q_offset, B, Sq, Skv, H,
-      KV, D, causal, scale_log2_of(D));
-  return (int)cudaGetLastError();
 }
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
@@ -915,7 +982,7 @@ int encode(CUtensorMap* map, const void* ptr, int B, int S, int heads,
 template <int DP, int ST, int CPS>
 int launch_tma(const void* q, const void* k, const void* v, void* o,
                const int* q_offset, int B, int Sq, int Skv, int H, int KV,
-               int D, int causal, cudaStream_t stream) {
+               int D, int causal, int ctas, cudaStream_t stream) {
   using C = TmaCfg<DP, ST, CPS>;
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
@@ -936,7 +1003,7 @@ int launch_tma(const void* q, const void* k, const void* v, void* o,
   }
   const long long n_qt = (Sq + 63) / 64;
   const long long grid = n_qt * H * B;
-  if (grid > 0x7fffffffLL || Sq > 0x7fffffff - 64)
+  if (grid > 0x7fffffffLL || Sq > 0x7fffffff - 64 || grid != ctas)
     return (int)cudaErrorInvalidValue;
   CUtensorMap mq, mk, mv;
   int r = encode(&mq, q, B, Sq, H, D);
@@ -950,22 +1017,59 @@ int launch_tma(const void* q, const void* k, const void* v, void* o,
   return (int)cudaGetLastError();
 }
 
-// bfloat16 by the plan's query rows a CTA (ops.py flash_plan): D = 128
-// takes flash_wgmma_kernel at 128 rows; D = 16, 32, 64 (padded to 64) and
-// 256 the TMA kernel at 64 rows, with (K/V stages, CTAs an SM) by D
-int launch_bf16(int D, int rows, const void* q, const void* k,
+template <int ST>
+int launch_pp(const void* q, const void* k, const void* v, void* o,
+              const int* q_offset, int B, int Sq, int Skv, int H, int KV,
+              int D, int causal, int ctas, cudaStream_t stream) {
+  using C = TmaCfg<128, ST, 1, 2>;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  static bool sized[kMaxDevices];      // the attribute, once a device
+  if (!sized[dev]) {
+    e = cudaFuncSetAttribute(flash_pp_kernel<ST>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             C::bytes);
+    if (e != cudaSuccess) return (int)e;
+    sized[dev] = true;
+  }
+  const long long n_tiles = (long long)((Sq + 127) / 128) * H * B;
+  // the tile loop's indices stay below n_tiles + 2 G
+  if (ctas < 1 || ctas > n_tiles || n_tiles + 2LL * ctas > 0x7fffffffLL ||
+      Sq > 0x7fffffff - 128)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap mq, mk, mv;
+  int r = encode(&mq, q, B, Sq, H, D);
+  if (!r) r = encode(&mk, k, B, Skv, KV, D);
+  if (!r) r = encode(&mv, v, B, Skv, KV, D);
+  if (r) return r;
+  flash_pp_kernel<ST><<<ctas, C::kThreads, C::bytes, stream>>>(
+      mq, mk, mv, (__nv_bfloat16*)o, q_offset, B, Sq, Skv, H, KV, D, causal,
+      scale_log2_of(D));
+  return (int)cudaGetLastError();
+}
+
+// bfloat16 by the plan's query rows a CTA and CTAs (ops.py flash_plan):
+// D = 128 takes the ping-pong kernel at 128 rows (any grid up to its tile
+// count); D = 16, 32, 64 (padded to 64), 128 and 256 the TMA kernel at 64
+// rows, one CTA a tile, with (K/V stages, CTAs an SM) by D
+int launch_bf16(int D, int rows, int ctas, const void* q, const void* k,
                 const void* v, void* o, const int* qo, int B, int Sq,
                 int Skv, int H, int KV, int causal, cudaStream_t s) {
   const int DP = D < 64 ? 64 : D;
   if (DP == 128 && rows == 128)
-    return launch_wgmma<128>(q, k, v, o, qo, B, Sq, Skv, H, KV, D, causal,
-                             s);
+    return launch_pp<4>(q, k, v, o, qo, B, Sq, Skv, H, KV, D, causal, ctas,
+                        s);
   if (DP == 64 && rows == 64)
     return launch_tma<64, 4, 3>(q, k, v, o, qo, B, Sq, Skv, H, KV, D,
-                                causal, s);
+                                causal, ctas, s);
+  if (DP == 128 && rows == 64)
+    return launch_tma<128, 2, 2>(q, k, v, o, qo, B, Sq, Skv, H, KV, D,
+                                 causal, ctas, s);
   if (DP == 256 && rows == 64)
     return launch_tma<256, 3, 1>(q, k, v, o, qo, B, Sq, Skv, H, KV, D,
-                                 causal, s);
+                                 causal, ctas, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1013,21 +1117,22 @@ int launch_f32_d(int D, const void* q, const void* k, const void* v,
 // q_offset: null, or (B,) int32, each row's position of its first query
 // in the causal mask (key tiles stay at absolute position 0, and a
 // query's tiles past its diagonal add exact zeros, so its bits do not
-// depend on the offset, Sq or Skv).  rows: the bf16 plan's query rows a
-// CTA (ops.py flash_plan), ignored in float32.
+// depend on the offset, Sq or Skv).  rows, ctas: the bf16 plan's query
+// rows a CTA and grid (ops.py flash_plan), ignored in float32.
 extern "C" int flash_attention_launch(int dtype, const void* q,
                                       const void* k, const void* v, void* o,
                                       const void* q_offset, int B, int Sq,
                                       int Skv, int H, int KV, int D,
-                                      int causal, int rows, void* stream) {
+                                      int causal, int rows, int ctas,
+                                      void* stream) {
   if (KV <= 0 || H % KV != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const int* qo = (const int*)q_offset;
   if (dtype == 0)
     return launch_f32_d(D, q, k, v, o, qo, B, Sq, Skv, H, KV, causal, s);
   if (dtype == 1 && (D == 16 || D == 32 || D == 64 || D == 128 || D == 256))
-    return launch_bf16(D, rows, q, k, v, o, qo, B, Sq, Skv, H, KV, causal,
-                       s);
+    return launch_bf16(D, rows, ctas, q, k, v, o, qo, B, Sq, Skv, H, KV,
+                       causal, s);
   return (int)cudaErrorInvalidValue;
 }
 

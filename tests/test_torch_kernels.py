@@ -33,7 +33,8 @@ try:
 except ImportError:         # a card machine without JAX: gpu tests only
     jnp = None
 from repro_torch.core import HybridConfig, HybridKVManager
-from repro_torch.kernels.flash_attention.ops import (flash_attention,
+from repro_torch.kernels.flash_attention.ops import (SMS, FlashPlan,
+                                                     flash_attention,
                                                      flash_plan)
 from repro_torch.kernels.paged_attention import ops as paged_ops
 from repro_torch.kernels.paged_attention.ops import (MAX_FOLD, MAX_SPLIT,
@@ -738,17 +739,61 @@ FLASH_SQ = (8, 16, 32, 64, 128, 256, 320, 384, 512, 768, 1024, 1280, 1500)
 @pytest.mark.parametrize("B", [1, 2, 3, 4])
 def test_flash_plan_fills_the_card(heads, B):
     """Rows and grid of every launch the serving path makes: D = 128 on
-    its cp.async kernel's 128 rows, every other head dim on the TMA
-    kernel's 64, so that its grid is the largest a key axis left whole
-    allows.  (The launch's K/V stages and shared memory, by padded D, are
-    held at compile time by the source's static_assert.)"""
+    the ping-pong kernel's 128 rows over a persistent grid of one CTA an
+    SM when its 128-row tiles fill the 132 SMs, else (the engine's short
+    buckets, a first chunk at B = 1) on the TMA kernel's 64; every other
+    head dim on the TMA kernel's 64, so that its grid is the largest a key
+    axis left whole allows.  (The launch's K/V stages and shared memory,
+    by padded D and rows, are held at compile time by the source's
+    static_assert.)"""
     H, KV, D = heads
     for Sq in FLASH_SQ:
         p = flash_plan(B, Sq, H, D)
-        if D == 128:
-            assert p == (128, B * H * -(-Sq // 128))
+        if D == 128 and B * H * -(-Sq // 128) >= SMS:
+            assert p == (128, SMS)
         else:
             assert p == (64, B * H * -(-Sq // 64))
+        assert 1 <= p.ctas <= B * H * -(-Sq // p.rows)
+
+
+def test_flash_plan_depends_on_b_sq_h_d_alone():
+    """The plan takes (B, Sq, H, D) and nothing else: the same for any KV
+    (qwen3-moe's 32/4 and granite-8b's 32/8) and for a repeat, and 128
+    rows at D = 128 exactly when B * H * ceil(Sq / 128) reaches the SMs."""
+    assert list(inspect.signature(flash_plan).parameters) == [
+        "B", "Sq", "H", "D"]
+    for B in (1, 2, 4):
+        for H in (16, 32, 40, 64):
+            for Sq in FLASH_SQ:
+                p = flash_plan(B, Sq, H, 128)
+                assert p == flash_plan(B, Sq, H, 128)
+                assert p.rows == (128 if B * H * -(-Sq // 128) >= SMS
+                                  else 64)
+    # granite-8b's prefill (2 x 1024, 512 tiles), a token-split rank's
+    # (256), qwen3-moe's first chunk (1 x 256, 64 tiles) and a short bucket
+    assert flash_plan(2, 1024, 32, 128) == (128, SMS)
+    assert flash_plan(2, 1024, 16, 128) == (128, SMS)
+    assert flash_plan(1, 256, 32, 128) == (64, 128)
+    assert flash_plan(4, 64, 32, 128) == (64, 128)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_meta_cost_by_shape(causal):
+    """The dry run's cost of a flash call on ``meta`` tensors: the pairs
+    of its mask (half the square when causal), 4 D flops a pair and head,
+    and q, k, v read and the output written once, whatever the plan."""
+    from repro_torch.kernels import _build
+    B, S, H, KV, D = 2, 1024, 32, 8, 128
+    q = torch.empty(B, S, H, D, dtype=torch.bfloat16, device="meta")
+    k = torch.empty(B, S, KV, D, dtype=torch.bfloat16, device="meta")
+    _build.META_COSTS.clear()
+    out = flash_attention(q, k, k, causal=causal)
+    assert out.shape == q.shape and out.device.type == "meta"
+    pairs = S * S // 2 if causal else S * S
+    assert dict(_build.META_COSTS["flash_attention"]) == dict(
+        calls=1, flops=4 * B * H * D * pairs,
+        bytes=2 * (2 * B * S * H * D + 2 * B * S * KV * D))
+    _build.META_COSTS.clear()
 
 
 @pytest.mark.parametrize("B,Sq,H,D,rows,ctas", [
@@ -893,12 +938,16 @@ def test_gpu_flash_kernel_matches_plain(cuda, shape, dtype, causal):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("heads", [(8, 1, 256), (32, 8, 128)], ids=str)
 @pytest.mark.parametrize("causal", [True, False])
-def test_gpu_flash_query_bits_do_not_depend_on_the_batch(cuda, causal):
+def test_gpu_flash_query_bits_do_not_depend_on_the_batch(cuda, causal,
+                                                         heads):
     """A query's bf16 output at paligemma-3b's 8/1 heads of 256 is bitwise
     the same in a launch of one row (64 CTAs) as in one of eight (512),
-    also at per-row offsets."""
-    H, KV, D, S = 8, 1, 256, 512
+    also at per-row offsets; likewise at granite-8b's 32/8 heads of 128,
+    where one row runs 256 64-row CTAs and eight 132 persistent 128-row
+    ones."""
+    (H, KV, D), S = heads, 512
     g = torch.Generator(device=cuda).manual_seed(D + causal)
     q = torch.randn(8, S, H, D, generator=g, device=cuda).bfloat16()
     k, v = (torch.randn(8, S + 64, KV, D, generator=g, device=cuda)
@@ -914,6 +963,79 @@ def test_gpu_flash_query_bits_do_not_depend_on_the_batch(cuda, causal):
                 v[b:b + 1].contiguous(), causal=causal,
                 q_offset=None if off is None else off[b:b + 1].contiguous())
             assert torch.equal(one[0], many[b]), (b, off is not None)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Sq", [8, 16, 32, 64])
+def test_gpu_flash_short_launch_rows_equal_long(cuda, Sq):
+    """granite-8b's heads (32/8 of 128): the rows of a causal Sq <= 64
+    launch (64-row CTAs, one warpgroup) equal, bitwise, the same queries'
+    rows inside an Sq = 1024 launch (128-row tiles, two warpgroups, on the
+    persistent grid), at offset 0 and as a chunk at offset 448 over the
+    same keys."""
+    g = torch.Generator(device=cuda).manual_seed(Sq)
+    q = torch.randn(2, 1024, 32, 128, generator=g, device=cuda).bfloat16()
+    k, v = (torch.randn(2, 1024, 8, 128, generator=g, device=cuda)
+            .bfloat16() for _ in range(2))
+    assert flash_plan(2, Sq, 32, 128).rows == 64
+    assert flash_plan(2, 1024, 32, 128).rows == 128
+    whole = flash_attention(q, k, v, causal=True)
+    head = flash_attention(q[:, :Sq].contiguous(), k[:, :Sq].contiguous(),
+                           v[:, :Sq].contiguous(), causal=True)
+    assert torch.equal(head, whole[:, :Sq])
+    chunk = flash_attention(
+        q[:, 448:448 + Sq].contiguous(), k, v, causal=True,
+        q_offset=torch.full((2,), 448, dtype=torch.int32, device=cuda))
+    assert torch.equal(chunk, whole[:, 448:448 + Sq])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(2, 1024, 32, 8), (2, 520, 16, 4),
+                                   (1, 256, 32, 4), (3, 200, 8, 2)],
+                         ids=str)
+@pytest.mark.parametrize("causal", [True, False])
+def test_gpu_flash_d128_designs_same_bits(cuda, shape, causal):
+    """At D = 128 every bf16 design gives the plan's bits: one 64-row
+    warpgroup a CTA, two on a CTA a 128-row tile, and two on persistent
+    grids of 132, 7 and 1 CTAs (tiles in the snake order), also at
+    per-row offsets."""
+    B, S, H, KV = shape
+    g = torch.Generator(device=cuda).manual_seed(S + causal)
+    q = torch.randn(B, S, H, 128, generator=g, device=cuda).bfloat16()
+    k, v = (torch.randn(B, S + 64, KV, 128, generator=g, device=cuda)
+            .bfloat16() for _ in range(2))
+    offs = [None] + ([torch.arange(B, dtype=torch.int32, device=cuda) * 32]
+                     if causal else [])
+    tiles = B * H * -(-S // 128)
+    plans = [FlashPlan(64, B * H * -(-S // 64)), FlashPlan(128, tiles),
+             FlashPlan(128, min(tiles, 132)), FlashPlan(128, 7),
+             FlashPlan(128, 1)]
+    for off in offs:
+        want = flash_attention(q, k, v, causal=causal, q_offset=off)
+        for p in plans:
+            got = flash_attention(q, k, v, causal=causal, q_offset=off,
+                                  plan=p)
+            assert torch.equal(got, want), (p, off is not None)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [80, 200])
+def test_gpu_flash_q_offset_tile_order_keeps_bits(cuda, B):
+    """Per-row offsets at D = 128 with 160 (row, query tile) classes,
+    which the persistent grid takes longest first, and 400, past the
+    sorted order's 256, which keep the query tiles' rank order: each
+    output bitwise one 64-row warpgroup a CTA's."""
+    S, H, KV = 256, 4, 2
+    g = torch.Generator(device=cuda).manual_seed(B)
+    q = torch.randn(B, S, H, 128, generator=g, device=cuda).bfloat16()
+    k, v = (torch.randn(B, 1024, KV, 128, generator=g, device=cuda)
+            .bfloat16() for _ in range(2))
+    off = (torch.arange(B, dtype=torch.int32, device=cuda) * 197) % 769
+    assert flash_plan(B, S, H, 128).rows == 128
+    got = flash_attention(q, k, v, causal=True, q_offset=off)
+    one = flash_attention(q, k, v, causal=True, q_offset=off,
+                          plan=FlashPlan(64, B * H * S // 64))
+    assert torch.equal(got, one)
 
 
 @pytest.mark.gpu

@@ -19,6 +19,7 @@ twin replays a crash on the card.
 """
 import dataclasses
 import time
+import types
 
 import jax
 import numpy as np
@@ -450,9 +451,15 @@ def test_step_watchdog_flags_hung_steps():
     assert wd.record(0.011) is False, "EMA poisoned by the outlier"
 
 
-def test_supervisor_reports_hung_poll(model):
+def test_supervisor_reports_hung_poll(model, monkeypatch):
     """A poll far slower than the smoothed poll time shows up in the
-    supervisor's ``watchdog_flags``."""
+    supervisor's ``watchdog_flags``.  The supervisor's clock is a
+    controlled one that each poll advances by a fixed 10 ms and poll 8 by
+    1 s, so the answer does not depend on the host's load."""
+    from repro_torch.runtime import resilient_serve
+    clock = [0.0]
+    monkeypatch.setattr(resilient_serve, "time", types.SimpleNamespace(
+        perf_counter=lambda: clock[0]))
     eng = _mkeng(model)
     sup = ResilientServe(eng, watchdog=StepWatchdog(threshold=5.0,
                                                     warmup=2))
@@ -463,13 +470,14 @@ def test_supervisor_reports_hung_poll(model):
 
     def slow_poll():
         calls[0] += 1
-        if calls[0] == 8:
-            time.sleep(0.3)
+        clock[0] += 1.0 if calls[0] == 8 else 0.01
         return poll()
 
     eng.poll = slow_poll
     _drain(sup.poll, sup.has_unfinished)
-    assert sup.stats()["recovery"]["watchdog_flags"] >= 1
+    assert calls[0] > 8
+    assert sup.stats()["recovery"]["watchdog_flags"] == 1
+    assert [i for i, _ in sup.watchdog.flags] == [8]
 
 
 # --------------------------------------------------------- on the card

@@ -767,15 +767,17 @@ def test_gpu_rms_norm_is_the_two_pass_order(cuda, dtype):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("heads", [(8, 2, 64), (8, 1, 256), (16, 16, 64)],
-                         ids=str)
+@pytest.mark.parametrize("heads", [(8, 2, 64), (8, 1, 256), (16, 16, 64),
+                                   (32, 8, 128), (16, 4, 128)], ids=str)
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_gpu_flash_q_offset_chunks_equal_whole(cuda, dtype, heads):
     """Against ``dense_attention`` with the offsets (3e-2 in bf16, 1e-4 in
     float32), and the prefill's contract: chunks at their offsets over a
     buffer whose keys past the chunk are other data give the whole
     sequence's rows bitwise; at 8/2 heads of 64, paligemma-3b's 8/1 of
-    256 and whisper-medium's 16/16 of 64."""
+    256, whisper-medium's 16/16 of 64, granite-8b's 32/8 of 128 and a
+    token-split rank's 16/4 of 128 (chunks of 64 on 64-row CTAs, of 192
+    on 128-row ones)."""
     gen = torch.Generator(device=cuda).manual_seed(3)
     (H, KV, D), S = heads, 448
     q, k, v = [torch.randn((2, S, n, D), generator=gen, device=cuda
